@@ -1,0 +1,17 @@
+"""audio_codec_torch: the LC3plus (ETSI TS 103 634) codec on PyTorch and CUDA.
+
+A port of `audio_codec_tpu`, the JAX package beside it, which stays the
+reference. Streams ride a [n_streams, ...] batch axis as there. The
+sequential per-stream loops of the main path (range encoder and decoder,
+context bit estimate, LTPF post-filter) are CUDA kernels written for
+Hopper (csrc/); each has a plain PyTorch version that runs for tensors on
+the CPU. The entry points run on the card unless the caller passes
+device="cpu".
+"""
+from .config import Config
+from .models.decoder import decode_block, decode_frame, round_pcm
+from .models.encoder import encode_block, encode_frame
+from .models.state import dec_state_init, enc_state_init
+
+__all__ = ["Config", "enc_state_init", "dec_state_init", "encode_frame",
+           "encode_block", "decode_frame", "decode_block", "round_pcm"]

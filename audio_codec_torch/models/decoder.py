@@ -1,0 +1,155 @@
+"""Batched LC3plus decoder: one frame step over [B] streams, and a block.
+
+Mirrors Dec_LC3_Channel (dec_lc3.c:60-322, dec_lc3_fl.c:13-130) as
+`audio_codec_tpu/models/decoder.py` does: entropy parse -> arithmetic
+decode -> SNS decode -> partial concealment -> residual -> noise filling
+-> global gain -> TNS synthesis -> SNS shaping -> PLC -> IMDCT/OLA ->
+LTPF post-filter. Only the standard concealment (plc_mode 0) is ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import tables as T
+from ..config import Config
+from ..ops import ari, bits, ltpf_dec, pc, plc, quant, sns, tns, transforms
+from .state import DecState, check_plc_mode
+
+I32 = torch.int32
+F32 = torch.float32
+
+
+def decode_entropy(cfg: Config, frame_bytes: torch.Tensor, bfi_ext=None,
+                   be_bp_left=None, be_bp_right=None):
+    """Stateless entropy phase: side parse + arithmetic decode over [B]
+    frames. Callers holding several frames per stream flatten [T, B] to
+    [T*B] and run it once (decode_block)."""
+    buf = frame_bytes.to(I32)
+    B = buf.shape[0]
+    bfi = torch.zeros((B,), dtype=I32, device=buf.device) if bfi_ext is None \
+        else bfi_ext.to(I32)
+    bfi_in = torch.where(bfi == 3, 2, bfi)
+    side = bits.parse_side_info(cfg, buf)
+    dec = ari.decode(cfg, buf, side, bfi_in=bfi_in, be_bp_left=be_bp_left,
+                     be_bp_right=be_bp_right)
+    return side, dec
+
+
+def decode_frame(cfg: Config, st: DecState, frame_bytes: torch.Tensor, bfi_ext=None,
+                 be_bp_left=None, be_bp_right=None):
+    """frame_bytes: [B, nbytes] uint8/int32 on the state's device; bfi_ext:
+    [B] i32 (0 good, 1 lost, 2 partially corrupt, 3 redundancy frame).
+    Returns (st, pcm [B, frame_length] float in 16-bit range, aux)."""
+    side, dec = decode_entropy(cfg, frame_bytes, bfi_ext, be_bp_left, be_bp_right)
+    return decode_synthesis(cfg, st, side, dec, bfi_ext)
+
+
+def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
+    """Stateful phase of the decode step, consuming decode_entropy's
+    (side, dec): everything from partial concealment through LTPF."""
+    check_plc_mode(cfg)
+    B = dec["x"].shape[0]
+    N = cfg.yLen
+    dev = dec["x"].device
+    bfi = torch.zeros((B,), dtype=I32, device=dev) if bfi_ext is None else bfi_ext.to(I32)
+    rframe = (bfi == 3).to(I32)
+    bfi = torch.where(bfi == 3, 2, bfi)
+    bfi = torch.where(side["bfi"] == 1, 1, torch.where(bfi == 1, 1, dec["bfi"])).to(I32)
+    full_n = torch.full((B,), N, dtype=I32, device=dev)
+    spec_inv_idx = torch.where(bfi == 2, dec["spec_inv_idx"], full_n)
+
+    bw_bin_tab = torch.as_tensor(T.bw_cutoff_bins(cfg.frame_dms), dtype=I32, device=dev)
+    n_bw = bw_bin_tab.shape[0]
+    # a corrupt frame may signal an out-of-range bandwidth (bfi is set then)
+    bw_bin = bw_bin_tab[side["bw_idx"].clamp(0, n_bw - 1).long()]
+
+    rf = (rframe == 1) & (dec["zero_frame"] == 0) & (bfi != 1)
+    bfi = torch.where(rf, 2, bfi).to(I32)
+    spec_inv_idx = torch.where(rf, torch.maximum(side["lastnz"], bw_bin), spec_inv_idx)
+
+    good = bfi != 1
+    x = dec["x"].to(F32)
+    scf_q = sns.quantize_scf_dec(side["scf_idx"])
+
+    stab_fac = pc.compute_stab_fac(scf_q, st.plc_scf_q, st.plc_old_scf_q,
+                                   bfi, st.plc_prevBfi, st.plc_prevprevBfi)
+    bfi = torch.where(good, pc.pc_classify(cfg, bfi, spec_inv_idx, stab_fac,
+                                           side["ltpf_param"][:, 0],
+                                           st.plc_q_d_prev, st.pc_q_old_res), bfi)
+    good = bfi != 1
+    x, pc_fac, pc_nb_lost = pc.pc_apply(
+        cfg, bfi, x, st.pc_q_old_res, st.plc_q_d_prev, spec_inv_idx,
+        side["gg_idx"], st.pc_prev_gg, st.pc_nb_lost)
+    q_old_res, pc_prev_gg, bw_idx_nf, pc_prev_bw, pc_prev_fac_ns = pc.pc_update(
+        cfg, bfi, rframe, x, spec_inv_idx, side["gg_idx"], pc_fac, side["bw_idx"],
+        st.pc_q_old_res, st.pc_prev_gg, st.pc_prev_bw_idx, st.pc_prev_fac_ns,
+        side["fac_ns_idx"])
+    pc_nb_lost = torch.where(bfi == 0, 0, pc_nb_lost).to(I32)
+
+    x = torch.where((dec["residual_present"] == 1)[:, None] & good[:, None],
+                    quant.residual_decode(cfg, x, dec["res_bits"], dec["n_res"]), x)
+    bw_bin_nf = bw_bin_tab[bw_idx_nf.clamp(0, n_bw - 1).long()]
+    nf = quant.noise_filling(cfg, x, dec["nf_seed"], side["fac_ns_idx"], bw_bin_nf,
+                             spec_inv_idx, st.pc_prev_fac_ns)
+    x = torch.where((dec["zero_frame"] == 0)[:, None] & good[:, None], nf, x)
+    x = torch.where(good[:, None], quant.apply_global_gain(cfg, x, side["gg_idx"]), x)
+    x = torch.where(good[:, None], tns.tns_decode(cfg, x, dec["tns_idx"], dec["tns_order"],
+                                                  side["num_tns"], side["bw_idx"]), x)
+    gains = sns.interpolate_scf(cfg, scf_q, encoder_side=False)
+    x = torch.where(good[:, None], sns.mdct_shaping(cfg, x, gains), x)
+
+    x, q_d_prev, nb_lost, cum_alpha, seed = plc.plc_main(
+        cfg, x, st.plc_q_d_prev, bfi, st.plc_nbLostCmpt, st.plc_cum_alpha, st.plc_seed)
+
+    if cfg.frame_length > N:
+        x_full = torch.nn.functional.pad(x, (0, cfg.frame_length - N))
+    else:
+        x_full = x
+    pcm, imdct_mem = transforms.imdct(cfg, x_full, st.imdct_mem)
+
+    nb_lost, cum_alpha, prev_bfi, prevprev_bfi = plc.plc_update(
+        bfi, nb_lost, cum_alpha, st.plc_prevBfi, st.plc_prevprevBfi)
+    y, mem_x, mem_y, lm = ltpf_dec.ltpf_decode(
+        cfg, pcm, bfi, side["ltpf_param"], st.ltpf_param_mem, st.ltpf_mem_x,
+        st.ltpf_mem_y, st.ltpf_mem_pitch_int, st.ltpf_mem_pitch_fr,
+        st.ltpf_mem_gain, st.ltpf_mem_beta_idx)
+
+    st = st.replace(
+        imdct_mem=imdct_mem, ltpf_mem_x=mem_x, ltpf_mem_y=mem_y,
+        ltpf_mem_pitch_int=lm["pitch_int"], ltpf_mem_pitch_fr=lm["pitch_fr"],
+        ltpf_mem_gain=lm["gain"], ltpf_mem_beta_idx=lm["beta_idx"],
+        ltpf_param_mem=lm["param"], plc_q_d_prev=q_d_prev,
+        plc_nbLostCmpt=nb_lost, plc_prevBfi=prev_bfi, plc_prevprevBfi=prevprev_bfi,
+        plc_cum_alpha=cum_alpha, plc_seed=seed, plc_old_scf_q=st.plc_scf_q,
+        plc_scf_q=torch.where((bfi != 1)[:, None], scf_q, st.plc_scf_q),
+        pc_q_old_res=q_old_res, pc_prev_gg=pc_prev_gg, pc_prev_bw_idx=pc_prev_bw,
+        pc_prev_fac_ns=pc_prev_fac_ns, pc_nb_lost=pc_nb_lost)
+    aux = dict(bfi=bfi, bw_idx=side["bw_idx"], gg_idx=side["gg_idx"], spec=x,
+               spec_inv_idx=spec_inv_idx)
+    return st, y, aux
+
+
+def decode_block(cfg: Config, st: DecState, frames: torch.Tensor, bfi_ext=None):
+    """Decode T frames of B streams: frames [T, B, nbytes] -> (st, pcm
+    [T, B, frame_length]). The entropy phase runs once over the flattened
+    T*B lanes; the synthesis phase steps over T."""
+    check_plc_mode(cfg)
+    T_, B, nb = frames.shape
+    flat_bfi = None if bfi_ext is None else bfi_ext.reshape(T_ * B)
+    side, dec = decode_entropy(cfg, frames.reshape(T_ * B, nb), flat_bfi)
+    per_t = lambda d: {k: v.reshape(T_, B, *v.shape[1:]) for k, v in d.items()}
+    side_t, dec_t = per_t(side), per_t(dec)
+    pcm = []
+    for t in range(T_):
+        bfi_f = None if bfi_ext is None else bfi_ext[t]
+        st, y, _ = decode_synthesis(cfg, st, {k: v[t] for k, v in side_t.items()},
+                                    {k: v[t] for k, v in dec_t.items()}, bfi_f)
+        pcm.append(y)
+    return st, torch.stack(pcm, dim=0)
+
+
+def round_pcm(y, bps: int = 16):
+    """Float synthesis -> integer PCM with saturation (dec_lc3_fl.c:116-128)."""
+    if bps == 16:
+        return torch.clamp(quant.round_c(y), -32768, 32767).to(torch.int16)
+    return quant.round_c(y * 2.0 ** (bps - 16)).to(torch.int32)
