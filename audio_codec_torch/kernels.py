@@ -3,7 +3,8 @@
 Each source compiles with nvcc for sm_90a into an object, all sources at
 once, and the objects link into one shared library with a plain C
 interface, loaded with ctypes. The build runs at the first launch of the
-process, into `build/audio_codec_torch/` beside the package. Every C entry
+first process, into `build/audio_codec_torch/<hash of sources and flags>/`
+beside the package; later processes load that library. Every C entry
 point returns `cudaGetLastError()` and the wrappers raise if it is not 0.
 
 The wrappers check device, dtype, shape and contiguity, allocate outputs
@@ -15,9 +16,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -49,13 +52,44 @@ def _nvcc() -> str:
     return path
 
 
+def _build_key(nvcc: str) -> str:
+    """Hash of the sources, the header, the flags and the compiler path."""
+    h = hashlib.sha256()
+    for path in sorted((_PKG / "csrc").iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join((nvcc, *NVCC_FLAGS)).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def build() -> tuple[Path, str]:
-    """Compile every source in parallel and link the library. Returns its
-    path and the compiler's -Xptxas -v report."""
+    """Compile every source in parallel and link the library, or reuse the
+    one already built from the same sources and flags. Returns its path and
+    the compiler's -Xptxas -v report.
+
+    The library lives in `BUILD_DIR/<hash>/`. A build runs in a temporary
+    directory beside it, which is renamed into place when it is complete,
+    so processes building at once never load a partial library."""
     nvcc = _nvcc()
-    out = BUILD_DIR / f"p{os.getpid()}"
-    out.mkdir(parents=True, exist_ok=True)
+    final = BUILD_DIR / _build_key(nvcc)
+    lib_name = "libacodec_kernels.so"
+    if not (final / lib_name).exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix=".tmp-", dir=BUILD_DIR))
+        try:
+            _compile(nvcc, tmp, lib_name)
+            try:
+                os.rename(tmp, final)
+            except OSError:   # another process renamed its build first
+                if not (final / lib_name).exists():
+                    raise
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return final / lib_name, (final / "build.log").read_text()
+
+
+def _compile(nvcc: str, out: Path, lib_name: str):
     procs = []
     for src in SOURCES:
         obj = out / (src.stem + ".o")
@@ -69,12 +103,11 @@ def build() -> tuple[Path, str]:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{text}")
         objs.append(str(out / (src.stem + ".o")))
-    lib = out / "libacodec_kernels.so"
-    r = subprocess.run([nvcc, "-shared", "-o", str(lib), *objs],
+    r = subprocess.run([nvcc, "-shared", "-o", str(out / lib_name), *objs],
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"link failed:\n{r.stdout}{r.stderr}")
-    return lib, "".join(log)
+    (out / "build.log").write_text("".join(log))
 
 
 @functools.cache

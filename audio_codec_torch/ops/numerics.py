@@ -1,24 +1,35 @@
-"""Float32 arithmetic that reproduces the reference's CPU results.
+"""CPU-reference numerics: float32 arithmetic that reproduces the JAX
+reference's results on the CPU, and is plain PyTorch on the card.
 
-The JAX package is the reference, and its CPU backend (XLA:CPU) computes
-some float32 operations in its own way:
+Every helper here has two branches. For a CUDA tensor it is the plain
+PyTorch operation: the port runs on the card on its own numerics, and
+`torch.matmul` keeps full float32 (TF32 off, see `models/state.py`). For a
+CPU tensor it follows what XLA:CPU (jax 0.9) was seen to compute for the
+reference's operations, because PyTorch's CPU kernels round differently in
+the last place, and one ulp in a gain or a spectrum moves an output sample
+across a rounding boundary. The CPU branch exists only so that the tests
+can hold the port to the reference bit for bit; it is retired once the
+card's path is held to the reference by other means (ROADMAP Queue 3).
 
-- a product feeding an add inside one fused computation is contracted to a
-  fused multiply-add;
-- a division by a constant is a multiplication by its float32 reciprocal;
-- a matrix product accumulates the contraction dimension in fused
-  multiply-add chains whose order depends on the shapes (`dot`);
-- `exp` is the Cephes polynomial with fused range reduction, `exp2(x)` is
-  `exp(x * ln 2)`, `log` is the Cephes polynomial, and `log2`/`log10`
-  multiply it by 1/ln 2 and 1/ln 10; `pow` is correctly rounded.
+What each CPU branch reproduces, and where the reference relies on it:
 
-PyTorch's CPU kernels round differently in the last place. One ulp in a
-gain or a spectrum is enough to move an output sample across a rounding
-boundary, so for tensors on the CPU these helpers follow XLA:CPU step for
-step (a fused multiply-add is computed in float64 and rounded once). For
-tensors on a CUDA device they are the plain PyTorch operations: the port
-runs there on its own numerics, and `torch.matmul` keeps full float32
-(TF32 off, see `models/state.py`).
+- `fma`: a product feeding an add inside one fused computation is
+  contracted to a fused multiply-add (computed here in float64 and rounded
+  once); used wherever the reference writes a*b + c in one fusion.
+- `dot`: a matrix product with a constant operand accumulates the
+  contraction in fused multiply-add chains whose order depends on the
+  shapes (`sns.py:72,84,234,255,328,369`, `analysis.py:43,208,333`,
+  `transforms.py:107`).
+- `exp2`, `log2`, `log10`: `exp` and `log` are Cephes polynomials with
+  fused range reduction; `exp2(x)` is `exp(x * ln 2)` and `log2`/`log10`
+  multiply `log` by 1/ln 2 and 1/ln 10 (`quant.py:64,70,81`, `sns.py:59,372`,
+  `analysis.py:363`).
+- `pow`: correctly rounded (`quant.py:120,270,392`, `sns.py:53`,
+  `tns.py:144`).
+- `div`: a division by a constant is a multiplication by the float32
+  reciprocal.
+
+File:line references are to `audio_codec_tpu/ops/`.
 """
 from __future__ import annotations
 

@@ -8,13 +8,19 @@ audio_codec_torch/csrc, and checks it:
   1. card      name and power limit (nvidia-smi), torch's device name;
   2. build     every kernel from the sources, with nvcc's -Xptxas -v report;
   3. kernels   each kernel against its plain PyTorch version on the card, on
-               the inputs the main path hands it (speech, music, noise);
-               ari_encode, ari_decode and bit_estimate must match exactly,
-               ltpf_postfilter within LTPF_TOL on the +-32768 scale;
+               every launch of a --frames run of the main path (speech,
+               music, noise); ari_encode, ari_decode and bit_estimate (in
+               both of its modes) must match exactly, ltpf_postfilter within
+               LTPF_TOL on the +-32768 scale, and each of the post-filter's
+               five cases must occur;
   4. main path encode_block + decode_block at --streams x --frames with the
-               launch counters read around it; on a few streams the kernel
-               path's payload must equal the plain path's and its PCM must
-               be within +-1; a segmental SNR of the decoded material;
+               launch counters read around it; on a few streams over all
+               frames the kernel path's payload must equal the plain path's
+               and its PCM must be within +-1, with LTPF on; the same
+               streams through the port on the CPU (the path the tests hold
+               against the reference) must give the same payloads but for a
+               CPU_FRAMES_DIFFER_MAX share, and PCM within +-CPU_PCM_TOL from
+               the card's payloads; a segmental SNR of the decoded material;
   5. times     CUDA-event times of each kernel and its plain version and of
                the encode and decode blocks, as real-time stream equivalents;
   6. a JSON line with one entry per kernel.
@@ -35,6 +41,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 LTPF_TOL = 1e-2          # |y_kernel - y_plain| on the +-32768 PCM scale
+# The card's float numerics are plain torch, the CPU port's follow the
+# reference's XLA:CPU rounding: at most this share of payload frames may
+# differ, and int16 PCM decoded from the same payloads by at most this much.
+CPU_FRAMES_DIFFER_MAX = 0.05
+CPU_PCM_TOL = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 
@@ -121,13 +132,14 @@ def plain_path():
 
 @contextlib.contextmanager
 def recording(store: dict):
-    """Keep the arguments of each kernel's first launch."""
+    """Keep the arguments of every kernel launch, in order, in
+    store[kernel name]."""
     from audio_codec_torch import kernels as K
     saved = {n: getattr(K, n) for n in K.KERNELS}
 
     def wrap(name, fn):
         def rec(*args, **kw):
-            store.setdefault(name, (args, kw))
+            store.setdefault(name, []).append((args, kw))
             return fn(*args, **kw)
         return rec
     for n, fn in saved.items():
@@ -137,6 +149,16 @@ def recording(store: dict):
     finally:
         for n, fn in saved.items():
             setattr(K, n, fn)
+
+
+def ltpf_case_counts(launches) -> dict[str, int]:
+    """Stream-frames of the recorded ltpf_postfilter launches in each of
+    the post-filter's cases (the CASE_* bits of its `cases` argument)."""
+    from audio_codec_torch.ops import ltpf_dec as L
+    bits = {"on->off": L.CASE_B, "off->on": L.CASE_C, "on->on same pitch": L.CASE_D,
+            "on->on new pitch": L.CASE_E, "on": L.NEW_ON}
+    return {k: sum(int(((args[10] & bit) != 0).sum()) for args, _ in launches)
+            for k, bit in bits.items()}
 
 
 def segmental_snr(ref, out, n: int) -> tuple[float, int]:
@@ -219,36 +241,47 @@ def main() -> int:
     pcm = torch.from_numpy(make_pcm(T, B, cfg.frame_length, opt.seed)).to(dev)
 
     # ---- 3. kernels against their plain versions, on main-path inputs ----
+    # every launch of a T-frame run is compared: LTPF is off in every stream
+    # at frame 0, and the encoder calls bit_estimate in two modes
     rec: dict = {}
     with recording(rec):
         st = P.enc_state_init(cfg, B, device=dev)
-        st, frames = P.encode_block(cfg, st, pcm[:2])
+        st, frames = P.encode_block(cfg, st, pcm)
         ds = P.dec_state_init(cfg, B, device=dev)
         P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
     check(set(rec) == set(K.KERNELS), f"kernels not reached on the main path: {set(K.KERNELS) - set(rec)}")
+    modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
+    check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
+    cases = ltpf_case_counts(rec["ltpf_postfilter"])
+    print(f"[kernels] ltpf_postfilter stream-frames per case over {T} frames: {cases}", flush=True)
+    check(all(v > 0 for v in cases.values()), f"an LTPF case never occurred: {cases}")
     plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
              "ari_decode": ari.decode_plain, "ltpf_postfilter": ltpf_dec.ltpf_postfilter_plain}
     errs = {}
     for name in K.KERNELS:
-        args, kw = rec[name]
-        got = getattr(K, name)(*args, **kw)
-        ref = plain[name](*args, **kw)
-        torch.cuda.synchronize()
-        if isinstance(got, dict):
-            diffs = {k: int((got[k].to(torch.int64) != ref[k].to(torch.int64)).sum()) for k in ref}
-            err = float(max((got[k].to(torch.int64) - ref[k].to(torch.int64)).abs().max()
-                            for k in ref))
-            check(err == 0, f"{name}: differs from its plain version: {diffs}")
-        else:
-            err = float((got.to(torch.float64) - ref.to(torch.float64)).abs().max())
-            if name == "ltpf_postfilter":
-                check(err <= LTPF_TOL, f"{name}: max |diff| {err} > {LTPF_TOL}")
+        err = 0.0
+        for args, kw in rec[name]:
+            got = getattr(K, name)(*args, **kw)
+            ref = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            if isinstance(got, dict):
+                diffs = {k: int((got[k].to(torch.int64) != ref[k].to(torch.int64)).sum())
+                         for k in ref}
+                e = float(max((got[k].to(torch.int64) - ref[k].to(torch.int64)).abs().max()
+                              for k in ref))
+                check(e == 0, f"{name}: differs from its plain version: {diffs}")
             else:
-                check(err == 0, f"{name}: differs from its plain version, max |diff| {err}")
+                e = float((got.to(torch.float64) - ref.to(torch.float64)).abs().max())
+                if name == "ltpf_postfilter":
+                    check(e <= LTPF_TOL, f"{name}: max |diff| {e} > {LTPF_TOL}")
+                else:
+                    check(e == 0, f"{name}: differs from its plain version, max |diff| {e}")
+            err = max(err, e)
         errs[name] = err
-        shape = tuple(args[1].shape) if name != "ari_decode" else tuple(args[1].shape)
-        print(f"[kernels] {name}: max |kernel - plain| = {err} at {shape}", flush=True)
+        what = f"modes {modes}" if name == "bit_estimate" else ""
+        print(f"[kernels] {name}: max |kernel - plain| = {err} over {len(rec[name])} "
+              f"launches at {tuple(rec[name][0][0][1].shape)} {what}", flush=True)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)
@@ -267,22 +300,44 @@ def main() -> int:
           "decoded PCM not finite or of the wrong shape")
     pcm16 = P.round_pcm(out)
 
+    # a few streams over all T frames: the kernel path against the plain
+    # path on the card, then the card against the port on the CPU (the
+    # path the tests hold against the reference)
     nb = min(12, B)
-    Tc = min(T, 4)
-    st_k = P.enc_state_init(cfg, nb, device=dev)
-    st_k, fr_k = P.encode_block(cfg, st_k, pcm[:Tc, :nb])
-    _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_k)
+    small = pcm[:, :nb].contiguous()
+    rec_k: dict = {}
+    with recording(rec_k):
+        st_k = P.enc_state_init(cfg, nb, device=dev)
+        st_k, fr_k = P.encode_block(cfg, st_k, small)
+        _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_k)
     with plain_path():
         st_p = P.enc_state_init(cfg, nb, device=dev)
-        st_p, fr_p = P.encode_block(cfg, st_p, pcm[:Tc, :nb])
+        st_p, fr_p = P.encode_block(cfg, st_p, small)
         _, out_p = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_p)
     torch.cuda.synchronize()
+    pcm16_k = P.round_pcm(out_k).to(torch.int32)
+    ltpf_on = ltpf_case_counts(rec_k["ltpf_postfilter"])["on"]
     bytes_equal = bool(torch.equal(fr_k, fr_p))
-    pcm_diff = int((P.round_pcm(out_k).to(torch.int32) - P.round_pcm(out_p).to(torch.int32)).abs().max())
-    print(f"[main] kernel path vs plain path on the card, {nb} streams x {Tc} frames: "
-          f"payload identical {bytes_equal}, max |PCM diff| {pcm_diff}", flush=True)
+    pcm_diff = int((pcm16_k - P.round_pcm(out_p).to(torch.int32)).abs().max())
+    print(f"[main] kernel path vs plain path on the card, {nb} streams x {T} frames: "
+          f"payload identical {bytes_equal}, max |PCM diff| {pcm_diff}, "
+          f"LTPF on in {ltpf_on} stream-frames", flush=True)
+    check(ltpf_on > 0, "the LTPF post-filter was never on in the compared streams")
     check(bytes_equal, "payload bytes of the kernel path differ from the plain path")
     check(pcm_diff <= 1, f"PCM of the kernel path differs by {pcm_diff} > 1")
+
+    cpu = torch.device("cpu")
+    _, fr_c = P.encode_block(cfg, P.enc_state_init(cfg, nb, device=cpu), small.cpu())
+    _, out_c = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_k.cpu())
+    frames_differ = int((fr_c != fr_k.cpu()).any(dim=-1).sum())
+    gap = (P.round_pcm(out_c).to(torch.int32) - pcm16_k.cpu()).abs()
+    print(f"[main] card vs the port on the CPU, {nb} streams x {T} frames: "
+          f"{frames_differ} of {nb * T} payload frames differ (encode), "
+          f"decode of the card's payloads: max |PCM diff| {int(gap.max())}, "
+          f"{int((gap > 0).sum())} of {gap.numel()} samples differ", flush=True)
+    check(frames_differ <= CPU_FRAMES_DIFFER_MAX * nb * T,
+          f"{frames_differ} payload frames differ from the CPU port's")
+    check(int(gap.max()) <= CPU_PCM_TOL, f"PCM differs from the CPU port's by {int(gap.max())}")
     ref = pcm.cpu().numpy()
     snr_rows = []
     for b in range(min(B, 6)):
@@ -297,7 +352,7 @@ def main() -> int:
     # ---- 5. times ----
     rows = []
     for name in K.KERNELS:
-        args, kw = rec[name]
+        args, kw = rec[name][-1]   # the last frame's launch
         ms = cuda_ms(lambda: getattr(K, name)(*args, **kw), 20)
         pms = cuda_ms(lambda: plain[name](*args, **kw), 2)
         res = getattr(K, name)(*args, **kw)

@@ -55,6 +55,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert quant.bit_estimate(cfg, xq, torch.full((2,), 100, dtype=torch.int32), -1)["nbits"].shape == (2,)
 
 
+def test_kernel_build_directory_is_named_by_its_inputs():
+    """Processes building the same sources with the same flags share one
+    library directory; another compiler or other flags get another."""
+    from audio_codec_torch import kernels as K
+    key = K._build_key("/usr/local/cuda/bin/nvcc")
+    assert key == K._build_key("/usr/local/cuda/bin/nvcc")
+    assert re.fullmatch(r"[0-9a-f]{16}", key)
+    assert key != K._build_key("/opt/cuda/bin/nvcc")
+
+
 def test_unported_modes_raise():
     pc_cfg = P.Config(fs_in=48000, bitrate=128000, epmode=3)
     assert pc_cfg.n_pc > 0
