@@ -38,11 +38,69 @@ ACX_HD int shl8_24(int v) {
   return static_cast<int>((static_cast<unsigned>(v) << 8) & MASK24);
 }
 
+// Float products and sums rounded one by one, never contracted into a fused
+// multiply-add: the plain versions on the card round each PyTorch op, and the
+// kernels that must equal them bit for bit use these. (A host build of a lane
+// function is compiled with -ffp-contract=off to the same end.)
+ACX_HD float rmul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+ACX_HD float radd(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+ACX_HD float rsub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+
 }  // namespace acx
 
 #ifdef __CUDACC__
 // Copies n int32 words from global to shared memory with the whole block.
 __device__ __forceinline__ void acx_load_shared(int32_t* dst, const int32_t* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// Row tiles of a [B, N] float array in shared memory, one row per thread of
+// the block, rows ACX_ROW_STRIDE(N) floats apart (an odd stride, so that the
+// threads walking their rows in step hit different banks). The copies are
+// coalesced: neighbouring threads move neighbouring elements.
+#define ACX_ROW_STRIDE(N) ((N) | 1)
+
+__device__ __forceinline__ void acx_load_rows(float* tile, const float* g, int row0, int rows,
+                                              int N) {
+  const int stride = ACX_ROW_STRIDE(N);
+  for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
+    tile[(i / N) * stride + i % N] = g[static_cast<size_t>(row0) * N + i];
+  }
+}
+
+__device__ __forceinline__ void acx_store_rows(float* g, const float* tile, int row0, int rows,
+                                               int N) {
+  const int stride = ACX_ROW_STRIDE(N);
+  for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
+    g[static_cast<size_t>(row0) * N + i] = tile[(i / N) * stride + i % N];
+  }
+}
+
+// Dynamic shared memory for a block of `threads` row tiles of N floats; sets
+// the kernel's limit where the tiles pass the 48 KB default.
+template <typename Kernel>
+inline cudaError_t acx_row_tiles_smem(Kernel kernel, int threads, int N, size_t* bytes) {
+  *bytes = static_cast<size_t>(threads) * ACX_ROW_STRIDE(N) * sizeof(float);
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
 }
 #endif

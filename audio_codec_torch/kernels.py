@@ -33,7 +33,8 @@ SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "audio_codec_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter")
+KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
+           "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -113,12 +114,16 @@ def _compile(nvcc: str, out: Path, lib_name: str):
 @functools.cache
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
         "acx_ari_encode": [P] * 8 + [I] * 8 + [P],
         "acx_ari_decode": [P] * 9 + [I] * 11 + [P],
         "acx_ltpf_postfilter": [P] * 11 + [I] * 8 + [P],
+        "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
+        "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
+        "acx_tns_synthesis_lattice": [P] * 6 + [I] * 2 + [P],
+        "acx_hp50_biquad": [P] * 4 + [I] * 2 + [F] * 5 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -267,3 +272,62 @@ def ltpf_postfilter(cfg, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, cases):
         y.data_ptr(), B, N, mem_x.shape[1], mem_y.shape[1], a1.shape[1], b1.shape[1],
         max(cfg.fs, 16000) // 8000, int(cfg.fs * 0.0025), _stream()))
     return y
+
+
+def gain_bisection(en, target, offset0: int):
+    """Launch `gain_bisection` (csrc/gain_bisection.cu); see
+    ops/quant.py:gain_bisection_plain."""
+    _check(en, "en", torch.float32, 2)
+    _check(target, "target", torch.float32, 1)
+    B, M = en.shape
+    if target.shape[0] != B:
+        raise ValueError(f"target: expected {B} streams, got {target.shape[0]}")
+    out = torch.empty((B,), dtype=torch.int32, device=en.device)
+    _run("gain_bisection", library().acx_gain_bisection(
+        en.data_ptr(), target.data_ptr(), out.data_ptr(), B, M, int(offset0), _stream()))
+    return out
+
+
+def _tns_lattice(name: str, x, rc, order, lo, hi):
+    _check(x, "x", torch.float32, 2)
+    _check(rc, "rc", torch.float32, 3)
+    for arg, t in (("order", order), ("lo", lo), ("hi", hi)):
+        _check(t, arg, torch.int32, 2)
+    B, N = x.shape
+    if tuple(rc.shape) != (B, 2, 8) or any(tuple(t.shape) != (B, 2) for t in (order, lo, hi)):
+        raise ValueError(f"{name}: expected rc [{B}, 2, 8] and order, lo, hi [{B}, 2]")
+    y = torch.empty_like(x)
+    _run(name, getattr(library(), "acx_" + name)(
+        x.data_ptr(), rc.data_ptr(), order.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        y.data_ptr(), B, N, _stream()))
+    return y
+
+
+def tns_analysis_lattice(x, rc, order, lo, hi):
+    """Launch `tns_analysis_lattice` (csrc/tns_analysis_lattice.cu); see
+    ops/tns.py:tns_analysis_lattice_plain."""
+    return _tns_lattice("tns_analysis_lattice", x, rc, order, lo, hi)
+
+
+def tns_synthesis_lattice(x, rc, order, lo, hi):
+    """Launch `tns_synthesis_lattice` (csrc/tns_synthesis_lattice.cu); see
+    ops/tns.py:tns_synthesis_lattice_plain."""
+    return _tns_lattice("tns_synthesis_lattice", x, rc, order, lo, hi)
+
+
+def hp50_biquad(x, mem_50):
+    """Launch `hp50_biquad` (csrc/hp50_biquad.cu); see
+    ops/analysis.py:hp50_biquad_plain. Returns (y, new memories)."""
+    _check(x, "x", torch.float32, 2)
+    _check(mem_50, "mem_50", torch.float32, 2)
+    B, N = x.shape
+    if tuple(mem_50.shape) != (B, 2):
+        raise ValueError(f"mem_50: expected [{B}, 2], got {tuple(mem_50.shape)}")
+    b = [float(v) for v in np.float32(T.t("highpass50_filt_b"))]
+    a = [float(v) for v in np.float32(T.t("highpass50_filt_a"))]
+    y = torch.empty_like(x)
+    mem_out = torch.empty_like(mem_50)
+    _run("hp50_biquad", library().acx_hp50_biquad(
+        x.data_ptr(), mem_50.data_ptr(), y.data_ptr(), mem_out.data_ptr(), B, N,
+        b[0], b[1], b[2], a[1], a[2], _stream()))
+    return y, mem_out

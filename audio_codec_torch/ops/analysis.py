@@ -1,6 +1,7 @@
 """Encoder front-end analysis, batched over streams.
 
-- 12.8 kHz resampler  (resamp12k8.c:13-84): dense product + biquad loop
+- 12.8 kHz resampler  (resamp12k8.c:13-84): dense product + the biquad
+  (the CUDA kernel `hp50_biquad` on the card, csrc/hp50_biquad.cu)
 - open-loop pitch     (olpa.c:52-180): autocorrelation over all lags
 - LTPF parameter coder (ltpf_coder.c:34-263): all-lag correlation and
   masked argmax searches
@@ -17,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from .. import tables as T
 from ..config import Config
 from . import numerics as nm
@@ -33,24 +35,43 @@ def resample_12k8(cfg: Config, x, mem_in, mem_50, mem_out):
     new_mem_in = buf[:, cfg.frame_length:]
     down = nm.dot(buf, R)                                   # [B, n12k8]
 
-    b = [nm.f32(v) for v in T.t("highpass50_filt_b")]
-    a = [nm.f32(v) for v in T.t("highpass50_filt_a")]
-    u1, u2 = mem_50[:, 0], mem_50[:, 1]
-    ys = []
-    for n in range(n12k8):
-        xt = down[:, n]
-        y = nm.fma(b[0], xt, u1)
-        u1n = nm.fma(-a[1], y, nm.fma(b[1], xt, u2))
-        u2n = nm.fma(b[2], xt, -(a[2] * y))
-        u1, u2 = u1n, u2n
-        ys.append(y)
-    filt = torch.stack(ys, dim=-1)
-    new_mem_50 = torch.stack([u1, u2], dim=-1)
+    filt, new_mem_50 = hp50_biquad(down, mem_50)
 
     buf_out = torch.cat([mem_out, filt], dim=-1)            # [B, 24 + n12k8]
     y = buf_out[:, : cfg.len_12k8 + 1]
     new_mem_out = buf_out[:, n12k8: n12k8 + 24]
     return y, new_mem_in, new_mem_50, new_mem_out
+
+
+def hp50_biquad_plain(x, mem_50):
+    """The 50 Hz high-pass biquad of the resampler over x [B, n] with
+    memories mem_50 [B, 2]; the plain version of the `hp50_biquad` kernel.
+    Returns (filtered x, new memories).
+
+    On the CPU the products are contracted as in the reference's scan body
+    (read from XLA:CPU's object code): b0*x feeds both y and, as b2*x (the
+    same constant), u2, so it is rounded on its own and y = b0*x + u1 is not
+    contracted; u2 = b2*x - a2*y and u1 = (b1*x + u2) - a1*y are."""
+    b = [nm.f32(v) for v in T.t("highpass50_filt_b")]
+    a = [nm.f32(v) for v in T.t("highpass50_filt_a")]
+    u1, u2 = mem_50[:, 0], mem_50[:, 1]
+    ys = []
+    for n in range(x.shape[1]):
+        xt = x[:, n]
+        y = b[0] * xt + u1
+        u1n = nm.fma(-a[1], y, nm.fma(b[1], xt, u2))
+        u2n = nm.fma(-a[2], y, b[2] * xt)
+        u1, u2 = u1n, u2n
+        ys.append(y)
+    return torch.stack(ys, dim=-1), torch.stack([u1, u2], dim=-1)
+
+
+def hp50_biquad(x, mem_50):
+    """The 50 Hz high-pass: the CUDA kernel for a tensor on the card, its
+    plain version for a tensor on the CPU."""
+    if nm.on_cpu(x):
+        return hp50_biquad_plain(x, mem_50)
+    return kernels.hp50_biquad(x.contiguous(), mem_50.contiguous())
 
 
 def _window_gather(buf, base: int, n_lags: int, n: int):

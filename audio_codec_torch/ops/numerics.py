@@ -19,7 +19,8 @@ What each CPU branch reproduces, and where the reference relies on it:
 - `dot`: a matrix product with a constant operand accumulates the
   contraction in fused multiply-add chains whose order depends on the
   shapes (`sns.py:72,84,234,255,328,369`, `analysis.py:43,208,333`,
-  `transforms.py:107`).
+  `transforms.py:107`; the last one as a process pinned to one core
+  computes it).
 - `exp2`, `log2`, `log10`: `exp` and `log` are Cephes polynomials with
   fused range reduction; `exp2(x)` is `exp(x * ln 2)` and `log2`/`log10`
   multiply `log` by 1/ln 2 and 1/ln 10 (`quant.py:64,70,81`, `sns.py:59,372`,
@@ -73,10 +74,14 @@ def dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
     On the CPU this is the accumulation order XLA:CPU was seen to use for
     the codec's constant operands: four interleaved chains for the 16-wide
-    SNS transforms, 256-deep blocks for the 540-tap resampler, one chain
-    otherwise. XLA:CPU splits the 480x480 DCT-IV of the IMDCT into column
-    blocks with different orders, not all of which are reproduced here, so
-    IMDCT output stays within a few ulp of the reference's."""
+    SNS transforms, 256-deep blocks for the 540-tap resampler, 68-deep
+    blocks for the 480x480 DCT-IV of the IMDCT, one chain otherwise; each
+    block is one fused multiply-add chain from zero, and the blocks' sums
+    are added in order. XLA:CPU hands the IMDCT's product to YNNPACK, whose
+    blocks depend on the cores the process may use: the 68-deep blocks are
+    those of a process pinned to one core with XLA_FLAGS unset, read by
+    probing with cancelling operands (tests/test_torch_transforms.py holds
+    them to such a process), for more than one row of `a`."""
     if not on_cpu(a):
         return torch.matmul(a, m)
     K, N = m.shape
@@ -84,7 +89,7 @@ def dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     m64 = m.to(F64)
     if N == 16 and K <= 64:
         return _fma_chains(a64, m64, 0, K, 4)
-    block = 256 if K > 512 else K
+    block = 68 if (K, N) == (480, 480) else 256 if K > 512 else K
     out = None
     for lo in range(0, K, block):
         part = _fma_chains(a64, m64, lo, min(K, lo + block), 1)

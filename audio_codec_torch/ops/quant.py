@@ -3,7 +3,8 @@ estimate, noise factor, residual coding, and the decoder-side inverses.
 
 Counterparts of `audio_codec_tpu/ops/quant.py`:
 - processEstimateGlobalGain_fl (estimate_global_gain.c:30-137), in the
-  reference's exact float32 add order;
+  reference's exact float32 add order; its bisection is the CUDA kernel
+  `gain_bisection` on the card (csrc/gain_bisection.cu);
 - processQuantizeSpec_fl (quantize_spec.c:26-197); the context bit
   estimate is the CUDA kernel `bit_estimate` on the card (csrc/bit_estimate.cu);
 - processAdjustGlobalGain_fl, processNoiseFactor_fl, residual coding and
@@ -75,24 +76,8 @@ def estimate_global_gain(cfg: Config, x, nbitsSQ, targetBitsOff, old_targetBits,
     en = nm.f32(28.0 / 20.0) * nm.fma(10.0, nm.log10(larg), 7.0)
 
     target = nm.f32(1.9599999999999997) * nbits_adj.to(F32)
-    offset = torch.full((B,), 255 + cfg.quantizedGainOff, dtype=I32, device=dev)
-    fac = 256
-    c_low, c_gap, c_hi = nm.f32(9.8), nm.f32(3.78), 70.0
+    offset = gain_bisection(en, target, 255 + cfg.quantizedGainOff)
     zero = torch.zeros((), dtype=F32, device=dev)
-    for _ in range(8):
-        fac //= 2
-        offset = offset - fac
-        offs_f = offset.to(F32)
-        ener = torch.zeros((B,), dtype=F32, device=dev)
-        iszero = torch.ones((B,), dtype=torch.bool, device=dev)
-        for j in range(lg // 4 - 1, -1, -1):
-            t = en[:, j] - offs_f
-            low = t < c_low
-            gap_add = torch.where(low & ~iszero, c_gap, zero)
-            hi_add = torch.where(t >= c_hi, 2.0 * t - c_hi, t)
-            ener = torch.where(low, ener + gap_add, ener + hi_add)
-            iszero = iszero & low
-        offset = offset + torch.where((ener > target) & ~iszero, fac, 0).to(I32)
 
     offset_f = offset.to(F32)
     below = offset_f < ind_min.to(F32)
@@ -103,6 +88,43 @@ def estimate_global_gain(cfg: Config, x, nbitsSQ, targetBitsOff, old_targetBits,
     ind_min = torch.where(zero_in, cfg.quantizedGainOff, ind_min).to(I32)
     gain = nm.pow(10.0, nm.div(ind + cfg.quantizedGainOff, 28.0))
     return gain, ind.to(I32), ind_min, targetBitsOff, new_old_targetBits
+
+
+def gain_bisection_plain(en, target, offset0: int):
+    """The eight halvings of the global-gain offset (estimate_global_gain.c:
+    102-125); the plain version of the `gain_bisection` kernel. en [B, M]
+    f32 block energies, target [B] f32, offset0 the starting offset.
+    Returns the offset [B] i32. Each halving accumulates ener backward over
+    the blocks in float32 with the reference's gap filling (iszero)."""
+    B, M = en.shape
+    dev = en.device
+    offset = torch.full((B,), offset0, dtype=I32, device=dev)
+    fac = 256
+    c_low, c_gap, c_hi = nm.f32(9.8), nm.f32(3.78), 70.0
+    zero = torch.zeros((), dtype=F32, device=dev)
+    for _ in range(8):
+        fac //= 2
+        offset = offset - fac
+        offs_f = offset.to(F32)
+        ener = torch.zeros((B,), dtype=F32, device=dev)
+        iszero = torch.ones((B,), dtype=torch.bool, device=dev)
+        for j in range(M - 1, -1, -1):
+            t = en[:, j] - offs_f
+            low = t < c_low
+            gap_add = torch.where(low & ~iszero, c_gap, zero)
+            hi_add = torch.where(t >= c_hi, 2.0 * t - c_hi, t)
+            ener = torch.where(low, ener + gap_add, ener + hi_add)
+            iszero = iszero & low
+        offset = offset + torch.where((ener > target) & ~iszero, fac, 0).to(I32)
+    return offset
+
+
+def gain_bisection(en, target, offset0: int):
+    """The gain bisection: the CUDA kernel for a tensor on the card, its
+    plain version for a tensor on the CPU."""
+    if nm.on_cpu(en):
+        return gain_bisection_plain(en, target, offset0)
+    return kernels.gain_bisection(en.contiguous(), target.contiguous(), offset0)
 
 
 def quantize_spectrum(cfg: Config, x, gain):

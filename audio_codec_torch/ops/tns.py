@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from .. import kernels
 from .. import tables as T
 from ..config import Config
 from . import numerics as nm
@@ -168,47 +169,23 @@ def tns_encode(cfg: Config, x, bw_idx):
     act1 = act1 & two_filters
     bits = bits0 + torch.where(two_filters, bits1, 0)
 
-    rc0 = torch.where(act0[:, None], rcq0, zero)
-    rc1 = torch.where(act1[:, None], rcq1, zero)
-    in_f0 = act0[:, None] & (bins >= start0[:, None] - 1) & (bins <= stop0[:, None] - 1)
-    in_f1 = act1[:, None] & (bins >= start1[:, None] - 1) & (bins <= stop1[:, None] - 1)
-    ordsel = torch.where(in_f1, ord1[:, None], ord0[:, None])
-    active_bin = in_f0 | in_f1
+    rc = torch.stack([torch.where(act0[:, None], rcq0, zero),
+                      torch.where(act1[:, None], rcq1, zero)], 1)
+    order_out = torch.stack([torch.where(act0, ord0, 0),
+                             torch.where(act1, ord1, 0)], 1).to(I32)
+    lo = torch.stack([start0, start1], 1) - 1
+    hi = torch.stack([stop0, stop1], 1) - 1
+    x_out = tns_analysis_lattice(x, rc, order_out, lo.to(I32), hi.to(I32))
 
-    st_c = torch.zeros((B, MAXLAG), dtype=F32, device=dev)
-    ys = []
-    for n in range(Nfull):
-        xb, use_f1, act, order = x[:, n], in_f1[:, n], active_bin[:, n], ordsel[:, n]
-        rc = torch.where(use_f1[:, None], rc1, rc0)
-        s = xb
-        tmp_save = s
-        new_st = st_c.clone()
-        for j in range(MAXLAG - 1):
-            live = j < (order - 1)
-            tmp_fl = nm.fma(rc[:, j], s, st_c[:, j])
-            s_new = nm.fma(rc[:, j], st_c[:, j], s)
-            new_st[:, j] = torch.where(act & live, tmp_save, new_st[:, j])
-            tmp_save = torch.where(live, tmp_fl, tmp_save)
-            s = torch.where(live, s_new, s)
-        last = torch.clamp(order - 1, 0, MAXLAG - 1).long()[:, None]
-        st_last = torch.gather(st_c, 1, last)[:, 0]
-        rc_last = torch.gather(rc, 1, last)[:, 0]
-        s = nm.fma(rc_last, st_last, s)
-        new_st = torch.where(act[:, None] & (lanes == last), tmp_save[:, None], new_st)
-        ys.append(torch.where(act, s, xb))
-        st_c = torch.where(act[:, None], new_st, st_c)
-    x_out = torch.stack(ys, dim=-1)
-
-    order_out = torch.stack([torch.where(act0, ord0, 0), torch.where(act1, ord1, 0)], 1)
     rc_idx_out = torch.stack([torch.where(act0[:, None], idx0, 0),
                               torch.where(act1[:, None], idx1, 0)], 1)
-    return x_out, order_out.to(I32), rc_idx_out.to(I32), numfilters, bits
+    return x_out, order_out, rc_idx_out.to(I32), numfilters, bits
 
 
 def tns_decode(cfg: Config, x, rc_idx, order, numfilters, bw_idx):
     """Inverse lattice filter (processTnsDecoder_fl, tns_decoder.c:13-51).
     x: [B, N]; rc_idx: [B, 2, 8]; order: [B, 2]; bw_idx [B]."""
-    B, Nfull = x.shape
+    B = x.shape[0]
     dev = x.device
     cutoffs = nm.const(T.bw_cutoff_bins(cfg.frame_dms), dev, I32)
     bw_fcbin = cutoffs[bw_idx.clamp(0, cutoffs.shape[0] - 1).long()]
@@ -221,32 +198,110 @@ def tns_decode(cfg: Config, x, rc_idx, order, numfilters, bw_idx):
     stop1 = bw_fcbin
     quants_pts = nm.const(T.t("quants_pts_tns"), dev)
     rc = quants_pts[rc_idx.clamp(0, quants_pts.shape[0] - 1).long()]   # [B, 2, 8]
-    act = order > 0
+    orders = torch.stack([order[:, 0], torch.where(two, order[:, 1], 0)], 1).to(I32)
+    lo = torch.stack([start0, start1], 1) - 1
+    hi = torch.stack([stop0, stop1], 1) - 1
+    return tns_synthesis_lattice(x, rc, orders, lo.to(I32), hi.to(I32))
 
-    bins = torch.arange(Nfull, device=dev)[None, :]
-    in_f0 = act[:, 0:1] & (bins >= start0[:, None] - 1) & (bins <= stop0[:, None] - 1)
-    in_f1 = act[:, 1:2] & two[:, None] & (bins >= start1[:, None] - 1) & \
-        (bins <= stop1[:, None] - 1)
-    active_bin = in_f0 | in_f1
-    ordsel = torch.where(in_f1, order[:, 1:2], order[:, 0:1])
 
-    st_c = torch.zeros((B, MAXLAG), dtype=F32, device=dev)
+def _filter_bins(order, lo, hi, N: int):
+    """Per bin of the two filters' ranges: (in filter 1, in either filter,
+    the order that applies) as [B, N] tensors. Filter f covers bins
+    lo[:, f]..hi[:, f] inclusive where order[:, f] > 0; filter 1 wins."""
+    bins = torch.arange(N, device=order.device)[None, :]
+    inside = [(order[:, f: f + 1] > 0) & (bins >= lo[:, f: f + 1]) & (bins <= hi[:, f: f + 1])
+              for f in (0, 1)]
+    return inside[1], inside[0] | inside[1], torch.where(inside[1], order[:, 1:2],
+                                                         order[:, 0:1])
+
+
+def tns_analysis_lattice_plain(x, rc, order, lo, hi):
+    """The encoder's lattice (tns_coder.c:330-360) over the bins, with [B, 8]
+    state carried across both filters; the plain version of the
+    `tns_analysis_lattice` kernel. x [B, N] f32; rc [B, 2, 8] f32; order,
+    lo, hi [B, 2] i32 (see _filter_bins). Returns the filtered x.
+
+    On the CPU each product is contracted where XLA:CPU contracts it in the
+    reference's scan body (read from its object code): every product but,
+    for B > 1, the last tap's product into the output."""
+    B, N = x.shape
+    in_f1, active, ordsel = _filter_bins(order, lo, hi, N)
+    lanes = torch.arange(MAXLAG, device=x.device)[None, :]
+    st_c = torch.zeros((B, MAXLAG), dtype=F32, device=x.device)
     ys = []
-    for n in range(Nfull):
-        xb, use_f1, actb, ordb = x[:, n], in_f1[:, n], active_bin[:, n], ordsel[:, n]
+    for n in range(N):
+        xb, use_f1, act, o = x[:, n], in_f1[:, n], active[:, n], ordsel[:, n]
+        rcn = torch.where(use_f1[:, None], rc[:, 1], rc[:, 0])
+        s = xb
+        tmp_save = s
+        new_st = st_c.clone()
+        for j in range(MAXLAG - 1):
+            live = j < (o - 1)
+            tmp_fl = nm.fma(rcn[:, j], s, st_c[:, j])
+            s_new = nm.fma(rcn[:, j], st_c[:, j], s)
+            new_st[:, j] = torch.where(act & live, tmp_save, new_st[:, j])
+            tmp_save = torch.where(live, tmp_fl, tmp_save)
+            s = torch.where(live, s_new, s)
+        last = torch.clamp(o - 1, 0, MAXLAG - 1).long()[:, None]
+        st_last = torch.gather(st_c, 1, last)[:, 0]
+        rc_last = torch.gather(rcn, 1, last)[:, 0]
+        s = nm.fma(rc_last, st_last, s) if B == 1 else s + rc_last * st_last
+        new_st = torch.where(act[:, None] & (lanes == last), tmp_save[:, None], new_st)
+        ys.append(torch.where(act, s, xb))
+        st_c = torch.where(act[:, None], new_st, st_c)
+    return torch.stack(ys, dim=-1)
+
+
+def tns_synthesis_lattice_plain(x, rc, order, lo, hi):
+    """The decoder's inverse lattice (tns_decoder.c:13-51) over the bins;
+    the plain version of the `tns_synthesis_lattice` kernel. Arguments as
+    tns_analysis_lattice_plain.
+
+    On the CPU: XLA:CPU computes each state lane in its own fusion, each
+    recomputing the chain of s. For B > 1 the first product
+    (x - rc[last] * st[last]) is contracted only in the fusions of state
+    lanes 5-7, so those lanes follow a second chain; every later product is
+    contracted everywhere, and at B = 1 the first one too."""
+    B, N = x.shape
+    in_f1, active, ordsel = _filter_bins(order, lo, hi, N)
+    st_c = torch.zeros((B, MAXLAG), dtype=F32, device=x.device)
+    ys = []
+    for n in range(N):
+        xb, use_f1, actb, o = x[:, n], in_f1[:, n], active[:, n], ordsel[:, n]
         rcf = torch.where(use_f1[:, None], rc[:, 1], rc[:, 0])
-        last = torch.clamp(ordb - 1, 0, MAXLAG - 1).long()[:, None]
+        last = torch.clamp(o - 1, 0, MAXLAG - 1).long()[:, None]
         rc_last = torch.gather(rcf, 1, last)[:, 0]
         st_last = torch.gather(st_c, 1, last)[:, 0]
-        s = xb - rc_last * st_last   # not contracted by XLA:CPU, the others are
+        s_f = nm.fma(-rc_last, st_last, xb)      # the chain of state lanes 5-7
+        s = s_f if B == 1 else xb - rc_last * st_last
         new_st = st_c.clone()
         for el in range(MAXLAG - 2, -1, -1):
-            live = el <= (ordb - 2)
+            live = el <= (o - 2)
             s_new = nm.fma(-rcf[:, el], st_c[:, el], s)
-            upd = nm.fma(rcf[:, el], s_new, st_c[:, el])
+            if el >= 4:
+                s_f = torch.where(live, nm.fma(-rcf[:, el], st_c[:, el], s_f), s_f)
+                upd = nm.fma(rcf[:, el], s_f, st_c[:, el])
+            else:
+                upd = nm.fma(rcf[:, el], s_new, st_c[:, el])
             new_st[:, el + 1] = torch.where(actb & live, upd, new_st[:, el + 1])
             s = torch.where(live, s_new, s)
         new_st[:, 0] = torch.where(actb, s, new_st[:, 0])
         ys.append(torch.where(actb, s, xb))
         st_c = torch.where(actb[:, None], new_st, st_c)
     return torch.stack(ys, dim=-1)
+
+
+def tns_analysis_lattice(x, rc, order, lo, hi):
+    """The encoder's lattice: the CUDA kernel for a tensor on the card, its
+    plain version for a tensor on the CPU."""
+    if nm.on_cpu(x):
+        return tns_analysis_lattice_plain(x, rc, order, lo, hi)
+    return kernels.tns_analysis_lattice(*(t.contiguous() for t in (x, rc, order, lo, hi)))
+
+
+def tns_synthesis_lattice(x, rc, order, lo, hi):
+    """The decoder's lattice: the CUDA kernel for a tensor on the card, its
+    plain version for a tensor on the CPU."""
+    if nm.on_cpu(x):
+        return tns_synthesis_lattice_plain(x, rc, order, lo, hi)
+    return kernels.tns_synthesis_lattice(*(t.contiguous() for t in (x, rc, order, lo, hi)))

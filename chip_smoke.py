@@ -9,10 +9,10 @@ audio_codec_torch/csrc, and checks it:
   2. build     every kernel from the sources, with nvcc's -Xptxas -v report;
   3. kernels   each kernel against its plain PyTorch version on the card, on
                every launch of a --frames run of the main path (speech,
-               music, noise); ari_encode, ari_decode and bit_estimate (in
-               both of its modes) must match exactly, ltpf_postfilter within
-               LTPF_TOL on the +-32768 scale, and each of the post-filter's
-               five cases must occur;
+               music, noise); every kernel but ltpf_postfilter must match
+               exactly (bit_estimate in both of its modes), ltpf_postfilter
+               within LTPF_TOL on the +-32768 scale, and each of the
+               post-filter's five cases must occur;
   4. main path encode_block + decode_block at --streams x --frames with the
                launch counters read around it; on a few streams over all
                frames the kernel path's payload must equal the plain path's
@@ -21,8 +21,10 @@ audio_codec_torch/csrc, and checks it:
                against the reference) must give the same payloads but for a
                CPU_FRAMES_DIFFER_MAX share, and PCM within +-CPU_PCM_TOL from
                the card's payloads; a segmental SNR of the decoded material;
-  5. times     CUDA-event times of each kernel and its plain version and of
-               the encode and decode blocks, as real-time stream equivalents;
+  5. times     CUDA-event times of each kernel (the median of TIME_LOOPS
+               loops of TIME_LAUNCHES launches, with their min and max) and
+               of its plain version, and of the encode and decode blocks, as
+               real-time stream equivalents;
   6. a JSON line with one entry per kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -46,6 +48,7 @@ LTPF_TOL = 1e-2          # |y_kernel - y_plain| on the +-32768 PCM scale
 # differ, and int16 PCM decoded from the same payloads by at most this much.
 CPU_FRAMES_DIFFER_MAX = 0.05
 CPU_PCM_TOL = 4
+TIME_LOOPS, TIME_LAUNCHES = 5, 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 rate outside the tensor cores
 
@@ -58,6 +61,14 @@ KERNEL_INFO = {
                      "audio_codec_tpu/ops/quant.py:135"),
     "ltpf_postfilter": ("audio_codec_torch/csrc/ltpf_postfilter.cu",
                         "audio_codec_tpu/ops/ltpf_dec.py:59"),
+    "gain_bisection": ("audio_codec_torch/csrc/gain_bisection.cu",
+                       "audio_codec_tpu/ops/quant.py:108"),
+    "tns_analysis_lattice": ("audio_codec_torch/csrc/tns_analysis_lattice.cu",
+                             "audio_codec_tpu/ops/tns.py:219"),
+    "tns_synthesis_lattice": ("audio_codec_torch/csrc/tns_synthesis_lattice.cu",
+                              "audio_codec_tpu/ops/tns.py:276"),
+    "hp50_biquad": ("audio_codec_torch/csrc/hp50_biquad.cu",
+                    "audio_codec_tpu/ops/analysis.py:57"),
 }
 
 
@@ -109,6 +120,27 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def cuda_ms_spread(fn) -> tuple[float, float, float]:
+    """(median, min, max) ms per call over TIME_LOOPS timing loops of
+    TIME_LAUNCHES calls each."""
+    import statistics
+    loops = [cuda_ms(fn, TIME_LAUNCHES) for _ in range(TIME_LOOPS)]
+    return statistics.median(loops), min(loops), max(loops)
+
+
+def bits(t):
+    """A tensor's values as integers: the bit patterns of float32."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t.to(torch.int64)
+
+
+def outputs(res) -> list:
+    """A kernel's result as a list of tensors."""
+    if isinstance(res, dict):
+        return list(res.values())
+    return list(res) if isinstance(res, tuple) else [res]
+
+
 def nbytes(*ts) -> int:
     import torch
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
@@ -116,18 +148,25 @@ def nbytes(*ts) -> int:
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the four kernel call sites to their plain versions, so the main
+    """Route the eight kernel call sites to their plain versions, so the main
     path runs on the card without the kernels (the reference for phase 4)."""
-    from audio_codec_torch.ops import ari, ltpf_dec, quant
-    saved = (quant.bit_estimate, ari.encode, ari.decode, ltpf_dec.ltpf_postfilter)
-    quant.bit_estimate = quant.bit_estimate_plain
-    ari.encode = lambda cfg, *a: ari.encode_plain(cfg, *a)
-    ari.decode = lambda cfg, buf, side, *a, **k: ari.decode_plain(cfg, buf, side)
-    ltpf_dec.ltpf_postfilter = ltpf_dec.ltpf_postfilter_plain
+    from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
+    sites = [(quant, "bit_estimate", quant.bit_estimate_plain),
+             (ari, "encode", lambda cfg, *a: ari.encode_plain(cfg, *a)),
+             (ari, "decode", lambda cfg, buf, side, *a, **k: ari.decode_plain(cfg, buf, side)),
+             (ltpf_dec, "ltpf_postfilter", ltpf_dec.ltpf_postfilter_plain),
+             (quant, "gain_bisection", quant.gain_bisection_plain),
+             (tns, "tns_analysis_lattice", tns.tns_analysis_lattice_plain),
+             (tns, "tns_synthesis_lattice", tns.tns_synthesis_lattice_plain),
+             (analysis, "hp50_biquad", analysis.hp50_biquad_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        quant.bit_estimate, ari.encode, ari.decode, ltpf_dec.ltpf_postfilter = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -181,6 +220,16 @@ def work_ops(name: str, args) -> float:
     """Scalar operations the kernel does on these inputs (approximate, from
     the data: symbols coded, tuples visited, samples filtered)."""
     import torch
+    if name == "gain_bisection":
+        return float(8 * args[0].numel() * 4)       # 8 halvings x (sub, compare, 2 ops)
+    if name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
+        from audio_codec_torch.ops import tns
+        x, _, order, lo, hi = args
+        _, active, ordsel = tns._filter_bins(order, lo, hi, x.shape[1])
+        taps = torch.where(active, 4 * (ordsel - 1).clamp(min=0) + 2, 0)
+        return float(taps.sum())
+    if name == "hp50_biquad":
+        return float(args[0].numel() * 9)
     if name == "ltpf_postfilter":
         x, a1, b1 = args[1], args[4], args[5]
         return float(x.numel() * (4 * (a1.shape[1] + b1.shape[1]) + 20))
@@ -213,7 +262,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import audio_codec_torch as P
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import ari, ltpf_dec, quant
+    from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
 
     # ---- 1. card ----
     try:
@@ -256,8 +305,17 @@ def main() -> int:
     cases = ltpf_case_counts(rec["ltpf_postfilter"])
     print(f"[kernels] ltpf_postfilter stream-frames per case over {T} frames: {cases}", flush=True)
     check(all(v > 0 for v in cases.values()), f"an LTPF case never occurred: {cases}")
+    for name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
+        orders = torch.cat([args[2] for args, _ in rec[name]]).flatten()
+        hist = torch.bincount(orders.clamp(0, 8).long(), minlength=9).tolist()
+        print(f"[kernels] {name}: filters of order 0..8 over {T} frames: {hist}", flush=True)
+        check(hist[8] > 0, f"{name}: no filter of order 8 on the main path")
     plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
-             "ari_decode": ari.decode_plain, "ltpf_postfilter": ltpf_dec.ltpf_postfilter_plain}
+             "ari_decode": ari.decode_plain, "ltpf_postfilter": ltpf_dec.ltpf_postfilter_plain,
+             "gain_bisection": quant.gain_bisection_plain,
+             "tns_analysis_lattice": tns.tns_analysis_lattice_plain,
+             "tns_synthesis_lattice": tns.tns_synthesis_lattice_plain,
+             "hp50_biquad": analysis.hp50_biquad_plain}
     errs = {}
     for name in K.KERNELS:
         err = 0.0
@@ -265,23 +323,22 @@ def main() -> int:
             got = getattr(K, name)(*args, **kw)
             ref = plain[name](*args, **kw)
             torch.cuda.synchronize()
-            if isinstance(got, dict):
-                diffs = {k: int((got[k].to(torch.int64) != ref[k].to(torch.int64)).sum())
-                         for k in ref}
-                e = float(max((got[k].to(torch.int64) - ref[k].to(torch.int64)).abs().max()
-                              for k in ref))
-                check(e == 0, f"{name}: differs from its plain version: {diffs}")
+            pairs = ([(got[k], ref[k]) for k in ref] if isinstance(ref, dict)
+                     else list(zip(outputs(got), outputs(ref))))
+            e = max(float((g.to(torch.float64) - r.to(torch.float64)).abs().max())
+                    for g, r in pairs)
+            if name == "ltpf_postfilter":
+                check(e <= LTPF_TOL, f"{name}: max |diff| {e} > {LTPF_TOL}")
             else:
-                e = float((got.to(torch.float64) - ref.to(torch.float64)).abs().max())
-                if name == "ltpf_postfilter":
-                    check(e <= LTPF_TOL, f"{name}: max |diff| {e} > {LTPF_TOL}")
-                else:
-                    check(e == 0, f"{name}: differs from its plain version, max |diff| {e}")
+                differ = [int((bits(g) != bits(r)).sum()) for g, r in pairs]
+                check(not any(differ), f"{name}: differs from its plain version in "
+                                       f"{differ} values, max |diff| {e}")
             err = max(err, e)
         errs[name] = err
         what = f"modes {modes}" if name == "bit_estimate" else ""
+        shape = next(tuple(a.shape) for a in rec[name][0][0] if isinstance(a, torch.Tensor))
         print(f"[kernels] {name}: max |kernel - plain| = {err} over {len(rec[name])} "
-              f"launches at {tuple(rec[name][0][0][1].shape)} {what}", flush=True)
+              f"launches at {shape} {what}", flush=True)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)
@@ -353,10 +410,9 @@ def main() -> int:
     rows = []
     for name in K.KERNELS:
         args, kw = rec[name][-1]   # the last frame's launch
-        ms = cuda_ms(lambda: getattr(K, name)(*args, **kw), 20)
+        ms, ms_min, ms_max = cuda_ms_spread(lambda: getattr(K, name)(*args, **kw))
         pms = cuda_ms(lambda: plain[name](*args, **kw), 2)
-        res = getattr(K, name)(*args, **kw)
-        outs = list(res.values()) if isinstance(res, dict) else [res]
+        outs = outputs(getattr(K, name)(*args, **kw))
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         if name == "ari_decode":
             ins += [v for v in args[2].values() if isinstance(v, torch.Tensor)]
@@ -369,7 +425,8 @@ def main() -> int:
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops else "operations",
                          library_ms=None))
-        print(f"[times] {card} | {name}: kernel {ms:.4f} ms, plain {pms:.2f} ms, "
+        print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
+              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}), plain {pms:.2f} ms, "
               f"bound {max(b_bytes, b_ops):.6f} ms ({byts} B, {ops:.3g} ops)", flush=True)
 
     st = P.enc_state_init(cfg, B, device=dev)

@@ -6,9 +6,11 @@ card. Run where a CUDA device is present:
 Elsewhere every test here skips. Each kernel is compared on every launch of
 an 8-frame main-path run over speech, music and noise (LTPF is off in every
 stream at the first frames, and the encoder calls bit_estimate in two
-modes). ari_encode, ari_decode and bit_estimate must match exactly;
+modes). Every kernel but ltpf_postfilter must match bit for bit;
 ltpf_postfilter within 1e-2 on the +-32768 PCM scale (the kernel fuses each
-tap's multiply-add, the plain version on the card rounds the product first)."""
+tap's multiply-add, the plain version on the card rounds the product first).
+Synthetic cases add what the main path may not reach: TNS filters of order 8
+in both ranges, and a stream whose gain bisection never leaves `iszero`."""
 from __future__ import annotations
 
 import wave
@@ -20,7 +22,8 @@ import torch
 
 import audio_codec_torch as P
 from audio_codec_torch import kernels as K
-from audio_codec_torch.ops import ari, ltpf_dec, quant
+from audio_codec_torch import tables as T
+from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
 
 pytestmark = pytest.mark.gpu
 
@@ -174,6 +177,56 @@ def test_ltpf_postfilter_all_cases(dev):
     assert not torch.equal(y, g(x))
 
 
+def same_bits(got, ref) -> bool:
+    return torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_gain_bisection_matches_plain(recorded, dev):
+    launches = recorded["gain_bisection"]
+    assert len(launches) == 8
+    for args, _ in launches:
+        assert torch.equal(K.gain_bisection(*args), quant.gain_bisection_plain(*args))
+    en, target, offset0 = launches[-1][0]
+    en = en.clone()
+    en[0] = -200.0            # every block below the low threshold: iszero throughout
+    got, ref = K.gain_bisection(en, target, offset0), quant.gain_bisection_plain(en, target, offset0)
+    assert torch.equal(got, ref)
+    assert int(got[0]) == offset0 - 255   # never raised: the bisection ends at its floor
+
+
+def order8_filters(dev, B: int = 64, N: int = 400):
+    """Seeded spectra and filters of order 8 in two adjoining ranges."""
+    rng = np.random.default_rng(4)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    x = g((rng.standard_normal((B, N)) * 10 ** rng.uniform(-2, 4, (B, 1))).astype(np.float32))
+    pts = T.t("quants_pts_tns").astype(np.float32)
+    rc = g(pts[rng.integers(2, 15, (B, 2, 8))])
+    order = g(np.full((B, 2), 8, np.int32))
+    lo = g(np.tile(np.array([[12, 200]], np.int32), (B, 1)))
+    hi = g(np.tile(np.array([[199, N - 1]], np.int32), (B, 1)))
+    return x, rc, order, lo, hi
+
+
+@pytest.mark.parametrize("name", ["tns_analysis_lattice", "tns_synthesis_lattice"])
+def test_tns_lattice_matches_plain(recorded, dev, name):
+    plain = getattr(tns, name + "_plain")
+    launches = recorded[name]
+    assert len(launches) == 8
+    for args, _ in launches:
+        assert same_bits(getattr(K, name)(*args), plain(*args))
+    args = order8_filters(dev, N=launches[0][0][0].shape[1])
+    got = getattr(K, name)(*args)
+    assert same_bits(got, plain(*args)) and not torch.equal(got, args[0])
+
+
+def test_hp50_biquad_matches_plain(recorded):
+    launches = recorded["hp50_biquad"]
+    assert len(launches) == 8
+    for args, _ in launches:
+        (y, mem), (ry, rmem) = K.hp50_biquad(*args), analysis.hp50_biquad_plain(*args)
+        assert same_bits(y, ry) and same_bits(mem, rmem)
+
+
 def test_launch_counts_move(dev):
     K.reset_launch_counts()
     B = 8
@@ -181,4 +234,6 @@ def test_launch_counts_move(dev):
     _, frames = P.encode_block(CFG, P.enc_state_init(CFG, B, device=dev), pcm)
     P.decode_block(CFG, P.dec_state_init(CFG, B, device=dev), frames)
     assert K.launches == {"ari_encode": 2, "ari_decode": 1, "bit_estimate": 4,
-                          "ltpf_postfilter": 2}
+                          "ltpf_postfilter": 2, "gain_bisection": 2,
+                          "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
+                          "hp50_biquad": 2}

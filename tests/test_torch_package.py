@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import audio_codec_torch as P
-from audio_codec_torch.ops import ari, quant
+from audio_codec_torch.ops import analysis, ari, quant, tns
 
 PKG = Path(P.__file__).resolve().parent
 
@@ -53,6 +53,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.bit_estimate(cfg, xq, torch.zeros(2, dtype=torch.int32), -1)
     assert quant.bit_estimate(cfg, xq, torch.full((2,), 100, dtype=torch.int32), -1)["nbits"].shape == (2,)
+
+    f32 = lambda *s: torch.zeros(s, dtype=torch.float32)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.gain_bisection(f32(2, cfg.yLen // 4), f32(2), 255)
+    assert quant.gain_bisection(f32(2, cfg.yLen // 4), f32(2), 255).shape == (2,)
+    lattice = (f32(2, cfg.yLen), f32(2, 2, 8), i32(2, 2), i32(2, 2), i32(2, 2))
+    for name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            getattr(K, name)(*lattice)
+        assert torch.equal(getattr(tns, name)(*lattice), lattice[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.hp50_biquad(f32(2, 128), f32(2, 2))
+    y, mem = analysis.hp50_biquad(f32(2, 128), f32(2, 2))
+    assert y.shape == (2, 128) and mem.shape == (2, 2)
 
 
 def test_kernel_build_directory_is_named_by_its_inputs():

@@ -2,7 +2,8 @@
 encode_frame over T frames of B streams must give payload bytes identical
 to audio_codec_tpu's, and decode_block must give int16 PCM identical to
 audio_codec_tpu's decode_block, on the port's payloads and on the
-reference's."""
+reference's. The reference decodes in a process pinned to one core, where
+the order of its IMDCT product is fixed (see test_torch_transforms)."""
 from __future__ import annotations
 
 import functools
@@ -14,10 +15,10 @@ import pytest
 import torch
 
 import audio_codec_torch as P
-from audio_codec_tpu.models import decoder as JD
 from audio_codec_tpu.models import encoder as JE
 from audio_codec_tpu.models import state as JS
 
+from tests.test_torch_transforms import run_pinned
 from tests.torch_port_data import JCFG, PCFG, material
 
 T, B = 4, 2
@@ -41,10 +42,22 @@ def jax_encode(pcm):
     return np.asarray(out)
 
 
-def jax_decode(frames):
-    _, pcm = jax.jit(lambda st, f: JD.decode_block(JCFG, st, f))(
-        JS.dec_state_init(JCFG, frames.shape[1]), jnp.asarray(frames.astype(np.int32)))
-    return np.asarray(JD.round_pcm(pcm))
+JAX_DECODE = """
+from audio_codec_tpu.config import Config
+from audio_codec_tpu.models import decoder as JD
+from audio_codec_tpu.models import state as JS
+cfg = Config(fs_in=48000, bitrate=64000)
+dec = jax.jit(lambda st, f: JD.decode_block(cfg, st, f))
+out = np.stack([np.asarray(JD.round_pcm(dec(JS.dec_state_init(cfg, f.shape[1]),
+                                            jnp.asarray(f.astype(np.int32)))[1]))
+                for f in args["frames"]])
+"""
+
+
+def jax_decode(*blocks):
+    """The reference's decode_block of each payload block (all of one
+    shape), in one process pinned to one core."""
+    return list(run_pinned(JAX_DECODE, frames=np.stack(blocks)))
 
 
 def port_encode(pcm):
@@ -72,11 +85,17 @@ def test_encode_payload_bytes_identical():
     assert bad == [], f"frames (t, stream) with differing bytes: {bad}"
 
 
+@functools.cache
+def reference_pcm():
+    ref_frames, port_frames = payloads()
+    return dict(zip(("reference", "port"), jax_decode(ref_frames, port_frames)))
+
+
 @pytest.mark.parametrize("source", ["port", "reference"])
 def test_decode_block_pcm_identical(source):
     ref_frames, port_frames = payloads()
     frames = port_frames if source == "port" else ref_frames
-    ref = jax_decode(frames)
+    ref = reference_pcm()[source]
     got = port_decode(frames)
     assert got.dtype == np.int16 and got.shape == ref.shape == (T, B, JCFG.frame_length)
     mism = [(f, b, int((got[f, b] != ref[f, b]).sum())) for f in range(T) for b in range(B)
@@ -89,6 +108,12 @@ def long_payloads(name: str):
     """200 frames (2 s) of a material file beside seeded noise."""
     pcm = block(200, (name, "noise"), seed=3, offset=0)
     return jax_encode(pcm), port_encode(pcm)
+
+
+@functools.cache
+def long_reference_pcm():
+    names = ("speech", "music")
+    return dict(zip(names, jax_decode(*(long_payloads(k)[0] for k in names))))
 
 
 @pytest.mark.slow
@@ -104,7 +129,7 @@ def test_long_material_payload_bytes_identical(name):
 def test_long_material_pcm_identical(name):
     """Reports the differing samples per (frame, stream) if any."""
     ref, _ = long_payloads(name)
-    pcm_ref = jax_decode(ref)
+    pcm_ref = long_reference_pcm()[name]
     pcm_got = port_decode(ref)
     diff = pcm_got != pcm_ref
     where = [(int(f), int(b), int(diff[f, b].sum()))

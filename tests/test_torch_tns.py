@@ -1,9 +1,8 @@
 """Temporal noise shaping of audio_codec_torch against audio_codec_tpu.
 
-Filter orders, coefficient indices and bit counts must be equal. The
-lattice-filtered spectra are held to 2**-16 relative plus 2**-16 of the
-spectrum's peak: the port contracts the lattice's products as XLA:CPU does
-in most steps, not in all."""
+Filter orders, coefficient indices, bit counts and the lattice-filtered
+spectra must all be equal, bit for bit: the port's lattices contract each
+product where XLA:CPU contracts it in the reference's scan body."""
 from __future__ import annotations
 
 import numpy as np
@@ -17,10 +16,17 @@ from audio_codec_tpu.ops import tns as JT
 from tests.torch_port_data import JCFG, PCFG, J, encoder_stages, n, t
 
 
-def close(got, ref):
-    ref = np.asarray(ref)
-    tol = 2.0 ** -16 * float(np.abs(ref).max(initial=0.0))
-    np.testing.assert_allclose(n(got), ref, rtol=2.0 ** -16, atol=tol)
+def same_bits(got, ref):
+    np.testing.assert_array_equal(n(got).view(np.int32), np.asarray(ref).view(np.int32))
+
+
+def check_encode(jcfg, pcfg, x, bw_idx):
+    ref = J(JT.tns_encode, jcfg)(x, bw_idx)
+    got = PT.tns_encode(pcfg, t(x), t(bw_idx))
+    same_bits(got[0], ref[0])
+    for k in range(1, 5):
+        np.testing.assert_array_equal(n(got[k]), np.asarray(ref[k]))
+    return np.asarray(ref[1])
 
 
 @pytest.mark.parametrize("frame", [0, 1])
@@ -30,11 +36,26 @@ def test_tns_encode(frame, bitrate):
     r = encoder_stages()[frame]
     bw = np.array([4, 4, 3, 2], np.int32)[: r["d_shaped"].shape[0]]
     for bw_idx in (r["bw_idx"], bw):
-        ref = J(JT.tns_encode, jcfg)(r["d_shaped"], bw_idx)
-        got = PT.tns_encode(pcfg, t(r["d_shaped"]), t(bw_idx))
-        close(got[0], ref[0])
-        for k in range(1, 5):
-            np.testing.assert_array_equal(n(got[k]), np.asarray(ref[k]))
+        check_encode(jcfg, pcfg, r["d_shaped"], bw_idx)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tns_encode_high_orders(seed):
+    """Seeded spectra with a rising, strongly correlated envelope, so that
+    both filters run at orders up to 8."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, 480)) * np.linspace(1, 50, 480)[None]
+    x *= 10 ** rng.uniform(-1, 3, (4, 1))
+    x[:, 1:] += 0.9 * x[:, :-1]
+    order = check_encode(JCFG, PCFG, x.astype(np.float32), np.array([4, 4, 3, 4], np.int32))
+    assert order.max() >= 7 and (order[:, 1] > 0).any(), order
+
+
+def random_filters(rng, B: int, order8: bool):
+    """rc indices, orders (0-8, or all 8), filter counts and bandwidths."""
+    order = (np.full((B, 2), 8) if order8 else rng.integers(0, 9, (B, 2))).astype(np.int32)
+    return (rng.integers(2, 15, (B, 2, 8)).astype(np.int32), order,
+            np.array([2, 1, 2, 2], np.int32)[:B], np.array([4, 4, 3, 4], np.int32)[:B])
 
 
 @pytest.mark.parametrize("frame", [0, 1])
@@ -43,10 +64,17 @@ def test_tns_decode(frame):
     one or two filters) so that every lattice branch runs."""
     r = encoder_stages()[frame]
     x = r["d2"][:, : PCFG.yLen]
-    B = x.shape[0]
-    rng = np.random.default_rng(10 + frame)
-    rand = (rng.integers(2, 15, (B, 2, 8)).astype(np.int32),
-            rng.integers(0, 9, (B, 2)).astype(np.int32),
-            np.array([2, 1, 2, 2], np.int32)[:B], np.array([4, 4, 3, 4], np.int32)[:B])
+    rand = random_filters(np.random.default_rng(10 + frame), x.shape[0], False)
     for args in ((r["tns_idx"], r["tns_order"], r["num_tns"], r["bw_idx"]), rand):
-        close(PT.tns_decode(PCFG, t(x), *map(t, args)), J(JT.tns_decode, JCFG)(x, *args))
+        same_bits(PT.tns_decode(PCFG, t(x), *map(t, args)), J(JT.tns_decode, JCFG)(x, *args))
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_tns_decode_all_order_8(frame):
+    """Every stream's filters at order 8, so the taps of orders 6-8 always
+    run; on the spectrum and on it scaled by 1000."""
+    r = encoder_stages()[frame]
+    x = r["d2"][:, : PCFG.yLen]
+    args = random_filters(np.random.default_rng(20 + frame), x.shape[0], True)
+    for xs in (x, (x * 1000).astype(np.float32)):
+        same_bits(PT.tns_decode(PCFG, t(xs), *map(t, args)), J(JT.tns_decode, JCFG)(xs, *args))

@@ -4,11 +4,27 @@ The forward transform replays the reference's compensated CPU product, so
 its spectra must be bit-identical. The inverse transform's 480x480 product
 is accumulated in another order than XLA's, so its output is held to
 float32 rounding: 2**-18 of the frame's peak (a few ulp of the largest
-sample) plus 2**-16 absolute on the 16-bit scale."""
+sample) plus 2**-16 absolute on the 16-bit scale.
+
+XLA:CPU hands that product to YNNPACK, whose accumulation order depends on
+the cores the process may use. In a process pinned to one core, with
+XLA_FLAGS unset, the order is fixed, and the port's CPU product
+(`ops/numerics.py:dot`) reproduces it bit for bit; `run_pinned` computes
+such a reference."""
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+
+from audio_codec_torch import tables as PTab
+from audio_codec_torch.ops import numerics as nm
 
 from audio_codec_torch.ops import transforms as PT
 from audio_codec_tpu.ops import transforms as JT
@@ -35,3 +51,50 @@ def test_imdct_within_float32_rounding(frame):
     tol = float(np.abs(ref_x).max()) * 2.0 ** -18 + 2.0 ** -16
     np.testing.assert_allclose(n(x), ref_x, rtol=0, atol=tol)
     np.testing.assert_allclose(n(new_mem), ref_mem, rtol=0, atol=tol)
+
+
+ROOT = Path(__file__).resolve().parent.parent
+PINNED = """
+import os, sys
+os.sched_setaffinity(0, {0})
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+args = dict(np.load(sys.argv[1]))
+%s
+np.save(sys.argv[2], np.asarray(out))
+"""
+
+
+def run_pinned(body: str, timeout: int = 900, **arrays) -> np.ndarray:
+    """Run `body` (JAX code that reads `args` and sets `out`) in a new
+    Python process pinned to one CPU core, with XLA_FLAGS unset."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "in.npz"), **arrays)
+        r = subprocess.run([sys.executable, "-c", PINNED % body, os.path.join(d, "in.npz"),
+                            os.path.join(d, "out.npy")], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        assert r.returncode == 0, r.stderr[-4000:]
+        return np.load(os.path.join(d, "out.npy"))
+
+
+IMDCT_DOT = """
+from audio_codec_tpu import tables as T
+M = jnp.asarray(T.dct4_matrix(480), jnp.float32)
+out = jax.jit(lambda y: jnp.dot(y, M.T, preferred_element_type=jnp.float32))(args["y"])
+"""
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 3e4])
+def test_imdct_dot_bit_exact_to_pinned_reference(scale):
+    """The IMDCT's [2, 480] x [480, 480] product (transforms.py:107) against
+    the reference computed on one core."""
+    rng = np.random.default_rng(3)
+    y = (rng.standard_normal((2, 480)) * scale).astype(np.float32)
+    ref = run_pinned(IMDCT_DOT, y=y)
+    got = nm.dot(torch.from_numpy(y), nm.const(PTab.dct4_matrix(480).T, "cpu"))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
