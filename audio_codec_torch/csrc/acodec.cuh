@@ -63,6 +63,22 @@ ACX_HD float rsub(float a, float b) {
   return a - b;
 #endif
 }
+// IEEE division and square root, rounded to nearest, as PyTorch's div,
+// reciprocal and sqrt compute them on the card.
+ACX_HD float rdiv(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
+}
+ACX_HD float rroot(float a) {
+#ifdef __CUDA_ARCH__
+  return __fsqrt_rn(a);
+#else
+  return std::sqrt(a);
+#endif
+}
 
 }  // namespace acx
 
@@ -72,29 +88,29 @@ __device__ __forceinline__ void acx_load_shared(int32_t* dst, const int32_t* src
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// Row tiles of a [B, N] float array in shared memory, one row per thread of
+// Row tiles of a [B, N] array of 32-bit words in shared memory, one row per thread of
 // the block, rows ACX_ROW_STRIDE(N) floats apart (an odd stride, so that the
 // threads walking their rows in step hit different banks). The copies are
 // coalesced: neighbouring threads move neighbouring elements.
 #define ACX_ROW_STRIDE(N) ((N) | 1)
 
-__device__ __forceinline__ void acx_load_rows(float* tile, const float* g, int row0, int rows,
-                                              int N) {
+template <typename T>
+__device__ __forceinline__ void acx_load_rows(T* tile, const T* g, int row0, int rows, int N) {
   const int stride = ACX_ROW_STRIDE(N);
   for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
     tile[(i / N) * stride + i % N] = g[static_cast<size_t>(row0) * N + i];
   }
 }
 
-__device__ __forceinline__ void acx_store_rows(float* g, const float* tile, int row0, int rows,
-                                               int N) {
+template <typename T>
+__device__ __forceinline__ void acx_store_rows(T* g, const T* tile, int row0, int rows, int N) {
   const int stride = ACX_ROW_STRIDE(N);
   for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
     g[static_cast<size_t>(row0) * N + i] = tile[(i / N) * stride + i % N];
   }
 }
 
-// Dynamic shared memory for a block of `threads` row tiles of N floats; sets
+// Dynamic shared memory for a block of `threads` row tiles of N words; sets
 // the kernel's limit where the tiles pass the 48 KB default.
 template <typename Kernel>
 inline cudaError_t acx_row_tiles_smem(Kernel kernel, int threads, int N, size_t* bytes) {

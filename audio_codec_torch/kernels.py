@@ -34,7 +34,8 @@ BUILD_DIR = _PKG.parent / "build" / "audio_codec_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
-           "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad")
+           "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
+           "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -124,6 +125,10 @@ def library() -> ctypes.CDLL:
         "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
         "acx_tns_synthesis_lattice": [P] * 6 + [I] * 2 + [P],
         "acx_hp50_biquad": [P] * 4 + [I] * 2 + [F] * 5 + [P],
+        "acx_side_info_pack": [P] * 11 + [I] * 5 + [P],
+        "acx_side_info_parse": [P] * 5 + [I] * 8 + [P],
+        "acx_sns_vq_dec": [P] * 3 + [I] + [P],
+        "acx_sns_vq_enc": [P] * 4 + [I] + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -331,3 +336,100 @@ def hp50_biquad(x, mem_50):
         x.data_ptr(), mem_50.data_ptr(), y.data_ptr(), mem_out.data_ptr(), B, N,
         b[0], b[1], b[2], a[1], a[2], _stream()))
     return y, mem_out
+
+
+def side_info_pack(cfg, bw_idx, lastnz, lsb_mode, gg_idx, num_tns_filters, tns_order,
+                   ltpf_param, scf_idx, fac_ns_idx):
+    """Launch `side_info_pack` (csrc/side_info_pack.cu); see
+    ops/bits.py:pack_side_info_plain. Returns (buf, bp_side, mask_side)."""
+    scf_idx = scf_idx.to(torch.int32).contiguous()
+    _check(scf_idx, "scf_idx", torch.int32, 2)
+    B = scf_idx.shape[0]
+    dev = scf_idx.device
+    if scf_idx.shape[1] != 7:
+        raise ValueError(f"scf_idx: expected [{B}, 7], got {tuple(scf_idx.shape)}")
+    scalars = [_i32(v, B, dev) for v in (bw_idx, lastnz, lsb_mode, gg_idx, num_tns_filters)]
+    fac_ns_idx = _i32(fac_ns_idx, B, dev)
+    tns_order = tns_order.to(torch.int32).contiguous()
+    ltpf_param = ltpf_param.to(torch.int32).contiguous()
+    _check(tns_order, "tns_order", torch.int32, 2)
+    _check(ltpf_param, "ltpf_param", torch.int32, 2)
+    if tuple(tns_order.shape) != (B, 2) or tuple(ltpf_param.shape) != (B, 3):
+        raise ValueError(f"side_info_pack: expected tns_order [{B}, 2] and ltpf_param [{B}, 3]")
+    nbytes = cfg.targetBytes
+    buf = torch.empty((B, nbytes), dtype=torch.int32, device=dev)
+    cursor = torch.empty((2, B), dtype=torch.int32, device=dev)
+    _run("side_info_pack", library().acx_side_info_pack(
+        *(t.data_ptr() for t in scalars), tns_order.data_ptr(), ltpf_param.data_ptr(),
+        scf_idx.data_ptr(), fac_ns_idx.data_ptr(), buf.data_ptr(), cursor.data_ptr(),
+        B, nbytes, nbytes - 1, cfg.BW_cutoff_bits, cfg.lastnz_bits, _stream()))
+    return buf, cursor[0], cursor[1]
+
+
+def side_info_parse(cfg, buf):
+    """Launch `side_info_parse` (csrc/side_info_parse.cu); returns the dict
+    of ops/bits.py:parse_side_info_plain."""
+    buf = buf.to(torch.int32).contiguous()
+    _check(buf, "buf", torch.int32, 2)
+    L, nbytes = buf.shape
+    dev = buf.device
+    names = ("bfi", "bw_idx", "lastnz", "lsb_mode", "gg_idx", "num_tns", "fac_ns_idx",
+             "bp_side", "mask_side")
+    out = torch.empty((len(names) + 2 + 7 + 3, L), dtype=torch.int32, device=dev).view(-1)
+    n = len(names) * L
+    scalars = out[:n].view(len(names), L)
+    tns_on = out[n: n + 2 * L].view(L, 2)
+    scf_idx = out[n + 2 * L: n + 9 * L].view(L, 7)
+    ltpf_param = out[n + 9 * L:].view(L, 3)
+    _run("side_info_parse", library().acx_side_info_parse(
+        buf.data_ptr(), scalars.data_ptr(), tns_on.data_ptr(), scf_idx.data_ptr(),
+        ltpf_param.data_ptr(), L, nbytes, cfg.targetBytes - 1, cfg.BW_cutoff_bits,
+        cfg.lastnz_bits, cfg.fs_idx, cfg.yLen, 1 if cfg.frame_dms == 25 else 0, _stream()))
+    side = dict(zip(names, scalars))
+    side.update(tns_on=tns_on, scf_idx=scf_idx, ltpf_param=ltpf_param)
+    return side
+
+
+@functools.cache
+def _sns_tables(device: str) -> torch.Tensor:
+    """The SNS quantizer's tables as one int32 buffer on `device`, float
+    tables as their bit patterns, in the layout of csrc/sns_vq.cuh."""
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32).ravel().view(np.int32)
+    words = np.concatenate([
+        f(T.t("sns_C1")), f(T.t("sns_C2")), f(T.dct2_matrix(T.SNS_M)),
+        T.t("pvq_enc_A").astype(np.int32).ravel(),
+        f(T.t("sns_vq_reg_adj_gains_fl")), f(T.t("sns_vq_reg_lf_adj_gains_fl")),
+        f(T.t("sns_vq_near_adj_gains_fl")), f(T.t("sns_vq_far_adj_gains_fl")),
+        f(T.t("sns_dec_gains")), f(T.t("q_g_sns"))])
+    if words.size != 1000:
+        raise RuntimeError(f"SNS tables: {words.size} words, the kernels expect 1000")
+    return torch.as_tensor(words, device=device)
+
+
+def sns_vq_dec(scf_idx):
+    """Launch `sns_vq_dec` (csrc/sns_vq_dec.cu); see
+    ops/sns.py:sns_vq_dec_plain."""
+    _check(scf_idx, "scf_idx", torch.int32, 2)
+    B = scf_idx.shape[0]
+    if scf_idx.shape[1] != 7:
+        raise ValueError(f"scf_idx: expected [{B}, 7], got {tuple(scf_idx.shape)}")
+    scf_q = torch.empty((B, T.SNS_M), dtype=torch.float32, device=scf_idx.device)
+    _run("sns_vq_dec", library().acx_sns_vq_dec(
+        scf_idx.data_ptr(), _sns_tables(str(scf_idx.device)).data_ptr(), scf_q.data_ptr(),
+        B, _stream()))
+    return scf_q
+
+
+def sns_vq_enc(scf):
+    """Launch `sns_vq_enc` (csrc/sns_vq_enc.cu); see
+    ops/sns.py:sns_vq_enc_plain. Returns (scf_idx, scf_q)."""
+    _check(scf, "scf", torch.float32, 2)
+    B = scf.shape[0]
+    if scf.shape[1] != T.SNS_M:
+        raise ValueError(f"scf: expected [{B}, {T.SNS_M}], got {tuple(scf.shape)}")
+    scf_idx = torch.empty((B, 7), dtype=torch.int32, device=scf.device)
+    scf_q = torch.empty_like(scf)
+    _run("sns_vq_enc", library().acx_sns_vq_enc(
+        scf.data_ptr(), _sns_tables(str(scf.device)).data_ptr(), scf_idx.data_ptr(),
+        scf_q.data_ptr(), B, _stream()))
+    return scf_idx, scf_q

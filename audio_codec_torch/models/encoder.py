@@ -3,8 +3,9 @@ T frames.
 
 Mirrors the channel pipeline Enc_LC3_Channel_fl (enc_lc3_fl.c:13-160), as
 `audio_codec_tpu/models/encoder.py:encode_frame` does. The state's device
-decides where the frame runs: on the card the bit estimate and the range
-coder are CUDA kernels, on the CPU their plain versions.
+decides where the frame runs: on the card the SNS quantizer, the gain
+bisection, the TNS lattice, the bit estimate, the side-info packer and the
+range coder are CUDA kernels, on the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ F32 = torch.float32
 def encode_frame(cfg: Config, st: EncState, pcm: torch.Tensor):
     """pcm: [B, frame_length] float (16-bit range), on the state's device.
     Returns (st, bytes [B, nbytes] uint8, aux)."""
-    B = pcm.shape[0]
     dev = st.mdct_mem.device
     x = pcm.to(device=dev, dtype=F32)
 
@@ -76,9 +76,8 @@ def encode_frame(cfg: Config, st: EncState, pcm: torch.Tensor):
     res_bits, n_res = quant.residual_encode(cfg, dy, xq, gain_f, target, nbits2)
     n_res = torch.where(lsb_mode == 0, n_res, 0).to(I32)
 
-    buf = torch.zeros((B, cfg.targetBytes), dtype=I32, device=dev)
     buf, bp_side, mask_side = bits.pack_side_info(
-        cfg, buf, bw_idx, lastnz_wire, lsb_mode, gg_idx2, num_tns, tns_order,
+        cfg, bw_idx, lastnz_wire, lsb_mode, gg_idx2, num_tns, tns_order,
         ltpf_param, scf_idx, fac_ns_idx)
     out = ari.encode(cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx, num_tns,
                      lastnz_wire, lsb_mode, res_bits, n_res)

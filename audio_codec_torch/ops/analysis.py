@@ -28,12 +28,21 @@ I32 = torch.int32
 
 
 def resample_12k8(cfg: Config, x, mem_in, mem_50, mem_out):
-    """Returns (y [B, len_12k8+1], new_mem_in, new_mem_50, new_mem_out)."""
+    """Returns (y [B, len_12k8+1], new_mem_in, new_mem_50, new_mem_out).
+
+    On the CPU the product over [mem_in, x] is the sum of one product over
+    the memory and one over the frame, as XLA:CPU splits the reference's
+    product of a concatenation; the frame's product runs in 256-deep blocks
+    (read at 480 and 320 taps, tests/test_torch_analysis.py)."""
     n12k8 = cfg.frame_length * 12800 // cfg.fs
     R = nm.const(T.resampler_matrix(cfg.fs_idx, cfg.frame_length).T, x.device)
     buf = torch.cat([mem_in, x], dim=-1)
     new_mem_in = buf[:, cfg.frame_length:]
-    down = nm.dot(buf, R)                                   # [B, n12k8]
+    if nm.on_cpu(x):
+        n_mem = mem_in.shape[1]
+        down = nm.dot(mem_in, R[:n_mem]) + nm.dot(x, R[n_mem:], block=256)
+    else:
+        down = nm.dot(buf, R)                               # [B, n12k8]
 
     filt, new_mem_50 = hp50_biquad(down, mem_50)
 

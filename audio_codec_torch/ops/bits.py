@@ -5,12 +5,18 @@ The LC3plus frame packs side information backward from the frame end
 dec_entropy.c:121-270) while the arithmetic coder writes forward. The byte
 buffer is an int32 [B, nbytes] tensor; each bit write or read touches one
 byte per stream. Counterpart of `audio_codec_tpu/ops/bits.py`.
+
+`pack_side_info` and `parse_side_info` run as the CUDA kernels
+`side_info_pack` and `side_info_parse` (csrc/side_info.cuh) for tensors on a
+card, and as `pack_side_info_plain` and `parse_side_info_plain` on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..config import Config
+from . import numerics as nm
 
 I32 = torch.int32
 
@@ -68,12 +74,14 @@ def read_uint(buf, bp, mask, nbits, max_bits: int):
     return val, bp, mask
 
 
-def pack_side_info(cfg: Config, buf, bw_idx, lastnz, lsb_mode, gg_idx,
-                   num_tns_filters, tns_order, ltpf_param, scf_idx, fac_ns_idx):
-    """processEncoderEntropy_fl -> (buf, bp_side, mask_side).
-    buf: [B, nbytes] int32 zeroed; all other args [B] / [B, k] int32."""
-    B = buf.shape[0]
-    dev = buf.device
+def pack_side_info_plain(cfg: Config, bw_idx, lastnz, lsb_mode, gg_idx,
+                         num_tns_filters, tns_order, ltpf_param, scf_idx, fac_ns_idx):
+    """processEncoderEntropy_fl -> (buf, bp_side, mask_side), the plain
+    version of the `side_info_pack` kernel. All args [B] / [B, k] int32; buf
+    is a new [B, targetBytes] int32 buffer, zero but for the side bits."""
+    B = scf_idx.shape[0]
+    dev = scf_idx.device
+    buf = torch.zeros((B, cfg.targetBytes), dtype=I32, device=dev)
     bp = torch.full((B,), cfg.targetBytes - 1, dtype=I32, device=dev)
     mask = torch.ones((B,), dtype=I32, device=dev)
     w = write_uint_backward
@@ -116,8 +124,21 @@ def pack_side_info(cfg: Config, buf, bw_idx, lastnz, lsb_mode, gg_idx,
     return buf, bp, mask
 
 
-def parse_side_info(cfg: Config, buf):
-    """processDecoderEntropy_fl -> dict of parsed fields + (bp_side, mask_side).
+def pack_side_info(cfg: Config, bw_idx, lastnz, lsb_mode, gg_idx,
+                   num_tns_filters, tns_order, ltpf_param, scf_idx, fac_ns_idx):
+    """Side information of a frame -> (buf [B, targetBytes] int32, bp_side,
+    mask_side). The `side_info_pack` kernel for tensors on a card,
+    `pack_side_info_plain` on the CPU."""
+    args = (cfg, bw_idx, lastnz, lsb_mode, gg_idx, num_tns_filters, tns_order,
+            ltpf_param, scf_idx, fac_ns_idx)
+    if nm.on_cpu(scf_idx):
+        return pack_side_info_plain(*args)
+    return kernels.side_info_pack(*args)
+
+
+def parse_side_info_plain(cfg: Config, buf):
+    """processDecoderEntropy_fl -> dict of parsed fields + (bp_side, mask_side),
+    the plain version of the `side_info_parse` kernel.
     buf: [B, nbytes] int32; the reference's bfi triggers become a per-stream
     bfi flag (dec_entropy.c:152-270)."""
     B = buf.shape[0]
@@ -188,3 +209,12 @@ def parse_side_info(cfg: Config, buf):
                 lsb_mode=lsb_mode, gg_idx=gg_idx, tns_on=tns_on, num_tns=num_tns,
                 scf_idx=scf_idx, ltpf_param=ltpf_param, fac_ns_idx=fac_ns,
                 bp_side=bp, mask_side=mask)
+
+
+def parse_side_info(cfg: Config, buf):
+    """Frames [B, nbytes] int32 -> dict of the parsed side fields, bfi, and
+    the range decoder's (bp_side, mask_side). The `side_info_parse` kernel for
+    a tensor on a card, `parse_side_info_plain` on the CPU."""
+    if nm.on_cpu(buf):
+        return parse_side_info_plain(cfg, buf)
+    return kernels.side_info_parse(cfg, buf)

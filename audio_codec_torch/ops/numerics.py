@@ -30,6 +30,11 @@ What each CPU branch reproduces, and where the reference relies on it:
 - `div`: a division by a constant is a multiplication by the float32
   reciprocal.
 
+`chain_sum` and `chain_dot` are the other way round: the CPU keeps
+`torch.sum` and `dot`, and for a tensor on the card they fix the order of the
+additions, which `torch.sum` and `torch.matmul` leave to the library, so that
+the SNS quantizer's kernels can equal their plain versions bit for bit.
+
 File:line references are to `audio_codec_tpu/ops/`.
 """
 from __future__ import annotations
@@ -69,19 +74,21 @@ def _fma_chains(a64, m64, lo: int, hi: int, n_acc: int) -> torch.Tensor:
     return accs[0]
 
 
-def dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def dot(a: torch.Tensor, m: torch.Tensor, block: int | None = None) -> torch.Tensor:
     """a [..., K] @ m [K, N] in float32.
 
     On the CPU this is the accumulation order XLA:CPU was seen to use for
     the codec's constant operands: four interleaved chains for the 16-wide
-    SNS transforms, 256-deep blocks for the 540-tap resampler, 68-deep
-    blocks for the 480x480 DCT-IV of the IMDCT, one chain otherwise; each
+    SNS transforms, 68-deep blocks for the 480x480 DCT-IV of the IMDCT,
+    256-deep blocks for more than 512 terms, one chain otherwise; each
     block is one fused multiply-add chain from zero, and the blocks' sums
-    are added in order. XLA:CPU hands the IMDCT's product to YNNPACK, whose
-    blocks depend on the cores the process may use: the 68-deep blocks are
-    those of a process pinned to one core with XLA_FLAGS unset, read by
-    probing with cancelling operands (tests/test_torch_transforms.py holds
-    them to such a process), for more than one row of `a`."""
+    are added in order. A caller whose product was read to take another
+    depth states it in `block` (the resampler's frame taps). XLA:CPU hands
+    the IMDCT's product to YNNPACK, whose blocks depend on the cores the
+    process may use: the 68-deep blocks are those of a process pinned to one
+    core with XLA_FLAGS unset, read by probing with cancelling operands
+    (tests/test_torch_transforms.py holds them to such a process), for more
+    than one row of `a`."""
     if not on_cpu(a):
         return torch.matmul(a, m)
     K, N = m.shape
@@ -89,12 +96,38 @@ def dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     m64 = m.to(F64)
     if N == 16 and K <= 64:
         return _fma_chains(a64, m64, 0, K, 4)
-    block = 68 if (K, N) == (480, 480) else 256 if K > 512 else K
+    if block is None:
+        block = 68 if (K, N) == (480, 480) else 256 if K > 512 else K
     out = None
     for lo in range(0, K, block):
         part = _fma_chains(a64, m64, lo, min(K, lo + block), 1)
         out = part if out is None else out + part
     return out
+
+
+def chain_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over `dim`. On the card one left-to-right chain of separately
+    rounded adds from the first term: the order is written down, so that a
+    kernel can follow it bit for bit. `torch.sum` on the CPU."""
+    if on_cpu(v):
+        return torch.sum(v, dim=dim)
+    terms = v.unbind(dim)
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc
+
+
+def chain_dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ m [K, N]. On the card a k-ascending chain of separately
+    rounded products and adds from the first product (see chain_sum); `dot`
+    on the CPU."""
+    if on_cpu(a):
+        return dot(a, m)
+    acc = a[..., 0:1] * m[0]
+    for k in range(1, m.shape[0]):
+        acc = acc + a[..., k: k + 1] * m[k]
+    return acc
 
 
 _LOG2EF = 1.44269504088896341

@@ -7,6 +7,16 @@
 
 Counterparts of `audio_codec_tpu/ops/sns.py`; the searches are masked
 argmin/argmax over the fixed codebooks and fixed-trip pulse loops.
+
+The vector quantizer's encoder and decoder run as the CUDA kernels
+`sns_vq_enc` and `sns_vq_dec` (csrc/sns_vq_enc.cu, csrc/sns_vq_dec.cu) for
+tensors on a card, and as `sns_vq_enc_plain` and `sns_vq_dec_plain` on the
+CPU. The kernels must give the plain versions' indices and scale factors bit
+for bit, so on a card the plain versions state their float order: sums and
+the 16-wide products are chains in index order of separately rounded
+operations (`numerics.chain_sum`, `numerics.chain_dot`), and `reciprocal`,
+`sqrt` and `/` are IEEE operations there. On the CPU they keep the order that
+reproduces the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from .. import tables as T
 from ..config import Config
 from . import numerics as nm
@@ -22,6 +33,10 @@ from . import numerics as nm
 F32 = torch.float32
 I32 = torch.int32
 M = T.SNS_M
+
+
+def _sq(v: torch.Tensor) -> torch.Tensor:
+    return v * v
 
 
 def _first_argmin(v: torch.Tensor) -> torch.Tensor:
@@ -101,20 +116,20 @@ def _pvq_subpyr_search(x, dim: int, pulses: int):
     zero = torch.zeros((), dtype=F32, device=dev)
     xa = torch.where(lane, torch.abs(x), zero)
     xsign = torch.where(x >= 0, 1, -1).to(I32)
-    xsum = torch.sum(xa, dim=-1)
+    xsum = nm.chain_sum(xa)
     eps = nm.f32(2.0 ** -24)
 
-    proj_fac = (pulses - 1) / xsum[:, None]
+    proj_fac = torch.reciprocal(xsum[:, None]) * (pulses - 1)
     y = torch.where(lane, torch.floor(xa * proj_fac), zero)
     y = torch.where((xsum > eps)[:, None], y, zero)
-    pulse_tot = torch.sum(y, dim=-1)
-    yy = torch.sum(y * y, dim=-1) * 0.5
-    xy = torch.sum(xa * y, dim=-1)
+    pulse_tot = nm.chain_sum(y)
+    yy = nm.chain_sum(y * y) * 0.5
+    xy = nm.chain_sum(xa * y)
 
     for _ in range(pulses):
         need = pulse_tot < pulses
         yy1 = yy + 0.5
-        xy2 = (xy[:, None] + xa) ** 2
+        xy2 = _sq(xy[:, None] + xa)
         yyt = yy1[:, None] + y
         best = torch.zeros((B,), dtype=torch.long, device=dev)
         bn = torch.full((B,), -(2.0 ** 15), dtype=F32, device=dev)
@@ -138,12 +153,12 @@ def _pvq_subpyr_search(x, dim: int, pulses: int):
     if dim > 1:
         # the C writes y[dim] (one past the active range, sns_quantize_scf.c:121)
         y_deg[:, min(dim, M - 1)] = -(pulses - pulses // 2)
-    yy_deg = torch.sum(y_deg * y_deg, dim=-1)
+    yy_deg = nm.chain_sum(y_deg * y_deg)
     use_deg = xsum <= eps
     y = torch.where(use_deg[:, None], y_deg, y)
     yy = torch.where(use_deg, yy_deg, yy)
 
-    gain = 1.0 / torch.sqrt(yy)
+    gain = torch.reciprocal(torch.sqrt(yy))
     y_signed = (y * xsign).to(I32)
     return y_signed, y_signed.to(F32) * gain[:, None]
 
@@ -200,16 +215,17 @@ def _pvq_dec(k: int, m: int, ls_ind, mpvq_ind):
     return pulses.to(I32)
 
 
-def quantize_scf_enc(cfg: Config, scf):
-    """SNS-VQ encoder (process_snsQuantizesScf_Enc).
-    scf: [B, 16]. Returns (scf_idx [B, 7] i32, scf_q [B, 16])."""
+def sns_vq_enc_plain(scf):
+    """SNS-VQ encoder (process_snsQuantizesScf_Enc), the plain version of the
+    `sns_vq_enc` kernel. scf: [B, 16]. Returns (scf_idx [B, 7] i32, scf_q
+    [B, 16])."""
     B = scf.shape[0]
     dev = scf.device
     C1 = nm.const(T.t("sns_C1"), dev)                          # [8, 32]
     C2 = nm.const(T.t("sns_C2"), dev)
 
     def vq_half(target, cb):
-        d = torch.sum((target[:, :, None] - cb[None, :, :]) ** 2, dim=1)
+        d = nm.chain_sum(_sq(target[:, :, None] - cb[None, :, :]), dim=1)
         return _first_argmin(d).to(I32)
 
     i0 = vq_half(scf[:, :8], C1)
@@ -219,13 +235,13 @@ def quantize_scf_enc(cfg: Config, scf):
     target_pre = scf - st1
     D2 = nm.const(T.dct2_matrix(M), dev)
     D2t = nm.const(T.dct2_matrix(M).T, dev)
-    pvq_target = nm.dot(target_pre, D2t)
+    pvq_target = nm.chain_dot(target_pre, D2t)
 
     yA, enA = _pvq_subpyr_search(pvq_target, 10, 10)
     tail = torch.cat([pvq_target[:, 10:], torch.zeros((B, 10), dtype=F32, device=dev)], -1)
     yB, _ = _pvq_subpyr_search(tail, 6, 1)
     yC = torch.cat([yA[:, :10], yB[:, :6]], dim=-1)
-    gain_fac = 1.0 / torch.sqrt(torch.sum((yC * yC).to(F32), dim=-1))
+    gain_fac = torch.reciprocal(torch.sqrt(nm.chain_sum((yC * yC).to(F32))))
     yC_n = yC.to(F32) * gain_fac[:, None]
 
     reg_g = np.concatenate([T.t("sns_vq_reg_adj_gains_fl"),
@@ -234,13 +250,13 @@ def quantize_scf_enc(cfg: Config, scf):
     enA10 = torch.cat([enA[:, :10], torch.zeros((B, 6), dtype=F32, device=dev)], -1)
     cand = torch.stack([yC_n * nm.f32(reg_g[0]), yC_n * nm.f32(reg_g[1])]
                        + [enA10 * nm.f32(reg_g[2 + i]) for i in range(4)], dim=1)
-    errs = torch.sum((pvq_target[:, None, :] - cand) ** 2, dim=-1)
+    errs = nm.chain_sum(_sq(pvq_target[:, None, :] - cand))
     idx_g = _first_argmin(errs).to(I32)
     glob_gain = nm.const(q_g, dev)[idx_g.long()]
     chosen = torch.gather(cand, 1, idx_g.long()[:, None, None].expand(B, 1, M))[:, 0] \
         / glob_gain[:, None]
-    st2_split = nm.dot(chosen, D2)
-    err_split = torch.sum((target_pre - glob_gain[:, None] * st2_split) ** 2, dim=-1)
+    st2_split = nm.chain_dot(chosen, D2)
+    err_split = nm.chain_sum(_sq(target_pre - glob_gain[:, None] * st2_split))
 
     idx2 = torch.where(idx_g <= 1, 0, 1).to(I32)
     idx3 = torch.where(idx_g <= 1, idx_g, idx_g - 2).to(I32)
@@ -251,9 +267,9 @@ def quantize_scf_enc(cfg: Config, scf):
     for dim_k, pulses_k, gains_name, sub in ((16, 8, "sns_vq_near_adj_gains_fl", 2),
                                              (16, 6, "sns_vq_far_adj_gains_fl", 3)):
         yO, enO = _pvq_subpyr_search(pvq_target, dim_k, pulses_k)
-        st2O = nm.dot(enO, D2)
+        st2O = nm.chain_dot(enO, D2)
         gains = T.t(gains_name)
-        errsO = torch.stack([torch.sum((target_pre - nm.f32(g) * st2O) ** 2, dim=-1)
+        errsO = torch.stack([nm.chain_sum(_sq(target_pre - nm.f32(g) * st2O))
                              for g in gains], dim=1)
         iO = _first_argmin(errsO).to(I32)
         eO = torch.gather(errsO, 1, iO.long()[:, None])[:, 0]
@@ -279,8 +295,18 @@ def quantize_scf_enc(cfg: Config, scf):
     return scf_idx, st1 + st2
 
 
-def quantize_scf_dec(scf_idx):
-    """SNS-VQ decoder (process_snsQuantizesScf_Dec): [B,7] i32 -> [B,16]."""
+def quantize_scf_enc(cfg: Config, scf):
+    """SNS-VQ encoder: scf [B, 16] -> (scf_idx [B, 7] i32, scf_q [B, 16]).
+    The `sns_vq_enc` kernel for a tensor on a card, `sns_vq_enc_plain` on
+    the CPU."""
+    if nm.on_cpu(scf):
+        return sns_vq_enc_plain(scf)
+    return kernels.sns_vq_enc(scf.contiguous())
+
+
+def sns_vq_dec_plain(scf_idx):
+    """SNS-VQ decoder (process_snsQuantizesScf_Dec), the plain version of
+    the `sns_vq_dec` kernel: [B,7] i32 -> [B,16]."""
     dev = scf_idx.device
     C1 = nm.const(T.t("sns_C1"), dev)
     C2 = nm.const(T.t("sns_C2"), dev)
@@ -295,12 +321,20 @@ def quantize_scf_dec(scf_idx):
     p_s3 = _pvq_dec(6, 16, ls, mpvq)
     pulses = torch.where((sub < 2)[:, None], p_s0_full,
                          torch.where((sub == 2)[:, None], p_s2, p_s3))
-    norm = torch.sqrt(torch.sum((pulses * pulses).to(F32), dim=-1))
+    norm = torch.sqrt(nm.chain_sum((pulses * pulses).to(F32)))
     v = pulses.to(F32) / norm[:, None]
-    v = nm.dot(v, nm.const(T.dct2_matrix(M), dev))
+    v = nm.chain_dot(v, nm.const(T.dct2_matrix(M), dev))
     gains = nm.const(T.t("sns_dec_gains"), dev)                # [4, 8]
     g = gains[sub.clamp(0, 3).long(), gidx.clamp(0, 7).long()]
     return nm.fma(g[:, None], v, st1)
+
+
+def quantize_scf_dec(scf_idx):
+    """SNS-VQ decoder: scf_idx [B, 7] i32 -> scf_q [B, 16]. The `sns_vq_dec`
+    kernel for a tensor on a card, `sns_vq_dec_plain` on the CPU."""
+    if nm.on_cpu(scf_idx):
+        return sns_vq_dec_plain(scf_idx)
+    return kernels.sns_vq_dec(scf_idx.contiguous())
 
 
 @functools.cache

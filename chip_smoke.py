@@ -11,8 +11,12 @@ audio_codec_torch/csrc, and checks it:
                every launch of a --frames run of the main path (speech,
                music, noise); every kernel but ltpf_postfilter must match
                exactly (bit_estimate in both of its modes), ltpf_postfilter
-               within LTPF_TOL on the +-32768 scale, and each of the
-               post-filter's five cases must occur;
+               within LTPF_TOL on the +-32768 scale; each of the
+               post-filter's five cases, TNS filters of order 8, every SNS
+               submode 0-3, LTPF on and off and one and two TNS filters in
+               the side information must occur; then the side-info parser on
+               frames that fire each of its bad-frame triggers, and the SNS
+               quantizer on all-zero and silent-residual rows;
   4. main path encode_block + decode_block at --streams x --frames with the
                launch counters read around it; on a few streams over all
                frames the kernel path's payload must equal the plain path's
@@ -22,9 +26,11 @@ audio_codec_torch/csrc, and checks it:
                CPU_FRAMES_DIFFER_MAX share, and PCM within +-CPU_PCM_TOL from
                the card's payloads; a segmental SNR of the decoded material;
   5. times     CUDA-event times of each kernel (the median of TIME_LOOPS
-               loops of TIME_LAUNCHES launches, with their min and max) and
-               of its plain version, and of the encode and decode blocks, as
-               real-time stream equivalents;
+               loops of TIME_LAUNCHES launches, with their min and max; and
+               the same launches replayed from a CUDA graph, which is the
+               device's time where the host launches slower than the kernel
+               runs) and of its plain version, and of the encode and decode
+               blocks, as real-time stream equivalents;
   6. a JSON line with one entry per kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -69,6 +75,14 @@ KERNEL_INFO = {
                               "audio_codec_tpu/ops/tns.py:276"),
     "hp50_biquad": ("audio_codec_torch/csrc/hp50_biquad.cu",
                     "audio_codec_tpu/ops/analysis.py:57"),
+    "side_info_pack": ("audio_codec_torch/csrc/side_info_pack.cu",
+                       "audio_codec_tpu/ops/bits.py:66"),
+    "side_info_parse": ("audio_codec_torch/csrc/side_info_parse.cu",
+                        "audio_codec_tpu/ops/bits.py:123"),
+    "sns_vq_dec": ("audio_codec_torch/csrc/sns_vq_dec.cu",
+                   "audio_codec_tpu/ops/sns.py:311"),
+    "sns_vq_enc": ("audio_codec_torch/csrc/sns_vq_enc.cu",
+                   "audio_codec_tpu/ops/sns.py:214"),
 }
 
 
@@ -128,10 +142,27 @@ def cuda_ms_spread(fn) -> tuple[float, float, float]:
     return statistics.median(loops), min(loops), max(loops)
 
 
-def bits(t):
-    """A tensor's values as integers: the bit patterns of float32."""
+def graph_ms(fn) -> float:
+    """ms per call of TIME_LAUNCHES calls captured in one CUDA graph and
+    replayed: the device's time for the calls back to back, which the loops
+    of cuda_ms cannot show for a kernel shorter than the host's time to
+    launch it."""
     import torch
-    return t.view(torch.int32) if t.dtype == torch.float32 else t.to(torch.int64)
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIME_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / TIME_LAUNCHES
 
 
 def outputs(res) -> list:
@@ -148,9 +179,9 @@ def nbytes(*ts) -> int:
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the eight kernel call sites to their plain versions, so the main
+    """Route the kernels' call sites to their plain versions, so the main
     path runs on the card without the kernels (the reference for phase 4)."""
-    from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
+    from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, quant, sns, tns
     sites = [(quant, "bit_estimate", quant.bit_estimate_plain),
              (ari, "encode", lambda cfg, *a: ari.encode_plain(cfg, *a)),
              (ari, "decode", lambda cfg, buf, side, *a, **k: ari.decode_plain(cfg, buf, side)),
@@ -158,7 +189,11 @@ def plain_path():
              (quant, "gain_bisection", quant.gain_bisection_plain),
              (tns, "tns_analysis_lattice", tns.tns_analysis_lattice_plain),
              (tns, "tns_synthesis_lattice", tns.tns_synthesis_lattice_plain),
-             (analysis, "hp50_biquad", analysis.hp50_biquad_plain)]
+             (analysis, "hp50_biquad", analysis.hp50_biquad_plain),
+             (bits, "pack_side_info", bits.pack_side_info_plain),
+             (bits, "parse_side_info", bits.parse_side_info_plain),
+             (sns, "quantize_scf_dec", sns.sns_vq_dec_plain),
+             (sns, "quantize_scf_enc", lambda cfg, scf: sns.sns_vq_enc_plain(scf))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, plain in sites:
         setattr(mod, name, plain)
@@ -216,10 +251,58 @@ def segmental_snr(ref, out, n: int) -> tuple[float, int]:
     return float(np.mean(snrs)), best
 
 
+def side_bits(cfg, num_tns, submode, ltpf_on):
+    """Side-information bits of each of these frames (fields of fixed width,
+    the TNS flags, the submode's gain and joint index, the LTPF pitch)."""
+    import torch
+    fixed = cfg.BW_cutoff_bits + cfg.lastnz_bits + 1 + 8 + 1 + 5 + 5 + 1 + 1 + 3
+    return fixed + num_tns + torch.where(submode < 2, 1 + 25, 2 + 24) + 10 * ltpf_on
+
+
+def parsed_side_bits(args):
+    """side_bits of the frames that this side_info_parse launch reads."""
+    from audio_codec_torch import kernels as K
+    side = K.side_info_parse(*args)
+    return side_bits(args[0], side["num_tns"], side["scf_idx"][:, 2], side["ltpf_param"][:, 0])
+
+
+def sns_enc_ops(scf, scf_idx) -> float:
+    """Operations of sns_vq_enc on these rows: the codebook searches, four
+    transforms and 18 gain candidates are fixed; each pulse search scans its
+    lanes once for every pulse its projection left to place."""
+    import torch
+    from audio_codec_torch import tables as T
+    dev = scf.device
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    C1, C2, D2 = f(T.t("sns_C1")), f(T.t("sns_C2")), f(T.dct2_matrix(16))
+    st1 = torch.cat([C1[:, scf_idx[:, 0].long()].T, C2[:, scf_idx[:, 1].long()].T], dim=-1)
+    target = (scf - st1) @ D2.T
+    ops = scf.shape[0] * (2 * 32 * 8 * 3 + 4 * 512 + 18 * 16 * 4 + 4 * 150 + 100)
+    for lo, dim, pulses in ((0, 10, 10), (10, 6, 1), (0, 16, 8), (0, 16, 6)):
+        xa = target[:, lo: lo + dim].abs()
+        placed = torch.floor(xa * ((pulses - 1) / xa.sum(-1, keepdim=True))).sum(-1)
+        left = (pulses - torch.nan_to_num(placed, nan=float(pulses))).clamp(0, pulses)
+        ops += float(left.sum()) * dim * 7
+    return float(ops)
+
+
 def work_ops(name: str, args) -> float:
     """Scalar operations the kernel does on these inputs (approximate, from
-    the data: symbols coded, tuples visited, samples filtered)."""
+    the data: symbols coded, tuples visited, samples filtered, bits written,
+    pulses placed)."""
     import torch
+    from audio_codec_torch import kernels as K
+    if name == "side_info_pack":
+        cfg, num_tns, ltpf, scf_idx = args[0], args[5], args[7], args[8]
+        return 8 * float(side_bits(cfg, num_tns, scf_idx[:, 2], ltpf[:, 0]).sum())
+    if name == "side_info_parse":
+        return 8 * float(parsed_side_bits(args).sum())
+    if name == "sns_vq_dec":
+        sub = args[0][:, 2].clamp(0, 3).long()
+        deindex = torch.tensor([10 * 21 + 6 * 12, 10 * 21, 16 * 19, 16 * 17], device=sub.device)
+        return float((deindex[sub] + 576).sum())
+    if name == "sns_vq_enc":
+        return sns_enc_ops(args[0], K.sns_vq_enc(*args)[0])
     if name == "gain_bisection":
         return float(8 * args[0].numel() * 4)       # 8 halvings x (sub, compare, 2 ops)
     if name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
@@ -244,6 +327,62 @@ def work_ops(name: str, args) -> float:
     return float(((lev + 1) * per).sum())
 
 
+def same_bits(got, ref, what: str):
+    """got equals ref bit for bit (dicts key for key); two NaNs are equal."""
+    from tests.torch_kernel_cases import count_differing
+    bad = count_differing(got, ref)
+    check(bad == 0, f"{what}: {bad} values differ from the plain version")
+
+
+def synthetic_cases(cfg, dev, K, side, sns):
+    """Cases clean material never reaches (tests/torch_kernel_cases.py):
+    frames that fire each of the parser's bad-frame triggers, the quantizer's
+    decoder on every submode's first and last index, its encoder on an
+    all-zero row and on rows whose residual is silent (every pulse search
+    takes its silent-target branch)."""
+    import numpy as np
+    import torch
+    from tests import torch_kernel_cases as C
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cases = {"clean": C.side_fields(cfg, 256, seed=3),
+             **{trig: C.corrupt_fields(cfg, trig, 32) for trig in C.BFI_TRIGGERS}}
+    for what, f in cases.items():
+        args = (cfg, *(g(np.asarray(f[k], np.int32)) for k in C.FIELD_ORDER))
+        packed, ref = K.side_info_pack(*args), side.pack_side_info_plain(*args)
+        same_bits(packed, ref, f"side_info_pack ({what})")
+        got, ref = K.side_info_parse(cfg, packed[0]), side.parse_side_info_plain(cfg, packed[0])
+        torch.cuda.synchronize()
+        same_bits(got, ref, f"side_info_parse ({what})")
+        fired = got["bfi"].tolist()
+        check(fired == [0 if what == "clean" else 1] * len(fired),
+              f"side_info_parse ({what}): bfi {fired}")
+    rows = torch.randint(0, 256, (4096, cfg.targetBytes), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    got = K.side_info_parse(cfg, rows)
+    same_bits(got, side.parse_side_info_plain(cfg, rows), "side_info_parse (random bytes)")
+    print(f"[kernels] side_info_parse: each of {len(C.BFI_TRIGGERS)} bad-frame triggers fires and "
+          f"equals the plain version; random bytes: bfi in {int(got['bfi'].sum())} of 4096 rows",
+          flush=True)
+
+    grid = g(np.concatenate([C.scf_idx_grid(sub, 64, seed=7) for sub in range(4)]))
+    q = K.sns_vq_dec(grid)
+    same_bits(q, sns.sns_vq_dec_plain(grid), "sns_vq_dec (index grid)")
+    check(bool(torch.isfinite(q).all()), "sns_vq_dec (index grid): not finite")
+    n_seeded = 400
+    scf = g(C.scf_rows(0, n_seeded))
+    got, ref = K.sns_vq_enc(scf), sns.sns_vq_enc_plain(scf)
+    torch.cuda.synchronize()
+    same_bits(got, ref, "sns_vq_enc (all-zero, silent-residual and decoded rows)")
+    check(not bool(scf[n_seeded].any()), "the all-zero row is not where it is expected")
+    check(got[0][n_seeded + 1: n_seeded + 3, :2].tolist() == [[3, 17], [31, 0]],
+          "sns_vq_enc: a codebook row did not find its own stage-1 indices")
+    back = torch.bincount(got[0][-16:, 2].long(), minlength=4).tolist()
+    check(all(v > 0 for v in back), f"sns_vq_enc: a decoded submode was not found again: {back}")
+    print(f"[kernels] sns_vq_dec on {grid.shape[0]} grid indices and sns_vq_enc on an all-zero "
+          f"row, silent-residual rows and the decoded rows equal their plain versions; "
+          f"submodes found again {back}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -262,7 +401,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import audio_codec_torch as P
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
+    from audio_codec_torch.ops import analysis, ari, bits as side, ltpf_dec, quant, sns, tns
 
     # ---- 1. card ----
     try:
@@ -310,12 +449,27 @@ def main() -> int:
         hist = torch.bincount(orders.clamp(0, 8).long(), minlength=9).tolist()
         print(f"[kernels] {name}: filters of order 0..8 over {T} frames: {hist}", flush=True)
         check(hist[8] > 0, f"{name}: no filter of order 8 on the main path")
+    # the material must reach every SNS submode, LTPF on and off, and frames
+    # with one and with two TNS filters (fields of per-stream width)
+    sent = [args for args, _ in rec["side_info_pack"]]
+    submodes = torch.bincount(torch.cat([a[8][:, 2] for a in sent]).long(), minlength=4).tolist()
+    filters = torch.bincount(torch.cat([a[5] for a in sent]).long(), minlength=3).tolist()
+    ltpf_flags = torch.bincount(torch.cat([a[7][:, 0] for a in sent]).long(), minlength=2).tolist()
+    print(f"[kernels] side information over {T} frames: SNS submodes 0..3 {submodes}, "
+          f"TNS filters 0..2 {filters}, LTPF off/on {ltpf_flags}", flush=True)
+    check(len(submodes) == 4 and all(v > 0 for v in submodes),
+          f"an SNS submode never occurred: {submodes}")
+    check(filters[1] > 0 and filters[2] > 0, f"one or two TNS filters never occurred: {filters}")
+    check(all(v > 0 for v in ltpf_flags), f"LTPF was never on or never off: {ltpf_flags}")
     plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
              "ari_decode": ari.decode_plain, "ltpf_postfilter": ltpf_dec.ltpf_postfilter_plain,
              "gain_bisection": quant.gain_bisection_plain,
              "tns_analysis_lattice": tns.tns_analysis_lattice_plain,
              "tns_synthesis_lattice": tns.tns_synthesis_lattice_plain,
-             "hp50_biquad": analysis.hp50_biquad_plain}
+             "hp50_biquad": analysis.hp50_biquad_plain,
+             "side_info_pack": side.pack_side_info_plain,
+             "side_info_parse": side.parse_side_info_plain,
+             "sns_vq_dec": sns.sns_vq_dec_plain, "sns_vq_enc": sns.sns_vq_enc_plain}
     errs = {}
     for name in K.KERNELS:
         err = 0.0
@@ -330,15 +484,15 @@ def main() -> int:
             if name == "ltpf_postfilter":
                 check(e <= LTPF_TOL, f"{name}: max |diff| {e} > {LTPF_TOL}")
             else:
-                differ = [int((bits(g) != bits(r)).sum()) for g, r in pairs]
-                check(not any(differ), f"{name}: differs from its plain version in "
-                                       f"{differ} values, max |diff| {e}")
+                same_bits(got, ref, f"{name} (max |diff| {e})")
             err = max(err, e)
         errs[name] = err
         what = f"modes {modes}" if name == "bit_estimate" else ""
         shape = next(tuple(a.shape) for a in rec[name][0][0] if isinstance(a, torch.Tensor))
         print(f"[kernels] {name}: max |kernel - plain| = {err} over {len(rec[name])} "
               f"launches at {shape} {what}", flush=True)
+
+    synthetic_cases(cfg, dev, K, side, sns)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)
@@ -411,12 +565,19 @@ def main() -> int:
     for name in K.KERNELS:
         args, kw = rec[name][-1]   # the last frame's launch
         ms, ms_min, ms_max = cuda_ms_spread(lambda: getattr(K, name)(*args, **kw))
+        gms = graph_ms(lambda: getattr(K, name)(*args, **kw))
         pms = cuda_ms(lambda: plain[name](*args, **kw), 2)
         outs = outputs(getattr(K, name)(*args, **kw))
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         if name == "ari_decode":
             ins += [v for v in args[2].values() if isinstance(v, torch.Tensor)]
-        byts = nbytes(*ins, *outs)
+        if name == "side_info_parse":
+            # Of each row the parser needs only the bytes that hold its side
+            # bits (one int32 word each), not the whole frame.
+            words = torch.div(parsed_side_bits(args) + 7, 8, rounding_mode="floor")
+            byts = 4 * int(words.sum()) + nbytes(*outs)
+        else:
+            byts = nbytes(*ins, *outs)
         ops = work_ops(name, args)
         b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
         src, replaces = KERNEL_INFO[name]
@@ -424,9 +585,10 @@ def main() -> int:
                          launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops else "operations",
-                         library_ms=None))
+                         library_ms=None, graph_ms=gms))
         print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
-              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}), plain {pms:.2f} ms, "
+              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
+              f"a CUDA graph), plain {pms:.2f} ms, "
               f"bound {max(b_bytes, b_ops):.6f} ms ({byts} B, {ops:.3g} ops)", flush=True)
 
     st = P.enc_state_init(cfg, B, device=dev)

@@ -26,13 +26,62 @@ def close(got, ref, rel=2.0 ** -16):
 
 @pytest.mark.parametrize("frame", [0, 1])
 def test_resample_12k8(frame):
-    """The 50 Hz high-pass is a recursion with poles near 1: it carries a
-    one-ulp difference of a step into every later sample and its state is a
-    difference of large terms, so its outputs are held to 2**-11 of the
-    peak (the resampling product itself is exact)."""
+    """Bit for bit: the port's CPU branch follows XLA:CPU's split of the
+    product over [mem_in, x] (a 60-tap product plus a 480-tap one in 256-deep
+    blocks) and its contraction of the 50 Hz high-pass, a recursion with
+    poles near 1 that would carry a one-ulp difference into every later
+    sample. This holds for 2 to 5 streams (see the tests below)."""
     r = encoder_stages()[frame]
     s = r["state"]
     args = (r["x"], s["r12k8_mem_in"], s["r12k8_mem_50"], s["r12k8_mem_out"])
+    ref = J(JA.resample_12k8, JCFG)(*args)
+    got = PA.resample_12k8(PCFG, *map(t, args))
+    for g, e in zip(got, ref):
+        np.testing.assert_array_equal(n(g).view(np.int32), np.asarray(e).view(np.int32))
+
+
+def resampler_inputs(B: int):
+    rng = np.random.default_rng(B)
+    f = lambda n, scale: (rng.standard_normal((B, n)) * scale).astype(np.float32)
+    return f(480, 3000.0), f(60, 3000.0), f(2, 100.0), f(24, 100.0)
+
+
+@pytest.mark.parametrize("B", [2, 3, 5])
+def test_resample_12k8_bit_exact_for_2_to_5_streams(B):
+    args = resampler_inputs(B)
+    ref = J(JA.resample_12k8, JCFG)(*args)
+    got = PA.resample_12k8(PCFG, *map(t, args))
+    for g, e in zip(got, ref):
+        np.testing.assert_array_equal(n(g).view(np.int32), np.asarray(e).view(np.int32))
+
+
+@pytest.mark.parametrize("fs,bitrate,frame_dms", [
+    (32000, 64000, 100), (24000, 48000, 100), (16000, 32000, 100),
+    (48000, 64000, 50), (48000, 64000, 25)])
+def test_resample_12k8_bit_exact_at_other_frame_lengths(fs, bitrate, frame_dms):
+    """The split and the 256-deep blocks of the frame's product hold at the
+    other frame lengths too: 320 taps (32 kHz) is the one besides 480 that is
+    longer than a block; the shorter frames are one chain either way."""
+    jcfg = JConfig(fs_in=fs, bitrate=bitrate, frame_dms=frame_dms)
+    pcfg = P.Config(fs_in=fs, bitrate=bitrate, frame_dms=frame_dms)
+    n_mem = P.enc_state_init(pcfg, 3, device="cpu").r12k8_mem_in.shape[1]
+    rng = np.random.default_rng(fs + frame_dms)
+    f = lambda k, scale: (rng.standard_normal((3, k)) * scale).astype(np.float32)
+    args = f(jcfg.frame_length, 3000.0), f(n_mem, 3000.0), f(2, 100.0), f(24, 100.0)
+    ref = J(JA.resample_12k8, jcfg)(*args)
+    got = PA.resample_12k8(pcfg, *map(t, args))
+    for g, e in zip(got, ref):
+        np.testing.assert_array_equal(n(g).view(np.int32), np.asarray(e).view(np.int32))
+
+
+@pytest.mark.parametrize("B", [1, 6, 8, 16])
+def test_resample_12k8_other_stream_counts(B):
+    """XLA:CPU compiles the function otherwise for one stream and for six or
+    more (other vector widths, other contractions); the port follows the
+    form it takes for 2 to 5 streams, so these are held to 2**-11 of the
+    peak (the high-pass carries a one-ulp difference into every later
+    sample)."""
+    args = resampler_inputs(B)
     ref = J(JA.resample_12k8, JCFG)(*args)
     got = PA.resample_12k8(PCFG, *map(t, args))
     np.testing.assert_array_equal(n(got[1]), np.asarray(ref[1]))

@@ -57,8 +57,7 @@ def coder_inputs(frame: int, bitrate: int):
 def test_pack_side_info_and_encode_bytes_exact(frame, bitrate):
     jcfg, pcfg, args, side_args = coder_inputs(frame, bitrate)
     B = args[0].shape[0]
-    got = PB.pack_side_info(pcfg, t(np.zeros((B, pcfg.targetBytes), np.int32)),
-                            t(side_args[0]), t(side_args[1]), t(side_args[2]),
+    got = PB.pack_side_info(pcfg, t(side_args[0]), t(side_args[1]), t(side_args[2]),
                             t(np.full((B,), 170, np.int32)), *map(t, side_args[3:]))
     for g, e in zip(got, args[:3]):
         eq(g, e)

@@ -10,7 +10,10 @@ modes). Every kernel but ltpf_postfilter must match bit for bit;
 ltpf_postfilter within 1e-2 on the +-32768 PCM scale (the kernel fuses each
 tap's multiply-add, the plain version on the card rounds the product first).
 Synthetic cases add what the main path may not reach: TNS filters of order 8
-in both ranges, and a stream whose gain bisection never leaves `iszero`."""
+in both ranges, a stream whose gain bisection never leaves `iszero`, every
+SNS submode with its field widths, the pulse search's silent-target branch,
+and frames that fire each of the side-info parser's bad-frame triggers
+(tests/torch_kernel_cases.py)."""
 from __future__ import annotations
 
 import wave
@@ -23,7 +26,9 @@ import torch
 import audio_codec_torch as P
 from audio_codec_torch import kernels as K
 from audio_codec_torch import tables as T
-from audio_codec_torch.ops import analysis, ari, ltpf_dec, quant, tns
+from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, quant, sns, tns
+
+from tests import torch_kernel_cases as C
 
 pytestmark = pytest.mark.gpu
 
@@ -227,6 +232,97 @@ def test_hp50_biquad_matches_plain(recorded):
         assert same_bits(y, ry) and same_bits(mem, rmem)
 
 
+def same_tensors(got, ref):
+    """Every output equal bit for bit; two NaNs count as equal."""
+    bad = C.count_differing(got, ref)
+    assert bad == 0, f"{bad} values differ"
+
+
+def pack_args(cfg, fields: dict, dev):
+    return (cfg, *(torch.from_numpy(np.asarray(fields[k], np.int32)).to(dev)
+                   for k in C.FIELD_ORDER))
+
+
+def test_side_info_kernels_match_plain_on_the_main_path(recorded):
+    assert len(recorded["side_info_pack"]) == 8 and len(recorded["side_info_parse"]) == 1
+    for args, _ in recorded["side_info_pack"]:
+        same_tensors(K.side_info_pack(*args), bits.pack_side_info_plain(*args))
+    (args, _), = recorded["side_info_parse"]
+    got = K.side_info_parse(*args)
+    same_tensors(got, bits.parse_side_info_plain(*args))
+    assert int(got["bfi"].sum()) == 0
+
+
+@pytest.mark.parametrize("name", list(C.CONFIGS))
+def test_side_info_pack_per_stream_widths(dev, name):
+    """Every submode's gain and index widths, LTPF on and off, one and two
+    TNS filters; with and without the bandwidth field, and a 2.5 ms frame."""
+    cfg = P.Config(**C.CONFIGS[name])
+    fields = C.side_fields(cfg, 256, seed=3)
+    args = pack_args(cfg, fields, dev)
+    packed = K.side_info_pack(*args)
+    same_tensors(packed, bits.pack_side_info_plain(*args))
+    got = K.side_info_parse(cfg, packed[0])
+    same_tensors(got, bits.parse_side_info_plain(cfg, packed[0]))
+    assert int(got["bfi"].sum()) == 0
+    assert torch.equal(got["scf_idx"], args[8]) and torch.equal(got["ltpf_param"], args[7])
+    assert torch.equal(got["bp_side"], packed[1]) and torch.equal(got["mask_side"], packed[2])
+
+
+@pytest.mark.parametrize("trigger", C.BFI_TRIGGERS)
+def test_side_info_parse_bad_frame_triggers(dev, trigger):
+    packed = bits.pack_side_info_plain(*pack_args(CFG, C.corrupt_fields(CFG, trigger, 32), dev))
+    got = K.side_info_parse(CFG, packed[0])
+    same_tensors(got, bits.parse_side_info_plain(CFG, packed[0]))
+    assert bool((got["bfi"] == 1).all())
+
+
+def test_side_info_parse_random_bytes(dev):
+    rows = torch.randint(0, 256, (4096, CFG.targetBytes), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    same_tensors(K.side_info_parse(CFG, rows), bits.parse_side_info_plain(CFG, rows))
+
+
+def test_sns_vq_kernels_match_plain_on_the_main_path(recorded):
+    assert len(recorded["sns_vq_enc"]) == 8 and len(recorded["sns_vq_dec"]) == 8
+    seen = torch.zeros(4, dtype=torch.long)
+    for args, _ in recorded["sns_vq_enc"]:
+        got = K.sns_vq_enc(*args)
+        same_tensors(got, sns.sns_vq_enc_plain(*args))
+        seen += torch.bincount(got[0][:, 2].long().cpu(), minlength=4)
+    assert bool((seen > 0).all()), seen.tolist()
+    for args, _ in recorded["sns_vq_dec"]:
+        same_tensors([K.sns_vq_dec(*args)], [sns.sns_vq_dec_plain(*args)])
+
+
+@pytest.mark.parametrize("submode", [0, 1, 2, 3])
+def test_sns_vq_dec_every_submode(dev, submode):
+    idx = torch.from_numpy(C.scf_idx_grid(submode, 256, seed=7)).to(dev)
+    got = K.sns_vq_dec(idx)
+    assert bool(torch.isfinite(got).all())
+    same_tensors([got], [sns.sns_vq_dec_plain(idx)])
+
+
+def test_sns_vq_dec_damaged_indices(dev):
+    rng = np.random.default_rng(8)
+    idx = np.concatenate([C.scf_idx_grid(s, 64, seed=9) for s in range(4)])
+    idx[:, 5] = rng.integers(0, 1 << 25, idx.shape[0])
+    idx[:, 6] = rng.integers(-2, 12, idx.shape[0])
+    idx = torch.from_numpy(idx).to(dev)
+    same_tensors([K.sns_vq_dec(idx)], [sns.sns_vq_dec_plain(idx)])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sns_vq_enc_synthetic_rows(dev, seed):
+    """Seeded rows, an all-zero row, rows with a silent residual (the
+    degenerate branch of every pulse search) and rows of every submode."""
+    scf = torch.from_numpy(C.scf_rows(seed, 400)).to(dev)
+    got = K.sns_vq_enc(scf)
+    same_tensors(got, sns.sns_vq_enc_plain(scf))
+    seen = torch.bincount(got[0][:, 2].long().cpu(), minlength=4)
+    assert bool((seen > 0).all()), seen.tolist()
+
+
 def test_launch_counts_move(dev):
     K.reset_launch_counts()
     B = 8
@@ -236,4 +332,5 @@ def test_launch_counts_move(dev):
     assert K.launches == {"ari_encode": 2, "ari_decode": 1, "bit_estimate": 4,
                           "ltpf_postfilter": 2, "gain_bisection": 2,
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
-                          "hp50_biquad": 2}
+                          "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
+                          "sns_vq_dec": 2, "sns_vq_enc": 2}

@@ -70,6 +70,38 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert y.shape == (2, 128) and mem.shape == (2, 2)
 
 
+def _sns_and_side_info_calls():
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import bits, sns
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    fields = (i32(2), i32(2) + 2, i32(2), i32(2), i32(2) + 1, i32(2, 2), i32(2, 3), i32(2, 7),
+              i32(2))
+    return {
+        "side_info_pack": (K.side_info_pack, bits.pack_side_info, (cfg, *fields)),
+        "side_info_parse": (K.side_info_parse, bits.parse_side_info,
+                            (cfg, i32(2, cfg.targetBytes))),
+        "sns_vq_dec": (K.sns_vq_dec, sns.quantize_scf_dec, (i32(2, 7),)),
+        "sns_vq_enc": (K.sns_vq_enc, lambda scf: sns.quantize_scf_enc(cfg, scf),
+                       (torch.zeros((2, 16)),)),
+    }
+
+
+@pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
+                                  "sns_vq_enc"])
+def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
+    """As above for the SNS quantizer and the side information: the wrapper
+    raises on a CPU tensor, the op of the same arguments runs its plain
+    version."""
+    wrapper, op, args = _sns_and_side_info_calls()[name]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wrapper(*args)
+    out = op(*args)
+    first = next(iter(out.values())) if isinstance(out, dict) else \
+        out[0] if isinstance(out, tuple) else out
+    assert first.shape[0] == 2
+
+
 def test_kernel_build_directory_is_named_by_its_inputs():
     """Processes building the same sources with the same flags share one
     library directory; another compiler or other flags get another."""

@@ -12,6 +12,7 @@ import pytest
 from audio_codec_torch.ops import sns as PS
 from audio_codec_tpu.ops import sns as JS
 
+from tests import torch_kernel_cases as C
 from tests.torch_port_data import JCFG, PCFG, J, encoder_stages, n, t
 
 
@@ -44,6 +45,30 @@ def test_quantize_scf_enc_dec(frame):
 
 def jax_scf_dec(idx):
     return J(JS.quantize_scf_dec)(idx)
+
+
+@pytest.mark.parametrize("submode", [0, 1, 2, 3])
+def test_quantize_scf_dec_every_submode(submode):
+    """Valid indices of one submode, its first and last MPVQ index among
+    them: each decodes its own pulse shape."""
+    idx = C.scf_idx_grid(submode, 24, seed=7)
+    got = PS.quantize_scf_dec(t(idx))
+    assert np.isfinite(n(got)).all()
+    close(got, jax_scf_dec(idx))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_quantize_scf_enc_synthetic_rows(seed):
+    """Seeded rows at three spreads, an all-zero row, rows whose residual is
+    silent (every pulse search takes its silent-target branch) and rows the
+    decoder gives for each submode, so that all four are chosen."""
+    scf = C.scf_rows(seed, 40)
+    assert not scf[40].any()
+    ref_idx, ref_q = J(JS.quantize_scf_enc, JCFG)(scf)
+    idx, q = PS.quantize_scf_enc(PCFG, t(scf))
+    np.testing.assert_array_equal(n(idx), np.asarray(ref_idx))
+    close(q, ref_q)
+    assert set(np.unique(n(idx)[:, 2])) == {0, 1, 2, 3}
 
 
 @pytest.mark.parametrize("encoder_side", [True, False])
