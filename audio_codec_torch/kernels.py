@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
-           "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc")
+           "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
+           "tns_filter_analysis", "pc_classify", "mdct", "imdct")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -129,6 +130,10 @@ def library() -> ctypes.CDLL:
         "acx_side_info_parse": [P] * 5 + [I] * 8 + [P],
         "acx_sns_vq_dec": [P] * 3 + [I] + [P],
         "acx_sns_vq_enc": [P] * 4 + [I] + [P],
+        "acx_tns_filter_analysis": [P] * 8 + [I] * 5 + [F] * 4 + [P],
+        "acx_pc_classify": [P] * 7 + [I] * 3 + [F] + [P],
+        "acx_mdct": [P] * 6 + [I] * 3 + [P],
+        "acx_imdct": [P] * 6 + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -433,3 +438,99 @@ def sns_vq_enc(scf):
         scf.data_ptr(), _sns_tables(str(scf.device)).data_ptr(), scf_idx.data_ptr(),
         scf_q.data_ptr(), B, _stream()))
     return scf_idx, scf_q
+
+
+@functools.cache
+def _tns_tables(device: str, frame_dms: int, limited: bool) -> torch.Tensor:
+    """The TNS analysis tables as one int32 buffer on `device`, float tables
+    as their bit patterns, in the layout of csrc/tns_analysis.cuh."""
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32).ravel().view(np.int32)
+    words = np.concatenate([
+        T.bw_cutoff_bins(frame_dms).astype(np.int32), f(T.t("lagw_tns")),
+        f(T.t("quants_thr_tns")), f(T.t("quants_pts_tns")),
+        T.t("huff_bits_tns").astype(np.int32).ravel(),
+        T.t("order1_tns" if limited else "order2_tns").astype(np.int32)])
+    if words.size != 194:
+        raise RuntimeError(f"TNS tables: {words.size} words, the kernel expects 194")
+    return torch.as_tensor(words, device=device)
+
+
+def tns_filter_analysis(cfg, x, bw_idx):
+    """Launch `tns_filter_analysis` (csrc/tns_filter_analysis.cu); see
+    ops/tns.py:tns_filter_analysis_plain. Returns (order [B, 2], rc_idx
+    [B, 2, 8], rc_q [B, 2, 8], numfilters [B], bits [B])."""
+    from .ops.tns import _tns_geometry
+    _check(x, "x", torch.float32, 2)
+    bw_idx = bw_idx.to(torch.int32).contiguous()
+    _check(bw_idx, "bw_idx", torch.int32, 1)
+    B, N = x.shape
+    if bw_idx.shape[0] != B:
+        raise ValueError(f"bw_idx: expected {B} streams, got {bw_idx.shape[0]}")
+    _, startfreq0, nf_max, max_order, n_sub, max_pg, _ = _tns_geometry(cfg)
+    dev = x.device
+    e = lambda *s, dt=torch.int32: torch.empty((B, *s), dtype=dt, device=dev)
+    order, rc_idx, rc_q, numfilters, bits = e(2), e(2, 8), e(2, 8, dt=torch.float32), e(), e()
+    f32 = lambda v: float(np.float32(v))
+    inv_span = f32(1.0 / f32(max_pg - 1.5)) if max_pg > 1.5 else 0.0
+    _run("tns_filter_analysis", library().acx_tns_filter_analysis(
+        x.data_ptr(), bw_idx.data_ptr(), _tns_tables(str(dev), cfg.frame_dms, max_pg == 1.5).data_ptr(),
+        order.data_ptr(), rc_idx.data_ptr(), rc_q.data_ptr(), numfilters.data_ptr(),
+        bits.data_ptr(), B, N, startfreq0, nf_max, max_order, f32(max_pg), f32(1.0 / n_sub),
+        f32(0.85 - 1.0), inv_span, _stream()))
+    return order, rc_idx, rc_q, numfilters, bits
+
+
+def pc_classify(cfg, bfi, spec_inv_idx, stab_fac, pitch_present, q_old_d, q_old_res):
+    """Launch `pc_classify` (csrc/pc_classify.cu); see
+    ops/pc.py:pc_classify_plain. Returns bfi' [B] int32."""
+    for name, t in (("bfi", bfi), ("spec_inv_idx", spec_inv_idx),
+                    ("pitch_present", pitch_present)):
+        _check(t, name, torch.int32, 1)
+    _check(stab_fac, "stab_fac", torch.float32, 1)
+    _check(q_old_d, "q_old_d", torch.float32, 2)
+    _check(q_old_res, "q_old_res", torch.float32, 2)
+    B, N = q_old_d.shape
+    if tuple(q_old_res.shape) != (B, N) or any(
+            t.shape[0] != B for t in (bfi, spec_inv_idx, stab_fac, pitch_present)):
+        raise ValueError(f"pc_classify: expected [{B}] vectors and [{B}, {N}] rows")
+    out = torch.empty_like(bfi)
+    _run("pc_classify", library().acx_pc_classify(
+        bfi.data_ptr(), spec_inv_idx.data_ptr(), stab_fac.data_ptr(), pitch_present.data_ptr(),
+        q_old_d.data_ptr(), q_old_res.data_ptr(), out.data_ptr(), B, N, cfg.frame_dms,
+        float(np.float32(1.0 / N)), _stream()))
+    return out
+
+
+DCT4_MAX_N = 480    # csrc/dct4.cuh:kDctMaxN
+
+
+def _transform(name: str, cfg, a, mem, reverse: bool):
+    from .ops.transforms import dct4_mt, window
+    _check(a, "x" if name == "mdct" else "y", torch.float32, 2)
+    _check(mem, "mem", torch.float32, 2)
+    B, N = a.shape
+    la = cfg.la_zeroes
+    if N != cfg.frame_length or N > DCT4_MAX_N or N % 2:
+        raise ValueError(f"{name}: frames of {N} samples; the kernel takes the configuration's "
+                         f"frame of at most {DCT4_MAX_N} (HR mode is not ported)")
+    if tuple(mem.shape) != (B, N - la):
+        raise ValueError(f"{name}: expected mem [{B}, {N - la}], got {tuple(mem.shape)}")
+    dev = str(a.device)
+    out = torch.empty_like(a)
+    new_mem = torch.empty_like(mem)
+    _run(name, getattr(library(), "acx_" + name)(
+        a.data_ptr(), mem.data_ptr(), window(cfg, dev, reverse).data_ptr(),
+        dct4_mt(N, dev).data_ptr(), out.data_ptr(), new_mem.data_ptr(), B, N, la, _stream()))
+    return out, new_mem
+
+
+def mdct(cfg, x, mem):
+    """Launch `mdct` (csrc/mdct.cu); see ops/transforms.py:mdct_plain.
+    Returns (d [B, N], new_mem [B, N - la])."""
+    return _transform("mdct", cfg, x, mem, False)
+
+
+def imdct(cfg, y, mem):
+    """Launch `imdct` (csrc/imdct.cu); see ops/transforms.py:imdct_plain.
+    Returns (x [B, N], new_mem [B, N - la])."""
+    return _transform("imdct", cfg, y, mem, True)

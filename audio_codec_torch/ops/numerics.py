@@ -33,7 +33,7 @@ What each CPU branch reproduces, and where the reference relies on it:
 `chain_sum` and `chain_dot` are the other way round: the CPU keeps
 `torch.sum` and `dot`, and for a tensor on the card they fix the order of the
 additions, which `torch.sum` and `torch.matmul` leave to the library, so that
-the SNS quantizer's kernels can equal their plain versions bit for bit.
+the kernels can equal their plain versions bit for bit.
 
 File:line references are to `audio_codec_tpu/ops/`.
 """

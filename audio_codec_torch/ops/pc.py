@@ -3,13 +3,17 @@
 Counterpart of `audio_codec_tpu/ops/pc.py` (processPCmain_fx,
 processPCclassify_fx / peakDetector_fx, processPCapply_fx,
 processPCupdate_fx and the PLC stability factor). These run on every
-decoded frame; on clean frames they only carry the history forward.
+decoded frame; on clean frames they only carry the history forward. On the
+card the classifier with its peak detector is the CUDA kernel
+csrc/pc_classify.cu; `pc_classify_plain` is its plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..config import Config
+from . import numerics as nm
 from .quant import global_gain
 
 I32 = torch.int32
@@ -35,12 +39,21 @@ def compute_stab_fac(scf_q, old_scf, old_old_scf, bfi, prev_bfi, prev_prev_bfi):
 
 def _peak_detector(sig):
     """peakDetector_fx (pc_classify_fx.c:150-299): crossover bin below which
-    a dominant spectral peak sits. sig: [B, N] -> xover [B] i32."""
+    a dominant spectral peak sits. sig: [B, N] -> xover [B] i32.
+
+    For a tensor on the card it states the kernel's float order: the mean
+    energy is one chain over the row times float32(1 / N), and the
+    hysteresis visits every column (no read-back to the host)."""
     B, N = sig.shape
     dev = sig.device
     a = torch.abs(sig)
-    mean_nrg = _BLOCK * _THR1 * torch.mean(sig ** 2, dim=1)
-    sq = sig ** 2
+    if nm.on_cpu(sig):
+        sq = sig ** 2
+        mean = torch.mean(sq, dim=1)
+    else:
+        sq = sig * sig
+        mean = nm.chain_sum(sq) * (1.0 / N)
+    mean_nrg = _BLOCK * _THR1 * mean
     blk = sq[:, :-2] + sq[:, 1:-1] + sq[:, 2:]
 
     edge_cent = sq[:, 0] + sq[:, 1]
@@ -72,8 +85,11 @@ def _peak_detector(sig):
     nxt = win_max(_BLOCK)
     cand = locmax & (cent > mean_nrg[:, None]) & (cur >= prv) & (cur > nxt)
 
-    # sequential hysteresis over the candidates (only columns with one)
-    for k in torch.nonzero(cand.any(dim=0)).flatten().tolist():
+    # sequential hysteresis over the candidates (on the CPU only the columns
+    # that hold one)
+    cols = (torch.nonzero(cand.any(dim=0)).flatten().tolist() if nm.on_cpu(sig)
+            else range(idx.shape[0]))
+    for k in cols:
         c = cand[:, k]
         ce = cent[:, k]
         take_full = c & (ce >= max_peak)
@@ -83,10 +99,12 @@ def _peak_detector(sig):
     return xover.to(I32)
 
 
-def pc_classify(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
-                q_old_d, q_old_res):
+def pc_classify_plain(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
+                      q_old_d, q_old_res):
     """processPCclassify_fx: downgrade bfi 2 -> 1 when the corrupt region is
-    too low-frequency to conceal partially."""
+    too low-frequency to conceal partially; the plain version of the
+    `pc_classify` kernel. For a tensor on the card the two energies are
+    chains (`numerics.chain_sum`)."""
     N = cfg.yLen
     low_region = spec_inv_idx * 10 < 4 * cfg.frame_dms
     unstable = stab_fac < 0.5
@@ -95,11 +113,25 @@ def pc_classify(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
     pitch_bad = (spec_inv_idx < xover) | (spec_inv_idx < max_pitch_bin)
     low_mask = torch.arange(N, device=bfi.device)[None, :] < spec_inv_idx[:, None]
     zero = torch.zeros((), dtype=F32, device=bfi.device)
-    part = torch.sum(torch.where(low_mask, q_old_res ** 2, zero), dim=1)
-    full = torch.sum(q_old_res ** 2, dim=1)
+    sq = q_old_res ** 2 if nm.on_cpu(q_old_res) else q_old_res * q_old_res
+    part = nm.chain_sum(torch.where(low_mask, sq, zero), dim=1)
+    full = nm.chain_sum(sq, dim=1)
     nrg_bad = part < 0.3 * full
     bad = unstable | torch.where(pitch_present == 1, pitch_bad, nrg_bad)
     return torch.where((bfi == 2) & low_region & bad, 1, bfi).to(I32)
+
+
+def pc_classify(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
+                q_old_d, q_old_res):
+    """The classifier: the CUDA kernel for a tensor on the card, its plain
+    version for a tensor on the CPU."""
+    if nm.on_cpu(q_old_d):
+        return pc_classify_plain(cfg, bfi, spec_inv_idx, stab_fac, pitch_present,
+                                 q_old_d, q_old_res)
+    return kernels.pc_classify(
+        cfg, *(t.to(I32).contiguous() for t in (bfi, spec_inv_idx)),
+        stab_fac.to(F32).contiguous(), pitch_present.to(I32).contiguous(),
+        q_old_d.contiguous(), q_old_res.contiguous())
 
 
 def pc_apply(cfg: Config, bfi, x, q_old_res, q_old_d, spec_inv_idx, gg_idx,

@@ -76,25 +76,40 @@ def _poly2rc(a, order: int):
     return torch.stack(out, dim=-1)
 
 
-def tns_encode(cfg: Config, x, bw_idx):
-    """TNS analysis + filtering. x: [B, N] shaped spectrum; bw_idx: [B] i32.
-    Returns (x_filt [B, N], order [B, 2] i32, rc_idx [B, 2, 8] i32,
-             numfilters [B] i32, bits [B] i32)."""
+def _lag_sums(x, m, max_order: int, card: bool):
+    """The energy and the autocorrelation at lags 0..max_order of x over the
+    bins where m is set, per stream: [B], [B, max_order + 1]. On the CPU
+    masked `torch.sum`s; for a tensor on the card one chain per lag from
+    zero, bins ascending (the kernel's order; the energy is the lag-0
+    chain), over the bins below the highest bandwidth cutoff."""
+    B, N = x.shape
+    zero = torch.zeros((), dtype=F32, device=x.device)
+    prods = []
+    for lag in range(max_order + 1):
+        p = torch.where(m[:, : N - lag] & m[:, lag:], x[:, : N - lag] * x[:, lag:], zero)
+        prods.append(torch.nn.functional.pad(p, (0, lag)) if card else p)
+    if not card:
+        xm = torch.where(m, x, zero)
+        return torch.sum(xm * xm, dim=-1), torch.stack([torch.sum(p, -1) for p in prods], -1)
+    prods = torch.stack(prods, dim=1)                     # [B, lags, N]
+    acf = torch.zeros((B, max_order + 1), dtype=F32, device=x.device)
+    for i in range(min(N, int(T.bw_cutoff_bins(100).max()))):
+        acf = acf + prods[:, :, i]
+    return acf[:, 0], acf
+
+
+def _analyze(cfg: Config, x, bw_idx):
+    """The TNS filter analysis (tns_coder.c:157-329) of both filters, with
+    the prediction gains [B, 2] (0 where a stream has one filter) beside
+    the outputs of tns_filter_analysis_plain."""
     B, Nfull = x.shape
     dev = x.device
-    _, startfreq0, nf_max, max_order, n_sub, max_pg, order_bits_tab = _tns_geometry(cfg)
-    cutoffs = nm.const(T.bw_cutoff_bins(cfg.frame_dms), dev, I32)
-    bw_fcbin = cutoffs[bw_idx.long()]
-
+    card = not nm.on_cpu(x)
+    _, _, nf_max, max_order, n_sub, max_pg, order_bits_tab = _tns_geometry(cfg)
     two_filters = (bw_idx >= 3) & (nf_max == 2)
     numfilters = torch.where(two_filters, 2, 1).to(I32)
-    start0 = torch.full((B,), startfreq0, dtype=I32, device=dev)
-    half = torch.div(bw_fcbin, 2, rounding_mode="floor")
-    stop0 = torch.where(two_filters, half, bw_fcbin)
-    start1 = half + 1
-    stop1 = bw_fcbin
-    starts = torch.stack([start0, start1], dim=1)
-    stops = torch.stack([stop0, stop1], dim=1)
+    lo, hi = _filter_ranges(cfg, bw_idx, numfilters, B, dev)
+    starts, stops = lo + 1, hi + 1
 
     lagw = nm.const(T.t("lagw_tns")[: max_order + 1], dev)
     thr = nm.const(T.t("quants_thr_tns"), dev)
@@ -107,22 +122,17 @@ def tns_encode(cfg: Config, x, bw_idx):
 
     def analyze_filter(f):
         st, sp = starts[:, f], stops[:, f]
-        subdiv_len = nm.div(sp.to(F32) + 1.0 - st.to(F32), n_sub)
+        # a product by the float32 reciprocal, as numerics.div on the CPU,
+        # written out so that the card computes it so too
+        subdiv_len = (sp.to(F32) + 1.0 - st.to(F32)) * nm.f32(1.0 / n_sub)
         r = torch.zeros((B, max_order + 1), dtype=F32, device=dev)
         dead = torch.zeros((B,), dtype=torch.bool, device=dev)
         for sub in range(1, n_sub + 1):
             s_lo = torch.floor(subdiv_len * (sub - 1)).to(I32) + st - 1
             s_hi = torch.floor(subdiv_len * sub).to(I32) + st - 1
             m = (bins >= s_lo[:, None]) & (bins < s_hi[:, None])
-            xm = torch.where(m, x, zero)
-            e = torch.sum(xm * xm, dim=-1)
+            e, acf = _lag_sums(x, m, max_order, card)
             dead = dead | (e == 0)
-            acfs = []
-            for lag in range(max_order + 1):
-                prod = torch.where(m[:, : Nfull - lag] & m[:, lag:],
-                                   x[:, : Nfull - lag] * x[:, lag:], zero)
-                acfs.append(torch.sum(prod, dim=-1))
-            acf = torch.stack(acfs, dim=-1)
             r = r + acf / torch.clamp(e, min=1e-30)[:, None]
         unit = torch.cat([torch.ones((B, 1), dtype=F32, device=dev),
                           torch.zeros((B, max_order), dtype=F32, device=dev)], -1)
@@ -134,8 +144,15 @@ def tns_encode(cfg: Config, x, bw_idx):
 
         alpha = (max_pg - pred_gain) * (0.85 - 1.0) / (max_pg - 1.5) + 1.0
         weight = pred_gain < max_pg
-        powers = nm.pow(torch.where(weight, alpha, 1.0)[:, None],
-                        torch.arange(max_order + 1, dtype=F32, device=dev)[None, :])
+        base = torch.where(weight, alpha, 1.0)[:, None]
+        if card:
+            # alpha^k as a chain of products, as the kernel computes it
+            powers = [torch.ones_like(base), base]
+            while len(powers) < max_order + 1:
+                powers.append(powers[-1] * base)
+            powers = torch.cat(powers, dim=-1)
+        else:
+            powers = nm.pow(base, torch.arange(max_order + 1, dtype=F32, device=dev)[None, :])
         rc_w = _poly2rc(lpc * powers, max_order)
         rc_used = torch.where(weight[:, None], rc_w, rc_unq)
 
@@ -155,17 +172,18 @@ def tns_encode(cfg: Config, x, bw_idx):
                          huff_bits[lanes.expand(B, -1), rc_idx.long()], 0).sum(-1)
         coef_bits = torch.ceil((ob + hb).to(F32) / 2048.0).to(I32)
         bits_f = 1 + torch.where(tns_on, coef_bits, 0)
-        return tns_on, order, rc_idx, rc_q, bits_f.to(I32)
+        return tns_on, order, rc_idx, rc_q, bits_f.to(I32), pred_gain
 
-    act0, ord0, idx0, rcq0, bits0 = analyze_filter(0)
+    act0, ord0, idx0, rcq0, bits0, pg0 = analyze_filter(0)
     if nf_max == 2:
-        act1, ord1, idx1, rcq1, bits1 = analyze_filter(1)
+        act1, ord1, idx1, rcq1, bits1, pg1 = analyze_filter(1)
     else:
         act1 = torch.zeros((B,), dtype=torch.bool, device=dev)
         ord1 = torch.zeros((B,), dtype=I32, device=dev)
         idx1 = torch.zeros((B, MAXLAG), dtype=I32, device=dev)
         rcq1 = torch.zeros((B, MAXLAG), dtype=F32, device=dev)
         bits1 = torch.zeros((B,), dtype=I32, device=dev)
+        pg1 = torch.zeros((B,), dtype=F32, device=dev)
     act1 = act1 & two_filters
     bits = bits0 + torch.where(two_filters, bits1, 0)
 
@@ -173,35 +191,69 @@ def tns_encode(cfg: Config, x, bw_idx):
                       torch.where(act1[:, None], rcq1, zero)], 1)
     order_out = torch.stack([torch.where(act0, ord0, 0),
                              torch.where(act1, ord1, 0)], 1).to(I32)
-    lo = torch.stack([start0, start1], 1) - 1
-    hi = torch.stack([stop0, stop1], 1) - 1
-    x_out = tns_analysis_lattice(x, rc, order_out, lo.to(I32), hi.to(I32))
-
     rc_idx_out = torch.stack([torch.where(act0[:, None], idx0, 0),
-                              torch.where(act1[:, None], idx1, 0)], 1)
-    return x_out, order_out, rc_idx_out.to(I32), numfilters, bits
+                              torch.where(act1[:, None], idx1, 0)], 1).to(I32)
+    gains = torch.stack([pg0, torch.where(two_filters, pg1, 0.0)], 1)
+    return (order_out, rc_idx_out, rc, numfilters, bits.to(I32)), gains
+
+
+def tns_filter_analysis_plain(cfg: Config, x, bw_idx):
+    """The TNS filter analysis of both filters (tns_coder.c:157-329); the
+    plain version of the `tns_filter_analysis` kernel. x: [B, N] shaped
+    spectrum; bw_idx: [B] i32. Returns (order [B, 2] i32, rc_idx [B, 2, 8]
+    i32, rc_q [B, 2, 8] f32, numfilters [B] i32, bits [B] i32), every
+    output of a filter that is off masked to 0 (bits to 1).
+
+    For a tensor on the card it states the kernel's float order: the lag
+    sums are chains (`_lag_sums`) and the weighting's powers a chain of
+    products. At max_pg 1.5 the weighting's alpha divides by zero; it is
+    only taken where TNS is off, whose outputs are masked."""
+    return _analyze(cfg, x, bw_idx)[0]
+
+
+def tns_filter_analysis(cfg: Config, x, bw_idx):
+    """The filter analysis: the CUDA kernel for a tensor on the card, its
+    plain version for a tensor on the CPU."""
+    if nm.on_cpu(x):
+        return tns_filter_analysis_plain(cfg, x, bw_idx)
+    return kernels.tns_filter_analysis(cfg, x.contiguous(), bw_idx.contiguous())
+
+
+def tns_encode(cfg: Config, x, bw_idx):
+    """TNS analysis + filtering. x: [B, N] shaped spectrum; bw_idx: [B] i32.
+    Returns (x_filt [B, N], order [B, 2] i32, rc_idx [B, 2, 8] i32,
+             numfilters [B] i32, bits [B] i32)."""
+    B = x.shape[0]
+    order, rc_idx, rc, numfilters, bits = tns_filter_analysis(cfg, x, bw_idx)
+    lo, hi = _filter_ranges(cfg, bw_idx, numfilters, B, x.device)
+    x_out = tns_analysis_lattice(x, rc, order, lo, hi)
+    return x_out, order, rc_idx, numfilters, bits
+
+
+def _filter_ranges(cfg: Config, bw_idx, numfilters, B: int, dev):
+    """First and last bin (0-based, inclusive) of each filter [B, 2]
+    (tns_coder.c:244-263)."""
+    cutoffs = nm.const(T.bw_cutoff_bins(cfg.frame_dms), dev, I32)
+    bw_fcbin = cutoffs[bw_idx.clamp(0, cutoffs.shape[0] - 1).long()]
+    startfreq0 = _tns_geometry(cfg)[1]
+    two = numfilters == 2
+    half = torch.div(bw_fcbin, 2, rounding_mode="floor")
+    start0 = torch.full((B,), startfreq0, dtype=I32, device=dev)
+    stop0 = torch.where(two, half, bw_fcbin)
+    lo = torch.stack([start0, half + 1], 1) - 1
+    hi = torch.stack([stop0, bw_fcbin], 1) - 1
+    return lo.to(I32), hi.to(I32)
 
 
 def tns_decode(cfg: Config, x, rc_idx, order, numfilters, bw_idx):
     """Inverse lattice filter (processTnsDecoder_fl, tns_decoder.c:13-51).
     x: [B, N]; rc_idx: [B, 2, 8]; order: [B, 2]; bw_idx [B]."""
     B = x.shape[0]
-    dev = x.device
-    cutoffs = nm.const(T.bw_cutoff_bins(cfg.frame_dms), dev, I32)
-    bw_fcbin = cutoffs[bw_idx.clamp(0, cutoffs.shape[0] - 1).long()]
-    startfreq0 = math.floor(600 * cfg.N_red_tns * 2 / cfg.fs_red_tns) + 1
-    two = numfilters == 2
-    half = torch.div(bw_fcbin, 2, rounding_mode="floor")
-    start0 = torch.full((B,), startfreq0, dtype=I32, device=dev)
-    stop0 = torch.where(two, half, bw_fcbin)
-    start1 = half + 1
-    stop1 = bw_fcbin
-    quants_pts = nm.const(T.t("quants_pts_tns"), dev)
+    quants_pts = nm.const(T.t("quants_pts_tns"), x.device)
     rc = quants_pts[rc_idx.clamp(0, quants_pts.shape[0] - 1).long()]   # [B, 2, 8]
-    orders = torch.stack([order[:, 0], torch.where(two, order[:, 1], 0)], 1).to(I32)
-    lo = torch.stack([start0, start1], 1) - 1
-    hi = torch.stack([stop0, stop1], 1) - 1
-    return tns_synthesis_lattice(x, rc, orders, lo.to(I32), hi.to(I32))
+    orders = torch.stack([order[:, 0], torch.where(numfilters == 2, order[:, 1], 0)], 1).to(I32)
+    lo, hi = _filter_ranges(cfg, bw_idx, numfilters, B, x.device)
+    return tns_synthesis_lattice(x, rc, orders, lo, hi)
 
 
 def _filter_bins(order, lo, hi, N: int):

@@ -13,10 +13,15 @@ audio_codec_torch/csrc, and checks it:
                exactly (bit_estimate in both of its modes), ltpf_postfilter
                within LTPF_TOL on the +-32768 scale; each of the
                post-filter's five cases, TNS filters of order 8, every SNS
-               submode 0-3, LTPF on and off and one and two TNS filters in
-               the side information must occur; then the side-info parser on
-               frames that fire each of its bad-frame triggers, and the SNS
-               quantizer on all-zero and silent-residual rows;
+               submode 0-3, LTPF on and off, one and two TNS filters in
+               the side information, and TNS on and off in both filters
+               must occur; then the side-info parser on frames that fire
+               each of its bad-frame triggers, the SNS quantizer on all-zero
+               and silent-residual rows, the TNS filter analysis on silent,
+               all-zero and order-8 spectra at 64 and 32 kbps (where the LPC
+               weighting decides), the concealment classifier on rows that
+               take each of its branches, and the MDCT and IMDCT on
+               full-scale, silent and alternating rows at N = 480 and 160;
   4. main path encode_block + decode_block at --streams x --frames with the
                launch counters read around it; on a few streams over all
                frames the kernel path's payload must equal the plain path's
@@ -29,8 +34,10 @@ audio_codec_torch/csrc, and checks it:
                loops of TIME_LAUNCHES launches, with their min and max; and
                the same launches replayed from a CUDA graph, which is the
                device's time where the host launches slower than the kernel
-               runs) and of its plain version, and of the encode and decode
-               blocks, as real-time stream equivalents;
+               runs) and of its plain version, for the MDCT and IMDCT the
+               library's product (torch.matmul) of the same rows by the
+               same matrix, and of the encode and decode blocks, as
+               real-time stream equivalents;
   6. a JSON line with one entry per kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -83,7 +90,14 @@ KERNEL_INFO = {
                    "audio_codec_tpu/ops/sns.py:311"),
     "sns_vq_enc": ("audio_codec_torch/csrc/sns_vq_enc.cu",
                    "audio_codec_tpu/ops/sns.py:214"),
+    "tns_filter_analysis": ("audio_codec_torch/csrc/tns_filter_analysis.cu",
+                            "audio_codec_tpu/ops/tns.py:113"),
+    "pc_classify": ("audio_codec_torch/csrc/pc_classify.cu",
+                    "audio_codec_tpu/ops/pc.py:114"),
+    "mdct": ("audio_codec_torch/csrc/mdct.cu", "audio_codec_tpu/ops/transforms.py:69"),
+    "imdct": ("audio_codec_torch/csrc/imdct.cu", "audio_codec_tpu/ops/transforms.py:96"),
 }
+TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
 
 
 class Failed(Exception):
@@ -181,8 +195,13 @@ def nbytes(*ts) -> int:
 def plain_path():
     """Route the kernels' call sites to their plain versions, so the main
     path runs on the card without the kernels (the reference for phase 4)."""
-    from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, quant, sns, tns
-    sites = [(quant, "bit_estimate", quant.bit_estimate_plain),
+    from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, pc, quant, sns, tns
+    from audio_codec_torch.ops import transforms
+    sites = [(transforms, "mdct", transforms.mdct_plain),
+             (transforms, "imdct", transforms.imdct_plain),
+             (tns, "tns_filter_analysis", tns.tns_filter_analysis_plain),
+             (pc, "pc_classify", pc.pc_classify_plain),
+             (quant, "bit_estimate", quant.bit_estimate_plain),
              (ari, "encode", lambda cfg, *a: ari.encode_plain(cfg, *a)),
              (ari, "decode", lambda cfg, buf, side, *a, **k: ari.decode_plain(cfg, buf, side)),
              (ltpf_dec, "ltpf_postfilter", ltpf_dec.ltpf_postfilter_plain),
@@ -292,6 +311,24 @@ def work_ops(name: str, args) -> float:
     pulses placed)."""
     import torch
     from audio_codec_torch import kernels as K
+    if name in ("mdct", "imdct"):
+        B, N = args[1].shape
+        return float(2 * B * N * N)
+    if name == "tns_filter_analysis":
+        # per filter: a multiply and an add per bin and lag, about 400
+        # operations of recursions; a stream with two filters covers the
+        # same bins once
+        cfg, x, bw_idx = args
+        from audio_codec_torch import tables as T
+        cut = torch.as_tensor(T.bw_cutoff_bins(cfg.frame_dms), device=x.device)
+        bins = cut[bw_idx.long()].to(torch.float64)
+        return float((2 * 9 * bins + 400 * torch.where(bw_idx >= 3, 2, 1)).sum())
+    if name == "pc_classify":
+        _, bfi, inv, stab, pitch, q_d, _ = args
+        N = q_d.shape[1]
+        active = (bfi == 2) & (inv * 10 < 400) & (stab >= 0.5)
+        per = torch.where(pitch == 1, 2 * N + 12 * (N - 5), 4 * N)
+        return float(torch.where(active, per, 0).sum())
     if name == "side_info_pack":
         cfg, num_tns, ltpf, scf_idx = args[0], args[5], args[7], args[8]
         return 8 * float(side_bits(cfg, num_tns, scf_idx[:, 2], ltpf[:, 0]).sum())
@@ -325,6 +362,36 @@ def work_ops(name: str, args) -> float:
     lev = torch.where(m >= 4, torch.floor(torch.log2(m.clamp(min=1))) - 1, torch.zeros_like(m))
     per = 25 if name == "bit_estimate" else 40
     return float(((lev + 1) * per).sum())
+
+
+def kernel_bytes(name: str, args, outs) -> int:
+    """Bytes the kernel must move on these inputs: each input read once,
+    each output written once, counting only what the kernel reads."""
+    import torch
+    from audio_codec_torch.ops import transforms
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    if name == "ari_decode":
+        ins += [v for v in args[2].values() if isinstance(v, torch.Tensor)]
+    if name == "side_info_parse":
+        # Of each row the parser needs only the bytes that hold its side
+        # bits (one int32 word each), not the whole frame.
+        words = torch.div(parsed_side_bits(args) + 7, 8, rounding_mode="floor")
+        return 4 * int(words.sum()) + nbytes(*outs)
+    if name in ("mdct", "imdct"):
+        cfg, a = args[0], args[1]
+        return nbytes(*ins, *outs, transforms.dct4_mt(a.shape[1], str(a.device)),
+                      transforms.window(cfg, str(a.device)))
+    if name == "tns_filter_analysis":
+        x, bw_idx = args[1], args[2]
+        return 4 * x.shape[0] * min(x.shape[1], TNS_BINS) + nbytes(bw_idx, *outs)
+    if name == "pc_classify":
+        # the four [B] vectors, and one [N] row of each stream whose frame is
+        # partially corrupt in the low region and stable (the peak detector
+        # reads q_old_d, the energy path q_old_res)
+        _, bfi, inv, stab, _, q_d, _ = args
+        rows = int(((bfi == 2) & (inv * 10 < 400) & (stab >= 0.5)).sum())
+        return nbytes(*ins[:4], *outs) + 4 * q_d.shape[1] * rows
+    return nbytes(*ins, *outs)
 
 
 def same_bits(got, ref, what: str):
@@ -383,6 +450,75 @@ def synthetic_cases(cfg, dev, K, side, sns):
           f"submodes found again {back}", flush=True)
 
 
+def tns_on_off(out):
+    """[[off, on] of filter 0, [off, on] of filter 1] over the streams of a
+    tns_filter_analysis output (filter 1 only where a stream has two)."""
+    import torch
+    order, nf = out[0], out[3]
+    counts = torch.zeros((2, 2), dtype=torch.long)
+    for f, rows in ((0, torch.ones_like(nf, dtype=torch.bool)), (1, nf == 2)):
+        o = order[rows, f]
+        counts[f] = torch.stack([(o == 0).sum(), (o > 0).sum()]).cpu()
+    return counts
+
+
+def pc_branch_counts(args, out) -> dict[str, int]:
+    """Streams of a pc_classify launch in each of the classifier's branches."""
+    from tests import torch_kernel_cases as C
+    a = {k: v.cpu().numpy() for k, v in zip(C.PC_ORDER, args[1:])}
+    return C.pc_branches(a, out.cpu().numpy(), args[0].frame_dms)
+
+
+def slice4_cases(cfg, dev, K, rec):
+    """The TNS filter analysis on all-zero, half-silent, order-8 and AR(1)
+    spectra, at the flagship and at 32 kbps (max_pg 2.0, where the LPC
+    weighting decides); the concealment classifier on rows built from the
+    recorded q_old_d and q_old_res that take each of its branches; the MDCT
+    and IMDCT on full-scale, silent and alternating rows at N = 480 and 160
+    (tests/torch_kernel_cases.py). Each must equal its plain version."""
+    import torch
+    from tests import torch_kernel_cases as C
+    import audio_codec_torch as P
+    from audio_codec_torch.ops import pc, tns, transforms
+    g = lambda a: torch.from_numpy(a).to(dev)
+    for name, kw in C.TNS_CONFIGS.items():
+        c = P.Config(**kw)
+        x, bw = C.tns_rows(seed=1)
+        args = (c, g(x), g(bw))
+        got = K.tns_filter_analysis(*args)
+        ref, gains = tns._analyze(*args)
+        torch.cuda.synchronize()
+        same_bits(got, ref, f"tns_filter_analysis (synthetic rows, {name})")
+        weighted = int(((gains > 1.5) & (gains < 2.0)).sum())
+        on = tns_on_off(got)
+        print(f"[kernels] tns_filter_analysis synthetic rows at {name}: off/on {on.tolist()}, "
+              f"order 8 in filter 0/1 {[int((got[0][:, f] == 8).sum()) for f in (0, 1)]}, "
+              f"gains in (1.5, 2) {weighted}", flush=True)
+        check(bool((got[0] == 8).any(dim=0).all()), f"{name}: no order 8 in a filter")
+        if name == "48k_32kbps":
+            check(weighted > 0, "no prediction gain where the weighting decides")
+    args = rec["pc_classify"][-1][0]
+    a = C.pc_rows(*(t[:16].cpu().numpy() for t in args[5:7]), seed=3)
+    pargs = (cfg, *(g(a[k]) for k in C.PC_ORDER))
+    got = K.pc_classify(*pargs)
+    same_bits(got, pc.pc_classify_plain(*pargs), "pc_classify (synthetic rows)")
+    branches = pc_branch_counts(pargs, got)
+    print(f"[kernels] pc_classify synthetic rows ({got.shape[0]} streams): {branches}", flush=True)
+    check(all(v > 0 for v in branches.values()), f"a pc_classify branch was not taken: {branches}")
+    for fs, bitrate in ((48000, 64000), (16000, 32000)):
+        c = P.Config(fs_in=fs, bitrate=bitrate)
+        x, mem = C.transform_rows(c.frame_length, c.la_zeroes, seed=4)
+        for name in ("mdct", "imdct"):
+            targs = (c, g(x), g(mem))
+            got = getattr(K, name)(*targs)
+            ref = [t.contiguous() for t in getattr(transforms, name + "_plain")(*targs)]
+            torch.cuda.synchronize()
+            same_bits(got, ref, f"{name} (synthetic rows, N = {c.frame_length})")
+            check(bool(torch.isfinite(got[0]).all()), f"{name}: not finite")
+    print("[kernels] mdct and imdct on full-scale, silent and alternating rows at N = 480 and "
+          "160 equal their plain versions", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -401,7 +537,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import audio_codec_torch as P
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import analysis, ari, bits as side, ltpf_dec, quant, sns, tns
+    from audio_codec_torch.ops import analysis, ari, bits as side, ltpf_dec, pc, quant, sns, tns
+    from audio_codec_torch.ops import transforms
 
     # ---- 1. card ----
     try:
@@ -469,7 +606,12 @@ def main() -> int:
              "hp50_biquad": analysis.hp50_biquad_plain,
              "side_info_pack": side.pack_side_info_plain,
              "side_info_parse": side.parse_side_info_plain,
-             "sns_vq_dec": sns.sns_vq_dec_plain, "sns_vq_enc": sns.sns_vq_enc_plain}
+             "sns_vq_dec": sns.sns_vq_dec_plain, "sns_vq_enc": sns.sns_vq_enc_plain,
+             "tns_filter_analysis": tns.tns_filter_analysis_plain,
+             "pc_classify": pc.pc_classify_plain, "mdct": transforms.mdct_plain,
+             "imdct": transforms.imdct_plain}
+    tns_on = torch.zeros((2, 2), dtype=torch.long)
+    branches = None
     errs = {}
     for name in K.KERNELS:
         err = 0.0
@@ -486,13 +628,23 @@ def main() -> int:
             else:
                 same_bits(got, ref, f"{name} (max |diff| {e})")
             err = max(err, e)
+            if name == "tns_filter_analysis":
+                tns_on += tns_on_off(got)
+            if name == "pc_classify":
+                b = pc_branch_counts(args, got)
+                branches = b if branches is None else {k: branches[k] + b[k] for k in b}
         errs[name] = err
         what = f"modes {modes}" if name == "bit_estimate" else ""
         shape = next(tuple(a.shape) for a in rec[name][0][0] if isinstance(a, torch.Tensor))
         print(f"[kernels] {name}: max |kernel - plain| = {err} over {len(rec[name])} "
               f"launches at {shape} {what}", flush=True)
 
+    print(f"[kernels] tns_filter_analysis over {T} frames: filter 0 off/on "
+          f"{tns_on[0].tolist()}, filter 1 off/on {tns_on[1].tolist()}", flush=True)
+    check(bool((tns_on > 0).all()), f"TNS never on or never off in a filter: {tns_on.tolist()}")
+    print(f"[kernels] pc_classify branches over {T} frames: {branches}", flush=True)
     synthetic_cases(cfg, dev, K, side, sns)
+    slice4_cases(cfg, dev, K, rec)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)
@@ -568,16 +720,15 @@ def main() -> int:
         gms = graph_ms(lambda: getattr(K, name)(*args, **kw))
         pms = cuda_ms(lambda: plain[name](*args, **kw), 2)
         outs = outputs(getattr(K, name)(*args, **kw))
-        ins = [a for a in args if isinstance(a, torch.Tensor)]
-        if name == "ari_decode":
-            ins += [v for v in args[2].values() if isinstance(v, torch.Tensor)]
-        if name == "side_info_parse":
-            # Of each row the parser needs only the bytes that hold its side
-            # bits (one int32 word each), not the whole frame.
-            words = torch.div(parsed_side_bits(args) + 7, 8, rounding_mode="floor")
-            byts = 4 * int(words.sum()) + nbytes(*outs)
-        else:
-            byts = nbytes(*ins, *outs)
+        byts = kernel_bytes(name, args, outs)
+        lib_ms = None
+        if name in ("mdct", "imdct"):
+            # the library's product of the same rows by the same matrix
+            from audio_codec_torch.ops import transforms
+            lhs = args[1]
+            Mt = transforms.dct4_mt(lhs.shape[1], str(lhs.device))
+            check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for torch.matmul")
+            lib_ms = cuda_ms_spread(lambda: torch.matmul(lhs, Mt))[0]
         ops = work_ops(name, args)
         b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
         src, replaces = KERNEL_INFO[name]
@@ -585,10 +736,11 @@ def main() -> int:
                          launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops else "operations",
-                         library_ms=None, graph_ms=gms))
+                         library_ms=lib_ms, graph_ms=gms))
         print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
               f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
               f"a CUDA graph), plain {pms:.2f} ms, "
+              + (f"torch.matmul {lib_ms:.4f} ms, " if lib_ms is not None else "") +
               f"bound {max(b_bytes, b_ops):.6f} ms ({byts} B, {ops:.3g} ops)", flush=True)
 
     st = P.enc_state_init(cfg, B, device=dev)

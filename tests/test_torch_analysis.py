@@ -77,10 +77,14 @@ def test_resample_12k8_bit_exact_at_other_frame_lengths(fs, bitrate, frame_dms):
 @pytest.mark.parametrize("B", [1, 6, 8, 16])
 def test_resample_12k8_other_stream_counts(B):
     """XLA:CPU compiles the function otherwise for one stream and for six or
-    more (other vector widths, other contractions); the port follows the
-    form it takes for 2 to 5 streams, so these are held to 2**-11 of the
-    peak (the high-pass carries a one-ulp difference into every later
-    sample)."""
+    more; the port follows the form it takes for 2 to 5 streams, so these
+    are held to 2**-11 of the peak (the high-pass carries a one-ulp
+    difference into every later sample). Read from the object code: from 6
+    streams the scan body stores its output y = b0*x + u1 contracted into a
+    fused multiply-add on some streams (at 6 the first four, at 7 to 9 all)
+    while the state update keeps the rounded product; one stream fuses the
+    frame's product with the add into a matrix-vector kernel of another
+    order, and from 12 streams the two products' orders change too."""
     args = resampler_inputs(B)
     ref = J(JA.resample_12k8, JCFG)(*args)
     got = PA.resample_12k8(PCFG, *map(t, args))

@@ -12,8 +12,11 @@ tap's multiply-add, the plain version on the card rounds the product first).
 Synthetic cases add what the main path may not reach: TNS filters of order 8
 in both ranges, a stream whose gain bisection never leaves `iszero`, every
 SNS submode with its field widths, the pulse search's silent-target branch,
-and frames that fire each of the side-info parser's bad-frame triggers
-(tests/torch_kernel_cases.py)."""
+frames that fire each of the side-info parser's bad-frame triggers, TNS
+spectra with dead subdivisions, filters of order 8 and (at 32 kbps) gains
+where the LPC weighting decides, concealment rows that take every branch of
+the classifier, and full-scale, silent and alternating rows for the MDCT and
+IMDCT at N = 480 and 160 (tests/torch_kernel_cases.py)."""
 from __future__ import annotations
 
 import wave
@@ -26,7 +29,7 @@ import torch
 import audio_codec_torch as P
 from audio_codec_torch import kernels as K
 from audio_codec_torch import tables as T
-from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, quant, sns, tns
+from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, pc, quant, sns, tns, transforms
 
 from tests import torch_kernel_cases as C
 
@@ -333,4 +336,98 @@ def test_launch_counts_move(dev):
                           "ltpf_postfilter": 2, "gain_bisection": 2,
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
                           "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
-                          "sns_vq_dec": 2, "sns_vq_enc": 2}
+                          "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
+                          "pc_classify": 2, "mdct": 2, "imdct": 2}
+
+
+def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
+    launches = recorded["tns_filter_analysis"]
+    assert len(launches) == 8
+    on = torch.zeros(2, 2, dtype=torch.long)
+    for args, _ in launches:
+        got = K.tns_filter_analysis(*args)
+        same_tensors(got, tns.tns_filter_analysis_plain(*args))
+        two = got[3] == 2
+        for f, rows in ((0, torch.ones_like(two)), (1, two)):
+            o = got[0][rows, f]
+            on[f] += torch.stack([(o == 0).sum(), (o > 0).sum()]).cpu()
+    assert bool((on > 0).all()), on.tolist()
+
+
+@pytest.mark.parametrize("name", list(C.TNS_CONFIGS))
+def test_tns_filter_analysis_synthetic_rows(dev, name):
+    """All-zero rows, dead subdivisions, order 8 in both filters; at 32 kbps
+    (max_pg 2.0) gains in (1.5, 2.0), where the weighting decides."""
+    cfg = P.Config(**C.TNS_CONFIGS[name])
+    x, bw = C.tns_rows(seed=1)
+    args = (cfg, torch.from_numpy(x).to(dev), torch.from_numpy(bw).to(dev))
+    got = K.tns_filter_analysis(*args)
+    ref, gains = tns._analyze(*args)
+    same_tensors(got, ref)
+    assert bool((got[0][:, 0] == 8).any()) and bool((got[0][:, 1] == 8).any())
+    if name == "48k_32kbps":
+        assert int(((gains > 1.5) & (gains < 2.0)).sum()) >= 4
+
+
+def test_pc_classify_matches_plain_on_the_main_path(recorded):
+    launches = recorded["pc_classify"]
+    assert len(launches) == 8
+    for args, _ in launches:
+        same_tensors([K.pc_classify(*args)], [pc.pc_classify_plain(*args)])
+
+
+def pc_case_args(recorded, dev):
+    """Synthetic classifier rows built from the recorded q_old_d and
+    q_old_res of the last frame's launch (tests/torch_kernel_cases.py)."""
+    args = recorded["pc_classify"][-1][0]
+    base = [a[:16].cpu().numpy() for a in args[5:7]]
+    a = C.pc_rows(*base, seed=3)
+    return a, (CFG, *(torch.from_numpy(a[k]).to(dev) for k in C.PC_ORDER))
+
+
+def test_pc_classify_every_branch(recorded, dev):
+    a, args = pc_case_args(recorded, dev)
+    got = K.pc_classify(*args)
+    same_tensors([got], [pc.pc_classify_plain(*args)])
+    branches = C.pc_branches(a, got.cpu().numpy())
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_pc_classify_does_not_synchronise(recorded, dev):
+    """The kernel path of pc.pc_classify reads nothing back to the host."""
+    _, args = pc_case_args(recorded, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pc.pc_classify(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == args[1].shape
+
+
+@pytest.mark.parametrize("name", ["mdct", "imdct"])
+def test_transform_matches_plain_on_the_main_path(recorded, name):
+    launches = recorded[name]
+    assert len(launches) == 8
+    plain = getattr(transforms, name + "_plain")
+    for args, _ in launches:
+        same_tensors(getattr(K, name)(*args), [t.contiguous() for t in plain(*args)])
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+@pytest.mark.parametrize("name", ["mdct", "imdct"])
+def test_transform_synthetic_rows(dev, name, fs, bitrate):
+    """Full-scale, silent and alternating-sign rows at N = 480 and 160."""
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=4)
+    args = (cfg, torch.from_numpy(x).to(dev), torch.from_numpy(mem).to(dev))
+    got = getattr(K, name)(*args)
+    same_tensors(got, [t.contiguous() for t in getattr(transforms, name + "_plain")(*args)])
+    assert bool(torch.isfinite(got[0]).all())
+
+
+def test_transform_rejects_hr_frames(dev):
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    x = torch.zeros((2, 960), device=dev)
+    with pytest.raises(ValueError):
+        K.mdct(cfg, x, torch.zeros((2, 960 - cfg.la_zeroes), device=dev))

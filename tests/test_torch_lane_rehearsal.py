@@ -1,15 +1,17 @@
 """The kernels' lane functions, compiled for the CPU, against the plain
 versions.
 
-The per-stream functions of csrc/side_info.cuh and csrc/sns_vq.cuh compile
-as plain C++ as well as for the card. Here g++ builds them (with
+The per-stream functions of csrc/side_info.cuh, csrc/sns_vq.cuh,
+csrc/tns_analysis.cuh and csrc/pc_classify.cuh, and the DCT-IV, fold and
+unfold of csrc/dct4.cuh, compile as plain C++ as well as for the card. Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
 the kernels round them) into a shared library in a temporary directory,
 called through ctypes. The plain versions run with `numerics.on_cpu` patched
 to return False, so they compute in the order they state for a tensor on a
 card. Every output must be equal bit for bit (two NaNs count as equal).
 This guards the kernels' logic where there is no card; it skips where there
-is no g++."""
+is no g++. Copies of the lane functions with one comparison, one rounding or
+one constant changed must fail it (test_rehearsal_catches_mutated_lanes)."""
 from __future__ import annotations
 
 import ctypes
@@ -266,7 +268,7 @@ def test_sns_enc_lane_matches_plain_on_encoder_scale_factors(lib, card_order):
     pcm = torch.from_numpy((rng.standard_normal((64, 480)) *
                             10.0 ** rng.uniform(0, 4, (64, 1))).astype(np.float32))
     st = P.enc_state_init(cfg, 64, device="cpu")
-    d, _ = transforms.mdct(cfg, pcm, st.mdct_mem)
+    d, _ = transforms.mdct_plain(cfg, pcm, st.mdct_mem)
     scf = sns.compute_scf(cfg, analysis.per_band_energy(cfg, d),
                           torch.zeros(64, dtype=torch.int32)).numpy()
     idx = np.zeros((64, 7), np.int32)
@@ -275,3 +277,283 @@ def test_sns_enc_lane_matches_plain_on_encoder_scale_factors(lib, card_order):
     ref_idx, ref_q = sns.sns_vq_enc_plain(torch.from_numpy(scf))
     same_bits(idx, ref_idx.numpy())
     same_bits(q, ref_q.numpy())
+
+
+# ---- slice 4: the TNS filter analysis, the concealment classifier, the DCT-IV ----
+
+WRAPPER4 = r"""
+#include "tns_analysis.cuh"
+#include "pc_classify.cuh"
+#include "dct4.cuh"
+using namespace acx;
+
+extern "C" {
+void rehearse_tns(const float* x, const int* bw, const int* tab, int B, int N, int startfreq0,
+                  int nf_max, int max_order, float max_pg, float inv_nsub, float c_alpha,
+                  float inv_span, int* order, int* rc_idx, float* rc_q, int* nf, int* bits) {
+  const TnsGeom g = {N, startfreq0, nf_max, max_pg, inv_nsub, c_alpha, inv_span};
+  for (int b = 0; b < B; ++b) {
+    if (max_order == 8)
+      tns_filter_analysis_lane<8, 3>(x + N * b, bw[b], tab, g, order + 2 * b, rc_idx + 16 * b,
+                                     rc_q + 16 * b, nf + b, bits + b);
+    else
+      tns_filter_analysis_lane<4, 2>(x + N * b, bw[b], tab, g, order + 2 * b, rc_idx + 16 * b,
+                                     rc_q + 16 * b, nf + b, bits + b);
+  }
+}
+void rehearse_pc(const int* bfi, const int* inv, const float* stab, const int* pitch,
+                 const float* qd, const float* qres, int* out, int B, int N, int frame_dms,
+                 float inv_n) {
+  for (int b = 0; b < B; ++b)
+    out[b] = pc_classify_lane(bfi[b], inv[b], stab[b], pitch[b], qd + N * b, qres + N * b, N,
+                              frame_dms, inv_n);
+}
+void rehearse_peak(const float* sig, int* out, int B, int N, float inv_n) {
+  for (int b = 0; b < B; ++b) out[b] = pc_peak_detector(sig + N * b, N, inv_n);
+}
+void rehearse_mdct(const float* x, const float* mem, const float* win, const float* Mt,
+                   float* d, float* new_mem, int B, int N, int la) {
+  float folded[kDctMaxN];
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < N; ++k) folded[k] = mdct_fold(x + N * b, mem + (N - la) * b, win, N, la, k);
+    for (int n = 0; n < N; ++n) d[N * b + n] = dct4_out(folded, Mt, N, n);
+    for (int i = 0; i < N - la; ++i) new_mem[(N - la) * b + i] = x[N * b + la + i];
+  }
+}
+void rehearse_imdct(const float* y, const float* mem, const float* win, const float* Mt,
+                    float* out, float* new_mem, int B, int N, int la) {
+  for (int b = 0; b < B; ++b)
+    for (int c = 0; c < N; ++c)
+      imdct_scatter(dct4_out(y + N * b, Mt, N, c), c, N, la, win, mem + (N - la) * b,
+                    out + N * b, new_mem + (N - la) * b);
+}
+void rehearse_levinson(const float* r, float* lpc, float* rc, float* err, float* rc_w, int B) {
+  for (int b = 0; b < B; ++b) {
+    float rr[9], l[9], k[8], w[8];
+    for (int i = 0; i < 9; ++i) rr[i] = r[9 * b + i];
+    tns_levinson<8>(rr, l, k, err[b]);
+    tns_poly2rc<8>(l, w);
+    for (int i = 0; i < 9; ++i) lpc[9 * b + i] = l[i];
+    for (int i = 0; i < 8; ++i) {
+      rc[8 * b + i] = k[i];
+      rc_w[8 * b + i] = w[i];
+    }
+  }
+}
+int tns_table_words() { return kTnsTableWords; }
+}
+"""
+
+# mutations of the lane functions that the rehearsal must catch
+MUTATIONS = {
+    "locmax_strict": ("pc_classify.cuh", "ak1 >= ak && ak1 >= ak2", "ak1 > ak && ak1 >= ak2"),
+    "levinson_fma": ("tns_analysis.cuh", "radd(rmul(-g, a[t - j]), a[j - 1])",
+                     "fmaf(-g, a[t - j], a[j - 1])"),
+    "hysteresis_factor": ("pc_classify.cuh", "rmul(0.3f, max_peak)", "rmul(0.25f, max_peak)"),
+}
+
+
+def build_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = MUTATIONS[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes4.cpp").write_text(WRAPPER4)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / "lanes4.cpp"), "-o", str(out / "lanes4.so")],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes4.so"))
+
+
+@pytest.fixture(scope="module")
+def lib4(tmp_path_factory):
+    return build_lanes(tmp_path_factory.mktemp("lanes4"))
+
+
+def f32p(v: float):
+    return ctypes.c_float(float(np.float32(v)))
+
+
+def lane_tns(lib, cfg, x: np.ndarray, bw: np.ndarray):
+    from audio_codec_torch.ops import tns
+    _, startfreq0, nf_max, max_order, n_sub, max_pg, _ = tns._tns_geometry(cfg)
+    B, N = x.shape
+    order = np.zeros((B, 2), np.int32)
+    idx = np.zeros((B, 2, 8), np.int32)
+    q = np.zeros((B, 2, 8), np.float32)
+    nf = np.zeros(B, np.int32)
+    bits = np.zeros(B, np.int32)
+    tab = K._tns_tables("cpu", cfg.frame_dms, max_pg == 1.5).numpy()
+    inv_span = 1.0 / (max_pg - 1.5) if max_pg > 1.5 else 0.0
+    lib.rehearse_tns(ptr(np.ascontiguousarray(x)), ptr(bw), ptr(tab), B, N, startfreq0, nf_max,
+                     max_order, f32p(max_pg), f32p(1.0 / n_sub), f32p(0.85 - 1.0), f32p(inv_span),
+                     ptr(order), ptr(idx), ptr(q), ptr(nf), ptr(bits))
+    return order, idx, q, nf, bits
+
+
+def test_tns_table_layout_matches_header(lib4):
+    assert lib4.tns_table_words() == K._tns_tables("cpu", 100, True).numel()
+
+
+@pytest.mark.parametrize("name", list(C.TNS_CONFIGS))
+def test_tns_filter_analysis_lane_matches_plain(lib4, card_order, name):
+    """Dead subdivisions, filters of order 8 in both ranges, and (at 32
+    kbps, max_pg 2.0) prediction gains where the LPC weighting decides."""
+    from audio_codec_torch.ops import tns
+    cfg = P.Config(**C.TNS_CONFIGS[name])
+    x, bw = C.tns_rows(seed=1)
+    ref, gains = tns._analyze(cfg, torch.from_numpy(x), torch.from_numpy(bw))
+    for got, r in zip(lane_tns(lib4, cfg, x, bw), ref, strict=True):
+        same_bits(got, r.numpy())
+    order = ref[0].numpy()
+    assert (order[:, 0] == 8).any() and (order[:, 1] == 8).any() and (order == 0).any()
+    if name == "48k_32kbps":
+        g = gains.numpy()
+        assert ((g > 1.5) & (g < 2.0)).sum() >= 4, "the weighting never decided"
+
+
+def test_tns_filter_analysis_lane_matches_plain_on_encoder_spectra(lib4, encoder_spectra,
+                                                                   card_order):
+    """The shaped spectra of the port's own encoder on seeded noise."""
+    from audio_codec_torch.ops import tns
+    r = encoder_spectra
+    ref = tns.tns_filter_analysis_plain(C_CFG48, torch.from_numpy(r[0]), torch.from_numpy(r[1]))
+    for got, e in zip(lane_tns(lib4, C_CFG48, *r), ref, strict=True):
+        same_bits(got, e.numpy())
+
+
+C_CFG48 = P.Config(**C.TNS_CONFIGS["48k"])
+
+
+@pytest.fixture(scope="module")
+def encoder_spectra():
+    """Shaped spectra [32, 480] and bandwidths of the port's encoder front
+    end on seeded noise at four decades of level, on the CPU (computed
+    before card_order patches the numerics)."""
+    from audio_codec_torch.ops import analysis, transforms
+    cfg = C_CFG48
+    rng = np.random.default_rng(13)
+    pcm = torch.from_numpy((rng.standard_normal((32, 480)) *
+                            10.0 ** rng.uniform(0, 4, (32, 1))).astype(np.float32))
+    st = P.enc_state_init(cfg, 32, device="cpu")
+    d, _ = transforms.mdct(cfg, pcm, st.mdct_mem)
+    ener = analysis.per_band_energy(cfg, d)
+    scf = sns.compute_scf(cfg, ener, torch.zeros(32, dtype=torch.int32))
+    _, scf_q = sns.quantize_scf_enc(cfg, scf)
+    d = sns.mdct_shaping(cfg, d, sns.interpolate_scf(cfg, scf_q, encoder_side=True))
+    bw = analysis.detect_cutoff_warped(cfg, ener)
+    return np.ascontiguousarray(d.numpy()), np.ascontiguousarray(bw.numpy().astype(np.int32))
+
+
+def autocorrelations(n: int = 64, seed: int = 0) -> np.ndarray:
+    """[n, 9] float32 normalised, lag-windowed autocorrelations of AR(2)
+    rows over two decades of correlation strength."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 400))
+    c1, c2 = rng.uniform(-1.6, 1.6, n), rng.uniform(-0.9, 0.0, n)
+    for i in range(2, 400):
+        x[:, i] += c1 * x[:, i - 1] + c2 * x[:, i - 2]
+    r = np.stack([(x[:, : 400 - k] * x[:, k:]).sum(-1) for k in range(9)], -1)
+    return (r / r[:, :1] * T_LAGW).astype(np.float32)
+
+
+T_LAGW = P.tables.t("lagw_tns")[:9]
+
+
+def lane_levinson(lib, r: np.ndarray):
+    B = r.shape[0]
+    lpc, rc, err, rc_w = (np.zeros(s, np.float32) for s in ((B, 9), (B, 8), B, (B, 8)))
+    lib.rehearse_levinson(ptr(r), ptr(lpc), ptr(rc), ptr(err), ptr(rc_w), B)
+    return lpc, rc, err, rc_w
+
+
+def plain_levinson(r: np.ndarray):
+    from audio_codec_torch.ops import tns
+    lpc, rc, err = tns._levinson(torch.from_numpy(r), 8)
+    return [v.numpy() for v in (lpc, rc, err, tns._poly2rc(lpc, 8))]
+
+
+def test_levinson_and_poly2rc_lanes_match_plain(lib4, card_order):
+    """The two recursions alone, on their float outputs (the analysis's
+    outputs are quantised and would hide a last-place difference)."""
+    r = autocorrelations()
+    for got, ref in zip(lane_levinson(lib4, r), plain_levinson(r), strict=True):
+        same_bits(got, ref)
+
+
+def pc_case_rows():
+    d, r = C.pc_base_rows(8, seed=5)
+    return C.pc_rows(d, r, seed=5)
+
+
+def lane_pc(lib, cfg, a: dict) -> np.ndarray:
+    B, N = a["q_old_d"].shape
+    out = np.zeros(B, np.int32)
+    lib.rehearse_pc(*(ptr(a[k]) for k in C.PC_ORDER), ptr(out), B, N, cfg.frame_dms,
+                    f32p(1.0 / N))
+    return out
+
+
+def test_pc_classify_lane_matches_plain(lib4, card_order):
+    from audio_codec_torch.ops import pc
+    a = pc_case_rows()
+    ref = pc.pc_classify_plain(C_CFG48, *(torch.from_numpy(a[k]) for k in C.PC_ORDER)).numpy()
+    got = lane_pc(lib4, C_CFG48, a)
+    same_bits(got, ref)
+    branches = C.pc_branches(a, ref)
+    assert all(v > 0 for v in branches.values()), branches
+    sig = a["q_old_d"]
+    xo = np.zeros(sig.shape[0], np.int32)
+    lib4.rehearse_peak(ptr(sig), ptr(xo), sig.shape[0], sig.shape[1], f32p(1.0 / sig.shape[1]))
+    same_bits(xo, pc._peak_detector(torch.from_numpy(sig)).numpy())
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_dct4_lanes_match_plain(lib4, card_order, fs, bitrate):
+    """The MDCT (fold and DCT-IV) and the IMDCT (DCT-IV, unfold, window and
+    overlap-add) at N = 480 and 160 on full-scale, silent and alternating
+    rows."""
+    from audio_codec_torch.ops import transforms
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    N, la = cfg.frame_length, cfg.la_zeroes
+    x, mem = C.transform_rows(N, la, seed=2)
+    B = x.shape[0]
+    win = transforms.window(cfg, "cpu").numpy()
+    rwin = np.ascontiguousarray(transforms.window(cfg, "cpu", reverse=True).numpy())
+    Mt = transforms.dct4_mt(N, "cpu").numpy()
+    d, nm_ = np.zeros((B, N), np.float32), np.zeros((B, N - la), np.float32)
+    lib4.rehearse_mdct(ptr(x), ptr(mem), ptr(win), ptr(Mt), ptr(d), ptr(nm_), B, N, la)
+    ref = transforms.mdct_plain(cfg, torch.from_numpy(x), torch.from_numpy(mem))
+    same_bits(d, ref[0].numpy())
+    same_bits(nm_, np.ascontiguousarray(ref[1].numpy()))
+    y = np.ascontiguousarray(d / np.float32(64.0))
+    out, nm2 = np.zeros((B, N), np.float32), np.zeros((B, N - la), np.float32)
+    lib4.rehearse_imdct(ptr(y), ptr(mem), ptr(rwin), ptr(Mt), ptr(out), ptr(nm2), B, N, la)
+    ref = transforms.imdct_plain(cfg, torch.from_numpy(y), torch.from_numpy(mem))
+    same_bits(out, ref[0].numpy())
+    same_bits(nm2, ref[1].numpy())
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS))
+def test_rehearsal_catches_mutated_lanes(tmp_path, card_order, mutation):
+    """A copy of the lane functions with one comparison, one rounding or one
+    constant changed must disagree with the plain versions on the cases."""
+    from audio_codec_torch.ops import pc
+    lib = build_lanes(tmp_path, mutation)
+    if mutation == "levinson_fma":
+        r = autocorrelations()
+        bad = sum(C.count_differing(g, e)
+                  for g, e in zip(lane_levinson(lib, r), plain_levinson(r)))
+    else:
+        a = pc_case_rows()
+        ref = pc.pc_classify_plain(C_CFG48, *(torch.from_numpy(a[k]) for k in C.PC_ORDER))
+        bad = C.count_differing(lane_pc(lib, C_CFG48, a), ref.numpy())
+    assert bad > 0, f"the rehearsal did not see the mutation {mutation}"

@@ -72,7 +72,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def _sns_and_side_info_calls():
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import bits, sns
+    from audio_codec_torch.ops import bits, pc, sns, transforms
     cfg = P.Config(fs_in=48000, bitrate=64000)
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
     fields = (i32(2), i32(2) + 2, i32(2), i32(2), i32(2) + 1, i32(2, 2), i32(2, 3), i32(2, 7),
@@ -84,13 +84,24 @@ def _sns_and_side_info_calls():
         "sns_vq_dec": (K.sns_vq_dec, sns.quantize_scf_dec, (i32(2, 7),)),
         "sns_vq_enc": (K.sns_vq_enc, lambda scf: sns.quantize_scf_enc(cfg, scf),
                        (torch.zeros((2, 16)),)),
+        "tns_filter_analysis": (K.tns_filter_analysis, tns.tns_filter_analysis,
+                                (cfg, torch.zeros((2, cfg.frame_length)), i32(2) + 4)),
+        "pc_classify": (K.pc_classify, pc.pc_classify,
+                        (cfg, i32(2) + 2, i32(2) + 5, torch.ones(2), i32(2) + 1,
+                         torch.zeros((2, cfg.yLen)), torch.zeros((2, cfg.yLen)))),
+        "mdct": (K.mdct, transforms.mdct, (cfg, torch.zeros((2, cfg.frame_length)),
+                                           torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
+        "imdct": (K.imdct, transforms.imdct, (cfg, torch.zeros((2, cfg.frame_length)),
+                                              torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
     }
 
 
 @pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
-                                  "sns_vq_enc"])
+                                  "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
+                                  "imdct"])
 def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
-    """As above for the SNS quantizer and the side information: the wrapper
+    """As above for the SNS quantizer, the side information, the TNS filter
+    analysis, the concealment classifier and the transforms: the wrapper
     raises on a CPU tensor, the op of the same arguments runs its plain
     version."""
     wrapper, op, args = _sns_and_side_info_calls()[name]

@@ -10,6 +10,7 @@ import pytest
 from audio_codec_torch.ops import pc as PP, plc as PLC
 from audio_codec_tpu.ops import pc as JP, plc as JPLC
 
+from tests import torch_kernel_cases as C
 from tests.torch_port_data import JCFG, PCFG, J, n, t
 
 B = 8
@@ -87,3 +88,27 @@ def test_plc_main_and_update(seed):
     uargs = (d["bfi"], np.asarray(ref[2]), np.asarray(ref[3]), d["prev"], d["prev2"])
     for g, e in zip(PLC.plc_update(*map(t, uargs)), J(JPLC.plc_update)(*uargs)):
         eq(g, e)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_peak_detector_and_classifier_every_branch(seed):
+    """The rows of tests/torch_kernel_cases.py:pc_rows (a dominant peak, a
+    peak in the first block, a flat-topped peak, the hysteresis at 0.5 and
+    0.28 of the maximum) with bfi 2 swept across the low region, both
+    pitch flags and both sides of the stability limit, eight streams a
+    call."""
+    d, r = C.pc_base_rows(4, seed=seed)
+    a = C.pc_rows(d, r, seed=seed)
+    rows = np.arange(0, a["bfi"].shape[0], 9)      # each base row once for the detector
+    sig = a["q_old_d"][rows]
+    for lo in range(0, sig.shape[0], 8):
+        eq(PP._peak_detector(t(sig[lo: lo + 8])), J(JP._peak_detector)(sig[lo: lo + 8]))
+    outs = []
+    for lo in range(0, a["bfi"].shape[0], 8):
+        args = [a[k][lo: lo + 8] for k in C.PC_ORDER]
+        ref = J(JP.pc_classify, JCFG)(*args)
+        got = PP.pc_classify(PCFG, *map(t, args))
+        eq(got, ref)
+        outs.append(n(got))
+    branches = C.pc_branches(a, np.concatenate(outs))
+    assert all(v > 0 for v in branches.values()), branches

@@ -13,6 +13,7 @@ from audio_codec_torch.ops import tns as PT
 from audio_codec_tpu.config import Config as JConfig
 from audio_codec_tpu.ops import tns as JT
 
+from tests import torch_kernel_cases as C
 from tests.torch_port_data import JCFG, PCFG, J, encoder_stages, n, t
 
 
@@ -78,3 +79,19 @@ def test_tns_decode_all_order_8(frame):
     args = random_filters(np.random.default_rng(20 + frame), x.shape[0], True)
     for xs in (x, (x * 1000).astype(np.float32)):
         same_bits(PT.tns_decode(PCFG, t(xs), *map(t, args)), J(JT.tns_decode, JCFG)(xs, *args))
+
+
+@pytest.mark.parametrize("name", list(C.TNS_CONFIGS))
+def test_tns_encode_synthetic_rows(name):
+    """All-zero rows, rows with dead subdivisions, order 8 in both filters,
+    and AR(1) rows whose prediction gains straddle 1.5 and 2.0: at 32 kbps
+    (max_pg 2.0) the LPC weighting decides the coefficients of those in
+    (1.5, 2.0). Four streams a call, as the other parity tests run."""
+    kw = C.TNS_CONFIGS[name]
+    jcfg, pcfg = JConfig(**kw), P.Config(**kw)
+    x, bw = C.tns_rows(seed=1)
+    x, bw = x[:56], bw[:56]
+    for lo in range(0, x.shape[0], 4):
+        check_encode(jcfg, pcfg, x[lo: lo + 4], bw[lo: lo + 4])
+    gains = PT._analyze(pcfg, t(x), t(bw))[1].numpy()
+    assert ((gains > 1.5) & (gains < 2.0)).sum() >= 4

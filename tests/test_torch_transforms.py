@@ -29,6 +29,10 @@ from audio_codec_torch.ops import numerics as nm
 from audio_codec_torch.ops import transforms as PT
 from audio_codec_tpu.ops import transforms as JT
 
+import audio_codec_torch as P
+from audio_codec_tpu.config import Config as JConfig
+
+from tests import torch_kernel_cases as C
 from tests.torch_port_data import JCFG, PCFG, J, encoder_stages, n, t
 
 
@@ -98,3 +102,17 @@ def test_imdct_dot_bit_exact_to_pinned_reference(scale):
     ref = run_pinned(IMDCT_DOT, y=y)
     got = nm.dot(torch.from_numpy(y), nm.const(PTab.dct4_matrix(480).T, "cpu"))
     np.testing.assert_array_equal(got.numpy().view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_mdct_bit_exact_on_synthetic_rows(fs, bitrate):
+    """Full-scale, silent and alternating-sign rows at N = 480 and 160,
+    four streams a call."""
+    jcfg, pcfg = JConfig(fs_in=fs, bitrate=bitrate), P.Config(fs_in=fs, bitrate=bitrate)
+    x, mem = C.transform_rows(pcfg.frame_length, pcfg.la_zeroes, seed=2)
+    for lo in range(0, x.shape[0], 4):
+        xs, ms = x[lo: lo + 4], mem[lo: lo + 4]
+        ref_d, ref_mem = J(JT.mdct, jcfg)(xs, ms)
+        d, new_mem = PT.mdct(pcfg, t(xs), t(ms))
+        np.testing.assert_array_equal(n(d).view(np.int32), np.asarray(ref_d).view(np.int32))
+        np.testing.assert_array_equal(n(new_mem), np.asarray(ref_mem))
