@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
-           "tns_filter_analysis", "pc_classify", "mdct", "imdct")
+           "tns_filter_analysis", "pc_classify", "mdct", "imdct",
+           "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -134,6 +135,10 @@ def library() -> ctypes.CDLL:
         "acx_pc_classify": [P] * 7 + [I] * 3 + [F] + [P],
         "acx_mdct": [P] * 6 + [I] * 3 + [P],
         "acx_imdct": [P] * 6 + [I] * 3 + [P],
+        "acx_olpa": [P] * 10 + [I] * 8 + [P],
+        "acx_ltpf_encode": [P] * 16 + [I] * 8 + [P],
+        "acx_noise_residual_enc": [P] * 10 + [I] * 6 + [P],
+        "acx_spec_decode": [P] * 14 + [I] * 5 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -534,3 +539,164 @@ def imdct(cfg, y, mem):
     """Launch `imdct` (csrc/imdct.cu); see ops/transforms.py:imdct_plain.
     Returns (x [B, N], new_mem [B, N - la])."""
     return _transform("imdct", cfg, y, mem, True)
+
+
+def _check_vectors(B: int, dtype, **named):
+    """Each named tensor is a contiguous CUDA vector of B values of dtype."""
+    for name, t in named.items():
+        _check(t, name, dtype, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: expected {B} streams, got {t.shape[0]}")
+
+
+def _rows(t, name: str, shape: tuple, dtype=torch.float32):
+    _check(t, name, dtype, len(shape))
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected {list(shape)}, got {list(t.shape)}")
+
+
+@functools.cache
+def _olpa_tables(device: str) -> torch.Tensor:
+    """olpa_down2 (5) ++ olpa_acw (98) as float32 on `device` (csrc/olpa.cuh)."""
+    return torch.as_tensor(np.concatenate([T.t("olpa_down2"), T.t("olpa_acw")]).astype(np.float32),
+                           device=device)
+
+
+def olpa(cfg, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
+    """Launch `olpa` (csrc/olpa.cu); see ops/analysis.py:olpa_plain.
+    Returns (2*T0, normcorr, T0, new mem_s12k8, new mem_s6k4)."""
+    _check(s12k8, "s12k8", torch.float32, 2)
+    B = s12k8.shape[0]
+    length = cfg.len_12k8
+    mem_in_len = T.MAX_PITCH_6K4 + (16 if cfg.frame_dms == 25 else 0)
+    acflen = length // 2 + (16 if cfg.frame_dms == 25 else 0)
+    base = mem_in_len - 16 if cfg.frame_dms == 25 else mem_in_len
+    if s12k8.shape[1] < length:
+        raise ValueError(f"s12k8: expected at least {length} samples, got {s12k8.shape[1]}")
+    _rows(mem_s12k8, "mem_s12k8", (B, 3))
+    _rows(mem_s6k4, "mem_s6k4", (B, mem_in_len))
+    _check_vectors(B, torch.int32, mem_pitch=mem_pitch)
+    dev = s12k8.device
+    pitch2, t0 = (torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(2))
+    nc = torch.empty((B,), dtype=torch.float32, device=dev)
+    new12, new64 = torch.empty_like(mem_s12k8), torch.empty_like(mem_s6k4)
+    _run("olpa", library().acx_olpa(
+        s12k8.data_ptr(), mem_s12k8.data_ptr(), mem_s6k4.data_ptr(), mem_pitch.data_ptr(),
+        _olpa_tables(str(dev)).data_ptr(), pitch2.data_ptr(), nc.data_ptr(), t0.data_ptr(),
+        new12.data_ptr(), new64.data_ptr(), B, s12k8.shape[1], mem_s6k4.shape[1], length,
+        length // 2, mem_in_len, acflen, base, _stream()))
+    return pitch2, nc, t0, new12, new64
+
+
+@functools.cache
+def _ltpf_tables(device: str) -> torch.Tensor:
+    """inter4_1[:32] ++ enc_inter_filter [4][4] as float32 on `device`
+    (csrc/ltpf_encode.cuh)."""
+    return torch.as_tensor(np.concatenate([T.t("inter4_1")[:32], T.t("enc_inter_filter").ravel()])
+                           .astype(np.float32), device=device)
+
+
+def ltpf_encode(cfg, s12k8, pitch_ol, nc_ol, mem_in, mem_normcorr, mem_mem_normcorr, mem_on,
+                mem_pitch):
+    """Launch `ltpf_encode` (csrc/ltpf_encode.cu); see
+    ops/analysis.py:ltpf_encode_plain. Returns (param [B, 3], bits, new
+    mem_in, normcorr, mem_mem_normcorr, ltpf_on, pitch)."""
+    _check(s12k8, "s12k8", torch.float32, 2)
+    B = s12k8.shape[0]
+    xlen = cfg.len_12k8 + 1
+    N, mem_len = xlen - 1, cfg.ltpf_mem_in_len
+    acflen, xbase = (2 * N, mem_len - N) if cfg.frame_dms == 25 else (N, mem_len)
+    _rows(s12k8, "s12k8", (B, xlen))
+    _rows(mem_in, "mem_in", (B, mem_len))
+    _check_vectors(B, torch.int32, pitch_ol=pitch_ol, mem_on=mem_on)
+    _check_vectors(B, torch.float32, nc_ol=nc_ol, mem_normcorr=mem_normcorr,
+                   mem_mem_normcorr=mem_mem_normcorr, mem_pitch=mem_pitch)
+    dev = s12k8.device
+    e = lambda *sh, dt=torch.float32: torch.empty((B, *sh), dtype=dt, device=dev)
+    param, bits, on = e(3, dt=torch.int32), e(dt=torch.int32), e(dt=torch.int32)
+    new_mem_in, nc, mem_mem, pitch = e(mem_len), e(), e(), e()
+    _run("ltpf_encode", library().acx_ltpf_encode(
+        s12k8.data_ptr(), pitch_ol.data_ptr(), nc_ol.data_ptr(), mem_in.data_ptr(),
+        mem_normcorr.data_ptr(), mem_mem_normcorr.data_ptr(), mem_on.data_ptr(),
+        mem_pitch.data_ptr(), _ltpf_tables(str(dev)).data_ptr(), param.data_ptr(),
+        bits.data_ptr(), new_mem_in.data_ptr(), nc.data_ptr(), mem_mem.data_ptr(),
+        on.data_ptr(), pitch.data_ptr(), B, xlen, N, mem_len, acflen, xbase, cfg.frame_dms,
+        int(bool(cfg.ltpf_enable)), _stream()))
+    return param, bits, new_mem_in, nc, mem_mem, on, pitch
+
+
+def _spectral_geometry(cfg, name: str) -> tuple[int, int, int]:
+    """(residual bits a stream, zero-line window half width, first line) of
+    the noise filling and residual kernels; HR mode is not ported."""
+    from .ops.quant import residual_max_bits
+    if cfg.hrmode:
+        raise ValueError(f"{name}: HR mode (20 residual rounds) is not ported")
+    width, start = (3, 24) if cfg.frame_dms == 100 else (1, {50: 12, 25: 6}[cfg.frame_dms])
+    return residual_max_bits(cfg), width, start
+
+
+def noise_residual_enc(cfg, dy, xq, gain, bw_bin, target, nbits2, lsb_mode):
+    """Launch `noise_residual_enc` (csrc/noise_residual_enc.cu); see
+    ops/quant.py:noise_residual_enc_plain. Returns (fac_ns_idx, res_bits
+    [B, max_res], n_res)."""
+    max_res, width, start = _spectral_geometry(cfg, "noise_residual_enc")
+    _check(dy, "dy", torch.float32, 2)
+    B, N = dy.shape
+    _rows(xq, "xq", (B, N), torch.int32)
+    _check_vectors(B, torch.float32, gain=gain)
+    _check_vectors(B, torch.int32, bw_bin=bw_bin, target=target, nbits2=nbits2, lsb_mode=lsb_mode)
+    dev = dy.device
+    fac, n_res = (torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(2))
+    res = torch.empty((B, max_res), dtype=torch.int32, device=dev)
+    half_means = int(cfg.frame_dms == 100 and cfg.targetBytes <= 20)
+    _run("noise_residual_enc", library().acx_noise_residual_enc(
+        dy.data_ptr(), xq.data_ptr(), gain.data_ptr(), bw_bin.data_ptr(), target.data_ptr(),
+        nbits2.data_ptr(), lsb_mode.data_ptr(), fac.data_ptr(), res.data_ptr(), n_res.data_ptr(),
+        B, N, width, start, half_means, max_res, _stream()))
+    return fac, res, n_res
+
+
+@functools.cache
+def _bw_bins(device: str, frame_dms: int) -> torch.Tensor:
+    return torch.as_tensor(T.bw_cutoff_bins(frame_dms).astype(np.int32), device=device)
+
+
+@functools.cache
+def _lcg_table(device: str, N: int) -> torch.Tensor:
+    """The noise-filling generator's closed form, mult [N + 1] ++ add [N + 1]
+    (ops/quant.py:_lcg_tables), as int32 on `device` (csrc/spec_decode.cuh)."""
+    from .ops.quant import _lcg_tables
+    return torch.as_tensor(np.concatenate(_lcg_tables(N + 1)).astype(np.int32), device=device)
+
+
+def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, residual_present,
+                res_bits, n_res, nf_seed, zero_frame, q_old_res, q_old_d, prev_gg, prev_bw_idx,
+                prev_fac_ns, nb_lost):
+    """Launch `spec_decode` (csrc/spec_decode.cu); see
+    ops/quant.py:spectrum_decode_plain. Returns (x, q_old_res, prev_gg,
+    prev_bw_idx, prev_fac_ns, nb_lost)."""
+    res_width, width, start = _spectral_geometry(cfg, "spec_decode")
+    _check(x, "x", torch.float32, 2)
+    B, N = x.shape
+    for name, t in (("q_old_res", q_old_res), ("q_old_d", q_old_d)):
+        _rows(t, name, (B, N))
+    _rows(res_bits, "res_bits", (B, res_width), torch.int32)
+    ints = dict(bfi=bfi, rframe=rframe, spec_inv_idx=spec_inv_idx, bw_idx=bw_idx,
+                fac_ns_idx=fac_ns_idx, residual_present=residual_present, n_res=n_res,
+                nf_seed=nf_seed, zero_frame=zero_frame, prev_bw_idx=prev_bw_idx, nb_lost=nb_lost)
+    floats = dict(gain=gain, prev_gg=prev_gg, prev_fac_ns=prev_fac_ns)
+    _check_vectors(B, torch.int32, **ints)
+    _check_vectors(B, torch.float32, **floats)
+    dev = x.device
+    ints = torch.stack(list(ints.values()))          # the order of spec_decode.cu's enum
+    floats = torch.stack(list(floats.values()))
+    x_out, q_out = torch.empty_like(x), torch.empty_like(x)
+    prev_gg_out, fac_out = (torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(2))
+    bw_out, nb_out = (torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(2))
+    _run("spec_decode", library().acx_spec_decode(
+        x.data_ptr(), ints.data_ptr(), floats.data_ptr(), res_bits.data_ptr(),
+        q_old_res.data_ptr(), q_old_d.data_ptr(), _bw_bins(str(dev), cfg.frame_dms).data_ptr(),
+        _lcg_table(str(dev), N).data_ptr(), x_out.data_ptr(), q_out.data_ptr(),
+        prev_gg_out.data_ptr(), bw_out.data_ptr(),
+        fac_out.data_ptr(), nb_out.data_ptr(), B, N, width, start, res_width, _stream()))
+    return x_out, q_out, prev_gg_out, bw_out, fac_out, nb_out

@@ -77,22 +77,13 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
                                            side["ltpf_param"][:, 0],
                                            st.plc_q_d_prev, st.pc_q_old_res), bfi)
     good = bfi != 1
-    x, pc_fac, pc_nb_lost = pc.pc_apply(
-        cfg, bfi, x, st.pc_q_old_res, st.plc_q_d_prev, spec_inv_idx,
-        side["gg_idx"], st.pc_prev_gg, st.pc_nb_lost)
-    q_old_res, pc_prev_gg, bw_idx_nf, pc_prev_bw, pc_prev_fac_ns = pc.pc_update(
-        cfg, bfi, rframe, x, spec_inv_idx, side["gg_idx"], pc_fac, side["bw_idx"],
-        st.pc_q_old_res, st.pc_prev_gg, st.pc_prev_bw_idx, st.pc_prev_fac_ns,
-        side["fac_ns_idx"])
-    pc_nb_lost = torch.where(bfi == 0, 0, pc_nb_lost).to(I32)
-
-    x = torch.where((dec["residual_present"] == 1)[:, None] & good[:, None],
-                    quant.residual_decode(cfg, x, dec["res_bits"], dec["n_res"]), x)
-    bw_bin_nf = bw_bin_tab[bw_idx_nf.clamp(0, n_bw - 1).long()]
-    nf = quant.noise_filling(cfg, x, dec["nf_seed"], side["fac_ns_idx"], bw_bin_nf,
-                             spec_inv_idx, st.pc_prev_fac_ns)
-    x = torch.where((dec["zero_frame"] == 0)[:, None] & good[:, None], nf, x)
-    x = torch.where(good[:, None], quant.apply_global_gain(cfg, x, side["gg_idx"]), x)
+    # partial concealment, residual, noise filling and global gain: one
+    # kernel on the card (csrc/spec_decode.cu)
+    x, q_old_res, pc_prev_gg, pc_prev_bw, pc_prev_fac_ns, pc_nb_lost = quant.spectrum_decode(
+        cfg, x, quant.global_gain(cfg, side["gg_idx"]), bfi, rframe, spec_inv_idx,
+        side["bw_idx"], side["fac_ns_idx"], dec["residual_present"], dec["res_bits"],
+        dec["n_res"], dec["nf_seed"], dec["zero_frame"], st.pc_q_old_res, st.plc_q_d_prev,
+        st.pc_prev_gg, st.pc_prev_bw_idx, st.pc_prev_fac_ns, st.pc_nb_lost)
     x = torch.where(good[:, None], tns.tns_decode(cfg, x, dec["tns_idx"], dec["tns_order"],
                                                   side["num_tns"], side["bw_idx"]), x)
     gains = sns.interpolate_scf(cfg, scf_q, encoder_side=False)

@@ -3,9 +3,11 @@ T frames.
 
 Mirrors the channel pipeline Enc_LC3_Channel_fl (enc_lc3_fl.c:13-160), as
 `audio_codec_tpu/models/encoder.py:encode_frame` does. The state's device
-decides where the frame runs: on the card the SNS quantizer, the gain
-bisection, the TNS lattice, the bit estimate, the side-info packer and the
-range coder are CUDA kernels, on the CPU their plain versions.
+decides where the frame runs: on the card the transform, the pitch and LTPF
+analysis, the high-pass, the SNS quantizer, the TNS analysis and lattice,
+the gain bisection, the bit estimate, the noise factor and residual coder,
+the side-info packer and the range coder are CUDA kernels (kernels.py), on
+the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -72,9 +74,8 @@ def encode_frame(cfg: Config, st: EncState, pcm: torch.Tensor):
 
     bw_tab = torch.as_tensor(T.bw_cutoff_bins(cfg.frame_dms), dtype=I32, device=dev)
     bw_bin = bw_tab[bw_idx.long()]
-    fac_ns_idx = quant.noise_factor(cfg, dy, xq, gain_f, bw_bin)
-    res_bits, n_res = quant.residual_encode(cfg, dy, xq, gain_f, target, nbits2)
-    n_res = torch.where(lsb_mode == 0, n_res, 0).to(I32)
+    fac_ns_idx, res_bits, n_res = quant.noise_residual_enc(
+        cfg, dy, xq, gain_f, bw_bin, target, nbits2, lsb_mode)
 
     buf, bp_side, mask_side = bits.pack_side_info(
         cfg, bw_idx, lastnz_wire, lsb_mode, gg_idx2, num_tns, tns_order,

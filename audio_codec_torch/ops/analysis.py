@@ -2,9 +2,10 @@
 
 - 12.8 kHz resampler  (resamp12k8.c:13-84): dense product + the biquad
   (the CUDA kernel `hp50_biquad` on the card, csrc/hp50_biquad.cu)
-- open-loop pitch     (olpa.c:52-180): autocorrelation over all lags
-- LTPF parameter coder (ltpf_coder.c:34-263): all-lag correlation and
-  masked argmax searches
+- open-loop pitch     (olpa.c:52-180): autocorrelation over all lags (the
+  CUDA kernel `olpa` on the card, csrc/olpa.cu)
+- LTPF parameter coder (ltpf_coder.c:34-263): correlation and masked argmax
+  searches (the CUDA kernel `ltpf_encode` on the card, csrc/ltpf_encode.cu)
 - attack detector     (attack_detector.c:13-104)
 - per-band energy     (per_band_energy.c:13-30): one product
 - bandwidth detector  (detect_cutoff_warped.c:13-83)
@@ -97,9 +98,22 @@ def _first_argmax(v: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, idx, v.shape[-1]).min(dim=-1).values
 
 
-def olpa(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
-    """Open-loop pitch search at 6.4 kHz (processOlpa_fl, olpa.c:52-180).
-    Returns (T0 [B] i32 at 12.8k, normcorr [B], pitch mem, new mems)."""
+def _clamp0(v):
+    """max(v, 0). On the card a comparison, which the kernels follow (the
+    sign of a zero is then the plain version's, not the library's)."""
+    if nm.on_cpu(v):
+        return torch.clamp(v, min=0.0)
+    return torch.where(v < 0.0, 0.0, v)
+
+
+def olpa_plain(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
+    """Open-loop pitch search at 6.4 kHz (processOlpa_fl, olpa.c:52-180);
+    the plain version of the `olpa` kernel. Returns (2*T0 [B] i32, normcorr
+    [B], T0 [B] i32, new mem_s12k8, new mem_s6k4).
+
+    For a tensor on the card it states the kernel's float order: R, E and
+    e0 of each lag are chains (`numerics.chain_sum`) over the samples,
+    ascending, and the normalised correlations clamp at 0 by a comparison."""
     length = cfg.len_12k8
     len2 = length // 2
     mem_in_len = T.MAX_PITCH_6K4 + (16 if cfg.frame_dms == 25 else 0)
@@ -121,9 +135,14 @@ def olpa(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
     cur = buf2[:, base: base + acflen]
 
     lagged = _window_gather(buf2, base - T.MIN_PITCH_6K4, T.RANGE_PITCH_6K4, acflen)
-    R = torch.einsum("bn,bln->bl", cur, lagged)
-    E = torch.einsum("bln,bln->bl", lagged, lagged)
-    e0 = torch.sum(cur * cur, dim=-1)
+    if nm.on_cpu(s12k8):
+        R = torch.einsum("bn,bln->bl", cur, lagged)
+        E = torch.einsum("bln,bln->bl", lagged, lagged)
+        e0 = torch.sum(cur * cur, dim=-1)
+    else:
+        R = nm.chain_sum(cur[:, None, :] * lagged)
+        E = nm.chain_sum(lagged * lagged)
+        e0 = nm.chain_sum(cur * cur)
 
     acw = nm.const(T.t("olpa_acw"), dev)
     L = _first_argmax(R * acw)
@@ -132,8 +151,8 @@ def olpa(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
     def norm_corr_at(lag_idx):
         s0 = torch.gather(R, 1, lag_idx[:, None])[:, 0]
         s1 = torch.gather(E, 1, lag_idx[:, None])[:, 0]
-        nc = s0 / (torch.sqrt(s1 * e0) + nm.f32(1e-5))
-        return torch.clamp(nc, min=0.0)
+        nc = s0 / (nm.sqrt(s1 * e0) + nm.f32(1e-5))
+        return _clamp0(nc)
 
     nc1 = norm_corr_at(L)
     min_p = torch.clamp(mem_pitch - 4, min=T.MIN_PITCH_6K4)
@@ -148,6 +167,15 @@ def olpa(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
     T0f = torch.where(take2, T02, T0)
     ncf = torch.where(take2, nc2, nc1)
     return 2 * T0f, ncf, T0f, new_mem_s12k8, new_mem_s6k4
+
+
+def olpa(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
+    """The open-loop pitch search: the CUDA kernel for a tensor on the card,
+    its plain version for a tensor on the CPU."""
+    if nm.on_cpu(s12k8):
+        return olpa_plain(cfg, s12k8, mem_s12k8, mem_s6k4, mem_pitch)
+    return kernels.olpa(cfg, s12k8.contiguous(), mem_s12k8.contiguous(),
+                        mem_s6k4.contiguous(), mem_pitch.to(I32).contiguous())
 
 
 @functools.cache
@@ -165,10 +193,18 @@ def _ltpf_interp_matrix() -> np.ndarray:
     return M
 
 
-def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
-                mem_normcorr, mem_mem_normcorr, mem_on, mem_pitch):
-    """LTPF pitch refinement + activation (process_ltpf_coder_fl).
-    Returns (param [B,3] i32, bits [B] i32, new mems...)."""
+def ltpf_encode_plain(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
+                      mem_normcorr, mem_mem_normcorr, mem_on, mem_pitch):
+    """LTPF pitch refinement + activation (process_ltpf_coder_fl); the plain
+    version of the `ltpf_encode` kernel. Returns (param [B,3] i32, bits [B]
+    i32, new mem_in, normcorr, mem_mem_normcorr, ltpf_on, pitch).
+
+    For a tensor on the card it computes only the 17 lags the search window
+    reads and states the kernel's float order: each lag's correlation and
+    energy and each of the normcorr's three sums is a chain
+    (`numerics.chain_sum`) over the samples, ascending; the interpolation a
+    k-ascending chain (`numerics.chain_dot`) with its zero taps; the clamps
+    comparisons."""
     dev = s12k8.device
     xlen = cfg.len_12k8 + 1
     N = xlen - 1
@@ -183,13 +219,6 @@ def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
 
     n_lags = T.MAX_PITCH_12K8 + 4 - (T.MIN_PITCH_12K8 - 4) + 1
     lag0 = T.MIN_PITCH_12K8 - 4
-    lagged = _window_gather(buf, xbase - lag0, n_lags, acflen)
-    cor_all = torch.einsum("bn,bln->bl", x, lagged)
-    en_all = torch.einsum("bln,bln->bl", lagged, lagged)
-    e_cur = torch.sum(x * x, dim=-1)
-    denom = torch.sqrt(e_cur[:, None] * en_all) + nm.f32(1e-5)
-    nc_all = torch.clamp(cor_all / denom, min=0.0)
-
     t0_min = torch.clamp(pitch_ol - 4, min=T.MIN_PITCH_12K8)
     t0_max = torch.clamp(pitch_ol + 4, max=T.MAX_PITCH_12K8)
     t_min = t0_min - 4
@@ -197,14 +226,28 @@ def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
     # near the top lag the window runs past the 205 lags; those entries only
     # feed the fractional search, which is skipped up there (RES2 and above)
     win_idx = ((t_min - lag0)[:, None] + ar(17)[None, :]).clamp(max=n_lags - 1)
-    cor = torch.gather(nc_all, 1, win_idx.long())
+    if nm.on_cpu(s12k8):
+        lagged = _window_gather(buf, xbase - lag0, n_lags, acflen)
+        cor_all = torch.einsum("bn,bln->bl", x, lagged)
+        en_all = torch.einsum("bln,bln->bl", lagged, lagged)
+        e_cur = torch.sum(x * x, dim=-1)
+        denom = nm.sqrt(e_cur[:, None] * en_all) + nm.f32(1e-5)
+        nc_all = torch.clamp(cor_all / denom, min=0.0)
+        cor = torch.gather(nc_all, 1, win_idx.long())
+    else:
+        idx = xbase - lag0 - win_idx[:, :, None] + ar(acflen)[None, None, :]
+        lagged = torch.gather(buf[:, None, :].expand(-1, 17, -1), 2,
+                              idx.clamp(0, buf.shape[1] - 1).long())    # [B, 17, acflen]
+        e_cur = nm.chain_sum(x * x)
+        denom = nm.sqrt(e_cur[:, None] * nm.chain_sum(lagged * lagged)) + nm.f32(1e-5)
+        cor = _clamp0(nm.chain_sum(x[:, None, :] * lagged) / denom)
 
     n_int = t0_max - t0_min + 1
     mask = ar(9)[None, :] < n_int[:, None]
     t1 = _first_argmax(torch.where(mask, cor[:, 4:13], -torch.inf)).to(I32) + t0_min
 
     Mi = nm.const(_ltpf_interp_matrix().T, dev)
-    cor_int = nm.dot(cor, Mi)                                 # [B, 36]
+    cor_int = nm.chain_dot(cor, Mi)                           # [B, 36]
     step = torch.where(t1 >= T.RES4_PITCH_12K8, 2, 1).to(I32)
     midpoint = 4 * (t1 - t0_min) + 1
     delta = 4 - step
@@ -241,14 +284,17 @@ def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
     cur_f = shifted(1) * ef[0, 0] + shifted(0) * ef[0, 1] + shifted(-1) * ef[0, 2]
     fsel = ef[pitch_fr.long()]                               # [B, 4]
     base_idx = (xbase + j - pitch_int[:, None]).long()
-    g = lambda off: torch.gather(buf, 1, base_idx + off)
+    g = lambda off: torch.gather(buf, 1, (base_idx + off).clamp(0, buf.shape[1] - 1))
     pred_f = (g(1) * fsel[:, 0:1] + g(0) * fsel[:, 1:2]
               + g(-1) * fsel[:, 2:3] + g(-2) * fsel[:, 3:4])
-    s1 = torch.sum(cur_f * pred_f, dim=-1)
-    s2 = torch.sum(cur_f * cur_f, dim=-1)
-    s3 = torch.sum(pred_f * pred_f, dim=-1)
-    nc = s1 / (torch.sqrt(s2 * s3) + nm.f32(1e-5))
-    nc = torch.clamp(torch.clamp(nc, -1.0, 1.0), min=0.0)
+    s1 = nm.chain_sum(cur_f * pred_f)
+    s2 = nm.chain_sum(cur_f * cur_f)
+    s3 = nm.chain_sum(pred_f * pred_f)
+    nc = s1 / (nm.sqrt(s2 * s3) + nm.f32(1e-5))
+    if nm.on_cpu(nc):
+        nc = torch.clamp(torch.clamp(nc, -1.0, 1.0), min=0.0)
+    else:
+        nc = torch.where(nc > 1.0, 1.0, _clamp0(nc))
 
     # activation decision (ltpf_coder.c:227-241)
     searched = nc_ol > nm.f32(0.6)
@@ -272,6 +318,17 @@ def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
     new_mem_mem_normcorr = mem_normcorr if cfg.frame_dms < 100 else mem_mem_normcorr
     return (param, bits, new_mem_in, nc_out, new_mem_mem_normcorr,
             param[:, 1].clone(), pitch_out)
+
+
+def ltpf_encode(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
+                mem_normcorr, mem_mem_normcorr, mem_on, mem_pitch):
+    """The LTPF parameter coder: the CUDA kernel for a tensor on the card,
+    its plain version for a tensor on the CPU."""
+    args = (s12k8, pitch_ol, nc_ol, mem_in, mem_normcorr, mem_mem_normcorr, mem_on, mem_pitch)
+    if nm.on_cpu(s12k8):
+        return ltpf_encode_plain(cfg, *args)
+    dtypes = (F32, I32, F32, F32, F32, F32, I32, F32)
+    return kernels.ltpf_encode(cfg, *(a.to(dt).contiguous() for a, dt in zip(args, dtypes)))
 
 
 def attack_detector(cfg: Config, x, position, acc_energy, filter_mem):

@@ -29,6 +29,8 @@ What each CPU branch reproduces, and where the reference relies on it:
   `tns.py:144`).
 - `div`: a division by a constant is a multiplication by the float32
   reciprocal.
+- `sqrt`: correctly rounded, as XLA:CPU's root is (`analysis.py:120,190,255`,
+  `pc.py:170`); PyTorch's vectorised CPU root is not always.
 
 `chain_sum` and `chain_dot` are the other way round: the CPU keeps
 `torch.sum` and `dot`, and for a tensor on the card they fix the order of the
@@ -116,6 +118,16 @@ def chain_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for term in terms[1:]:
         acc = acc + term
     return acc
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, on every device: the root
+    in float64 rounded once to float32 (53 >= 2 * 24 + 2 bits, so the
+    double rounding is exact). XLA:CPU's root and the card's `sqrt` (and the
+    kernels' `rroot`) are correctly rounded; PyTorch's vectorised CPU
+    `torch.sqrt` is not always (0.506 ulp seen at 0.1267 and at 5.53e18), so
+    it could neither match the reference nor rehearse the card's order."""
+    return torch.sqrt(x.to(F64)).to(F32)
 
 
 def chain_dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

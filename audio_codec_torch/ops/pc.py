@@ -5,7 +5,9 @@ processPCclassify_fx / peakDetector_fx, processPCapply_fx,
 processPCupdate_fx and the PLC stability factor). These run on every
 decoded frame; on clean frames they only carry the history forward. On the
 card the classifier with its peak detector is the CUDA kernel
-csrc/pc_classify.cu; `pc_classify_plain` is its plain version.
+csrc/pc_classify.cu; `pc_classify_plain` is its plain version. pc_apply and
+pc_update run on the card inside the decoder's spectrum kernel
+(ops/quant.py:spectrum_decode, csrc/spec_decode.cu).
 """
 from __future__ import annotations
 
@@ -138,27 +140,40 @@ def pc_apply(cfg: Config, bfi, x, q_old_res, q_old_d, spec_inv_idx, gg_idx,
              prev_gg, nb_lost):
     """processPCapply_fx: synthesize bins >= spec_inv_idx from the previous
     residual spectrum. Returns (x', fac, nb_lost')."""
+    return pc_apply_gain(cfg, bfi, x, q_old_res, q_old_d, spec_inv_idx,
+                         global_gain(cfg, gg_idx), prev_gg, nb_lost)
+
+
+def _square(v):
+    """v ** 2; on the card the product v * v, which the kernels follow."""
+    return v ** 2 if nm.on_cpu(v) else v * v
+
+
+def pc_apply_gain(cfg: Config, bfi, x, q_old_res, q_old_d, spec_inv_idx, gg, prev_gg,
+                  nb_lost):
+    """pc_apply with the frame's global gain gg [B] given. For a tensor on
+    the card the four energies are chains in bin order
+    (`numerics.chain_sum`) and squares are products."""
     B, N = x.shape
     act = bfi == 2
     nb_lost = (nb_lost + act.to(I32)).to(I32)
-    gg = global_gain(cfg, gg_idx)
     kidx = torch.arange(N, device=x.device)[None, :]
     low_mask = (kidx < spec_inv_idx[:, None]).to(F32)
     n_low = torch.clamp(spec_inv_idx.to(F32), min=1.0)
     n_high = torch.clamp((N - spec_inv_idx).to(F32), min=1.0)
-    mean_low = torch.sum(low_mask * q_old_d ** 2, dim=1)
-    mean_high = torch.sum((1 - low_mask) * q_old_d ** 2, dim=1)
+    mean_low = nm.chain_sum(low_mask * _square(q_old_d), dim=1)
+    mean_high = nm.chain_sum((1 - low_mask) * _square(q_old_d), dim=1)
     fewer_low = spec_inv_idx < N - spec_inv_idx
     mean_high = torch.where(fewer_low, mean_high * n_low / n_high, mean_high)
     mean_low = torch.where(fewer_low, mean_low, mean_low * n_high / n_low)
 
-    ener_prev = torch.sum(low_mask * q_old_res ** 2, dim=1)
-    ener_curr = torch.sum(low_mask * x ** 2, dim=1)
+    ener_prev = nm.chain_sum(low_mask * _square(q_old_res), dim=1)
+    ener_curr = nm.chain_sum(low_mask * _square(x), dim=1)
     fac = torch.where(ener_prev > 0,
-                      torch.sqrt(torch.clamp(ener_curr / torch.clamp(ener_prev, min=1e-30),
-                                             max=1.0)), 1.0)
+                      nm.sqrt(torch.clamp(ener_curr / torch.clamp(ener_prev, min=1e-30),
+                                          max=1.0)), 1.0)
     fac_local = torch.where((mean_low <= mean_high)
-                            | (ener_prev * prev_gg ** 2 <= ener_curr * gg ** 2),
+                            | (ener_prev * _square(prev_gg) <= ener_curr * _square(gg)),
                             prev_gg / torch.clamp(gg, min=1e-30), fac)
     synth = q_old_res * fac_local[:, None]
     synth = torch.where(torch.abs(synth) < 0.625, 0.0, synth)
@@ -171,8 +186,15 @@ def pc_update(cfg: Config, bfi, rframe, x, spec_inv_idx, gg_idx, fac,
               st_prev_fac_ns, fac_ns_idx):
     """processPCupdate_fx: refresh the PC history after a non-lost frame.
     Returns (q_old_res', prev_gg', bw_idx_nf', prev_bw', prev_fac_ns')."""
+    return pc_update_gain(cfg, bfi, rframe, x, spec_inv_idx, global_gain(cfg, gg_idx), fac,
+                          bw_idx_nf, st_q_old_res, st_prev_gg, st_prev_bw, st_prev_fac_ns,
+                          fac_ns_idx)
+
+
+def pc_update_gain(cfg: Config, bfi, rframe, x, spec_inv_idx, gg, fac, bw_idx_nf,
+                   st_q_old_res, st_prev_gg, st_prev_bw, st_prev_fac_ns, fac_ns_idx):
+    """pc_update with the frame's global gain gg [B] given."""
     act = bfi != 1
-    gg = global_gain(cfg, gg_idx)
     prev_gg = torch.where(act, gg, st_prev_gg)
     q_old_res = torch.where(act[:, None], x, st_q_old_res)
     plain = act & (rframe == 0)

@@ -8,7 +8,11 @@ Counterparts of `audio_codec_tpu/ops/quant.py`:
 - processQuantizeSpec_fl (quantize_spec.c:26-197); the context bit
   estimate is the CUDA kernel `bit_estimate` on the card (csrc/bit_estimate.cu);
 - processAdjustGlobalGain_fl, processNoiseFactor_fl, residual coding and
-  decoding, processApplyGlobalGain_fl, processNoiseFilling_fl.
+  decoding, processApplyGlobalGain_fl, processNoiseFilling_fl. On the card
+  the encoder's noise factor and residual coder are the CUDA kernel
+  `noise_residual_enc` (csrc/noise_residual_enc.cu), and the decoder's
+  spectrum reconstruction from partial concealment to the global gain is
+  the CUDA kernel `spec_decode` (csrc/spec_decode.cu).
 """
 from __future__ import annotations
 
@@ -279,7 +283,9 @@ def adjust_global_gain(cfg: Config, gg_idx, gg_min, gain, target, nbits):
 
 
 def noise_factor(cfg: Config, x, xq, gain, bw_bin):
-    """processNoiseFactor_fl -> fac_ns_idx [B] i32. bw_bin: [B] cutoff bin."""
+    """processNoiseFactor_fl -> fac_ns_idx [B] i32. bw_bin: [B] cutoff bin.
+    For a tensor on the card the float sums over the zero lines are chains
+    in bin order (`numerics.chain_sum`)."""
     B, N = x.shape
     dev = x.device
     if cfg.frame_dms == 100:
@@ -297,7 +303,7 @@ def noise_factor(cfg: Config, x, xq, gain, bw_bin):
     kcnt = torch.sum(zline, dim=-1)
     vals = torch.abs(x / gain[:, None])
     zero = torch.zeros((), dtype=F32, device=dev)
-    mean_all = torch.sum(torch.where(zline, vals, zero), dim=-1) / torch.clamp(kcnt, min=1)
+    mean_all = nm.chain_sum(torch.where(zline, vals, zero), dim=-1) / torch.clamp(kcnt, min=1)
     fac = torch.where(kcnt > 0, mean_all, zero)
 
     if cfg.frame_dms == 100 and cfg.targetBytes <= 20:
@@ -308,8 +314,8 @@ def noise_factor(cfg: Config, x, xq, gain, bw_bin):
         hi = zline & ((k + 1) > mid[:, None])
         nlo = torch.clamp(torch.sum(lo, -1), min=1)
         nhi = torch.clamp(torch.sum(hi, -1), min=1)
-        nsf1 = torch.sum(torch.where(lo, vals, zero), -1) / nlo
-        nsf2 = torch.sum(torch.where(hi, vals, zero), -1) / nhi
+        nsf1 = nm.chain_sum(torch.where(lo, vals, zero), -1) / nlo
+        nsf2 = nm.chain_sum(torch.where(hi, vals, zero), -1) / nhi
         fac = torch.where(kcnt > 0, torch.minimum(nsf1, nsf2), fac)
 
     idx = round_c(8.0 - 16.0 * fac)
@@ -345,6 +351,26 @@ def residual_encode(cfg: Config, x, xq, gain, target, nbits2):
         offset = offset * 0.5
     n_res = torch.minimum(n_nz * iters, torch.clamp(m, min=0))
     return res[:, :max_res].contiguous(), n_res.to(I32)
+
+
+def noise_residual_enc_plain(cfg: Config, dy, xq, gain, bw_bin, target, nbits2, lsb_mode):
+    """The encoder's noise factor and residual coder with its lsbMode mask
+    (models/encoder.py); the plain version of the `noise_residual_enc`
+    kernel. Returns (fac_ns_idx [B] i32, res_bits [B, max_res] i32, n_res
+    [B] i32)."""
+    fac_ns_idx = noise_factor(cfg, dy, xq, gain, bw_bin)
+    res_bits, n_res = residual_encode(cfg, dy, xq, gain, target, nbits2)
+    return fac_ns_idx, res_bits, torch.where(lsb_mode == 0, n_res, 0).to(I32)
+
+
+def noise_residual_enc(cfg: Config, dy, xq, gain, bw_bin, target, nbits2, lsb_mode):
+    """Noise factor and residual coding: the CUDA kernel for a tensor on the
+    card, its plain version for a tensor on the CPU."""
+    args = (dy, xq, gain, bw_bin, target, nbits2, lsb_mode)
+    if nm.on_cpu(dy):
+        return noise_residual_enc_plain(cfg, *args)
+    dtypes = (F32, I32, F32, I32, I32, I32, I32)
+    return kernels.noise_residual_enc(cfg, *(a.to(dt).contiguous() for a, dt in zip(args, dtypes)))
 
 
 def residual_decode(cfg: Config, x, res_bits, n_res):
@@ -430,3 +456,49 @@ def noise_filling(cfg: Config, x, nf_seed, fac_ns_idx, bw_bin,
         level = torch.where(k < spec_inv_idx[:, None], level, fac_ns_pc[:, None])
     fill = torch.where(sign_neg, -level, level)
     return torch.where(zline, fill, x)
+
+
+def spectrum_decode_plain(cfg: Config, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx,
+                          residual_present, res_bits, n_res, nf_seed, zero_frame, q_old_res,
+                          q_old_d, prev_gg, prev_bw_idx, prev_fac_ns, nb_lost):
+    """The decoder's spectrum reconstruction of one frame, in the order of
+    models/decoder.py: partial concealment (pc_apply, pc_update and the
+    lost-frame count's reset), the residual where it is present, noise
+    filling where the frame is not zero, at the bandwidth pc_update returns,
+    and the global gain `gain` (global_gain(cfg, gg_idx)), each on the
+    streams whose frame is not lost (bfi != 1); the plain version of the
+    `spec_decode` kernel. x: [B, N] f32 decoded spectrum. Returns (x [B, N],
+    q_old_res, prev_gg, prev_bw_idx, prev_fac_ns, nb_lost), the last five the
+    partial concealment's new history. For a tensor on the card the
+    concealment's energies are chains (ops/pc.py)."""
+    from . import pc
+    good = (bfi != 1)[:, None]
+    x, fac, nb_lost = pc.pc_apply_gain(cfg, bfi, x, q_old_res, q_old_d, spec_inv_idx, gain,
+                                       prev_gg, nb_lost)
+    q_old_res, prev_gg, bw_idx_nf, prev_bw_idx, new_fac_ns = pc.pc_update_gain(
+        cfg, bfi, rframe, x, spec_inv_idx, gain, fac, bw_idx, q_old_res, prev_gg,
+        prev_bw_idx, prev_fac_ns, fac_ns_idx)
+    nb_lost = torch.where(bfi == 0, 0, nb_lost).to(I32)
+    x = torch.where((residual_present == 1)[:, None] & good,
+                    residual_decode(cfg, x, res_bits, n_res), x)
+    bw_tab = nm.const(T.bw_cutoff_bins(cfg.frame_dms), x.device, I32)
+    bw_bin_nf = bw_tab[bw_idx_nf.clamp(0, bw_tab.shape[0] - 1).long()]
+    nf = noise_filling(cfg, x, nf_seed, fac_ns_idx, bw_bin_nf, spec_inv_idx, prev_fac_ns)
+    x = torch.where((zero_frame == 0)[:, None] & good, nf, x)
+    x = torch.where(good, x * gain[:, None], x)
+    return x, q_old_res, prev_gg, prev_bw_idx, new_fac_ns, nb_lost
+
+
+def spectrum_decode(cfg: Config, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx,
+                    residual_present, res_bits, n_res, nf_seed, zero_frame, q_old_res,
+                    q_old_d, prev_gg, prev_bw_idx, prev_fac_ns, nb_lost):
+    """The decoder's spectrum reconstruction: the CUDA kernel for a tensor
+    on the card, its plain version for a tensor on the CPU."""
+    args = (x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, residual_present, res_bits,
+            n_res, nf_seed, zero_frame, q_old_res, q_old_d, prev_gg, prev_bw_idx, prev_fac_ns,
+            nb_lost)
+    if nm.on_cpu(x):
+        return spectrum_decode_plain(cfg, *args)
+    dtypes = (F32, F32, I32, I32, I32, I32, I32, I32, I32, I32, I32, I32, F32, F32, F32, I32,
+              F32, I32)
+    return kernels.spec_decode(cfg, *(a.to(dt).contiguous() for a, dt in zip(args, dtypes)))

@@ -15,13 +15,18 @@ audio_codec_torch/csrc, and checks it:
                post-filter's five cases, TNS filters of order 8, every SNS
                submode 0-3, LTPF on and off, one and two TNS filters in
                the side information, and TNS on and off in both filters
-               must occur; then the side-info parser on frames that fire
-               each of its bad-frame triggers, the SNS quantizer on all-zero
-               and silent-residual rows, the TNS filter analysis on silent,
-               all-zero and order-8 spectra at 64 and 32 kbps (where the LPC
-               weighting decides), the concealment classifier on rows that
-               take each of its branches, and the MDCT and IMDCT on
-               full-scale, silent and alternating rows at N = 480 and 160;
+               must occur, and the branches of the pitch analysis, the
+               residual coder and the spectrum reconstruction that the
+               material reaches are printed; then the side-info parser on
+               frames that fire each of its bad-frame triggers, the SNS
+               quantizer on all-zero and silent-residual rows, the TNS filter
+               analysis on silent, all-zero and order-8 spectra at 64 and 32
+               kbps (where the LPC weighting decides), the concealment
+               classifier on rows that take each of its branches, the MDCT
+               and IMDCT on full-scale, silent and alternating rows at N = 480
+               and 160, and the pitch analysis, the LTPF coder, the noise
+               factor and residual coder (64 and 16 kbps) and the spectrum
+               reconstruction on rows that take each of their branches;
   4. main path encode_block + decode_block at --streams x --frames with the
                launch counters read around it; on a few streams over all
                frames the kernel path's payload must equal the plain path's
@@ -96,6 +101,13 @@ KERNEL_INFO = {
                     "audio_codec_tpu/ops/pc.py:114"),
     "mdct": ("audio_codec_torch/csrc/mdct.cu", "audio_codec_tpu/ops/transforms.py:69"),
     "imdct": ("audio_codec_torch/csrc/imdct.cu", "audio_codec_tpu/ops/transforms.py:96"),
+    "olpa": ("audio_codec_torch/csrc/olpa.cu", "audio_codec_tpu/ops/analysis.py:77"),
+    "ltpf_encode": ("audio_codec_torch/csrc/ltpf_encode.cu",
+                    "audio_codec_tpu/ops/analysis.py:163"),
+    "noise_residual_enc": ("audio_codec_torch/csrc/noise_residual_enc.cu",
+                           "audio_codec_tpu/ops/quant.py:279"),
+    "spec_decode": ("audio_codec_torch/csrc/spec_decode.cu",
+                    "audio_codec_tpu/models/decoder.py:103"),
 }
 TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
 
@@ -212,7 +224,11 @@ def plain_path():
              (bits, "pack_side_info", bits.pack_side_info_plain),
              (bits, "parse_side_info", bits.parse_side_info_plain),
              (sns, "quantize_scf_dec", sns.sns_vq_dec_plain),
-             (sns, "quantize_scf_enc", lambda cfg, scf: sns.sns_vq_enc_plain(scf))]
+             (sns, "quantize_scf_enc", lambda cfg, scf: sns.sns_vq_enc_plain(scf)),
+             (analysis, "olpa", analysis.olpa_plain),
+             (analysis, "ltpf_encode", analysis.ltpf_encode_plain),
+             (quant, "noise_residual_enc", quant.noise_residual_enc_plain),
+             (quant, "spectrum_decode", quant.spectrum_decode_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, plain in sites:
         setattr(mod, name, plain)
@@ -314,6 +330,24 @@ def work_ops(name: str, args) -> float:
     if name in ("mdct", "imdct"):
         B, N = args[1].shape
         return float(2 * B * N * N)
+    if name == "olpa":
+        # the low-pass, R and E at 98 lags over 64 samples, e0, the searches
+        return float(args[1].shape[0] * (64 * 10 + 98 * 64 * 4 + 64 * 2 + 98 * 4 + 30))
+    if name == "ltpf_encode":
+        # 17 lags x 2 chains over 128 samples, the energy, <= 7 x 17 taps,
+        # the filtered samples and their three chains, the decision
+        return float(args[1].shape[0] * (17 * 128 * 4 + 128 * 2 + 7 * 17 * 2 + 128 * 24 + 60))
+    if name == "noise_residual_enc":
+        # the zero-line window tests; |x / gain| and a sum on a zero line, a
+        # product and a comparison on a nonzero one
+        xq = args[2]
+        nz = float((xq != 0).sum())
+        return 7.0 * xq.numel() + 2.0 * nz + 3.0 * (xq.numel() - nz)
+    if name == "spec_decode":
+        # per good stream the concealed, nudged, filled and scaled line; the
+        # concealment's four energies and synthesis where bfi is 2
+        N, bfi = args[1].shape[1], args[3]
+        return float(N * (6 * int((bfi != 1).sum()) + 8 * int((bfi == 2).sum())))
     if name == "tns_filter_analysis":
         # per filter: a multiply and an add per bin and lag, about 400
         # operations of recursions; a stream with two filters covers the
@@ -384,6 +418,18 @@ def kernel_bytes(name: str, args, outs) -> int:
     if name == "tns_filter_analysis":
         x, bw_idx = args[1], args[2]
         return 4 * x.shape[0] * min(x.shape[1], TNS_BINS) + nbytes(bw_idx, *outs)
+    if name == "spec_decode":
+        # the spectrum and the [B] vectors; the residual bits a good frame
+        # uses (one a nonzero line up to n_res); the history rows of a lost
+        # (copied) or partially corrupt frame; the two rows and four vectors out
+        cfg, x, bfi, res_present, n_res = args[0], args[1], args[3], args[8], args[10]
+        N = x.shape[1]
+        vecs = [a for a in args[2:] if isinstance(a, torch.Tensor) and a.dim() == 1]
+        good = bfi != 1
+        used = torch.minimum((x != 0).sum(-1), n_res.clamp(min=0))
+        res_words = int(torch.where(good & (res_present == 1), used, 0).sum())
+        hist_rows = int((bfi == 1).sum()) + 2 * int((bfi == 2).sum())
+        return nbytes(x, *vecs, *outs) + 4 * res_words + 4 * N * hist_rows
     if name == "pc_classify":
         # the four [B] vectors, and one [N] row of each stream whose frame is
         # partially corrupt in the low region and stable (the peak detector
@@ -519,6 +565,63 @@ def slice4_cases(cfg, dev, K, rec):
           "160 equal their plain versions", flush=True)
 
 
+BRANCHED_KERNELS = ("olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
+
+
+def branch_counts(name: str, args, got) -> dict[str, int]:
+    """Rows of a launch of the pitch analysis, the LTPF coder, the residual
+    coder or the spectrum reconstruction in each of its branches
+    (tests/torch_kernel_cases.py)."""
+    from tests import torch_kernel_cases as C
+    cfg = args[0]
+    order = {"olpa": C.OLPA_ORDER, "ltpf_encode": C.LTPF_ORDER, "noise_residual_enc": C.NRE_ORDER,
+             "spec_decode": C.SPEC_ORDER}[name]
+    a = {k: v.cpu().numpy() for k, v in zip(order, args[1:])}
+    out = [t.cpu().numpy() for t in got]
+    if name == "olpa":
+        return C.olpa_branches(a, out)
+    if name == "ltpf_encode":
+        return C.ltpf_branches(a, out, cfg.frame_dms)
+    if name == "noise_residual_enc":
+        return C.nre_branches(a, out, cfg)
+    return C.spec_branches(a, cfg)
+
+
+def pitch_and_spectrum_cases(cfg, dev, K):
+    """The pitch analysis on pulse trains and tones at the lag limits (the
+    windowed search taken and not, silent rows, empty windows), the LTPF
+    coder with each activation rule firing alone and at the search's lowest
+    lag, the noise factor and residual coder at 64 and 16 kbps (no zero
+    line, a cut n_res, lsbMode), and the spectrum reconstruction in every
+    branch of the partial concealment (tests/torch_kernel_cases.py). Each
+    must equal its plain version and take every branch."""
+    import numpy as np
+    import torch
+    from tests import torch_kernel_cases as C
+    import audio_codec_torch as P
+    from audio_codec_torch.ops import analysis, quant
+    g = lambda a, order: tuple(torch.from_numpy(np.ascontiguousarray(a[k])).to(dev) for k in order)
+    cfg16 = P.Config(fs_in=48000, bitrate=16000)
+    cases = [("olpa", cfg, C.olpa_rows(seed=2), C.OLPA_ORDER, analysis.olpa_plain),
+             ("ltpf_encode", cfg, C.ltpf_rows(seed=2), C.LTPF_ORDER, analysis.ltpf_encode_plain),
+             ("noise_residual_enc", cfg, C.nre_rows(cfg, seed=3), C.NRE_ORDER,
+              quant.noise_residual_enc_plain),
+             ("noise_residual_enc", cfg16, C.nre_rows(cfg16, seed=3), C.NRE_ORDER,
+              quant.noise_residual_enc_plain),
+             ("spec_decode", cfg, C.spec_rows(cfg, seed=4), C.SPEC_ORDER,
+              quant.spectrum_decode_plain)]
+    for name, c, a, order, plain in cases:
+        args = (c, *g(a, order))
+        got = getattr(K, name)(*args)
+        ref = [t.contiguous() for t in plain(*args)]
+        torch.cuda.synchronize()
+        what = f"{name} (synthetic rows, {c.bitrate // 1000} kbps, {args[1].shape[0]} streams)"
+        same_bits(got, ref, what)
+        branches = branch_counts(name, args, got)
+        print(f"[kernels] {what}: {branches}", flush=True)
+        check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -609,9 +712,13 @@ def main() -> int:
              "sns_vq_dec": sns.sns_vq_dec_plain, "sns_vq_enc": sns.sns_vq_enc_plain,
              "tns_filter_analysis": tns.tns_filter_analysis_plain,
              "pc_classify": pc.pc_classify_plain, "mdct": transforms.mdct_plain,
-             "imdct": transforms.imdct_plain}
+             "imdct": transforms.imdct_plain, "olpa": analysis.olpa_plain,
+             "ltpf_encode": analysis.ltpf_encode_plain,
+             "noise_residual_enc": quant.noise_residual_enc_plain,
+             "spec_decode": quant.spectrum_decode_plain}
     tns_on = torch.zeros((2, 2), dtype=torch.long)
     branches = None
+    branch_hist: dict = {}
     errs = {}
     for name in K.KERNELS:
         err = 0.0
@@ -633,6 +740,10 @@ def main() -> int:
             if name == "pc_classify":
                 b = pc_branch_counts(args, got)
                 branches = b if branches is None else {k: branches[k] + b[k] for k in b}
+            if name in BRANCHED_KERNELS:
+                b = branch_counts(name, args, got)
+                old = branch_hist.get(name, {})
+                branch_hist[name] = {k: old.get(k, 0) + v for k, v in b.items()}
         errs[name] = err
         what = f"modes {modes}" if name == "bit_estimate" else ""
         shape = next(tuple(a.shape) for a in rec[name][0][0] if isinstance(a, torch.Tensor))
@@ -643,8 +754,18 @@ def main() -> int:
           f"{tns_on[0].tolist()}, filter 1 off/on {tns_on[1].tolist()}", flush=True)
     check(bool((tns_on > 0).all()), f"TNS never on or never off in a filter: {tns_on.tolist()}")
     print(f"[kernels] pc_classify branches over {T} frames: {branches}", flush=True)
+    for name in BRANCHED_KERNELS:
+        print(f"[kernels] {name} branches over {T} frames: {branch_hist[name]}", flush=True)
+    # what clean material reaches of the four: the synthetic rows take the rest
+    needed = {"olpa": ("window taken", "window not taken"),
+              "ltpf_encode": ("searched", "not searched", "fresh alone"),
+              "noise_residual_enc": ("zero lines",), "spec_decode": ("bfi 0", "residual")}
+    for name, keys in needed.items():
+        check(all(branch_hist[name][k] > 0 for k in keys),
+              f"{name}: a branch the material reaches was not taken: {branch_hist[name]}")
     synthetic_cases(cfg, dev, K, side, sns)
     slice4_cases(cfg, dev, K, rec)
+    pitch_and_spectrum_cases(cfg, dev, K)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)

@@ -15,8 +15,12 @@ SNS submode with its field widths, the pulse search's silent-target branch,
 frames that fire each of the side-info parser's bad-frame triggers, TNS
 spectra with dead subdivisions, filters of order 8 and (at 32 kbps) gains
 where the LPC weighting decides, concealment rows that take every branch of
-the classifier, and full-scale, silent and alternating rows for the MDCT and
-IMDCT at N = 480 and 160 (tests/torch_kernel_cases.py)."""
+the classifier, full-scale, silent and alternating rows for the MDCT and
+IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
+windowed search taken and not, LTPF rows with each activation rule firing
+alone, residual-coder rows with no zero line and a cut n_res at 64 and
+16 kbps, and spectrum rows in every branch of the partial concealment
+(tests/torch_kernel_cases.py)."""
 from __future__ import annotations
 
 import wave
@@ -337,7 +341,8 @@ def test_launch_counts_move(dev):
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
                           "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
-                          "pc_classify": 2, "mdct": 2, "imdct": 2}
+                          "pc_classify": 2, "mdct": 2, "imdct": 2, "olpa": 2,
+                          "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2}
 
 
 def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
@@ -431,3 +436,85 @@ def test_transform_rejects_hr_frames(dev):
     x = torch.zeros((2, 960), device=dev)
     with pytest.raises(ValueError):
         K.mdct(cfg, x, torch.zeros((2, 960 - cfg.la_zeroes), device=dev))
+
+
+PITCH_SPECTRUM_PLAIN = {"olpa": analysis.olpa_plain, "ltpf_encode": analysis.ltpf_encode_plain,
+                "noise_residual_enc": quant.noise_residual_enc_plain,
+                "spec_decode": quant.spectrum_decode_plain}
+
+
+@pytest.mark.parametrize("name", list(PITCH_SPECTRUM_PLAIN))
+def test_pitch_and_spectrum_kernel_matches_plain_on_the_main_path(recorded, name):
+    launches = recorded[name]
+    assert len(launches) == 8
+    for args, _ in launches:
+        ref = PITCH_SPECTRUM_PLAIN[name](*args)
+        same_tensors(getattr(K, name)(*args), [t.contiguous() for t in ref])
+
+
+def on_card(a: dict, order, dev) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[k])).to(dev) for k in order)
+
+
+def test_olpa_synthetic_rows(dev):
+    """Pulse trains and tones at the lag limits, the windowed search taken
+    and not, silent rows, empty windows."""
+    a = C.olpa_rows(seed=2)
+    args = (CFG, *on_card(a, C.OLPA_ORDER, dev))
+    got = K.olpa(*args)
+    same_tensors(got, [t.contiguous() for t in analysis.olpa_plain(*args)])
+    branches = C.olpa_branches(a, [t.cpu().numpy() for t in got])
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_ltpf_encode_synthetic_rows(dev):
+    """Periods at both lag limits and across the resolution steps, the
+    search's lowest lag, each activation rule firing alone, nc_ol on both
+    sides of 0.6."""
+    a = C.ltpf_rows(seed=2)
+    args = (CFG, *on_card(a, C.LTPF_ORDER, dev))
+    got = K.ltpf_encode(*args)
+    same_tensors(got, [t.contiguous() for t in analysis.ltpf_encode_plain(*args)])
+    branches = C.ltpf_branches(a, [t.cpu().numpy() for t in got])
+    assert all(v > 0 for v in branches.values()), branches
+
+
+@pytest.mark.parametrize("bitrate", [64000, 16000])
+def test_noise_residual_enc_synthetic_rows(dev, bitrate):
+    """No zero line, silent rows, n_res cut below the nonzero lines, lsbMode;
+    at 16 kbps (20 bytes) the two half means."""
+    cfg = P.Config(fs_in=48000, bitrate=bitrate)
+    a = C.nre_rows(cfg, seed=3)
+    args = (cfg, *on_card(a, C.NRE_ORDER, dev))
+    got = K.noise_residual_enc(*args)
+    same_tensors(got, quant.noise_residual_enc_plain(*args))
+    branches = C.nre_branches(a, [t.cpu().numpy() for t in got], cfg)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def spec_case_args(dev, seed: int = 4):
+    a = C.spec_rows(CFG, seed=seed)
+    return a, (CFG, *on_card(a, C.SPEC_ORDER, dev))
+
+
+def test_spec_decode_synthetic_rows(dev):
+    """bfi 0, 1 and 2, the bandwidth redo, zero frames, cut residuals and
+    every branch of the partial concealment."""
+    a, args = spec_case_args(dev)
+    same_tensors(K.spec_decode(*args), [t.contiguous() for t in quant.spectrum_decode_plain(*args)])
+    branches = C.spec_branches(a, CFG)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_spec_decode_does_not_synchronise(dev):
+    """The kernel path of quant.spectrum_decode reads nothing back to the
+    host."""
+    _, args = spec_case_args(dev, seed=5)
+    quant.spectrum_decode(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = quant.spectrum_decode(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out[0].shape == args[1].shape

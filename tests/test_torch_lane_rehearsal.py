@@ -2,8 +2,11 @@
 versions.
 
 The per-stream functions of csrc/side_info.cuh, csrc/sns_vq.cuh,
-csrc/tns_analysis.cuh and csrc/pc_classify.cuh, and the DCT-IV, fold and
-unfold of csrc/dct4.cuh, compile as plain C++ as well as for the card. Here g++ builds them (with
+csrc/tns_analysis.cuh, csrc/pc_classify.cuh, csrc/olpa.cuh,
+csrc/ltpf_encode.cuh, csrc/noise_residual_enc.cuh and csrc/spec_decode.cuh,
+and the DCT-IV, fold and unfold of csrc/dct4.cuh, compile as plain C++ as
+well as for the card (the warp kernels of olpa and ltpf_encode share their
+steps with a lane function that runs them in order). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
 the kernels round them) into a shared library in a temporary directory,
 called through ctypes. The plain versions run with `numerics.on_cpu` patched
@@ -557,3 +560,285 @@ def test_rehearsal_catches_mutated_lanes(tmp_path, card_order, mutation):
         ref = pc.pc_classify_plain(C_CFG48, *(torch.from_numpy(a[k]) for k in C.PC_ORDER))
         bad = C.count_differing(lane_pc(lib, C_CFG48, a), ref.numpy())
     assert bad > 0, f"the rehearsal did not see the mutation {mutation}"
+
+
+
+# ---- the pitch analysis, the noise factor and residual coder, the decoder's
+# spectrum reconstruction ----
+
+WRAPPER_PITCH = r"""
+#include "olpa.cuh"
+#include "ltpf_encode.cuh"
+#include "noise_residual_enc.cuh"
+#include "spec_decode.cuh"
+using namespace acx;
+
+extern "C" {
+void rehearse_olpa(const float* s, const float* m12, const float* m64, const int* mp,
+                   const float* tab, int B, int s_stride, int length, int len2, int mem_in_len,
+                   int acflen, int base, int* pitch2, float* nc, int* t0, float* n12, float* n64) {
+  const OlpaGeom g = {length, len2, mem_in_len, acflen, base};
+  float row[kOlpaMaxRow];
+  for (int b = 0; b < B; ++b)
+    olpa_lane(s + s_stride * b, m12 + 3 * b, m64 + mem_in_len * b, mp[b], tab, g, row, pitch2 + b,
+              nc + b, t0 + b, n12 + 3 * b, n64 + mem_in_len * b);
+}
+void rehearse_ltpf(const float* s, const int* pol, const float* ncol, const float* mem_in,
+                   const float* mnc, const float* mmnc, const int* on, const float* mpitch,
+                   const float* tab, int B, int xlen, int N, int mem_len, int acflen, int xbase,
+                   int frame_dms, int enable, int* param, int* bits, float* new_mem, float* nc,
+                   float* mm, int* on_out, float* pitch) {
+  const LtpfGeom g = {xlen, N, mem_len, acflen, xbase, frame_dms, enable};
+  float buf[kLtpfMaxRow];
+  for (int b = 0; b < B; ++b) {
+    const LtpfOut o = ltpf_encode_lane(s + xlen * b, pol[b], ncol[b], mem_in + mem_len * b, mnc[b],
+                                       mmnc[b], on[b], mpitch[b], tab, g, buf,
+                                       new_mem + mem_len * b);
+    for (int k = 0; k < 3; ++k) param[3 * b + k] = o.param[k];
+    bits[b] = o.bits;
+    nc[b] = o.nc;
+    mm[b] = o.mem_mem_nc;
+    on_out[b] = o.on;
+    pitch[b] = o.pitch;
+  }
+}
+void rehearse_nre(const float* x, const int* xq, const float* gain, const int* bw,
+                  const int* target, const int* nbits2, const int* lsb, int B, int N, int width,
+                  int start, int half, int max_res, int* fac, int* res, int* n_res) {
+  const NfEncGeom g = {N, width, start, half, max_res};
+  float v[kNfMaxLines];
+  for (int b = 0; b < B; ++b)
+    noise_residual_enc_lane(x + N * b, xq + N * b, gain[b], bw[b], target[b], nbits2[b], lsb[b],
+                            g, v, fac + b, res + max_res * b, n_res + b);
+}
+// ints [11][B]: bfi rframe inv bw_idx fac_ns res_present n_res seed zero prev_bw nb_lost;
+// floats [3][B]: gain prev_gg prev_fac_ns (the layout of spec_decode.cu)
+void rehearse_spec(const float* x, const int* ints, const float* floats, const int* res_bits,
+                   const float* qr, const float* qd, const int* bins, const int* lcg, int B,
+                   int N, int width,
+                   int start, int res_width, float* x_out, float* q_out, float* pgg, int* pbw,
+                   float* pfac, int* nbl) {
+  const SpecGeom g = {N, width, start, res_width};
+  for (int b = 0; b < B; ++b) {
+    const int* in = ints + b;
+    SpecScalars s;
+    s.gain = floats[b];
+    s.bfi = in[0];
+    s.rframe = in[B];
+    s.spec_inv_idx = in[2 * B];
+    s.bw_idx = in[3 * B];
+    s.fac_ns_idx = in[4 * B];
+    s.residual_present = in[5 * B];
+    s.n_res = in[6 * B];
+    s.nf_seed = in[7 * B];
+    s.zero_frame = in[8 * B];
+    s.prev_bw_idx = in[9 * B];
+    s.nb_lost = in[10 * B];
+    s.prev_gg = floats[B + b];
+    s.prev_fac_ns = floats[2 * B + b];
+    const SpecHistory h = spec_decode_lane(x + N * b, qr + N * b, qd + N * b,
+                                           res_bits + res_width * b, s, bins, lcg, g,
+                                           x_out + N * b, q_out + N * b);
+    pgg[b] = h.prev_gg;
+    pbw[b] = h.prev_bw_idx;
+    pfac[b] = h.prev_fac_ns;
+    nbl[b] = h.nb_lost;
+  }
+}
+}
+"""
+
+# mutations of the slice's lane functions that the rehearsal must catch, one
+# per kernel (the first maximum is shared by olpa and ltpf_encode)
+MUTATIONS_PITCH = {
+    "first_max_ge": ("olpa.cuh", "return v > bv || (v == bv && i < bi);",
+                     "return v >= bv || (v == bv && i < bi);"),
+    "take2_factor": ("olpa.cuh", "rmul(nc1, 0.85f)", "rmul(nc1, 0.8f)"),
+    "ltpf_corr_fma": ("ltpf_encode.cuh", "acc = radd(acc, rmul(a[j], b[j]));",
+                      "acc = fmaf(a[j], b[j], acc);"),
+    "zero_line_window": ("noise_residual_enc.cuh", "imin(k + g.width, bw - 1)",
+                         "imin(k + g.width - 1, bw - 1)"),
+    "lcg_skipped_step": ("spec_decode.cuh", "const int steps = iclamp(r + 1, 0, N);",
+                         "const int steps = iclamp(r, 0, N);"),
+}
+
+
+def build_pitch_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = MUTATIONS_PITCH[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes_pitch.cpp").write_text(WRAPPER_PITCH)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / "lanes_pitch.cpp"), "-o",
+                        str(out / "lanes_pitch.so")],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes_pitch.so"))
+
+
+@pytest.fixture(scope="module")
+def lib_pitch(tmp_path_factory):
+    return build_pitch_lanes(tmp_path_factory.mktemp("lanes_pitch"))
+
+
+def _c(a: np.ndarray, dtype) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype)
+
+
+def lane_olpa(lib, cfg, a: dict):
+    s, m12, m64, mp = (_c(a[k], np.int32 if k == "mem_pitch" else np.float32) for k in C.OLPA_ORDER)
+    B = s.shape[0]
+    length = cfg.len_12k8
+    mem_in_len = m64.shape[1]
+    acflen = length // 2 + (16 if cfg.frame_dms == 25 else 0)
+    base = mem_in_len - 16 if cfg.frame_dms == 25 else mem_in_len
+    pitch2, t0 = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    nc = np.zeros(B, np.float32)
+    n12, n64 = np.zeros((B, 3), np.float32), np.zeros((B, mem_in_len), np.float32)
+    lib.rehearse_olpa(ptr(s), ptr(m12), ptr(m64), ptr(mp), ptr(K._olpa_tables("cpu").numpy()), B,
+                      s.shape[1], length, length // 2, mem_in_len, acflen, base, ptr(pitch2),
+                      ptr(nc), ptr(t0), ptr(n12), ptr(n64))
+    return pitch2, nc, t0, n12, n64
+
+
+def plain_olpa(cfg, a: dict):
+    from audio_codec_torch.ops import analysis
+    return [np.ascontiguousarray(v.numpy()) for v in analysis.olpa_plain(
+        cfg, *(torch.from_numpy(_c(a[k], a[k].dtype)) for k in C.OLPA_ORDER))]
+
+
+def lane_ltpf(lib, cfg, a: dict):
+    args = [_c(a[k], np.int32 if k in ("pitch_ol", "mem_on") else np.float32) for k in C.LTPF_ORDER]
+    B = args[0].shape[0]
+    xlen = cfg.len_12k8 + 1
+    N, mem_len = xlen - 1, cfg.ltpf_mem_in_len
+    acflen, xbase = (2 * N, mem_len - N) if cfg.frame_dms == 25 else (N, mem_len)
+    param, bits, on = np.zeros((B, 3), np.int32), np.zeros(B, np.int32), np.zeros(B, np.int32)
+    new_mem = np.zeros((B, mem_len), np.float32)
+    nc, mm, pitch = (np.zeros(B, np.float32) for _ in range(3))
+    lib.rehearse_ltpf(*(ptr(v) for v in args), ptr(K._ltpf_tables("cpu").numpy()), B, xlen, N,
+                      mem_len, acflen, xbase, cfg.frame_dms, int(bool(cfg.ltpf_enable)),
+                      ptr(param), ptr(bits), ptr(new_mem), ptr(nc), ptr(mm), ptr(on), ptr(pitch))
+    return param, bits, new_mem, nc, mm, on, pitch
+
+
+def plain_ltpf(cfg, a: dict):
+    from audio_codec_torch.ops import analysis
+    return [np.ascontiguousarray(v.numpy()) for v in analysis.ltpf_encode_plain(
+        cfg, *(torch.from_numpy(a[k]) for k in C.LTPF_ORDER))]
+
+
+def lane_nre(lib, cfg, a: dict):
+    max_res, width, start = K._spectral_geometry(cfg, "noise_residual_enc")
+    args = [_c(a[k], np.float32 if k in ("dy", "gain") else np.int32) for k in C.NRE_ORDER]
+    B, N = args[0].shape
+    fac, n_res = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    res = np.zeros((B, max_res), np.int32)
+    lib.rehearse_nre(*(ptr(v) for v in args), B, N, width, start,
+                     int(cfg.frame_dms == 100 and cfg.targetBytes <= 20), max_res, ptr(fac),
+                     ptr(res), ptr(n_res))
+    return fac, res, n_res
+
+
+def plain_nre(cfg, a: dict):
+    from audio_codec_torch.ops import quant
+    return [v.numpy() for v in quant.noise_residual_enc_plain(
+        cfg, *(torch.from_numpy(a[k]) for k in C.NRE_ORDER))]
+
+
+SPEC_INTS = ("bfi", "rframe", "spec_inv_idx", "bw_idx", "fac_ns_idx", "residual_present", "n_res",
+             "nf_seed", "zero_frame", "prev_bw_idx", "nb_lost")
+
+
+def lane_spec(lib, cfg, a: dict):
+    res_width, width, start = K._spectral_geometry(cfg, "spec_decode")
+    B, N = a["x"].shape
+    ints = _c(np.stack([a[k] for k in SPEC_INTS]), np.int32)
+    floats = _c(np.stack([a[k] for k in ("gain", "prev_gg", "prev_fac_ns")]), np.float32)
+    x_out, q_out = np.zeros((B, N), np.float32), np.zeros((B, N), np.float32)
+    pgg, pfac = np.zeros(B, np.float32), np.zeros(B, np.float32)
+    pbw, nbl = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    lib.rehearse_spec(ptr(_c(a["x"], np.float32)), ptr(ints), ptr(floats),
+                      ptr(_c(a["res_bits"], np.int32)), ptr(_c(a["q_old_res"], np.float32)),
+                      ptr(_c(a["q_old_d"], np.float32)),
+                      ptr(K._bw_bins("cpu", cfg.frame_dms).numpy()),
+                      ptr(K._lcg_table("cpu", N).numpy()), B, N, width, start,
+                      res_width, ptr(x_out), ptr(q_out), ptr(pgg), ptr(pbw), ptr(pfac), ptr(nbl))
+    return x_out, q_out, pgg, pbw, pfac, nbl
+
+
+def plain_spec(cfg, a: dict):
+    from audio_codec_torch.ops import quant
+    return [np.ascontiguousarray(v.numpy()) for v in quant.spectrum_decode_plain(
+        cfg, *(torch.from_numpy(a[k]) for k in C.SPEC_ORDER))]
+
+
+def same_all(got, ref):
+    for g, r in zip(got, ref, strict=True):
+        same_bits(g, r)
+
+
+def test_olpa_lane_matches_plain(lib_pitch, card_order):
+    a = C.olpa_rows(seed=1)
+    got = lane_olpa(lib_pitch, PCFG_FLAG, a)
+    same_all(got, plain_olpa(PCFG_FLAG, a))
+    branches = C.olpa_branches(a, got)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_ltpf_encode_lane_matches_plain(lib_pitch, card_order):
+    a = C.ltpf_rows(seed=1)
+    got = lane_ltpf(lib_pitch, PCFG_FLAG, a)
+    same_all(got, plain_ltpf(PCFG_FLAG, a))
+    branches = C.ltpf_branches(a, got)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+@pytest.mark.parametrize("bitrate", [64000, 16000])
+def test_noise_residual_enc_lane_matches_plain(lib_pitch, card_order, bitrate):
+    """At 64 kbps and at 16 kbps (20 bytes: the noise factor is the smaller
+    of two half means)."""
+    cfg = P.Config(fs_in=48000, bitrate=bitrate)
+    assert (cfg.targetBytes <= 20) == (bitrate == 16000)
+    a = C.nre_rows(cfg, seed=2)
+    got = lane_nre(lib_pitch, cfg, a)
+    same_all(got, plain_nre(cfg, a))
+    branches = C.nre_branches(a, got, cfg)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_spec_decode_lane_matches_plain(lib_pitch, card_order):
+    a = C.spec_rows(PCFG_FLAG, seed=3)
+    got = lane_spec(lib_pitch, PCFG_FLAG, a)
+    same_all(got, plain_spec(PCFG_FLAG, a))
+    branches = C.spec_branches(a, PCFG_FLAG)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+PCFG_FLAG = P.Config(fs_in=48000, bitrate=64000)
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_PITCH))
+def test_rehearsal_catches_mutated_pitch_and_spectrum_lanes(tmp_path, card_order, mutation):
+    """A copy of the lane functions with one comparison, one rounding, one
+    constant, one window bound or one generator step changed must disagree
+    with the plain versions on the cases."""
+    lib = build_pitch_lanes(tmp_path, mutation)
+    cfg20 = P.Config(fs_in=48000, bitrate=16000)
+    o, l_, n, s_ = (C.olpa_rows(seed=1), C.ltpf_rows(seed=1), C.nre_rows(cfg20, seed=2),
+                    C.spec_rows(PCFG_FLAG, seed=3))
+    bad = {"olpa": C.count_differing(lane_olpa(lib, PCFG_FLAG, o), plain_olpa(PCFG_FLAG, o)),
+           "ltpf_encode": C.count_differing(lane_ltpf(lib, PCFG_FLAG, l_),
+                                            plain_ltpf(PCFG_FLAG, l_)),
+           "noise_residual_enc": C.count_differing(lane_nre(lib, cfg20, n), plain_nre(cfg20, n)),
+           "spec_decode": C.count_differing(lane_spec(lib, PCFG_FLAG, s_),
+                                            plain_spec(PCFG_FLAG, s_))}
+    assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"

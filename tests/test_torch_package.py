@@ -93,17 +93,34 @@ def _sns_and_side_info_calls():
                                            torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
         "imdct": (K.imdct, transforms.imdct, (cfg, torch.zeros((2, cfg.frame_length)),
                                               torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
+        "olpa": (K.olpa, analysis.olpa,
+                 (cfg, torch.zeros((2, cfg.len_12k8 + 1)), torch.zeros((2, 3)), torch.zeros((2, 114)),
+                  i32(2) + 17)),
+        "ltpf_encode": (K.ltpf_encode, analysis.ltpf_encode,
+                        (cfg, torch.zeros((2, cfg.len_12k8 + 1)), i32(2) + 100, torch.ones(2),
+                         torch.zeros((2, cfg.ltpf_mem_in_len)), torch.zeros(2), torch.zeros(2),
+                         i32(2), torch.zeros(2))),
+        "noise_residual_enc": (K.noise_residual_enc, quant.noise_residual_enc,
+                               (cfg, torch.zeros((2, cfg.yLen)), i32(2, cfg.yLen), torch.ones(2),
+                                i32(2) + 400, i32(2) + 200, i32(2) + 150, i32(2))),
+        "spec_decode": (K.spec_decode, quant.spectrum_decode,
+                        (cfg, torch.zeros((2, cfg.yLen)), torch.ones(2), i32(2), i32(2),
+                         i32(2) + cfg.yLen, i32(2) + 4, i32(2), i32(2), i32(2, cfg.yLen), i32(2),
+                         i32(2), i32(2), torch.zeros((2, cfg.yLen)), torch.zeros((2, cfg.yLen)),
+                         torch.ones(2), i32(2) + 4, torch.zeros(2), i32(2))),
     }
 
 
 @pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
-                                  "imdct"])
+                                  "imdct", "olpa", "ltpf_encode", "noise_residual_enc",
+                                  "spec_decode"])
 def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
     """As above for the SNS quantizer, the side information, the TNS filter
-    analysis, the concealment classifier and the transforms: the wrapper
-    raises on a CPU tensor, the op of the same arguments runs its plain
-    version."""
+    analysis, the concealment classifier, the transforms, the pitch and LTPF
+    analysis, the noise factor and residual coder and the decoder's spectrum
+    reconstruction: the wrapper raises on a CPU tensor, the op of the same
+    arguments runs its plain version."""
     wrapper, op, args = _sns_and_side_info_calls()[name]
     with pytest.raises(ValueError, match="CUDA tensor"):
         wrapper(*args)
@@ -131,3 +148,14 @@ def test_unported_modes_raise():
         ari.decode(pc_cfg, buf, {})
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=1), 1, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["noise_residual_enc", "spec_decode"])
+def test_spectral_kernels_refuse_hr_mode(name):
+    """HR mode's 20 residual rounds are not ported: the wrappers raise for
+    an HR configuration before they look at the tensors."""
+    from audio_codec_torch import kernels as K
+    hr = P.Config(fs_in=48000, bitrate=128000, hrmode=True)
+    assert hr.hrmode
+    with pytest.raises(ValueError, match="HR mode"):
+        getattr(K, name)(hr, *([torch.zeros(1)] * (7 if name == "noise_residual_enc" else 18)))

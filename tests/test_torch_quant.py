@@ -119,3 +119,71 @@ def test_decoder_spectral_ops():
                                rtol=2.0 ** -20, atol=0)
     eq(PQ.round_c(t(np.array([-2.5, -0.5, 0.5, 1.5, 2.4999], np.float32))),
        np.array([-3, -1, 1, 2, 2], np.float32))
+
+
+def bits_equal(got, ref):
+    got, ref = n(got), np.asarray(ref)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("bitrate", [64000, 16000])
+def test_noise_residual_enc_plain_matches_reference(bitrate):
+    """The encoder's noise factor, residual coder and lsbMode mask at 64 kbps
+    and at 16 kbps (20 bytes: the smaller of two half means), bit for bit
+    against the reference's noise_factor and residual_encode, on the rows of
+    tests/torch_kernel_cases.py (no zero line, silent rows, n_res below the
+    count of nonzero lines, lsbMode on)."""
+    from tests import torch_kernel_cases as C
+    jcfg, pcfg = JConfig(fs_in=48000, bitrate=bitrate), P.Config(fs_in=48000, bitrate=bitrate)
+    assert (pcfg.targetBytes <= 20) == (bitrate == 16000)
+    a = C.nre_rows(pcfg, seed=5, n=48)
+    fac, res, n_res = PQ.noise_residual_enc_plain(pcfg, *(t(a[k]) for k in C.NRE_ORDER))
+    bits_equal(fac, J(JQ.noise_factor, jcfg)(a["dy"], a["xq"], a["gain"], a["bw_bin"]))
+    rref, nref = J(JQ.residual_encode, jcfg)(a["dy"], a["xq"], a["gain"], a["target"], a["nbits2"])
+    bits_equal(res, rref)
+    bits_equal(n_res, np.where(a["lsb_mode"] == 0, np.asarray(nref), 0).astype(np.int32))
+    branches = C.nre_branches(a, (fac, res, n_res), pcfg)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def _reference_spectrum(cfg, x, gg_idx, bfi, rframe, inv, bw_idx, fac_ns_idx, residual_present,
+                        res_bits, n_res, nf_seed, zero_frame, q_old_res, q_old_d, prev_gg,
+                        prev_bw, prev_fac_ns, nb_lost):
+    """The reference's partial concealment, residual, noise filling and
+    global gain composed as audio_codec_tpu/models/decoder.py:103-125 does."""
+    import jax.numpy as jnp
+    from audio_codec_tpu import tables as JT
+    from audio_codec_tpu.ops import pc as JP
+    good = (bfi != 1)[:, None]
+    x, fac, nb = JP.pc_apply(cfg, bfi, x, q_old_res, q_old_d, inv, gg_idx, prev_gg, nb_lost)
+    q, pgg, bw_nf, pbw, pfac = JP.pc_update(cfg, bfi, rframe, x, inv, gg_idx, fac, bw_idx,
+                                             q_old_res, prev_gg, prev_bw, prev_fac_ns, fac_ns_idx)
+    nb = jnp.where(bfi == 0, 0, nb)
+    x = jnp.where((residual_present == 1)[:, None] & good,
+                  JQ.residual_decode(cfg, x, res_bits, n_res), x)
+    bw_bin_nf = jnp.asarray(JT.t("BW_cutoff_bin_all"), jnp.int32)[bw_nf]
+    nf = JQ.noise_filling(cfg, x, nf_seed, fac_ns_idx, bw_bin_nf, inv, prev_fac_ns)
+    x = jnp.where((zero_frame == 0)[:, None] & good, nf, x)
+    x = jnp.where(good, JQ.apply_global_gain(cfg, x, gg_idx), x)
+    return x, q, pgg, pbw, pfac, nb
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spectrum_decode_plain_matches_reference(seed):
+    """The port's decoder composition (quant.spectrum_decode_plain, the gain
+    passed in) bit for bit against the reference's functions composed in
+    decoder order, on rows with bfi 0, 1 and 2, redundancy frames with the
+    bandwidth redo, zero frames, n_res below the count of nonzero lines and
+    every branch of the concealment (tests/torch_kernel_cases.py)."""
+    from tests import torch_kernel_cases as C
+    a = C.spec_rows(PCFG, seed=seed, n=40)
+    gg_idx = np.random.default_rng(seed).integers(60, 200, a["x"].shape[0]).astype(np.int32)
+    a["gain"] = n(PQ.global_gain(PCFG, t(gg_idx)))
+    got = PQ.spectrum_decode_plain(PCFG, *(t(a[k]) for k in C.SPEC_ORDER))
+    args = [gg_idx if k == "gain" else a[k] for k in C.SPEC_ORDER]
+    ref = J(_reference_spectrum, JCFG)(*args)
+    for g, e in zip(got, ref, strict=True):
+        bits_equal(g, e)
+    branches = C.spec_branches(a, PCFG)
+    assert all(v > 0 for v in branches.values()), branches

@@ -30,7 +30,7 @@ ENCODER_STAGES = {
     "sns": ["compute_scf", "quantize_scf_enc", "interpolate_scf", "mdct_shaping"],
     "tns": ["tns_encode"],
     "quant": ["estimate_global_gain", "quantize_spectrum", "bit_estimate",
-              "adjust_global_gain", "truncate_spectrum", "noise_factor", "residual_encode"],
+              "adjust_global_gain", "truncate_spectrum", "noise_residual_enc"],
     "bits": ["pack_side_info"],
     "ari": ["encode"],
 }
@@ -38,8 +38,8 @@ DECODER_STAGES = {
     "bits": ["parse_side_info"],
     "ari": ["decode"],
     "sns": ["quantize_scf_dec", "interpolate_scf", "mdct_shaping"],
-    "pc": ["compute_stab_fac", "pc_classify", "pc_apply", "pc_update"],
-    "quant": ["residual_decode", "noise_filling", "apply_global_gain"],
+    "pc": ["compute_stab_fac", "pc_classify"],
+    "quant": ["global_gain", "spectrum_decode"],
     "tns": ["tns_decode"],
     "plc": ["plc_main", "plc_update"],
     "transforms": ["imdct"],
