@@ -11,50 +11,8 @@ import math
 from dataclasses import dataclass, replace
 
 from . import tables as T
-
-# channel-coder slot geometry (al_fec.c:200-357), needed only to derive the
-# byte budgets of the EP modes
-FEC_SLOT_BYTES_MIN = 40
-FEC_SLOT_BYTES_MAX = 300
-_RS16_CW_LEN_MAX = 15
-_CRC1_BYTES_40 = (0, 3, 2, 2, 2)
-_CRC1_BYTES = (0, 3, 3, 3, 3)
-_CRC2_BYTES = (0, 0, 2, 2, 2)
-
-
-def _n_codewords(slot_bytes: int) -> int:
-    return (2 * slot_bytes + _RS16_CW_LEN_MAX - 1) // _RS16_CW_LEN_MAX
-
-
-def fec_get_n_pccw(slot_bytes: int, mode: int, ccc_flag: int) -> int:
-    if mode == 3:
-        n = (2 * 2636 * slot_bytes - 117377 + 0x8000) >> 16
-    elif mode == 4:
-        n = (2 * 2178 * slot_bytes - 129115 + 0x8000) >> 16
-    else:
-        n = 0
-    if ccc_flag == 1 or slot_bytes < 80:
-        n = 0
-    return n
-
-
-def fec_get_n_pc(mode: int, n_pccw: int, slot_bytes: int) -> int:
-    ncw = _n_codewords(slot_bytes)
-    if mode == 1 or slot_bytes < 80:
-        return 0
-    return -2 * n_pccw * (mode - 1) + sum(
-        (2 * slot_bytes + i) // ncw for i in range(n_pccw))
-
-
-def fec_get_data_size(mode: int, ccc_flag: int, slot_bytes: int) -> int:
-    payload = slot_bytes
-    if mode > 0:
-        payload -= 1 if mode == 1 else _n_codewords(slot_bytes) * (mode - 1)
-        crc1 = (_CRC1_BYTES_40 if slot_bytes == 40 else _CRC1_BYTES)[mode]
-        payload -= crc1
-        if ccc_flag == 0 and mode > 2 and slot_bytes >= 80:
-            payload -= _CRC2_BYTES[mode]
-    return payload
+from .ops.fec import (FEC_SLOT_BYTES_MAX, FEC_SLOT_BYTES_MIN, fec_get_data_size,
+                      fec_get_n_pc, fec_get_n_pccw)
 
 
 def _codec_fs(fs: int) -> int:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import tables as T
+from .ops import numerics as nm
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -37,7 +38,8 @@ KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
            "tns_filter_analysis", "pc_classify", "mdct", "imdct",
-           "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
+           "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
+           "fec_decode")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -121,7 +123,7 @@ def library() -> ctypes.CDLL:
     sigs = {
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
         "acx_ari_encode": [P] * 8 + [I] * 8 + [P],
-        "acx_ari_decode": [P] * 9 + [I] * 11 + [P],
+        "acx_ari_decode": [P] * 10 + [I] * 14 + [P],
         "acx_ltpf_postfilter": [P] * 11 + [I] * 8 + [P],
         "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
         "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
@@ -139,6 +141,8 @@ def library() -> ctypes.CDLL:
         "acx_ltpf_encode": [P] * 16 + [I] * 8 + [P],
         "acx_noise_residual_enc": [P] * 10 + [I] * 6 + [P],
         "acx_spec_decode": [P] * 14 + [I] * 5 + [P],
+        "acx_fec_encode": [P] * 4 + [I] * 5 + [P],
+        "acx_fec_decode": [P] * 5 + [I] * 3 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -168,7 +172,7 @@ def _stream() -> int:
 
 
 def _i32(v, B: int, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int32, device=device).expand(B).contiguous()
+    return nm.vec_i32(v, B, device).contiguous()
 
 
 @functools.cache
@@ -238,9 +242,13 @@ def ari_encode(cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx,
     return out
 
 
-def ari_decode(cfg, buf, side):
+def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
+               pc_enc_sim: bool = False):
     """Launch `ari_decode` (csrc/ari_decode.cu); returns the dict of
-    ops/ari.py:decode_plain."""
+    ops/ari.py:decode_plain. With a partial-concealment block (cfg.n_pc > 0)
+    or pc_enc_sim the lanes run the PC hooks; bfi_in and the corrupt bit
+    range enter only there."""
+    from .ops.ari import pc_params
     from .ops.quant import residual_max_bits
     buf = buf.to(torch.int32).contiguous()
     _check(buf, "buf", torch.int32, 2)
@@ -252,6 +260,12 @@ def ari_decode(cfg, buf, side):
                                              _i32(side["tns_on"][:, 1], L, dev)]
         + [_i32(side[k], L, dev) for k in ("bp_side", "mask_side", "gg_idx",
                                            "fac_ns_idx")]).contiguous()
+    pc = pc_params(cfg, pc_enc_sim)
+    pc_mode, pc_in = 0, None
+    if pc is not None:
+        pc_mode = 2 if pc_enc_sim else 1
+        pc_in = torch.stack([_i32(d if v is None else v, L, dev) for v, d in zip(
+            (bfi_in, be_bp_left, be_bp_right), (0, -1, -1))])
     total_bits = cfg.targetBytes * 8
     max_res = min(residual_max_bits(cfg), total_bits)
     e = lambda *s, dt=torch.int32: torch.empty((L, *s), dtype=dt, device=dev)
@@ -259,13 +273,15 @@ def ari_decode(cfg, buf, side):
     levs = e(N // 2, dt=torch.uint8)
     out = torch.empty((7, L), dtype=torch.int32, device=dev)
     _run("ari_decode", library().acx_ari_decode(
-        buf.data_ptr(), side_in.data_ptr(), _decoder_tables(str(dev)).data_ptr(),
+        buf.data_ptr(), side_in.data_ptr(), None if pc_in is None else pc_in.data_ptr(),
+        _decoder_tables(str(dev)).data_ptr(),
         x.data_ptr(), tns_order.data_ptr(), tns_idx.data_ptr(), res.data_ptr(),
         levs.data_ptr(), out.data_ptr(), L, nbytes, N, 22 if cfg.hrmode else 14,
         int(cfg.hrmode), 8 if cfg.frame_dms == 100 else 4,
         1 if cfg.enable_lpc_weighting else 0,
         cfg.rateFlag if cfg.fs_idx != 5 else 0, total_bits, max_res,
-        20 if cfg.hrmode else 1, _stream()))
+        20 if cfg.hrmode else 1, pc_mode, 0 if pc is None else pc["pc_bytes"],
+        cfg.targetBytes, _stream()))
     return dict(x=x, tns_order=tns_order, tns_idx=tns_idx, nf_seed=out[0],
                 zero_frame=out[1], res_bits=res, n_res=out[2], residual_present=out[3],
                 bfi=out[4], spec_inv_idx=out[5], b_left=out[6])
@@ -680,6 +696,9 @@ def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, res
     B, N = x.shape
     for name, t in (("q_old_res", q_old_res), ("q_old_d", q_old_d)):
         _rows(t, name, (B, N))
+    # a frame carries at most min(max residual bits, its own bits): fewer
+    # than max_res below 50 bytes (the EP4 core at 64 kbps has 42)
+    res_width = res_bits.shape[1] if 0 < res_bits.shape[1] <= res_width else res_width
     _rows(res_bits, "res_bits", (B, res_width), torch.int32)
     ints = dict(bfi=bfi, rframe=rframe, spec_inv_idx=spec_inv_idx, bw_idx=bw_idx,
                 fac_ns_idx=fac_ns_idx, residual_present=residual_present, n_res=n_res,
@@ -700,3 +719,74 @@ def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, res
         prev_gg_out.data_ptr(), bw_out.data_ptr(),
         fac_out.data_ptr(), nb_out.data_ptr(), B, N, width, start, res_width, _stream()))
     return x_out, q_out, prev_gg_out, bw_out, fac_out, nb_out
+
+
+@functools.cache
+def fec_tables(device: str) -> torch.Tensor:
+    """The channel coder's tables as one int32 buffer on `device`, in the
+    layout of csrc/fec.cuh: GF(16) product and inverse, the powers of g, the
+    syndrome points, the signalling polynomials and their syndromes, the
+    risk table and the RS parity bases of hd 3, 5 and 7 (13 x 6 each)."""
+    from .ops import fec as F
+    bases = []
+    for hd in (3, 5, 7):
+        b = np.zeros((13, 6), np.int32)
+        basis = F._rs_basis(hd, 13)
+        b[:, : basis.shape[1]] = basis
+        bases.append(b.ravel())
+    words = np.concatenate([
+        F._MUL.ravel(), F._INV, F.G_POW, F._SYND_POW.ravel(), F._SIG_POLYS.ravel(),
+        F._SIG_SYNDR.ravel(), F._RISK_M.ravel(), F._RISK_E.ravel(), F._BITCNT] + bases)
+    if words.size != 743:
+        raise RuntimeError(f"FEC tables: {words.size} words, the kernels expect 743")
+    return torch.as_tensor(words.astype(np.int32), device=device)
+
+
+def _fec_slot(slot_bytes: int):
+    from .ops import fec as F
+    if not F.FEC_SLOT_BYTES_MIN <= slot_bytes <= F.FEC_SLOT_BYTES_MAX:
+        raise ValueError(f"slot of {slot_bytes} bytes outside [{F.FEC_SLOT_BYTES_MIN}, "
+                         f"{F.FEC_SLOT_BYTES_MAX}]")
+
+
+def fec_encode(data, epmr, slot_bytes: int, mode: int, ccc_flag: int):
+    """Launch `fec_encode` (csrc/fec_encode.cu); see
+    ops/fec.py:fec_encode_plain. Returns [B, slot_bytes] int32."""
+    from .ops.fec import fec_get_data_size
+    _fec_slot(slot_bytes)
+    if mode not in (1, 2, 3, 4):
+        raise ValueError(f"fec_encode: EP mode {mode} not in 1..4")
+    data = data.to(torch.int32).contiguous()
+    _check(data, "data", torch.int32, 2)
+    B, D = data.shape
+    if D != fec_get_data_size(mode, ccc_flag, slot_bytes):
+        raise ValueError(f"fec_encode: {D} payload bytes, the slot of {slot_bytes} bytes "
+                         f"at EP{mode} takes {fec_get_data_size(mode, ccc_flag, slot_bytes)}")
+    epmr = epmr.to(torch.int32).contiguous()
+    _check_vectors(B, torch.int32, epmr=epmr)
+    out = torch.empty((B, slot_bytes), dtype=torch.int32, device=data.device)
+    _run("fec_encode", library().acx_fec_encode(
+        data.data_ptr(), epmr.data_ptr(), fec_tables(str(data.device)).data_ptr(),
+        out.data_ptr(), B, D, slot_bytes, mode, int(ccc_flag), _stream()))
+    return out
+
+
+def fec_decode(frames, slot_bytes: int, ccc_flag: int, bfi_in=None):
+    """Launch `fec_decode` (csrc/fec_decode.cu); returns the dict of
+    ops/fec.py:fec_decode_plain."""
+    _fec_slot(slot_bytes)
+    frames = frames.to(torch.int32).contiguous()
+    _rows(frames, "frames", (frames.shape[0], slot_bytes), torch.int32)
+    B, dev = frames.shape[0], frames.device
+    if bfi_in is not None:
+        bfi_in = bfi_in.to(torch.int32).contiguous()
+        _check_vectors(B, torch.int32, bfi_in=bfi_in)
+    data = torch.empty((B, slot_bytes), dtype=torch.int32, device=dev)
+    out = torch.empty((9, B), dtype=torch.int32, device=dev)
+    _run("fec_decode", library().acx_fec_decode(
+        frames.data_ptr(), None if bfi_in is None else bfi_in.data_ptr(),
+        fec_tables(str(dev)).data_ptr(), data.data_ptr(), out.data_ptr(), B, slot_bytes,
+        int(ccc_flag), _stream()))
+    names = ("data_bytes", "bfi", "epmr", "error_report", "mode", "n_pccw", "n_pc",
+             "be_bp_left", "be_bp_right")
+    return dict(data=data, **dict(zip(names, out)))

@@ -13,6 +13,7 @@ import torch
 from .. import tables as T
 from ..config import Config
 from ..ops import ari, bits, ltpf_dec, pc, plc, quant, sns, tns, transforms
+from ..ops import numerics as nm
 from .state import DecState, check_plc_mode
 
 I32 = torch.int32
@@ -58,7 +59,7 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
     full_n = torch.full((B,), N, dtype=I32, device=dev)
     spec_inv_idx = torch.where(bfi == 2, dec["spec_inv_idx"], full_n)
 
-    bw_bin_tab = torch.as_tensor(T.bw_cutoff_bins(cfg.frame_dms), dtype=I32, device=dev)
+    bw_bin_tab = nm.table(T.bw_cutoff_bins, cfg.frame_dms, device=dev, dtype=I32)
     n_bw = bw_bin_tab.shape[0]
     # a corrupt frame may signal an out-of-range bandwidth (bfi is set then)
     bw_bin = bw_bin_tab[side["bw_idx"].clamp(0, n_bw - 1).long()]

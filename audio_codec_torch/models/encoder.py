@@ -16,6 +16,7 @@ import torch
 from .. import tables as T
 from ..config import Config
 from ..ops import analysis, ari, bits, quant, sns, tns, transforms
+from ..ops import numerics as nm
 from .state import EncState
 
 I32 = torch.int32
@@ -72,7 +73,7 @@ def encode_frame(cfg: Config, st: EncState, pcm: torch.Tensor):
     lsb_mode = pick("lsbMode")
     xq = quant.truncate_spectrum(xq, pick("lastnz"), lastnz_wire)
 
-    bw_tab = torch.as_tensor(T.bw_cutoff_bins(cfg.frame_dms), dtype=I32, device=dev)
+    bw_tab = nm.table(T.bw_cutoff_bins, cfg.frame_dms, device=dev, dtype=I32)
     bw_bin = bw_tab[bw_idx.long()]
     fac_ns_idx, res_bits, n_res = quant.noise_residual_enc(
         cfg, dy, xq, gain_f, bw_bin, target, nbits2, lsb_mode)

@@ -36,7 +36,8 @@ def resample_12k8(cfg: Config, x, mem_in, mem_50, mem_out):
     product of a concatenation; the frame's product runs in 256-deep blocks
     (read at 480 and 320 taps, tests/test_torch_analysis.py)."""
     n12k8 = cfg.frame_length * 12800 // cfg.fs
-    R = nm.const(T.resampler_matrix(cfg.fs_idx, cfg.frame_length).T, x.device)
+    R = nm.table(T.resampler_matrix, cfg.fs_idx, cfg.frame_length, device=x.device,
+                 transpose=True)
     buf = torch.cat([mem_in, x], dim=-1)
     new_mem_in = buf[:, cfg.frame_length:]
     if nm.on_cpu(x):
@@ -84,10 +85,14 @@ def hp50_biquad(x, mem_50):
     return kernels.hp50_biquad(x.contiguous(), mem_50.contiguous())
 
 
+def _window_index(base: int, n_lags: int, n: int) -> np.ndarray:
+    return base + np.arange(n)[None, :] - np.arange(n_lags)[:, None]
+
+
 def _window_gather(buf, base: int, n_lags: int, n: int):
     """buf[:, base + j - l] for l in [0,n_lags), j in [0,n) -> [B, n_lags, n]."""
-    idx = base + np.arange(n)[None, :] - np.arange(n_lags)[:, None]
-    return buf[:, torch.as_tensor(idx, device=buf.device)]
+    return buf[:, nm.table(_window_index, base, n_lags, n, device=buf.device,
+                           dtype=torch.int64)]
 
 
 def _first_argmax(v: torch.Tensor) -> torch.Tensor:
@@ -144,7 +149,7 @@ def olpa_plain(cfg: Config, s12k8, mem_s12k8, mem_s6k4, mem_pitch):
         E = nm.chain_sum(lagged * lagged)
         e0 = nm.chain_sum(cur * cur)
 
-    acw = nm.const(T.t("olpa_acw"), dev)
+    acw = nm.table(T.t, "olpa_acw", device=dev)
     L = _first_argmax(R * acw)
     T0 = L.to(I32) + T.MIN_PITCH_6K4
 
@@ -246,7 +251,7 @@ def ltpf_encode_plain(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
     mask = ar(9)[None, :] < n_int[:, None]
     t1 = _first_argmax(torch.where(mask, cor[:, 4:13], -torch.inf)).to(I32) + t0_min
 
-    Mi = nm.const(_ltpf_interp_matrix().T, dev)
+    Mi = nm.table(_ltpf_interp_matrix, device=dev, transpose=True)
     cor_int = nm.chain_dot(cor, Mi)                           # [B, 36]
     step = torch.where(t1 >= T.RES4_PITCH_12K8, 2, 1).to(I32)
     midpoint = 4 * (t1 - t0_min) + 1
@@ -275,7 +280,7 @@ def ltpf_encode_plain(cfg: Config, s12k8, pitch_ol, nc_ol, mem_in,
                               torch.where(pi < T.RES2_PITCH_12K8, idx_mid, idx_hi))
     pitch = pi.to(F32) + pf.to(F32) / 4.0
 
-    ef = nm.const(T.t("enc_inter_filter"), dev)               # [4, 4]
+    ef = nm.table(T.t, "enc_inter_filter", device=dev)               # [4, 4]
     j = ar(acflen)[None, :]
 
     def shifted(k):
@@ -369,8 +374,8 @@ def attack_detector(cfg: Config, x, position, acc_energy, filter_mem):
 
 def per_band_energy(cfg: Config, d):
     """[B, N] spectrum -> [B, bands_number] mean energies (one product)."""
-    M = nm.const(T.band_energy_matrix(cfg.fs_idx, cfg.frame_dms, cfg.hrmode,
-                                    cfg.frame_length), d.device)
+    M = nm.table(T.band_energy_matrix, cfg.fs_idx, cfg.frame_dms, cfg.hrmode,
+                 cfg.frame_length, device=d.device)
     return nm.dot(d * d, M)
 
 
@@ -417,13 +422,16 @@ def detect_cutoff_warped(cfg: Config, ener):
 def cutoff_bandwidth(cfg: Config, d):
     """Bandwidth controller (cutoff_bandwidth.c:13-26): taper the four bins
     straddling the forced cutoff and zero everything above, up to yLen."""
-    bw_bin = cfg.bw_ctrl_cutoff_bin
-    D = d.shape[-1]
-    if cfg.yLen <= bw_bin:
+    if cfg.yLen <= cfg.bw_ctrl_cutoff_bin:
         return d
+    return d * nm.table(_cutoff_mask, cfg.bw_ctrl_cutoff_bin, d.shape[-1], cfg.yLen,
+                        device=d.device)
+
+
+def _cutoff_mask(bw_bin: int, D: int, y_len: int) -> np.ndarray:
     mask = np.ones((D,), np.float32)
     for i in range(-1, 3):
-        if 0 <= bw_bin + i < cfg.yLen:
+        if 0 <= bw_bin + i < y_len:
             mask[bw_bin + i] = 2.0 ** -(i + 2)
-    mask[bw_bin + 3: cfg.yLen] = 0.0
-    return d * nm.const(mask, d.device)
+    mask[bw_bin + 3: y_len] = 0.0
+    return mask

@@ -9,19 +9,18 @@ every stream is one lane of [B]-vectorized coder state and the symbol
 sequence is a loop over 2-tuples. Two differences in form, none in output:
 the pending carry run of ac_shift_fl (ari_codec.c:593-609) is written
 directly, as the C does, and the loops stop at the last level and tuple
-that any lane needs. Only frames without a partial-concealment block
-(`cfg.n_pc == 0`) are supported.
+that any lane needs. The decoder follows the reference's partial-concealment
+hooks for frames that carry a PC block (`cfg.n_pc > 0`, EP3/EP4 in slots of
+80 bytes or more).
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from .. import kernels
 from .. import tables as T
 from ..config import Config
+from . import numerics as nm
 from .quant import msb, residual_max_bits
 
 I32 = torch.int32
@@ -29,23 +28,9 @@ I64 = torch.int64
 MASK24 = (1 << 24) - 1
 
 
-def _check_no_pc(cfg: Config, pc_enc_sim: bool = False):
-    if cfg.n_pc > 0 or pc_enc_sim:
-        raise NotImplementedError(
-            "partial-concealment blocks (n_pc > 0, pc_enc_sim) are not ported "
-            "yet: ROADMAP.md Queue 1 item 10")
-
-
-@functools.cache
-def coder_tables_np() -> dict[str, np.ndarray]:
-    """The range coder's tables as int32 arrays."""
-    names = ("ari_spec_lookup_fl", "ari_spec_cumfreq_fl", "tns_freq_cf", "tns_cf",
-             "ari_tns_order_cf", "ari_tns_freq_cf")
-    return {n: np.ascontiguousarray(T.t(n), dtype=np.int32) for n in names}
-
-
 def _tab(name: str, device) -> torch.Tensor:
-    return torch.as_tensor(coder_tables_np()[name], device=device)
+    """A range-coder table as int64 on `device`."""
+    return nm.table(T.t, name, device=device, dtype=I64)
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +179,8 @@ def encode_plain(cfg: Config, buf, bp_side, mask_side, xq, tns_order, tns_idx,
     lastnz_wire = lastnz_wire.to(I64)
     lsb_mode = lsb_mode.to(I64)
 
-    tns_freq_cf = _tab("tns_freq_cf", dev).to(I64)      # [2, 9]
-    tns_cf = _tab("tns_cf", dev).to(I64)                # [8, 18]
+    tns_freq_cf = _tab("tns_freq_cf", dev)      # [2, 9]
+    tns_cf = _tab("tns_cf", dev)                # [8, 18]
     lpcw = 1 if cfg.enable_lpc_weighting else 0
     for f in range(2):
         order = tns_order[:, f].to(I64)
@@ -209,8 +194,8 @@ def encode_plain(cfg: Config, buf, bp_side, mask_side, xq, tns_order, tns_idx,
             st.encode(tns_cf[j, (idx + 1).clamp(0, 17)] - cf, cf, act_f & (j < order))
 
     ctx = tuple_context(cfg, xq, lastnz_wire)
-    lookup = _tab("ari_spec_lookup_fl", dev).to(I64)
-    cumf = _tab("ari_spec_cumfreq_fl", dev).to(I64)     # [64, 18]
+    lookup = _tab("ari_spec_lookup_fl", dev)
+    cumf = _tab("ari_spec_cumfreq_fl", dev)     # [64, 18]
     a_all = torch.abs(xq[:, 0::2]).to(I64)
     b_all = torch.abs(xq[:, 1::2]).to(I64)
     neg_a = (xq[:, 0::2] < 0).to(I64)
@@ -286,7 +271,6 @@ def encode(cfg: Config, buf, bp_side, mask_side, xq, tns_order, tns_idx,
            num_tns_filters, lastnz_wire, lsb_mode, res_bits, n_res):
     """Arithmetic encoder body + residual fill + finalize. buf: [B, nbytes]
     int32 with the side info packed; returns the finished buffer (int32)."""
-    _check_no_pc(cfg)
     args = (cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx,
             num_tns_filters, lastnz_wire, lsb_mode, res_bits, n_res)
     if xq.device.type == "cpu":
@@ -299,27 +283,88 @@ def encode(cfg: Config, buf, bp_side, mask_side, xq, tns_order, tns_idx,
 # ---------------------------------------------------------------------------
 
 class _Dec:
-    """[B]-vectorized decoder state (ac_dec_init_fl), int64 registers."""
+    """[B]-vectorized decoder state (ac_dec_init_fl), int64 registers, with
+    the partial-concealment pointer state (Pc_State_fx, ari_codec.c:18-33)
+    when the frame carries a PC block: `pc` is None or dict(pc_bytes,
+    numbytes, L_spec, enc)."""
 
-    def __init__(self, buf, bp_side, mask_side):
+    def __init__(self, buf, bp_side, mask_side, pc=None, be_l=None, be_r=None, bfi2=None):
         B, self.nbytes = buf.shape
-        self.rows = torch.arange(B, device=buf.device)
+        dev = buf.device
+        full = lambda v: torch.full((B,), v, dtype=I64, device=dev)
+        self.rows = torch.arange(B, device=dev)
         self.buf = buf.to(I64)
-        low = torch.zeros((B,), dtype=I64, device=buf.device)
-        for i in range(3):
-            low = (low << 8) + self.buf[:, i]
-        self.low = low
-        self.bp = torch.full((B,), 3, dtype=I64, device=buf.device)
-        self.range = torch.full_like(low, MASK24)
-        self.ber = torch.zeros_like(low)
+        self.pc = pc
+        self.range = full(MASK24)
+        self.ber = full(0)
         self.bp_side = bp_side.to(I64)
         self.mask_side = mask_side.to(I64)
+        self.b_left = full(0)
+        self.inv_bin = full(0)   # read only with a PC block
+        self.stop = torch.zeros((B,), dtype=torch.bool, device=dev)
+        if pc is None:
+            low = full(0)
+            for i in range(3):
+                low = (low << 8) + self.buf[:, i]
+            self.low, self.bp = low, full(3)
+            return
+        # with a PC block the forward pointer starts past it (ari_codec.c:490-495);
+        # the encoder's simulation reads the logical stream from 0
+        self.pcb = pc["pc_bytes"]
+        self.bp, self.low = full(0 if pc["enc"] else self.pcb), full(0)
+        self.b_left, self.b_right = full(pc["numbytes"] + 1), full(-1)
+        self.c_bp = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.c_bp_side = self.c_bp.clone()
+        self.inv_bin = full(pc["L_spec"] + 1)
+        self.be_l = full(-1) if be_l is None else be_l.to(I64) >> 3
+        self.be_r = full(-1) if be_r is None else be_r.to(I64) >> 3
+        self.bfi2 = self.c_bp.clone() if bfi2 is None else bfi2
+        for _ in range(3):
+            self.stop = self.stop | self.pc_check(0, ~self.stop, from_left=True)
+            ok = ~self.stop
+            self.low = torch.where(ok, (self.low << 8) + self.byte(self.bp), self.low)
+            self.bp = self.bp + ok
 
     def byte(self, p):
         return self.buf[self.rows, p.clamp(0, self.nbytes - 1)]
 
-    def decode(self, cum_freq_rows, num_sym: int, active):
-        """ac_decode_fl (ari_codec.c:115-146). cum_freq_rows: [B, num_sym+1]."""
+    def pc_check(self, cur_bin, active, from_left: bool):
+        """check_pc_bytes (ari_codec.c:1824-1921) before a forward byte read
+        (from_left) or a fresh backward byte. Returns the lanes that must not
+        read: in the encoder's simulation those whose pointers converged, in
+        the decoder those entering the corrupt byte range of a bfi 2 frame."""
+        pcb, enc = self.pcb, self.pc["enc"]
+        fresh = self.mask_side == 1
+        act = active if from_left else active & fresh
+        bp_local = self.bp if from_left else self.bp - 1
+        bp_side_local = self.bp_side + fresh if from_left else self.bp_side
+        conv = act & (self.b_right < 0) & (bp_side_local + (-1 if enc else pcb - 1) - bp_local
+                                           == pcb)
+        self.b_left = torch.where(conv, bp_local + 1, self.b_left)
+        self.b_right = torch.where(conv, bp_side_local - 1, self.b_right)
+        if enc:
+            return conv
+        have = act & (self.b_right >= 0)
+        if from_left:
+            jump = have & (self.bp == self.b_left)
+            self.bp = torch.where(jump, 0, self.bp)
+            self.c_bp = self.c_bp | jump
+        else:
+            jump = have & (bp_side_local == self.b_right)
+            self.bp_side = torch.where(jump, pcb - 1, self.bp_side)
+            self.c_bp_side = self.c_bp_side | jump
+        in2 = act & self.bfi2
+        trig = in2 & ((self.c_bp & (self.bp >= self.be_l))
+                      | (self.c_bp_side & (self.bp_side <= self.be_r)))
+        soft = in2 & ~trig & (self.c_bp | (self.c_bp_side & (self.bp_side <= pcb - 1)))
+        self.inv_bin = torch.where(trig, cur_bin, torch.where(
+            soft, torch.clamp(self.inv_bin, max=cur_bin), self.inv_bin))
+        return trig
+
+    def decode(self, cum_freq_rows, num_sym: int, active, cur_bin=0):
+        """ac_decode_fl (ari_codec.c:115-146) with the PC hook before each
+        renormalisation byte (ac_dec_update_fx, ari_codec.c:1782-1802).
+        cum_freq_rows: [B, num_sym+1]. Returns (symbol, stopped lanes)."""
         tmp = self.range >> 10
         self.ber = torch.where(active & (self.low >= (tmp << 10)), 1, self.ber)
         below = tmp[:, None] * cum_freq_rows[:, :num_sym] <= self.low[:, None]
@@ -328,29 +373,56 @@ class _Dec:
         sf = torch.gather(cum_freq_rows, 1, val[:, None] + 1)[:, 0] - cf
         low = torch.where(active, self.low - tmp * cf, self.low)
         rng = torch.where(active, tmp * sf, self.range)
+        stop = torch.zeros_like(active)
         for _ in range(2):
-            need = active & (rng < (1 << 16))
+            need = active & (rng < (1 << 16)) & ~stop
+            if self.pc is not None:
+                trig = self.pc_check(cur_bin, need, from_left=True)
+                stop = stop | trig
+                need = need & ~trig
             low = torch.where(need, ((low << 8) & MASK24) + self.byte(self.bp), low)
             self.bp = self.bp + need
             rng = torch.where(need, rng << 8, rng)
         self.low, self.range = low, rng
-        return val
+        return val, stop
 
-    def read_side(self, act):
+    def read_side(self, act, cur_bin=0):
+        """One backward bit read with the PC hook. Returns (bit, the lanes
+        that read, the lanes the hook stopped)."""
+        trig = torch.zeros_like(act)
+        if self.pc is not None:
+            trig = self.pc_check(cur_bin, act, from_left=False)
+            act = act & ~trig
         bit = ((self.byte(self.bp_side) & self.mask_side) != 0).to(I64)
         m = self.mask_side
         self.bp_side = torch.where(act & (m == 128), self.bp_side - 1, self.bp_side)
         self.mask_side = torch.where(act, torch.where(m == 128, 1, m * 2), m)
-        return bit
+        return bit, act, trig
 
 
 DECODE_FIELDS = ("x", "tns_order", "tns_idx", "nf_seed", "zero_frame", "res_bits",
                  "n_res", "residual_present", "bfi", "spec_inv_idx", "b_left")
 
 
-def decode_plain(cfg: Config, buf, side):
+def pc_params(cfg: Config, pc_enc_sim: bool = False):
+    """The partial-concealment block of a frame (None without one)."""
+    if cfg.n_pc == 0 and not pc_enc_sim:
+        return None
+    if cfg.n_pc == 0:
+        raise ValueError("pc_enc_sim needs a configuration with a PC block (n_pc > 0)")
+    return dict(pc_bytes=(cfg.n_pc + 1) >> 1, numbytes=cfg.targetBytes, L_spec=cfg.yLen,
+                enc=pc_enc_sim)
+
+
+def decode_plain(cfg: Config, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
+                 pc_enc_sim: bool = False):
     """Plain version of the `ari_decode` kernel: processAriDecoder_fl
-    (ari_codec.c) for frames without a partial-concealment block.
+    (ari_codec.c) with the partial-concealment hooks of a frame that carries
+    a PC block (cfg.n_pc > 0): both pointers jump into the relocated block at
+    their convergence point, a bfi_in 2 frame stops where it enters the
+    corrupt bytes [be_bp_left, be_bp_right] (bits) and becomes bfi 2 with
+    spec_inv_idx, and pc_enc_sim runs the encoder's simulation that finds
+    b_left, the convergence byte (enc_lc3.c:245-259).
 
     buf: [L, nbytes] int32; side: dict from bits.parse_side_info. Returns the
     dict of `audio_codec_tpu.ops.ari.decode` (DECODE_FIELDS), int32."""
@@ -359,32 +431,41 @@ def decode_plain(cfg: Config, buf, side):
     N = cfg.yLen
     lastnz = side["lastnz"].to(I64)
     lsb_mode = side["lsb_mode"].to(I64)
-    st = _Dec(buf, side["bp_side"], side["mask_side"])
-    bfi = torch.zeros((L,), dtype=I64, device=dev)
+    pc = pc_params(cfg, pc_enc_sim)
+    dec_pc = pc is not None and not pc_enc_sim
+    bfi2 = None if bfi_in is None else (bfi_in == 2)
+    st = _Dec(buf, side["bp_side"], side["mask_side"], pc, be_bp_left, be_bp_right, bfi2)
+    bfi = st.stop.to(I64)
     max_lev = 22 if cfg.hrmode else 14
     z = lambda *s: torch.zeros((L, *s), dtype=I64, device=dev)
 
+    def side_read(act, cur_bin, bfi):
+        bit, act, trig = st.read_side(act, cur_bin)
+        return bit, act, torch.where(trig, 1, bfi)
+
     tns_max = 8 if cfg.frame_dms == 100 else 4
-    order_cf = _tab("ari_tns_order_cf", dev).to(I64)     # [2, 9]
-    coef_cf = _tab("ari_tns_freq_cf", dev).to(I64)       # [8, 18]
+    order_cf = _tab("ari_tns_order_cf", dev)     # [2, 9]
+    coef_cf = _tab("ari_tns_freq_cf", dev)       # [8, 18]
     lpcw = 1 if cfg.enable_lpc_weighting else 0
     tns_order = z(2)
     tns_idx = z(2, 8)
     for f in range(2):
         act_f = (f < side["num_tns"]) & (side["tns_on"][:, f] > 0) & (bfi == 0)
-        val = st.decode(order_cf[lpcw][None, :].expand(L, 9), 8, act_f)
+        val, stp = st.decode(order_cf[lpcw][None, :].expand(L, 9), 8, act_f)
+        bfi = torch.where(stp, 1, bfi)
         order = val + 1
         bfi = torch.where(act_f & (order > tns_max), 1, bfi)
         tns_order[:, f] = torch.where(act_f, order, 0)
         for k in range(8):
             act_k = act_f & (k < order) & (bfi == 0)
             bfi = bfi | (act_k & (st.bp_side < st.bp)).to(I64)
-            v = st.decode(coef_cf[k][None, :].expand(L, 18), 17, act_k)
+            v, stp = st.decode(coef_cf[k][None, :].expand(L, 18), 17, act_k)
+            bfi = torch.where(stp, 1, bfi)
             tns_idx[:, f, k] = torch.where(act_k, v, 0)
     bfi = bfi | st.ber
 
-    lookup = _tab("ari_spec_lookup_fl", dev).to(I64)
-    cumf = _tab("ari_spec_cumfreq_fl", dev).to(I64)
+    lookup = _tab("ari_spec_lookup_fl", dev)
+    cumf = _tab("ari_spec_cumfreq_fl", dev)
     rate_flag = cfg.rateFlag if cfg.fs_idx != 5 else 0
     c = z()
     aks, bks, levs = z(N // 2), z(N // 2), z(N // 2)
@@ -399,12 +480,14 @@ def decode_plain(cfg: Config, buf, side):
             if not bool(act.any()):
                 break
             pki = lookup[(t + min(lev, 3) * 1024).clamp(0, 4095)]
-            sym = st.decode(cumf[pki], 17, act)
+            sym, stp = st.decode(cumf[pki], 17, act, 2 * k)
+            bfi = torch.where(stp, 1, bfi)
+            act = act & (bfi == 0)
             is_esc = sym >= 16
             rd = act & is_esc & ((lsb_mode == 0) | (lev > 0))
-            bit1 = st.read_side(rd)
+            bit1, rd, bfi = side_read(rd, 2 * k, bfi)
             ak = torch.where(rd, ak + (bit1 << lev), ak)
-            bit2 = st.read_side(rd)
+            bit2, rd, bfi = side_read(rd, 2 * k, bfi)
             bk = torch.where(rd, bk + (bit2 << lev), bk)
             hit = act & ~is_esc
             lev_fin = torch.where(hit, lev, lev_fin)
@@ -420,11 +503,9 @@ def decode_plain(cfg: Config, buf, side):
         b_fin = sym_fin >> 2
         ak = ak + torch.where(in_range, a_fin << lev_eff, 0)
         bk = bk + torch.where(in_range, b_fin << lev_eff, 0)
-        rd = in_range & (ak > 0) & (bfi == 0)
-        bit = st.read_side(rd)
+        bit, rd, bfi = side_read(in_range & (ak > 0) & (bfi == 0), 2 * k, bfi)
         ak = torch.where(rd & (bit == 1), -ak, ak)
-        rd = in_range & (bk > 0) & (bfi == 0)
-        bit = st.read_side(rd)
+        bit, rd, bfi = side_read(in_range & (bk > 0) & (bfi == 0), 2 * k + 1, bfi)
         bk = torch.where(rd & (bit == 1), -bk, bk)
         aks[:, k] = torch.where(in_range, ak, 0)
         bks[:, k] = torch.where(in_range, bk, 0)
@@ -432,17 +513,31 @@ def decode_plain(cfg: Config, buf, side):
         lev1 = lev_eff.clamp(max=3)
         t_next = torch.where(lev1 <= 1, 1 + (a_fin + b_fin) * (lev1 + 1), 12 + lev1)
         c = torch.where(in_range, (c & 15) * 16 + t_next, c)
-        bfi = torch.where(in_range & ((st.bp - st.bp_side) > 3), 1, bfi)
+        # with a PC block the pointers are compared only while both are on
+        # the same side of it (ari_codec.c:750)
+        crossed = (st.bp - st.bp_side) > 3
+        if pc is not None:
+            crossed = crossed & (st.c_bp == st.c_bp_side)
+        bfi = torch.where(in_range & crossed, 1, bfi)
         bfi = bfi | st.ber
     x = torch.stack([aks, bks], dim=-1).reshape(L, -1)
     if N % 2:
         x = torch.nn.functional.pad(x, (0, 1))
 
-    # residual bits (ari_codec.c:965-1000)
+    # residual bits (ari_codec.c:965-1000; with a PC block the consumed bits
+    # count the block once, ari_codec.c:965-981, but not in the encoder's
+    # simulation, which reads the logical stream)
     total_bits = cfg.targetBytes * 8
     log2_mask = msb(st.mask_side.clamp(min=1))
-    nbits_side = total_bits - (8 * (st.bp_side + 1) + 8 - log2_mask)
-    nbits_ari = (st.bp + 1 - 3) * 8 + 25 - msb(st.range.clamp(min=1))
+    msb_r = msb(st.range.clamp(min=1))
+    if dec_pc:
+        consumed = torch.where(st.c_bp, st.bp + st.b_left - st.pcb, st.bp - st.pcb)
+        nbits_ari = (consumed + 1 - 3) * 8 + 25 - msb_r
+        nbits_side = total_bits - 16 + log2_mask - 8 * torch.where(
+            st.c_bp_side, st.b_left - st.pcb + st.bp_side, st.bp_side)
+    else:
+        nbits_side = total_bits - (8 * (st.bp_side + 1) + 8 - log2_mask)
+        nbits_ari = (st.bp + 1 - 3) * 8 + 25 - msb_r
     nbits_residual = total_bits - (nbits_side + nbits_ari)
     bfi = torch.where((bfi == 0) & (nbits_residual < 0), 1, bfi)
     nbits_residual = nbits_residual.clamp(min=0)
@@ -451,11 +546,14 @@ def decode_plain(cfg: Config, buf, side):
     n_res0 = torch.minimum(nbits_residual, nz_count)
     max_res = min(residual_max_bits(cfg), total_bits)
     res_bits = z(max_res)
+    # a residual-phase read that enters the corrupt bytes ends the residual
+    # (ber_detect_res): res_dead
+    res_dead = torch.zeros((L,), dtype=torch.bool, device=dev)
     read_res = (lsb_mode == 0) & (bfi == 0)
     n_read = int(torch.where(read_res, n_res0, 0).max()) if L else 0
     for k in range(min(max_res, n_read)):
-        act = read_res & (k < n_res0)
-        bit = st.read_side(act)
+        bit, act, trig = st.read_side(read_res & (k < n_res0) & ~res_dead, st.inv_bin)
+        res_dead = res_dead | trig
         res_bits[:, k] = torch.where(act, bit, 0)
 
     # lsb_mode == 1: LSB refinement (ari_codec.c:476-556)
@@ -466,37 +564,54 @@ def decode_plain(cfg: Config, buf, side):
             has = do_lsb & (levs[:, k] > 0) & ((2 * k) < lastnz)
             for j in (2 * k, 2 * k + 1):
                 xv = x[:, j]
-                act = has & (budget > 0)
-                bit = st.read_side(act)
+                bit, act, trig = st.read_side(has & (budget > 0) & ~res_dead, st.inv_bin)
+                res_dead = res_dead | trig
                 budget = budget - act.to(I64)
                 upd = torch.where(xv > 0, xv + 1, torch.where(xv < 0, xv - 1, xv))
                 xv2 = torch.where(act & (bit == 1) & (xv != 0), upd, xv)
-                act2 = act & (bit == 1) & (xv == 0) & (budget > 0)
-                bit2 = st.read_side(act2)
+                bit2, act2, trig = st.read_side(
+                    act & (bit == 1) & (xv == 0) & (budget > 0) & ~res_dead, st.inv_bin)
+                res_dead = res_dead | trig
                 budget = budget - act2.to(I64)
                 x[:, j] = torch.where(act2, torch.where(bit2 == 0, 1, -1), xv2)
 
     n_res = torch.where(lsb_mode == 0, n_res0, 0)
+    spec_inv_idx = torch.full((L,), N, dtype=I64, device=dev)
+    if dec_pc:
+        # ber_detect: an abort with a valid inv_bin is a partial loss
+        # (bfi 2 with spec_inv_idx, ari_codec.c:1164-1187)
+        to2 = (bfi == 1) & (st.inv_bin > 0) & (st.inv_bin <= N)
+        spec_inv_idx = torch.where(to2, st.inv_bin, spec_inv_idx)
+        bfi = torch.where(to2, 2, bfi)
     kidx = torch.arange(N, dtype=I64, device=dev)[None, :]
-    nf_seed = torch.sum(torch.abs(x) * kidx, dim=1) & 65535
+    nf_seed = torch.sum(torch.where(kidx < spec_inv_idx[:, None], torch.abs(x) * kidx, 0),
+                        dim=1) & 65535
     nf_seed = torch.where(nf_seed >= 32768, nf_seed - 65536, nf_seed)
     zero_frame = ((lastnz == 2) & (x[:, 0] == 0) & (x[:, 1] == 0)
                   & (side["gg_idx"] == 0) & (side["fac_ns_idx"] == 7))
     bfi = torch.where((bfi == 0) & (st.ber > 0), 1, bfi)
+    if dec_pc:
+        dead2 = (bfi == 2) | res_dead
+        zero_frame = zero_frame & ~dead2
+        n_res = torch.where(dead2, 0, n_res)
+    b_left = st.b_left
+    if pc_enc_sim:
+        # the never-converged fallback (ari_codec.c:1135-1143)
+        b_left = torch.where(st.b_left > cfg.targetBytes, st.bp_side - st.pcb, st.b_left)
     out = dict(x=x, tns_order=tns_order, tns_idx=tns_idx, nf_seed=nf_seed,
                zero_frame=zero_frame, res_bits=res_bits, n_res=n_res,
-               residual_present=lsb_mode == 0, bfi=bfi,
-               spec_inv_idx=torch.full((L,), N, dtype=I64, device=dev),
-               b_left=z())
+               residual_present=lsb_mode == 0, bfi=bfi, spec_inv_idx=spec_inv_idx,
+               b_left=b_left)
     return {k: v.to(I32) for k, v in out.items()}
 
 
 def decode(cfg: Config, buf, side, bfi_in=None, be_bp_left=None,
            be_bp_right=None, pc_enc_sim: bool = False):
-    """processAriDecoder: spectrum, TNS coefficients and residual bits.
-    Frames carry no partial-concealment block here, so bfi_in and the
-    corrupt-byte range do not enter the decode."""
-    _check_no_pc(cfg, pc_enc_sim)
+    """processAriDecoder: spectrum, TNS coefficients and residual bits, with
+    the partial-concealment hooks where the frame carries a PC block
+    (cfg.n_pc > 0): bfi_in (0/1/2) and the corrupt bit range [be_bp_left,
+    be_bp_right] of a bfi 2 frame enter the decode there, and pc_enc_sim
+    returns the encoder's convergence byte b_left. See decode_plain."""
     if buf.device.type == "cpu":
-        return decode_plain(cfg, buf, side)
-    return kernels.ari_decode(cfg, buf, side)
+        return decode_plain(cfg, buf, side, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)
+    return kernels.ari_decode(cfg, buf, side, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)

@@ -12,6 +12,7 @@ card, and as `pack_side_info_plain` and `parse_side_info_plain` on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -44,13 +45,18 @@ def write_bit_backward(buf, bp, mask, bit, active=None):
     return buf, (bp - step.to(I32)).to(I32), mask_n.to(I32)
 
 
+def _active(k: int, nbits, buf) -> torch.Tensor:
+    """[B] bool: k < nbits, for nbits a [B] tensor or a number."""
+    if isinstance(nbits, torch.Tensor):
+        return k < nbits
+    return torch.full((buf.shape[0],), k < nbits, dtype=torch.bool, device=buf.device)
+
+
 def write_uint_backward(buf, bp, mask, val, nbits, max_bits: int):
     """LSB-first backward uint write; nbits may be per-stream ([B] or int)."""
     for k in range(max_bits):
-        act = torch.as_tensor(k < nbits, device=buf.device)
-        if act.dim() == 0:
-            act = act.expand(buf.shape[0])
-        buf, bp, mask = write_bit_backward(buf, bp, mask, (val >> k) & 1, act)
+        buf, bp, mask = write_bit_backward(buf, bp, mask, (val >> k) & 1,
+                                           _active(k, nbits, buf))
     return buf, bp, mask
 
 
@@ -66,12 +72,17 @@ def read_bit(buf, bp, mask):
 def read_uint(buf, bp, mask, nbits, max_bits: int):
     val = torch.zeros(buf.shape[0], dtype=I32, device=buf.device)
     for k in range(max_bits):
-        act = torch.as_tensor(k < nbits, device=buf.device)
+        act = _active(k, nbits, buf)
         bit, bp_n, mask_n = read_bit(buf, bp, mask)
         val = torch.where(act, val + (bit << k), val)
         bp = torch.where(act, bp_n, bp)
         mask = torch.where(act, mask_n, mask)
     return val, bp, mask
+
+
+def _gain_bits(which: int) -> np.ndarray:
+    """Bits of the SNS gain index's MSB (which 0) and LSB (1) field by submode."""
+    return np.array([[1, 1, 2, 2], [0, 1, 0, 1]][which], np.int32)
 
 
 def pack_side_info_plain(cfg: Config, bw_idx, lastnz, lsb_mode, gg_idx,
@@ -102,8 +113,8 @@ def pack_side_info_plain(cfg: Config, bw_idx, lastnz, lsb_mode, gg_idx,
     submode = scf_idx[:, 2].long()
     submode_msb = torch.div(scf_idx[:, 2], 2, rounding_mode="floor")
     submode_lsb = scf_idx[:, 2] & 1
-    gain_msb_bits = torch.tensor([1, 1, 2, 2], dtype=I32, device=dev)[submode]
-    gain_lsb_bits = torch.tensor([0, 1, 0, 1], dtype=I32, device=dev)[submode]
+    gain_msb_bits = nm.table(_gain_bits, 0, device=dev, dtype=I32)[submode]
+    gain_lsb_bits = nm.table(_gain_bits, 1, device=dev, dtype=I32)[submode]
     buf, bp, mask = write_bit_backward(buf, bp, mask, submode_msb)
     gain_msb = scf_idx[:, 3] >> gain_lsb_bits
     gain_lsb = scf_idx[:, 3] & 1

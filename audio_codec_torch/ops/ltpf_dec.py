@@ -26,10 +26,11 @@ I32 = torch.int32
 CASE_B, CASE_C, CASE_D, CASE_E, NEW_ON = 1, 2, 4, 8, 16
 
 
-def _filters(cfg: Config):
+def _filter(fs: int, which: int) -> np.ndarray:
+    """The post-filter's interpolation (which 0) or tilt (1) table at fs."""
     key = {8000: "16", 16000: "16", 24000: "24", 32000: "32",
-           44100: "48", 48000: "48", 96000: "48"}[cfg.fs]
-    return T.t(f"conf_inter_filter_{key}"), T.t(f"conf_tilt_filter_{key}")
+           44100: "48", 48000: "48", 96000: "48"}[fs]
+    return np.asarray(T.t(f"conf_{('inter', 'tilt')[which]}_filter_{key}"))
 
 
 def decode_pitch(cfg: Config, param):
@@ -150,16 +151,15 @@ def ltpf_decode(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y,
         param[:, 1] = 0
     zero = torch.zeros((), dtype=F32, device=dev)
     gain = torch.where(bad, zero, torch.where(param[:, 1] == 1,
-                                              torch.tensor(cfg.ltpf_conf_beta, dtype=F32,
-                                                           device=dev), zero))
+                                              torch.full((), cfg.ltpf_conf_beta, dtype=F32,
+                                                         device=dev), zero))
     new_mem = dict(param=param.to(I32), pitch_int=pitch_int, pitch_fr=pitch_fr,
                    gain=gain.to(F32),
                    beta_idx=torch.full((B,), cfg.ltpf_conf_beta_idx, dtype=I32, device=dev))
     if cfg.ltpf_conf_beta <= 0:
         return x, mem_x, mem_y, new_mem
 
-    inter_t, tilt_t = (torch.as_tensor(np.asarray(v), dtype=F32, device=dev)
-                       for v in _filters(cfg))
+    inter_t, tilt_t = (nm.table(_filter, cfg.fs, k, device=dev) for k in (0, 1))
     old_on = mem_param[:, 1] == 1
     new_on = param[:, 1] == 1
     same_pitch = (mem_pitch_int == pitch_int) & (mem_pitch_fr == pitch_fr)

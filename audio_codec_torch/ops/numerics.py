@@ -41,6 +41,7 @@ File:line references are to `audio_codec_tpu/ops/`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -160,8 +161,32 @@ def f32(v: float) -> float:
 
 
 def const(arr, device, dtype=F32) -> torch.Tensor:
-    """A table (numpy array) as a tensor on `device`."""
+    """A table (numpy array) as a tensor on `device`: one copy from the host.
+    Tables that a frame step reads go through `table`."""
     return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype, device=device)
+
+
+@functools.cache
+def _table(make, args: tuple, device: str, dtype, transpose: bool) -> torch.Tensor:
+    a = make(*args)
+    return const(a.T if transpose else a, device, dtype)
+
+
+def vec_i32(v, n: int, device) -> torch.Tensor:
+    """v, a tensor or a Python number, as [n] int32 on `device` (a number is
+    filled on the device, not copied from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int32).expand(n)
+    return torch.full((n,), int(v), dtype=torch.int32, device=device)
+
+
+def table(make, *args, device, dtype=F32, transpose: bool = False) -> torch.Tensor:
+    """make(*args), a numpy table of hashable arguments (transposed if asked),
+    as a tensor on `device`, made once per (make, args, device, dtype). A
+    copy from the host blocks the host until the card has run everything
+    queued before it, so a frame step makes none. Callers never write to
+    the tensor."""
+    return _table(make, args, str(torch.device(device)), dtype, transpose)
 
 
 def _exp_cpu(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from . import numerics as nm
 
 F32 = torch.float32
 I32 = torch.int32
@@ -36,13 +37,18 @@ def _lcg_tables(n: int):
     return mult, add
 
 
+def _lcg_part(n: int, which: int) -> np.ndarray:
+    return _lcg_tables(n)[which]
+
+
 def noise_substitution(cfg: Config, q_d_prev, nb_lost, cum_alpha, seed):
     """One concealed frame: (spec [B, yLen], new_cum_alpha, new_seed).
     nb_lost: [B] loss counter already incremented for this frame."""
     dev = q_d_prev.device
     alpha = torch.where(nb_lost < 4, 1.0, torch.where(nb_lost < 8, 0.9, 0.85)).to(F32)
     cum = cum_alpha * alpha
-    mult, add = (torch.as_tensor(v, device=dev) for v in _lcg_tables(cfg.yLen + 1))
+    mult, add = (nm.table(_lcg_part, cfg.yLen + 1, k, device=dev, dtype=torch.int64)
+                 for k in (0, 1))
     u0 = seed.to(torch.int64) + 32768
     uk = (u0[:, None] * mult[None, 1:] + add[None, 1:]) & 65535
     spec = torch.where(uk < 32768, -q_d_prev * cum[:, None], q_d_prev * cum[:, None])

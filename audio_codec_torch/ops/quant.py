@@ -46,7 +46,7 @@ def estimate_global_gain(cfg: Config, x, nbitsSQ, targetBitsOff, old_targetBits,
     new_old_targetBits) (processEstimateGlobalGain_fl). nbitsSQ: [B] i32."""
     B, lg = x.shape
     dev = x.device
-    nbitsSQ = torch.as_tensor(nbitsSQ, dtype=I32, device=dev).expand(B)
+    nbitsSQ = nm.vec_i32(nbitsSQ, B, dev)
 
     valid = old_targetBits >= 0
     tmp = torch.clamp(targetBitsOff + old_targetBits.to(F32) - old_specBits.to(F32),
@@ -138,12 +138,6 @@ def quantize_spectrum(cfg: Config, x, gain):
     return torch.trunc(q + offset * torch.sign(q)).to(I32)
 
 
-@functools.cache
-def _spec_tables_np():
-    return (T.t("ari_spec_lookup_fl").astype(np.int32),
-            T.t("ari_spec_bits_fl").astype(np.int32))
-
-
 def _max_lev(cfg: Config) -> int:
     return 21 if cfg.hrmode else 14
 
@@ -156,12 +150,11 @@ def bit_estimate_plain(cfg: Config, xq, target, mode: int):
     Returns dict of [B] i32: nbits, nbits2, lastnz, lastnz2, lsbMode."""
     B, N = xq.shape
     dev = xq.device
-    lk_np, bits_np = _spec_tables_np()
-    lookup = nm.const(lk_np, dev, I32).long()
-    bits_tab = nm.const(bits_np, dev, I32)                    # [64, 17]
+    lookup = nm.table(T.t, "ari_spec_lookup_fl", device=dev, dtype=torch.int64)
+    bits_tab = nm.table(T.t, "ari_spec_bits_fl", device=dev, dtype=I32)   # [64, 17]
     rate_flag = cfg.rateFlag
     max_lev = _max_lev(cfg)
-    target = torch.as_tensor(target, dtype=I32, device=dev).expand(B)
+    target = nm.vec_i32(target, B, dev)
 
     a_all = torch.abs(xq[:, 0::2])
     b_all = torch.abs(xq[:, 1::2])
@@ -424,6 +417,10 @@ def _lcg_tables(n: int):
     return mult, add
 
 
+def _lcg_part(n: int, which: int) -> np.ndarray:
+    return _lcg_tables(n)[which]
+
+
 def noise_filling(cfg: Config, x, nf_seed, fac_ns_idx, bw_bin,
                   spec_inv_idx=None, fac_ns_pc=None):
     """processNoiseFilling_fl with the LCG advanced in closed form.
@@ -444,9 +441,8 @@ def noise_filling(cfg: Config, x, nf_seed, fac_ns_idx, bw_bin,
     zline = (k >= start_off) & (k < bw_bin[:, None]) & ~any_nz
     rank = torch.cumsum(zline.to(I32), dim=-1) - 1
 
-    mult, add = _lcg_tables(N + 1)
-    mult = nm.const(mult, dev, torch.int64)
-    add = nm.const(add, dev, torch.int64)
+    mult = nm.table(_lcg_part, N + 1, 0, device=dev, dtype=torch.int64)
+    add = nm.table(_lcg_part, N + 1, 1, device=dev, dtype=torch.int64)
     seed_u = (nf_seed.to(torch.int64) + 32768)
     r = rank.clamp(0, N - 1).long()
     su = (seed_u[:, None] * mult[r + 1] + add[r + 1]) & 65535
@@ -481,7 +477,7 @@ def spectrum_decode_plain(cfg: Config, x, gain, bfi, rframe, spec_inv_idx, bw_id
     nb_lost = torch.where(bfi == 0, 0, nb_lost).to(I32)
     x = torch.where((residual_present == 1)[:, None] & good,
                     residual_decode(cfg, x, res_bits, n_res), x)
-    bw_tab = nm.const(T.bw_cutoff_bins(cfg.frame_dms), x.device, I32)
+    bw_tab = nm.table(T.bw_cutoff_bins, cfg.frame_dms, device=x.device, dtype=I32)
     bw_bin_nf = bw_tab[bw_idx_nf.clamp(0, bw_tab.shape[0] - 1).long()]
     nf = noise_filling(cfg, x, nf_seed, fac_ns_idx, bw_bin_nf, spec_inv_idx, prev_fac_ns)
     x = torch.where((zero_frame == 0)[:, None] & good, nf, x)

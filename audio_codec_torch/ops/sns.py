@@ -73,6 +73,13 @@ def _attack_smoothing_matrix() -> np.ndarray:
     return Sm
 
 
+def _band_mapping(nb: int) -> np.ndarray:
+    """The band of each of the 64 smoothed values, for fewer than 32 bands."""
+    n4 = round(abs(1.0 - 32.0 / nb) * nb)
+    n2 = nb - n4
+    return np.concatenate([np.repeat(np.arange(n4), 4), np.repeat(np.arange(n4, n4 + n2), 2)])
+
+
 def compute_scf(cfg: Config, ener, attack_detected):
     """[B, bands] energies -> [B, 16] scale factors (processSnsComputeScf_fl)."""
     B, nb = ener.shape
@@ -83,11 +90,7 @@ def compute_scf(cfg: Config, ener, attack_detected):
         if d < nb:
             x = torch.cat([torch.repeat_interleave(x[:, :d], 2, dim=1), x[:, d:]], -1)
         else:
-            n4 = round(abs(1.0 - 32.0 / nb) * nb)
-            n2 = nb - n4
-            mapping = np.concatenate([np.repeat(np.arange(n4), 4),
-                                      np.repeat(np.arange(n4, n4 + n2), 2)])
-            x = x[:, torch.as_tensor(mapping, device=dev)]
+            x = x[:, nm.table(_band_mapping, nb, device=dev, dtype=torch.int64)]
     xl = torch.cat([x[:, :1], x[:, :-1]], -1)
     xr = torch.cat([x[:, 1:], x[:, -1:]], -1)
     x = nm.fma(0.25, xr, nm.fma(0.25, xl, 0.5 * x))
@@ -97,11 +100,11 @@ def compute_scf(cfg: Config, ener, attack_detected):
     nf = torch.clamp(mean * nm.f32(1e-4), min=nm.f32(2.0 ** -32))
     x = torch.maximum(x, nf)
     xlog = nm.log2(x) / 2.0
-    xl4 = nm.dot(xlog, nm.const(_downsample_matrix(), dev))
+    xl4 = nm.dot(xlog, nm.table(_downsample_matrix, device=dev))
     scf = cfg.sns_damping * (xl4 - torch.mean(xl4, dim=-1, keepdim=True))
 
     if cfg.attack_handling:
-        sm = nm.dot(scf, nm.const(_attack_smoothing_matrix().T, dev))
+        sm = nm.dot(scf, nm.table(_attack_smoothing_matrix, device=dev, transpose=True))
         sm = 0.5 * (sm - torch.mean(sm, dim=-1, keepdim=True))
         scf = torch.where((attack_detected == 1)[:, None], sm, scf)
     return scf
@@ -165,7 +168,7 @@ def _pvq_subpyr_search(x, dim: int, pulses: int):
 
 def _pvq_enc(pulses, length: int):
     """MPVQ index (pvq_enc): [B,16] i32 -> (LS_ind [B], MPVQ_ind [B])."""
-    A = nm.const(T.t("pvq_enc_A"), pulses.device, I32)       # [16, 11]
+    A = nm.table(T.t, "pvq_enc_A", device=pulses.device, dtype=I32)       # [16, 11]
     B_ = pulses.shape[0]
     ls = torch.full((B_,), -1, dtype=I32, device=pulses.device)
     mpvq = torch.zeros((B_,), dtype=I32, device=pulses.device)
@@ -183,7 +186,7 @@ def _pvq_enc(pulses, length: int):
 def _pvq_dec(k: int, m: int, ls_ind, mpvq_ind):
     """MPVQ de-index (pvq_dec, sns_quantize_scf.c:520-560) -> pulses [B,16]."""
     dev = ls_ind.device
-    A = T.t("pvq_enc_A").astype(np.int64)
+    A = nm.table(T.t, "pvq_enc_A", device=dev, dtype=I32)
     B_ = ls_ind.shape[0]
     cols = torch.arange(M, device=dev)
     leading_sign = 1 - 2 * ls_ind
@@ -192,7 +195,7 @@ def _pvq_dec(k: int, m: int, ls_ind, mpvq_ind):
     kk = torch.full((B_,), k, dtype=I32, device=dev)
     done = torch.zeros((B_,), dtype=torch.bool, device=dev)
     for pos in range(m):
-        row = nm.const(A[m - pos - 1, : k + 1], dev, I32)
+        row = A[m - pos - 1, : k + 1]
         cnt = torch.sum((mpvq[:, None] >= row[None, :]).to(I32), dim=1)
         idx = torch.minimum(torch.clamp(cnt - 1, min=0), kk)
         terminal = (mpvq == 0) & ~done
@@ -221,8 +224,8 @@ def sns_vq_enc_plain(scf):
     [B, 16])."""
     B = scf.shape[0]
     dev = scf.device
-    C1 = nm.const(T.t("sns_C1"), dev)                          # [8, 32]
-    C2 = nm.const(T.t("sns_C2"), dev)
+    C1 = nm.table(T.t, "sns_C1", device=dev)                   # [8, 32]
+    C2 = nm.table(T.t, "sns_C2", device=dev)
 
     def vq_half(target, cb):
         d = nm.chain_sum(_sq(target[:, :, None] - cb[None, :, :]), dim=1)
@@ -233,8 +236,8 @@ def sns_vq_enc_plain(scf):
     st1 = torch.cat([C1[:, i0.long()].T, C2[:, i1.long()].T], dim=-1)
 
     target_pre = scf - st1
-    D2 = nm.const(T.dct2_matrix(M), dev)
-    D2t = nm.const(T.dct2_matrix(M).T, dev)
+    D2 = nm.table(T.dct2_matrix, M, device=dev)
+    D2t = nm.table(T.dct2_matrix, M, device=dev, transpose=True)
     pvq_target = nm.chain_dot(target_pre, D2t)
 
     yA, enA = _pvq_subpyr_search(pvq_target, 10, 10)
@@ -252,7 +255,7 @@ def sns_vq_enc_plain(scf):
                        + [enA10 * nm.f32(reg_g[2 + i]) for i in range(4)], dim=1)
     errs = nm.chain_sum(_sq(pvq_target[:, None, :] - cand))
     idx_g = _first_argmin(errs).to(I32)
-    glob_gain = nm.const(q_g, dev)[idx_g.long()]
+    glob_gain = nm.table(T.t, "q_g_sns", device=dev)[idx_g.long()]
     chosen = torch.gather(cand, 1, idx_g.long()[:, None, None].expand(B, 1, M))[:, 0] \
         / glob_gain[:, None]
     st2_split = nm.chain_dot(chosen, D2)
@@ -273,7 +276,7 @@ def sns_vq_enc_plain(scf):
                              for g in gains], dim=1)
         iO = _first_argmin(errsO).to(I32)
         eO = torch.gather(errsO, 1, iO.long()[:, None])[:, 0]
-        gO = nm.const(gains, dev)[iO.long()]
+        gO = nm.table(T.t, gains_name, device=dev)[iO.long()]
         use = eO < best_err
         idx2 = torch.where(use, sub, idx2).to(I32)
         idx3 = torch.where(use, iO, idx3)
@@ -308,8 +311,8 @@ def sns_vq_dec_plain(scf_idx):
     """SNS-VQ decoder (process_snsQuantizesScf_Dec), the plain version of
     the `sns_vq_dec` kernel: [B,7] i32 -> [B,16]."""
     dev = scf_idx.device
-    C1 = nm.const(T.t("sns_C1"), dev)
-    C2 = nm.const(T.t("sns_C2"), dev)
+    C1 = nm.table(T.t, "sns_C1", device=dev)
+    C2 = nm.table(T.t, "sns_C2", device=dev)
     i0, i1, sub, gidx, ls, mpvq, idx6 = [scf_idx[:, k] for k in range(7)]
     st1 = torch.cat([C1[:, i0.long()].T, C2[:, i1.long()].T], dim=-1)
 
@@ -323,8 +326,8 @@ def sns_vq_dec_plain(scf_idx):
                          torch.where((sub == 2)[:, None], p_s2, p_s3))
     norm = torch.sqrt(nm.chain_sum((pulses * pulses).to(F32)))
     v = pulses.to(F32) / norm[:, None]
-    v = nm.chain_dot(v, nm.const(T.dct2_matrix(M), dev))
-    gains = nm.const(T.t("sns_dec_gains"), dev)                # [4, 8]
+    v = nm.chain_dot(v, nm.table(T.dct2_matrix, M, device=dev))
+    gains = nm.table(T.t, "sns_dec_gains", device=dev)         # [4, 8]
     g = gains[sub.clamp(0, 3).long(), gidx.clamp(0, 7).long()]
     return nm.fma(g[:, None], v, st1)
 
@@ -367,7 +370,8 @@ def _interp_matrix(nb: int) -> np.ndarray:
 
 def interpolate_scf(cfg: Config, scf_q, encoder_side: bool):
     """[B,16] quantized scf -> [B, bands_number] linear-domain gains."""
-    g = nm.dot(scf_q, nm.const(_interp_matrix(cfg.bands_number).T, scf_q.device))
+    g = nm.dot(scf_q, nm.table(_interp_matrix, cfg.bands_number, device=scf_q.device,
+                               transpose=True))
     if encoder_side:
         g = -g
     return nm.exp2(g)
@@ -377,9 +381,8 @@ def mdct_shaping(cfg: Config, d, gains):
     """Multiply each bin by its band gain (processMdctShaping_fl); bins at or
     above the last band boundary pass through unchanged."""
     n = d.shape[1]
-    idx = torch.as_tensor(T.band_expand_indices(cfg.fs_idx, cfg.frame_dms,
-                                                cfg.hrmode, cfg.frame_length)[:n],
-                          dtype=torch.long, device=d.device)
+    idx = nm.table(T.band_expand_indices, cfg.fs_idx, cfg.frame_dms, cfg.hrmode,
+                   cfg.frame_length, device=d.device, dtype=torch.long)[:n]
     last = int(T.bands_offset(cfg.fs_idx, cfg.frame_dms, cfg.hrmode)[-1])
     shaped = d * gains[:, idx]
     if n > last:

@@ -111,11 +111,12 @@ def _analyze(cfg: Config, x, bw_idx):
     lo, hi = _filter_ranges(cfg, bw_idx, numfilters, B, dev)
     starts, stops = lo + 1, hi + 1
 
-    lagw = nm.const(T.t("lagw_tns")[: max_order + 1], dev)
-    thr = nm.const(T.t("quants_thr_tns"), dev)
-    quants_pts = nm.const(T.t("quants_pts_tns"), dev)
-    huff_bits = nm.const(T.t("huff_bits_tns"), dev, I32)      # [8, 17]
-    order_bits_tab = nm.const(order_bits_tab, dev, I32)
+    lagw = nm.table(T.t, "lagw_tns", device=dev)[: max_order + 1]
+    thr = nm.table(T.t, "quants_thr_tns", device=dev)
+    quants_pts = nm.table(T.t, "quants_pts_tns", device=dev)
+    huff_bits = nm.table(T.t, "huff_bits_tns", device=dev, dtype=I32)   # [8, 17]
+    order_bits_tab = nm.table(T.t, "order1_tns" if max_pg == 1.5 else "order2_tns",
+                              device=dev, dtype=I32)
     bins = torch.arange(Nfull, device=dev)[None, :]
     lanes = torch.arange(MAXLAG, device=dev)[None, :]
     zero = torch.zeros((), dtype=F32, device=dev)
@@ -233,7 +234,7 @@ def tns_encode(cfg: Config, x, bw_idx):
 def _filter_ranges(cfg: Config, bw_idx, numfilters, B: int, dev):
     """First and last bin (0-based, inclusive) of each filter [B, 2]
     (tns_coder.c:244-263)."""
-    cutoffs = nm.const(T.bw_cutoff_bins(cfg.frame_dms), dev, I32)
+    cutoffs = nm.table(T.bw_cutoff_bins, cfg.frame_dms, device=dev, dtype=I32)
     bw_fcbin = cutoffs[bw_idx.clamp(0, cutoffs.shape[0] - 1).long()]
     startfreq0 = _tns_geometry(cfg)[1]
     two = numfilters == 2
@@ -249,7 +250,7 @@ def tns_decode(cfg: Config, x, rc_idx, order, numfilters, bw_idx):
     """Inverse lattice filter (processTnsDecoder_fl, tns_decoder.c:13-51).
     x: [B, N]; rc_idx: [B, 2, 8]; order: [B, 2]; bw_idx [B]."""
     B = x.shape[0]
-    quants_pts = nm.const(T.t("quants_pts_tns"), x.device)
+    quants_pts = nm.table(T.t, "quants_pts_tns", device=x.device)
     rc = quants_pts[rc_idx.clamp(0, quants_pts.shape[0] - 1).long()]   # [B, 2, 8]
     orders = torch.stack([order[:, 0], torch.where(numfilters == 2, order[:, 1], 0)], 1).to(I32)
     lo, hi = _filter_ranges(cfg, bw_idx, numfilters, B, x.device)

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of audio_codec_torch on one CUDA card.
 
-Drives the port's main path, the 48 kHz / 10 ms / 64 kbps encoder and
-decoder (`encode_block` then `decode_block`), through the CUDA kernels of
-audio_codec_torch/csrc, and checks it:
+Drives the port's two paths on the card through the CUDA kernels of
+audio_codec_torch/csrc and checks them: the 48 kHz / 10 ms / 64 kbps block
+path (`encode_block` then `decode_block`), and the error-protected stream
+path (`engine.StreamEncoder` -> channel errors -> `engine.StreamDecoder`)
+at EP1-4 in the flagship's 80-byte slot.
 
   1. card      name and power limit (nvidia-smi), torch's device name;
   2. build     every kernel from the sources, with nvcc's -Xptxas -v report;
-  3. kernels   each kernel against its plain PyTorch version on the card, on
-               every launch of a --frames run of the main path (speech,
-               music, noise); every kernel but ltpf_postfilter must match
-               exactly (bit_estimate in both of its modes), ltpf_postfilter
-               within LTPF_TOL on the +-32768 scale; each of the
-               post-filter's five cases, TNS filters of order 8, every SNS
+  3. kernels   each block-path kernel against its plain PyTorch version on
+               the card, on every launch of a --frames run of the block path
+               (speech, music, noise); every kernel but ltpf_postfilter must
+               match exactly (bit_estimate in both of its modes),
+               ltpf_postfilter within LTPF_TOL on the +-32768 scale; each of
+               the post-filter's five cases, TNS filters of order 8, every SNS
                submode 0-3, LTPF on and off, one and two TNS filters in
                the side information, and TNS on and off in both filters
                must occur, and the branches of the pitch analysis, the
@@ -27,23 +29,43 @@ audio_codec_torch/csrc, and checks it:
                and 160, and the pitch analysis, the LTPF coder, the noise
                factor and residual coder (64 and 16 kbps) and the spectrum
                reconstruction on rows that take each of their branches;
-  4. main path encode_block + decode_block at --streams x --frames with the
-               launch counters read around it; on a few streams over all
-               frames the kernel path's payload must equal the plain path's
-               and its PCM must be within +-1, with LTPF on; the same
+  4. block path encode_block + decode_block at --streams x --frames with the
+               launch counters reset before and read after; on a few streams
+               over all frames the kernel path's payload must equal the plain
+               path's and its PCM must be within +-1, with LTPF on; the same
                streams through the port on the CPU (the path the tests hold
                against the reference) must give the same payloads but for a
                CPU_FRAMES_DIFFER_MAX share, and PCM within +-CPU_PCM_TOL from
-               the card's payloads; a segmental SNR of the decoded material;
-  5. times     CUDA-event times of each kernel (the median of TIME_LOOPS
-               loops of TIME_LAUNCHES launches, with their min and max; and
-               the same launches replayed from a CUDA graph, which is the
-               device's time where the host launches slower than the kernel
-               runs) and of its plain version, for the MDCT and IMDCT the
-               library's product (torch.matmul) of the same rows by the
-               same matrix, and of the encode and decode blocks, as
-               real-time stream equivalents;
-  6. a JSON line with one entry per kernel.
+               the card's payloads; every decoder stage of that decode, card
+               against CPU, with the first stage that differs (payload-side
+               stages exactly, float stages with the first differing element
+               and its distance in ulps); a segmental SNR;
+  5. times     CUDA-event times of each block-path kernel (the median of
+               TIME_LOOPS loops of TIME_LAUNCHES launches, with their min and
+               max; and the same launches replayed from a CUDA graph, which is
+               the device's time where the host launches slower than the
+               kernel runs) and of its plain version, for the MDCT and IMDCT
+               the library's product (torch.matmul) of the same rows by the
+               same matrix, and of the encode and decode blocks, as real-time
+               stream equivalents;
+  6. stream    StreamEncoder -> channel -> StreamDecoder at EP1-4 over the
+               same material, the counters reset before and read after (every
+               kernel must launch); each frame's streams take clean, corrected
+               symbol errors, a destroyed partial-concealment codeword and
+               heavy corruption in turn, frame 3 is lost and frame 4 a
+               redundancy frame; every launch of fec_encode, fec_decode and of
+               ari_decode with a PC block (decode and the encoder's
+               simulation) must equal its plain version, the other kernels on
+               the last frame at the EP core sizes; a bfi 0 frame gives back
+               the encoder's payload; the bfi and detected-mode histograms are
+               printed and bfi 0/1 (and 2 at EP3/EP4) must occur; synthetic
+               rows (slots 40/80/150/300, combined channel coding, the 40-byte
+               cap, every EPMR, a wrong but CRC-failing mode, the EPMR risk,
+               PC decodes over four corrupt ranges); on a few streams at EP3
+               the kernel path's payloads, flags and PCM (+-1) against the
+               plain path's; CUDA-event times of the new kernels and of
+               encode/decode per frame at each mode;
+  7. a JSON line with one entry per kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero. Run from the repository root: python3 chip_smoke.py
@@ -108,7 +130,19 @@ KERNEL_INFO = {
                            "audio_codec_tpu/ops/quant.py:279"),
     "spec_decode": ("audio_codec_torch/csrc/spec_decode.cu",
                     "audio_codec_tpu/models/decoder.py:103"),
+    "fec_encode": ("audio_codec_torch/csrc/fec_encode.cu", "audio_codec_tpu/ops/fec.py:628"),
+    "fec_decode": ("audio_codec_torch/csrc/fec_decode.cu", "audio_codec_tpu/ops/fec.py:696"),
+    # the range decoder with a partial-concealment block, and the encoder's
+    # simulation: rows of their own for the kernel table (K11-PC)
+    "ari_decode_pc": ("audio_codec_torch/csrc/ari_decode.cu", "audio_codec_tpu/ops/ari.py:379"),
+    "ari_decode_pc_enc_sim": ("audio_codec_torch/csrc/ari_decode.cu",
+                              "audio_codec_tpu/ops/ari.py:759"),
 }
+# the kernels of the flagship block path (phases 3-5); the stream path
+# (phase 6) runs them and the channel coder's two
+STREAM_KERNELS = ("fec_encode", "fec_decode")
+PC_ROWS = ("ari_decode_pc", "ari_decode_pc_enc_sim")
+STREAM_MODES = (1, 2, 3, 4)
 TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
 
 
@@ -207,7 +241,7 @@ def nbytes(*ts) -> int:
 def plain_path():
     """Route the kernels' call sites to their plain versions, so the main
     path runs on the card without the kernels (the reference for phase 4)."""
-    from audio_codec_torch.ops import analysis, ari, bits, ltpf_dec, pc, quant, sns, tns
+    from audio_codec_torch.ops import analysis, ari, bits, fec, ltpf_dec, pc, quant, sns, tns
     from audio_codec_torch.ops import transforms
     sites = [(transforms, "mdct", transforms.mdct_plain),
              (transforms, "imdct", transforms.imdct_plain),
@@ -215,7 +249,11 @@ def plain_path():
              (pc, "pc_classify", pc.pc_classify_plain),
              (quant, "bit_estimate", quant.bit_estimate_plain),
              (ari, "encode", lambda cfg, *a: ari.encode_plain(cfg, *a)),
-             (ari, "decode", lambda cfg, buf, side, *a, **k: ari.decode_plain(cfg, buf, side)),
+             (ari, "decode", ari.decode_plain),
+             (fec, "fec_encode", lambda data, epmr, *, slot_bytes, mode, ccc_flag=0:
+              fec.fec_encode_plain(data, epmr, slot_bytes, mode, ccc_flag)),
+             (fec, "fec_decode", lambda frames, *, slot_bytes, ccc_flag=0, bfi_in=None:
+              fec.fec_decode_plain(frames, slot_bytes, ccc_flag, bfi_in)),
              (ltpf_dec, "ltpf_postfilter", ltpf_dec.ltpf_postfilter_plain),
              (quant, "gain_bisection", quant.gain_bisection_plain),
              (tns, "tns_analysis_lattice", tns.tns_analysis_lattice_plain),
@@ -621,6 +659,307 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         print(f"[kernels] {what}: {branches}", flush=True)
         check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
 
+# the decoder's stages in the order decode_block calls them
+DECODER_STAGES = (("bits", "parse_side_info"), ("ari", "decode"), ("sns", "quantize_scf_dec"),
+                  ("pc", "compute_stab_fac"), ("pc", "pc_classify"), ("quant", "global_gain"),
+                  ("quant", "spectrum_decode"), ("tns", "tns_decode"), ("sns", "interpolate_scf"),
+                  ("sns", "mdct_shaping"), ("plc", "plc_main"), ("transforms", "imdct"),
+                  ("plc", "plc_update"), ("ltpf_dec", "ltpf_decode"))
+
+
+def _tensors(v) -> list:
+    import torch
+    if isinstance(v, torch.Tensor):
+        return [v.detach().cpu()]
+    if isinstance(v, dict):
+        return [t for k in sorted(v) for t in _tensors(v[k])]
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _tensors(x)]
+    return []
+
+
+@contextlib.contextmanager
+def stage_trace(store: list):
+    """Record the outputs of every decoder stage call, in order, in store as
+    (stage, [tensors on the CPU])."""
+    import importlib
+    saved = []
+    for mod_name, fn_name in DECODER_STAGES:
+        mod = importlib.import_module(f"audio_codec_torch.ops.{mod_name}")
+        fn = getattr(mod, fn_name)
+        saved.append((mod, fn_name, fn))
+
+        def wrap(*a, _fn=fn, _name=f"{mod_name}.{fn_name}", **k):
+            out = _fn(*a, **k)
+            store.append((_name, _tensors(out)))
+            return out
+        setattr(mod, fn_name, wrap)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def first_difference(card: list, cpu: list):
+    """The first stage call (in call order) whose output differs between two
+    traces of the same decode, with per-stage counts of differing calls:
+    (stage, call, output, element, card value, cpu value, ulps or None)."""
+    import torch
+    first, per_stage = None, {}
+    for i, ((name, a), (name_c, b)) in enumerate(zip(card, cpu, strict=True)):
+        assert name == name_c, (name, name_c)
+        for j, (x, y) in enumerate(zip(a, b, strict=True)):
+            if x.dtype == torch.float32:
+                diff = x.view(torch.int32) != y.view(torch.int32)
+            else:
+                diff = x != y
+            if bool(diff.any()):
+                per_stage[name] = per_stage.get(name, 0) + 1
+                if first is None:
+                    k = int(torch.nonzero(diff.flatten())[0])
+                    xv, yv = x.flatten()[k].item(), y.flatten()[k].item()
+                    ulp = None
+                    if x.dtype == torch.float32:
+                        ulp = abs(int(x.view(torch.int32).flatten()[k]) -
+                                  int(y.view(torch.int32).flatten()[k]))
+                    first = (name, i, j, k, xv, yv, ulp)
+                break
+    return first, per_stage
+
+
+def pc_enc_sim(args, kw) -> bool:
+    """Whether a recorded ari_decode launch ran the encoder's simulation."""
+    return bool(args[6] if len(args) > 6 else kw.get("pc_enc_sim", False))
+
+
+def fec_ops(name: str, args) -> float:
+    """Integer operations of the channel coder on these slots (approximate):
+    encode, a CRC step a nibble and 13 products a parity nibble; decode, six
+    syndromes of 15 products a codeword, three detections on six codewords,
+    one correction of every codeword and the CRCs."""
+    slot = args[2] if name == "fec_encode" else args[1]
+    B = args[0].shape[0]
+    ncw = (2 * slot + 14) // 15
+    if name == "fec_encode":
+        return float(B * (2 * slot * 8 + ncw * 6 * 13 * 2 + 2 * slot * 3))
+    return float(B * (ncw * 6 * 15 * 2 + 3 * 6 * 250 + ncw * 250 + 2 * slot * 8 * 2))
+
+
+def stream_phase(dev, pcm, K, plain, card):
+    """Phase 6: the error-protected stream path, StreamEncoder -> channel ->
+    StreamDecoder, at EP1-4 with the flagship's 80-byte slot. Returns the
+    kernel rows of the channel coder and the PC decoder, and the launch
+    counts of the run."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch import engine
+    from audio_codec_torch.ops import ari, fec
+    from tests import torch_kernel_cases as C
+    B, T = pcm.shape[1], pcm.shape[0]
+    kinds, frame_bfi = C.stream_plan(T, B)
+    rec: dict = {}
+    per_mode = {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for mode in STREAM_MODES:
+        cfg = P.Config(fs_in=48000, bitrate=64000, epmode=mode)
+        enc = engine.StreamEncoder(cfg, B, device=dev)
+        dec = engine.StreamDecoder(cfg, B, device=dev)
+        rec_m: dict = {}
+        enc_ms, dec_ms, last_bfi = [], [], []
+        rng = np.random.default_rng(mode)
+        with recording(rec_m):
+            for f in range(T):
+                t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                t0.record()
+                pay = enc.encode(pcm[f])
+                t1.record()
+                rows = np.stack([np.frombuffer(b, np.uint8) for b in pay]).astype(np.int32)
+                payload = C.channel_errors(rows, cfg.slotBytes, mode, kinds[f], rng)
+                payload = payload.astype(np.uint8).tobytes()
+                torch.cuda.synchronize()
+                t1b = torch.cuda.Event(enable_timing=True)
+                t1b.record()
+                y = dec.decode(payload, int(frame_bfi[f]))
+                t2.record()
+                torch.cuda.synchronize()
+                enc_ms.append(t0.elapsed_time(t1))
+                dec_ms.append(t1b.elapsed_time(t2))
+                last_bfi.append(dec.last_bfi.copy())
+                check(y.shape == (B, cfg.frame_length) and y.dtype == np.int16,
+                      f"EP{mode}: decoded PCM of shape {y.shape} and type {y.dtype}")
+                check(len(pay) == B and all(len(b) == cfg.slotBytes for b in pay),
+                      f"EP{mode}: frames of the wrong size")
+        per_mode[mode] = (cfg, rec_m, enc_ms, dec_ms, np.stack(last_bfi))
+        for k, v in rec_m.items():
+            rec.setdefault(k, []).extend((mode, a) for a in v)
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    print(f"[stream] EP1-4 x {T} frames x {B} streams: launches {counts}", flush=True)
+    check(all(counts[k] > 0 for k in K.KERNELS), f"a kernel was not launched: {counts}")
+
+    # every launch of the channel coder and of the PC decoder against its
+    # plain version; the other kernels on the last frame of each mode
+    errs, hist, pc_launches = {}, {}, {r: 0 for r in PC_ROWS}
+    plain = dict(plain, fec_encode=fec.fec_encode_plain, fec_decode=fec.fec_decode_plain)
+    for mode in STREAM_MODES:
+        cfg, rec_m, enc_ms, dec_ms, last_bfi = per_mode[mode]
+        for name, launches in rec_m.items():
+            pc_mode = name == "ari_decode" and launches[0][0][0].n_pc > 0
+            every = name in STREAM_KERNELS or pc_mode
+            for i, (args, kw) in enumerate(launches):
+                if not every and i < len(launches) - 1:
+                    continue
+                got = getattr(K, name)(*args, **kw)
+                ref = plain[name](*args, **kw)
+                if name == "ltpf_postfilter":
+                    e = float((got - ref).abs().max())
+                    check(e <= LTPF_TOL, f"EP{mode} {name} launch {i}: max |diff| {e}")
+                else:
+                    same_bits(got, ref, f"EP{mode} {name} launch {i}")
+                if pc_mode:
+                    row = PC_ROWS[1] if pc_enc_sim(args, kw) else PC_ROWS[0]
+                    pc_launches[row] += 1
+                    errs[row] = 0.0
+                else:
+                    errs[name] = 0.0
+        # corrected frames give back the encoder's payload
+        outs = [K.fec_decode(*a, **k) for a, k in rec_m["fec_decode"]]
+        # a lost frame (frame_bfi 1) never reaches the channel decoder
+        sent = [a[0] for f, (a, _) in enumerate(rec_m["fec_encode"]) if frame_bfi[f] != 1]
+        check(len(sent) == len(outs), f"EP{mode}: {len(outs)} channel decodes of {len(sent)}")
+        bfis = torch.cat([o["bfi"] for o in outs]).cpu()
+        modes = torch.cat([o["mode"] for o in outs]).cpu()
+        corrected = 0
+        for o, d in zip(outs, sent):
+            ok = (o["bfi"] == 0) & ((o["error_report"] & 0x7FF) > 0)
+            db = d.shape[1]
+            check(bool((o["data"][:, :db] == d)[o["bfi"] == 0].all()),
+                  f"EP{mode}: a frame with bfi 0 does not give back the encoder's payload")
+            corrected += int(ok.sum())
+        hist[mode] = dict(fec_bfi=torch.bincount(bfis.long(), minlength=3).tolist(),
+                          modes=torch.bincount((modes + 1).long(), minlength=6).tolist(),
+                          corrected=corrected,
+                          last_bfi=np.bincount(last_bfi.ravel(), minlength=3).tolist())
+        print(f"[stream] EP{mode} ({cfg.targetBytes}-byte core in an {cfg.slotBytes}-byte slot): "
+              f"fec_decode bfi 0/1/2 {hist[mode]['fec_bfi']}, detected mode -1/0/1/2/3/4 "
+              f"{hist[mode]['modes']}, {corrected} frames corrected back to the payload, "
+              f"decoder bfi 0/1/2 {hist[mode]['last_bfi']}; encode per frame "
+              f"{sorted(enc_ms)[len(enc_ms) // 2]:.2f} ms (median), decode "
+              f"{sorted(dec_ms)[len(dec_ms) // 2]:.2f} ms, {card}", flush=True)
+        check(hist[mode]["fec_bfi"][0] > 0 and hist[mode]["fec_bfi"][1] > 0,
+              f"EP{mode}: bfi 0 or 1 never came out of fec_decode: {hist[mode]}")
+        check(hist[mode]["last_bfi"][1] > 0, f"EP{mode}: the decoder never concealed a frame")
+        if mode > 1:
+            check(corrected > 0, f"EP{mode}: no frame was corrected")
+        if cfg.n_pc > 0:
+            check(hist[mode]["fec_bfi"][2] > 0 and hist[mode]["last_bfi"][2] > 0,
+                  f"EP{mode}: a destroyed PC codeword never gave bfi 2: {hist[mode]}")
+    check(all(v > 0 for v in pc_launches.values()), f"PC decodes not launched: {pc_launches}")
+    print(f"[stream] every launch of fec_encode, fec_decode and of ari_decode with a PC block "
+          f"({pc_launches}) equals its plain version; the other kernels at the EP core sizes "
+          f"76/66/53/42 bytes too", flush=True)
+
+    # the synthetic rows: slots 40/150/300, ccc, the 40-byte cap, every EPMR,
+    # a wrong mode whose CRC fails, the EPMR risk
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n_rows = 0
+    for slot in C.FEC_SLOTS:
+        for mode in STREAM_MODES:
+            for ccc in (0, 1):
+                data, epmr, kinds_s, bfi_in = C.fec_rows(slot, mode, ccc)
+                args = (g(data), g(epmr), slot, mode, ccc)
+                enc_k = K.fec_encode(*args)
+                same_bits(enc_k, fec.fec_encode_plain(*args), f"fec_encode rows {slot} EP{mode}")
+                frames = C.channel_errors(enc_k.cpu().numpy(), slot, mode, kinds_s,
+                                          np.random.default_rng(1))
+                dargs = (g(frames), slot, ccc, g(bfi_in))
+                same_bits(K.fec_decode(*dargs), fec.fec_decode_plain(*dargs),
+                          f"fec_decode rows {slot} EP{mode} ccc {ccc}")
+                n_rows += data.shape[0]
+    synth = g(np.concatenate([C.wrong_mode_rows(), C.epmr_risk_rows()]))
+    got = K.fec_decode(synth, 80, 0)
+    same_bits(got, fec.fec_decode_plain(synth, 80, 0), "fec_decode (wrong-mode and risk rows)")
+    check(bool((got["bfi"] == 1).all()), "fec_decode: a wrong-mode or risk row was not lost")
+    for ep in (3, 4):
+        a = C.pc_decode_rows(ep)
+        cfg = P.Config(fs_in=48000, bitrate=64000, epmode=ep)
+        fr = g(a["frames"])
+        from audio_codec_torch.ops import bits
+        side = bits.parse_side_info(cfg, fr)
+        flags = [g(a[k]) for k in ("bfi_in", "be_l", "be_r")]
+        for sim in (False, True):
+            same_bits(K.ari_decode(cfg, fr, side, *flags, pc_enc_sim=sim),
+                      ari.decode_plain(cfg, fr, side, *flags, pc_enc_sim=sim),
+                      f"ari_decode PC rows EP{ep} (pc_enc_sim {sim})")
+    print(f"[stream] synthetic rows: fec_encode and fec_decode on {n_rows} rows at slots "
+          f"{C.FEC_SLOTS} x EP1-4 x ccc 0/1 (clean, corrected, PC codeword destroyed, heavy, "
+          f"bfi_in 1, EPMR 0-3), wrong-mode and EPMR-risk rows, and the PC decoder on EP3/EP4 "
+          f"rows with bfi_in 2 over four corrupt ranges equal their plain versions", flush=True)
+
+    # a few streams: the kernel path's payloads against the plain path's
+    nb = min(12, B)
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=3)
+    small = pcm[:, :nb].contiguous()
+    kinds_s, frame_bfi_s = C.stream_plan(T, nb)
+
+    def run():
+        enc = engine.StreamEncoder(cfg, nb, device=dev)
+        dec = engine.StreamDecoder(cfg, nb, device=dev)
+        pays = C.encode_stream(enc, small)
+        payloads = C.channel(pays, lambda f: (cfg.slotBytes, 3), kinds_s, seed=7)
+        return pays, C.decode_stream(dec, payloads, frame_bfi_s)
+    pays_k, out_k = run()
+    with plain_path():
+        pays_p, out_p = run()
+    gap = int(np.abs(out_k[..., : cfg.frame_length] - out_p[..., : cfg.frame_length]).max())
+    print(f"[stream] EP3 kernel path vs plain path on the card, {nb} streams x {T} frames: "
+          f"payloads identical {pays_k == pays_p}, max |PCM diff| {gap}, flags identical "
+          f"{bool((out_k[..., cfg.frame_length:] == out_p[..., cfg.frame_length:]).all())}",
+          flush=True)
+    check(pays_k == pays_p, "EP3 payloads of the kernel path differ from the plain path")
+    check(gap <= 1, f"EP3 PCM of the kernel path differs by {gap} > 1")
+    check(bool((out_k[..., cfg.frame_length:] == out_p[..., cfg.frame_length:]).all()),
+          "EP3 bfi, EPMR or error report of the kernel path differ from the plain path")
+
+    # times of the new kernels on the last frame's launches at EP3
+    rows = []
+    rec3 = per_mode[3][1]
+    timed = [("fec_encode", rec3["fec_encode"][-1]), ("fec_decode", rec3["fec_decode"][-1])]
+    pcs = [(a, k) for a, k in rec3["ari_decode"] if a[0].n_pc > 0]
+    timed += [(PC_ROWS[0], next(x for x in reversed(pcs) if not pc_enc_sim(*x))),
+              (PC_ROWS[1], next(x for x in reversed(pcs) if pc_enc_sim(*x)))]
+    for row, (args, kw) in timed:
+        name = row if row in STREAM_KERNELS else "ari_decode"
+        fn = lambda: getattr(K, name)(*args, **kw)
+        ms, ms_min, ms_max = cuda_ms_spread(fn)
+        gms = graph_ms(fn)
+        pms = cuda_ms(lambda: plain[name](*args, **kw), 2)
+        outs = outputs(fn())
+        byts = kernel_bytes(name, args, outs)
+        ops = fec_ops(name, args) if name in STREAM_KERNELS else work_ops(name, args)
+        b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        src, replaces = KERNEL_INFO[row]
+        launches = counts[name] if name in STREAM_KERNELS else pc_launches[row]
+        rows.append(dict(name=row, route="cuda", source=src, replaces=replaces,
+                         launches=launches, max_abs_err=errs.get(row, 0.0), ms=ms, plain_ms=pms,
+                         bound_ms=max(b_bytes, b_ops),
+                         bound_by="bytes" if b_bytes >= b_ops else "operations",
+                         library_ms=None, graph_ms=gms))
+        print(f"[times] {card} | {row}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
+              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
+              f"a CUDA graph), plain {pms:.2f} ms, bound {max(b_bytes, b_ops):.6f} ms "
+              f"({byts} B, {ops:.3g} ops), {launches} launches in the stream run", flush=True)
+    for mode in STREAM_MODES:
+        cfg, _, enc_ms, dec_ms, _ = per_mode[mode]
+        print(f"[times] {card} | StreamEncoder.encode / StreamDecoder.decode EP{mode} B={B}: "
+              f"{np.median(enc_ms):.2f} / {np.median(dec_ms):.2f} ms per frame (median of {T}; "
+              f"min {min(enc_ms):.2f} / {min(dec_ms):.2f}, max {max(enc_ms):.2f} / "
+              f"{max(dec_ms):.2f})", flush=True)
+    return rows
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -678,7 +1017,8 @@ def main() -> int:
         ds = P.dec_state_init(cfg, B, device=dev)
         P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
-    check(set(rec) == set(K.KERNELS), f"kernels not reached on the main path: {set(K.KERNELS) - set(rec)}")
+    MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS]
+    check(set(rec) == set(MAIN), f"kernels not reached on the main path: {set(MAIN) - set(rec)}")
     modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
     check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
     cases = ltpf_case_counts(rec["ltpf_postfilter"])
@@ -720,7 +1060,7 @@ def main() -> int:
     branches = None
     branch_hist: dict = {}
     errs = {}
-    for name in K.KERNELS:
+    for name in MAIN:
         err = 0.0
         for args, kw in rec[name]:
             got = getattr(K, name)(*args, **kw)
@@ -777,7 +1117,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = dict(K.launches)
     print(f"[main] encode_block + decode_block at B={B} T={T}: launches {counts}", flush=True)
-    check(all(counts[k] > 0 for k in K.KERNELS), f"a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in MAIN), f"a kernel was not launched: {counts}")
     check(tuple(frames.shape) == (T, B, cfg.targetBytes) and frames.dtype == torch.uint8,
           f"payload shape {tuple(frames.shape)}")
     check(tuple(out.shape) == (T, B, cfg.frame_length) and bool(torch.isfinite(out).all()),
@@ -822,6 +1162,18 @@ def main() -> int:
     check(frames_differ <= CPU_FRAMES_DIFFER_MAX * nb * T,
           f"{frames_differ} payload frames differ from the CPU port's")
     check(int(gap.max()) <= CPU_PCM_TOL, f"PCM differs from the CPU port's by {int(gap.max())}")
+    # where the card's decode first departs from the CPU port's: every
+    # decoder stage of the same payloads, payload-side stages exactly, float
+    # stages with the first differing element and its distance in ulps
+    trace_k, trace_c = [], []
+    with stage_trace(trace_k):
+        P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_k)
+    with stage_trace(trace_c):
+        P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_k.cpu())
+    first, per_stage = first_difference(trace_k, trace_c)
+    print(f"[main] card vs CPU port, decoder stage by stage over {len(trace_k)} stage calls: "
+          f"first difference {first} (stage, call, output, element, card, cpu, ulps); "
+          f"stage calls that differ {per_stage}", flush=True)
     ref = pcm.cpu().numpy()
     snr_rows = []
     for b in range(min(B, 6)):
@@ -835,7 +1187,7 @@ def main() -> int:
 
     # ---- 5. times ----
     rows = []
-    for name in K.KERNELS:
+    for name in MAIN:
         args, kw = rec[name][-1]   # the last frame's launch
         ms, ms_min, ms_max = cuda_ms_spread(lambda: getattr(K, name)(*args, **kw))
         gms = graph_ms(lambda: getattr(K, name)(*args, **kw))
@@ -873,7 +1225,10 @@ def main() -> int:
         print(f"[times] {card} | {what} B={B} T={T}: {ms:.1f} ms, "
               f"{streams:.1f} real-time 10 ms streams", flush=True)
 
-    # ---- 6. kernels line ----
+    # ---- 6. the stream path ----
+    rows += stream_phase(dev, pcm, K, plain, card)
+
+    # ---- 7. kernels line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,9 @@
 """Range coder and side information of audio_codec_torch against
 audio_codec_tpu. encode (the ari_encode kernel on the card, its plain
 version here) must give identical bytes; decode (ari_decode) must give
-every output of the reference exactly, on clean and on damaged frames."""
+every output of the reference exactly, on clean and on damaged frames, and
+with a partial-concealment block (EP3/EP4) on bfi 0 and bfi 2 frames and in
+the encoder's simulation (pc_enc_sim's b_left)."""
 from __future__ import annotations
 
 import functools
@@ -16,6 +18,7 @@ from audio_codec_torch.ops import ari as PAR, bits as PB
 from audio_codec_tpu.config import Config as JConfig
 from audio_codec_tpu.ops import ari as JAR, bits as JB, quant as JQ
 
+from tests import torch_kernel_cases as C
 from tests.torch_port_data import J, encoder_stages, n, t
 
 
@@ -92,3 +95,53 @@ def test_side_parse_and_decode_exact(bitrate, damage):
     got = PAR.decode(pcfg, t(bufs), {k: t(v) for k, v in side.items()})
     for k in dec:
         eq(got[k], dec[k], k)
+
+
+# ---- frames with a partial-concealment block (EP3/EP4 in an 80-byte slot) ----
+
+@functools.cache
+def jax_b_left(epmode: int) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX engine's encoder-side simulation and block move on the core
+    payloads: (b_left, reordered frames)."""
+    from audio_codec_tpu import engine as JEng
+    cfg = JConfig(fs_in=48000, bitrate=64000, epmode=epmode)
+    logical = C.core_frames(epmode)
+    b_left = np.asarray(JEng._b_left_step(cfg)(jnp.asarray(logical)))
+    return b_left, np.stack([JEng._reorder_payload(row, int(b), cfg.n_pc)
+                             for row, b in zip(logical, b_left)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("epmode", C.PC_EP_MODES)
+def test_pc_enc_sim_b_left_exact(epmode):
+    """pc_enc_sim's convergence byte, and the engine's block move as a gather."""
+    from audio_codec_torch import engine
+    pcfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    b_left, reordered = jax_b_left(epmode)
+    logical = t(C.core_frames(epmode))
+    got = engine.b_left_step(pcfg, logical)
+    eq(got, b_left)
+    assert (b_left > 0).all() and (b_left <= pcfg.targetBytes).all()
+    eq(engine.reorder_payload(logical, got, pcfg.n_pc), reordered)
+
+
+@pytest.mark.parametrize("epmode", C.PC_EP_MODES)
+def test_pc_decode_exact(epmode):
+    """The range decoder with the relocated block, on bfi_in 0 and 2 over
+    four corrupt ranges (the first byte of the block to its end, its second
+    half, one byte, the first byte), and on random frames."""
+    jcfg = JConfig(fs_in=48000, bitrate=64000, epmode=epmode)
+    pcfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    a = C.pc_decode_rows(epmode)
+    frames = np.concatenate([jax_b_left(epmode)[1], a["frames"][2::3]])
+    L = frames.shape[0]
+    bfi_in = np.resize(a["bfi_in"], L)
+    be_l, be_r = np.resize(a["be_l"], L), np.resize(a["be_r"], L)
+    side = J(JB.parse_side_info, jcfg)(frames)
+    ref = jax.jit(lambda b, s, i, l, r: JAR.decode(jcfg, b, s, i, l, r))(frames, side, bfi_in,
+                                                                         be_l, be_r)
+    got = PAR.decode(pcfg, t(frames), {k: t(v) for k, v in side.items()}, t(bfi_in), t(be_l),
+                     t(be_r))
+    for k in ref:
+        eq(got[k], ref[k], k)
+    bfi = np.asarray(ref["bfi"])
+    assert (bfi == 2).any() and (bfi == 0).any(), np.bincount(bfi)

@@ -20,7 +20,12 @@ IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
 windowed search taken and not, LTPF rows with each activation rule firing
 alone, residual-coder rows with no zero line and a cut n_res at 64 and
 16 kbps, and spectrum rows in every branch of the partial concealment
-(tests/torch_kernel_cases.py)."""
+(tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
+40-300 bytes at EP1-4 with and without combined channel coding and on
+injected errors, the range decoder on frames with a partial-concealment
+block (bfi 0 and 2, and the encoder's simulation); a warmed encode_frame,
+decode_frame and the stream path's device step at EP3 run under
+torch.cuda.set_sync_debug_mode("error")."""
 from __future__ import annotations
 
 import wave
@@ -130,7 +135,7 @@ def test_ari_decode_matches_plain(recorded, dev):
     got, ref = K.ari_decode(*args), ari.decode_plain(*args)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
-    cfg, buf, side = args
+    cfg, buf, side = args[:3]
     bad = torch.randint(0, 256, buf.shape, device=dev, dtype=torch.int32,
                         generator=torch.Generator(device=dev).manual_seed(1))
     from audio_codec_torch.ops import bits
@@ -342,7 +347,8 @@ def test_launch_counts_move(dev):
                           "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
                           "pc_classify": 2, "mdct": 2, "imdct": 2, "olpa": 2,
-                          "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2}
+                          "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2,
+                          "fec_encode": 0, "fec_decode": 0}
 
 
 def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
@@ -518,3 +524,104 @@ def test_spec_decode_does_not_synchronise(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out[0].shape == args[1].shape
+
+
+# ---- slice 6: the channel coder, the range decoder's PC hooks, no uploads ----
+
+def no_sync(fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("error"): any operation
+    that synchronises the host with the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_warmed_frame_steps_do_not_synchronise(dev):
+    """A warmed encode_frame and decode_frame at the flagship upload no
+    table and read nothing back (every table is cached on the device)."""
+    B = 64
+    pcm = torch.from_numpy(np.random.default_rng(0).standard_normal((B, 480)) * 3000).float().to(dev)
+    st, ds = P.enc_state_init(CFG, B, device=dev), P.dec_state_init(CFG, B, device=dev)
+    for _ in range(2):
+        st, out, _ = P.encode_frame(CFG, st, pcm)
+        ds, _, _ = P.decode_frame(CFG, ds, out)
+    st, out, _ = no_sync(lambda: P.encode_frame(CFG, st, pcm))
+    ds, y, _ = no_sync(lambda: P.decode_frame(CFG, ds, out))
+    assert y.shape == (B, 480)
+
+
+def fec_case_on_card(dev, slot, mode, ccc):
+    from audio_codec_torch.ops import fec
+    data, epmr, kinds, bfi_in = C.fec_rows(slot, mode, ccc)
+    enc = fec.fec_encode_plain(torch.from_numpy(data), torch.from_numpy(epmr), slot, mode, ccc)
+    frames = C.channel_errors(enc.numpy(), slot, mode, kinds, np.random.default_rng(1))
+    return [torch.from_numpy(v).to(dev) for v in (data, epmr, frames, bfi_in)]
+
+
+@pytest.mark.parametrize("slot", C.FEC_SLOTS)
+def test_fec_kernels_match_plain(dev, slot):
+    from audio_codec_torch.ops import fec
+    for mode in (1, 2, 3, 4):
+        for ccc in (0, 1):
+            data, epmr, frames, bfi_in = fec_case_on_card(dev, slot, mode, ccc)
+            same_tensors([K.fec_encode(data, epmr, slot, mode, ccc)],
+                         [fec.fec_encode_plain(data, epmr, slot, mode, ccc)])
+            got = K.fec_decode(frames, slot, ccc, bfi_in)
+            ref = fec.fec_decode_plain(frames, slot, ccc, bfi_in)
+            same_tensors([got[k] for k in ref], list(ref.values()))
+
+
+def test_fec_decode_wrong_mode_and_risk_rows(dev):
+    from audio_codec_torch.ops import fec
+    frames = torch.from_numpy(np.concatenate([C.wrong_mode_rows(), C.epmr_risk_rows()])).to(dev)
+    got, ref = K.fec_decode(frames, 80, 0), fec.fec_decode_plain(frames, 80, 0)
+    same_tensors([got[k] for k in ref], list(ref.values()))
+    assert bool((got["bfi"] == 1).all())
+
+
+def pc_args(dev, epmode):
+    a = C.pc_decode_rows(epmode)
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    frames = torch.from_numpy(a["frames"]).to(dev)
+    side = bits.parse_side_info(cfg, frames)
+    return cfg, frames, side, [torch.from_numpy(a[k]).to(dev) for k in ("bfi_in", "be_l", "be_r")]
+
+
+@pytest.mark.parametrize("epmode", C.PC_EP_MODES)
+def test_ari_decode_pc_hooks_match_plain(dev, epmode):
+    cfg, frames, side, flags = pc_args(dev, epmode)
+    for sim in (False, True):
+        got = K.ari_decode(cfg, frames, side, *flags, pc_enc_sim=sim)
+        ref = ari.decode_plain(cfg, frames, side, *flags, pc_enc_sim=sim)
+        same_tensors([got[k] for k in ref], list(ref.values()))
+        if not sim:
+            assert bool((got["bfi"] == 2).any())
+
+
+def test_ep_step_does_not_synchronise(dev):
+    """The stream path's device step at EP3: the encoder's PC simulation,
+    the block move and fec_encode, then fec_decode and decode_frame with
+    the PC hooks, read nothing back to the host once warmed."""
+    from audio_codec_torch import engine
+    from audio_codec_torch.ops import fec
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=3)
+    B = 64
+    pcm = torch.from_numpy(np.random.default_rng(1).standard_normal((B, 480)) * 3000).float().to(dev)
+    st, ds = P.enc_state_init(cfg, B, device=dev), P.dec_state_init(cfg, B, device=dev)
+    epmr = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def step():
+        s, out, _ = P.encode_frame(cfg, st, pcm)
+        buf = out.to(torch.int32)
+        buf = engine.reorder_payload(buf, engine.b_left_step(cfg, buf), cfg.n_pc)
+        slots = fec.fec_encode(buf, epmr, slot_bytes=cfg.slotBytes, mode=3)
+        d = fec.fec_decode(slots, slot_bytes=cfg.slotBytes)
+        bfi = torch.where(d["bfi"] == 1, 1, torch.where(d["bfi"] == 2, 2, 0))
+        return P.decode_frame(cfg, ds, d["data"][:, : cfg.targetBytes], bfi,
+                              d["be_bp_left"], d["be_bp_right"])
+    step()
+    _, y, aux = no_sync(step)
+    assert y.shape == (B, 480) and bool((aux["bfi"] == 0).all())

@@ -3,8 +3,10 @@ versions.
 
 The per-stream functions of csrc/side_info.cuh, csrc/sns_vq.cuh,
 csrc/tns_analysis.cuh, csrc/pc_classify.cuh, csrc/olpa.cuh,
-csrc/ltpf_encode.cuh, csrc/noise_residual_enc.cuh and csrc/spec_decode.cuh,
-and the DCT-IV, fold and unfold of csrc/dct4.cuh, compile as plain C++ as
+csrc/ltpf_encode.cuh, csrc/noise_residual_enc.cuh, csrc/spec_decode.cuh,
+csrc/fec.cuh (the channel coder) and csrc/ari_decode.cuh (the range decoder,
+here with its partial-concealment hooks), and the DCT-IV, fold and unfold of
+csrc/dct4.cuh, compile as plain C++ as
 well as for the card (the warp kernels of olpa and ltpf_encode share their
 steps with a lane function that runs them in order). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
@@ -14,7 +16,8 @@ to return False, so they compute in the order they state for a tensor on a
 card. Every output must be equal bit for bit (two NaNs count as equal).
 This guards the kernels' logic where there is no card; it skips where there
 is no g++. Copies of the lane functions with one comparison, one rounding or
-one constant changed must fail it (test_rehearsal_catches_mutated_lanes)."""
+one constant changed must fail it (test_rehearsal_catches_mutated_lanes and
+the tests after it)."""
 from __future__ import annotations
 
 import ctypes
@@ -842,3 +845,243 @@ def test_rehearsal_catches_mutated_pitch_and_spectrum_lanes(tmp_path, card_order
            "spec_decode": C.count_differing(lane_spec(lib, PCFG_FLAG, s_),
                                             plain_spec(PCFG_FLAG, s_))}
     assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"
+
+
+# ---- the channel coder (csrc/fec.cuh) ----
+
+WRAPPER_PC = r"""
+#include "ari_decode.cuh"
+
+extern "C" {
+// side [9][L], pc_in [3][L] (bfi_in, be_l, be_r), geom: N max_lev hrmode tns_max lpcw
+// rate_flag total_bits max_res res_iters pc_bytes numbytes
+void rehearse_ari_decode(const int* frames, const int* side, const int* pc_in, const int* tabs,
+                         const int* geom, int pc_mode, int L, int nbytes, int* x, int* tns_order,
+                         int* tns_idx, int* res, int* out) {
+  const DecGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[7],
+                     geom[8], geom[9], geom[10]};
+  DecTables tb;
+  tb.lookup = tabs;
+  tb.cumf = tabs + 4096;
+  tb.order_cf = tb.cumf + 64 * 18;
+  tb.coef_cf = tb.order_cf + 2 * 9;
+  uint8_t buf[1024], levs[512];
+  for (int s = 0; s < L; ++s) {
+    for (int i = 0; i < nbytes; ++i) buf[i] = static_cast<uint8_t>(frames[s * nbytes + i]);
+    int sd[9];
+    for (int j = 0; j < 9; ++j) sd[j] = side[j * L + s];
+    int* xs = x + s * g.N;
+    int* rs = res + s * g.max_res;
+    if (pc_mode == 1)
+      ari_decode_lane<kPcDecode>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
+                                 xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+    else if (pc_mode == 2)
+      ari_decode_lane<kPcEncSim>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
+                                 xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+    else
+      ari_decode_lane<kPcNone>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
+                               xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+  }
+}
+}
+"""
+# mutations of the range decoder's PC hooks that the rehearsal must catch
+MUTATIONS_PC = {
+    "bp_side_jump": ("ari_decode.cuh", "d.bp_side = d.pcb - 1;", "d.bp_side = d.pcb;"),
+}
+
+WRAPPER_FEC = r"""
+#include "fec.cuh"
+using namespace acx;
+
+extern "C" {
+void rehearse_fec_encode(const int* data, const int* epmr, const int* tabs, int B, int D,
+                         int slot, int mode, int ccc, int* out) {
+  FecTables tb;
+  tb.w = tabs;
+  uint8_t dw[kFecMaxNib], cw[kFecMaxNib];
+  for (int b = 0; b < B; ++b)
+    fec_encode_lane(data + D * b, epmr[b], tb, slot, mode, ccc, dw, cw, out + slot * b);
+}
+void rehearse_fec_decode(const int* frames, const int* bfi_in, const int* tabs, int B, int slot,
+                         int ccc, int* data, int* out) {
+  FecTables tb;
+  tb.w = tabs;
+  FecDecScratch sc;
+  for (int b = 0; b < B; ++b)
+    fec_decode_lane(frames + slot * b, bfi_in[b], tb, slot, ccc, sc, data + slot * b, out + b, B);
+}
+int fec_table_words() { return kFecTableWords; }
+}
+"""
+
+# mutations of the channel coder's lanes that the rehearsal must catch
+MUTATIONS_FEC = {
+    # a `<` for `<=` in a risk compare: the EPMR increment by codeword 0's risk
+    # (the risk thresholds themselves are no reachable risk product, so a
+    # changed compare against them gives the same results)
+    "risk_compare_lt": ("fec.cuh", "4 * (exp0 <= -8 ? 1 : 0)", "4 * (exp0 < -8 ? 1 : 0)"),
+    "deinterleave_length": ("fec.cuh", "      if (j < len) {\n        const int o",
+                            "      if (j < len - 1) {\n        const int o"),
+}
+
+
+def build_fec_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = {**MUTATIONS_FEC, **MUTATIONS_PC}[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes_fec.cpp").write_text(WRAPPER_FEC + WRAPPER_PC)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{inc}",
+                        str(out / "lanes_fec.cpp"), "-o", str(out / "lanes_fec.so")],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes_fec.so"))
+
+
+@pytest.fixture(scope="module")
+def lib_fec(tmp_path_factory):
+    return build_fec_lanes(tmp_path_factory.mktemp("lanes_fec"))
+
+
+def lane_fec_encode(lib, data, epmr, slot, mode, ccc):
+    data, epmr = _c(data, np.int32), _c(epmr, np.int32)
+    out = np.zeros((data.shape[0], slot), np.int32)
+    lib.rehearse_fec_encode(ptr(data), ptr(epmr), ptr(K.fec_tables("cpu").numpy()),
+                            data.shape[0], data.shape[1], slot, mode, ccc, ptr(out))
+    return out
+
+
+def lane_fec_decode(lib, frames, bfi_in, slot, ccc) -> dict:
+    from audio_codec_torch.ops import fec
+    frames, bfi_in = _c(frames, np.int32), _c(bfi_in, np.int32)
+    B = frames.shape[0]
+    data, out = np.zeros((B, slot), np.int32), np.zeros((9, B), np.int32)
+    lib.rehearse_fec_decode(ptr(frames), ptr(bfi_in), ptr(K.fec_tables("cpu").numpy()), B, slot,
+                            ccc, ptr(data), ptr(out))
+    return dict(zip(fec.DECODE_FIELDS, [data, *out]))
+
+
+def fec_case(slot, mode, ccc):
+    """(data, epmr, frames after the channel, bfi_in) of one case."""
+    from audio_codec_torch.ops import fec
+    data, epmr, kinds, bfi_in = C.fec_rows(slot, mode, ccc)
+    enc = fec.fec_encode_plain(torch.from_numpy(data), torch.from_numpy(epmr), slot, mode,
+                               ccc).numpy()
+    return data, epmr, C.channel_errors(enc, slot, mode, kinds, np.random.default_rng(1)), bfi_in
+
+
+def fec_differing(lib, slot, mode, ccc) -> int:
+    from audio_codec_torch.ops import fec
+    data, epmr, frames, bfi_in = fec_case(slot, mode, ccc)
+    bad = C.count_differing(lane_fec_encode(lib, data, epmr, slot, mode, ccc),
+                            fec.fec_encode_plain(torch.from_numpy(data), torch.from_numpy(epmr),
+                                                 slot, mode, ccc).numpy())
+    ref = fec.fec_decode_plain(torch.from_numpy(frames), slot, ccc, torch.from_numpy(bfi_in))
+    got = lane_fec_decode(lib, frames, bfi_in, slot, ccc)
+    return bad + sum(C.count_differing(got[k], ref[k].numpy()) for k in fec.DECODE_FIELDS)
+
+
+def test_fec_table_layout_matches_header(lib_fec):
+    assert lib_fec.fec_table_words() == K.fec_tables("cpu").numel()
+
+
+@pytest.mark.parametrize("slot", C.FEC_SLOTS)
+def test_fec_lanes_match_plain(lib_fec, slot):
+    """Encoder and decoder lanes at EP1-4 with and without combined channel
+    coding, on clean, corrected, PC-destroyed, heavily damaged and lost
+    frames, with every EPMR."""
+    for mode in (1, 2, 3, 4):
+        for ccc in (0, 1):
+            assert fec_differing(lib_fec, slot, mode, ccc) == 0, (slot, mode, ccc)
+
+
+def synthetic_differing(lib, frames) -> tuple[int, dict]:
+    from audio_codec_torch.ops import fec
+    bfi_in = np.zeros(frames.shape[0], np.int32)
+    ref = fec.fec_decode_plain(torch.from_numpy(frames), 80)
+    got = lane_fec_decode(lib, frames, bfi_in, 80, 0)
+    return sum(C.count_differing(got[k], ref[k].numpy()) for k in fec.DECODE_FIELDS), got
+
+
+def test_fec_decode_lane_on_wrong_mode_and_risk_frames(lib_fec):
+    bad, got = synthetic_differing(lib_fec, C.wrong_mode_rows())
+    assert bad == 0 and (got["mode"] > 2).all() and (got["bfi"] == 1).all()
+    bad, got = synthetic_differing(lib_fec, C.epmr_risk_rows())
+    assert bad == 0 and (got["mode"] == 2).all() and (got["bfi"] == 1).all()
+    assert (got["epmr"] >= 4).all()
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_FEC))
+def test_rehearsal_catches_mutated_fec_lanes(tmp_path, mutation):
+    lib = build_fec_lanes(tmp_path, mutation)
+    bad = sum(fec_differing(lib, slot, mode, 0) for slot in (40, 80) for mode in (2, 3, 4))
+    bad += synthetic_differing(lib, C.epmr_risk_rows())[0]
+    assert bad > 0, f"the rehearsal did not see the mutation {mutation}"
+
+
+# ---- the range decoder's partial-concealment hooks (csrc/ari_decode.cuh) ----
+
+def lane_ari_decode(lib, cfg, frames, bfi_in, be_l, be_r, pc_mode: int) -> dict:
+    from audio_codec_torch.ops import ari, bits
+    from audio_codec_torch.ops.quant import residual_max_bits
+    frames = _c(frames, np.int32)
+    L, nbytes = frames.shape
+    side = bits.parse_side_info_plain(cfg, torch.from_numpy(frames))
+    cols = [side[k] for k in ("lastnz", "lsb_mode", "num_tns")] + [
+        side["tns_on"][:, 0], side["tns_on"][:, 1]] + [
+        side[k] for k in ("bp_side", "mask_side", "gg_idx", "fac_ns_idx")]
+    side_in = _c(torch.stack([c.to(torch.int32) for c in cols]).numpy(), np.int32)
+    pc_in = _c(np.stack([bfi_in, be_l, be_r]), np.int32)
+    N = cfg.yLen
+    max_res = min(residual_max_bits(cfg), cfg.targetBytes * 8)
+    pc = ari.pc_params(cfg, pc_mode == 2)
+    geom = np.array([N, 14, 0, 8, int(cfg.enable_lpc_weighting), cfg.rateFlag, cfg.targetBytes * 8,
+                     max_res, 1, 0 if pc is None else pc["pc_bytes"], cfg.targetBytes], np.int32)
+    x, tns_order = np.zeros((L, N), np.int32), np.zeros((L, 2), np.int32)
+    tns_idx, res = np.zeros((L, 2, 8), np.int32), np.zeros((L, max_res), np.int32)
+    out = np.zeros((7, L), np.int32)
+    lib.rehearse_ari_decode(ptr(frames), ptr(side_in), ptr(pc_in),
+                            ptr(K._decoder_tables("cpu").numpy()), ptr(geom), pc_mode, L, nbytes,
+                            ptr(x), ptr(tns_order), ptr(tns_idx), ptr(res), ptr(out))
+    names = ("nf_seed", "zero_frame", "n_res", "residual_present", "bfi", "spec_inv_idx", "b_left")
+    return dict(x=x, tns_order=tns_order, tns_idx=tns_idx, res_bits=res, **dict(zip(names, out))), side
+
+
+def pc_differing(lib, epmode: int) -> tuple[int, dict]:
+    """Differing values of the PC decode and the encoder's simulation on
+    pc_decode_rows, lanes against the plain version."""
+    from audio_codec_torch.ops import ari
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    a = C.pc_decode_rows(epmode)
+    bad = 0
+    for mode in (1, 2):
+        got, side = lane_ari_decode(lib, cfg, a["frames"], a["bfi_in"], a["be_l"], a["be_r"], mode)
+        t_ = lambda k: torch.from_numpy(a[k])
+        ref = ari.decode_plain(cfg, t_("frames"), side, t_("bfi_in"), t_("be_l"), t_("be_r"),
+                               pc_enc_sim=mode == 2)
+        bad += sum(C.count_differing(got[k], ref[k].numpy()) for k in got)
+        if mode == 1:
+            dec = got
+    return bad, dec
+
+
+@pytest.mark.parametrize("epmode", C.PC_EP_MODES)
+def test_pc_decode_lane_matches_plain(lib_fec, epmode):
+    """The range decoder with a relocated PC block, on bfi 0 and bfi 2 rows
+    over four corrupt ranges, and the encoder's simulation (b_left)."""
+    bad, dec = pc_differing(lib_fec, epmode)
+    assert bad == 0
+    assert (dec["bfi"] == 2).any() and (dec["bfi"] == 0).any(), np.bincount(dec["bfi"])
+
+
+def test_rehearsal_catches_mutated_pc_lanes(tmp_path):
+    lib = build_fec_lanes(tmp_path, "bp_side_jump")
+    assert sum(pc_differing(lib, m)[0] for m in C.PC_EP_MODES) > 0

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import audio_codec_torch as P
-from audio_codec_torch.ops import analysis, ari, quant, tns
+from audio_codec_torch.ops import analysis, ari, bits, quant, tns
 
 PKG = Path(P.__file__).resolve().parent
 
@@ -141,13 +141,31 @@ def test_kernel_build_directory_is_named_by_its_inputs():
 
 
 def test_unported_modes_raise():
+    """Advanced PLC (plc_mode 1) is not ported and raises. Frames with a
+    partial-concealment block (EP3/EP4) are ported: they decode."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=1), 1, device="cpu")
     pc_cfg = P.Config(fs_in=48000, bitrate=128000, epmode=3)
     assert pc_cfg.n_pc > 0
     buf = torch.zeros((1, pc_cfg.targetBytes), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ari.decode(pc_cfg, buf, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=1), 1, device="cpu")
+    side = bits.parse_side_info(pc_cfg, buf)
+    assert ari.decode(pc_cfg, buf, side)["x"].shape == (1, pc_cfg.yLen)
+
+
+def test_channel_coder_wrappers_refuse_cpu_tensors_and_bad_slots():
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import fec
+    data = torch.zeros((2, fec.fec_get_data_size(3, 0, 80)), dtype=torch.int32)
+    epmr = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fec_encode(data, epmr, 80, 3, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fec_decode(torch.zeros((2, 80), dtype=torch.int32), 80, 0)
+    with pytest.raises(ValueError, match="slot of 39 bytes"):
+        K.fec_decode(torch.zeros((2, 39), dtype=torch.int32), 39, 0)
+    with pytest.raises(ValueError, match="payload bytes"):
+        fec.fec_encode(data[:, 1:], epmr, slot_bytes=80, mode=3)
+    assert fec.fec_encode(data, epmr, slot_bytes=80, mode=3).shape == (2, 80)
 
 
 @pytest.mark.parametrize("name", ["noise_residual_enc", "spec_decode"])

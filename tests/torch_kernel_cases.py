@@ -8,6 +8,8 @@ the CPU parity tests, the CPU rehearsal of the kernels' lane functions and
 the tests that run on a card, and chip_smoke.py. Imports nothing of JAX."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from audio_codec_torch import tables as T
@@ -549,3 +551,221 @@ def spec_branches(args: dict, cfg) -> dict[str, int]:
             "bandwidth redo": int(redo.sum()),
             "zero frame": int((good & (a["zero_frame"] == 1)).sum()),
             "residual": int((good & (a["residual_present"] == 1)).sum())}
+
+
+# ---- the channel coder (slice 6) ----
+
+# the channel's error classes, in the order of channel_errors' kinds
+CHANNEL_KINDS = ("clean", "correctable", "pc_codeword", "heavy", "lost", "redundancy")
+FEC_SLOTS = (40, 80, 150, 300)
+
+
+def _codeword_nibbles(frames: np.ndarray, slot: int) -> np.ndarray:
+    """[B, slot] bytes -> [B, 2*slot] nibbles in codeword-stream order."""
+    from audio_codec_torch.ops import fec
+    nib = np.stack([frames & 15, frames >> 4], -1).reshape(frames.shape[0], -1)
+    return nib[:, fec._slot_plan(slot)["il_dst"]]
+
+
+def _frames_of(cws: np.ndarray, slot: int) -> np.ndarray:
+    from audio_codec_torch.ops import fec
+    nib = cws[:, np.argsort(fec._slot_plan(slot)["il_dst"])]
+    return (nib[:, 0::2] | (nib[:, 1::2] << 4)).astype(np.int32)
+
+
+def channel_errors(frames: np.ndarray, slot: int, mode: int, kinds: np.ndarray,
+                   rng) -> np.ndarray:
+    """The frames after the channel: each row by its kind (an index into
+    CHANNEL_KINDS). "correctable" changes at most t = mode - 1 nibbles (one
+    for EP1) in each of one to four codewords; "pc_codeword" destroys the last
+    codeword beyond correction (a partial-concealment codeword at EP3/EP4 in
+    a slot of 80 bytes or more, tests/test_fec.py:137-170); "heavy" XORs
+    random bytes over the whole slot; "lost" and "redundancy" leave the
+    bytes as they are (the caller flags them with bfi 1 and 3)."""
+    from audio_codec_torch.ops import fec
+    sp = fec._slot_plan(slot)
+    cws = _codeword_nibbles(np.asarray(frames, np.int64), slot)
+    out = np.asarray(frames, np.int32).copy()
+    t = max(mode - 1, 1)
+    for b, kind in enumerate(np.asarray(kinds)):
+        name = CHANNEL_KINDS[kind]
+        if name == "correctable":
+            row = cws[b].copy()
+            for i in rng.choice(sp["ncw"], size=int(rng.integers(1, 5)), replace=False):
+                pos = rng.choice(sp["lens"][i], size=t, replace=False)
+                row[sp["offs"][i] + pos] ^= rng.integers(1, 16, size=t)
+            out[b] = _frames_of(row[None], slot)[0]
+        elif name == "pc_codeword":
+            row = cws[b].copy()
+            i = sp["ncw"] - 1
+            row[sp["offs"][i]: sp["offs"][i] + sp["lens"][i]] ^= rng.integers(
+                1, 16, size=sp["lens"][i])
+            out[b] = _frames_of(row[None], slot)[0]
+        elif name == "heavy":
+            out[b] ^= rng.integers(1, 256, size=slot).astype(np.int32)
+    return out
+
+
+def fec_rows(slot: int, mode: int, ccc: int, seed: int = 0, n: int = 48):
+    """Payloads, EPMR (0..3, each present) and channel kinds (clean,
+    correctable, pc_codeword, heavy in turn) of one (slot, mode, ccc), with
+    bfi_in 1 on every sixth row. Returns (data, epmr, kinds, bfi_in)."""
+    from audio_codec_torch.ops import fec
+    rng = np.random.default_rng(seed + 1000 * slot + 10 * mode + ccc)
+    D = fec.fec_get_data_size(mode, ccc, slot)
+    data = rng.integers(0, 256, (n, D)).astype(np.int32)
+    epmr = (np.arange(n) % 4).astype(np.int32)
+    kinds = (np.arange(n) // 4 % 4).astype(np.int32)
+    bfi_in = np.where(np.arange(n) % 6 == 5, 1, 0).astype(np.int32)
+    return data, epmr, kinds, bfi_in
+
+
+def wrong_mode_rows(slot: int = 80, n: int = 4, seed: int = 0) -> np.ndarray:
+    """EP2 frames with three changed nibbles in codeword 0 that the decoder
+    reads as another mode, whose CRC then fails (bfi 1, mode 3 or 4): found
+    by a seeded search with the plain decoder."""
+    import torch
+    from audio_codec_torch.ops import fec
+    rng = np.random.default_rng(seed)
+    sp = fec._slot_plan(slot)
+    D = fec.fec_get_data_size(2, 0, slot)
+    found = []
+    while len(found) < n:
+        data = rng.integers(0, 256, (256, D)).astype(np.int32)
+        enc = fec.fec_encode_plain(torch.from_numpy(data), torch.zeros(256, dtype=torch.int32),
+                                   slot, 2).numpy()
+        cws = _codeword_nibbles(enc.astype(np.int64), slot)
+        for b in range(256):
+            pos = rng.choice(sp["lens"][0], size=3, replace=False)
+            cws[b, pos] ^= rng.integers(1, 16, size=3)
+        frames = _frames_of(cws, slot)
+        out = fec.fec_decode_plain(torch.from_numpy(frames), slot)
+        hit = (out["mode"].numpy() > 2) & (out["bfi"].numpy() == 1)
+        found.extend(frames[hit][: n - len(found)])
+    return np.stack(found).astype(np.int32)
+
+
+def epmr_risk_rows(slot: int = 80, n: int = 8, seed: int = 0) -> np.ndarray:
+    """EP2 frames with one corrected nibble in codeword 1 and two changed
+    nibbles in codeword 6 (beyond correction, not a partial-concealment
+    codeword): the frame is lost (bfi 1) and its EPMR is the corrected
+    path's, raised by the risk of codeword 0 (al_fec.c:1359-1370)."""
+    import torch
+    from audio_codec_torch.ops import fec
+    rng = np.random.default_rng(seed)
+    sp = fec._slot_plan(slot)
+    D = fec.fec_get_data_size(2, 0, slot)
+    data = rng.integers(0, 256, (n, D)).astype(np.int32)
+    epmr = (np.arange(n) % 4).astype(np.int32)
+    enc = fec.fec_encode_plain(torch.from_numpy(data), torch.from_numpy(epmr), slot, 2).numpy()
+    cws = _codeword_nibbles(enc.astype(np.int64), slot)
+    for b in range(n):
+        cws[b, sp["offs"][1] + rng.integers(0, sp["lens"][1])] ^= rng.integers(1, 16)
+        pos = rng.choice(sp["lens"][6], size=2, replace=False)
+        cws[b, sp["offs"][6] + pos] ^= rng.integers(1, 16, size=2)
+    return _frames_of(cws, slot)
+
+
+PC_EP_MODES = (3, 4)
+
+
+@functools.cache
+def core_frames(epmode: int, frames: int = 2, streams: int = 6, seed: int = 0) -> np.ndarray:
+    """Core payloads of seeded tones and noise through the port's encoder on
+    the CPU at 48 kHz, 64 kbps and EP mode epmode (an 80-byte slot), in the
+    encoder's (logical) byte order. Returns [frames*streams, targetBytes]."""
+    import torch
+    import audio_codec_torch as P
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    rng = np.random.default_rng(seed + epmode)
+    n = cfg.frame_length
+    k = np.arange(frames * n)
+    pcm = np.stack([np.sin(2 * np.pi * (200 + 300 * s) * k / 48000) * 8000 * (1 + s % 3)
+                    + rng.standard_normal(k.size) * 300 * (s + 1) for s in range(streams)])
+    pcm = pcm.reshape(streams, frames, n).transpose(1, 0, 2).astype(np.float32)
+    st = P.enc_state_init(cfg, streams, device="cpu")
+    out = []
+    for f in range(frames):
+        st, pay, _ = P.encode_frame(cfg, st, torch.from_numpy(pcm[f]))
+        out.append(pay.to(torch.int32).numpy())
+    return np.concatenate(out).astype(np.int32)
+
+
+def pc_frames(epmode: int, seed: int = 0) -> np.ndarray:
+    """core_frames with a partial-concealment block as the channel coder
+    carries them, each moved by the encoder's PC simulation
+    (engine.reorder_payload); every third row is random bytes."""
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch import engine
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    buf = torch.from_numpy(core_frames(epmode, seed=seed))
+    buf = engine.reorder_payload(buf, engine.b_left_step(cfg, buf), cfg.n_pc).numpy()
+    buf[2::3] = np.random.default_rng(seed).integers(0, 256, buf[2::3].shape)
+    return buf.astype(np.int32)
+
+
+def pc_decode_rows(epmode: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """pc_frames with the channel's flags: bfi_in 0 or 2 in turn, and for
+    the bfi 2 rows corrupt bit ranges from the first byte of the PC block,
+    from its middle, a single byte and the whole block."""
+    import audio_codec_torch as P
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
+    frames = pc_frames(epmode, seed=seed)
+    L = frames.shape[0]
+    pcb = (cfg.n_pc + 1) >> 1
+    spans = [(0, 8 * pcb - 1), (4 * pcb, 8 * pcb - 1), (8, 15), (0, 7)]
+    bfi_in = np.where(np.arange(L) % 2 == 1, 2, 0).astype(np.int32)
+    be_l = np.array([spans[i // 2 % 4][0] for i in range(L)], np.int32)
+    be_r = np.array([spans[i // 2 % 4][1] for i in range(L)], np.int32)
+    return dict(frames=frames, bfi_in=bfi_in, be_l=np.where(bfi_in == 2, be_l, -1),
+                be_r=np.where(bfi_in == 2, be_r, -1))
+
+
+def stream_plan(T: int, B: int) -> tuple[np.ndarray, np.ndarray]:
+    """The channel of a stream-engine run: per frame and stream a kind
+    (clean, correctable, pc_codeword, heavy in turn) and per frame a bfi for
+    the whole frame (frame 3 lost, frame 4 a redundancy frame)."""
+    kinds = (np.arange(T)[:, None] + np.arange(B)[None, :]) % 4
+    frame_bfi = np.array([{3: 1, 4: 3}.get(f, 0) for f in range(T)], np.int32)
+    return kinds.astype(np.int32), frame_bfi
+
+
+def encode_stream(enc, pcm: np.ndarray, epmode_at: dict | None = None,
+                  trigger_at: tuple = ()) -> list[list[bytes]]:
+    """Frames of a StreamEncoder (either package's) over pcm [T, B, n]:
+    epmode_at {frame: mode} switches the EP mode before a frame, and the
+    frames in trigger_at are -ept PLC trigger frames."""
+    out = []
+    for f in range(pcm.shape[0]):
+        if epmode_at and f in epmode_at:
+            enc.set_ep_mode(epmode_at[f])
+        out.append(enc.encode_plc_trigger() if f in trigger_at else enc.encode(pcm[f]))
+    return out
+
+
+def channel(frames: list[list[bytes]], slot_of, kinds: np.ndarray, seed: int = 0) -> list[bytes]:
+    """Each frame's payload after the channel (stream_plan's kinds; no error
+    where slot_of(frame) is 0, the core payloads of EP mode 0)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for f, pay in enumerate(frames):
+        rows = np.stack([np.frombuffer(p, np.uint8) for p in pay]).astype(np.int32)
+        slot, mode = slot_of(f)
+        if mode:
+            rows = channel_errors(rows, slot, mode, kinds[f, : rows.shape[0]], rng)
+        out.append(rows.astype(np.uint8).tobytes())
+    return out
+
+
+def decode_stream(dec, payloads: list[bytes], frame_bfi: np.ndarray) -> np.ndarray:
+    """A StreamDecoder (either package's) over the payloads; returns int32
+    [T, B, n + 2 + B]: the PCM, then last_bfi, then the EPMR and the error
+    report per lane."""
+    out = []
+    for f, p in enumerate(payloads):
+        pcm = np.asarray(dec.decode(p, int(frame_bfi[f]))).astype(np.int32)
+        extra = np.stack([np.asarray(dec.last_bfi), np.full(pcm.shape[0], dec.epmr),
+                          np.resize(np.asarray(dec.error_report), pcm.shape[0])], 1)
+        out.append(np.concatenate([pcm, extra.astype(np.int32)], 1))
+    return np.stack(out)
