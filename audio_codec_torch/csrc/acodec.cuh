@@ -80,6 +80,20 @@ ACX_HD float rroot(float a) {
 #endif
 }
 
+// a * b + c as the plain versions' numerics.xla_fma computes it on every
+// device: the product exact in double, one double add, rounded once to float.
+// (It equals the fused float multiply-add but where the double sum falls on a
+// float tie; the plain version, and so the kernel, takes the double's way.)
+ACX_HD float xfma(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+                                     static_cast<double>(c)));
+#else
+  return static_cast<float>(static_cast<double>(a) * static_cast<double>(b) +
+                            static_cast<double>(c));
+#endif
+}
+
 }  // namespace acx
 
 #ifdef __CUDACC__

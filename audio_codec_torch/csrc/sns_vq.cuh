@@ -59,6 +59,19 @@ ACX_HD void sns_dct(const float (&in)[kSnsM], const float* D2, float (&out)[kSns
   }
 }
 
+// out[n] = sum_k in[k] * D2[k][n] in the decoder's order (numerics.xla_dot,
+// the reference's): four fused multiply-add chains from zero, term k in chain
+// k % 4, combined (c0 + c1) + (c2 + c3).
+ACX_HD void sns_dct_chains4(const float (&in)[kSnsM], const float* D2, float (&out)[kSnsM]) {
+#pragma unroll
+  for (int n = 0; n < kSnsM; ++n) {
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < kSnsM; ++k) c[k % 4] = xfma(in[k], D2[k * kSnsM + n], c[k % 4]);
+    out[n] = radd(radd(c[0], c[1]), radd(c[2], c[3]));
+  }
+}
+
 // First index of the least squared distance between target [8] and the 32
 // columns of cb [8][32].
 ACX_HD int sns_vq_half(const float* target, const float* cb) {
@@ -219,13 +232,13 @@ ACX_HD void sns_vq_dec_lane(const int* idx, const SnsTables& t, float* scf_q) {
   float v[kSnsM], w[kSnsM];
 #pragma unroll
   for (int i = 0; i < kSnsM; ++i) v[i] = rdiv(static_cast<float>(p[i]), norm);
-  sns_dct<false>(v, t.f + kOffD2, w);
+  sns_dct_chains4(v, t.f + kOffD2, w);
   const float g = t.f[kOffDecG + iclamp(sub, 0, 3) * 8 + iclamp(idx[3], 0, 7)];
   const int i0 = iclamp(idx[0], 0, kSnsCb - 1), i1 = iclamp(idx[1], 0, kSnsCb - 1);
 #pragma unroll
   for (int i = 0; i < kSnsM; ++i) {
     const float st1 = i < 8 ? t.f[kOffC1 + i * kSnsCb + i0] : t.f[kOffC2 + (i - 8) * kSnsCb + i1];
-    scf_q[i] = radd(rmul(g, w[i]), st1);
+    scf_q[i] = xfma(g, w[i], st1);
   }
 }
 

@@ -14,7 +14,9 @@
 // 3.35 TB/s. The operations bound it, far below the launch.
 // Design: one thread per stream, the tables (4 KB) in shared memory, pulses
 // and vectors in registers. The float order is the plain version's
-// (sns_vq.cuh), so the two agree bit for bit.
+// (sns_vq.cuh), so the two agree bit for bit; for the DCT-II and the gain
+// that is the reference's (XLA:CPU's) order, four fused chains and a fused
+// multiply-add, so that the card's scale factors equal the CPU port's.
 #include "sns_vq.cuh"
 
 using namespace acx;

@@ -39,7 +39,7 @@ KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
            "tns_filter_analysis", "pc_classify", "mdct", "imdct",
            "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
-           "fec_decode")
+           "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -143,6 +143,10 @@ def library() -> ctypes.CDLL:
         "acx_spec_decode": [P] * 14 + [I] * 5 + [P],
         "acx_fec_encode": [P] * 4 + [I] * 5 + [P],
         "acx_fec_decode": [P] * 5 + [I] * 3 + [P],
+        "acx_plc_tdc": [P] * 16 + [I] * 11 + [F] * 3 + [P],
+        "acx_plc_damp_scramble": [P] * 8 + [I] * 3 + [P],
+        "acx_phecu_spec_ana": [P] * 9 + [I] * 3 + [P],
+        "acx_phecu_subst": [P] * 9 + [I] * 7 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -790,3 +794,158 @@ def fec_decode(frames, slot_bytes: int, ccc_flag: int, bfi_in=None):
     names = ("data_bytes", "bfi", "epmr", "error_report", "mode", "n_pccw", "n_pc",
              "be_bp_left", "be_bp_right")
     return dict(data=data, **dict(zip(names, out)))
+
+
+@functools.cache
+def tdc_tables(cfg, device: str) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """The `plc_tdc` kernel's tables on `device` (float32 and int32, in the
+    layout of csrc/plc_tdc.cuh:tdc_tables) and its geometry arguments."""
+    from .ops import plc_adv as A, numerics as nm
+    lt = A.lpc_tables(cfg)
+    fs4 = min(cfg.fs_idx, 4)
+    nbands = lt["pre"].shape[0]
+    order = A.lpc_order(cfg)
+    cosm = np.zeros((nbands, 17), np.float32)
+    cosm[:, : order + 1] = lt["cos"]
+    lag = np.zeros(16, np.float32)
+    lag[:order] = lt["lag"]
+    harm = "TDC_high_16_harm" if cfg.fs_idx <= 1 else "TDC_high_32_harm"
+    hp = "TDC_high_16" if cfg.fs_idx <= 1 else "TDC_high_32"
+    floats = np.concatenate([
+        np.asarray(T.t("plc_warp_dee_emphasis")[fs4], np.float32),
+        A._centroid_weights(cfg).ravel(), lt["width_inv"], lt["pre"], cosm.ravel(), lag,
+        np.asarray(T.t(harm), np.float32), np.asarray(T.t(hp), np.float32),
+        nm._x86_rsqrt()]).astype(np.float32)
+    length = 2 * cfg.frame_length - cfg.la_zeroes
+    nr = length + A.L_FIR_HP - 1
+    ints = np.concatenate([lt["off"], A.lcg_pows(nr).ravel()]).astype(np.int32)
+    fac = [1.0 / 6, 2.0 / 6, 3.0 / 6, 4.0 / 6, 1.0][fs4]
+    geom = (A.pcm_hist_len(cfg), A.max_pitch(cfg), cfg.frame_length, length, cfg.yLen, order,
+            nbands, int(T.t("plc_rect_len")[cfg.fs_idx]), 40 * (cfg.fs_idx + 1), cfg.frame_dms,
+            nm.f32(float(T.t("plc_preemph_fac")[fs4])), nm.f32(A.ATTEN[cfg.frame_dms]), nm.f32(fac))
+    return (torch.as_tensor(floats, device=device), torch.as_tensor(ints, device=device), geom)
+
+
+def plc_tdc_pack(lost, nb_cur, pitch_int, pitch_fr, meth, seed, fract, harmonic_len, stab_fac,
+                 gain_c, alpha):
+    """The per-stream scalars of `plc_tdc` as int32 [8, B] and float32 [3, B]."""
+    ints = torch.stack([t.to(torch.int32) for t in (lost, nb_cur, pitch_int, pitch_fr, meth, seed,
+                                                    fract, harmonic_len)]).contiguous()
+    floats = torch.stack([t.to(torch.float32) for t in (stab_fac, gain_c, alpha)]).contiguous()
+    return ints, floats
+
+
+def plc_tdc(cfg, lost, nb_cur, x_old_tot, scf_q, q_d_prev, pitch_int, pitch_fr, stab_fac, meth, a,
+            seed, gain_c, alpha, fract, harmonic, harmonic_len, synth_hist):
+    """Launch `plc_tdc` (csrc/plc_tdc.cu); returns the dict of
+    ops/plc_adv.py:plc_tdc_plain."""
+    if cfg.frame_dms != 100 or cfg.hrmode:
+        raise ValueError("plc_tdc: the kernel takes 10 ms frames (other frame sizes are "
+                         "not ported)")
+    ftab, itab, geom = tdc_tables(cfg, str(x_old_tot.device))
+    L, MP, fl, length, N = geom[:5]
+    B = x_old_tot.shape[0]
+    rows = dict(x_old_tot=(x_old_tot, L), scf_q=(scf_q, 16), q_d_prev=(q_d_prev, N), a=(a, 17),
+                harmonic=(harmonic, MP), synth_hist=(synth_hist, 16))
+    for name, (t, width) in rows.items():
+        _rows(t, name, (B, width))
+    ints, floats = plc_tdc_pack(lost, nb_cur, pitch_int, pitch_fr, meth, seed, fract, harmonic_len,
+                                stab_fac, gain_c, alpha)
+    dev = x_old_tot.device
+    a_out, harm_out, hist_out = torch.empty_like(a), torch.empty_like(harmonic), torch.empty_like(synth_hist)
+    synth = torch.empty((B, length), dtype=torch.float32, device=dev)
+    iout = torch.empty((4, B), dtype=torch.int32, device=dev)
+    fout = torch.empty((3, B), dtype=torch.float32, device=dev)
+    _run("plc_tdc", library().acx_plc_tdc(
+        x_old_tot.data_ptr(), scf_q.data_ptr(), q_d_prev.data_ptr(), a.data_ptr(),
+        harmonic.data_ptr(), synth_hist.data_ptr(), ints.data_ptr(), floats.data_ptr(),
+        ftab.data_ptr(), itab.data_ptr(), a_out.data_ptr(), synth.data_ptr(), harm_out.data_ptr(),
+        hist_out.data_ptr(), iout.data_ptr(), fout.data_ptr(), B, *geom, _stream()))
+    return dict(meth=iout[0], nc=fout[0], a=a_out, synth=synth, seed=iout[1], gain_c=fout[1],
+                alpha=fout[2], fract=iout[2], harmonic_buf=harm_out, harmonic_len=iout[3],
+                synth_hist=hist_out)
+
+
+def plc_damp_scramble(cfg, x, q_d_prev, ns_lane, lost, is_pc, nb_cur, pc_nb_lost, stab_fac,
+                      pitch_int, pc_pitch, cum_fflc, cum_slow, cum_fast, ns_seed, pc_seed,
+                      spec_inv_idx):
+    """Launch `plc_damp_scramble` (csrc/plc_damp_scramble.cu); returns the
+    tuple of ops/plc_adv.py:damp_scramble_plain."""
+    from .ops.plc_adv import lcg_pows
+    if cfg.frame_dms != 100:
+        raise ValueError("plc_damp_scramble: the kernel takes 10 ms frames (other frame sizes "
+                         "are not ported)")
+    _check(x, "x", torch.float32, 2)
+    B, N = x.shape
+    _rows(q_d_prev, "q_d_prev", (B, N))
+    ints = torch.stack([t.to(torch.int32) for t in (
+        ns_lane, lost, is_pc, nb_cur, pc_nb_lost, pitch_int, pc_pitch, ns_seed, pc_seed,
+        spec_inv_idx)]).contiguous()
+    floats = torch.stack([t.to(torch.float32) for t in (stab_fac, cum_fflc, cum_slow,
+                                                        cum_fast)]).contiguous()
+    dev = x.device
+    pows = nm.table(lcg_pows, N, device=dev, dtype=torch.int32)
+    spec = torch.empty_like(x)
+    fout = torch.empty((3, B), dtype=torch.float32, device=dev)
+    iout = torch.empty((2, B), dtype=torch.int32, device=dev)
+    _run("plc_damp_scramble", library().acx_plc_damp_scramble(
+        x.data_ptr(), q_d_prev.data_ptr(), ints.data_ptr(), floats.data_ptr(), pows.data_ptr(),
+        spec.data_ptr(), fout.data_ptr(), iout.data_ptr(), B, N, cfg.frame_dms, _stream()))
+    return spec, fout[0], fout[1], fout[2], iout[0], iout[1]
+
+
+def _phecu_geom(cfg):
+    from .ops import plc_phecu as H
+    if cfg.frame_dms != 100 or cfg.fs_idx != 4:
+        raise ValueError("phecu: the kernels take the 48 kHz, 10 ms Phase ECU (other rates "
+                         "are not ported)")
+    return H.search_bins(cfg), H.nbins(cfg), H.n_lgw(cfg), H
+
+
+def phecu_spec_ana(cfg, Xr, Xi, Xor, Xoi, norm_corr, active):
+    """Launch `phecu_spec_ana` (csrc/phecu_spec_ana.cu); returns the tuple
+    of ops/plc_phecu.py:phecu_spec_ana_plain."""
+    ns, _, lgw, H = _phecu_geom(cfg)
+    _check(Xr, "Xr", torch.float32, 2)
+    B = Xr.shape[0]
+    for name, t in (("Xr", Xr), ("Xi", Xi), ("Xor", Xor), ("Xoi", Xoi)):
+        _rows(t, name, (B, ns))
+    nc = norm_corr.to(torch.float32).contiguous()
+    act = active.to(torch.int32).contiguous()
+    _check_vectors(B, torch.float32, norm_corr=nc)
+    dev = Xr.device
+    f0 = torch.empty((B, ns), dtype=torch.float32, device=dev)
+    npl = torch.empty((B,), dtype=torch.int32, device=dev)
+    e = torch.empty((2, B, H.MAX_LGW), dtype=torch.float32, device=dev)
+    _run("phecu_spec_ana", library().acx_phecu_spec_ana(
+        Xr.data_ptr(), Xi.data_ptr(), Xor.data_ptr(), Xoi.data_ptr(), nc.data_ptr(),
+        act.data_ptr(), f0.data_ptr(), npl.data_ptr(), e.data_ptr(), B, ns, lgw, _stream()))
+    return f0, npl, e[0], e[1]
+
+
+def phecu_subst(cfg, Xr, Xi, f0est, num_plocs, nb_cur, e_oold, e_old, mag_chg_1st, beta_mute,
+                xavg, is_trans, active):
+    """Launch `phecu_subst` (csrc/phecu_subst.cu); returns the tuple of
+    ops/plc_phecu.py:phecu_subst_plain."""
+    ns, nsf, lgw, H = _phecu_geom(cfg)
+    _check(Xr, "Xr", torch.float32, 2)
+    B = Xr.shape[0]
+    _rows(Xi, "Xi", (B, nsf))
+    _rows(Xr, "Xr", (B, nsf))
+    f0 = f0est.to(torch.float32).contiguous()
+    _rows(f0, "f0est", (B, ns))
+    ints = torch.stack([t.to(torch.int32) for t in (num_plocs, nb_cur, is_trans,
+                                                    active)]).contiguous()
+    groups = torch.stack([t.to(torch.float32) for t in (e_oold, e_old, mag_chg_1st,
+                                                        xavg)]).contiguous()
+    if tuple(groups.shape) != (4, B, H.MAX_LGW):
+        raise ValueError(f"phecu_subst: expected [{B}, {H.MAX_LGW}] group rows")
+    bm = beta_mute.to(torch.float32).contiguous()
+    dev = Xr.device
+    tab = nm.table(H.lcg_tables, ns, device=dev, dtype=torch.int32)
+    outr, outi = torch.empty_like(Xr), torch.empty_like(Xi)
+    _run("phecu_subst", library().acx_phecu_subst(
+        Xr.data_ptr(), Xi.data_ptr(), f0.data_ptr(), ints.data_ptr(), groups.data_ptr(),
+        bm.data_ptr(), tab.data_ptr(), outr.data_ptr(), outi.data_ptr(), B, ns, nsf, lgw,
+        cfg.frame_length, H.t_adv(cfg), H.lprot(cfg), _stream()))
+    return outr, outi

@@ -4,7 +4,9 @@ Mirrors Dec_LC3_Channel (dec_lc3.c:60-322, dec_lc3_fl.c:13-130) as
 `audio_codec_tpu/models/decoder.py` does: entropy parse -> arithmetic
 decode -> SNS decode -> partial concealment -> residual -> noise filling
 -> global gain -> TNS synthesis -> SNS shaping -> PLC -> IMDCT/OLA ->
-LTPF post-filter. Only the standard concealment (plc_mode 0) is ported.
+LTPF post-filter. Concealment is the standard one (plc_mode 0) or the
+advanced one (plc_mode 1: classifier, TD-PLC, Phase ECU, damped and
+scrambled noise substitution; `_plc_advanced`).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 
 from .. import tables as T
 from ..config import Config
-from ..ops import ari, bits, ltpf_dec, pc, plc, quant, sns, tns, transforms
+from ..ops import ari, bits, ltpf_dec, pc, plc, plc_adv, plc_phecu, quant, sns, tns, transforms
 from ..ops import numerics as nm
 from .state import DecState, check_plc_mode
 
@@ -90,14 +92,24 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
     gains = sns.interpolate_scf(cfg, scf_q, encoder_side=False)
     x = torch.where(good[:, None], sns.mdct_shaping(cfg, x, gains), x)
 
-    x, q_d_prev, nb_lost, cum_alpha, seed = plc.plc_main(
-        cfg, x, st.plc_q_d_prev, bfi, st.plc_nbLostCmpt, st.plc_cum_alpha, st.plc_seed)
+    adv = {}
+    if cfg.plc_mode == 0:
+        x, q_d_prev, nb_lost, cum_alpha, seed = plc.plc_main(
+            cfg, x, st.plc_q_d_prev, bfi, st.plc_nbLostCmpt, st.plc_cum_alpha, st.plc_seed)
+    else:
+        x, q_d_prev, nb_lost, cum_alpha, seed, adv = _plc_advanced(
+            cfg, st, x, bfi, side, spec_inv_idx, stab_fac)
 
     if cfg.frame_length > N:
         x_full = torch.nn.functional.pad(x, (0, cfg.frame_length - N))
     else:
         x_full = x
     pcm, imdct_mem = transforms.imdct(cfg, x_full, st.imdct_mem)
+    if adv:
+        # time-domain concealment (TD-PLC or Phase ECU) replaces the frame
+        td = adv.pop("td_lane")[:, None]
+        pcm = torch.where(td, adv.pop("td_pcm"), pcm)
+        imdct_mem = torch.where(td, adv.pop("td_ola"), imdct_mem)
 
     nb_lost, cum_alpha, prev_bfi, prevprev_bfi = plc.plc_update(
         bfi, nb_lost, cum_alpha, st.plc_prevBfi, st.plc_prevprevBfi)
@@ -106,6 +118,8 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
         st.ltpf_mem_y, st.ltpf_mem_pitch_int, st.ltpf_mem_pitch_fr,
         st.ltpf_mem_gain, st.ltpf_mem_beta_idx)
 
+    if adv:
+        st = st.replace(plc_x_old_tot=plc_adv.update_pcm_hist(st.plc_x_old_tot, pcm), **adv)
     st = st.replace(
         imdct_mem=imdct_mem, ltpf_mem_x=mem_x, ltpf_mem_y=mem_y,
         ltpf_mem_pitch_int=lm["pitch_int"], ltpf_mem_pitch_fr=lm["pitch_fr"],
@@ -138,6 +152,60 @@ def decode_block(cfg: Config, st: DecState, frames: torch.Tensor, bfi_ext=None):
                                     {k: v[t] for k, v in dec_t.items()}, bfi_f)
         pcm.append(y)
     return st, torch.stack(pcm, dim=0)
+
+
+def _plc_advanced(cfg: Config, st: DecState, x, bfi, side, spec_inv_idx, stab_fac):
+    """Advanced concealment (plc_mode 1; processPLCclassify/apply,
+    plc_apply_fx.c), as `audio_codec_tpu/models/decoder.py:_plc_advanced`:
+    the method chosen per lane at the first loss of a burst, TD-PLC for
+    pitched low-centroid content, Phase ECU for pitched high-centroid 10 ms
+    frames, damped and scrambled noise substitution otherwise, and the
+    damping and scrambling of partially concealed (bfi 2) spectra.
+    Returns (x, q_d_prev, nb_lost, cum_alpha, seed, adv): adv holds the
+    state fields to replace and the time-domain override (td_lane, td_pcm,
+    td_ola)."""
+    fl = cfg.frame_length
+    lost = bfi == 1
+    nb_cur = torch.where(lost, st.plc_nbLostCmpt + 1, st.plc_nbLostCmpt).to(I32)
+    first = lost & (nb_cur == 1)
+    pitch_int = st.ltpf_mem_pitch_int
+    tdc = plc_adv.plc_tdc(
+        cfg, lost, nb_cur, st.plc_x_old_tot, st.plc_scf_q, st.plc_q_d_prev, pitch_int,
+        st.ltpf_mem_pitch_fr, stab_fac, st.plc_meth, st.plc_tdc_a, st.plc_tdc_seed,
+        st.plc_tdc_gain_c, st.plc_tdc_alpha, st.plc_tdc_fract, st.plc_harmonic,
+        st.plc_harmonic_len, st.plc_synth_hist)
+    meth = tdc["meth"]
+    tdc_lane = lost & (meth == 3)
+    ph_lane = lost & (meth == 2)
+    ns_lane = lost & (meth != 3) & (meth != 2)
+    td_pcm = tdc["synth"][:, :fl]
+    td_ola = plc_adv.tdac(cfg, tdc["synth"])
+    adv = dict(plc_meth=meth, plc_tdc_a=tdc["a"], plc_tdc_seed=tdc["seed"],
+               plc_tdc_gain_c=tdc["gain_c"], plc_tdc_alpha=tdc["alpha"],
+               plc_tdc_fract=tdc["fract"], plc_harmonic=tdc["harmonic_buf"],
+               plc_harmonic_len=tdc["harmonic_len"], plc_synth_hist=tdc["synth_hist"])
+    td_lane = tdc_lane
+    if cfg.frame_dms == 100:
+        ph = plc_phecu.apply(
+            cfg, st.phecu_f0est, st.phecu_X_sav, st.phecu_num_plocs, st.phecu_mag_chg_1st,
+            st.phecu_Xavg, st.phecu_beta_mute, st.phecu_is_trans, st.plc_x_old_tot, nb_cur,
+            first & (meth == 2), ph_lane, tdc["nc"])
+        td_pcm = torch.where(tdc_lane[:, None], td_pcm, ph.pop("pcm"))
+        td_ola = torch.where(tdc_lane[:, None], td_ola, ph.pop("ola"))
+        td_lane = tdc_lane | ph_lane
+        adv.update(ph)
+
+    x, cum_fflc, cum_slow, cum_fast, ns_seed, pc_seed = plc_adv.damp_scramble(
+        cfg, x, st.plc_q_d_prev, ns_lane, lost, bfi == 2, nb_cur, st.pc_nb_lost, stab_fac,
+        pitch_int, side["ltpf_param"][:, 0], st.plc_cum_fflc, st.plc_cum_slow, st.plc_cum_fast,
+        st.plc_ns_seed, st.pc_seed, spec_inv_idx)
+    # the history keeps the last good spectrum through a burst; bfi 2 frames
+    # store their scrambled spectrum
+    q_d_prev = torch.where(lost[:, None], st.plc_q_d_prev, x)
+    adv.update(plc_cum_fflc=cum_fflc, plc_cum_slow=cum_slow, plc_cum_fast=cum_fast,
+               plc_ns_seed=ns_seed, pc_seed=pc_seed, td_lane=td_lane, td_pcm=td_pcm,
+               td_ola=td_ola)
+    return x, q_d_prev, nb_cur, st.plc_cum_alpha, st.plc_seed, adv
 
 
 def round_pcm(y, bps: int = 16):

@@ -126,30 +126,31 @@ class DecState:
     plc_seed: torch.Tensor          # [B] int32, init 24607
     plc_scf_q: torch.Tensor         # [B, 16]
     plc_old_scf_q: torch.Tensor     # [B, 16]
-    # advanced PLC and Phase ECU state: zero-width at plc_mode 0, the only
-    # mode this package runs
-    plc_x_old_tot: torch.Tensor
-    plc_meth: torch.Tensor
-    plc_tdc_a: torch.Tensor
-    plc_tdc_seed: torch.Tensor
-    plc_tdc_gain_c: torch.Tensor
-    plc_tdc_alpha: torch.Tensor
-    plc_tdc_fract: torch.Tensor
-    plc_harmonic: torch.Tensor
-    plc_harmonic_len: torch.Tensor
-    plc_synth_hist: torch.Tensor
-    plc_cum_fflc: torch.Tensor
-    plc_cum_slow: torch.Tensor
-    plc_cum_fast: torch.Tensor
-    plc_ns_seed: torch.Tensor
-    pc_seed: torch.Tensor
-    phecu_X_sav: torch.Tensor
-    phecu_f0est: torch.Tensor
-    phecu_num_plocs: torch.Tensor
-    phecu_mag_chg_1st: torch.Tensor
-    phecu_Xavg: torch.Tensor
-    phecu_beta_mute: torch.Tensor
-    phecu_is_trans: torch.Tensor
+    # advanced PLC (plc_mode 1; AplcSetup, setup_dec_lc3.c:118-160):
+    # zero-width at plc_mode 0
+    plc_x_old_tot: torch.Tensor     # [B, max_pitch + frame] PCM history
+    plc_meth: torch.Tensor          # [B] i32 concealment method of the burst
+    plc_tdc_a: torch.Tensor         # [B, 17] LPC coefficients
+    plc_tdc_seed: torch.Tensor      # [B] i32, init 24607
+    plc_tdc_gain_c: torch.Tensor    # [B]
+    plc_tdc_alpha: torch.Tensor     # [B] damping / gain_p memory
+    plc_tdc_fract: torch.Tensor     # [B] i32 pitch fraction
+    plc_harmonic: torch.Tensor      # [B, max_pitch] repeated pitch cycle
+    plc_harmonic_len: torch.Tensor  # [B] i32
+    plc_synth_hist: torch.Tensor    # [B, 16] LPC synthesis memory
+    plc_cum_fflc: torch.Tensor      # [B] cumulative rapid-fade factor
+    plc_cum_slow: torch.Tensor      # [B]
+    plc_cum_fast: torch.Tensor      # [B]
+    plc_ns_seed: torch.Tensor       # [B] i32, init 24607 (scrambling, bfi 1)
+    pc_seed: torch.Tensor           # [B] i32, init 24607 (scrambling, bfi 2)
+    # Phase ECU (method 2): zero-width unless plc_mode 1 at 10 ms frames
+    phecu_X_sav: torch.Tensor       # [B, Lprot/2+1] complex64 prototype spectrum
+    phecu_f0est: torch.Tensor       # [B, search bins] fractional peaks, -1 elsewhere
+    phecu_num_plocs: torch.Tensor   # [B] i32
+    phecu_mag_chg_1st: torch.Tensor  # [B, 9] per-band transient attenuation
+    phecu_Xavg: torch.Tensor        # [B, 9] band magnitude to fade to
+    phecu_beta_mute: torch.Tensor   # [B] long-term mute factor, init 0.5
+    phecu_is_trans: torch.Tensor    # [B] i32 transient flag
     # partial concealment
     pc_q_old_res: torch.Tensor      # [B, yLen]
     pc_prev_gg: torch.Tensor        # [B] float32
@@ -162,19 +163,23 @@ class DecState:
 
 
 def check_plc_mode(cfg: Config):
-    if cfg.plc_mode != 0:
+    """The concealment modes of the reference package: 0 (standard) and 1
+    (advanced: classifier, TD-PLC, noise substitution, Phase ECU)."""
+    if cfg.plc_mode not in (0, 1):
         raise NotImplementedError(
-            "advanced PLC and Phase ECU (plc_mode != 0) are not ported yet: "
-            "ROADMAP.md Queue 1 item 10")
+            f"plc_mode {cfg.plc_mode}: the codec knows modes 0 (standard) and 1 (advanced)")
 
 
 def dec_state_init(cfg: Config, n_streams: int, device=None) -> DecState:
+    from ..ops import plc_adv, plc_phecu
     check_plc_mode(cfg)
     dev = resolve_device(device)
     B = n_streams
     z = lambda *shape: torch.zeros((B, *shape), dtype=F32, device=dev)
     zi = lambda *shape: torch.zeros((B, *shape), dtype=I32, device=dev)
     full = lambda v, dt: torch.full((B,), v, dtype=dt, device=dev)
+    adv = lambda n: n if cfg.plc_mode else 0
+    ph = lambda n: n if cfg.plc_mode and cfg.frame_dms == 100 else 0
     old_x_len, old_y_len, _, _ = ltpf_dec_lens(cfg)
     return DecState(
         imdct_mem=z(cfg.frame_length - cfg.la_zeroes),
@@ -193,26 +198,28 @@ def dec_state_init(cfg: Config, n_streams: int, device=None) -> DecState:
         plc_seed=full(24607, I32),
         plc_scf_q=z(16),
         plc_old_scf_q=z(16),
-        plc_x_old_tot=z(0),
+        plc_x_old_tot=z(adv(plc_adv.pcm_hist_len(cfg))),
         plc_meth=zi(),
-        plc_tdc_a=z(0),
+        plc_tdc_a=z(adv(17)),
         plc_tdc_seed=full(24607, I32),
         plc_tdc_gain_c=z(),
         plc_tdc_alpha=z(),
         plc_tdc_fract=zi(),
-        plc_harmonic=z(0),
+        plc_harmonic=z(adv(plc_adv.max_pitch(cfg))),
         plc_harmonic_len=full(1, I32),
-        plc_synth_hist=z(0),
+        plc_synth_hist=z(adv(16)),
         plc_cum_fflc=full(1.0, F32),
         plc_cum_slow=full(1.0, F32),
         plc_cum_fast=full(1.0, F32),
         plc_ns_seed=full(24607, I32),
         pc_seed=full(24607, I32),
-        phecu_X_sav=torch.zeros((B, 0), dtype=torch.complex64, device=dev),
-        phecu_f0est=torch.full((B, 0), -1.0, dtype=F32, device=dev),
+        phecu_X_sav=torch.zeros((B, ph(plc_phecu.nbins(cfg))), dtype=torch.complex64,
+                                device=dev),
+        phecu_f0est=torch.full((B, ph(plc_phecu.search_bins(cfg))), -1.0, dtype=F32,
+                               device=dev),
         phecu_num_plocs=zi(),
-        phecu_mag_chg_1st=torch.ones((B, 0), dtype=F32, device=dev),
-        phecu_Xavg=z(0),
+        phecu_mag_chg_1st=torch.ones((B, ph(plc_phecu.MAX_LGW)), dtype=F32, device=dev),
+        phecu_Xavg=z(ph(plc_phecu.MAX_LGW)),
         phecu_beta_mute=full(0.5, F32),
         phecu_is_trans=zi(),
         pc_q_old_res=z(cfg.yLen),

@@ -32,6 +32,13 @@ What each CPU branch reproduces, and where the reference relies on it:
 - `sqrt`: correctly rounded, as XLA:CPU's root is (`analysis.py:120,190,255`,
   `pc.py:170`); PyTorch's vectorised CPU root is not always.
 
+The `xla_*` functions (`xla_fma`, `xla_dot`, `xla_exp2`, `xla_pow`,
+`xla_div`, `xla_sum`, `xla_dot_row`, `xla_rsqrt`) compute the CPU branch's
+order on every device. The decoder's SNS stages and the advanced
+concealment use them, so that the card computes what the CPU and the
+reference compute there, and their kernels write the same operations
+(`csrc/acodec.cuh:xfma`, `csrc/plc.cuh`).
+
 `chain_sum` and `chain_dot` are the other way round: the CPU keeps
 `torch.sum` and `dot`, and for a tensor on the card they fix the order of the
 additions, which `torch.sum` and `torch.matmul` leave to the library, so that
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import functools
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,18 +68,35 @@ def fma(a, b, c):
     t = next(v for v in (a, b, c) if isinstance(v, torch.Tensor))
     if not on_cpu(t):
         return a * b + c
-    d = lambda v: v.to(F64) if isinstance(v, torch.Tensor) else float(v)
-    return (d(a) * d(b) + d(c)).to(F32)
+    return xla_fma(a, b, c)
+
+
+def xla_fma(a, b, c):
+    """a * b + c as the CPU branch of `fma` computes it, on every device: the
+    product exact in float64, one float64 add, rounded to float32 (a kernel
+    writes the same three double operations, `acodec.cuh:xfma`)."""
+    # one operand in float64 is enough: the others promote inside the op
+    # (fewer launches on the card, the same values)
+    if isinstance(a, torch.Tensor):
+        prod = a.to(F64) * b
+    elif isinstance(b, torch.Tensor):
+        prod = a * b.to(F64)
+    else:
+        prod = float(a) * float(b)      # two floats' product is exact in double
+    if not isinstance(prod, torch.Tensor):
+        return (c.to(F64) + prod).to(F32)
+    return (prod + c).to(F32)
 
 
 def _fma_chains(a64, m64, lo: int, hi: int, n_acc: int) -> torch.Tensor:
     """sum_k a[..., k] m[k] over [lo, hi) in n_acc interleaved FMA chains,
     combined pairwise."""
-    accs = [torch.zeros((*a64.shape[:-1], m64.shape[-1]), dtype=F32)
+    prods = a64[..., lo:hi, None] * m64[lo:hi]     # exact in float64
+    accs = [torch.zeros((*a64.shape[:-1], m64.shape[-1]), dtype=F32, device=a64.device)
             for _ in range(n_acc)]
-    for i, k in enumerate(range(lo, hi)):
+    for i in range(hi - lo):
         j = i % n_acc
-        accs[j] = (a64[..., k: k + 1] * m64[k] + accs[j].to(F64)).to(F32)
+        accs[j] = (prods[..., i, :] + accs[j]).to(F32)   # the add in float64
     while len(accs) > 1:
         accs = [accs[i] + accs[i + 1] for i in range(0, len(accs), 2)]
     return accs[0]
@@ -94,6 +119,13 @@ def dot(a: torch.Tensor, m: torch.Tensor, block: int | None = None) -> torch.Ten
     than one row of `a`."""
     if not on_cpu(a):
         return torch.matmul(a, m)
+    return xla_dot(a, m, block)
+
+
+def xla_dot(a: torch.Tensor, m: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """The CPU branch of `dot` on every device: the decoder's SNS products
+    take it on the card too, so that the card's scale factors equal the
+    CPU's."""
     K, N = m.shape
     a64 = a.to(F64)
     m64 = m.to(F64)
@@ -119,6 +151,63 @@ def chain_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     for term in terms[1:]:
         acc = acc + term
     return acc
+
+
+def xla_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension in XLA:CPU's order, on every device.
+
+    XLA rewrites a reduction of more than 32 terms into a tree: the row is
+    zero-padded to a multiple of 32 (half the pad in front, the odd zero at
+    the end), each window of 32 is summed left to right from zero, and the
+    window sums are reduced the same way; 32 terms or fewer are summed left
+    to right from zero. A kernel follows it with one lane a window."""
+    n = v.shape[-1]
+    if n <= 32:
+        acc = torch.zeros_like(v[..., 0])
+        for k in range(n):
+            acc = acc + v[..., k]
+        return acc
+    tot = -(-n // 32) * 32
+    left = (tot - n) // 2
+    w = torch.nn.functional.pad(v, (left, tot - n - left)).reshape(*v.shape[:-1], tot // 32, 32)
+    acc = torch.zeros_like(w[..., 0])
+    for k in range(32):
+        acc = acc + w[..., k]
+    return xla_sum(acc)
+
+
+def xla_dot_row(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] b[..., k] of at most 32 terms as XLA:CPU fuses it
+    into its reduction: one fused multiply-add chain from zero (xla_fma)."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1], dtype=F32,
+                      device=a.device)
+    for k in range(a.shape[-1]):
+        acc = xla_fma(a[..., k], b[..., k], acc)
+    return acc
+
+
+def _x86_rsqrt() -> np.ndarray:
+    return np.load(Path(__file__).resolve().parent.parent / "data" / "x86_rsqrt.npy")
+
+
+def xla_rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) as XLA:CPU computes it (and `a / sqrt(b)`, which it
+    rewrites to `a * rsqrt(b)`), on every device: the x86 estimate
+    `vrsqrtps` (12 bits, from the exponent's parity and the top 10 bits of
+    the mantissa: data/x86_rsqrt.npy, tools/torch_x86_rsqrt_table.py), then
+    two Newton steps y += (-y / 2) (x y y - 1) with fused multiply-adds. The
+    Newton steps run for a positive normal x; elsewhere the estimate stands,
+    as in XLA. A kernel follows it with the same table and `xfma`."""
+    tab = table(_x86_rsqrt, device=x.device)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    par = e & 1
+    scale = ((127 - torch.div(e - par, 2, rounding_mode="floor")).clamp(1, 254) << 23).view(F32)
+    y = tab[(par * 1024 + ((bits >> 13) & 1023)).long()] * scale
+    for _ in range(2):
+        y = xla_fma(y * -0.5, xla_fma(x * y, y, -1.0), y)
+    normal = (x > 0) & (bits < 0x7F800000) & (bits >= 0x00800000)
+    return torch.where(normal, y, torch.rsqrt(x))
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -191,14 +280,14 @@ def table(make, *args, device, dtype=F32, transpose: bool = False) -> torch.Tens
 
 def _exp_cpu(x: torch.Tensor) -> torch.Tensor:
     x = x.to(F32).clamp(f32(-87.8), f32(88.8))
-    fx = torch.floor(fma(x, f32(_LOG2EF), 0.5))
-    x = fma(fx, -f32(_EXP_C1), x)
-    x = fma(fx, -f32(_EXP_C2), x)
+    fx = torch.floor(xla_fma(x, f32(_LOG2EF), 0.5))
+    x = xla_fma(fx, -f32(_EXP_C1), x)
+    x = xla_fma(fx, -f32(_EXP_C2), x)
     z = x * x
-    y = fma(x, f32(_EXP_P[0]), f32(_EXP_P[1]))
+    y = xla_fma(x, f32(_EXP_P[0]), f32(_EXP_P[1]))
     for p in _EXP_P[2:]:
-        y = fma(y, x, f32(p))
-    y = fma(y, z, x)
+        y = xla_fma(y, x, f32(p))
+    y = xla_fma(y, z, x)
     y = 1.0 + y
     n = fx.to(torch.int32) + 127
     pow2n = (n.clamp(min=0) << 23).view(F32)
@@ -234,7 +323,13 @@ def _log_cpu(x: torch.Tensor) -> torch.Tensor:
 
 
 def exp2(x: torch.Tensor) -> torch.Tensor:
-    return _exp_cpu(x * f32(math.log(2.0))) if on_cpu(x) else torch.exp2(x)
+    return xla_exp2(x) if on_cpu(x) else torch.exp2(x)
+
+
+def xla_exp2(x: torch.Tensor) -> torch.Tensor:
+    """The CPU branch of `exp2` (Cephes, its multiply-adds fused) on every
+    device."""
+    return _exp_cpu(x * f32(math.log(2.0)))
 
 
 def log2(x: torch.Tensor) -> torch.Tensor:
@@ -249,6 +344,11 @@ def pow(base, y: torch.Tensor) -> torch.Tensor:
     """base ** y for a float32 exponent tensor, correctly rounded."""
     if not on_cpu(y):
         return torch.pow(base, y)
+    return xla_pow(base, y)
+
+
+def xla_pow(base, y: torch.Tensor) -> torch.Tensor:
+    """The CPU branch of `pow` on every device: through float64, rounded once."""
     b = base.to(F64) if isinstance(base, torch.Tensor) else float(base)
     return torch.pow(b, y.to(F64)).to(F32)
 
@@ -257,4 +357,9 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c for a constant c; XLA:CPU multiplies by the float32 reciprocal."""
     if not on_cpu(x):
         return x / c
+    return xla_div(x, c)
+
+
+def xla_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """The CPU branch of `div` on every device."""
     return x * f32(1.0 / c)

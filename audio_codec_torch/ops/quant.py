@@ -393,8 +393,11 @@ def residual_decode(cfg: Config, x, res_bits, n_res):
 
 
 def global_gain(cfg: Config, gg_idx):
-    """10^((gg_idx + gg_off)/28) (processApplyGlobalGain_fl)."""
-    return nm.pow(10.0, nm.div((gg_idx + cfg.quantizedGainOff).to(F32), 28.0))
+    """10^((gg_idx + gg_off)/28) (processApplyGlobalGain_fl), in the
+    reference's order on every device (a product by the reciprocal, the power
+    through float64): only the decoder calls it, and the card's gain then
+    equals the CPU's."""
+    return nm.xla_pow(10.0, nm.xla_div((gg_idx + cfg.quantizedGainOff).to(F32), 28.0))
 
 
 def apply_global_gain(cfg: Config, x, gg_idx):

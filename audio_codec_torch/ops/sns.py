@@ -326,10 +326,14 @@ def sns_vq_dec_plain(scf_idx):
                          torch.where((sub == 2)[:, None], p_s2, p_s3))
     norm = torch.sqrt(nm.chain_sum((pulses * pulses).to(F32)))
     v = pulses.to(F32) / norm[:, None]
-    v = nm.chain_dot(v, nm.table(T.dct2_matrix, M, device=dev))
+    # the reference's order on every device, so that the card's scale
+    # factors equal the CPU's: the DCT-II in four interleaved fused
+    # multiply-add chains combined pairwise, the gain as one fused
+    # multiply-add (the kernel writes the same double operations)
+    v = nm.xla_dot(v, nm.table(T.dct2_matrix, M, device=dev))
     gains = nm.table(T.t, "sns_dec_gains", device=dev)         # [4, 8]
     g = gains[sub.clamp(0, 3).long(), gidx.clamp(0, 7).long()]
-    return nm.fma(g[:, None], v, st1)
+    return nm.xla_fma(g[:, None], v, st1)
 
 
 def quantize_scf_dec(scf_idx):
@@ -368,13 +372,40 @@ def _interp_matrix(nb: int) -> np.ndarray:
     return Mi
 
 
+@functools.cache
+def _interp_taps(nb: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each band's nonzero interpolation weights in ascending scf order:
+    (indices [J, nb], float32 weights [J, nb]), padded with weight 0."""
+    Mi = np.float32(_interp_matrix(nb))
+    J = int((Mi != 0).sum(1).max())
+    idx, w = np.zeros((J, nb), np.int64), np.zeros((J, nb), np.float32)
+    for b in range(nb):
+        ks = np.nonzero(Mi[b])[0]
+        idx[: len(ks), b], w[: len(ks), b] = ks, Mi[b, ks]
+    return idx, w
+
+
+def _interp_tap(nb: int, which: int) -> np.ndarray:
+    return _interp_taps(nb)[which]
+
+
 def interpolate_scf(cfg: Config, scf_q, encoder_side: bool):
-    """[B,16] quantized scf -> [B, bands_number] linear-domain gains."""
-    g = nm.dot(scf_q, nm.table(_interp_matrix, cfg.bands_number, device=scf_q.device,
-                               transpose=True))
+    """[B,16] quantized scf -> [B, bands_number] linear-domain gains. The
+    decoder's side takes the reference's order (one fused multiply-add chain
+    over the 16 scale factors, Cephes exp2) on every device, so that the
+    card's gains equal the CPU's: the chain's terms of weight zero add exact
+    zeros, so it runs over each band's nonzero weights only. The encoder's
+    side keeps the card's own order."""
+    nb, dev = cfg.bands_number, scf_q.device
     if encoder_side:
-        g = -g
-    return nm.exp2(g)
+        m = nm.table(_interp_matrix, nb, device=dev, transpose=True)
+        return nm.exp2(-nm.dot(scf_q, m))
+    idx = nm.table(_interp_tap, nb, 0, device=dev, dtype=torch.long)
+    w = nm.table(_interp_tap, nb, 1, device=dev)
+    g = torch.zeros((scf_q.shape[0], nb), dtype=F32, device=dev)
+    for j in range(idx.shape[0]):
+        g = nm.xla_fma(scf_q[:, idx[j]], w[j], g)
+    return nm.xla_exp2(g)
 
 
 def mdct_shaping(cfg: Config, d, gains):

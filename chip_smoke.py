@@ -137,10 +137,20 @@ KERNEL_INFO = {
     "ari_decode_pc": ("audio_codec_torch/csrc/ari_decode.cu", "audio_codec_tpu/ops/ari.py:379"),
     "ari_decode_pc_enc_sim": ("audio_codec_torch/csrc/ari_decode.cu",
                               "audio_codec_tpu/ops/ari.py:759"),
+    "plc_tdc": ("audio_codec_torch/csrc/plc_tdc.cu", "audio_codec_tpu/ops/plc_adv.py:236"),
+    "plc_damp_scramble": ("audio_codec_torch/csrc/plc_damp_scramble.cu",
+                          "audio_codec_tpu/ops/plc_adv.py:461"),
+    "phecu_spec_ana": ("audio_codec_torch/csrc/phecu_spec_ana.cu",
+                       "audio_codec_tpu/ops/plc_phecu.py:135"),
+    "phecu_subst": ("audio_codec_torch/csrc/phecu_subst.cu",
+                    "audio_codec_tpu/ops/plc_phecu.py:273"),
 }
 # the kernels of the flagship block path (phases 3-5); the stream path
 # (phase 6) runs them and the channel coder's two
 STREAM_KERNELS = ("fec_encode", "fec_decode")
+# the advanced concealment's kernels (phase 7, plc_mode 1)
+PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
+PLC_FRAMES = 16
 PC_ROWS = ("ari_decode_pc", "ari_decode_pc_enc_sim")
 STREAM_MODES = (1, 2, 3, 4)
 TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
@@ -242,7 +252,7 @@ def plain_path():
     """Route the kernels' call sites to their plain versions, so the main
     path runs on the card without the kernels (the reference for phase 4)."""
     from audio_codec_torch.ops import analysis, ari, bits, fec, ltpf_dec, pc, quant, sns, tns
-    from audio_codec_torch.ops import transforms
+    from audio_codec_torch.ops import plc_adv, plc_phecu, transforms
     sites = [(transforms, "mdct", transforms.mdct_plain),
              (transforms, "imdct", transforms.imdct_plain),
              (tns, "tns_filter_analysis", tns.tns_filter_analysis_plain),
@@ -266,7 +276,11 @@ def plain_path():
              (analysis, "olpa", analysis.olpa_plain),
              (analysis, "ltpf_encode", analysis.ltpf_encode_plain),
              (quant, "noise_residual_enc", quant.noise_residual_enc_plain),
-             (quant, "spectrum_decode", quant.spectrum_decode_plain)]
+             (quant, "spectrum_decode", quant.spectrum_decode_plain),
+             (plc_adv, "plc_tdc", plc_adv.plc_tdc_plain),
+             (plc_adv, "damp_scramble", plc_adv.damp_scramble_plain),
+             (plc_phecu, "phecu_spec_ana", plc_phecu.phecu_spec_ana_plain),
+             (plc_phecu, "phecu_subst", plc_phecu.phecu_subst_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, plain in sites:
         setattr(mod, name, plain)
@@ -798,7 +812,8 @@ def stream_phase(dev, pcm, K, plain, card):
     torch.cuda.synchronize()
     counts = dict(K.launches)
     print(f"[stream] EP1-4 x {T} frames x {B} streams: launches {counts}", flush=True)
-    check(all(counts[k] > 0 for k in K.KERNELS), f"a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in K.KERNELS if k not in PLC_KERNELS),
+          f"a kernel was not launched: {counts}")
 
     # every launch of the channel coder and of the PC decoder against its
     # plain version; the other kernels on the last frame of each mode
@@ -961,6 +976,286 @@ def stream_phase(dev, pcm, K, plain, card):
     return rows
 
 
+def plc_pcm(T: int, B: int, seed: int):
+    """make_pcm's material, with every twelfth stream a seeded pair of tones
+    (pitched content of high spectral centroid, which the classifier sends
+    to the Phase ECU)."""
+    import numpy as np
+    pcm = make_pcm(T, B, 480, seed)
+    rng = np.random.default_rng(seed + 11)
+    t = np.arange(T * 480)
+    for b in range(11, B, 12):
+        f1, f2 = rng.uniform(900, 2500), rng.uniform(3000, 6000)
+        pcm[:, b] = (4000 * np.sin(2 * np.pi * f1 * t / 48000)
+                     + 2500 * np.sin(2 * np.pi * f2 * t / 48000)).reshape(T, 480)
+    return pcm
+
+
+def plc_loss_plan(T: int, B: int):
+    """bfi_ext [T, B] by stream group (b % 6): clean for the first 4 frames
+    (the PCM history fills), then a burst of 1, 2, 4 or 8 lost frames, a
+    lost frame between redundancy frames (bfi_ext 3), and a clean group."""
+    import numpy as np
+    bfi = np.zeros((T, B), np.int32)
+    for b in range(B):
+        g = b % 6
+        if g < 4:
+            burst = (1, 2, 4, 8)[g]
+            bfi[4: 4 + burst, b] = 1
+            bfi[min(5 + burst, T - 1), b] = 3
+        elif g == 4:
+            bfi[[4, 9], b] = 3
+            bfi[6, b] = 1
+    return bfi
+
+
+def plc_work(name: str, args, out) -> tuple[int, float]:
+    """(bytes, float operations) the concealment kernel needs on this
+    launch's data: every stream's scalars and state rows in and out, the
+    history rows only where a first loss reads them, and the operations of
+    the lanes that do the work (approximate counts of the plain version's
+    multiply-adds, two operations each)."""
+    import torch
+    B = args[1].shape[0]
+    if name == "plc_tdc":
+        lost, nb = args[1].bool(), args[2]
+        meth = out["meth"]
+        first = lost & (nb == 1)
+        tdc = lost & (meth == 3)
+        tdc_first = tdc & first
+        nf, nt, ntf = (int(v.sum()) for v in (first, tdc, tdc_first))
+        byts = B * (11 + 7) * 4 + B * (17 + 855 + 16) * 4 * 2 + B * 780 * 4 + nf * (1335 + 16 + 400) * 4
+        ops = nf * (3 * 480 * 2 + 400 * 2 + 17 * 80 * 2 + 16 * 16 * 4) + \
+            ntf * (17 * 1095 * 2 + 855 * 11 * 2 + 6 * 240 * 2) + \
+            nt * (780 * 11 * 2 + 780 * 16 * 2 + 780 * 2 + 780 * 12 + 480 * 2)
+        return byts, float(ops)
+    if name == "plc_damp_scramble":
+        x = args[1]
+        N = x.shape[1]
+        work = int((args[4] | args[5]).sum())
+        ns = int(args[3].sum())
+        return B * N * 4 * 2 + ns * N * 4 + B * 19 * 4, float(work * N * 12)
+    if name == "phecu_spec_ana":
+        act = int(args[6].sum())
+        ns = args[1].shape[1]
+        return act * 4 * ns * 4 + B * (ns + 18 + 1) * 4 + B * 8, float(act * ns * 30)
+    act = int(args[12].sum())
+    nsf, ns = args[1].shape[1], args[3].shape[1]
+    return act * (2 * nsf + ns + 40) * 4 + B * 2 * nsf * 4 + B * 20, float(act * ns * 60)
+
+
+def plc_branches(name: str, args, out) -> dict[str, int]:
+    """Stream counts of the branches a concealment kernel's launch took."""
+    if name == "plc_tdc":
+        lost, nb, pitch, fr, stab = args[1].bool(), args[2], args[6], args[7], args[8]
+        first = lost & (nb == 1)
+        meth = out["meth"]
+        tdc = lost & (meth == 3)
+        return {"method 2": int((first & (meth == 2)).sum()),
+                "method 3": int((first & (meth == 3)).sum()),
+                "method 4": int((first & (meth == 4)).sum()),
+                "no pitch at a first loss": int((first & (pitch == 0)).sum()),
+                "TD-PLC first loss, fractional pitch": int((tdc & first & (fr > 0)).sum()),
+                "TD-PLC first loss, whole pitch": int((tdc & first & (fr == 0)).sum()),
+                "TD-PLC stab_fac >= 1": int((tdc & first & (stab >= 1)).sum()),
+                "TD-PLC later loss": int((tdc & ~first).sum()),
+                "TD-PLC past the fade-out": int((tdc & (nb > 6)).sum())}
+    if name == "plc_damp_scramble":
+        ns, lost, is_pc, inv = args[3], args[4], args[5], args[16]
+        return {"noise substitution": int(ns.sum()), "lost, not substituted": int((lost & ~ns).sum()),
+                "bfi 2 from bin 0": int((is_pc & (inv == 0)).sum()),
+                "bfi 2 above bin 0": int((is_pc & (inv > 0)).sum())}
+    if name == "phecu_spec_ana":
+        act, npl = args[6], out[1]
+        return {"first losses": int(act.sum()), "no peak (or dropped)": int((act & (npl == 0)).sum()),
+                "1-2 peaks": int((act & (npl > 0) & (npl < 3)).sum()),
+                "3 or more peaks": int((act & (npl >= 3)).sum())}
+    act, nb = args[12], args[5]
+    return {"first frame": int((act & (nb == 1)).sum()), "burst 2-3": int((act & (nb > 1) & (nb <= 3)).sum()),
+            "burst > 3 (DC/Nyquist attenuated)": int((act & (nb > 3)).sum())}
+
+
+def plc_synthetic(dev, K):
+    """The concealment kernels on tests/torch_kernel_cases.py's rows, which
+    take the branches a material run may miss: pitch 0, a fractional pitch,
+    stab_fac >= 1, past the fade-out, the peak-dense drop rule, one and two
+    peaks, bursts past 3 frames. Returns the branch counts."""
+    import numpy as np
+    import torch
+    from audio_codec_torch.ops import plc_adv, plc_phecu as H
+    from tests import torch_kernel_cases as C
+    cfg = __import__("audio_codec_torch").Config(fs_in=48000, bitrate=64000, plc_mode=1)
+    hist: dict = {}
+    t_ = lambda v: torch.as_tensor(np.asarray(v)).to(dev)
+
+    def one(name, kernel, plain, args):
+        got, ref = kernel(*args), plain(*args)
+        same_bits(got, ref, f"{name} (synthetic rows)")
+        for k, v in plc_branches(name, args, got).items():
+            hist.setdefault(name, {})
+            hist[name][k] = hist[name].get(k, 0) + v
+    for group in C.TDC_LANES:
+        d = C.tdc_stream_rows(group)
+        one("plc_tdc", K.plc_tdc, plc_adv.plc_tdc_plain,
+            (cfg, t_(d["lost"]), t_(d["nb"]), t_(d["x_old_tot"]), t_(d["scf"]), t_(d["q_d"]),
+             t_(d["pitch"]), t_(d["fract"]), t_(d["stab"]), t_(d["meth"]), t_(d["a_st"]),
+             t_(d["seed"]), t_(d["gain_c"]), t_(d["alpha"]), t_(d["fract_st"]), t_(d["harm"]),
+             t_(d["harm_len"]), t_(d["synth_hist"])))
+    for seed in (0, 1):
+        d = C.damp_stream_rows(seed)
+        one("plc_damp_scramble", K.plc_damp_scramble, plc_adv.damp_scramble_plain,
+            (cfg, t_(d["x"]), t_(d["q_d_prev"]), t_(d["ns_lane"] != 0), t_(d["lost"] != 0),
+             t_(d["is_pc"] != 0), t_(d["nb_cur"]), t_(d["pc_nb_lost"]), t_(d["stab_fac"]),
+             t_(d["pitch_int"]), t_(d["pc_pitch"]), t_(d["cum_fflc"]), t_(d["cum_slow"]),
+             t_(d["cum_fast"]), t_(d["ns_seed"]), t_(d["pc_seed"]), t_(d["spec_inv_idx"])))
+        r = C.phecu_peak_rows(seed)
+        act = t_(np.array([1, 1, 1, 1, 1, 1, 0, 1]) != 0)
+        one("phecu_spec_ana", K.phecu_spec_ana, H.phecu_spec_ana_plain,
+            (cfg, t_(r["Xr"]), t_(r["Xi"]), t_(np.roll(r["Xr"], 1, 0)), t_(np.roll(r["Xi"], 1, 0)),
+             t_(r["nc"]), act))
+        s = C.phecu_subst_rows(seed)
+        f0, npl = H._peaks(t_(r["Xr"]), t_(r["Xi"]), t_(r["nc"]))
+        one("phecu_subst", K.phecu_subst, H.phecu_subst_plain,
+            (cfg, t_(s["Xr"]), t_(s["Xi"]), f0, npl, t_(s["nb_cur"]), t_(s["e_oold"]),
+             t_(s["e_old"]), t_(s["mag_chg_1st"]), t_(s["beta_mute"]), t_(s["xavg"]),
+             t_(s["is_trans"]), t_(s["active"] != 0)))
+    return hist
+
+
+def concealment_phase(dev, opt, K, card) -> list:
+    """Phase 7: decode_block at plc_mode 1 over a loss plan; the four
+    concealment kernels against their plain versions; times."""
+    import statistics
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch.ops import plc_adv, plc_phecu
+    t_start = time.time()
+    B, T = opt.streams, PLC_FRAMES
+    cfg = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
+    pcm = torch.from_numpy(plc_pcm(T, B, opt.seed)).to(dev)
+    _, frames = P.encode_block(cfg, P.enc_state_init(cfg, B, device=dev), pcm)
+    bfi = torch.from_numpy(plc_loss_plan(T, B)).to(dev)
+    print(f"[plc] material: make_pcm's speech, music and noise, every twelfth stream seeded "
+          f"tones; loss plan by b % 6: bursts of 1, 2, 4, 8 lost frames each followed by a "
+          f"redundancy frame, a lost frame between redundancy frames, clean; B={B} T={T}",
+          flush=True)
+
+    # the main path's run, its launch counts
+    ds = P.dec_state_init(cfg, B, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    ds, out = P.decode_block(cfg, ds, frames, bfi)
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    print(f"[plc] decode_block at plc_mode 1, B={B} T={T}: launches {counts}", flush=True)
+    check(all(counts[k] > 0 for k in PLC_KERNELS), f"a concealment kernel was not launched: {counts}")
+    check(tuple(out.shape) == (T, B, 480) and bool(torch.isfinite(out).all()),
+          "plc_mode 1 PCM not finite or of the wrong shape")
+
+    # every launch of the four kernels against its plain version
+    plain = {"plc_tdc": plc_adv.plc_tdc_plain, "plc_damp_scramble": plc_adv.damp_scramble_plain,
+             "phecu_spec_ana": plc_phecu.phecu_spec_ana_plain,
+             "phecu_subst": plc_phecu.phecu_subst_plain}
+    rec: dict = {}
+    with recording(rec):
+        P.decode_block(cfg, P.dec_state_init(cfg, B, device=dev), frames, bfi)
+    torch.cuda.synchronize()
+    errs, hist, busiest = {}, {}, {}
+    for name in PLC_KERNELS:
+        err, best = 0.0, None
+        for args, kw in rec[name]:
+            got = getattr(K, name)(*args, **kw)
+            ref = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            same_bits(got, ref, name)
+            pairs = [(got[k], ref[k]) for k in ref] if isinstance(ref, dict) else list(zip(got, ref))
+            err = max(err, max(float((g.double() - r.double()).abs().max()) for g, r in pairs))
+            b = plc_branches(name, args, got)
+            hist[name] = {k: hist.get(name, {}).get(k, 0) + v for k, v in b.items()}
+            work = plc_work(name, args, got)[1]
+            if best is None or work > best[0]:
+                best = (work, args, kw)
+        errs[name], busiest[name] = err, best
+        print(f"[plc] {name}: {len(rec[name])} launches equal their plain version bit for bit; "
+              f"branches {hist[name]}", flush=True)
+    meth = {k: hist["plc_tdc"][f"method {k}"] for k in (2, 3, 4)}
+    print(f"[plc] methods chosen at first losses: {meth}", flush=True)
+    check(all(v > 0 for v in meth.values()), f"a concealment method never occurred: {meth}")
+    syn = plc_synthetic(dev, K)
+    print(f"[plc] synthetic rows equal their plain versions; branches {syn}", flush=True)
+    check(syn["plc_tdc"]["no pitch at a first loss"] > 0 and
+          syn["plc_tdc"]["TD-PLC first loss, fractional pitch"] > 0 and
+          syn["plc_tdc"]["TD-PLC stab_fac >= 1"] > 0 and syn["plc_tdc"]["TD-PLC past the fade-out"] > 0,
+          f"plc_tdc: a rare branch was not reached: {syn['plc_tdc']}")
+    check(syn["phecu_spec_ana"]["1-2 peaks"] > 0 and syn["phecu_spec_ana"]["no peak (or dropped)"] > 0,
+          f"phecu_spec_ana: a rare branch was not reached: {syn['phecu_spec_ana']}")
+    check(syn["phecu_subst"]["burst > 3 (DC/Nyquist attenuated)"] > 0, "phecu_subst: no burst > 3")
+
+    # a few streams: the kernel path against the plain path, and the card
+    # against the port on the CPU (the path the tests hold to the reference)
+    nb = min(12, B)
+    fr_s, bfi_s = frames[:, :nb].contiguous(), bfi[:, :nb].contiguous()
+    _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
+    with plain_path():
+        _, out_p = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
+    cpu = torch.device("cpu")
+    _, out_c = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_s.cpu(), bfi_s.cpu())
+    pk = P.round_pcm(out_k).to(torch.int32)
+    gap_p = int((pk - P.round_pcm(out_p).to(torch.int32)).abs().max())
+    gap_c = (pk.cpu() - P.round_pcm(out_c).to(torch.int32)).abs()
+    print(f"[plc] {nb} streams x {T} frames at plc_mode 1: kernel path vs plain path on the card "
+          f"max |PCM diff| {gap_p}; card vs the port on the CPU max |PCM diff| "
+          f"{int(gap_c.max())}, {int((gap_c > 0).sum())} of {gap_c.numel()} samples differ",
+          flush=True)
+    check(gap_p <= 1, f"plc_mode 1 PCM of the kernel path differs by {gap_p} > 1")
+    check(int(gap_c.max()) <= CPU_PCM_TOL, f"plc_mode 1 PCM differs from the CPU port's by "
+          f"{int(gap_c.max())}")
+
+    # times
+    rows = []
+    for name in PLC_KERNELS:
+        _, args, kw = busiest[name]
+        fn = lambda: getattr(K, name)(*args, **kw)
+        ms, ms_min, ms_max = cuda_ms_spread(fn)
+        gms = graph_ms(fn)
+        pms = cuda_ms(lambda: plain[name](*args, **kw), 1)
+        byts, ops = plc_work(name, args, fn())
+        b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+        src, replaces = KERNEL_INFO[name]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                         launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
+                         bound_ms=max(b_bytes, b_ops),
+                         bound_by="bytes" if b_bytes >= b_ops else "operations",
+                         library_ms=None, graph_ms=gms))
+        print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
+              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
+              f"a CUDA graph), plain {pms:.2f} ms, bound {max(b_bytes, b_ops):.6f} ms "
+              f"({byts} B, {ops:.3g} ops) on its busiest launch, {counts[name]} launches in "
+              f"the block", flush=True)
+    seg = torch.randn((B, 768), device=dev)
+    spec = torch.fft.rfft(seg)
+    r_ms = cuda_ms_spread(lambda: torch.fft.rfft(seg))
+    i_ms = cuda_ms_spread(lambda: torch.fft.irfft(spec, n=768))
+    print(f"[times] {card} | library torch.fft.rfft [{B}, 768]: {r_ms[0]:.4f} ms (min {r_ms[1]:.4f}, "
+          f"max {r_ms[2]:.4f}); torch.fft.irfft [{B}, 385]: {i_ms[0]:.4f} ms (min {i_ms[1]:.4f}, "
+          f"max {i_ms[2]:.4f})", flush=True)
+    ds = P.dec_state_init(cfg, B, device=dev)
+    per = []
+    for t in range(T):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds, _, _ = P.decode_frame(cfg, ds, frames[t], bfi[t])
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) * 1e3)
+    lossy = [per[t] for t in range(T) if bool((bfi[t] > 0).any())]
+    print(f"[times] {card} | decode_frame at plc_mode 1 B={B}: {statistics.median(lossy):.2f} ms "
+          f"per lossy frame (median of {len(lossy)}; min {min(lossy):.2f}, max {max(lossy):.2f}); "
+          f"clean frames {statistics.median(per[:4]):.2f} ms", flush=True)
+    print(f"[plc] phase 7 took {time.time() - t_start:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -1017,7 +1312,7 @@ def main() -> int:
         ds = P.dec_state_init(cfg, B, device=dev)
         P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
-    MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS]
+    MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS + PLC_KERNELS]
     check(set(rec) == set(MAIN), f"kernels not reached on the main path: {set(MAIN) - set(rec)}")
     modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
     check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
@@ -1228,7 +1523,10 @@ def main() -> int:
     # ---- 6. the stream path ----
     rows += stream_phase(dev, pcm, K, plain, card)
 
-    # ---- 7. kernels line ----
+    # ---- 7. the concealment path ----
+    rows += concealment_phase(dev, opt, K, card)
+
+    # ---- 8. kernels line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

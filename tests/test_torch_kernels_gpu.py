@@ -23,9 +23,11 @@ alone, residual-coder rows with no zero line and a cut n_res at 64 and
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
-block (bfi 0 and 2, and the encoder's simulation); a warmed encode_frame,
-decode_frame and the stream path's device step at EP3 run under
-torch.cuda.set_sync_debug_mode("error")."""
+block (bfi 0 and 2, and the encoder's simulation); the four concealment
+kernels (plc_mode 1) on every launch of a lossy block over speech, music,
+noise and tones and on their synthetic rows; a warmed encode_frame,
+decode_frame (plc_mode 0 and 1) and the stream path's device step at EP3 run
+under torch.cuda.set_sync_debug_mode("error")."""
 from __future__ import annotations
 
 import wave
@@ -348,7 +350,8 @@ def test_launch_counts_move(dev):
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
                           "pc_classify": 2, "mdct": 2, "imdct": 2, "olpa": 2,
                           "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2,
-                          "fec_encode": 0, "fec_decode": 0}
+                          "fec_encode": 0, "fec_decode": 0, "plc_tdc": 0,
+                          "plc_damp_scramble": 0, "phecu_spec_ana": 0, "phecu_subst": 0}
 
 
 def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
@@ -625,3 +628,113 @@ def test_ep_step_does_not_synchronise(dev):
     step()
     _, y, aux = no_sync(step)
     assert y.shape == (B, 480) and bool((aux["bfi"] == 0).all())
+
+
+# ---- slice 7: advanced concealment (plc_mode 1) ----
+
+PLC_CFG = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
+PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
+
+
+def plc_plain():
+    from audio_codec_torch.ops import plc_adv, plc_phecu
+    return {"plc_tdc": plc_adv.plc_tdc_plain, "plc_damp_scramble": plc_adv.damp_scramble_plain,
+            "phecu_spec_ana": plc_phecu.phecu_spec_ana_plain,
+            "phecu_subst": plc_phecu.phecu_subst_plain}
+
+
+def lossy_block(dev, B: int = 48, T: int = 12):
+    """Payloads of speech, music, noise and tones with every stream clean
+    for 4 frames, then bursts of 1, 2, 4 and 8 lost frames and redundancy
+    frames, by stream; returns (frames, bfi)."""
+    rng = np.random.default_rng(7)
+    n = PLC_CFG.frame_length
+    srcs = [material("speech"), material("music"), None, None]
+    pcm = np.zeros((T, B, n), np.float32)
+    tt = np.arange(T * n)
+    for b in range(B):
+        src = srcs[b % 4]
+        if src is not None:
+            off = 30000 + 7001 * b
+            pcm[:, b] = src[off: off + T * n].reshape(T, n)
+        elif b % 4 == 2:
+            pcm[:, b] = rng.standard_normal((T, n)) * 2000
+        else:
+            f = rng.uniform(300, 3000)
+            pcm[:, b] = (4000 * np.sin(2 * np.pi * f * tt / 48000)).reshape(T, n)
+    bfi = np.zeros((T, B), np.int32)
+    for b in range(B):
+        burst = (1, 2, 4, 8)[(b // 4) % 4]
+        bfi[4: 4 + burst, b] = 1
+        if (b // 16) % 2:
+            bfi[min(4 + burst + 1, T - 1), b] = 3
+    st = P.enc_state_init(PLC_CFG, B, device=dev)
+    _, frames = P.encode_block(PLC_CFG, st, torch.from_numpy(pcm).to(dev))
+    return frames, torch.from_numpy(bfi).to(dev)
+
+
+@pytest.fixture(scope="module")
+def plc_recorded(dev):
+    store: dict = {}
+    frames, bfi = lossy_block(dev)
+    undo = record(store)
+    try:
+        P.decode_block(PLC_CFG, P.dec_state_init(PLC_CFG, frames.shape[1], device=dev), frames, bfi)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return store
+
+
+@pytest.mark.parametrize("name", PLC_KERNELS)
+def test_plc_kernels_match_plain_on_a_lossy_run(plc_recorded, name):
+    """Every launch of a plc_mode 1 decode over bursts of 1-8 frames."""
+    assert plc_recorded.get(name), f"{name} was not launched"
+    plain = plc_plain()[name]
+    for a, k in plc_recorded[name]:
+        same_tensors(getattr(K, name)(*a, **k), plain(*a, **k))
+
+
+def test_plc_tdc_synthetic_rows(dev):
+    from audio_codec_torch.ops import plc_adv
+    for group in C.TDC_LANES:
+        d = C.tdc_stream_rows(group)
+        t_ = lambda k: torch.as_tensor(np.asarray(d[k])).to(dev)
+        args = (PLC_CFG, t_("lost"), t_("nb"), t_("x_old_tot"), t_("scf"), t_("q_d"), t_("pitch"),
+                t_("fract"), t_("stab"), t_("meth"), t_("a_st"), t_("seed"), t_("gain_c"),
+                t_("alpha"), t_("fract_st"), t_("harm"), t_("harm_len"), t_("synth_hist"))
+        same_tensors(K.plc_tdc(*args), plc_adv.plc_tdc_plain(*args))
+
+
+def test_plc_damp_and_phecu_synthetic_rows(dev):
+    from audio_codec_torch.ops import plc_adv, plc_phecu as H
+    for seed in (0, 1):
+        d = C.damp_stream_rows(seed)
+        t_ = lambda v: torch.as_tensor(np.asarray(v)).to(dev)
+        args = (PLC_CFG, t_(d["x"]), t_(d["q_d_prev"]), t_(d["ns_lane"] != 0), t_(d["lost"] != 0),
+                t_(d["is_pc"] != 0), t_(d["nb_cur"]), t_(d["pc_nb_lost"]), t_(d["stab_fac"]),
+                t_(d["pitch_int"]), t_(d["pc_pitch"]), t_(d["cum_fflc"]), t_(d["cum_slow"]),
+                t_(d["cum_fast"]), t_(d["ns_seed"]), t_(d["pc_seed"]), t_(d["spec_inv_idx"]))
+        same_tensors(K.plc_damp_scramble(*args), plc_adv.damp_scramble_plain(*args))
+        r = C.phecu_peak_rows(seed)
+        act = t_(np.array([1, 1, 1, 1, 1, 1, 0, 1]) != 0)
+        args = (PLC_CFG, t_(r["Xr"]), t_(r["Xi"]), t_(np.roll(r["Xr"], 1, 0)),
+                t_(np.roll(r["Xi"], 1, 0)), t_(r["nc"]), act)
+        same_tensors(K.phecu_spec_ana(*args), H.phecu_spec_ana_plain(*args))
+        s = C.phecu_subst_rows(seed)
+        f0, npl = H._peaks(t_(r["Xr"]), t_(r["Xi"]), t_(r["nc"]))
+        args = (PLC_CFG, t_(s["Xr"]), t_(s["Xi"]), f0, npl, t_(s["nb_cur"]), t_(s["e_oold"]),
+                t_(s["e_old"]), t_(s["mag_chg_1st"]), t_(s["beta_mute"]), t_(s["xavg"]),
+                t_(s["is_trans"]), t_(s["active"] != 0))
+        same_tensors(K.phecu_subst(*args), H.phecu_subst_plain(*args))
+
+
+def test_warmed_plc_mode1_decode_frame_does_not_synchronise(dev):
+    """A warmed plc_mode 1 decode_frame with lost, redundancy and clean
+    streams reads nothing back and uploads no table."""
+    frames, bfi = lossy_block(dev, B=16, T=8)
+    ds = P.dec_state_init(PLC_CFG, 16, device=dev)
+    for t in range(6):
+        ds, _, _ = P.decode_frame(PLC_CFG, ds, frames[t], bfi[t])
+    ds, y, _ = no_sync(lambda: P.decode_frame(PLC_CFG, ds, frames[6], bfi[6]))
+    assert y.shape == (16, 480) and bool(torch.isfinite(y).all())

@@ -1085,3 +1085,314 @@ def test_pc_decode_lane_matches_plain(lib_fec, epmode):
 def test_rehearsal_catches_mutated_pc_lanes(tmp_path):
     lib = build_fec_lanes(tmp_path, "bp_side_jump")
     assert sum(pc_differing(lib, m)[0] for m in C.PC_EP_MODES) > 0
+
+
+# ---- advanced concealment (csrc/plc_tdc.cuh, plc_damp.cuh, phecu.cuh) ----
+# The steps are templates over the warp that runs them (csrc/plc.cuh); here
+# HostWarp runs every lane's share in turn. The plain versions take the
+# reference's order on every device, so they need no card_order; the Phase
+# ECU's sine and cosine are the double's, correctly rounded, on both sides
+# (the card's sinf and cosf are first seen on the card).
+
+WRAPPER_PLC = r"""
+#include "plc_tdc.cuh"
+#include "plc_damp.cuh"
+#include "phecu.cuh"
+#include <vector>
+using namespace acx;
+
+extern "C" {
+void rehearse_plc_tdc(const float* x, const float* scf, const float* q, const float* a_in,
+                      const float* harm_in, const float* hist_in, const int32_t* ints,
+                      const float* floats, const float* ftab, const int32_t* itab, float* a_out,
+                      float* synth, float* harm, float* hist, int32_t* iout, float* fout, int B,
+                      const int* gi, const float* gf) {
+  const TdcGeom g = {gi[0], gi[1], gi[2], gi[3], gi[4], gi[5], gi[6], gi[7], gi[8], gi[9],
+                     gf[0], gf[1], gf[2]};
+  std::vector<TdcWork> work(1);
+  const HostWarp w;
+  for (int b = 0; b < B; ++b) {
+    const size_t bb = b;
+    TdcStream s;
+    s.x = x + bb * g.L; s.scf = scf + bb * 16; s.q = q + bb * g.N; s.a_in = a_in + bb * 17;
+    s.harm_in = harm_in + bb * g.MP; s.hist_in = hist_in + bb * 16;
+    s.lost = ints[b]; s.nb = ints[B + b]; s.pitch = ints[2 * B + b];
+    s.pitch_fr = ints[3 * B + b]; s.meth_in = ints[4 * B + b]; s.seed_in = ints[5 * B + b];
+    s.fract_in = ints[6 * B + b]; s.hlen_in = ints[7 * B + b];
+    s.stab = floats[b]; s.gain_c_in = floats[B + b]; s.alpha_in = floats[2 * B + b];
+    s.a = a_out + bb * 17; s.synth = synth + bb * g.length; s.harm = harm + bb * g.MP;
+    s.hist = hist + bb * 16;
+    s.meth = iout + b; s.seed = iout + B + b; s.fract = iout + 2 * B + b; s.hlen = iout + 3 * B + b;
+    s.nc = fout + b; s.gain_c = fout + B + b; s.alpha = fout + 2 * B + b;
+    plc_tdc_stream(w, s, g, tdc_tables(ftab, itab, g.n_bands), work.data());
+  }
+}
+void rehearse_damp(const float* x, const float* q, const int32_t* ints, const float* floats,
+                   const int32_t* pows, float* spec, float* fout, int32_t* iout, int B, int N) {
+  std::vector<DampWork> work(1);
+  const HostWarp w;
+  for (int b = 0; b < B; ++b) {
+    int iv[10];
+    float fv[4], fo[3];
+    int io[2];
+    for (int k = 0; k < 10; ++k) iv[k] = ints[k * B + b];
+    for (int k = 0; k < 4; ++k) fv[k] = floats[k * B + b];
+    damp_stream(w, x + (size_t)b * N, q + (size_t)b * N, iv, fv, pows, N, work.data(),
+                spec + (size_t)b * N, fo, io);
+    for (int k = 0; k < 3; ++k) fout[k * B + b] = fo[k];
+    iout[b] = io[0];
+    iout[B + b] = io[1];
+  }
+}
+void rehearse_spec_ana(const float* xr, const float* xi, const float* xor_, const float* xoi,
+                       const float* nc, const int32_t* active, float* f0, int32_t* npl, float* e,
+                       int B, int ns, int n_lgw) {
+  std::vector<PhWork> work(1);
+  const HostWarp w;
+  const PhGeom g = {ns, 0, n_lgw, 0, 0, 0};
+  for (int b = 0; b < B; ++b) {
+    const size_t row = (size_t)b * ns;
+    float* eo = e + (size_t)b * 9;
+    float* el = e + ((size_t)B + b) * 9;
+    if (!active[b]) {
+      for (int k = 0; k < ns; ++k) f0[row + k] = -1.0f;
+      for (int k = 0; k < 9; ++k) eo[k] = el[k] = 0.0f;
+      npl[b] = 0;
+      continue;
+    }
+    int count;
+    ph_spec_ana_stream(w, g, xr + row, xi + row, xor_ + row, xoi + row, nc[b], work.data(),
+                       f0 + row, &count, eo, el);
+    npl[b] = count;
+  }
+}
+void rehearse_subst(const float* xr, const float* xi, const float* f0, const int32_t* ints,
+                    const float* groups, const float* beta_mute, const int32_t* tab, float* outr,
+                    float* outi, int B, const int* gi) {
+  std::vector<PhWork> work(1);
+  const HostWarp w;
+  const PhGeom g = {gi[0], gi[1], gi[2], gi[3], gi[4], gi[5]};
+  for (int b = 0; b < B; ++b) {
+    const size_t row = (size_t)b * g.nsf;
+    if (!ints[3 * B + b]) {
+      for (int k = 0; k < g.nsf; ++k) outr[row + k] = outi[row + k] = 0.0f;
+      continue;
+    }
+    const int nb = ints[B + b];
+    const size_t gb = (size_t)b * 9, gB = (size_t)B * 9;
+    ph_burst(w, nb, groups + gb, groups + gB + gb, groups + 2 * gB + gb, beta_mute[b],
+             work.data());
+    ph_subst_stream(w, g, xr + row, xi + row, f0 + (size_t)b * g.ns, ints[b], nb,
+                    ints[2 * B + b], groups + 3 * gB + gb, tab, work.data(), outr + row,
+                    outi + row);
+  }
+}
+}
+"""
+
+MUTATIONS_PLC = {
+    # the TD-PLC noise one generator step late
+    "tdc_lcg_step": ("plc_tdc.cuh", "lcg16_at(s.seed_in, k + 1, t.pows, nr)",
+                     "lcg16_at(s.seed_in, k + 2, t.pows, nr)"),
+    # the rapid fade of a full-frame loss starts a frame late
+    "damp_fade_late": ("plc_damp.cuh", "(nb > 2 ? 0.5f : 1.0f)", "(nb > 3 ? 0.5f : 1.0f)"),
+    # `>` for `>=` where a later equal magnitude takes the peak candidate
+    "peak_better_gt": ("phecu.cuh", "const bool better = mode == 1 && m >= cand;",
+                       "const bool better = mode == 1 && m > cand;"),
+    # the upper neighbour's peak before the lower one's at equal distance
+    "subst_lower_first": ("phecu.cuh", "if (!assigned && k + d < ns && is_peak(k + d)) {",
+                          "if (!assigned && k - d >= 0 && is_peak(k - d)) {"),
+}
+
+
+def build_plc_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = MUTATIONS_PLC[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes_plc.cpp").write_text(WRAPPER_PLC)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / "lanes_plc.cpp"), "-o",
+                        str(out / "lanes_plc.so")], capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes_plc.so"))
+
+
+@pytest.fixture(scope="module")
+def lib_plc(tmp_path_factory):
+    return build_plc_lanes(tmp_path_factory.mktemp("lanes_plc"))
+
+
+@pytest.fixture
+def exact_trig(monkeypatch):
+    """The Phase ECU's sine and cosine as the host build computes them."""
+    from audio_codec_torch.ops import plc_phecu
+    monkeypatch.setattr(plc_phecu, "_cos", lambda v: torch.cos(v.double()).float())
+    monkeypatch.setattr(plc_phecu, "_sin", lambda v: torch.sin(v.double()).float())
+
+
+PLCFG = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
+TDC_ORDER = ("lost", "nb", "pitch", "fract", "meth", "seed", "fract_st", "harm_len", "stab",
+             "gain_c", "alpha")
+
+
+def lane_tdc(lib, d) -> dict:
+    ftab, itab, geom = K.tdc_tables(PLCFG, "cpu")
+    B = d["nb"].shape[0]
+    L, MP, fl, length, N = geom[:5]
+    ints, floats = K.plc_tdc_pack(*(torch.as_tensor(np.asarray(d[k])) for k in TDC_ORDER))
+    ints, floats = _c(ints.numpy(), np.int32), _c(floats.numpy(), np.float32)
+    rows = [_c(d[k], np.float32) for k in ("x_old_tot", "scf", "q_d", "a_st", "harm", "synth_hist")]
+    a, synth = np.zeros((B, 17), np.float32), np.zeros((B, length), np.float32)
+    harm, hist = np.zeros((B, MP), np.float32), np.zeros((B, 16), np.float32)
+    iout, fout = np.zeros((4, B), np.int32), np.zeros((3, B), np.float32)
+    gi, gf = np.array(geom[:10], np.int32), np.array(geom[10:], np.float32)
+    lib.rehearse_plc_tdc(*(ptr(v) for v in rows), ptr(ints), ptr(floats), ptr(ftab.numpy()),
+                         ptr(itab.numpy()), ptr(a), ptr(synth), ptr(harm), ptr(hist), ptr(iout),
+                         ptr(fout), B, ptr(gi), ptr(gf))
+    return dict(meth=iout[0], nc=fout[0], a=a, synth=synth, seed=iout[1], gain_c=fout[1],
+                alpha=fout[2], fract=iout[2], harmonic_buf=harm, harmonic_len=iout[3],
+                synth_hist=hist)
+
+
+def plain_tdc(d) -> dict:
+    from audio_codec_torch.ops import plc_adv
+    t_ = lambda k: torch.as_tensor(np.asarray(d[k]))
+    out = plc_adv.plc_tdc_plain(PLCFG, t_("lost"), t_("nb"), t_("x_old_tot"), t_("scf"), t_("q_d"),
+                                t_("pitch"), t_("fract"), t_("stab"), t_("meth"), t_("a_st"),
+                                t_("seed"), t_("gain_c"), t_("alpha"), t_("fract_st"), t_("harm"),
+                                t_("harm_len"), t_("synth_hist"))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def tdc_differing(lib, group: int) -> int:
+    d = C.tdc_stream_rows(group)
+    got, ref = lane_tdc(lib, d), plain_tdc(d)
+    return sum(C.count_differing(got[k], ref[k]) for k in ref)
+
+
+def test_plc_tdc_table_layout():
+    ftab, itab, geom = K.tdc_tables(PLCFG, "cpu")
+    n_bands = geom[6]
+    assert ftab.numel() == 48 + n_bands * 19 + 16 + 22 + 2048
+    assert itab.numel() == n_bands + 1 + 2 * (geom[3] + 11)
+
+
+@pytest.mark.parametrize("group", sorted(C.TDC_LANES))
+def test_plc_tdc_lane_matches_plain(lib_plc, group):
+    """The classifier and LPC at first losses, TD-PLC on first, later,
+    fractional-pitch, stable, fading and silent lanes, lanes passed through."""
+    d = C.tdc_stream_rows(group)
+    assert tdc_differing(lib_plc, group) == 0
+    assert (plain_tdc(d)["meth"] == 3).any()
+
+
+def damp_call(d: dict):
+    ints = [d[k] for k in ("ns_lane", "lost", "is_pc", "nb_cur", "pc_nb_lost", "pitch_int",
+                           "pc_pitch")] + [d["ns_seed"], d["pc_seed"], d["spec_inv_idx"]]
+    floats = [d[k] for k in ("stab_fac", "cum_fflc", "cum_slow", "cum_fast")]
+    return ints, floats
+
+
+def damp_differing(lib, seed: int) -> int:
+    from audio_codec_torch.ops import plc_adv
+    d = C.damp_stream_rows(seed)
+    ints, floats = damp_call(d)
+    B, N = d["x"].shape
+    spec, fout, iout = np.zeros((B, N), np.float32), np.zeros((3, B), np.float32), np.zeros((2, B), np.int32)
+    pows = _c(plc_adv.lcg_pows(N), np.int32)
+    lib.rehearse_damp(ptr(_c(d["x"], np.float32)), ptr(_c(d["q_d_prev"], np.float32)),
+                      ptr(_c(np.stack(ints), np.int32)), ptr(_c(np.stack(floats), np.float32)),
+                      ptr(pows), ptr(spec), ptr(fout), ptr(iout), B, N)
+    t_ = lambda v: torch.as_tensor(np.asarray(v))
+    ref = plc_adv.damp_scramble_plain(
+        PLCFG, t_(d["x"]), t_(d["q_d_prev"]), t_(d["ns_lane"] != 0), t_(d["lost"] != 0),
+        t_(d["is_pc"] != 0), t_(d["nb_cur"]), t_(d["pc_nb_lost"]), t_(d["stab_fac"]),
+        t_(d["pitch_int"]), t_(d["pc_pitch"]), t_(d["cum_fflc"]), t_(d["cum_slow"]),
+        t_(d["cum_fast"]), t_(d["ns_seed"]), t_(d["pc_seed"]), t_(d["spec_inv_idx"]))
+    got = [spec, fout[0], fout[1], fout[2], iout[0], iout[1]]
+    return sum(C.count_differing(g, r.numpy()) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plc_damp_scramble_lane_matches_plain(lib_plc, seed):
+    """Noise substitution lanes at first, third and past-fade-out losses, a
+    TD-PLC lane, partially concealed lanes from bins 0, 120 and 399, a
+    clean lane."""
+    assert damp_differing(lib_plc, seed) == 0
+
+
+def spec_ana_differing(lib, seed: int) -> tuple[int, np.ndarray]:
+    from audio_codec_torch.ops import plc_phecu as H
+    r = C.phecu_peak_rows(seed)
+    B, ns = r["Xr"].shape
+    xor_, xoi = np.roll(r["Xr"], 1, axis=0), np.roll(r["Xi"], 1, axis=0)
+    active = np.array([1, 1, 1, 1, 1, 1, 0, 1], np.int32)[:B]
+    f0, npl, e = np.zeros((B, ns), np.float32), np.zeros(B, np.int32), np.zeros((2, B, 9), np.float32)
+    lib.rehearse_spec_ana(ptr(_c(r["Xr"], np.float32)), ptr(_c(r["Xi"], np.float32)), ptr(_c(xor_, np.float32)),
+                          ptr(_c(xoi, np.float32)), ptr(_c(r["nc"], np.float32)), ptr(active), ptr(f0),
+                          ptr(npl), ptr(e), B, ns, H.n_lgw(PLCFG))
+    t_ = lambda v: torch.as_tensor(np.asarray(v))
+    ref = H.phecu_spec_ana_plain(PLCFG, t_(r["Xr"]), t_(r["Xi"]), t_(xor_), t_(xoi), t_(r["nc"]),
+                                 t_(active != 0))
+    got = [f0, npl, e[0], e[1]]
+    return sum(C.count_differing(g, v.numpy()) for g, v in zip(got, ref)), ref[1].numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phecu_spec_ana_lane_matches_plain(lib_plc, seed):
+    """Tones, harmonics, noise, a peak-dense comb (the drop rule), one and
+    two peaks, an inactive lane."""
+    bad, npl = spec_ana_differing(lib_plc, seed)
+    assert bad == 0
+    assert (npl == 0).any() and ((npl > 0) & (npl < 3)).any() and (npl > 3).any(), npl
+
+
+def subst_differing(lib, seed: int) -> int:
+    from audio_codec_torch.ops import plc_phecu as H
+    r = C.phecu_peak_rows(seed)
+    d = C.phecu_subst_rows(seed)
+    t_ = lambda v: torch.as_tensor(np.asarray(v))
+    f0, npl = H._peaks(t_(r["Xr"]), t_(r["Xi"]), t_(r["nc"]))
+    f0, npl = f0.numpy(), npl.numpy().copy()
+    npl[5] = 1
+    B = f0.shape[0]
+    ints = np.stack([npl, d["nb_cur"], d["is_trans"], d["active"]]).astype(np.int32)
+    groups = np.stack([d["e_oold"], d["e_old"], d["mag_chg_1st"], d["xavg"]]).astype(np.float32)
+    tab = _c(H.lcg_tables(H.search_bins(PLCFG)), np.int32)
+    outr, outi = np.zeros((B, 385), np.float32), np.zeros((B, 385), np.float32)
+    gi = np.array([H.search_bins(PLCFG), H.nbins(PLCFG), H.n_lgw(PLCFG), PLCFG.frame_length,
+                   H.t_adv(PLCFG), H.lprot(PLCFG)], np.int32)
+    lib.rehearse_subst(ptr(_c(d["Xr"], np.float32)), ptr(_c(d["Xi"], np.float32)), ptr(_c(f0, np.float32)),
+                       ptr(ints), ptr(groups), ptr(_c(d["beta_mute"], np.float32)), ptr(tab), ptr(outr),
+                       ptr(outi), B, ptr(gi))
+    ref = H.phecu_subst_plain(PLCFG, t_(d["Xr"]), t_(d["Xi"]), t_(f0), t_(npl), t_(d["nb_cur"]),
+                              t_(d["e_oold"]), t_(d["e_old"]), t_(d["mag_chg_1st"]),
+                              t_(d["beta_mute"]), t_(d["xavg"]), t_(d["is_trans"]),
+                              t_(d["active"] != 0))
+    return C.count_differing(outr, ref[0].numpy()) + C.count_differing(outi, ref[1].numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phecu_subst_lane_matches_plain(lib_plc, exact_trig, seed):
+    """First losses and bursts of 2 to 9 frames (DC and Nyquist
+    attenuation), a transient lane, lanes of no, one and many peaks, an
+    inactive lane."""
+    assert subst_differing(lib_plc, seed) == 0
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_PLC))
+def test_rehearsal_catches_mutated_plc_lanes(tmp_path, exact_trig, mutation):
+    lib = build_plc_lanes(tmp_path, mutation)
+    bad = sum(tdc_differing(lib, g) for g in C.TDC_LANES)
+    bad += sum(damp_differing(lib, s) for s in (0, 1))
+    bad += sum(spec_ana_differing(lib, s)[0] for s in (0, 1))
+    bad += sum(subst_differing(lib, s) for s in (0, 1))
+    assert bad > 0, f"the rehearsal did not see the mutation {mutation}"

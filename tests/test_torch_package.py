@@ -108,13 +108,39 @@ def _sns_and_side_info_calls():
                          i32(2) + cfg.yLen, i32(2) + 4, i32(2), i32(2), i32(2, cfg.yLen), i32(2),
                          i32(2), i32(2), torch.zeros((2, cfg.yLen)), torch.zeros((2, cfg.yLen)),
                          torch.ones(2), i32(2) + 4, torch.zeros(2), i32(2))),
+        **_concealment_calls(),
     }
+
+
+def _concealment_calls():
+    """The advanced concealment's kernels (plc_mode 1), with the ops that
+    pick their plain versions for CPU tensors."""
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import plc_adv, plc_phecu
+    cfg = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    f32 = lambda *s: torch.zeros(s, dtype=torch.float32)
+    yes = torch.ones(2, dtype=torch.bool)
+    tdc = (cfg, yes, i32(2) + 1, f32(2, plc_adv.pcm_hist_len(cfg)), f32(2, 16), f32(2, cfg.yLen),
+           i32(2) + 300, i32(2), f32(2), i32(2), f32(2, 17), i32(2) + 24607, f32(2), f32(2),
+           i32(2), f32(2, plc_adv.max_pitch(cfg)), i32(2) + 1, f32(2, 16))
+    damp = (cfg, f32(2, cfg.yLen), f32(2, cfg.yLen), yes, yes, ~yes, i32(2) + 1, i32(2), f32(2),
+            i32(2), i32(2), f32(2) + 1, f32(2) + 1, f32(2) + 1, i32(2), i32(2), i32(2))
+    ns, nb = plc_phecu.search_bins(cfg), plc_phecu.nbins(cfg)
+    ana = (cfg, f32(2, ns), f32(2, ns), f32(2, ns), f32(2, ns), f32(2), yes)
+    subst = (cfg, f32(2, nb), f32(2, nb), f32(2, ns) - 1, i32(2), i32(2) + 1, f32(2, 9),
+             f32(2, 9), f32(2, 9) + 1, f32(2), f32(2, 9), i32(2), yes)
+    return {"plc_tdc": (K.plc_tdc, plc_adv.plc_tdc, tdc),
+            "plc_damp_scramble": (K.plc_damp_scramble, plc_adv.damp_scramble, damp),
+            "phecu_spec_ana": (K.phecu_spec_ana, plc_phecu.phecu_spec_ana, ana),
+            "phecu_subst": (K.phecu_subst, plc_phecu.phecu_subst, subst)}
 
 
 @pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
                                   "imdct", "olpa", "ltpf_encode", "noise_residual_enc",
-                                  "spec_decode"])
+                                  "spec_decode", "plc_tdc", "plc_damp_scramble",
+                                  "phecu_spec_ana", "phecu_subst"])
 def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
     """As above for the SNS quantizer, the side information, the TNS filter
     analysis, the concealment classifier, the transforms, the pitch and LTPF
@@ -141,10 +167,19 @@ def test_kernel_build_directory_is_named_by_its_inputs():
 
 
 def test_unported_modes_raise():
-    """Advanced PLC (plc_mode 1) is not ported and raises. Frames with a
-    partial-concealment block (EP3/EP4) are ported: they decode."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=1), 1, device="cpu")
+    """A concealment mode the codec does not know (plc_mode 2) raises; the
+    advanced one (plc_mode 1) builds the reference's state widths. Frames
+    with a partial-concealment block (EP3/EP4) are ported: they decode."""
+    with pytest.raises(NotImplementedError, match="plc_mode 2"):
+        P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=2), 1, device="cpu")
+    st = P.dec_state_init(P.Config(fs_in=48000, bitrate=64000, plc_mode=1), 1, device="cpu")
+    widths = {k: tuple(getattr(st, k).shape[1:]) for k in (
+        "plc_x_old_tot", "plc_harmonic", "plc_tdc_a", "plc_synth_hist", "phecu_X_sav",
+        "phecu_f0est", "phecu_mag_chg_1st", "phecu_Xavg")}
+    assert widths == {"plc_x_old_tot": (1335,), "plc_harmonic": (855,), "plc_tdc_a": (17,),
+                      "plc_synth_hist": (16,), "phecu_X_sav": (385,), "phecu_f0est": (321,),
+                      "phecu_mag_chg_1st": (9,), "phecu_Xavg": (9,)}
+    assert st.phecu_X_sav.dtype == torch.complex64
     pc_cfg = P.Config(fs_in=48000, bitrate=128000, epmode=3)
     assert pc_cfg.n_pc > 0
     buf = torch.zeros((1, pc_cfg.targetBytes), dtype=torch.int32)

@@ -57,3 +57,26 @@ def test_state_signature_stable_across_step():
     dst2, pcm, _ = P.decode_frame(cfg, dst, out)
     assert dsig(dst2) == dsig(dst)
     assert pcm.dtype == torch.float32 and tuple(pcm.shape) == (B, cfg.frame_length)
+
+
+@pytest.mark.parametrize("fs,br", [(48000, 64000), (16000, 32000)])
+def test_plc_mode1_state_matches_reference_and_round_trips(fs, br):
+    """At plc_mode 1 the advanced-concealment and Phase ECU fields take the
+    reference's widths and initial values, and the numpy converters carry
+    them, the complex64 prototype spectrum included."""
+    jcfg = JConfig(fs_in=fs, bitrate=br, plc_mode=1)
+    pcfg = P.Config(fs_in=fs, bitrate=br, plc_mode=1)
+    ref = state_dict(JS.dec_state_init(jcfg, 3))
+    got = PS.dec_state_to_numpy(PS.dec_state_init(pcfg, 3, device="cpu"))
+    assert list(got) == list(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    rng = np.random.default_rng(4)
+    rows = {k: (rng.standard_normal(v.shape) * 100).astype(v.dtype) for k, v in ref.items()}
+    rows["phecu_X_sav"] = (rows["phecu_X_sav"] + 1j * rng.standard_normal(
+        rows["phecu_X_sav"].shape)).astype(np.complex64)
+    back = PS.dec_state_to_numpy(PS.dec_state_from_numpy(rows, device="cpu"))
+    for k in rows:
+        assert back[k].dtype == rows[k].dtype
+        np.testing.assert_array_equal(back[k], rows[k], err_msg=k)

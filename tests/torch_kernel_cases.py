@@ -769,3 +769,207 @@ def decode_stream(dec, payloads: list[bytes], frame_bfi: np.ndarray) -> np.ndarr
                           np.resize(np.asarray(dec.error_report), pcm.shape[0])], 1)
         out.append(np.concatenate([pcm, extra.astype(np.int32)], 1))
     return np.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# advanced concealment (plc_mode 1) at the flagship point: 48 kHz, 10 ms
+# ---------------------------------------------------------------------------
+
+PLC_HIST = 1335      # plc_adv.pcm_hist_len: max pitch 855 + a frame
+PLC_MAX_PITCH = 855
+# per group, four lanes of TD-PLC: (nb_lost, fract, stab_fac, active)
+TDC_LANES = {
+    0: ((1, 0, 0.3, True), (1, 2, 0.6, True), (2, 0, 0.5, True), (1, 1, 0.2, False)),
+    1: ((3, 0, 0.4, True), (4, 3, 0.7, True), (1, 0, 1.0, True), (6, 0, 0.9, True)),
+    2: ((7, 0, 0.5, True), (8, 1, 0.1, True), (1, 3, 1.0, True), (5, 0, 0.8, False)),
+}
+
+
+def _history(rng, kind: str, n: int, period: int = 300) -> np.ndarray:
+    t = np.arange(n)
+    if kind == "voiced":      # a pulse train of the given period through a resonance
+        phase = (t % period) / period
+        x = np.exp(-phase * 8.0) * 8000.0 * np.sin(2 * np.pi * 300 * (t % period) / 48000.0)
+    elif kind == "tones":     # high harmonics
+        f0 = rng.uniform(300, 500)
+        x = sum(2000.0 / k * np.sin(2 * np.pi * f0 * k * t / 48000.0 + rng.uniform(0, 6))
+                for k in range(1, 12))
+    else:
+        x = rng.standard_normal(n) * 2000.0
+    return (x + rng.standard_normal(n) * 20.0).astype(np.float32)
+
+
+def plc_adv_rows(group: int = 0) -> dict[str, np.ndarray]:
+    """Four lanes of the classifier and of TD-PLC (TDC_LANES[group]): PCM
+    histories (voiced, high tones, noise), scale factors of low and high
+    spectral centroid, lags with and without a pitch, and the TD-PLC state."""
+    rng = np.random.default_rng(100 + group)
+    B = 4
+    kinds = ("voiced", "tones", "voiced", "noise")
+    pitch = rng.integers(120, 600, B).astype(np.int32)
+    pitch[3] = 0
+    x = np.stack([_history(rng, k, PLC_HIST, max(int(p), 1)) for k, p in zip(kinds, pitch)])
+    tilt = np.linspace(1.0, -1.0, 16)
+    scf = np.stack([8 * tilt, -4 * tilt, 3 * tilt, rng.standard_normal(16)]).astype(np.float32)
+    scf += rng.standard_normal((B, 16)).astype(np.float32) * 0.2
+    lanes = TDC_LANES[group]
+    q = (rng.standard_normal((B, 400)) * 300).astype(np.float32)
+    q[:, 160:] *= 0.02
+    return dict(
+        x_old_tot=x, scf=scf, pitch=pitch,
+        pitch_t=rng.integers(120, PLC_MAX_PITCH, B).astype(np.int32),   # TD-PLC lanes: all pitched
+        q_d=q,
+        nb=np.array([v[0] for v in lanes], np.int32),
+        fract=np.array([v[1] for v in lanes], np.int32),
+        stab=np.array([v[2] for v in lanes], np.float32),
+        active=np.array([v[3] for v in lanes], bool),
+        seed=rng.integers(-32768, 32768, B).astype(np.int32),
+        gain_c=(rng.random(B) * 300).astype(np.float32),
+        alpha=(rng.random(B) * 0.5 + 0.5).astype(np.float32),
+        harm=(rng.standard_normal((B, PLC_MAX_PITCH)) * 200).astype(np.float32),
+        synth_hist=(rng.standard_normal((B, 16)) * 200).astype(np.float32),
+        harm_len=rng.integers(120, PLC_MAX_PITCH, B).astype(np.int32))
+
+
+# per group, four lanes of damping: (nb_lost, scramble, active, pitch, spec_inv_idx)
+DAMP_LANES = {
+    0: ((1, True, True, 1, 0), (2, True, True, 0, 0), (4, True, True, 1, 0), (3, False, True, 1, 0)),
+    1: ((1, True, True, 1, 120), (7, True, True, 0, 0), (2, True, True, 1, 399), (1, False, False, 0, 50)),
+}
+
+
+def damping_rows(group: int = 0) -> dict[str, np.ndarray]:
+    """Four lanes of noise substitution and damping (DAMP_LANES[group]): a
+    decaying spectrum with one outlier, lanes lost (spec_inv_idx 0) and
+    partially concealed (above 0), with and without pitch."""
+    rng = np.random.default_rng(200 + group)
+    B = 4
+    lanes = DAMP_LANES[group]
+    spec = (rng.standard_normal((B, 400)) * 300).astype(np.float32)
+    spec[:, 150:] *= 0.05
+    spec[1, 20] = 9000.0
+    return dict(
+        spec=spec, nb=np.array([v[0] for v in lanes], np.int32),
+        stab=(rng.random(B)).astype(np.float32),
+        scramble=np.array([v[1] for v in lanes], bool),
+        active=np.array([v[2] for v in lanes], bool),
+        pitch_present=np.array([v[3] for v in lanes], np.int32),
+        inv=np.array([v[4] for v in lanes], np.int32),
+        cum_fflc=(rng.random(B)).astype(np.float32), cum_slow=(rng.random(B)).astype(np.float32),
+        cum_fast=(rng.random(B)).astype(np.float32),
+        seed=rng.integers(-32768, 32768, B).astype(np.int32))
+
+
+PHECU_LPROT = 768    # plc_phecu.lprot at 48 kHz
+PHECU_BINS = 321     # plc_phecu.search_bins
+
+
+def phecu_history(seed: int = 0, B: int = 4) -> np.ndarray:
+    """[B, PLC_HIST] PCM histories for the Phase ECU: two tones, a chord of
+    high harmonics, seeded noise and a single tone (few peaks)."""
+    rng = np.random.default_rng(300 + seed)
+    t = np.arange(PLC_HIST)
+    rows = [3000 * np.sin(2 * np.pi * 1000.3 * t / 48000) + 2000 * np.sin(2 * np.pi * 3100 * t / 48000),
+            _history(rng, "tones", PLC_HIST),
+            rng.standard_normal(PLC_HIST) * 1500.0,
+            6000 * np.sin(2 * np.pi * 2500.7 * t / 48000 + rng.uniform(0, 6))]
+    return np.stack([rows[b % 4] + rng.standard_normal(PLC_HIST) * 5.0 for b in range(B)]).astype(np.float32)
+
+
+def phecu_peak_rows(seed: int = 0, B: int = 8) -> dict[str, np.ndarray]:
+    """Spectra [B, PHECU_BINS] (real, imag) for the peak analysis: the
+    windowed spectra of phecu_history's rows and synthetic ones that reach
+    the peak-dense drop rule (many peaks, weak correlation), one peak, and
+    two, one of them a flat top of two bins."""
+    rng = np.random.default_rng(400 + seed)
+    hist = phecu_history(seed, 4)
+    lp = PHECU_LPROT
+    h2 = 144
+    ham = 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(2 * h2) / (2 * h2 - 1))
+    win = np.concatenate([ham[:h2], np.ones(lp - 2 * h2), ham[h2:]])
+    X = np.fft.rfft(hist[:, -lp:] * win, n=lp)[:, :PHECU_BINS]
+    dense = np.zeros((2, PHECU_BINS), np.complex128)
+    for r in range(2):
+        for k in range(3, PHECU_BINS - 3, 9):          # a comb: ~35 peaks
+            dense[r, k] = 4e4 * np.exp(1j * rng.uniform(0, 6))
+        dense[r] += (rng.standard_normal(PHECU_BINS) + 1j * rng.standard_normal(PHECU_BINS)) * 50
+    few = np.zeros((2, PHECU_BINS), np.complex128)
+    few[0, 40] = 1e5
+    few[1, 40], few[1, 90] = 1e5, 6e4
+    few += (rng.standard_normal((2, PHECU_BINS)) + 1j * rng.standard_normal((2, PHECU_BINS))) * 10
+    few[1, 90] = few[1, 91] = 6e4      # a flat top: the later bin of equal magnitude is the peak
+    allX = np.concatenate([X, dense, few])[:B]
+    nc = np.array([0.9, 0.8, 0.2, 0.95, 0.3, 0.0, 0.6, 0.7], np.float32)[:B]
+    return dict(Xr=allX.real.astype(np.float32), Xi=allX.imag.astype(np.float32), nc=nc)
+
+
+# per lane of plc_damp_scramble: (ns_lane, lost, is_pc, nb_cur, pc_nb_lost,
+# pitch_int, pc_pitch, spec_inv_idx)
+DAMP_STREAM_LANES = (
+    (1, 1, 0, 1, 0, 300, 0, 400),    # noise substitution, first loss, pitched
+    (1, 1, 0, 3, 0, 0, 0, 400),      # noise substitution, third loss, no pitch
+    (1, 1, 0, 8, 0, 200, 1, 400),    # past the fade-out
+    (0, 1, 0, 2, 0, 300, 0, 400),    # TD-PLC or Phase ECU lane: factors only
+    (0, 0, 1, 0, 1, 250, 1, 120),    # partially concealed, pitched
+    (0, 0, 1, 0, 3, 0, 0, 0),        # partially concealed from bin 0
+    (0, 0, 1, 0, 2, 100, 1, 399),    # partially concealed, last bin only
+    (0, 0, 0, 0, 0, 150, 1, 400),    # clean
+)
+DAMP_STREAM_INTS = ("ns_lane", "lost", "is_pc", "nb_cur", "pc_nb_lost", "pitch_int", "pc_pitch",
+                    "spec_inv_idx")
+
+
+def damp_stream_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Eight lanes of plc_damp_scramble (DAMP_STREAM_LANES): spectra, the
+    last good one, the factors and both seeds."""
+    rng = np.random.default_rng(600 + seed)
+    B, N = len(DAMP_STREAM_LANES), 400
+    cols = np.array(DAMP_STREAM_LANES, np.int32).T
+    out = {k: cols[i].copy() for i, k in enumerate(DAMP_STREAM_INTS)}
+    x = (rng.standard_normal((B, N)) * 300).astype(np.float32)
+    x[:, 150:] *= 0.05
+    q = (rng.standard_normal((B, N)) * 300).astype(np.float32)
+    q[:, 150:] *= 0.05
+    q[0, 30] = 8000.0
+    out.update(x=x, q_d_prev=q, stab_fac=rng.random(B).astype(np.float32),
+               cum_fflc=rng.random(B).astype(np.float32), cum_slow=rng.random(B).astype(np.float32),
+               cum_fast=rng.random(B).astype(np.float32),
+               ns_seed=rng.integers(-32768, 32768, B).astype(np.int32),
+               pc_seed=rng.integers(-32768, 32768, B).astype(np.int32))
+    out["stab_fac"][1] = 1.0
+    return out
+
+
+def phecu_subst_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of phecu_subst over the eight spectra of phecu_peak_rows
+    (padded to 385 bins): the peak rows from `peaks` (f0est, num_plocs), a
+    burst of 1, 2, 3, 4, 6, 1, 2, 9 frames, transient and inactive lanes,
+    and peak counts of 0, 1 and 2."""
+    rng = np.random.default_rng(700 + seed)
+    r = phecu_peak_rows(seed)
+    B = r["Xr"].shape[0]
+    pad = lambda a: np.concatenate([a, np.zeros((B, 385 - a.shape[1]), np.float32)], 1)
+    Xr, Xi = pad(r["Xr"]), pad(r["Xi"])
+    Xr[:, 384] = rng.standard_normal(B).astype(np.float32) * 100
+    e = (np.abs(rng.standard_normal((2, B, 9))) * 1e8).astype(np.float32)
+    e[0, 2] *= 20.0                      # a falling transient
+    return dict(Xr=Xr, Xi=Xi, nb_cur=np.array([1, 2, 3, 4, 6, 1, 2, 9], np.int32)[:B],
+                e_oold=e[0], e_old=e[1],
+                mag_chg_1st=(rng.random((B, 9)) * 1.2).astype(np.float32),
+                beta_mute=rng.random(B).astype(np.float32),
+                xavg=(rng.random((B, 9)) * 300).astype(np.float32),
+                is_trans=np.array([0, 0, 0, 0, 1, 0, 0, 0], np.int32)[:B],
+                active=np.array([1, 1, 1, 1, 1, 1, 0, 1], np.int32)[:B])
+
+
+def tdc_stream_rows(group: int) -> dict[str, np.ndarray]:
+    """plc_adv_rows with the state of plc_tdc: lanes lost and not, first
+    losses and later ones, a method kept from the burst (a_st, fract_st:
+    the LPC and pitch fraction kept from it)."""
+    d = dict(plc_adv_rows(group))
+    rng = np.random.default_rng(group)
+    d["lost"] = (d["nb"] > 0) & np.array([True, True, True, group != 1])
+    d["meth"] = np.array([3, 3, 4, 3], np.int32)
+    d["a_st"] = rng.standard_normal((4, 17)).astype(np.float32)
+    d["fract_st"] = np.array([1, 0, 2, 3], np.int32)
+    return d
