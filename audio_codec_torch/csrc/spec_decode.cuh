@@ -133,7 +133,7 @@ ACX_HD bool spec_zero_line(const float* xr, int k, int bw, const SpecGeom& g) {
 // The filled value of the zero line of rank r among the filled lines: the
 // generator after r + 1 steps from nf_seed + 32768 sets the sign, the level
 // is the frame's below spec_inv_idx and the previous frame's above it.
-// lcg: mult [N + 1] ++ add [N + 1] (ops/quant.py:_lcg_tables).
+// lcg: mult [N + 1] ++ add [N + 1] (ops/quant.py:lcg_tables).
 ACX_HD float spec_fill(int k, int r, const SpecScalars& s, const int32_t* lcg, int N) {
   const int steps = iclamp(r + 1, 0, N);
   const unsigned u = (static_cast<unsigned>(s.nf_seed + 32768) * static_cast<unsigned>(lcg[steps]) +

@@ -15,18 +15,23 @@
 // Design: as tns_analysis_lattice.cu: one thread per stream, rows staged
 // through shared memory with coalesced copies, filtered in place with the
 // state, coefficients and orders in registers; bin membership from the
-// ranges, and every state index static (see tns_analysis_lattice.cu). Every
-// product and sum is rounded on its own, as the plain version's PyTorch ops
-// on the card round them, so the two agree bit for bit.
+// ranges, and every state index static (see tns_analysis_lattice.cu). The
+// taps follow the plain version's contraction, which is XLA:CPU's on every
+// device (ops/tns.py:tns_synthesis_lattice_plain): each contracted product
+// a fused multiply-add in double (`xfma`, as numerics.xla_fma), state lanes
+// 5-7 on a second chain whose first product is contracted, the main chain's
+// first product rounded on its own unless B = 1. So the card's TNS decode
+// equals the CPU port's, and the kernel its plain version, bit for bit.
 #include "acodec.cuh"
 
 using namespace acx;
 
 constexpr int kLags = 8;
 
-// One stream, in place on x [N] (stride 1); arguments as tns_analysis_lane.
+// One stream, in place on x [N] (stride 1); arguments as tns_analysis_lane,
+// and fused_first: B = 1, where the main chain's first product is contracted.
 ACX_HD void tns_synthesis_lane(float* x, int N, const float* rc, const int* order,
-                               const int* lo, const int* hi) {
+                               const int* lo, const int* hi, bool fused_first) {
   float st[kLags] = {0, 0, 0, 0, 0, 0, 0, 0};
   for (int n = 0; n < N; ++n) {
     const bool in1 = order[1] > 0 && n >= lo[1] && n <= hi[1];
@@ -35,16 +40,25 @@ ACX_HD void tns_synthesis_lane(float* x, int N, const float* rc, const int* orde
     // orders above 8 act as 8, as the plain version's clamped last tap does
     const int o = imin(in1 ? order[1] : order[0], kLags);
     const float* r = rc + (in1 ? kLags : 0);
-    float s = x[n];
+    float s = x[n], s_f = x[n];
     // the last tap o-1 first, then taps o-2..0; every state lane is read
     // before it is written and every index is static once unrolled
 #pragma unroll
     for (int el = kLags - 1; el >= 0; --el) {
       if (el == o - 1) {
-        s = rsub(s, rmul(r[el], st[el]));
+        s_f = xfma(-r[el], st[el], x[n]);
+        s = fused_first ? s_f : rsub(x[n], rmul(r[el], st[el]));
       } else if (el < o - 1) {
-        s = radd(rmul(-r[el], st[el]), s);
-        st[el + 1] = radd(rmul(r[el], s), st[el]);
+        const float s_new = xfma(-r[el], st[el], s);
+        float upd;
+        if (el >= 4) {
+          s_f = xfma(-r[el], st[el], s_f);
+          upd = xfma(r[el], s_f, st[el]);
+        } else {
+          upd = xfma(r[el], s_new, st[el]);
+        }
+        st[el + 1] = upd;
+        s = s_new;
       }
     }
     st[0] = s;
@@ -75,7 +89,7 @@ __global__ void tns_synthesis_lattice_kernel(const float* __restrict__ x,
     const int o[2] = {order[2 * s], order[2 * s + 1]};
     const int l[2] = {lo[2 * s], lo[2 * s + 1]};
     const int h[2] = {hi[2 * s], hi[2 * s + 1]};
-    tns_synthesis_lane(tile + t * ACX_ROW_STRIDE(N), N, r, o, l, h);
+    tns_synthesis_lane(tile + t * ACX_ROW_STRIDE(N), N, r, o, l, h, B == 1);
   }
   __syncthreads();
   acx_store_rows(y, tile, row0, rows, N);

@@ -39,7 +39,8 @@ KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
            "tns_filter_analysis", "pc_classify", "mdct", "imdct",
            "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
-           "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
+           "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
+           "fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -147,6 +148,10 @@ def library() -> ctypes.CDLL:
         "acx_plc_damp_scramble": [P] * 8 + [I] * 3 + [P],
         "acx_phecu_spec_ana": [P] * 9 + [I] * 3 + [P],
         "acx_phecu_subst": [P] * 9 + [I] * 7 + [P],
+        "acx_fx_sns_dec": [P] * 4 + [I] * 2 + [P],
+        "acx_fx_spec_decode": [P] * 9 + [I] * 7 + [P],
+        "acx_fx_dct4": [P] * 7 + [I] + [P],
+        "acx_fx_ola_ltpf": [P] * 17 + [I] + [P] * 2,
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -684,9 +689,9 @@ def _bw_bins(device: str, frame_dms: int) -> torch.Tensor:
 @functools.cache
 def _lcg_table(device: str, N: int) -> torch.Tensor:
     """The noise-filling generator's closed form, mult [N + 1] ++ add [N + 1]
-    (ops/quant.py:_lcg_tables), as int32 on `device` (csrc/spec_decode.cuh)."""
-    from .ops.quant import _lcg_tables
-    return torch.as_tensor(np.concatenate(_lcg_tables(N + 1)).astype(np.int32), device=device)
+    (ops/quant.py:lcg_tables), as int32 on `device` (csrc/spec_decode.cuh)."""
+    from .ops.quant import lcg_tables
+    return torch.as_tensor(np.concatenate(lcg_tables(N + 1)).astype(np.int32), device=device)
 
 
 def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, residual_present,
@@ -949,3 +954,183 @@ def phecu_subst(cfg, Xr, Xi, f0est, num_plocs, nb_cur, e_oold, e_old, mag_chg_1s
         bm.data_ptr(), tab.data_ptr(), outr.data_ptr(), outi.data_ptr(), B, ns, nsf, lgw,
         cfg.frame_length, H.t_adv(cfg), H.lprot(cfg), _stream()))
     return outr, outi
+
+
+# ---- the bit-exact fixed-point decoder (fixed_decoder_dev.py) ----
+
+FX_SNS_TABLE_WORDS = 787       # csrc/fx_sns_dec.cuh:kFxSnsTableWords
+FX_DCT4_TABLE_WORDS = 1862     # csrc/fx_dct4.cuh:kFxDctTableWords
+FX_DCT4_N = 480                # csrc/fx_dct4.cuh:kDctN
+
+
+def _i64_table(*names) -> np.ndarray:
+    return np.concatenate([np.asarray(T.t(n)).ravel().astype(np.int64) for n in names])
+
+
+def fx_sns_table_pack() -> np.ndarray:
+    """The SNS decode's tables in the layout of csrc/fx_sns_dec.cuh."""
+    return _i64_table("fx_st1SCF0_7_base5_32x8_Q14", "fx_st1SCF8_15_base5_32x8_Q14",
+                      "fx_sns_vq_reg_adj_gains", "fx_sns_vq_reg_lf_adj_gains",
+                      "fx_sns_vq_near_adj_gains", "fx_sns_vq_far_adj_gains", "fx_isqrt_Q16tab",
+                      "fx_ISqrtTable", "fx_ISqrtDiffTable", "fx_InvLog2_16_table1",
+                      "fx_InvLog2_16_table2")
+
+
+def fx_spec_table_pack(yLen: int, fs_idx: int, frame_dms: int, hrmode: bool) -> np.ndarray:
+    """The spectral chain's tables in the layout of csrc/fx_spec_decode.cuh:
+    the bandwidth cutoffs, the TNS quantizer points, InvLog2's three tables,
+    then the LCG's closed form for r = 0..yLen and the band of each bin."""
+    from .ops.fixed_dev import band_of_bin
+    from .ops.quant import lcg_tables
+    ap, cs = lcg_tables(yLen + 1)
+    bmap = band_of_bin(T.bands_offset(fs_idx, frame_dms, hrmode), yLen)
+    return np.concatenate([_i64_table("BW_cutoff_bin_all", "fx_tnsQuantPts", "fx_exp2x_tab_long",
+                                      "fx_exp2w_tab_long", "fx_exp2_tab_long"), ap, cs, bmap])
+
+
+def fx_dct4_table_pack() -> np.ndarray:
+    """The DCT-IV's tables in the layout of csrc/fx_dct4.cuh."""
+    return _i64_table("fx_SineWindow480", "fx_SineTable480", "fx_RotVector_480")
+
+
+def fx_ola_table_pack(N: int, fs_idx: int) -> np.ndarray:
+    """The window, then the rate's interpolation rows [4][12] and tilt rows
+    [4][11] (csrc/fx_ola_ltpf.cuh:OlaGeom)."""
+    from .ops.fixed_imdct import window_table
+    return np.concatenate([np.asarray(window_table(N), np.int64).ravel(),
+                           np.asarray(T.t("fx_inter_filter")[fs_idx], np.int64).ravel(),
+                           np.asarray(T.t("fx_tilt_filter")[fs_idx], np.int64).ravel()])
+
+
+def _lanes(L: int, name: str):
+    if L == 0:
+        raise ValueError(f"{name}: no frames")
+
+
+def fx_sns_dec(scf_idx, n_bands: int):
+    """Launch `fx_sns_dec` (csrc/fx_sns_dec.cu); see
+    ops/fixed_dev.py:sns_decode_plain. scf_idx [L, 7] int32 -> (scf, scf_e)
+    [L, n_bands] int64."""
+    _check(scf_idx, "scf_idx", torch.int32, 2)
+    L = scf_idx.shape[0]
+    _lanes(L, "fx_sns_dec")
+    if scf_idx.shape[1] != 7 or not 0 < n_bands <= 64:
+        raise ValueError(f"fx_sns_dec: expected [L, 7] indices and 1..64 bands, got "
+                         f"{tuple(scf_idx.shape)} and {n_bands}")
+    dev = scf_idx.device
+    scf = torch.empty((L, n_bands), dtype=torch.int64, device=dev)
+    scf_e = torch.empty_like(scf)
+    tab = nm.table(fx_sns_table_pack, device=dev, dtype=torch.int64)
+    _run("fx_sns_dec", library().acx_fx_sns_dec(scf_idx.data_ptr(), tab.data_ptr(),
+                                                 scf.data_ptr(), scf_e.data_ptr(), L, n_bands,
+                                                 _stream()))
+    return scf, scf_e
+
+
+def fx_spec_decode(cfg, x, res_bits, n_res, nf_seed, zero_frame, fac_ns_idx, bw_idx, gg_idx,
+                   tns_idx, tns_order, scf, scf_e):
+    """Launch `fx_spec_decode` (csrc/fx_spec_decode.cu); see
+    ops/fixed_dev.py:spectrum_decode_plain. Returns (shaped [L, N], x_e [L])
+    int64."""
+    if cfg.hrmode:
+        raise ValueError("fx_spec_decode: HR mode is not ported")
+    _check(x, "x", torch.int32, 2)
+    L, yLen = x.shape
+    _lanes(L, "fx_spec_decode")
+    if yLen != cfg.yLen:
+        raise ValueError(f"fx_spec_decode: expected [L, {cfg.yLen}] spectra, got {tuple(x.shape)}")
+    _check(res_bits, "res_bits", torch.int32, 2)
+    R = res_bits.shape[1]
+    if res_bits.shape[0] != L:
+        raise ValueError("fx_spec_decode: residual bits of another batch")
+    tidx = tns_idx.reshape(L, 16)
+    _rows(tidx, "tns_idx", (L, 16), torch.int32)
+    _rows(tns_order, "tns_order", (L, 2), torch.int32)
+    nb = cfg.bands_number
+    _rows(scf, "scf", (L, nb), torch.int64)
+    _rows(scf_e, "scf_e", (L, nb), torch.int64)
+    dev = x.device
+    side = torch.stack([_i32(v, L, dev) for v in (n_res, nf_seed, zero_frame, fac_ns_idx, bw_idx,
+                                                  gg_idx)]
+                       + [tns_order[:, 0], tns_order[:, 1]], dim=1).contiguous()
+    tab = nm.table(fx_spec_table_pack, yLen, cfg.fs_idx, cfg.frame_dms, cfg.hrmode, device=dev,
+                   dtype=torch.int64)
+    N = cfg.frame_length
+    out = torch.empty((L, N), dtype=torch.int64, device=dev)
+    x_e = torch.empty((L,), dtype=torch.int64, device=dev)
+    _run("fx_spec_decode", library().acx_fx_spec_decode(
+        x.data_ptr(), res_bits.data_ptr(), side.data_ptr(), tidx.data_ptr(), scf.data_ptr(),
+        scf_e.data_ptr(), tab.data_ptr(), out.data_ptr(), x_e.data_ptr(), L, yLen, N, nb,
+        cfg.frame_dms, cfg.quantizedGainOff, R, _stream()))
+    return out, x_e
+
+
+def fx_dct4(y, y_e, N: int, frame_dms: int = 100):
+    """Launch `fx_dct4` (csrc/fx_dct4.cu); see
+    ops/fixed_dev.py:batch_dct4_plain. y [L, 480] int64, y_e [L] int64 ->
+    (ytda [L, 480], y_e, y_s int64, zero bool)."""
+    if N != FX_DCT4_N or frame_dms != 100:
+        raise ValueError(f"fx_dct4: the kernel takes the 48 kHz 10 ms frame (N = {FX_DCT4_N}); "
+                         f"N = {N} at {frame_dms / 10:g} ms is not ported")
+    _check(y, "y", torch.int64, 2)
+    L = y.shape[0]
+    _lanes(L, "fx_dct4")
+    _rows(y, "y", (L, N), torch.int64)
+    _check_vectors(L, torch.int64, y_e=y_e)
+    dev = y.device
+    tab = nm.table(fx_dct4_table_pack, device=dev, dtype=torch.int64)
+    ytda = torch.empty_like(y)
+    ye, ys = (torch.empty((L,), dtype=torch.int64, device=dev) for _ in range(2))
+    zero = torch.empty((L,), dtype=torch.bool, device=dev)
+    _run("fx_dct4", library().acx_fx_dct4(y.data_ptr(), y_e.data_ptr(), tab.data_ptr(),
+                                          ytda.data_ptr(), ye.data_ptr(), ys.data_ptr(),
+                                          zero.data_ptr(), L, _stream()))
+    return ytda, ye, ys, zero
+
+
+FX_STATE_KEYS = ("mem", "mem_e", "old_x", "old_y", "old_e", "pitch_int", "pitch_fr", "gain",
+                 "mem_active", "old_sfi")
+
+
+def fx_ola_geometry(cfg, sfi: int) -> list[int]:
+    """csrc/fx_ola_ltpf.cuh:OlaGeom of a configuration."""
+    from .ops.fixed_imdct import window_table
+    from .ops.fixed_ltpf import _FADE_STEP, mem_lens
+    from .ops.fixed_ltpf_dev import filter_geometry
+    N = cfg.frame_length
+    wLen = len(window_table(N))
+    x_len, y_len = mem_lens(cfg.fs)
+    f = filter_geometry(cfg.fs_idx)
+    gain_val = int(T.t("fx_gain_scale_fac")[sfi]) if sfi >= 0 else 0
+    return [N, wLen, x_len, y_len, f["ilen"], f["tlen"], f["shift"], f["N4"], f["pitch_scale"],
+            _FADE_STEP[f["N4"]], sfi, gain_val, wLen, wLen + 4 * 12]
+
+
+def fx_ola_ltpf(cfg, st: dict, ytda, y_e, y_s, zero, ltpf_param, sfi: int):
+    """Launch `fx_ola_ltpf` (csrc/fx_ola_ltpf.cu) on one frame; see
+    ops/fixed_ltpf_dev.py:ola_ltpf_plain. Updates the state dict st in
+    place; returns PCM [B, N] int16."""
+    geom = fx_ola_geometry(cfg, sfi)
+    N, wLen, x_len, y_len = geom[:4]
+    _check(ytda, "ytda", torch.int64, 2)
+    B = ytda.shape[0]
+    _lanes(B, "fx_ola_ltpf")
+    _rows(ytda, "ytda", (B, N), torch.int64)
+    _check_vectors(B, torch.int64, y_e=y_e, y_s=y_s)
+    _check_vectors(B, torch.bool, zero=zero)
+    _rows(ltpf_param, "ltpf_param", (B, 3), torch.int32)
+    widths = {"mem": wLen - N, "old_x": x_len, "old_y": y_len}
+    for k in FX_STATE_KEYS:
+        if k in widths:
+            _rows(st[k], k, (B, widths[k]), torch.int64)
+        else:
+            _check_vectors(B, torch.int64, **{k: st[k]})
+    dev = ytda.device
+    tab = nm.table(fx_ola_table_pack, N, cfg.fs_idx, device=dev, dtype=torch.int64)
+    pcm = torch.empty((B, N), dtype=torch.int16, device=dev)
+    g = (ctypes.c_int * len(geom))(*geom)
+    _run("fx_ola_ltpf", library().acx_fx_ola_ltpf(
+        ytda.data_ptr(), y_e.data_ptr(), y_s.data_ptr(), zero.data_ptr(), ltpf_param.data_ptr(),
+        tab.data_ptr(), *(st[k].data_ptr() for k in FX_STATE_KEYS), pcm.data_ptr(), B,
+        ctypes.cast(g, ctypes.c_void_p), _stream()))
+    return pcm

@@ -405,7 +405,7 @@ def apply_global_gain(cfg: Config, x, gg_idx):
 
 
 @functools.cache
-def _lcg_tables(n: int):
+def lcg_tables(n: int):
     """Closed-form advance of the noise-filling LCG (noise_filling.c:58-60):
     in u = seed + 32768, u' = (u * 31821 + 13849) mod 2^16, so
     seed_k = seed0 * mult[k] + add[k] (mod 2^16)."""
@@ -421,7 +421,7 @@ def _lcg_tables(n: int):
 
 
 def _lcg_part(n: int, which: int) -> np.ndarray:
-    return _lcg_tables(n)[which]
+    return lcg_tables(n)[which]
 
 
 def noise_filling(cfg: Config, x, nf_seed, fac_ns_idx, bw_bin,

@@ -314,7 +314,9 @@ def tns_synthesis_lattice_plain(x, rc, order, lo, hi):
     recomputing the chain of s. For B > 1 the first product
     (x - rc[last] * st[last]) is contracted only in the fusions of state
     lanes 5-7, so those lanes follow a second chain; every later product is
-    contracted everywhere, and at B = 1 the first one too."""
+    contracted everywhere, and at B = 1 the first one too. The contracted
+    products are `numerics.xla_fma` on every device, card included, so the
+    card takes the CPU's contraction (the kernel writes them as `xfma`)."""
     B, N = x.shape
     in_f1, active, ordsel = _filter_bins(order, lo, hi, N)
     st_c = torch.zeros((B, MAXLAG), dtype=F32, device=x.device)
@@ -325,17 +327,17 @@ def tns_synthesis_lattice_plain(x, rc, order, lo, hi):
         last = torch.clamp(o - 1, 0, MAXLAG - 1).long()[:, None]
         rc_last = torch.gather(rcf, 1, last)[:, 0]
         st_last = torch.gather(st_c, 1, last)[:, 0]
-        s_f = nm.fma(-rc_last, st_last, xb)      # the chain of state lanes 5-7
+        s_f = nm.xla_fma(-rc_last, st_last, xb)      # the chain of state lanes 5-7
         s = s_f if B == 1 else xb - rc_last * st_last
         new_st = st_c.clone()
         for el in range(MAXLAG - 2, -1, -1):
             live = el <= (o - 2)
-            s_new = nm.fma(-rcf[:, el], st_c[:, el], s)
+            s_new = nm.xla_fma(-rcf[:, el], st_c[:, el], s)
             if el >= 4:
-                s_f = torch.where(live, nm.fma(-rcf[:, el], st_c[:, el], s_f), s_f)
-                upd = nm.fma(rcf[:, el], s_f, st_c[:, el])
+                s_f = torch.where(live, nm.xla_fma(-rcf[:, el], st_c[:, el], s_f), s_f)
+                upd = nm.xla_fma(rcf[:, el], s_f, st_c[:, el])
             else:
-                upd = nm.fma(rcf[:, el], s_new, st_c[:, el])
+                upd = nm.xla_fma(rcf[:, el], s_new, st_c[:, el])
             new_st[:, el + 1] = torch.where(actb & live, upd, new_st[:, el + 1])
             s = torch.where(live, s_new, s)
         new_st[:, 0] = torch.where(actb, s, new_st[:, 0])

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of audio_codec_torch on one CUDA card.
 
-Drives the port's two paths on the card through the CUDA kernels of
+Drives the port's paths on the card through the CUDA kernels of
 audio_codec_torch/csrc and checks them: the 48 kHz / 10 ms / 64 kbps block
-path (`encode_block` then `decode_block`), and the error-protected stream
-path (`engine.StreamEncoder` -> channel errors -> `engine.StreamDecoder`)
-at EP1-4 in the flagship's 80-byte slot.
+path (`encode_block` then `decode_block`), the error-protected stream path
+(`engine.StreamEncoder` -> channel errors -> `engine.StreamDecoder`) at
+EP1-4 in the flagship's 80-byte slot, the advanced concealment
+(`decode_block` at plc_mode=1) and the bit-exact fixed-point decoder
+(`DeviceFixedDecoder.decode_block`).
 
   1. card      name and power limit (nvidia-smi), torch's device name;
   2. build     every kernel from the sources, with nvcc's -Xptxas -v report;
@@ -65,7 +67,26 @@ at EP1-4 in the flagship's 80-byte slot.
                the kernel path's payloads, flags and PCM (+-1) against the
                plain path's; CUDA-event times of the new kernels and of
                encode/decode per frame at each mode;
-  7. a JSON line with one entry per kernel.
+  7. concealment the plc_mode=1 path (see concealment_phase), with its
+               stage-by-stage trace card against CPU;
+  8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
+               phase 4's payloads with a group of silent streams (zero
+               frames), B x T: the launch counts (the frontend's two, one
+               fx_sns_dec, fx_spec_decode and fx_dct4, T fx_ola_ltpf); every
+               launch of the four fixed-point kernels equal to its plain
+               version with no tolerance, with the SNS submodes, TNS on/off,
+               zero frames and the post-filter's branches printed; the
+               synthetic rows of tests/torch_kernel_cases.py (every submode,
+               out-of-range MPVQ indices, silent, full-scale and order-8
+               spectra, all-zero, full-scale and alternating DCT rows, the
+               post-filter plan through passthrough, pat2, pat3, pat4, pat1);
+               the stored reference (audio_codec_torch/data/fixed_pcm_ref.npz,
+               the reference FixedDecoder's PCM) decoded on the card bit for
+               bit; 12 streams of the block against the port on the CPU bit
+               for bit; the kernels' times (fx_ola_ltpf over the block's
+               recorded frames from its first state) and the block's, as
+               real-time stream equivalents;
+  9. a JSON line with one entry per kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero. Run from the repository root: python3 chip_smoke.py
@@ -144,6 +165,12 @@ KERNEL_INFO = {
                        "audio_codec_tpu/ops/plc_phecu.py:135"),
     "phecu_subst": ("audio_codec_torch/csrc/phecu_subst.cu",
                     "audio_codec_tpu/ops/plc_phecu.py:273"),
+    "fx_sns_dec": ("audio_codec_torch/csrc/fx_sns_dec.cu", "audio_codec_tpu/ops/fixed_dev.py:525"),
+    "fx_spec_decode": ("audio_codec_torch/csrc/fx_spec_decode.cu",
+                       "audio_codec_tpu/ops/fixed_dev.py:185"),
+    "fx_dct4": ("audio_codec_torch/csrc/fx_dct4.cu", "audio_codec_tpu/ops/fixed_dev.py:574"),
+    "fx_ola_ltpf": ("audio_codec_torch/csrc/fx_ola_ltpf.cu",
+                    "audio_codec_tpu/ops/fixed_ltpf_dev.py:169"),
 }
 # the kernels of the flagship block path (phases 3-5); the stream path
 # (phase 6) runs them and the channel coder's two
@@ -151,6 +178,9 @@ STREAM_KERNELS = ("fec_encode", "fec_decode")
 # the advanced concealment's kernels (phase 7, plc_mode 1)
 PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
 PLC_FRAMES = 16
+# the bit-exact fixed-point decoder's kernels (phase 8, DeviceFixedDecoder)
+FIXED_KERNELS = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
+FIXED_SILENT = 64          # streams of silence in phase 8's block: zero frames
 PC_ROWS = ("ari_decode_pc", "ari_decode_pc_enc_sim")
 STREAM_MODES = (1, 2, 3, 4)
 TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
@@ -291,25 +321,11 @@ def plain_path():
             setattr(mod, name, fn)
 
 
-@contextlib.contextmanager
-def recording(store: dict):
-    """Keep the arguments of every kernel launch, in order, in
-    store[kernel name]."""
-    from audio_codec_torch import kernels as K
-    saved = {n: getattr(K, n) for n in K.KERNELS}
-
-    def wrap(name, fn):
-        def rec(*args, **kw):
-            store.setdefault(name, []).append((args, kw))
-            return fn(*args, **kw)
-        return rec
-    for n, fn in saved.items():
-        setattr(K, n, wrap(n, fn))
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(K, n, fn)
+def recording(store: dict, names=None, copy: bool = False):
+    """tests/torch_kernel_cases.py:recording, imported once the repo is on
+    the path."""
+    from tests.torch_kernel_cases import recording as rec
+    return rec(store, names, copy)
 
 
 def ltpf_case_counts(launches) -> dict[str, int]:
@@ -692,13 +708,19 @@ def _tensors(v) -> list:
     return []
 
 
+# at plc_mode 1 the concealment's stages come in besides
+PLC_STAGES = DECODER_STAGES + (("plc_adv", "plc_tdc"), ("plc_adv", "tdac"),
+                               ("plc_phecu", "apply"), ("plc_adv", "damp_scramble"),
+                               ("plc_adv", "update_pcm_hist"))
+
+
 @contextlib.contextmanager
-def stage_trace(store: list):
+def stage_trace(store: list, stages=DECODER_STAGES):
     """Record the outputs of every decoder stage call, in order, in store as
     (stage, [tensors on the CPU])."""
     import importlib
     saved = []
-    for mod_name, fn_name in DECODER_STAGES:
+    for mod_name, fn_name in stages:
         mod = importlib.import_module(f"audio_codec_torch.ops.{mod_name}")
         fn = getattr(mod, fn_name)
         saved.append((mod, fn_name, fn))
@@ -715,14 +737,26 @@ def stage_trace(store: list):
             setattr(mod, fn_name, fn)
 
 
-def first_difference(card: list, cpu: list):
+def first_difference(card: list, cpu: list, may_diverge: bool = False):
     """The first stage call (in call order) whose output differs between two
     traces of the same decode, with per-stage counts of differing calls:
-    (stage, call, output, element, card value, cpu value, ulps or None)."""
+    (stage, call, output, element, card value, cpu value, ulps or None).
+    The two traces must take the same stages in the same order; with
+    may_diverge (a concealment path that a differing value can steer), the
+    first stage where they part is reported instead, and the rest is not
+    compared."""
     import torch
+    if not may_diverge:
+        check(len(card) == len(cpu) and all(a[0] == b[0] for a, b in zip(card, cpu)),
+              f"the card's and the CPU's decodes took different stages: "
+              f"{[a[0] for a in card]} vs {[b[0] for b in cpu]}")
     first, per_stage = None, {}
-    for i, ((name, a), (name_c, b)) in enumerate(zip(card, cpu, strict=True)):
-        assert name == name_c, (name, name_c)
+    for i, ((name, a), (name_c, b)) in enumerate(zip(card, cpu)):
+        if name != name_c:          # the two decodes took different stages from here
+            per_stage[name] = per_stage.get(name, 0) + 1
+            if first is None:
+                first = (f"{name} (cpu: {name_c})", i, None, None, None, None, None)
+            break
         for j, (x, y) in enumerate(zip(a, b, strict=True)):
             if x.dtype == torch.float32:
                 diff = x.view(torch.int32) != y.view(torch.int32)
@@ -812,7 +846,7 @@ def stream_phase(dev, pcm, K, plain, card):
     torch.cuda.synchronize()
     counts = dict(K.launches)
     print(f"[stream] EP1-4 x {T} frames x {B} streams: launches {counts}", flush=True)
-    check(all(counts[k] > 0 for k in K.KERNELS if k not in PLC_KERNELS),
+    check(all(counts[k] > 0 for k in K.KERNELS if k not in PLC_KERNELS + FIXED_KERNELS),
           f"a kernel was not launched: {counts}")
 
     # every launch of the channel coder and of the PC decoder against its
@@ -1196,11 +1230,19 @@ def concealment_phase(dev, opt, K, card) -> list:
     # against the port on the CPU (the path the tests hold to the reference)
     nb = min(12, B)
     fr_s, bfi_s = frames[:, :nb].contiguous(), bfi[:, :nb].contiguous()
-    _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
+    trace_k, trace_c = [], []
+    with stage_trace(trace_k, PLC_STAGES):
+        _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
     with plain_path():
         _, out_p = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
     cpu = torch.device("cpu")
-    _, out_c = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_s.cpu(), bfi_s.cpu())
+    with stage_trace(trace_c, PLC_STAGES):
+        _, out_c = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_s.cpu(),
+                                  bfi_s.cpu())
+    first, per_stage = first_difference(trace_k, trace_c, may_diverge=True)
+    print(f"[plc] card vs CPU port at plc_mode 1, stage by stage over {len(trace_k)} stage "
+          f"calls: first difference {first} (stage, call, output, element, card, cpu, ulps); "
+          f"stage calls that differ {per_stage}", flush=True)
     pk = P.round_pcm(out_k).to(torch.int32)
     gap_p = int((pk - P.round_pcm(out_p).to(torch.int32)).abs().max())
     gap_c = (pk.cpu() - P.round_pcm(out_c).to(torch.int32)).abs()
@@ -1253,6 +1295,251 @@ def concealment_phase(dev, opt, K, card) -> list:
           f"per lossy frame (median of {len(lossy)}; min {min(lossy):.2f}, max {max(lossy):.2f}); "
           f"clean frames {statistics.median(per[:4]):.2f} ms", flush=True)
     print(f"[plc] phase 7 took {time.time() - t_start:.1f} s", flush=True)
+    return rows
+
+
+def fixed_work_bytes(name: str, args, outs) -> int:
+    """Bytes the fixed-point kernel must move: each input read once, each
+    output written once (the state of fx_ola_ltpf read and written); the
+    residual bits only as far as each frame's n_res reaches, and of each DCT
+    row only the bins below the bandwidth cap (fixed_imdct.MAX_BW)."""
+    if name == "fx_sns_dec":
+        return nbytes(args[0]) + nbytes(*outs)
+    if name == "fx_spec_decode":
+        cfg, x, res, n_res = args[:4]
+        return (nbytes(x, *args[4:]) + int(n_res.clamp(0, res.shape[1]).sum()) * 4 + 4 * len(n_res)
+                + nbytes(*outs))
+    if name == "fx_dct4":
+        from audio_codec_torch.ops.fixed_imdct import MAX_BW
+        y, y_e, N, frame_dms = args[:4]
+        cols = min(N, MAX_BW >> {25: 2, 50: 1, 100: 0}[frame_dms])
+        return y.shape[0] * cols * y.element_size() + nbytes(y_e) + nbytes(*outs)
+    st = args[1]
+    return nbytes(*args[2:7], *st.values()) + nbytes(outs[0], *st.values())
+
+
+def fixed_branches(name: str, args, out, fs_idx: int) -> dict[str, int]:
+    """What the recorded launch's frames reach: SNS submodes, TNS on and off
+    and zero frames, the post-filter's branches (0 passthrough, 1-4 pat1-4)."""
+    import torch
+    from audio_codec_torch.ops import fixed_ltpf_dev as fld
+    if name == "fx_sns_dec":
+        from audio_codec_torch.ops import fixed_dev as fv
+        sub = torch.bincount(args[0][:, 2].clamp(0, 3).long(), minlength=4).tolist()
+        ber = int(fv.sns_decode_scf(args[0])[1].sum())
+        return {f"submode {k}": sub[k] for k in range(4)} | {"MPVQ index out of range": ber}
+    if name == "fx_spec_decode":
+        on = (args[10] > 0).any(dim=1)
+        return {"TNS on": int(on.sum()), "TNS off": int((~on).sum()),
+                "zero frames": int((args[5] != 0).sum())}
+    if name == "fx_dct4":
+        return {"all-zero rows": int((out[3]).sum()), "rows": int(out[3].numel())}
+    pats = torch.bincount(fld.ltpf_patterns(args[1], args[6], fs_idx), minlength=5).tolist()
+    return dict(zip(("passthrough", "pat1", "pat2", "pat3", "pat4"), pats))
+
+
+def fixed_equal(K, name: str, args) -> tuple[list, int]:
+    """One launch of a fixed-point kernel against its plain version on the
+    same inputs (tests/torch_kernel_cases.py:fixed_pair); fails on any
+    difference. Returns the kernel's outputs and the largest |kernel -
+    plain|."""
+    import torch
+    from tests.torch_kernel_cases import fixed_pair
+    got, ref = fixed_pair(K, name, args)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref, strict=True))
+    same_bits(got, ref, name)
+    return got, err
+
+
+def fixed_args_copy(args) -> list:
+    """The arguments with a copy of each state dict (fx_ola_ltpf steps its
+    state in place)."""
+    return [{k: v.clone() for k, v in a.items()} if isinstance(a, dict) else a for a in args]
+
+
+def ola_block_times(K, launches, final: dict) -> tuple[float, float, float, float, float]:
+    """fx_ola_ltpf's ms a launch over the block's recorded frames: each timed
+    call copies the block's first state into a working state and runs the T
+    recorded launches in order, so every launch meets the state and takes
+    the branches it took in the main path (the working state must end equal
+    to the main path's, `final`); the copy is timed alone and taken off.
+    Returns (median, min, max over the loops, CUDA-graph replay, the plain
+    version), each ms a launch."""
+    import torch
+    from tests.torch_kernel_cases import fixed_plain
+    cfg, first = launches[0][0][:2]
+    frames = [args[2:] for args, _ in launches]
+    T = len(frames)
+    snap = {k: v.clone() for k, v in first.items()}
+    work = {k: v.clone() for k, v in first.items()}
+
+    def restore():
+        for k, v in snap.items():
+            work[k].copy_(v)
+
+    def block():
+        restore()
+        for rest in frames:
+            K.fx_ola_ltpf(cfg, work, *rest)
+    block()
+    torch.cuda.synchronize()
+    check(all(torch.equal(work[k], final[k]) for k in final),
+          "fx_ola_ltpf's timed frames do not end in the main path's state")
+    loops = sorted(cuda_ms(block, TIME_LAUNCHES) for _ in range(TIME_LOOPS))
+    copy_ms = sorted(cuda_ms(restore, TIME_LAUNCHES) for _ in range(TIME_LOOPS))[TIME_LOOPS // 2]
+    per = [(v - copy_ms) / T for v in loops]
+    gms = (graph_ms(block) - graph_ms(restore)) / T
+
+    def plain_block():
+        st = {k: v.clone() for k, v in snap.items()}
+        for rest in frames:
+            fixed_plain("fx_ola_ltpf")(cfg, st, *rest)
+    pms = cuda_ms(plain_block, 1) / T
+    print(f"[times] fx_ola_ltpf: {T} recorded frames from the block's first state a timed call; "
+          f"the state copy {copy_ms:.4f} ms taken off", flush=True)
+    return per[TIME_LOOPS // 2], per[0], per[-1], gms, pms
+
+
+def fixed_synthetic(cfg, dev, K) -> dict:
+    """The synthetic rows of tests/torch_kernel_cases.py through each
+    fixed-point kernel against its plain version: every SNS submode, both
+    leading signs and out-of-range indices; silent, full-scale, zero-frame
+    and order-8 spectra; all-zero, full-scale and alternating DCT rows; the
+    post-filter plan through passthrough, pat2, pat3, pat4 and pat1."""
+    import torch
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from audio_codec_torch.ops import fixed_dev as fv
+    from tests import torch_kernel_cases as C
+    g = lambda a: torch.from_numpy(a).to(dev)
+    hist = {}
+    idx = g(C.fx_sns_rows())
+    fixed_equal(K, "fx_sns_dec", (idx, cfg.bands_number))
+    hist["fx_sns_dec"] = fixed_branches("fx_sns_dec", (idx,), None, cfg.fs_idx)
+    d = C.fx_spec_rows(cfg)
+    scf, scf_e = fv.sns_decode_plain(g(d["scf_idx"]), cfg.bands_number)
+    args = (cfg, *(g(d[k]) for k in C.FX_SPEC_ORDER), scf, scf_e)
+    fixed_equal(K, "fx_spec_decode", args)
+    hist["fx_spec_decode"] = fixed_branches("fx_spec_decode", args, None, cfg.fs_idx)
+    y, y_e = C.fx_dct4_rows()
+    out, _ = fixed_equal(K, "fx_dct4", (g(y), g(y_e), cfg.frame_length, cfg.frame_dms))
+    hist["fx_dct4"] = fixed_branches("fx_dct4", None, out, cfg.fs_idx)
+    plan = C.fx_ola_plan(B=64)
+    dec = DeviceFixedDecoder(cfg, 64, device=dev)
+    pats = {}
+    for t in range(len(C.LTPF_PLAN)):
+        args = (cfg, dec.state, *(g(plan[k][t]) for k in ("ytda", "y_e", "y_s", "zero", "lp")),
+                dec.sfi)
+        b = fixed_branches("fx_ola_ltpf", args, None, cfg.fs_idx)
+        pats = {k: pats.get(k, 0) + v for k, v in b.items()}
+        fixed_equal(K, "fx_ola_ltpf", args)
+        K.fx_ola_ltpf(*args)               # step the plan's state
+    hist["fx_ola_ltpf"] = pats
+    return hist
+
+
+def fixed_phase(dev, frames, K, card) -> list:
+    """Phase 8: DeviceFixedDecoder over phase 4's payloads (and a group of
+    silent streams) at B x T; the four fixed-point kernels against their
+    plain versions on every launch and on synthetic rows; the card against
+    the stored reference PCM and against the port on the CPU; times."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from tests.torch_kernel_cases import fixed_plain
+    t_start = time.time()
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    T, B = frames.shape[:2]
+    silent = torch.zeros((T, FIXED_SILENT, cfg.frame_length), device=dev)
+    _, quiet = P.encode_block(cfg, P.enc_state_init(cfg, FIXED_SILENT, device=dev), silent)
+    frames = frames.clone()
+    frames[:, B - FIXED_SILENT:] = quiet
+    print(f"[fixed] payloads: phase 4's block, its last {FIXED_SILENT} streams silent; "
+          f"B={B} T={T}", flush=True)
+
+    # the main path's run and its launch counts
+    dd = DeviceFixedDecoder(cfg, B, device=dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    pcm = dd.decode_block(frames)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launches.items() if v}
+    print(f"[fixed] DeviceFixedDecoder.decode_block at B={B} T={T}: launches {counts}", flush=True)
+    want = {"side_info_parse": 1, "ari_decode": 1, "fx_sns_dec": 1, "fx_spec_decode": 1,
+            "fx_dct4": 1, "fx_ola_ltpf": T}
+    check(counts == want, f"fixed-point launches {counts}, expected {want}")
+    check(tuple(pcm.shape) == (T, B, cfg.frame_length) and pcm.dtype == torch.int16,
+          f"fixed-point PCM {tuple(pcm.shape)} {pcm.dtype}")
+
+    # every launch against its plain version, with no tolerance
+    rec: dict = {}
+    rd = DeviceFixedDecoder(cfg, B, device=dev)
+    with recording(rec, FIXED_KERNELS, copy=True):
+        rd.decode_block(frames)
+    torch.cuda.synchronize()
+    hist, errs = {}, {}
+    for name in FIXED_KERNELS:
+        for args, _ in rec[name]:
+            out, err = fixed_equal(K, name, args)
+            errs[name] = max(errs.get(name, 0), err)
+            b = fixed_branches(name, args, out, cfg.fs_idx)
+            hist[name] = {k: hist.get(name, {}).get(k, 0) + v for k, v in b.items()}
+        print(f"[fixed] {name}: {len(rec[name])} launches equal their plain version; "
+              f"{hist[name]}", flush=True)
+    check(hist["fx_spec_decode"]["zero frames"] > 0, "no zero frame in the fixed-point block")
+    check(all(hist["fx_sns_dec"][f"submode {k}"] > 0 for k in range(4)),
+          f"an SNS submode never occurred: {hist['fx_sns_dec']}")
+    syn = fixed_synthetic(cfg, dev, K)
+    print(f"[fixed] synthetic rows equal their plain versions; {syn}", flush=True)
+    check(all(v > 0 for v in syn["fx_ola_ltpf"].values()),
+          f"a post-filter branch was not reached: {syn['fx_ola_ltpf']}")
+    check(all(v > 0 for v in syn["fx_sns_dec"].values()) and syn["fx_dct4"]["all-zero rows"] > 0,
+          "a synthetic SNS submode, out-of-range index or all-zero DCT row is missing")
+
+    # the card against the reference: the stored PCM, bit for bit
+    ref = np.load(ROOT / "audio_codec_torch" / "data" / "fixed_pcm_ref.npz")
+    nref = ref["frames"].shape[1]
+    got = DeviceFixedDecoder(cfg, nref, device=dev).decode_block(
+        torch.from_numpy(ref["frames"]).to(dev)).cpu().numpy()
+    diff = int((got != ref["pcm"]).sum())
+    print(f"[fixed] stored reference ({nref} streams x {ref['frames'].shape[0]} frames of the "
+          f"reference's FixedDecoder): {diff} samples differ on the card", flush=True)
+    check(diff == 0, f"the card's fixed-point PCM differs from the reference's in {diff} samples")
+    # a few streams of this run against the port on the CPU
+    pick = list(range(8)) + list(range(B - 4, B))
+    cpu = DeviceFixedDecoder(cfg, len(pick), device="cpu").decode_block(frames[:, pick].cpu())
+    diff = int((cpu != pcm[:, pick].cpu()).sum())
+    print(f"[fixed] card vs the port on the CPU, streams {pick}: {diff} samples differ",
+          flush=True)
+    check(diff == 0, f"the card's fixed-point PCM differs from the CPU port's in {diff} samples")
+
+    # times
+    rows = []
+    for name in FIXED_KERNELS:
+        args, _ = rec[name][-1]
+        if name == "fx_ola_ltpf":
+            ms, ms_min, ms_max, gms, pms = ola_block_times(K, rec[name], rd.state)
+        else:
+            fn = lambda: getattr(K, name)(*args)
+            ms, ms_min, ms_max = cuda_ms_spread(fn)
+            gms = graph_ms(fn)
+            pms = cuda_ms(lambda: fixed_plain(name)(*args), 1)
+        byts = fixed_work_bytes(name, args, outputs(getattr(K, name)(*fixed_args_copy(args))))
+        b_bytes = byts / HBM_BYTES_PER_S * 1e3
+        src, replaces = KERNEL_INFO[name]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                         launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
+                         bound_ms=b_bytes, bound_by="bytes", library_ms=None, graph_ms=gms))
+        print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
+              f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
+              f"a CUDA graph), plain {pms:.2f} ms, bound {b_bytes:.6f} ms ({byts} B), "
+              f"{counts[name]} launches in the block", flush=True)
+    dd = DeviceFixedDecoder(cfg, B, device=dev)
+    dec_ms = cuda_ms(lambda: dd.decode_block(frames), 1)
+    print(f"[times] {card} | DeviceFixedDecoder.decode_block B={B} T={T}: {dec_ms:.1f} ms, "
+          f"{T * B / (dec_ms / 1e3) / 100.0:.1f} real-time 10 ms streams", flush=True)
+    print(f"[fixed] phase 8 took {time.time() - t_start:.1f} s", flush=True)
     return rows
 
 
@@ -1312,7 +1599,7 @@ def main() -> int:
         ds = P.dec_state_init(cfg, B, device=dev)
         P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
-    MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS + PLC_KERNELS]
+    MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS + PLC_KERNELS + FIXED_KERNELS]
     check(set(rec) == set(MAIN), f"kernels not reached on the main path: {set(MAIN) - set(rec)}")
     modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
     check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
@@ -1526,7 +1813,10 @@ def main() -> int:
     # ---- 7. the concealment path ----
     rows += concealment_phase(dev, opt, K, card)
 
-    # ---- 8. kernels line ----
+    # ---- 8. the bit-exact fixed-point decoder ----
+    rows += fixed_phase(dev, frames, K, card)
+
+    # ---- 9. kernels line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,13 @@ block (bfi 0 and 2, and the encoder's simulation); the four concealment
 kernels (plc_mode 1) on every launch of a lossy block over speech, music,
 noise and tones and on their synthetic rows; a warmed encode_frame,
 decode_frame (plc_mode 0 and 1) and the stream path's device step at EP3 run
-under torch.cuda.set_sync_debug_mode("error")."""
+under torch.cuda.set_sync_debug_mode("error"). The four kernels of the
+bit-exact fixed-point decoder (DeviceFixedDecoder) run on every launch of a
+B = 64 block with silent streams and on their synthetic rows (every SNS
+submode and out-of-range indices, silent, full-scale and order-8 spectra,
+all-zero, full-scale and alternating DCT rows, the post-filter through
+passthrough and its four patterns), equal to their plain versions with no
+tolerance; the card's PCM equals the stored reference's and the CPU's."""
 from __future__ import annotations
 
 import wave
@@ -351,7 +357,8 @@ def test_launch_counts_move(dev):
                           "pc_classify": 2, "mdct": 2, "imdct": 2, "olpa": 2,
                           "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2,
                           "fec_encode": 0, "fec_decode": 0, "plc_tdc": 0,
-                          "plc_damp_scramble": 0, "phecu_spec_ana": 0, "phecu_subst": 0}
+                          "plc_damp_scramble": 0, "phecu_spec_ana": 0, "phecu_subst": 0,
+                          "fx_sns_dec": 0, "fx_spec_decode": 0, "fx_dct4": 0, "fx_ola_ltpf": 0}
 
 
 def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
@@ -738,3 +745,87 @@ def test_warmed_plc_mode1_decode_frame_does_not_synchronise(dev):
         ds, _, _ = P.decode_frame(PLC_CFG, ds, frames[t], bfi[t])
     ds, y, _ = no_sync(lambda: P.decode_frame(PLC_CFG, ds, frames[6], bfi[6]))
     assert y.shape == (16, 480) and bool(torch.isfinite(y).all())
+
+
+# ---- the bit-exact fixed-point decoder ----
+
+FIXED = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
+
+
+def fixed_same(name, args):
+    """One launch against the plain version (fx_ola_ltpf from two copies of
+    its state, which it updates in place); returns the kernel's outputs."""
+    got, ref = C.fixed_pair(K, name, args)
+    same_tensors(got, ref)
+    return got
+
+
+@pytest.fixture(scope="module")
+def fixed_recorded(dev):
+    """(frames, copies of the arguments of every fixed-point launch) of a
+    DeviceFixedDecoder block of 64 streams x 4 frames: the port's payloads of
+    speech, music and noise, the last 8 streams silent."""
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    rng = np.random.default_rng(3)
+    B, T, n = 64, 4, CFG.frame_length
+    srcs = (material("speech"), material("music"))
+    pcm = np.zeros((T, B, n), np.float32)
+    for b in range(B - 8):
+        if b % 3 == 2:
+            pcm[:, b] = rng.standard_normal((T, n)) * (3000.0 / (1 + b % 7))
+        else:
+            src = srcs[b % 3]
+            off = (b * 4801) % (len(src) - T * n)
+            pcm[:, b] = src[off: off + T * n].reshape(T, n)
+    _, frames = P.encode_block(CFG, P.enc_state_init(CFG, B, device=dev),
+                               torch.from_numpy(pcm).to(dev))
+    store: dict = {}
+    with C.recording(store, FIXED, copy=True):
+        K.reset_launch_counts()
+        pcm_out = DeviceFixedDecoder(CFG, B, device=dev).decode_block(frames)
+        counts = dict(K.launches)
+    torch.cuda.synchronize()
+    return frames, store, counts, pcm_out
+
+
+@pytest.mark.parametrize("name", FIXED)
+def test_fixed_kernel_matches_plain_on_every_launch(fixed_recorded, name):
+    _, store, counts, _ = fixed_recorded
+    assert len(store[name]) == counts[name] == (4 if name == "fx_ola_ltpf" else 1)
+    for args, _ in store[name]:
+        fixed_same(name, args)
+
+
+def test_fixed_kernels_synthetic_rows(dev):
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from audio_codec_torch.ops import fixed_dev, fixed_ltpf_dev
+    g = lambda a: torch.from_numpy(a).to(dev)
+    fixed_same("fx_sns_dec", (g(C.fx_sns_rows()), CFG.bands_number))
+    d = C.fx_spec_rows(CFG)
+    scf, scf_e = fixed_dev.sns_decode_plain(g(d["scf_idx"]), CFG.bands_number)
+    fixed_same("fx_spec_decode", (CFG, *(g(d[k]) for k in C.FX_SPEC_ORDER), scf, scf_e))
+    y, y_e = C.fx_dct4_rows()
+    fixed_same("fx_dct4", (g(y), g(y_e), 480))
+    plan = C.fx_ola_plan(B=16)
+    dec = DeviceFixedDecoder(CFG, 16, device=dev)
+    seen = torch.zeros(5, dtype=torch.long)
+    for t in range(len(C.LTPF_PLAN)):
+        args = (CFG, dec.state, *(g(plan[k][t]) for k in ("ytda", "y_e", "y_s", "zero", "lp")),
+                dec.sfi)
+        seen += torch.bincount(fixed_ltpf_dev.ltpf_patterns(dec.state, args[6], CFG.fs_idx),
+                               minlength=5).cpu()
+        fixed_same("fx_ola_ltpf", args)
+        K.fx_ola_ltpf(*args)
+    assert bool((seen > 0).all()), seen.tolist()
+
+
+def test_fixed_decoder_card_equals_stored_reference_and_cpu(dev, fixed_recorded):
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    with np.load(ROOT / "audio_codec_torch" / "data" / "fixed_pcm_ref.npz") as z:
+        frames, pcm = z["frames"], z["pcm"]
+    got = DeviceFixedDecoder(CFG, frames.shape[1], device=dev).decode_block(frames)
+    assert np.array_equal(got.cpu().numpy(), pcm)
+    fr, _, _, card = fixed_recorded
+    pick = [0, 1, 2, 60, 61]
+    cpu = DeviceFixedDecoder(CFG, len(pick), device="cpu").decode_block(fr[:, pick].cpu())
+    assert torch.equal(cpu, card[:, pick].cpu())

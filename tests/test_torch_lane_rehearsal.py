@@ -5,8 +5,10 @@ The per-stream functions of csrc/side_info.cuh, csrc/sns_vq.cuh,
 csrc/tns_analysis.cuh, csrc/pc_classify.cuh, csrc/olpa.cuh,
 csrc/ltpf_encode.cuh, csrc/noise_residual_enc.cuh, csrc/spec_decode.cuh,
 csrc/fec.cuh (the channel coder) and csrc/ari_decode.cuh (the range decoder,
-here with its partial-concealment hooks), and the DCT-IV, fold and unfold of
-csrc/dct4.cuh, compile as plain C++ as
+here with its partial-concealment hooks), the DCT-IV, fold and unfold of
+csrc/dct4.cuh, the concealment's csrc/plc*.cuh and phecu.cuh, the
+fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
+plain C++ as
 well as for the card (the warp kernels of olpa and ltpf_encode share their
 steps with a lane function that runs them in order). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
@@ -1396,3 +1398,284 @@ def test_rehearsal_catches_mutated_plc_lanes(tmp_path, exact_trig, mutation):
     bad += sum(spec_ana_differing(lib, s)[0] for s in (0, 1))
     bad += sum(subst_differing(lib, s) for s in (0, 1))
     assert bad > 0, f"the rehearsal did not see the mutation {mutation}"
+
+
+# ---- the bit-exact fixed-point decoder (csrc/fx_*.cuh) and the repaired
+# TNS synthesis lattice ----
+# The fixed-point steps are templates over the group of threads that runs
+# them (csrc/fixed.cuh: a warp or a block on the card, `Host` here). Their
+# arithmetic is integer, so the plain versions need no card order and every
+# output must be equal.
+
+WRAPPER_FX = r"""
+#include "fx_sns_dec.cuh"
+#include "fx_spec_decode.cuh"
+#include "fx_dct4.cuh"
+#include "fx_ola_ltpf.cuh"
+#include "tns_synthesis_lattice.cu"
+#include <vector>
+using namespace acx::fx;
+
+extern "C" {
+void rehearse_fx_sns_dec(const int32_t* idx, const i64* tab, int n_bands, int L, i64* scf,
+                         i64* scf_e) {
+  i64 scratch[kSnsScratch];
+  for (int l = 0; l < L; ++l)
+    fx_sns_dec_lane(idx + 7 * l, tab, n_bands, scratch, scf + l * n_bands, scf_e + l * n_bands, 1);
+}
+// geom: yLen N n_bands frame_dms gg_off R
+void rehearse_fx_spec_decode(const int32_t* x, const int32_t* res, const int32_t* side,
+                             const int32_t* tidx, const i64* scf, const i64* scf_e,
+                             const i64* tab, const int* geom, int L, i64* out, i64* x_e) {
+  const SpecGeom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  std::vector<i64> xs(g.yLen);
+  std::vector<int32_t> run(g.yLen);
+  const Host w;
+  for (int l = 0; l < L; ++l)
+    fx_spec_decode_lane(w, x + l * g.yLen, res + l * g.R, side + l * kSpecSideWords, tidx + 16 * l,
+                        scf + l * g.n_bands, scf_e + l * g.n_bands, tab, g, xs.data(), run.data(),
+                        out + l * g.N, x_e + l);
+}
+void rehearse_fx_dct4(const i64* y, const i64* y_e, const i64* tab, int L, i64* ytda, i64* ye,
+                      i64* ys, bool* zero) {
+  i64 a[kDctN], b[kDctN];
+  const Host g;
+  for (int l = 0; l < L; ++l)
+    fx_dct4_row(g, y + l * kDctN, y_e[l], tab, a, b, ytda + l * kDctN, ye + l, ys + l, zero + l);
+}
+// st: the ten state arrays in the order of kernels.FX_STATE_KEYS
+void rehearse_fx_ola_ltpf(const i64* ytda, const i64* y_e, const i64* y_s, const bool* zero,
+                          const int32_t* lp, const i64* tab, i64** st, const int* geom, int B,
+                          int16_t* pcm) {
+  const OlaGeom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[7],
+                  geom[8], geom[9], geom[10], geom[11], geom[12], geom[13]};
+  std::vector<i64> sc(ola_scratch_words(g));
+  const Host w;
+  const int memLen = g.wLen - g.N;
+  for (int b = 0; b < B; ++b) {
+    const OlaState s{st[0] + b * memLen, st[1] + b, st[2] + b * g.x_len, st[3] + b * g.y_len,
+                     st[4] + b, st[5] + b, st[6] + b, st[7] + b, st[8] + b, st[9] + b};
+    fx_ola_ltpf_lane(w, ytda + b * g.N, y_e[b], y_s[b], zero[b], lp + 3 * b, tab, g, s, sc.data(),
+                     pcm + b * g.N);
+  }
+}
+void rehearse_tns_synthesis(float* x, const float* rc, const int* order, const int* lo,
+                            const int* hi, int B, int N) {
+  for (int b = 0; b < B; ++b)
+    tns_synthesis_lane(x + b * N, N, rc + 16 * b, order + 2 * b, lo + 2 * b, hi + 2 * b, B == 1);
+}
+int fx_sns_table_words() { return kFxSnsTableWords; }
+int fx_dct4_table_words() { return kFxDctTableWords; }
+}
+"""
+
+# one mutated copy per kernel that the rehearsal must catch: a rounding, a
+# saturation and a shift clamp removed, a scale shift changed (the DCT-IV
+# has no rounding constant, and its scaling leaves no sum that saturates);
+# and the group scans' rank made inclusive
+MUTATIONS_FX = {
+    # fx_sns_dec: the normalised pulses truncated, not rounded
+    "sns_en1_rounding": ("fx_sns_dec.cuh",
+                         "y[k] = round_fx(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num));",
+                         "y[k] = sat16(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num) >> 16);"),
+    # fx_spec_decode: a lattice tap without its saturation
+    "spec_lattice_saturation": ("fx_spec_decode.cuh",
+                                "xi = sat32(xi - mpy_32_16(st[kk], rc[kk]));",
+                                "xi = xi - mpy_32_16(st[kk], rc[kk]);"),
+    # fx_spec_decode's prefix counts (the residual's and the noise filler's
+    # ranks): a bin counted in its own rank
+    "scan_rank_inclusive": ("fixed.cuh",
+                            "f(base + j, r + popc32(m & below32(j)), ((m >> j) & 1u) != 0);",
+                            "f(base + j, r + popc32(m & upto32(j)), ((m >> j) & 1u) != 0);"),
+    # fx_dct4: the radix-8 rows' SCALEFACTORN2 - 1 shift one short
+    "dct4_bfly_shift": ("fx_dct4.cuh", "auto ps = [](i64 v) { return v >> 2; };",
+                        "auto ps = [](i64 v) { return v >> 1; };"),
+    # fx_ola_ltpf: the passthrough's shift of the frame without its clamp at 15
+    "ola_shift_clamp": ("fx_ola_ltpf.cuh",
+                        "v = k < keep ? ybuf[k + N] : (sA > 15 ? 0 : shr64(x_in[k - keep], sA));",
+                        "v = k < keep ? ybuf[k + N] : shr64(x_in[k - keep], sA);"),
+}
+
+
+def build_fx_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = MUTATIONS_FX[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes_fx.cpp").write_text(WRAPPER_FX)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / "lanes_fx.cpp"), "-o",
+                        str(out / "lanes_fx.so")], capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes_fx.so"))
+
+
+@pytest.fixture(scope="module")
+def lib_fx(tmp_path_factory):
+    return build_fx_lanes(tmp_path_factory.mktemp("lanes_fx"))
+
+
+def lane_fx_sns(lib, idx: np.ndarray, n_bands: int = 64):
+    idx = _c(idx, np.int32)
+    L = idx.shape[0]
+    scf, scf_e = np.zeros((L, n_bands), np.int64), np.zeros((L, n_bands), np.int64)
+    lib.rehearse_fx_sns_dec(ptr(idx), ptr(K.fx_sns_table_pack()), n_bands, L, ptr(scf),
+                            ptr(scf_e))
+    return scf, scf_e
+
+
+def fx_spec_args(cfg, d: dict) -> tuple:
+    """The arguments of fixed_dev.spectrum_decode for the rows d of
+    C.fx_spec_rows (the SNS indices decoded by the plain version)."""
+    from audio_codec_torch.ops import fixed_dev
+    scf, scf_e = fixed_dev.sns_decode_plain(torch.from_numpy(d["scf_idx"]), cfg.bands_number)
+    return (cfg, *(torch.from_numpy(d[k]) for k in C.FX_SPEC_ORDER), scf, scf_e)
+
+
+def lane_fx_spec(lib, args):
+    cfg, x, res, n_res, seed, zf, fac, bw, gg, tidx, order, scf, scf_e = args
+    L = x.shape[0]
+    side = _c(torch.stack([n_res, seed, zf, fac, bw, gg, order[:, 0], order[:, 1]], 1).numpy(),
+              np.int32)
+    geom = np.array([cfg.yLen, cfg.frame_length, cfg.bands_number, cfg.frame_dms,
+                     cfg.quantizedGainOff, res.shape[1]], np.int32)
+    out, x_e = np.zeros((L, cfg.frame_length), np.int64), np.zeros(L, np.int64)
+    tab = K.fx_spec_table_pack(cfg.yLen, cfg.fs_idx, cfg.frame_dms, cfg.hrmode)
+    lib.rehearse_fx_spec_decode(ptr(_c(x.numpy(), np.int32)), ptr(_c(res.numpy(), np.int32)),
+                                ptr(side), ptr(_c(tidx.reshape(L, 16).numpy(), np.int32)),
+                                ptr(_c(scf.numpy(), np.int64)), ptr(_c(scf_e.numpy(), np.int64)),
+                                ptr(tab), ptr(geom), L, ptr(out), ptr(x_e))
+    return out, x_e
+
+
+def lane_fx_dct4(lib, y: np.ndarray, y_e: np.ndarray):
+    y, y_e = _c(y, np.int64), _c(y_e, np.int64)
+    L = y.shape[0]
+    ytda, ye, ys = np.zeros_like(y), np.zeros(L, np.int64), np.zeros(L, np.int64)
+    zero = np.zeros(L, np.bool_)
+    lib.rehearse_fx_dct4(ptr(y), ptr(y_e), ptr(K.fx_dct4_table_pack()), L, ptr(ytda), ptr(ye),
+                         ptr(ys), ptr(zero))
+    return ytda, ye, ys, zero
+
+
+def fx_ola_run(lib, plan: dict):
+    """Every frame of the plan through the lane functions and through the
+    plain version, each from its own state. Returns (frames that differ,
+    pattern histogram, mismatch count)."""
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from audio_codec_torch.ops import fixed_ltpf_dev
+    T_, B = plan["y_e"].shape
+    dec = DeviceFixedDecoder(PCFG_FLAG, B, device="cpu")
+    st_p = dec.state
+    st_l = {k: st_p[k].numpy().copy() for k in K.FX_STATE_KEYS}
+    geom = np.array(K.fx_ola_geometry(PCFG_FLAG, dec.sfi), np.int32)
+    tab = K.fx_ola_table_pack(PCFG_FLAG.frame_length, PCFG_FLAG.fs_idx)
+    hist, bad = np.zeros(5, np.int64), 0
+    for t in range(T_):
+        f = {k: torch.from_numpy(np.ascontiguousarray(plan[k][t]))
+             for k in ("ytda", "y_e", "y_s", "zero", "lp")}
+        hist += torch.bincount(fixed_ltpf_dev.ltpf_patterns(st_p, f["lp"], PCFG_FLAG.fs_idx),
+                               minlength=5).numpy()
+        ref = fixed_ltpf_dev.ola_ltpf_plain(PCFG_FLAG, st_p, f["ytda"], f["y_e"], f["y_s"],
+                                            f["zero"], f["lp"], dec.sfi)
+        pcm = np.zeros((B, PCFG_FLAG.frame_length), np.int16)
+        arrs = [st_l[k] for k in K.FX_STATE_KEYS]
+        pp = (ctypes.c_void_p * len(arrs))(*[a.ctypes.data for a in arrs])
+        lib.rehearse_fx_ola_ltpf(*(ptr(_c(plan[k][t], dt)) for k, dt in (
+            ("ytda", np.int64), ("y_e", np.int64), ("y_s", np.int64), ("zero", np.bool_),
+            ("lp", np.int32))), ptr(tab), pp, ptr(geom), B, ptr(pcm))
+        bad += C.count_differing(pcm, ref.numpy())
+        bad += sum(C.count_differing(st_l[k], st_p[k].numpy()) for k in K.FX_STATE_KEYS)
+    return bad, hist
+
+
+def test_fx_table_layouts_match_headers(lib_fx):
+    assert len(K.fx_sns_table_pack()) == lib_fx.fx_sns_table_words() == K.FX_SNS_TABLE_WORDS
+    assert len(K.fx_dct4_table_pack()) == lib_fx.fx_dct4_table_words() == K.FX_DCT4_TABLE_WORDS
+
+
+def test_fx_sns_dec_lane_matches_plain(lib_fx):
+    """Every submode, both leading signs, and indices past their sets."""
+    from audio_codec_torch.ops import fixed_dev
+    idx = C.fx_sns_rows()
+    got = lane_fx_sns(lib_fx, idx)
+    ref = fixed_dev.sns_decode_plain(torch.from_numpy(idx), 64)
+    assert C.count_differing(got, ref) == 0
+    _, ber = fixed_dev.sns_decode_scf(torch.from_numpy(idx))
+    assert int(ber.sum()) == 10 and set(idx[:, 2].tolist()) == {0, 1, 2, 3}
+
+
+def test_fx_spec_decode_lane_matches_plain(lib_fx):
+    """Silent, full-scale, zero-frame and order-8 rows, every bandwidth."""
+    from audio_codec_torch.ops import fixed_dev
+    args = fx_spec_args(PCFG_FLAG, C.fx_spec_rows(PCFG_FLAG))
+    assert C.count_differing(lane_fx_spec(lib_fx, args), fixed_dev.spectrum_decode_plain(*args)) == 0
+
+
+def test_fx_dct4_lane_matches_plain(lib_fx):
+    from audio_codec_torch.ops import fixed_dev
+    y, y_e = C.fx_dct4_rows()
+    got = lane_fx_dct4(lib_fx, y, y_e)
+    ref = fixed_dev.batch_dct4_plain(torch.from_numpy(y), torch.from_numpy(y_e), 480)
+    assert C.count_differing(got, ref) == 0
+    assert bool(ref[3][0]) and int(ref[1][0]) == 0       # the all-zero row
+
+
+def test_fx_ola_ltpf_lane_matches_plain(lib_fx):
+    """Every stream through passthrough, pat2, pat3, pat4 and pat1."""
+    bad, hist = fx_ola_run(lib_fx, C.fx_ola_plan())
+    assert bad == 0
+    assert bool((hist > 0).all()), hist.tolist()
+
+
+@pytest.mark.parametrize("B", [1, 6])
+def test_tns_synthesis_lane_matches_plain_on_the_cpus_contraction(lib_fx, card_order, B):
+    """The repaired lattice: the plain version in the card's order (which is
+    now the CPU's contraction for every tap) against the lane, order-8
+    filters in both ranges and random orders; B = 1 contracts the first
+    product too."""
+    rng = np.random.default_rng(B)
+    N = 400
+    x = (rng.standard_normal((B, N)) * 10 ** rng.uniform(-2, 4, (B, 1))).astype(np.float32)
+    rc = T_tns_pts()[rng.integers(2, 15, (B, 2, 8))]
+    order = rng.integers(0, 9, (B, 2)).astype(np.int32)
+    order[0] = 8
+    lo = np.tile(np.array([[12, 200]], np.int32), (B, 1))
+    hi = np.tile(np.array([[199, N - 1]], np.int32), (B, 1))
+    from audio_codec_torch.ops import tns
+    ref = tns.tns_synthesis_lattice_plain(*(torch.from_numpy(a) for a in (x, rc, order, lo, hi)))
+    got = x.copy()
+    lib_fx.rehearse_tns_synthesis(ptr(got), ptr(_c(rc, np.float32)), ptr(order), ptr(lo), ptr(hi),
+                                  B, N)
+    assert C.count_differing(got, ref.numpy()) == 0
+
+
+def T_tns_pts() -> np.ndarray:
+    from audio_codec_torch import tables
+    return tables.t("quants_pts_tns").astype(np.float32)
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_FX))
+def test_rehearsal_catches_mutated_fx_lanes(tmp_path, mutation):
+    """A copy of the fixed-point lanes with one rounding, saturation or
+    shift clamp removed must disagree with the plain versions."""
+    from audio_codec_torch.ops import fixed_dev
+    lib = build_fx_lanes(tmp_path, mutation)
+    idx = C.fx_sns_rows()
+    args = fx_spec_args(PCFG_FLAG, C.fx_spec_rows(PCFG_FLAG))
+    y, y_e = C.fx_dct4_rows()
+    bad = {"fx_sns_dec": C.count_differing(lane_fx_sns(lib, idx), fixed_dev.sns_decode_plain(
+               torch.from_numpy(idx), 64)),
+           "fx_spec_decode": C.count_differing(lane_fx_spec(lib, args),
+                                               fixed_dev.spectrum_decode_plain(*args)),
+           "fx_dct4": C.count_differing(lane_fx_dct4(lib, y, y_e), fixed_dev.batch_dct4_plain(
+               torch.from_numpy(y), torch.from_numpy(y_e), 480)),
+           "fx_ola_ltpf": fx_ola_run(lib, C.fx_ola_plan())[0]}
+    assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"

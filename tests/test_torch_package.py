@@ -18,7 +18,9 @@ PKG = Path(P.__file__).resolve().parent
 
 
 def test_import_loads_no_jax_and_no_reference_package():
-    code = ("import sys, audio_codec_torch, audio_codec_torch.kernels; "
+    code = ("import sys, audio_codec_torch, audio_codec_torch.kernels, "
+            "audio_codec_torch.fixed_decoder_dev, audio_codec_torch.ops.fixed_dev, "
+            "audio_codec_torch.ops.fixed_ltpf_dev, audio_codec_torch.ops.fixed_imdct; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_codec_tpu')]; print(bad)")
     r = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
@@ -133,14 +135,36 @@ def _concealment_calls():
     return {"plc_tdc": (K.plc_tdc, plc_adv.plc_tdc, tdc),
             "plc_damp_scramble": (K.plc_damp_scramble, plc_adv.damp_scramble, damp),
             "phecu_spec_ana": (K.phecu_spec_ana, plc_phecu.phecu_spec_ana, ana),
-            "phecu_subst": (K.phecu_subst, plc_phecu.phecu_subst, subst)}
+            "phecu_subst": (K.phecu_subst, plc_phecu.phecu_subst, subst),
+            **_fixed_decoder_calls()}
+
+
+def _fixed_decoder_calls():
+    """The bit-exact fixed-point decoder's kernels, with the ops that pick
+    their plain versions for CPU tensors."""
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from audio_codec_torch.ops import fixed_dev, fixed_ltpf_dev
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    i64 = lambda *s: torch.zeros(s, dtype=torch.int64)
+    nb = cfg.bands_number
+    spec = (cfg, i32(2, cfg.yLen), i32(2, cfg.yLen), i32(2), i32(2), i32(2), i32(2), i32(2) + 4,
+            i32(2), i32(2, 2, 8), i32(2, 2), i64(2, nb), i64(2, nb))
+    st = DeviceFixedDecoder(cfg, 2, device="cpu").state
+    ola = (cfg, st, i64(2, 480), i64(2), i64(2), torch.ones(2, dtype=torch.bool), i32(2, 3), 1)
+    return {"fx_sns_dec": (K.fx_sns_dec, fixed_dev.sns_decode, (i32(2, 7), nb)),
+            "fx_spec_decode": (K.fx_spec_decode, fixed_dev.spectrum_decode, spec),
+            "fx_dct4": (K.fx_dct4, fixed_dev.batch_dct4, (i64(2, 480), i64(2), 480)),
+            "fx_ola_ltpf": (K.fx_ola_ltpf, fixed_ltpf_dev.ola_ltpf, ola)}
 
 
 @pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
                                   "imdct", "olpa", "ltpf_encode", "noise_residual_enc",
                                   "spec_decode", "plc_tdc", "plc_damp_scramble",
-                                  "phecu_spec_ana", "phecu_subst"])
+                                  "phecu_spec_ana", "phecu_subst", "fx_sns_dec",
+                                  "fx_spec_decode", "fx_dct4", "fx_ola_ltpf"])
 def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
     """As above for the SNS quantizer, the side information, the TNS filter
     analysis, the concealment classifier, the transforms, the pitch and LTPF
@@ -154,6 +178,24 @@ def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
     first = next(iter(out.values())) if isinstance(out, dict) else \
         out[0] if isinstance(out, tuple) else out
     assert first.shape[0] == 2
+
+
+def test_fixed_dct4_refuses_sizes_it_does_not_take():
+    """fx_dct4 takes the 48 kHz 10 ms row (N = 480) only; other sizes raise
+    before the tensors are looked at."""
+    from audio_codec_torch import kernels as K
+    for N, dms in ((160, 100), (480, 50), (240, 100)):
+        with pytest.raises(ValueError, match="not ported"):
+            K.fx_dct4(torch.zeros((2, N), dtype=torch.int64), torch.zeros(2, dtype=torch.int64),
+                      N, dms)
+
+
+def test_kernel_list_holds_the_fixed_point_kernels():
+    from audio_codec_torch import kernels as K
+    fixed = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
+    assert all(k in K.KERNELS and k in K.launches for k in fixed)
+    assert {p.stem for p in K.SOURCES} >= set(fixed)
+    assert len(K.KERNELS) == len(set(K.KERNELS)) == 30
 
 
 def test_kernel_build_directory_is_named_by_its_inputs():

@@ -8,6 +8,7 @@ the CPU parity tests, the CPU rehearsal of the kernels' lane functions and
 the tests that run on a card, and chip_smoke.py. Imports nothing of JAX."""
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -973,3 +974,175 @@ def tdc_stream_rows(group: int) -> dict[str, np.ndarray]:
     d["a_st"] = rng.standard_normal((4, 17)).astype(np.float32)
     d["fract_st"] = np.array([1, 0, 2, 3], np.int32)
     return d
+
+
+# ---- the bit-exact fixed-point decoder (fx_sns_dec, fx_spec_decode,
+# fx_dct4, fx_ola_ltpf) ----
+
+MPVQ_6K1 = 6        # the 6-dim set of submode 0 (1 + 5 + 0 indices)
+
+
+def fx_sns_rows(n_per: int = 24, seed: int = 0) -> np.ndarray:
+    """[4 n_per + 10, 7] int32 SNS indices: scf_idx_grid of every submode,
+    both leading signs in each, then rows whose MPVQ index is out of its
+    set (the `ber` lanes, which de-index 0): two of each submode past its
+    main set, two of submode 0 past its 6-dim set."""
+    rows = []
+    for s in range(4):
+        g = scf_idx_grid(s, n_per, seed)
+        g[:, 4] = np.arange(n_per) % 2
+        rows.append(g)
+    for s in range(4):
+        g = scf_idx_grid(s, 2, seed + 7)
+        g[:, 5] = SUBMODES[s][1] + np.array([0, 123457])
+        rows.append(g)
+    g = scf_idx_grid(0, 2, seed + 8)
+    g[:, 6] = 2 * MPVQ_6K1 + np.array([0, 1])
+    rows.append(g)
+    return np.concatenate(rows).astype(np.int32)
+
+
+def fx_spec_rows(cfg, seed: int = 0, n: int = 48) -> dict[str, np.ndarray]:
+    """Inputs of fx_spec_decode: sparse spectra of several levels, silent rows
+    (noise filled, and zero frames), full-scale rows (+-32767), rows with TNS
+    filters of order 8 in both ranges (bandwidth index 4), every bandwidth
+    index, residual bits, and the SNS indices of fx_sns_rows (decode them for
+    scf, scf_e)."""
+    rng = np.random.default_rng(800 + seed)
+    N = cfg.yLen
+    R = min(N, cfg.targetBytes * 8)
+    mag = np.floor(rng.laplace(0, 1, (n, N)) * 10 ** rng.uniform(0, 3, (n, 1)))
+    keep = rng.random((n, N)) < rng.uniform(0.05, 0.9, (n, 1))
+    x = np.clip(mag * keep, -32767, 32767)
+    x[:, 200:] *= rng.random((n, 1)) < 0.5          # some rows silent above bin 200
+    x[0:4] = 0                                       # silent rows
+    x[4:8] = 32767 * np.where(rng.random((4, N)) < 0.5, -1, 1)
+    zero_frame = np.zeros(n, np.int32)
+    zero_frame[0:2] = 1
+    order = rng.integers(0, 9, (n, 2))
+    order[8:16] = 8
+    bw = rng.integers(0, 5, n)
+    bw[8:16] = 4
+    sns = fx_sns_rows(12, seed)
+    return dict(x=x.astype(np.int32), res_bits=rng.integers(0, 2, (n, R)).astype(np.int32),
+                n_res=rng.integers(0, R + 1, n).astype(np.int32),
+                nf_seed=rng.integers(0, 65536, n).astype(np.int32), zero_frame=zero_frame,
+                fac_ns_idx=rng.integers(0, 8, n).astype(np.int32), bw_idx=bw.astype(np.int32),
+                gg_idx=rng.integers(0, 256, n).astype(np.int32),
+                tns_idx=rng.integers(0, 17, (n, 2, 8)).astype(np.int32),
+                tns_order=order.astype(np.int32), scf_idx=sns[rng.integers(0, len(sns), n)])
+
+
+FX_SPEC_ORDER = ("x", "res_bits", "n_res", "nf_seed", "zero_frame", "fac_ns_idx", "bw_idx",
+                 "gg_idx", "tns_idx", "tns_order")
+
+
+def fx_dct4_rows(seed: int = 0, n: int = 16) -> tuple[np.ndarray, np.ndarray]:
+    """(y [n + 6, 480] int64, y_e [n + 6]): an all-zero row, rows of
+    2^31 - 1 and of -(2^31 - 1), two alternating full-scale rows, a row
+    nonzero only above the 400-bin cap, and seeded rows of several levels."""
+    rng = np.random.default_rng(900 + seed)
+    M = (1 << 31) - 1
+    alt = np.where(np.arange(480) % 2 == 0, M, -M)
+    special = np.stack([np.zeros(480), np.full(480, M), np.full(480, -M), alt, -alt,
+                        np.where(np.arange(480) >= 400, 12345, 0)])
+    mag = rng.laplace(0, 1, (n, 480)) * 2.0 ** rng.integers(4, 31, (n, 1))
+    y = np.concatenate([special, np.clip(np.floor(mag), -M - 1, M)]).astype(np.int64)
+    y_e = rng.integers(-12, 30, len(y)).astype(np.int64)
+    return y, y_e
+
+
+LTPF_PLAN = ("passthrough", "pat2", "pat3", "pat4", "pat1")
+
+
+def _norm_l(v: np.ndarray) -> np.ndarray:
+    m = np.where(v < 0, ~v, v)
+    bl = np.array([int(a).bit_length() for a in m.ravel()]).reshape(v.shape)
+    return np.where(v == 0, 0, 31 - bl)
+
+
+def fx_ola_plan(B: int = 8, seed: int = 0) -> dict[str, np.ndarray]:
+    """Five frames of fx_ola_ltpf inputs that walk every stream through the
+    passthrough, pat2 (LTPF switched on), pat3 (same pitch), pat4 (a new
+    pitch: the crossfade) and pat1 (switched off). Pitch indices from all
+    three of the decoder's ranges; seeded frames at several levels and
+    exponents (the passthrough's history shifts both ways), an all-zero
+    frame in some streams. Keys: ytda [5, B, 480], y_e, y_s [5, B] int64,
+    zero [5, B] bool, lp [5, B, 3] int32 (the LTPF side words: on, active,
+    pitch index)."""
+    rng = np.random.default_rng(1000 + seed)
+    T, N = len(LTPF_PLAN), 480
+    mag = rng.laplace(0, 1, (T, B, N)) * 2.0 ** rng.integers(10, 29, (T, B, 1))
+    ytda = np.clip(np.floor(mag), -(1 << 31), (1 << 31) - 1).astype(np.int64)
+    zero = np.zeros((T, B), bool)
+    zero[2, ::3] = True
+    ytda[zero] = 0
+    nz = np.where(ytda != 0, _norm_l(ytda), 32).min(axis=2)
+    y_s = np.where(zero, 31, nz - 1).astype(np.int64)
+    y_e = rng.integers(-20, 21, (T, B)).astype(np.int64)
+    y_e[0, :2] = (-20, 20)        # the passthrough's history shifts by more than 15 both ways
+    ranges = [(0, 380), (380, 440), (440, 512)]
+    pa = np.array([rng.integers(*ranges[b % 3]) for b in range(B)])
+    pb = np.array([rng.integers(*ranges[(b + 1) % 3]) for b in range(B)])
+    lp = np.zeros((T, B, 3), np.int32)
+    lp[1:4, :, 0] = 1
+    lp[1:4, :, 1] = 1
+    lp[1, :, 2] = lp[2, :, 2] = pa
+    lp[3, :, 2] = pb
+    lp[4, :, 0] = np.arange(B) % 2           # switched off: with and without a pitch
+    lp[4, :, 2] = np.where(np.arange(B) % 2 == 1, pb, 0)
+    return dict(ytda=ytda, y_e=y_e, y_s=y_s, zero=zero, lp=lp)
+
+
+# ---- launches against their plain versions (chip_smoke.py, the GPU tests) ----
+
+@contextlib.contextmanager
+def recording(store: dict, names=None, copy: bool = False):
+    """Keep the arguments of every kernel launch (of the named kernels; all
+    by default), in order, as (args, kwargs) in store[kernel name]; with
+    copy, copies of the tensors (a kernel that updates its state in place,
+    fx_ola_ltpf)."""
+    import torch
+    from audio_codec_torch import kernels as K
+    saved = {n: getattr(K, n) for n in (names or K.KERNELS)}
+
+    def cp(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        return {k: cp(u) for k, u in v.items()} if isinstance(v, dict) else v
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            store.setdefault(name, []).append(([cp(a) for a in args] if copy else args, kw))
+            return fn(*args, **kw)
+        return rec
+    for n, fn in saved.items():
+        setattr(K, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(K, n, fn)
+
+
+def fixed_plain(name: str):
+    """The plain version of a fixed-point kernel."""
+    from audio_codec_torch.ops import fixed_dev, fixed_ltpf_dev
+    return {"fx_sns_dec": fixed_dev.sns_decode_plain,
+            "fx_spec_decode": fixed_dev.spectrum_decode_plain,
+            "fx_dct4": fixed_dev.batch_dct4_plain, "fx_ola_ltpf": fixed_ltpf_dev.ola_ltpf_plain}[name]
+
+
+def fixed_pair(K, name: str, args) -> tuple[list, list]:
+    """One launch of a fixed-point kernel and one call of its plain version
+    on the same arguments: (the kernel's outputs, the plain outputs), each a
+    list of tensors. fx_ola_ltpf updates its state in place: each runs on
+    its own copy, and the stepped state follows the PCM."""
+    def listed(res):
+        return list(res) if isinstance(res, tuple) else [res]
+    if name == "fx_ola_ltpf":
+        cfg, st, *rest = args
+        s_k, s_p = ({k: v.clone() for k, v in st.items()} for _ in range(2))
+        return ([K.fx_ola_ltpf(cfg, s_k, *rest), *s_k.values()],
+                [fixed_plain(name)(cfg, s_p, *rest), *s_p.values()])
+    return listed(getattr(K, name)(*args)), listed(fixed_plain(name)(*args))
