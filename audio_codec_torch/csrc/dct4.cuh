@@ -3,12 +3,13 @@
 // and fold as its prologue and the IMDCT's unfold, window and overlap-add as
 // its epilogue. mdct.cu and imdct.cu launch it.
 //
-// The float order is the one ops/transforms.py:_dct4_card states for a tensor
-// on the card: each output is a sum over k in blocks of kDctTK = 32 (the last
-// block ragged), each block one k-ascending chain of separately rounded
-// products and sums from its first product, and the blocks' sums added in
-// order. The window and fold products are rounded one by one too (rmul,
-// radd), as the plain version's PyTorch ops on the card round them. So the
+// The MDCT's float order is the one ops/transforms.py:_dct4_card states for a
+// tensor on the card: each output is a sum over k in blocks of kDctTK = 32
+// (the last block ragged), each block one k-ascending chain of separately
+// rounded products and sums from its first product, and the blocks' sums
+// added in order. The window and fold products are rounded one by one too
+// (rmul, radd), as the plain version's PyTorch ops on the card round them.
+// The IMDCT takes the CPU's order instead (xla_dct4_out, imdct.cu). So the
 // kernels equal the plain versions bit for bit.
 #pragma once
 
@@ -29,6 +30,39 @@ ACX_HD float dct4_out(const float* a, const float* Mt, int N, int n) {
     acc = k0 == 0 ? part : radd(acc, part);
   }
   return acc;
+}
+
+// The IMDCT's product in XLA:CPU's order (numerics.xla_dot, which the
+// IMDCT's plain version takes on every device): k-blocks of
+// imdct_chain_len(N) terms, each one chain of xfma from zero, the blocks'
+// sums added in order.
+ACX_HD int imdct_chain_len(int N) { return N == 480 ? 68 : N; }
+
+ACX_HD float xla_dct4_out(const float* a, const float* Mt, int N, int n) {
+  const int blk = imdct_chain_len(N);
+  float acc = 0.0f, part = 0.0f;
+  for (int k = 0; k < N; ++k) {
+    if (k > 0 && k % blk == 0) {
+      acc = k == blk ? part : radd(acc, part);
+      part = 0.0f;
+    }
+    part = xfma(a[k], Mt[k * N + n], part);
+  }
+  return N <= blk ? part : radd(acc, part);
+}
+
+// The IMDCT's product of a single row (numerics.xla_gemv): eight interleaved
+// xfma chains from zero (chain k % 8), combined pairwise.
+ACX_HD float xla_dct4_out_row(const float* a, const float* Mt, int N, int n) {
+  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < N; k0 += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (k0 + j < N) acc[j] = xfma(a[k0 + j], Mt[(k0 + j) * N + n], acc[j]);
+    }
+  }
+  return radd(radd(radd(acc[0], acc[1]), radd(acc[2], acc[3])),
+              radd(radd(acc[4], acc[5]), radd(acc[6], acc[7])));
 }
 
 // The MDCT's input buffer [mem (N - la), x (N), zeros (la)] at j.
@@ -56,12 +90,13 @@ ACX_HD float mdct_fold(const float* x, const float* mem, const float* win, int N
 // The IMDCT's output at position j of the 2N-sample unfolded frame x_ov, whose
 // value is v: x_ov[la:N] * win + mem goes to out[0:N-la], x_ov[N:N+la] * win
 // to out[N-la:N], x_ov[N+la:] * win to new_mem; x_ov[:la] is dropped. win is
-// the reversed window.
+// the reversed window. The overlap-add is one fused multiply-add in the
+// CPU's contraction (xfma), as the plain version's numerics.xla_fma.
 ACX_HD void imdct_place(float v, int j, int N, int la, const float* win, const float* mem,
                         float* out, float* new_mem) {
   if (j < la) return;
   if (j < N) {
-    out[j - la] = radd(rmul(v, win[j]), mem[j - la]);
+    out[j - la] = xfma(v, win[j], mem[j - la]);
   } else if (j < N + la) {
     out[j - la] = rmul(v, win[j]);
   } else {

@@ -15,10 +15,11 @@
 // bound.
 // Design: one thread per stream; the stream's y and z histories sit in
 // shared memory as two 1024-sample rings (8 KB a stream), the filters and
-// pitches in registers. Taps are summed in the plain version's order, as a
-// chain of fused multiply-adds; the plain version on the card rounds each
-// product before the add, so the two agree to a stated tolerance rather
-// than bit for bit.
+// pitches in registers. Taps are summed in the plain version's order, the
+// CPU's (numerics.xla_fma on every device): the first product rounded, then a
+// chain of xfma (a double product and add, rounded once), and the crossfade
+// weight k / N4 as k times the float reciprocal of N4; so the two agree bit for
+// bit.
 #include "acodec.cuh"
 
 using namespace acx;
@@ -28,8 +29,8 @@ constexpr int kMaxTaps = 12;
 enum { CASE_B = 1, CASE_C = 2, CASE_D = 4, CASE_E = 8, NEW_ON = 16 };
 
 ACX_HD float tap_dot(const float* w, const float* v, int n) {
-  float acc = w[0] * v[0];
-  for (int j = 1; j < n; ++j) acc = fmaf(w[j], v[j], acc);
+  float acc = rmul(w[0], v[0]);
+  for (int j = 1; j < n; ++j) acc = xfma(w[j], v[j], acc);
   return acc;
 }
 
@@ -46,6 +47,7 @@ ACX_HD void ltpf_lane(const float* x, const float* mem_x, const float* mem_y, in
     zr[i & (kRing - 1)] = mem_y[i];
   }
   const int lim = Ly + N - 1;
+  const float inv_n4 = static_cast<float>(1.0 / static_cast<double>(N4));
   float xt[kMaxTaps], zt[kMaxTaps], yt[kMaxTaps], zx[kMaxTaps];
   for (int n = 0; n < N; ++n) {
     const int cur = Ly + n;  // position being produced
@@ -64,8 +66,8 @@ ACX_HD void ltpf_lane(const float* x, const float* mem_x, const float* mem_y, in
     for (int j = 0; j < n_inter; ++j) zt[j] = ring(zr, base1 - j);
     const float s2_old = tap_dot(a1, zt, n_inter);
     const bool in_fade = n < N4;
-    const float c_out = static_cast<float>(N4 - n) / static_cast<float>(N4);
-    const float z_n = fmaf(c_out, s2_old, fmaf(-c_out, s1_old, x[n]));
+    const float c_out = rmul(static_cast<float>(N4 - n), inv_n4);
+    const float z_n = xfma(c_out, s2_old, xfma(-c_out, s1_old, x[n]));
 
     const bool src_z = case_e && in_fade;
     const float* s1_src = xt;
@@ -79,9 +81,9 @@ ACX_HD void ltpf_lane(const float* x, const float* mem_x, const float* mem_y, in
     for (int j = 0; j < n_inter; ++j) yt[j] = ring(yr, base2 - j);
     const float s2_new = tap_dot(a2, yt, n_inter);
     const float c_in = (in_fade && (case_c || case_e))
-        ? static_cast<float>(n) / static_cast<float>(N4) : 1.0f;
+        ? rmul(static_cast<float>(n), inv_n4) : 1.0f;
     const float x_eff = src_z ? z_n : x[n];
-    const float cand_new = fmaf(c_in, s2_new, fmaf(-c_in, s1_new, x_eff));
+    const float cand_new = xfma(c_in, s2_new, xfma(-c_in, s1_new, x_eff));
 
     float y_n = x[n];
     if (case_b && in_fade) y_n = z_n;

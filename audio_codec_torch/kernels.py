@@ -40,7 +40,7 @@ KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_
            "tns_filter_analysis", "pc_classify", "mdct", "imdct",
            "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
            "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
-           "fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
+           "fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf", "plc_main")
 
 # launches of each kernel since the last reset_launch_counts()
 launches = dict.fromkeys(KERNELS, 0)
@@ -152,6 +152,7 @@ def library() -> ctypes.CDLL:
         "acx_fx_spec_decode": [P] * 9 + [I] * 7 + [P],
         "acx_fx_dct4": [P] * 7 + [I] + [P],
         "acx_fx_ola_ltpf": [P] * 17 + [I] + [P] * 2,
+        "acx_plc_main": [P] * 12 + [I] * 2 + [P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -897,6 +898,36 @@ def plc_damp_scramble(cfg, x, q_d_prev, ns_lane, lost, is_pc, nb_cur, pc_nb_lost
         x.data_ptr(), q_d_prev.data_ptr(), ints.data_ptr(), floats.data_ptr(), pows.data_ptr(),
         spec.data_ptr(), fout.data_ptr(), iout.data_ptr(), B, N, cfg.frame_dms, _stream()))
     return spec, fout[0], fout[1], fout[2], iout[0], iout[1]
+
+
+def _plc_lcg(N: int):
+    """The standard concealment's generator in closed form, mult [N + 1] ++
+    add [N + 1] (ops/plc.py:_lcg_tables), for csrc/plc_main.cuh."""
+    from .ops.plc import _lcg_tables
+    return np.concatenate(_lcg_tables(N + 1))
+
+
+def plc_main(cfg, spec, q_d_prev, bfi, nb_lost, cum_alpha, seed):
+    """Launch `plc_main` (csrc/plc_main.cu); returns the tuple of
+    ops/plc.py:plc_main_plain (spec, q_d_prev, nb_lost, cum_alpha, seed)."""
+    _check(spec, "spec", torch.float32, 2)
+    B, N = spec.shape
+    _rows(q_d_prev, "q_d_prev", (B, N))
+    bfi, nb_lost, seed = (t.to(torch.int32).contiguous() for t in (bfi, nb_lost, seed))
+    cum_alpha = cum_alpha.to(torch.float32).contiguous()
+    _check_vectors(B, torch.int32, bfi=bfi, nb_lost=nb_lost, seed=seed)
+    _check_vectors(B, torch.float32, cum_alpha=cum_alpha)
+    dev = spec.device
+    lcg = nm.table(_plc_lcg, N, device=dev, dtype=torch.int32)
+    spec_out, q_out = torch.empty_like(spec), torch.empty_like(spec)
+    nb_out, seed_out = (torch.empty((B,), dtype=torch.int32, device=dev) for _ in range(2))
+    cum_out = torch.empty((B,), dtype=torch.float32, device=dev)
+    _run("plc_main", library().acx_plc_main(
+        spec.data_ptr(), q_d_prev.data_ptr(), bfi.data_ptr(), nb_lost.data_ptr(),
+        cum_alpha.data_ptr(), seed.data_ptr(), lcg.data_ptr(), spec_out.data_ptr(),
+        q_out.data_ptr(), nb_out.data_ptr(), cum_out.data_ptr(), seed_out.data_ptr(), B, N,
+        _stream()))
+    return spec_out, q_out, nb_out, cum_out, seed_out
 
 
 def _phecu_geom(cfg):

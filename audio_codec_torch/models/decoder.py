@@ -94,7 +94,9 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
 
     adv = {}
     if cfg.plc_mode == 0:
-        x, q_d_prev, nb_lost, cum_alpha, seed = plc.plc_main(
+        # the concealment and its counter update: one kernel on the card
+        # (csrc/plc_main.cu); nothing before the update reads the counters
+        x, q_d_prev, nb_lost, cum_alpha, seed = plc.plc_main_update(
             cfg, x, st.plc_q_d_prev, bfi, st.plc_nbLostCmpt, st.plc_cum_alpha, st.plc_seed)
     else:
         x, q_d_prev, nb_lost, cum_alpha, seed, adv = _plc_advanced(
@@ -111,8 +113,11 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
         pcm = torch.where(td, adv.pop("td_pcm"), pcm)
         imdct_mem = torch.where(td, adv.pop("td_ola"), imdct_mem)
 
-    nb_lost, cum_alpha, prev_bfi, prevprev_bfi = plc.plc_update(
-        bfi, nb_lost, cum_alpha, st.plc_prevBfi, st.plc_prevprevBfi)
+    if cfg.plc_mode == 0:
+        prev_bfi, prevprev_bfi = bfi, st.plc_prevBfi
+    else:
+        nb_lost, cum_alpha, prev_bfi, prevprev_bfi = plc.plc_update(
+            bfi, nb_lost, cum_alpha, st.plc_prevBfi, st.plc_prevprevBfi)
     y, mem_x, mem_y, lm = ltpf_dec.ltpf_decode(
         cfg, pcm, bfi, side["ltpf_param"], st.ltpf_param_mem, st.ltpf_mem_x,
         st.ltpf_mem_y, st.ltpf_mem_pitch_int, st.ltpf_mem_pitch_fr,

@@ -59,10 +59,11 @@ def decode_pitch(cfg: Config, param):
 
 
 def _tap_sum(w, v):
-    """sum_j w[:, j] * v[:, j] as a sequential fused multiply-add chain."""
+    """sum_j w[:, j] * v[:, j] as a sequential fused multiply-add chain in
+    the CPU's contraction (numerics.xla_fma) on every device."""
     acc = w[:, 0] * v[:, 0]
     for j in range(1, w.shape[1]):
-        acc = nm.fma(w[:, j], v[:, j], acc)
+        acc = nm.xla_fma(w[:, j], v[:, j], acc)
     return acc
 
 
@@ -70,7 +71,10 @@ def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, 
     """Plain version of the `ltpf_postfilter` kernel: the sample loop of
     ltpf_decode. x [B, N]; mem_x [B, Lx]; mem_y [B, Ly]; a1/a2 [B, inter
     taps] and b1/b2 [B, tilt taps] the old/new filters; p1/p2 [B] the
-    old/new integer pitch; cases [B] the CASE_* bits. Returns y [B, N]."""
+    old/new integer pitch; cases [B] the CASE_* bits. Returns y [B, N].
+    Every device computes the CPU's order (the taps' and the crossfade's
+    multiply-adds contracted as numerics.xla_fma), which the kernel follows
+    bit for bit."""
     B, N = x.shape
     Lx, Ly = mem_x.shape[1], mem_y.shape[1]
     inter_len = max(cfg.fs, 16000) // 8000
@@ -84,11 +88,8 @@ def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, 
     toff = torch.arange(b1.shape[1], device=dev)
     ioff = torch.arange(a1.shape[1], device=dev)
     lim = Ly + N - 1
-    # the crossfade weight k / N4, as nm.div computes it on this device
-    if nm.on_cpu(x):
-        fade = lambda k: float(np.float32(k) * np.float32(1.0 / N4))
-    else:
-        fade = lambda k: float(np.float32(k) / np.float32(N4))
+    # the crossfade weight k / N4 as the CPU computes it (numerics.xla_div)
+    fade = lambda k: float(np.float32(k) * np.float32(1.0 / N4))
     ys = []
     for n in range(N):
         xt = xbuf[:, (Lx + n - toff).clamp(0, Lx + N - 1)]
@@ -98,7 +99,7 @@ def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, 
         s2_old = _tap_sum(a1, zt)
         in_fade = n < N4
         c_out = fade(N4 - n)
-        z_n = nm.fma(c_out, s2_old, nm.fma(-c_out, s1_old, x[:, n]))
+        z_n = nm.xla_fma(c_out, s2_old, nm.xla_fma(-c_out, s1_old, x[:, n]))
 
         src_z = case_e & in_fade
         zx = zbuf[:, (Ly + n - toff).clamp(0, lim)]
@@ -109,7 +110,7 @@ def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, 
         s2_new = _tap_sum(a2, yt)
         c_in = torch.where(in_fade & (case_c | case_e), fade(n), 1.0).to(F32)
         x_eff = torch.where(src_z, z_n, x[:, n])
-        cand_new = nm.fma(c_in, s2_new, nm.fma(-c_in, s1_new, x_eff))
+        cand_new = nm.xla_fma(c_in, s2_new, nm.xla_fma(-c_in, s1_new, x_eff))
 
         y_n = x[:, n]
         if in_fade:

@@ -32,12 +32,12 @@ What each CPU branch reproduces, and where the reference relies on it:
 - `sqrt`: correctly rounded, as XLA:CPU's root is (`analysis.py:120,190,255`,
   `pc.py:170`); PyTorch's vectorised CPU root is not always.
 
-The `xla_*` functions (`xla_fma`, `xla_dot`, `xla_exp2`, `xla_pow`,
-`xla_div`, `xla_sum`, `xla_dot_row`, `xla_rsqrt`) compute the CPU branch's
-order on every device. The decoder's SNS stages and the advanced
-concealment use them, so that the card computes what the CPU and the
-reference compute there, and their kernels write the same operations
-(`csrc/acodec.cuh:xfma`, `csrc/plc.cuh`).
+The `xla_*` functions (`xla_fma`, `xla_dot`, `xla_gemv`, `xla_exp2`,
+`xla_pow`, `xla_div`, `xla_sum`, `xla_dot_row`, `xla_rsqrt`) compute the CPU
+branch's order on every device. The decoder's SNS stages, the IMDCT, the
+LTPF post-filter and the advanced concealment use them, so that the card
+computes what the CPU and the reference compute there, and their kernels
+write the same operations (`csrc/acodec.cuh:xfma`, `csrc/plc.cuh`).
 
 `chain_sum` and `chain_dot` are the other way round: the CPU keeps
 `torch.sum` and `dot`, and for a tensor on the card they fix the order of the
@@ -138,6 +138,15 @@ def xla_dot(a: torch.Tensor, m: torch.Tensor, block: int | None = None) -> torch
         part = _fma_chains(a64, m64, lo, min(K, lo + block), 1)
         out = part if out is None else out + part
     return out
+
+
+def xla_gemv(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a [1, K] @ m [K, N] as XLA:CPU computes a product of one row by a
+    matrix (a matrix-vector product), on every device: eight interleaved
+    fused multiply-add chains over k (chain k % 8) from zero, combined
+    pairwise. Read on the IMDCT's product at N = 120-480, the same on one core
+    and on many (xla_dot's blocks are those of more than one row)."""
+    return _fma_chains(a.to(F64), m.to(F64), 0, m.shape[0], 8)
 
 
 def chain_sum(v: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -6,6 +6,12 @@ Counterpart of `audio_codec_tpu/ops/plc.py`: processPlcMain_fl
 scrambling and cumulative damping, plus processPlcUpdate_fl
 (plc_update.c:13-30). The per-bin LCG runs in closed form (an affine map
 modulo 2^16), as in the reference package.
+
+The decoder's plc_mode 0 step is `plc_main_update`: on the card the CUDA
+kernel `plc_main` (csrc/plc_main.cu), which fuses the update's counter rule
+after the concealment; on the CPU its plain version `plc_main_plain`.
+`plc_main` and `plc_update` are the reference's two functions; the
+advanced concealment (plc_mode 1) calls `plc_update` on its own.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import Config
 from . import numerics as nm
 
@@ -73,3 +80,23 @@ def plc_update(bfi, nb_lost, cum_alpha, prev_bfi, prevprev_bfi):
     nb_lost = torch.where(good, 0, nb_lost).to(I32)
     cum_alpha = torch.where(good, 1.0, cum_alpha).to(F32)
     return nb_lost, cum_alpha, bfi.to(I32), prev_bfi
+
+
+def plc_main_plain(cfg: Config, spec, q_d_prev, bfi, nb_lost, cum_alpha, seed):
+    """Plain version of the `plc_main` kernel: plc_main, then plc_update's
+    counter rule (a frame that is not lost resets the loss counter and the
+    damping). Returns (spec_out, q_d_prev, nb_lost, cum_alpha, seed)."""
+    spec_out, q_d_prev, nb_lost, cum_alpha, seed = plc_main(
+        cfg, spec, q_d_prev, bfi, nb_lost, cum_alpha, seed)
+    good = bfi != 1     # plc_update's rule
+    return (spec_out, q_d_prev, torch.where(good, 0, nb_lost).to(I32),
+            torch.where(good, 1.0, cum_alpha).to(F32), seed)
+
+
+def plc_main_update(cfg: Config, spec, q_d_prev, bfi, nb_lost, cum_alpha, seed):
+    """The standard concealment with its counter update: the CUDA kernel for
+    tensors on the card, its plain version for tensors on the CPU."""
+    if nm.on_cpu(spec):
+        return plc_main_plain(cfg, spec, q_d_prev, bfi, nb_lost, cum_alpha, seed)
+    return kernels.plc_main(cfg, spec.contiguous(), q_d_prev.contiguous(), bfi, nb_lost,
+                            cum_alpha, seed)

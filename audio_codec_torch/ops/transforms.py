@@ -4,13 +4,16 @@ product over the stream batch (mdct.c:72-126, imdct.c:14-59).
 On the card both transforms are CUDA kernels (csrc/mdct.cu, csrc/imdct.cu)
 that fuse the window, fold, unfold and overlap-add around the product;
 `mdct_plain` and `imdct_plain` are their plain versions. For a tensor on
-the card the plain versions state the kernels' float order: the DCT-IV sums
-each output in k-blocks of DCT4_BLOCK, each block one k-ascending chain, the
-blocks added in order (`_dct4_card`). On the CPU the forward transform runs
-the compensated product of the reference's CPU branch
+the card the forward transform's plain version states its kernel's float
+order: the DCT-IV sums each output in k-blocks of DCT4_BLOCK, each block one
+k-ascending chain, the blocks added in order (`_dct4_card`); on the CPU it
+runs the compensated product of the reference's CPU branch
 (`audio_codec_tpu/ops/transforms.py:_dct4_apply`) step for step, so the
-spectra, and with them the quantizer's dead-zone ties, agree exactly, and
-the inverse transform's product follows XLA:CPU's order (`numerics.dot`).
+spectra, and with them the quantizer's dead-zone ties, agree exactly. The
+inverse transform follows XLA:CPU's order on every device
+(`numerics.xla_dot`: 68-deep fused multiply-add chains at N = 480, one
+chain below; `numerics.xla_gemv` for a single stream), and so does its
+kernel.
 """
 from __future__ import annotations
 
@@ -115,19 +118,21 @@ def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor):
 
 def imdct_plain(cfg: Config, y: torch.Tensor, mem: torch.Tensor):
     """Inverse MDCT with overlap-add (ProcessingIMDCT_fl); the plain version
-    of the `imdct` kernel.
+    of the `imdct` kernel. On every device the product and the overlap-add
+    take the CPU's order (`numerics.xla_dot`, `xla_fma`), so that the card's
+    PCM equals the CPU's.
 
     y: [B, N] spectrum; mem: [B, N - la_zeroes]. Returns (x [B, N], new_mem)."""
     N = cfg.frame_length
     la = cfg.la_zeroes
     h = N // 2
     Mt = dct4_mt(N, str(y.device))
-    x_tda = nm.dot(y, Mt) if nm.on_cpu(y) else _dct4_card(y, Mt)
+    x_tda = nm.xla_gemv(y, Mt) if y.shape[0] == 1 else nm.xla_dot(y, Mt)
     a = x_tda[:, h:]
     b = x_tda[:, :h]
     x_ov = torch.cat([a, -a.flip(-1), -b.flip(-1), -b], dim=-1)
     win = window(cfg, str(y.device), reverse=True)
-    ola = nm.fma(x_ov[:, la:N], win[la:N], mem[:, : N - la])
+    ola = nm.xla_fma(x_ov[:, la:N], win[la:N], mem[:, : N - la])
     x = torch.cat([ola, x_ov[:, N: N + la] * win[N: N + la]], dim=-1)
     return x, x_ov[:, N + la:] * win[N + la:]
 

@@ -6,9 +6,7 @@ card. Run where a CUDA device is present:
 Elsewhere every test here skips. Each kernel is compared on every launch of
 an 8-frame main-path run over speech, music and noise (LTPF is off in every
 stream at the first frames, and the encoder calls bit_estimate in two
-modes). Every kernel but ltpf_postfilter must match bit for bit;
-ltpf_postfilter within 1e-2 on the +-32768 PCM scale (the kernel fuses each
-tap's multiply-add, the plain version on the card rounds the product first).
+modes). Every kernel must match its plain version bit for bit.
 Synthetic cases add what the main path may not reach: TNS filters of order 8
 in both ranges, a stream whose gain bisection never leaves `iszero`, every
 SNS submode with its field widths, the pulse search's silent-target branch,
@@ -24,10 +22,12 @@ alone, residual-coder rows with no zero line and a cut n_res at 64 and
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
 block (bfi 0 and 2, and the encoder's simulation); the four concealment
-kernels (plc_mode 1) on every launch of a lossy block over speech, music,
-noise and tones and on their synthetic rows; a warmed encode_frame,
-decode_frame (plc_mode 0 and 1) and the stream path's device step at EP3 run
-under torch.cuda.set_sync_debug_mode("error"). The four kernels of the
+kernels (plc_mode 1) and the standard concealment's plc_main (plc_mode 0) on
+every launch of a lossy block over speech, music, noise and tones and on
+their synthetic rows (plc_main: every damping branch, the generator's edge
+seeds, bfi 2); a warmed encode_frame, decode_frame (plc_mode 0, clean and
+lossy, and 1) and the stream path's device step at EP3 run under
+torch.cuda.set_sync_debug_mode("error"). The four kernels of the
 bit-exact fixed-point decoder (DeviceFixedDecoder) run on every launch of a
 B = 64 block with silent streams and on their synthetic rows (every SNS
 submode and out-of-range indices, silent, full-scale and order-8 spectra,
@@ -53,7 +53,6 @@ from tests import torch_kernel_cases as C
 pytestmark = pytest.mark.gpu
 
 CFG = P.Config(fs_in=48000, bitrate=64000)
-LTPF_TOL = 1e-2
 ROOT = Path(__file__).resolve().parent.parent
 CASE_BITS = (ltpf_dec.CASE_B, ltpf_dec.CASE_C, ltpf_dec.CASE_D, ltpf_dec.CASE_E,
              ltpf_dec.NEW_ON)
@@ -159,7 +158,7 @@ def check_ltpf(launches):
     seen = dict.fromkeys(CASE_BITS, 0)
     for args, _ in launches:
         got, ref = K.ltpf_postfilter(*args), ltpf_dec.ltpf_postfilter_plain(*args)
-        assert float((got - ref).abs().max()) <= LTPF_TOL
+        assert same_bits(got, ref)
         for bit in CASE_BITS:
             seen[bit] += int(((args[10] & bit) != 0).sum())
     return seen
@@ -358,7 +357,8 @@ def test_launch_counts_move(dev):
                           "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2,
                           "fec_encode": 0, "fec_decode": 0, "plc_tdc": 0,
                           "plc_damp_scramble": 0, "phecu_spec_ana": 0, "phecu_subst": 0,
-                          "fx_sns_dec": 0, "fx_spec_decode": 0, "fx_dct4": 0, "fx_ola_ltpf": 0}
+                          "fx_sns_dec": 0, "fx_spec_decode": 0, "fx_dct4": 0, "fx_ola_ltpf": 0,
+                          "plc_main": 2}
 
 
 def test_tns_filter_analysis_matches_plain_on_the_main_path(recorded):
@@ -445,6 +445,17 @@ def test_transform_synthetic_rows(dev, name, fs, bitrate):
     got = getattr(K, name)(*args)
     same_tensors(got, [t.contiguous() for t in getattr(transforms, name + "_plain")(*args)])
     assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_imdct_single_stream(dev, fs, bitrate):
+    """One stream a launch (the matrix-vector product's order) on each
+    synthetic row."""
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=5)
+    for b in range(x.shape[0]):
+        args = (cfg, torch.from_numpy(x[b: b + 1]).to(dev), torch.from_numpy(mem[b: b + 1]).to(dev))
+        same_tensors(K.imdct(*args), [t.contiguous() for t in transforms.imdct_plain(*args)])
 
 
 def test_transform_rejects_hr_frames(dev):
@@ -744,6 +755,56 @@ def test_warmed_plc_mode1_decode_frame_does_not_synchronise(dev):
     for t in range(6):
         ds, _, _ = P.decode_frame(PLC_CFG, ds, frames[t], bfi[t])
     ds, y, _ = no_sync(lambda: P.decode_frame(PLC_CFG, ds, frames[6], bfi[6]))
+    assert y.shape == (16, 480) and bool(torch.isfinite(y).all())
+
+
+# ---- the standard concealment (plc_mode 0) ----
+
+@pytest.fixture(scope="module")
+def plc0_recorded(dev):
+    """Every plc_main launch of a plc_mode 0 decode of lossy_block's payloads
+    (bursts of 1, 2, 4 and 8 lost frames, redundancy frames)."""
+    store: dict = {}
+    frames, bfi = lossy_block(dev)
+    undo = record(store)
+    try:
+        P.decode_block(CFG, P.dec_state_init(CFG, frames.shape[1], device=dev), frames, bfi)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return store
+
+
+def test_plc_main_matches_plain_on_a_lossy_run(plc0_recorded):
+    from audio_codec_torch.ops import plc
+    launches = plc0_recorded["plc_main"]
+    assert len(launches) == 12
+    seen = {}
+    for a, k in launches:
+        same_tensors(K.plc_main(*a, **k), plc.plc_main_plain(*a, **k))
+        for key, v in C.plc_main_branches(a[3].cpu(), a[4].cpu()).items():
+            seen[key] = seen.get(key, 0) + v
+    assert all(v > 0 for v in seen.values()), seen
+
+
+def test_plc_main_synthetic_rows(dev):
+    """Every damping branch, the generator's edge seeds, bfi 0 and 2."""
+    from audio_codec_torch.ops import plc
+    for seed in (0, 1):
+        d = C.plc_main_rows(seed)
+        args = (CFG, *(torch.from_numpy(d[k]).to(dev) for k in C.PLC_MAIN_ORDER))
+        same_tensors(K.plc_main(*args), plc.plc_main_plain(*args))
+
+
+def test_warmed_lossy_plc_mode0_decode_frame_does_not_synchronise(dev):
+    """A warmed plc_mode 0 decode_frame with lost, redundancy and clean
+    streams reads nothing back and uploads no table."""
+    frames, bfi = lossy_block(dev, B=16, T=8)
+    ds = P.dec_state_init(CFG, 16, device=dev)
+    for t in range(5):
+        ds, _, _ = P.decode_frame(CFG, ds, frames[t], bfi[t])
+    assert bool((bfi[5] == 1).any())
+    ds, y, _ = no_sync(lambda: P.decode_frame(CFG, ds, frames[5], bfi[5]))
     assert y.shape == (16, 480) and bool(torch.isfinite(y).all())
 
 

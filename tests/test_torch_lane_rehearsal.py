@@ -332,8 +332,13 @@ void rehearse_imdct(const float* y, const float* mem, const float* win, const fl
                     float* out, float* new_mem, int B, int N, int la) {
   for (int b = 0; b < B; ++b)
     for (int c = 0; c < N; ++c)
-      imdct_scatter(dct4_out(y + N * b, Mt, N, c), c, N, la, win, mem + (N - la) * b,
+      imdct_scatter(xla_dct4_out(y + N * b, Mt, N, c), c, N, la, win, mem + (N - la) * b,
                     out + N * b, new_mem + (N - la) * b);
+}
+void rehearse_imdct_row(const float* y, const float* mem, const float* win, const float* Mt,
+                        float* out, float* new_mem, int N, int la) {
+  for (int c = 0; c < N; ++c)
+    imdct_scatter(xla_dct4_out_row(y, Mt, N, c), c, N, la, win, mem, out, new_mem);
 }
 void rehearse_levinson(const float* r, float* lpc, float* rc, float* err, float* rc_w, int B) {
   for (int b = 0; b < B; ++b) {
@@ -548,6 +553,25 @@ def test_dct4_lanes_match_plain(lib4, card_order, fs, bitrate):
     ref = transforms.imdct_plain(cfg, torch.from_numpy(y), torch.from_numpy(mem))
     same_bits(out, ref[0].numpy())
     same_bits(nm2, ref[1].numpy())
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_imdct_single_stream_lane_matches_plain(lib4, fs, bitrate):
+    """The IMDCT of one stream (the matrix-vector product's eight chains)
+    on each of the synthetic rows."""
+    from audio_codec_torch.ops import transforms
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    N, la = cfg.frame_length, cfg.la_zeroes
+    x, mem = C.transform_rows(N, la, seed=5)
+    rwin = np.ascontiguousarray(transforms.window(cfg, "cpu", reverse=True).numpy())
+    Mt = transforms.dct4_mt(N, "cpu").numpy()
+    for b in range(x.shape[0]):
+        y, m = np.ascontiguousarray(x[b: b + 1] / np.float32(64.0)), np.ascontiguousarray(mem[b: b + 1])
+        out, nm2 = np.zeros((1, N), np.float32), np.zeros((1, N - la), np.float32)
+        lib4.rehearse_imdct_row(ptr(y), ptr(m), ptr(rwin), ptr(Mt), ptr(out), ptr(nm2), N, la)
+        ref = transforms.imdct_plain(cfg, torch.from_numpy(y), torch.from_numpy(m))
+        same_bits(out, ref[0].numpy())
+        same_bits(nm2, ref[1].numpy())
 
 
 @pytest.mark.parametrize("mutation", list(MUTATIONS))
@@ -1679,3 +1703,82 @@ def test_rehearsal_catches_mutated_fx_lanes(tmp_path, mutation):
                torch.from_numpy(y), torch.from_numpy(y_e), 480)),
            "fx_ola_ltpf": fx_ola_run(lib, C.fx_ola_plan())[0]}
     assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"
+
+
+# ---- slice 9: the standard concealment (plc_main) ----
+
+WRAPPER_PLC0 = r"""
+#include "plc_main.cuh"
+using namespace acx;
+
+extern "C" {
+void rehearse_plc_main(const float* spec, const float* q, const int* bfi, const int* nb,
+                       const float* cum, const int* seed, const int* lcg, int B, int N,
+                       float* spec_out, float* q_out, int* nb_out, float* cum_out,
+                       int* seed_out) {
+  for (int b = 0; b < B; ++b) {
+    const PlcMainScalars s = plc_main_scalars(bfi[b], nb[b], cum[b], seed[b], lcg, N);
+    nb_out[b] = s.nb_lost;
+    cum_out[b] = s.cum;
+    seed_out[b] = s.seed;
+    for (int k = 0; k < N; ++k)
+      plc_main_bin(s, k, spec[b * N + k], q[b * N + k], lcg, N, spec_out + b * N + k,
+                   q_out + b * N + k);
+  }
+}
+}
+"""
+
+MUTATIONS_PLC0 = {
+    # the damping of 0.85 a frame later
+    "alpha_late": ("plc_main.cuh", "(s.nb_lost < 8 ? 0.9f : 0.85f)", "(s.nb_lost <= 8 ? 0.9f : 0.85f)"),
+}
+
+
+def build_plc0_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = MUTATIONS_PLC0[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / "lanes_plc0.cpp").write_text(WRAPPER_PLC0)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / "lanes_plc0.cpp"), "-o",
+                        str(out / "lanes_plc0.so")], capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / "lanes_plc0.so"))
+
+
+def plc0_differing(lib, seed: int) -> int:
+    """plc_main's lane function against plc_main_plain on the rows of every
+    damping branch, the generator's edge seeds and bfi 0, 1 and 2."""
+    from audio_codec_torch import kernels
+    from audio_codec_torch.ops import plc
+    d = C.plc_main_rows(seed)
+    B, N = d["spec"].shape
+    lcg = _c(kernels._plc_lcg(N), np.int32)
+    spec, q = np.zeros((B, N), np.float32), np.zeros((B, N), np.float32)
+    nb, sd = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    cum = np.zeros(B, np.float32)
+    lib.rehearse_plc_main(*(ptr(_c(d[k], np.float32 if k in ("spec", "q_d_prev", "cum_alpha")
+                                     else np.int32)) for k in C.PLC_MAIN_ORDER),
+                          ptr(lcg), B, N, ptr(spec), ptr(q), ptr(nb), ptr(cum), ptr(sd))
+    ref = plc.plc_main_plain(PCFG_FLAG, *(torch.from_numpy(d[k]) for k in C.PLC_MAIN_ORDER))
+    return C.count_differing((spec, q, nb, cum, sd), ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plc_main_lane_matches_plain(tmp_path, seed):
+    assert plc0_differing(build_plc0_lanes(tmp_path), seed) == 0
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_PLC0))
+def test_rehearsal_catches_mutated_plc_main_lane(tmp_path, mutation):
+    lib = build_plc0_lanes(tmp_path, mutation)
+    assert sum(plc0_differing(lib, s) for s in (0, 1)) > 0, mutation

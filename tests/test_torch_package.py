@@ -20,7 +20,10 @@ PKG = Path(P.__file__).resolve().parent
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, audio_codec_torch, audio_codec_torch.kernels, "
             "audio_codec_torch.fixed_decoder_dev, audio_codec_torch.ops.fixed_dev, "
-            "audio_codec_torch.ops.fixed_ltpf_dev, audio_codec_torch.ops.fixed_imdct; "
+            "audio_codec_torch.ops.fixed_ltpf_dev, audio_codec_torch.ops.fixed_imdct, "
+            "audio_codec_torch.cli, audio_codec_torch.ccconvert, "
+            "audio_codec_torch.utils.wavio, audio_codec_torch.utils.bitstream_io, "
+            "audio_codec_torch.utils.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'audio_codec_tpu')]; print(bad)")
     r = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
@@ -195,7 +198,7 @@ def test_kernel_list_holds_the_fixed_point_kernels():
     fixed = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
     assert all(k in K.KERNELS and k in K.launches for k in fixed)
     assert {p.stem for p in K.SOURCES} >= set(fixed)
-    assert len(K.KERNELS) == len(set(K.KERNELS)) == 30
+    assert len(K.KERNELS) == len(set(K.KERNELS)) == 31
 
 
 def test_kernel_build_directory_is_named_by_its_inputs():

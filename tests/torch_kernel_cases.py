@@ -1094,6 +1094,48 @@ def fx_ola_plan(B: int = 8, seed: int = 0) -> dict[str, np.ndarray]:
     return dict(ytda=ytda, y_e=y_e, y_s=y_s, zero=zero, lp=lp)
 
 
+# ---- the standard concealment (plc_mode 0, plc_main) ----
+
+PLC_MAIN_ORDER = ("spec", "q_d_prev", "bfi", "nb_lost", "cum_alpha", "seed")
+# the lost-frame counts before the frame that put each lane in a damping branch
+PLC_MAIN_NB = (0, 2, 3, 6, 7, 11)
+PLC_MAIN_SEEDS = (-32768, 32767, 32768, -1, 0, 24607)
+
+
+def plc_main_rows(seed: int = 0, N: int = 400) -> dict[str, np.ndarray]:
+    """Rows of the standard concealment: lost lanes (bfi 1) at every damping
+    branch (the counter crossing 4 and 8) and at the generator's edge seeds
+    (-32768, 32767 and 32768, which the generator takes as -32768),
+    partially concealed (bfi 2) and clean lanes, spectra with zeros and
+    signed zeros, a silent history."""
+    rng = np.random.default_rng(seed)
+    rows = [(bfi, nb, sd) for bfi in (1, 0, 2) for nb in PLC_MAIN_NB for sd in PLC_MAIN_SEEDS[:3]]
+    rows += [(1, int(rng.integers(0, 20)), int(rng.integers(-32768, 32768))) for _ in range(12)]
+    B = len(rows)
+    spec = (rng.standard_normal((B, N)) * 3000).astype(np.float32)
+    q = (rng.standard_normal((B, N)) * 3000).astype(np.float32)
+    spec[:, ::17] = 0.0
+    q[:, 5::19] = -0.0
+    q[3] = 0.0
+    return dict(spec=spec, q_d_prev=q,
+                bfi=np.array([r[0] for r in rows], np.int32),
+                nb_lost=np.array([r[1] for r in rows], np.int32),
+                cum_alpha=rng.uniform(0.2, 1.0, B).astype(np.float32),
+                seed=np.array([r[2] for r in rows], np.int32))
+
+
+def plc_main_branches(bfi, nb_lost) -> dict[str, int]:
+    """Stream-frames of plc_main's branches: the clean copy (bfi 0), the
+    partially concealed copy (bfi 2) and the lost lanes at each damping
+    factor (from the counter after the frame)."""
+    bfi, nb = np.asarray(bfi), np.asarray(nb_lost) + 1
+    lost = bfi == 1
+    return {"clean": int((bfi == 0).sum()), "bfi 2": int((bfi == 2).sum()),
+            "alpha 1": int((lost & (nb < 4)).sum()),
+            "alpha 0.9": int((lost & (nb >= 4) & (nb < 8)).sum()),
+            "alpha 0.85": int((lost & (nb >= 8)).sum())}
+
+
 # ---- launches against their plain versions (chip_smoke.py, the GPU tests) ----
 
 @contextlib.contextmanager

@@ -41,7 +41,7 @@ DECODER_STAGES = {
     "pc": ["compute_stab_fac", "pc_classify"],
     "quant": ["global_gain", "spectrum_decode"],
     "tns": ["tns_decode"],
-    "plc": ["plc_main", "plc_update"],
+    "plc": ["plc_main_update"],
     "transforms": ["imdct"],
     "ltpf_dec": ["ltpf_decode"],
 }
