@@ -3,24 +3,148 @@
 // and fold as its prologue and the IMDCT's unfold, window and overlap-add as
 // its epilogue. mdct.cu and imdct.cu launch it.
 //
-// The MDCT's float order is the one ops/transforms.py:_dct4_card states for a
-// tensor on the card: each output is a sum over k in blocks of kDctTK = 32
-// (the last block ragged), each block one k-ascending chain of separately
-// rounded products and sums from its first product, and the blocks' sums
-// added in order. The window and fold products are rounded one by one too
-// (rmul, radd), as the plain version's PyTorch ops on the card round them.
-// The IMDCT takes the CPU's order instead (xla_dct4_out, imdct.cu). So the
-// kernels equal the plain versions bit for bit.
+// Three float orders, each the one its plain version in ops/transforms.py
+// states, so that the kernels equal the plain versions bit for bit:
+// - the encoder's MDCT on the card (_dct4_card, dct4_out): each output a sum
+//   over k in blocks of kDctTK = 32 (the last block ragged), each block one
+//   k-ascending chain of separately rounded products and sums from its first
+//   product, the blocks' sums added in order; the window and fold products
+//   rounded one by one (rmul, radd);
+// - the concealment's MDCT (the TDAC, _dct4_compensated,
+//   dct4_out_compensated): the CPU's compensated product on every device,
+//   Dekker-split exact products summed with Neumaier compensation, and the
+//   fold's first product contracted as the CPU contracts it (xfma);
+// - the IMDCT (numerics.xla_dot, xla_dct4_out): the CPU's 68-deep chains of
+//   xfma, written as xfma_d below, on doubles that hold float values.
 #pragma once
+
+#include <cstring>
 
 #include "acodec.cuh"
 
 namespace acx {
 
-constexpr int kDctTK = 32;     // k-depth of a block of the sum (and of a shared-memory tile)
+constexpr int kDctTK = 32;     // k-depth of a block of the card's sum
 constexpr int kDctMaxN = 480;  // the largest frame at 10 ms without HR mode
 
-// out[n] = sum_k a[k] * Mt[k * N + n] in the blocked order above.
+// ---- the IMDCT's chain step on doubles ----
+// xfma(a, b, p) rounds the exact double product plus p to float. Kept in a
+// double register, a chain needs no conversion: the product of two floats
+// is exact in double, so one double fused multiply-add is xfma's double
+// product and add, and the rounding to float precision is (x + M) - M with
+// M = x * 2^29 cut to its high word (x's sign, exponent E + 29 and 20
+// fraction bits; the low word zero), E the exponent of x. M and x share a
+// sign and |M| <= (2 - 2^-20) * 2^(E + 29), so |x + M| lies in
+// [2^(E + 29), 2^(E + 30)), where a double's ulp is 2^(E - 23), the float
+// ulp at exponent E; M / ulp is a multiple of 2^32, even, so the double's
+// round-half-even is the float's, and (x + M) - M is exact. M costs one
+// integer add on x's high word. That holds where float rounding has the
+// ulp of E: 2^-126 <= |x| < 2^127, and for +0, which the trick leaves at
+// +0 (x is a sum of floats' products and floats, so a zero exponent field
+// with a zero high word is +0). -0 (which must stay -0), the other
+// subnormal results, |x| at or past 2^127 (the float maximum, infinities)
+// and NaN take the conversion.
+constexpr uint32_t kExpField = 0x7FF00000u;
+constexpr uint32_t kFloatExpLo = 897u << 20;    // exponent field of 2^-126
+constexpr uint32_t kFloatExpHi = 1149u << 20;   // exponent field of 2^126
+constexpr uint32_t kRoundM = (29u << 20);      // x's high word -> M's: exponent + 29
+
+ACX_HD uint32_t hi_word(double x) {
+#ifdef __CUDA_ARCH__
+  return static_cast<uint32_t>(__double2hiint(x));
+#else
+  uint64_t u;
+  std::memcpy(&u, &x, sizeof u);
+  return static_cast<uint32_t>(u >> 32);
+#endif
+}
+
+ACX_HD double from_hi_word(uint32_t hi) {
+#ifdef __CUDA_ARCH__
+  return __hiloint2double(static_cast<int>(hi), 0);
+#else
+  const uint64_t u = static_cast<uint64_t>(hi) << 32;
+  double x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+ACX_HD double radd_f64(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
+ACX_HD double rfma_f64(double a, double b, double c) {
+#ifdef __CUDA_ARCH__
+  return __fma_rn(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+
+ACX_HD float to_float(double x) {
+#ifdef __CUDA_ARCH__
+  return __double2float_rn(x);
+#else
+  return static_cast<float>(x);
+#endif
+}
+
+// x rounded to float precision, for a caller that knows 2^-126 <= |x| <
+// 2^127 or x is +0.
+ACX_HD double round_float_in_range(double x) {
+  const double m = from_hi_word(hi_word(x) + kRoundM);
+  return radd_f64(radd_f64(x, m), -m);
+}
+
+// x rounded to float precision where 2^-126 <= |x| < 2^127 or x is +0;
+// elsewhere sets far, and the value is not x's rounding.
+ACX_HD double round_float_near(double x, bool& far) {
+  const uint32_t hi = hi_word(x);
+  const uint32_t e = hi & kExpField;
+  far = far || e > kFloatExpHi || (e < kFloatExpLo && hi != 0u);
+  return round_float_in_range(x);
+}
+
+// x rounded to float, as a double: static_cast<double>(to_float(x)).
+ACX_HD double round_float(double x) {
+  bool far = false;
+  const double r = round_float_near(x, far);
+  return far ? static_cast<double>(to_float(x)) : r;
+}
+
+// xfma on floats held in doubles, equal to xfma bit for bit.
+ACX_HD double xfma_d(double a, double b, double p) { return round_float(rfma_f64(a, b, p)); }
+
+// Where a chain of xfma_d needs no range test. Let every spectrum value a
+// of a chain be zero or 2^-60 <= |a| < 2^120, and every matrix value b a
+// DCT-IV entry of N <= 480 (1.05e-4 <= |b| <= sqrt(2 / N), so |b| >= 2^-14
+// and its last bit is at least 2^-37). Then each product a * b is a
+// multiple of 2^-120, and so is every partial sum (a float rounding of a
+// multiple of 2^-120 to a coarser power-of-two grid stays a multiple of
+// it): each is +0 (an exact zero from +0 is +0, and no -0 can arise) or at
+// least 2^-120 in magnitude, and at most N * sqrt(2 / N) * 2^120 =
+// sqrt(2 N) * 2^120 < 2^125. So every step's sum is in
+// round_float_in_range's domain.
+constexpr uint32_t kFastALo = 67u << 23;    // float bits of 2^-60
+constexpr uint32_t kFastAHi = 247u << 23;   // float bits of 2^120
+
+ACX_HD bool imdct_fast_input(float a) {
+  uint32_t u;
+#ifdef __CUDA_ARCH__
+  u = __float_as_uint(a);
+#else
+  std::memcpy(&u, &a, sizeof u);
+#endif
+  u &= 0x7FFFFFFFu;
+  return u == 0u || u - kFastALo < kFastAHi - kFastALo;
+}
+
+// out[n] = sum_k a[k] * Mt[k * N + n] in the card's blocked order above.
 ACX_HD float dct4_out(const float* a, const float* Mt, int N, int n) {
   float acc = 0.0f;
   for (int k0 = 0; k0 < N; k0 += kDctTK) {
@@ -32,6 +156,43 @@ ACX_HD float dct4_out(const float* a, const float* Mt, int N, int n) {
   return acc;
 }
 
+// The Veltkamp split at 2^12 + 1 of a float (transforms._dct4_compensated).
+ACX_HD void veltkamp(float v, float& hi, float& lo) {
+  const float c = rmul(4097.0f, v);
+  hi = rsub(c, rsub(c, v));
+  lo = rsub(v, hi);
+}
+
+// One term a * b of the compensated product: the Dekker error of the
+// product, then a Neumaier two-sum of the product (contracted into the sum
+// and into its compensation, as XLA:CPU contracts it) and of the error.
+ACX_HD void compensated_step(float a, float ah, float al, float b, float bh, float bl, float& s,
+                             float& comp) {
+  const float p = rmul(a, b);
+  const float err = xfma(al, bl, xfma(al, bh, xfma(ah, bl, xfma(ah, bh, -p))));
+  float t = xfma(a, b, s);
+  float bv = rsub(t, s);
+  comp = radd(comp, radd(rsub(s, rsub(t, bv)), xfma(a, b, -bv)));
+  s = t;
+  t = radd(s, err);
+  bv = rsub(t, s);
+  comp = radd(comp, radd(rsub(s, rsub(t, bv)), rsub(err, bv)));
+  s = t;
+}
+
+// out[n] in the compensated order.
+ACX_HD float dct4_out_compensated(const float* a, const float* Mt, int N, int n) {
+  float s = 0.0f, comp = 0.0f;
+  for (int k = 0; k < N; ++k) {
+    float ah, al, bh, bl;
+    const float b = Mt[k * N + n];
+    veltkamp(a[k], ah, al);
+    veltkamp(b, bh, bl);
+    compensated_step(a[k], ah, al, b, bh, bl, s, comp);
+  }
+  return radd(s, comp);
+}
+
 // The IMDCT's product in XLA:CPU's order (numerics.xla_dot, which the
 // IMDCT's plain version takes on every device): k-blocks of
 // imdct_chain_len(N) terms, each one chain of xfma from zero, the blocks'
@@ -40,29 +201,32 @@ ACX_HD int imdct_chain_len(int N) { return N == 480 ? 68 : N; }
 
 ACX_HD float xla_dct4_out(const float* a, const float* Mt, int N, int n) {
   const int blk = imdct_chain_len(N);
-  float acc = 0.0f, part = 0.0f;
+  float acc = 0.0f;
+  double part = 0.0;
   for (int k = 0; k < N; ++k) {
     if (k > 0 && k % blk == 0) {
-      acc = k == blk ? part : radd(acc, part);
-      part = 0.0f;
+      acc = k == blk ? static_cast<float>(part) : radd(acc, static_cast<float>(part));
+      part = 0.0;
     }
-    part = xfma(a[k], Mt[k * N + n], part);
+    part = xfma_d(a[k], Mt[k * N + n], part);
   }
-  return N <= blk ? part : radd(acc, part);
+  return N <= blk ? static_cast<float>(part) : radd(acc, static_cast<float>(part));
 }
 
 // The IMDCT's product of a single row (numerics.xla_gemv): eight interleaved
 // xfma chains from zero (chain k % 8), combined pairwise.
 ACX_HD float xla_dct4_out_row(const float* a, const float* Mt, int N, int n) {
-  float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  double acc[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (int k0 = 0; k0 < N; k0 += 8) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (k0 + j < N) acc[j] = xfma(a[k0 + j], Mt[(k0 + j) * N + n], acc[j]);
+      if (k0 + j < N) acc[j] = xfma_d(a[k0 + j], Mt[(k0 + j) * N + n], acc[j]);
     }
   }
-  return radd(radd(radd(acc[0], acc[1]), radd(acc[2], acc[3])),
-              radd(radd(acc[4], acc[5]), radd(acc[6], acc[7])));
+  float f[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = static_cast<float>(acc[j]);
+  return radd(radd(radd(f[0], f[1]), radd(f[2], f[3])), radd(radd(f[4], f[5]), radd(f[6], f[7])));
 }
 
 // The MDCT's input buffer [mem (N - la), x (N), zeros (la)] at j.
@@ -72,19 +236,24 @@ ACX_HD float mdct_buf(const float* x, const float* mem, int N, int la, int j) {
 
 // Element k of the windowed and folded MDCT input (mdct.c:115-119): for
 // k < N/2, -w[3h+k] - w[3h-1-k]; above, w[k-h] - w[2h-1-(k-h)], with
-// w[j] = buf[j] * win[j] (h = N/2).
-ACX_HD float mdct_fold(const float* x, const float* mem, const float* win, int N, int la,
-                       int k) {
+// w[j] = buf[j] * win[j] (h = N/2). In the compensated order the first
+// product is contracted into the difference (xfma), as on the CPU.
+ACX_HD float mdct_fold(const float* x, const float* mem, const float* win, int N, int la, int k,
+                       bool compensated = false) {
   const int h = N / 2;
+  int j1, j2;
+  float s1;
   if (k < h) {
-    const int j1 = 3 * h + k, j2 = 3 * h - 1 - k;
-    return radd(rmul(-mdct_buf(x, mem, N, la, j1), win[j1]),
-                -rmul(mdct_buf(x, mem, N, la, j2), win[j2]));
+    j1 = 3 * h + k;
+    j2 = 3 * h - 1 - k;
+    s1 = -mdct_buf(x, mem, N, la, j1);
+  } else {
+    j1 = k - h;
+    j2 = 2 * h - 1 - (k - h);
+    s1 = mdct_buf(x, mem, N, la, j1);
   }
-  const int i = k - h;
-  const int j1 = i, j2 = 2 * h - 1 - i;
-  return radd(rmul(mdct_buf(x, mem, N, la, j1), win[j1]),
-              -rmul(mdct_buf(x, mem, N, la, j2), win[j2]));
+  const float w2 = -rmul(mdct_buf(x, mem, N, la, j2), win[j2]);
+  return compensated ? xfma(s1, win[j1], w2) : radd(rmul(s1, win[j1]), w2);
 }
 
 // The IMDCT's output at position j of the 2N-sample unfolded frame x_ov, whose
@@ -121,70 +290,29 @@ ACX_HD void imdct_scatter(float t, int c, int N, int la, const float* win, const
 }  // namespace acx
 
 #ifdef __CUDACC__
-// A tiled SIMT product: a block of kDctThreads threads computes a kDctBM x
-// kDctBN tile of outputs, each thread 4 x 4 of them, staging kDctTK-deep
-// tiles of the rows (through load_a, the prologue) and of the matrix in shared
-// memory; store(row, n, value) is the epilogue.
-constexpr int kDctBM = 64;
-constexpr int kDctBN = 64;
-constexpr int kDctThreads = 256;
-
-template <class LoadA, class Store>
-__device__ __forceinline__ void dct4_tiles(const LoadA& load_a, const Store& store,
-                                           const float* __restrict__ Mt, int B, int N) {
-  using namespace acx;
-  __shared__ float As[kDctTK][kDctBM + 1];
-  __shared__ float Bs[kDctTK][kDctBN];
-  const int row0 = blockIdx.y * kDctBM, col0 = blockIdx.x * kDctBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4], part[4][4];
-  for (int k0 = 0; k0 < N; k0 += kDctTK) {
-    const int kn = imin(kDctTK, N - k0);
-    for (int i = threadIdx.x; i < kDctBM * kDctTK; i += kDctThreads) {
-      const int m = i / kDctTK, kk = i % kDctTK;
-      As[kk][m] = (row0 + m < B && kk < kn) ? load_a(row0 + m, k0 + kk) : 0.0f;
-    }
-    for (int i = threadIdx.x; i < kDctTK * kDctBN; i += kDctThreads) {
-      const int kk = i / kDctBN, c = i % kDctBN;
-      Bs[kk][c] = (kk < kn && col0 + c < N) ? Mt[(k0 + kk) * N + col0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDctTK; ++kk) {
-      if (kk < kn) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float p = rmul(a[i], b[j]);
-            part[i][j] = kk == 0 ? p : radd(part[i][j], p);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = k0 == 0 ? part[i][j] : radd(acc[i][j], part[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row0 + ty + 16 * i, n = col0 + tx + 16 * j;
-      if (r < B && n < N) store(r, n, acc[i][j]);
-    }
-  }
+// Asynchronous 16-byte copies from device to shared memory (cp.async.cg):
+// a copy whose source is not valid writes zeros.
+__device__ __forceinline__ void acx_cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void acx_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void acx_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-inline dim3 dct4_grid(int B, int N) {
-  return dim3((N + kDctBN - 1) / kDctBN, (B + kDctBM - 1) / kDctBM);
+// Sets a kernel's dynamic shared memory limit once, where it passes the
+// 48 KB default.
+template <typename Kernel>
+inline cudaError_t acx_dynamic_smem(Kernel kernel, size_t bytes, bool* done) {
+  if (bytes <= 48 * 1024 || *done) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  *done = rc == cudaSuccess;
+  return rc;
 }
 #endif

@@ -1,62 +1,245 @@
-// mdct: the encoder's low-delay MDCT, window and fold fused into the DCT-IV.
+// mdct: the encoder's low-delay MDCT, window and fold fused into the DCT-IV;
+// mdct_compensated: the same transform in the CPU's compensated order, the
+// forward transform of the concealment's TDAC (ops/plc_adv.py:tdac).
 //
 // Replaces audio_codec_tpu/ops/transforms.py:mdct (transforms.py:69; the
 // window and fold at :84-89 and the [B, N] x [N, N] product of _dct4_apply at
 // :24; mdct.c:72-126). In the port's tensor code the fold was a chain of
 // cat, pad, flip and windowed products around torch.matmul.
 //
-// Bound on an H100: 2 * B * N * N float operations, 0.944 GFLOP at B = 2048,
-// N = 480: 0.0141 ms at 67 TFLOP/s; the bytes (x, mem, d, new_mem and the
-// matrix) are about 13.7 MB, 0.0041 ms at 3.35 TB/s. The operations bound it,
-// and the kernel does each product and sum as its own instruction (no fused
-// multiply-add), twice the count the peak assumes.
-// Design: the tiled SIMT product of dct4.cuh; the prologue computes each
-// folded input from x, mem and the window as the row tile is staged, so the
-// folded rows never reach device memory. The blocks of the first column tile
-// also copy x[:, la:] into new_mem. A later PR moves the product to the
-// tensor cores (3xTF32 on wgmma), which the bit-for-bit order here rules out.
+// Orders (dct4.cuh): mdct keeps the card's blocked order of
+// ops/transforms.py:_dct4_card (k-blocks of 32, each a chain of separately
+// rounded products and sums); mdct_compensated computes
+// _dct4_compensated, the CPU branch's Dekker products and Neumaier sums, on
+// every device, so the TDAC's memory on the card equals the CPU's. Both
+// round every product before its add, which the tensor cores (products
+// summed in wider precision) cannot reproduce.
+//
+// Bound on an H100 at B = 2048, N = 480: the table's bound is 2 * B * N * N
+// operations at 67 TFLOP/s, 0.0141 ms (the bytes, about 13.7 MB, take
+// 0.0041 ms). The blocked order forbids fused multiply-adds, so its 472 M
+// steps are 944 M float instructions: at 128 lanes a clock an SM, 132 SMs
+// and 1.98 GHz the issue bound is 0.028 ms, the design's floor.
+// Design: a prologue (mdct_fold_kernel) windows and folds each row once into
+// a k-major scratch [planes][N][B rounded up to 64] (the compensated order
+// also stores each input's Veltkamp halves) and copies x[:, la:] into
+// new_mem. The product (mdct_product_kernel) gives a block 64 rows x 120
+// columns (4 x 32 = 128 blocks at B = 2048, one wave on 132 SMs) and each of
+// its 240 threads 8 x 4 outputs, read as 16-byte vectors from shared memory
+// (three loads for 32 products); stages of 32 k-rows, the card order's
+// blocks, are copied with cp.async into double-buffered dynamic shared
+// memory, the next stage in flight while this one is summed. The
+// compensated order reads the matrix's Veltkamp halves from a device-cached
+// table and runs the same tiles with its own step (dct4.cuh:
+// compensated_step); it runs twice a frame at plc_mode 1 (the
+// TD-PLC's and the Phase ECU's TDAC), and its speed is secondary.
 #include "dct4.cuh"
 
 using namespace acx;
 
 #ifdef __CUDACC__
-struct MdctFold {
-  const float* x;
-  const float* mem;
-  const float* win;
-  int N, la;
-  __device__ float operator()(int r, int k) const {
-    const size_t row = static_cast<size_t>(r);
-    return mdct_fold(x + row * N, mem + row * (N - la), win, N, la, k);
+constexpr int kFoldTile = 32;
+constexpr int kFoldThreads = 256;
+constexpr int kMdctBM = 64;
+constexpr int kMdctBN = 120;
+constexpr int kMdctTM = 8;    // rows a thread (a multiple of 4: 16-byte loads)
+constexpr int kMdctTN = 4;    // columns a thread
+constexpr int kMdctThreads = (kMdctBM / kMdctTM) * (kMdctBN / kMdctTN);
+constexpr int kMdctStagePlane = kDctTK * (kMdctBM + kMdctBN);   // floats of a plane a stage
+
+template <bool kCompensated>
+__global__ void __launch_bounds__(kFoldThreads)
+    mdct_fold_kernel(const float* __restrict__ x, const float* __restrict__ mem,
+                     const float* __restrict__ win, float* __restrict__ fold,
+                     float* __restrict__ new_mem, int B, int Bp, int N, int la) {
+  constexpr int P = kCompensated ? 3 : 1;
+  __shared__ float tile[P][kFoldTile][kFoldTile + 1];
+  const int k0 = blockIdx.x * kFoldTile, r0 = blockIdx.y * kFoldTile;
+  const int tx = threadIdx.x % kFoldTile, ty = threadIdx.x / kFoldTile;
+  for (int rr = ty; rr < kFoldTile; rr += kFoldThreads / kFoldTile) {
+    const int r = r0 + rr, k = k0 + tx;
+    float v = 0.0f;
+    if (r < B && k < N) {
+      const size_t row = static_cast<size_t>(r);
+      v = mdct_fold(x + row * N, mem + row * (N - la), win, N, la, k, kCompensated);
+    }
+    tile[0][rr][tx] = v;
+    if constexpr (kCompensated) veltkamp(v, tile[1][rr][tx], tile[2][rr][tx]);
   }
-};
+  __syncthreads();
+  for (int kk = ty; kk < kFoldTile; kk += kFoldThreads / kFoldTile) {
+    const int k = k0 + kk;
+    if (k < N) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) fold[(static_cast<size_t>(p) * N + k) * Bp + r0 + tx] = tile[p][tx][kk];
+    }
+  }
+  // new_mem = x[:, la:], the same 32 x 32 tile of it
+  const int m = N - la;
+  for (int i = threadIdx.x; i < kFoldTile * kFoldTile; i += kFoldThreads) {
+    const int r = r0 + i / kFoldTile, c = k0 + i % kFoldTile;
+    if (r < B && c < m) new_mem[static_cast<size_t>(r) * m + c] = x[static_cast<size_t>(r) * N + la + c];
+  }
+}
 
-struct StoreRow {
-  float* d;
-  int N;
-  __device__ void operator()(int r, int n, float v) const { d[static_cast<size_t>(r) * N + n] = v; }
-};
+template <bool kCompensated>
+__global__ void __launch_bounds__(kMdctThreads)
+    mdct_product_kernel(const float* __restrict__ fold, const float* __restrict__ Mt,
+                        float* __restrict__ d, int B, int Bp, int N) {
+  constexpr int P = kCompensated ? 3 : 1;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int row0 = blockIdx.y * kMdctBM, col0 = blockIdx.x * kMdctBN;
+  const int tx = threadIdx.x % (kMdctBN / kMdctTN), ty = threadIdx.x / (kMdctBN / kMdctTN);
+  const int stages = (N + kDctTK - 1) / kDctTK;
+  // plane p of stage s: As [kDctTK][kMdctBM] then Bs [kDctTK][kMdctBN]
+  auto plane = [&](int s, int p) { return smem + ((s & 1) * P + p) * kMdctStagePlane; };
+  auto copy_stage = [&](int s) {
+    const int k0 = s * kDctTK;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float* As = plane(s, p);
+      float* Bs = As + kDctTK * kMdctBM;
+      const float* fp = fold + static_cast<size_t>(p) * N * Bp;
+      const float* mp = Mt + static_cast<size_t>(p) * N * N;
+      for (int i = threadIdx.x; i < kDctTK * kMdctBM / 4; i += kMdctThreads) {
+        const int kk = i / (kMdctBM / 4), m = 4 * (i % (kMdctBM / 4));
+        const bool valid = k0 + kk < N;
+        acx_cp_async16(As + kk * kMdctBM + m,
+                       valid ? fp + static_cast<size_t>(k0 + kk) * Bp + row0 + m : fp, valid);
+      }
+      for (int i = threadIdx.x; i < kDctTK * kMdctBN / 4; i += kMdctThreads) {
+        const int kk = i / (kMdctBN / 4), c = 4 * (i % (kMdctBN / 4));
+        const bool valid = k0 + kk < N && col0 + c < N;
+        acx_cp_async16(Bs + kk * kMdctBN + c,
+                       valid ? mp + static_cast<size_t>(k0 + kk) * N + col0 + c : mp, valid);
+      }
+    }
+    acx_cp_async_commit();
+  };
 
-__global__ void __launch_bounds__(kDctThreads)
-    mdct_kernel(const float* __restrict__ x, const float* __restrict__ mem,
-                const float* __restrict__ win, const float* __restrict__ Mt,
-                float* __restrict__ d, float* __restrict__ new_mem, int B, int N, int la) {
-  dct4_tiles(MdctFold{x, mem, win, N, la}, StoreRow{d, N}, Mt, B, N);
-  if (blockIdx.x == 0) {
-    const int row0 = blockIdx.y * kDctBM, rows = imin(kDctBM, B - row0), m = N - la;
-    for (int i = threadIdx.x; i < rows * m; i += kDctThreads) {
-      const size_t r = static_cast<size_t>(row0 + i / m);
-      new_mem[r * m + i % m] = x[r * N + la + i % m];
+  // card order: acc (the blocks' sum) and part (this block's chain);
+  // compensated: acc is the sum s, part its compensation
+  float acc[kMdctTM][kMdctTN], part[kMdctTM][kMdctTN];
+#pragma unroll
+  for (int i = 0; i < kMdctTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kMdctTN; ++j) acc[i][j] = part[i][j] = 0.0f;
+  }
+  copy_stage(0);
+  acx_cp_async_wait_all();
+  __syncthreads();
+  for (int s = 0; s < stages; ++s) {
+    const int kn = imin(kDctTK, N - s * kDctTK);
+    if (s + 1 < stages) copy_stage(s + 1);
+    // one k-row of the stage: its 16-byte loads, then the tile's products
+    auto step = [&](int kk) {
+      float a[P][kMdctTM], b[P][kMdctTN];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float* As = plane(s, p);
+        const float* Bs = As + kDctTK * kMdctBM;
+#pragma unroll
+        for (int q = 0; q < kMdctTM; q += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(As + kk * kMdctBM + kMdctTM * ty + q);
+          a[p][q] = v.x, a[p][q + 1] = v.y, a[p][q + 2] = v.z, a[p][q + 3] = v.w;
+        }
+#pragma unroll
+        for (int q = 0; q < kMdctTN; q += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(Bs + kk * kMdctBN + kMdctTN * tx + q);
+          b[p][q] = v.x, b[p][q + 1] = v.y, b[p][q + 2] = v.z, b[p][q + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMdctTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kMdctTN; ++j) {
+          if constexpr (kCompensated) {
+            compensated_step(a[0][i], a[1 % P][i], a[2 % P][i], b[0][j], b[1 % P][j],
+                             b[2 % P][j], acc[i][j], part[i][j]);
+          } else {
+            const float prod = rmul(a[0][i], b[0][j]);
+            part[i][j] = kk == 0 ? prod : radd(part[i][j], prod);
+          }
+        }
+      }
+    };
+    if (!kCompensated && kn == kDctTK) {
+      // a whole stage: unrolled without tests, so the next row's loads are
+      // issued while this row is summed
+#pragma unroll
+      for (int kk = 0; kk < kDctTK; ++kk) step(kk);
+    } else {
+#pragma unroll 1
+      for (int kk = 0; kk < kn; ++kk) step(kk);
+    }
+    if constexpr (!kCompensated) {   // the block of 32 ends: add its sum in order
+#pragma unroll
+      for (int i = 0; i < kMdctTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kMdctTN; ++j) acc[i][j] = s == 0 ? part[i][j] : radd(acc[i][j], part[i][j]);
+      }
+    }
+    if (s + 1 < stages) acx_cp_async_wait_all();
+    __syncthreads();
+  }
+  const int c = col0 + kMdctTN * tx;
+  if (c >= N) return;
+#pragma unroll
+  for (int i = 0; i < kMdctTM; ++i) {
+    const int r = row0 + kMdctTM * ty + i;
+    if (r < B) {
+      float v[kMdctTN];
+#pragma unroll
+      for (int j = 0; j < kMdctTN; ++j) v[j] = kCompensated ? radd(acc[i][j], part[i][j]) : acc[i][j];
+#pragma unroll
+      for (int q = 0; q < kMdctTN; q += 4) {
+        *reinterpret_cast<float4*>(d + static_cast<size_t>(r) * N + c + q) =
+            make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+      }
     }
   }
 }
 
-extern "C" int acx_mdct(const void* x, const void* mem, const void* win, const void* Mt, void* d,
-                        void* new_mem, int B, int N, int la, void* stream) {
-  mdct_kernel<<<dct4_grid(B, N), kDctThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(mem),
-      static_cast<const float*>(win), static_cast<const float*>(Mt), static_cast<float*>(d),
-      static_cast<float*>(new_mem), B, N, la);
+template <bool kCompensated>
+static int launch_mdct(const void* x, const void* mem, const void* win, const void* Mt,
+                       void* fold, void* d, void* new_mem, int B, int Bp, int N, int la,
+                       void* stream) {
+  constexpr int P = kCompensated ? 3 : 1;
+  static bool smem_set = false;
+  if (N > kDctMaxN || N % 4 || Bp % kMdctBM || Bp < B) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = 2 * P * kMdctStagePlane * sizeof(float);
+  const cudaError_t rc = acx_dynamic_smem(mdct_product_kernel<kCompensated>, smem, &smem_set);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  mdct_fold_kernel<kCompensated>
+      <<<dim3((N + kFoldTile - 1) / kFoldTile, Bp / kFoldTile), kFoldThreads, 0, st>>>(
+          static_cast<const float*>(x), static_cast<const float*>(mem),
+          static_cast<const float*>(win), static_cast<float*>(fold), static_cast<float*>(new_mem),
+          B, Bp, N, la);
+  const cudaError_t fold_rc = cudaGetLastError();
+  if (fold_rc != cudaSuccess) return static_cast<int>(fold_rc);
+  mdct_product_kernel<kCompensated>
+      <<<dim3((N + kMdctBN - 1) / kMdctBN, Bp / kMdctBM), kMdctThreads, smem, st>>>(
+          static_cast<const float*>(fold), static_cast<const float*>(Mt), static_cast<float*>(d),
+          B, Bp, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fold is scratch of [1][N][Bp] floats (Bp: B rounded up to 64), Mt the
+// [N, N] matrix.
+extern "C" int acx_mdct(const void* x, const void* mem, const void* win, const void* Mt,
+                        void* fold, void* d, void* new_mem, int B, int Bp, int N, int la,
+                        void* stream) {
+  return launch_mdct<false>(x, mem, win, Mt, fold, d, new_mem, B, Bp, N, la, stream);
+}
+
+// fold is scratch of [3][N][Bp] floats, Mt the [3][N, N] matrix and its
+// Veltkamp halves.
+extern "C" int acx_mdct_compensated(const void* x, const void* mem, const void* win,
+                                    const void* Mt, void* fold, void* d, void* new_mem, int B,
+                                    int Bp, int N, int la, void* stream) {
+  return launch_mdct<true>(x, mem, win, Mt, fold, d, new_mem, B, Bp, N, la, stream);
 }
 #endif

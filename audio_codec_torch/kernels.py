@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
-           "tns_filter_analysis", "pc_classify", "mdct", "imdct",
+           "tns_filter_analysis", "pc_classify", "mdct", "imdct", "mdct_compensated",
            "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
            "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
            "fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf", "plc_main")
@@ -136,8 +136,9 @@ def library() -> ctypes.CDLL:
         "acx_sns_vq_enc": [P] * 4 + [I] + [P],
         "acx_tns_filter_analysis": [P] * 8 + [I] * 5 + [F] * 4 + [P],
         "acx_pc_classify": [P] * 7 + [I] * 3 + [F] + [P],
-        "acx_mdct": [P] * 6 + [I] * 3 + [P],
-        "acx_imdct": [P] * 6 + [I] * 3 + [P],
+        "acx_mdct": [P] * 7 + [I] * 4 + [P],
+        "acx_mdct_compensated": [P] * 7 + [I] * 4 + [P],
+        "acx_imdct": [P] * 7 + [I] * 3 + [P],
         "acx_olpa": [P] * 10 + [I] * 8 + [P],
         "acx_ltpf_encode": [P] * 16 + [I] * 8 + [P],
         "acx_noise_residual_enc": [P] * 10 + [I] * 6 + [P],
@@ -533,38 +534,66 @@ def pc_classify(cfg, bfi, spec_inv_idx, stab_fac, pitch_present, q_old_d, q_old_
 
 
 DCT4_MAX_N = 480    # csrc/dct4.cuh:kDctMaxN
+DCT4_ROWS = 64      # csrc/mdct.cu:kMdctBM: the fold scratch holds whole row tiles
 
 
-def _transform(name: str, cfg, a, mem, reverse: bool):
-    from .ops.transforms import dct4_mt, window
-    _check(a, "x" if name == "mdct" else "y", torch.float32, 2)
+def _transform_args(name: str, cfg, a, mem):
+    """Checks a transform's rows and memory; returns (B, N, la)."""
+    _check(a, "y" if name == "imdct" else "x", torch.float32, 2)
     _check(mem, "mem", torch.float32, 2)
     B, N = a.shape
     la = cfg.la_zeroes
-    if N != cfg.frame_length or N > DCT4_MAX_N or N % 2:
+    if N != cfg.frame_length or N > DCT4_MAX_N or N % 4:
         raise ValueError(f"{name}: frames of {N} samples; the kernel takes the configuration's "
                          f"frame of at most {DCT4_MAX_N} (HR mode is not ported)")
     if tuple(mem.shape) != (B, N - la):
         raise ValueError(f"{name}: expected mem [{B}, {N - la}], got {tuple(mem.shape)}")
-    dev = str(a.device)
-    out = torch.empty_like(a)
+    return B, N, la
+
+
+def _mdct(name: str, cfg, x, mem, Mt):
+    from .ops.transforms import window
+    B, N, la = _transform_args(name, cfg, x, mem)
+    Bp = -(-B // DCT4_ROWS) * DCT4_ROWS
+    fold = torch.empty((Mt.shape[0], N, Bp), dtype=torch.float32, device=x.device)
+    d = torch.empty_like(x)
     new_mem = torch.empty_like(mem)
     _run(name, getattr(library(), "acx_" + name)(
-        a.data_ptr(), mem.data_ptr(), window(cfg, dev, reverse).data_ptr(),
-        dct4_mt(N, dev).data_ptr(), out.data_ptr(), new_mem.data_ptr(), B, N, la, _stream()))
-    return out, new_mem
+        x.data_ptr(), mem.data_ptr(), window(cfg, str(x.device)).data_ptr(), Mt.data_ptr(),
+        fold.data_ptr(), d.data_ptr(), new_mem.data_ptr(), B, Bp, N, la, _stream()))
+    return d, new_mem
 
 
 def mdct(cfg, x, mem):
-    """Launch `mdct` (csrc/mdct.cu); see ops/transforms.py:mdct_plain.
+    """Launch `mdct` (csrc/mdct.cu: the fold prologue, then the product in
+    the card's blocked order); see ops/transforms.py:mdct_plain.
     Returns (d [B, N], new_mem [B, N - la])."""
-    return _transform("mdct", cfg, x, mem, False)
+    from .ops.transforms import dct4_mt
+    N = x.shape[-1]
+    return _mdct("mdct", cfg, x, mem, dct4_mt(N, str(x.device))[None])
+
+
+def mdct_compensated(cfg, x, mem):
+    """Launch `mdct_compensated` (csrc/mdct.cu, the CPU's compensated order
+    on the card); see ops/transforms.py:mdct_plain(compensated=True).
+    Returns (d [B, N], new_mem [B, N - la])."""
+    from .ops.transforms import dct4_mt_split
+    return _mdct("mdct_compensated", cfg, x, mem, dct4_mt_split(x.shape[-1], str(x.device)))
 
 
 def imdct(cfg, y, mem):
     """Launch `imdct` (csrc/imdct.cu); see ops/transforms.py:imdct_plain.
     Returns (x [B, N], new_mem [B, N - la])."""
-    return _transform("imdct", cfg, y, mem, True)
+    from .ops.transforms import dct4_mt, dct4_mt64, window
+    B, N, la = _transform_args("imdct", cfg, y, mem)
+    dev = str(y.device)
+    out = torch.empty_like(y)
+    new_mem = torch.empty_like(mem)
+    _run("imdct", library().acx_imdct(
+        y.data_ptr(), mem.data_ptr(), window(cfg, dev, True).data_ptr(),
+        dct4_mt(N, dev).data_ptr(), dct4_mt64(N, dev).data_ptr(), out.data_ptr(),
+        new_mem.data_ptr(), B, N, la, _stream()))
+    return out, new_mem
 
 
 def _check_vectors(B: int, dtype, **named):

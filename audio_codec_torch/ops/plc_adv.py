@@ -455,7 +455,9 @@ def tdc_apply(cfg: Config, pitch_int, fract, a, x_old_tot, nb_lost, stab_fac, se
 def tdac(cfg: Config, synth):
     """processTdac_fx: overlap-add memory for the frame after a concealed
     one, as the MDCT of the synthesized extension followed by the IMDCT (the
-    port's `transforms.mdct`/`imdct`, kernels on the card). synth: [B, frame
+    port's `transforms.mdct`/`imdct`, kernels on the card). The MDCT takes
+    the CPU's compensated order on every device, as the IMDCT takes the
+    CPU's order, so the card's memory equals the CPU's. synth: [B, frame
     + (frame - la_zeroes)]. Returns ola_mem [B, frame - la_zeroes]."""
     from . import transforms
     B = synth.shape[0]
@@ -463,7 +465,7 @@ def tdac(cfg: Config, synth):
     mem_t = synth[:, la:fl].contiguous()
     x_next = torch.cat([synth[:, fl: 2 * fl - la],
                         torch.zeros((B, la), dtype=F32, device=synth.device)], 1)
-    y, _ = transforms.mdct(cfg, x_next, mem_t)
+    y, _ = transforms.mdct(cfg, x_next, mem_t, compensated=True)
     _, ola_mem = transforms.imdct(cfg, y, torch.zeros((B, fl - la), dtype=F32,
                                                        device=synth.device))
     return ola_mem

@@ -4,13 +4,17 @@ product over the stream batch (mdct.c:72-126, imdct.c:14-59).
 On the card both transforms are CUDA kernels (csrc/mdct.cu, csrc/imdct.cu)
 that fuse the window, fold, unfold and overlap-add around the product;
 `mdct_plain` and `imdct_plain` are their plain versions. For a tensor on
-the card the forward transform's plain version states its kernel's float
-order: the DCT-IV sums each output in k-blocks of DCT4_BLOCK, each block one
+the card the encoder's forward transform states its kernel's float order:
+the DCT-IV sums each output in k-blocks of DCT4_BLOCK, each block one
 k-ascending chain, the blocks added in order (`_dct4_card`); on the CPU it
 runs the compensated product of the reference's CPU branch
-(`audio_codec_tpu/ops/transforms.py:_dct4_apply`) step for step, so the
-spectra, and with them the quantizer's dead-zone ties, agree exactly. The
-inverse transform follows XLA:CPU's order on every device
+(`audio_codec_tpu/ops/transforms.py:_dct4_apply`) step for step
+(`_dct4_compensated`), so the spectra, and with them the quantizer's
+dead-zone ties, agree exactly. The concealment's TDAC asks for the
+compensated order on every device (`compensated=True`, the
+`mdct_compensated` kernel on the card), so that its memory on the card
+equals the CPU's. The inverse transform follows XLA:CPU's order on every
+device
 (`numerics.xla_dot`: 68-deep fused multiply-add chains at N = 480, one
 chain below; `numerics.xla_gemv` for a single stream), and so does its
 kernel.
@@ -45,6 +49,28 @@ def dct4_mt(N: int, device: str) -> torch.Tensor:
     return nm.const(T.dct4_matrix(N).T, device)
 
 
+@functools.cache
+def dct4_mt64(N: int, device: str) -> torch.Tensor:
+    """dct4_mt's float32 values as float64 on `device` (the IMDCT kernel's
+    copy), made once."""
+    return dct4_mt(N, device).to(torch.float64)
+
+
+def _veltkamp(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Veltkamp split of float32 values at 2^12 + 1: (hi, lo)."""
+    c = 4097.0 * v
+    hi = c - (c - v)
+    return hi, v - hi
+
+
+@functools.cache
+def dct4_mt_split(N: int, device: str) -> torch.Tensor:
+    """[3, N, N]: dct4_mt and its Veltkamp halves (hi, lo) on `device`, made
+    once by the plain version's own split (the compensated kernel's table)."""
+    Mt = dct4_mt(N, device)
+    return torch.stack([Mt, *_veltkamp(Mt)]).contiguous()
+
+
 def _dct4_card(a: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
     """a [B, K] @ Mt [K, N] in the kernels' order: k-blocks of DCT4_BLOCK
     (the last one ragged), each a k-ascending chain of separately rounded
@@ -59,34 +85,26 @@ def _dct4_card(a: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _dct4_apply(folded: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
-    """folded [B, N] @ Mt [N, N]: Dekker-split exact products summed with
-    Neumaier compensation on the CPU, the kernels' blocked order on the
-    card."""
-    if not nm.on_cpu(folded):
-        return _dct4_card(folded, Mt)
+def _dct4_compensated(folded: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
+    """folded [B, N] @ Mt [N, N] in the CPU's compensated order on every
+    device: Dekker-split exact products summed with Neumaier compensation,
+    each fused multiply-add as XLA:CPU contracts it (`numerics.xla_fma`)."""
     B = folded.shape[0]
-
-    def split(v):  # Veltkamp split at 2^12+1 for f32
-        c = 4097.0 * v
-        hi = c - (c - v)
-        return hi, v - hi
-
-    s = torch.zeros((B, Mt.shape[1]), dtype=F32)
+    s = torch.zeros((B, Mt.shape[1]), dtype=F32, device=folded.device)
     comp = torch.zeros_like(s)
     for k in range(folded.shape[1]):
         a = folded[:, k: k + 1].expand(B, Mt.shape[1])
         b = Mt[k][None, :].expand(B, Mt.shape[1])
-        ah, al = split(a)
-        bh, bl = split(b)
+        ah, al = _veltkamp(a)
+        bh, bl = _veltkamp(b)
         p = a * b
         # the products are exact, so XLA:CPU's contractions here are too
-        err = nm.fma(al, bl, nm.fma(al, bh, nm.fma(ah, bl, nm.fma(ah, bh, -p))))
+        err = nm.xla_fma(al, bl, nm.xla_fma(al, bh, nm.xla_fma(ah, bl, nm.xla_fma(ah, bh, -p))))
         # Neumaier two-sum of p then err; XLA:CPU contracts the product p
         # into the first sum and into its compensation term
-        t = nm.fma(a, b, s)
+        t = nm.xla_fma(a, b, s)
         bv = t - s
-        comp = comp + ((s - (t - bv)) + nm.fma(a, b, -bv))
+        comp = comp + ((s - (t - bv)) + nm.xla_fma(a, b, -bv))
         s = t
         t = s + err
         bv = t - s
@@ -95,9 +113,11 @@ def _dct4_apply(folded: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
     return s + comp
 
 
-def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor):
+def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor, compensated: bool = False):
     """Forward low-delay MDCT of one frame per stream; the plain version of
-    the `mdct` kernel.
+    the `mdct` kernel, and with `compensated` of `mdct_compensated`: the
+    CPU's order (the fold's contraction and the compensated product) on
+    every device. On the CPU both are the CPU's order.
 
     x: [B, N] PCM frame; mem: [B, N - la_zeroes] previous raw input tail.
     Returns (d [B, N] spectrum, new_mem)."""
@@ -110,10 +130,13 @@ def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor):
         buf = torch.nn.functional.pad(buf, (0, la))
     rev = lambda v: v[:, 2 * h: 3 * h].flip(-1)
     # the products XLA:CPU contracts: the second of -w - w, the first of w - w
-    out_lo = nm.fma(-buf[:, 3 * h:], win[3 * h:], -(rev(buf) * rev(win[None, :])))
-    out_hi = nm.fma(buf[:, :h], win[:h], -(buf[:, h: 2 * h].flip(-1) * win[h: 2 * h].flip(-1)))
+    cpu_order = compensated or nm.on_cpu(x)
+    fma = nm.xla_fma if cpu_order else nm.fma
+    out_lo = fma(-buf[:, 3 * h:], win[3 * h:], -(rev(buf) * rev(win[None, :])))
+    out_hi = fma(buf[:, :h], win[:h], -(buf[:, h: 2 * h].flip(-1) * win[h: 2 * h].flip(-1)))
     folded = torch.cat([out_lo, out_hi], dim=-1)
-    return _dct4_apply(folded, dct4_mt(N, str(x.device))), x[:, la:]
+    Mt = dct4_mt(N, str(x.device))
+    return (_dct4_compensated if cpu_order else _dct4_card)(folded, Mt), x[:, la:]
 
 
 def imdct_plain(cfg: Config, y: torch.Tensor, mem: torch.Tensor):
@@ -137,12 +160,14 @@ def imdct_plain(cfg: Config, y: torch.Tensor, mem: torch.Tensor):
     return x, x_ov[:, N + la:] * win[N + la:]
 
 
-def mdct(cfg: Config, x: torch.Tensor, mem: torch.Tensor):
-    """The forward MDCT: the CUDA kernel for a tensor on the card, its plain
-    version for a tensor on the CPU."""
+def mdct(cfg: Config, x: torch.Tensor, mem: torch.Tensor, compensated: bool = False):
+    """The forward MDCT: the CUDA kernel for a tensor on the card (with
+    `compensated`, the one in the CPU's order), its plain version for a
+    tensor on the CPU."""
     if nm.on_cpu(x):
-        return mdct_plain(cfg, x, mem)
-    return kernels.mdct(cfg, x.contiguous(), mem.contiguous())
+        return mdct_plain(cfg, x, mem, compensated)
+    launch = kernels.mdct_compensated if compensated else kernels.mdct
+    return launch(cfg, x.contiguous(), mem.contiguous())
 
 
 def imdct(cfg: Config, y: torch.Tensor, mem: torch.Tensor):

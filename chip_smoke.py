@@ -28,8 +28,10 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                analysis on silent, all-zero and order-8 spectra at 64 and 32
                kbps (where the LPC weighting decides), the concealment
                classifier on rows that take each of its branches, the MDCT
-               and IMDCT on full-scale, silent and alternating rows at N = 480
-               and 160, and the pitch analysis, the LTPF coder, the noise
+               (in both orders) and IMDCT (also one stream a launch) on
+               full-scale, silent and alternating rows, rows of negative
+               zeros, subnormal-scale rows and rows near 1e37 at N = 480 and
+               160, and the pitch analysis, the LTPF coder, the noise
                factor and residual coder (64 and 16 kbps) and the spectrum
                reconstruction on rows that take each of their branches;
   4. block path encode_block + decode_block at --streams x --frames with the
@@ -42,14 +44,18 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                the card's payloads; every decoder stage of that decode, card
                against CPU, with the first stage that differs (payload-side
                stages exactly, float stages with the first differing element
-               and its distance in ulps); a segmental SNR;
+               and its distance in ulps); every encoder stage of that encode,
+               card against CPU, with the first that differs and the payload
+               bytes apart (a record: the encoder keeps the card's order); a
+               segmental SNR;
   5. times     CUDA-event times of each block-path kernel (the median of
                TIME_LOOPS loops of TIME_LAUNCHES launches, with their min and
                max; and the same launches replayed from a CUDA graph, which is
                the device's time where the host launches slower than the
                kernel runs) and of its plain version, for the MDCT and IMDCT
                the library's product (torch.matmul) of the same rows by the
-               same matrix, and of the encode and decode blocks, as real-time
+               same matrix (and the TDAC's compensated MDCT on the MDCT's
+               rows), and of the encode and decode blocks, as real-time
                stream equivalents;
   6. stream    StreamEncoder -> channel -> StreamDecoder at EP1-4 over the
                same material, the counters reset before and read after (every
@@ -68,8 +74,10 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                the kernel path's payloads, flags and PCM (+-1) against the
                plain path's; CUDA-event times of the new kernels and of
                encode/decode per frame at each mode;
-  7. concealment the plc_mode=1 path (see concealment_phase), with its
-               stage-by-stage trace card against CPU;
+  7. concealment the plc_mode=1 path (see concealment_phase): every launch of
+               its four kernels, of the TDAC's compensated MDCT and of the
+               IMDCT equal to its plain version, its stage-by-stage trace card against CPU,
+               whose first difference must not be the TDAC's MDCT;
   8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
                phase 4's payloads with a group of silent streams (zero
                frames), B x T: the launch counts (the frontend's two, one
@@ -90,7 +98,7 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
   9. standard concealment and the file tools (standard_concealment_phase,
                file_tools_phase): phase 7's payloads decoded at plc_mode=0
                over its loss plan with T plc_main launches, each equal to its
-               plain version, every branch of it, the stage-by-stage trace
+               plain version (and each imdct launch), every branch of it, the stage-by-stage trace
                card against CPU, times; then the CLI and ccConvert as
                subprocesses on the card and with -device cpu on a 2-channel
                WAV;
@@ -151,6 +159,8 @@ KERNEL_INFO = {
                     "audio_codec_tpu/ops/pc.py:114"),
     "mdct": ("audio_codec_torch/csrc/mdct.cu", "audio_codec_tpu/ops/transforms.py:69"),
     "imdct": ("audio_codec_torch/csrc/imdct.cu", "audio_codec_tpu/ops/transforms.py:96"),
+    # the TDAC's MDCT (plc_adv.py:444) in the CPU branch's compensated order
+    "mdct_compensated": ("audio_codec_torch/csrc/mdct.cu", "audio_codec_tpu/ops/transforms.py:24"),
     "olpa": ("audio_codec_torch/csrc/olpa.cu", "audio_codec_tpu/ops/analysis.py:77"),
     "ltpf_encode": ("audio_codec_torch/csrc/ltpf_encode.cu",
                     "audio_codec_tpu/ops/analysis.py:163"),
@@ -183,8 +193,13 @@ KERNEL_INFO = {
 # the kernels of the flagship block path (phases 3-5); the stream path
 # (phase 6) runs them and the channel coder's two
 STREAM_KERNELS = ("fec_encode", "fec_decode")
-# the advanced concealment's kernels (phase 7, plc_mode 1)
-PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
+# the advanced concealment's kernels (phase 7, plc_mode 1), the TDAC's MDCT
+# among them
+PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
+               "mdct_compensated")
+# operations of a term of the compensated product (the Dekker error, two
+# Neumaier steps, a multiply-add counted as two)
+COMPENSATED_TERM_OPS = 25
 PLC_FRAMES = 16
 # the bit-exact fixed-point decoder's kernels (phase 8, DeviceFixedDecoder)
 FIXED_KERNELS = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
@@ -274,6 +289,16 @@ def graph_ms(fn) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / TIME_LAUNCHES
+
+
+def matmul_ms(rows) -> float:
+    """Median ms of torch.matmul of these [B, N] rows by the DCT-IV matrix in
+    full float32 (TF32 off): the library call beside the transform kernels."""
+    import torch
+    from audio_codec_torch.ops import transforms
+    Mt = transforms.dct4_mt(rows.shape[1], str(rows.device))
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for torch.matmul")
+    return cuda_ms_spread(lambda: torch.matmul(rows, Mt))[0]
 
 
 def outputs(res) -> list:
@@ -633,16 +658,26 @@ def slice4_cases(cfg, dev, K, rec):
     check(all(v > 0 for v in branches.values()), f"a pc_classify branch was not taken: {branches}")
     for fs, bitrate in ((48000, 64000), (16000, 32000)):
         c = P.Config(fs_in=fs, bitrate=bitrate)
-        x, mem = C.transform_rows(c.frame_length, c.la_zeroes, seed=4)
-        for name in ("mdct", "imdct"):
-            targs = (c, g(x), g(mem))
+        x, mem = C.transform_rows(c.frame_length, c.la_zeroes, seed=4, extreme=True)
+        targs = (c, g(x), g(mem))
+        for name in ("mdct", "imdct", "mdct_compensated"):
             got = getattr(K, name)(*targs)
-            ref = [t.contiguous() for t in getattr(transforms, name + "_plain")(*targs)]
+            if name == "mdct_compensated":
+                ref = transforms.mdct_plain(*targs, compensated=True)
+            else:
+                ref = getattr(transforms, name + "_plain")(*targs)
             torch.cuda.synchronize()
-            same_bits(got, ref, f"{name} (synthetic rows, N = {c.frame_length})")
-            check(bool(torch.isfinite(got[0]).all()), f"{name}: not finite")
-    print("[kernels] mdct and imdct on full-scale, silent and alternating rows at N = 480 and "
-          "160 equal their plain versions", flush=True)
+            same_bits(got, [t.contiguous() for t in ref], f"{name} (synthetic rows, N = {c.frame_length})")
+            # the rows near 1e37 overflow the compensated order's split, as on the CPU
+            finite = got[0][:-2] if name == "mdct_compensated" else got[0]
+            check(bool(torch.isfinite(finite).all()), f"{name}: not finite")
+        for b in range(x.shape[0]):   # one stream a launch: the single-row order
+            one = (c, g(x[b: b + 1]), g(mem[b: b + 1]))
+            same_bits(K.imdct(*one), [t.contiguous() for t in transforms.imdct_plain(*one)],
+                      f"imdct (single stream, synthetic row {b}, N = {c.frame_length})")
+    print("[kernels] mdct, imdct (also one stream a launch) and mdct_compensated on full-scale, "
+          "silent and alternating rows, negative zeros, subnormal-scale rows and rows near 1e37 "
+          "at N = 480 and 160 equal their plain versions", flush=True)
 
 
 BRANCHED_KERNELS = ("olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
@@ -720,11 +755,44 @@ def _tensors(v) -> list:
     return []
 
 
+# the encoder's stages in the order encode_frame calls them
+ENCODER_STAGES = (("transforms", "mdct"), ("analysis", "resample_12k8"), ("analysis", "olpa"),
+                  ("analysis", "ltpf_encode"), ("analysis", "attack_detector"),
+                  ("analysis", "per_band_energy"), ("analysis", "detect_cutoff_warped"),
+                  ("sns", "compute_scf"), ("sns", "quantize_scf_enc"), ("sns", "interpolate_scf"),
+                  ("sns", "mdct_shaping"), ("analysis", "cutoff_bandwidth"), ("tns", "tns_encode"),
+                  ("quant", "estimate_global_gain"), ("quant", "quantize_spectrum"),
+                  ("quant", "bit_estimate"), ("quant", "adjust_global_gain"),
+                  ("quant", "truncate_spectrum"), ("quant", "noise_residual_enc"),
+                  ("bits", "pack_side_info"), ("ari", "encode"))
+
+
 # at plc_mode 1 the concealment's stages come in besides, and the TDAC's
 # forward transform
 PLC_STAGES = DECODER_STAGES + (("transforms", "mdct"), ("plc_adv", "plc_tdc"), ("plc_adv", "tdac"),
+                               ("plc_phecu", "spectrum"), ("plc_phecu", "rec_frame"),
                                ("plc_phecu", "apply"), ("plc_adv", "damp_scramble"),
                                ("plc_adv", "update_pcm_hist"))
+
+
+def tdac_rows_apart(card: list, cpu: list) -> dict[str, set]:
+    """Streams whose TDAC forward MDCT differs card against CPU in two
+    traces of one plc_mode 1 decode, by the synthesis it transforms: the
+    TD-PLC's (after plc_adv.plc_tdc) or the Phase ECU's (after
+    plc_phecu.rec_frame, which runs for every lane and whose FFTs are
+    torch.fft's on each device)."""
+    import torch
+    rows = {"plc_adv.plc_tdc": set(), "plc_phecu.rec_frame": set()}
+    ctx = None
+    for (name, a), (name_c, b) in zip(card, cpu):
+        if name != name_c:
+            break
+        if name in rows:
+            ctx = name
+        elif name == "transforms.mdct" and ctx is not None:
+            apart = (a[0].view(torch.int32) != b[0].view(torch.int32)).any(-1)
+            rows[ctx] |= set(torch.nonzero(apart).flatten().tolist())
+    return rows
 
 
 @contextlib.contextmanager
@@ -1019,6 +1087,21 @@ def stream_phase(dev, pcm, K, plain, card):
     return rows
 
 
+def transforms_equal(rec: dict, what: str) -> int:
+    """Every recorded launch of the MDCT and IMDCT kernels against its plain
+    version, bit for bit; returns the count."""
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import transforms
+    n = 0
+    for name in ("mdct", "imdct"):
+        for args, kw in rec.get(name, []):
+            ref = getattr(transforms, name + "_plain")(*args, **kw)
+            same_bits(getattr(K, name)(*args, **kw), [t.contiguous() for t in ref],
+                      f"{name} ({what})")
+            n += 1
+    return n
+
+
 def plc_pcm(T: int, B: int, seed: int):
     """make_pcm's material, with every twelfth stream a seeded pair of tones
     (pitched content of high spectral centroid, which the classifier sends
@@ -1060,6 +1143,12 @@ def plc_work(name: str, args, out) -> tuple[int, float]:
     multiply-adds, two operations each)."""
     import torch
     B = args[1].shape[0]
+    if name == "mdct_compensated":
+        from audio_codec_torch.ops import transforms
+        N = args[1].shape[1]
+        byts = nbytes(args[1], args[2], *out, transforms.dct4_mt(N, str(args[1].device)),
+                      transforms.window(args[0], str(args[1].device)))
+        return byts, float(B * N * N * COMPENSATED_TERM_OPS)
     if name == "plc_tdc":
         lost, nb = args[1].bool(), args[2]
         meth = out["meth"]
@@ -1089,6 +1178,9 @@ def plc_work(name: str, args, out) -> tuple[int, float]:
 
 def plc_branches(name: str, args, out) -> dict[str, int]:
     """Stream counts of the branches a concealment kernel's launch took."""
+    if name == "mdct_compensated":
+        silent = ~(args[1] != 0).any(-1) & ~(args[2] != 0).any(-1)
+        return {"silent rows": int(silent.sum()), "rows with signal": int((~silent).sum())}
     if name == "plc_tdc":
         lost, nb, pitch, fr, stab = args[1].bool(), args[2], args[6], args[7], args[8]
         first = lost & (nb == 1)
@@ -1173,7 +1265,7 @@ def concealment_phase(dev, opt, K, card):
     import numpy as np
     import torch
     import audio_codec_torch as P
-    from audio_codec_torch.ops import plc_adv, plc_phecu
+    from audio_codec_torch.ops import plc_adv, plc_phecu, transforms
     t_start = time.time()
     B, T = opt.streams, PLC_FRAMES
     cfg = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
@@ -1200,7 +1292,9 @@ def concealment_phase(dev, opt, K, card):
     # every launch of the four kernels against its plain version
     plain = {"plc_tdc": plc_adv.plc_tdc_plain, "plc_damp_scramble": plc_adv.damp_scramble_plain,
              "phecu_spec_ana": plc_phecu.phecu_spec_ana_plain,
-             "phecu_subst": plc_phecu.phecu_subst_plain}
+             "phecu_subst": plc_phecu.phecu_subst_plain,
+             "mdct_compensated": lambda *a: tuple(
+                 t.contiguous() for t in transforms.mdct_plain(*a, compensated=True))}
     rec: dict = {}
     with recording(rec):
         P.decode_block(cfg, P.dec_state_init(cfg, B, device=dev), frames, bfi)
@@ -1223,6 +1317,8 @@ def concealment_phase(dev, opt, K, card):
         errs[name], busiest[name] = err, best
         print(f"[plc] {name}: {len(rec[name])} launches equal their plain version bit for bit; "
               f"branches {hist[name]}", flush=True)
+    n = transforms_equal(rec, "plc_mode 1")
+    print(f"[plc] mdct and imdct: {n} launches equal their plain versions bit for bit", flush=True)
     meth = {k: hist["plc_tdc"][f"method {k}"] for k in (2, 3, 4)}
     print(f"[plc] methods chosen at first losses: {meth}", flush=True)
     check(all(v > 0 for v in meth.values()), f"a concealment method never occurred: {meth}")
@@ -1241,8 +1337,18 @@ def concealment_phase(dev, opt, K, card):
     nb = min(12, B)
     fr_s, bfi_s = frames[:, :nb].contiguous(), bfi[:, :nb].contiguous()
     trace_k, trace_c = [], []
-    with stage_trace(trace_k, PLC_STAGES):
-        _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
+    ph_streams = torch.zeros(nb, dtype=torch.bool)    # streams the Phase ECU conceals
+    apply = plc_phecu.apply
+
+    def apply_seen(*a, **k):
+        ph_streams.logical_or_(a[12].cpu())
+        return apply(*a, **k)
+    plc_phecu.apply = apply_seen
+    try:
+        with stage_trace(trace_k, PLC_STAGES):
+            _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
+    finally:
+        plc_phecu.apply = apply
     with plain_path():
         _, out_p = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_s, bfi_s)
     cpu = torch.device("cpu")
@@ -1253,13 +1359,24 @@ def concealment_phase(dev, opt, K, card):
     print(f"[plc] card vs CPU port at plc_mode 1, stage by stage over {len(trace_k)} stage "
           f"calls: first difference {first} (stage, call, output, element, card, cpu, ulps); "
           f"stage calls that differ {per_stage}", flush=True)
+    check(first is None or not first[0].startswith("transforms.mdct"),
+          "the TDAC's forward MDCT is still where the card's concealment departs from the CPU's")
+    apart = tdac_rows_apart(trace_k, trace_c)
+    ph = set(torch.nonzero(ph_streams).flatten().tolist())
+    print(f"[plc] streams whose TDAC MDCT differs, card vs CPU: of the TD-PLC's synthesis "
+          f"{sorted(apart['plc_adv.plc_tdc'])}, of the Phase ECU's {sorted(apart['plc_phecu.rec_frame'])}; "
+          f"streams the Phase ECU concealed {sorted(ph)}", flush=True)
+    check(apart["plc_adv.plc_tdc"] <= ph, "the TD-PLC's TDAC MDCT differs from the CPU's on a "
+          "stream the Phase ECU never concealed")
     pk = P.round_pcm(out_k).to(torch.int32)
     gap_p = int((pk - P.round_pcm(out_p).to(torch.int32)).abs().max())
     gap_c = (pk.cpu() - P.round_pcm(out_c).to(torch.int32)).abs()
+    other = gap_c[:, ~ph_streams]
     print(f"[plc] {nb} streams x {T} frames at plc_mode 1: kernel path vs plain path on the card "
           f"max |PCM diff| {gap_p}; card vs the port on the CPU max |PCM diff| "
-          f"{int(gap_c.max())}, {int((gap_c > 0).sum())} of {gap_c.numel()} samples differ",
-          flush=True)
+          f"{int(gap_c.max())}, {int((gap_c > 0).sum())} of {gap_c.numel()} samples differ; "
+          f"on the {other.shape[1]} streams the Phase ECU never concealed (TD-PLC, noise "
+          f"substitution) {int((other > 0).sum())} of {other.numel()}", flush=True)
     check(gap_p <= 1, f"plc_mode 1 PCM of the kernel path differs by {gap_p} > 1")
     check(int(gap_c.max()) <= CPU_PCM_TOL, f"plc_mode 1 PCM differs from the CPU port's by "
           f"{int(gap_c.max())}")
@@ -1275,16 +1392,20 @@ def concealment_phase(dev, opt, K, card):
         byts, ops = plc_work(name, args, fn())
         b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
         src, replaces = KERNEL_INFO[name]
+        lib_ms = None
+        if name == "mdct_compensated":   # the library's product of the same rows
+            lib_ms = matmul_ms(args[1])
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops else "operations",
-                         library_ms=None, graph_ms=gms))
+                         library_ms=lib_ms, graph_ms=gms))
         print(f"[times] {card} | {name}: kernel {ms:.4f} ms (median of {TIME_LOOPS} loops of "
               f"{TIME_LAUNCHES}; min {ms_min:.4f}, max {ms_max:.4f}; {gms:.4f} ms replayed from "
-              f"a CUDA graph), plain {pms:.2f} ms, bound {max(b_bytes, b_ops):.6f} ms "
-              f"({byts} B, {ops:.3g} ops) on its busiest launch, {counts[name]} launches in "
-              f"the block", flush=True)
+              f"a CUDA graph), plain {pms:.2f} ms, "
+              + (f"torch.matmul {lib_ms:.4f} ms, " if lib_ms is not None else "") +
+              f"bound {max(b_bytes, b_ops):.6f} ms ({byts} B, {ops:.3g} ops) on its busiest "
+              f"launch, {counts[name]} launches in the block", flush=True)
     seg = torch.randn((B, 768), device=dev)
     spec = torch.fft.rfft(seg)
     r_ms = cuda_ms_spread(lambda: torch.fft.rfft(seg))
@@ -1602,9 +1723,11 @@ def standard_concealment_phase(dev, frames, bfi, K, card) -> list:
 
     # every launch against its plain version, the branches taken
     rec: dict = {}
-    with recording(rec, ["plc_main"]):
+    with recording(rec, ["plc_main", "imdct"]):
         P.decode_block(cfg, P.dec_state_init(cfg, B, device=dev), frames, bfi)
     torch.cuda.synchronize()
+    n = transforms_equal(rec, "plc_mode 0")
+    print(f"[plc0] imdct: {n} launches equal their plain version bit for bit", flush=True)
     hist, busiest, err = {}, None, 0.0
     for args, kw in rec["plc_main"]:
         got, ref = K.plc_main(*args, **kw), plc.plc_main_plain(*args, **kw)
@@ -2011,9 +2134,11 @@ def main() -> int:
     nb = min(12, B)
     small = pcm[:, :nb].contiguous()
     rec_k: dict = {}
+    etrace_k, etrace_c = [], []
     with recording(rec_k):
         st_k = P.enc_state_init(cfg, nb, device=dev)
-        st_k, fr_k = P.encode_block(cfg, st_k, small)
+        with stage_trace(etrace_k, ENCODER_STAGES):
+            st_k, fr_k = P.encode_block(cfg, st_k, small)
         _, out_k = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_k)
     with plain_path():
         st_p = P.enc_state_init(cfg, nb, device=dev)
@@ -2032,7 +2157,8 @@ def main() -> int:
     check(pcm_diff <= 1, f"PCM of the kernel path differs by {pcm_diff} > 1")
 
     cpu = torch.device("cpu")
-    _, fr_c = P.encode_block(cfg, P.enc_state_init(cfg, nb, device=cpu), small.cpu())
+    with stage_trace(etrace_c, ENCODER_STAGES):
+        _, fr_c = P.encode_block(cfg, P.enc_state_init(cfg, nb, device=cpu), small.cpu())
     _, out_c = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=cpu), fr_k.cpu())
     frames_differ = int((fr_c != fr_k.cpu()).any(dim=-1).sum())
     gap = (P.round_pcm(out_c).to(torch.int32) - pcm16_k.cpu()).abs()
@@ -2043,6 +2169,13 @@ def main() -> int:
     check(frames_differ <= CPU_FRAMES_DIFFER_MAX * nb * T,
           f"{frames_differ} payload frames differ from the CPU port's")
     check(int(gap.max()) <= CPU_PCM_TOL, f"PCM differs from the CPU port's by {int(gap.max())}")
+    # where the card's encode first departs from the CPU port's (a record:
+    # the encoder keeps the card's own order, the MDCT's blocked sum first)
+    first_e, per_stage_e = first_difference(etrace_k, etrace_c, may_diverge=True)
+    print(f"[main] card vs CPU port, encoder stage by stage over {len(etrace_k)} stage calls: "
+          f"first difference {first_e} (stage, call, output, element, card, cpu, ulps); "
+          f"stage calls that differ {per_stage_e}; payload bytes that differ "
+          f"{int((fr_c != fr_k.cpu()).sum())} of {fr_c.numel()}", flush=True)
     # where the card's decode first departs from the CPU port's: every
     # decoder stage of the same payloads, payload-side stages exactly, float
     # stages with the first differing element and its distance in ulps
@@ -2078,11 +2211,7 @@ def main() -> int:
         lib_ms = None
         if name in ("mdct", "imdct"):
             # the library's product of the same rows by the same matrix
-            from audio_codec_torch.ops import transforms
-            lhs = args[1]
-            Mt = transforms.dct4_mt(lhs.shape[1], str(lhs.device))
-            check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for torch.matmul")
-            lib_ms = cuda_ms_spread(lambda: torch.matmul(lhs, Mt))[0]
+            lib_ms = matmul_ms(args[1])
         ops = work_ops(name, args)
         b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
         src, replaces = KERNEL_INFO[name]
@@ -2096,6 +2225,15 @@ def main() -> int:
               f"a CUDA graph), plain {pms:.2f} ms, "
               + (f"torch.matmul {lib_ms:.4f} ms, " if lib_ms is not None else "") +
               f"bound {max(b_bytes, b_ops):.6f} ms ({byts} B, {ops:.3g} ops)", flush=True)
+
+    # the TDAC's compensated MDCT on the encoder's rows (its row in the
+    # kernels line comes from phase 7, whose decode launches it)
+    args, _ = rec["mdct"][-1]
+    fn = lambda: K.mdct_compensated(*args)
+    ms, ms_min, ms_max = cuda_ms_spread(fn)
+    print(f"[times] {card} | mdct_compensated on mdct's rows: kernel {ms:.4f} ms (min "
+          f"{ms_min:.4f}, max {ms_max:.4f}; {graph_ms(fn):.4f} ms replayed from a CUDA graph), "
+          f"torch.matmul {matmul_ms(args[1]):.4f} ms", flush=True)
 
     st = P.enc_state_init(cfg, B, device=dev)
     ds = P.dec_state_init(cfg, B, device=dev)

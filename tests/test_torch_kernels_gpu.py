@@ -13,8 +13,9 @@ SNS submode with its field widths, the pulse search's silent-target branch,
 frames that fire each of the side-info parser's bad-frame triggers, TNS
 spectra with dead subdivisions, filters of order 8 and (at 32 kbps) gains
 where the LPC weighting decides, concealment rows that take every branch of
-the classifier, full-scale, silent and alternating rows for the MDCT and
-IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
+the classifier, full-scale, silent and alternating rows, rows of negative
+zeros, subnormal-scale rows and rows near 1e37 for the MDCT (in both of its
+orders) and the IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
 windowed search taken and not, LTPF rows with each activation rule firing
 alone, residual-coder rows with no zero line and a cut n_res at 64 and
 16 kbps, and spectrum rows in every branch of the partial concealment
@@ -22,7 +23,7 @@ alone, residual-coder rows with no zero line and a cut n_res at 64 and
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
 block (bfi 0 and 2, and the encoder's simulation); the four concealment
-kernels (plc_mode 1) and the standard concealment's plc_main (plc_mode 0) on
+kernels and the TDAC's compensated MDCT (plc_mode 1) and the standard concealment's plc_main (plc_mode 0) on
 every launch of a lossy block over speech, music, noise and tones and on
 their synthetic rows (plc_main: every damping branch, the generator's edge
 seeds, bfi 2); a warmed encode_frame, decode_frame (plc_mode 0, clean and
@@ -353,7 +354,8 @@ def test_launch_counts_move(dev):
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
                           "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
-                          "pc_classify": 2, "mdct": 2, "imdct": 2, "olpa": 2,
+                          "pc_classify": 2, "mdct": 2, "imdct": 2, "mdct_compensated": 0,
+                          "olpa": 2,
                           "ltpf_encode": 2, "noise_residual_enc": 2, "spec_decode": 2,
                           "fec_encode": 0, "fec_decode": 0, "plc_tdc": 0,
                           "plc_damp_scramble": 0, "phecu_spec_ana": 0, "phecu_subst": 0,
@@ -438,9 +440,10 @@ def test_transform_matches_plain_on_the_main_path(recorded, name):
 @pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
 @pytest.mark.parametrize("name", ["mdct", "imdct"])
 def test_transform_synthetic_rows(dev, name, fs, bitrate):
-    """Full-scale, silent and alternating-sign rows at N = 480 and 160."""
+    """Full-scale, silent and alternating-sign rows, rows of negative zeros,
+    subnormal-scale rows and rows near 1e37 at N = 480 and 160."""
     cfg = P.Config(fs_in=fs, bitrate=bitrate)
-    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=4)
+    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=4, extreme=True)
     args = (cfg, torch.from_numpy(x).to(dev), torch.from_numpy(mem).to(dev))
     got = getattr(K, name)(*args)
     same_tensors(got, [t.contiguous() for t in getattr(transforms, name + "_plain")(*args)])
@@ -448,11 +451,23 @@ def test_transform_synthetic_rows(dev, name, fs, bitrate):
 
 
 @pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_mdct_compensated_synthetic_rows(dev, fs, bitrate):
+    """The TDAC's MDCT in the CPU's compensated order on the same rows; the
+    rows near 1e37 overflow its split to NaN, as on the CPU."""
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=4, extreme=True)
+    args = (cfg, torch.from_numpy(x).to(dev), torch.from_numpy(mem).to(dev))
+    got = K.mdct_compensated(*args)
+    same_tensors(got, [t.contiguous() for t in transforms.mdct_plain(*args, compensated=True)])
+    assert bool(torch.isfinite(got[0][:-2]).all()) and bool(torch.isnan(got[0][-2:]).all())
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
 def test_imdct_single_stream(dev, fs, bitrate):
     """One stream a launch (the matrix-vector product's order) on each
     synthetic row."""
     cfg = P.Config(fs_in=fs, bitrate=bitrate)
-    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=5)
+    x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=5, extreme=True)
     for b in range(x.shape[0]):
         args = (cfg, torch.from_numpy(x[b: b + 1]).to(dev), torch.from_numpy(mem[b: b + 1]).to(dev))
         same_tensors(K.imdct(*args), [t.contiguous() for t in transforms.imdct_plain(*args)])
@@ -651,14 +666,17 @@ def test_ep_step_does_not_synchronise(dev):
 # ---- slice 7: advanced concealment (plc_mode 1) ----
 
 PLC_CFG = P.Config(fs_in=48000, bitrate=64000, plc_mode=1)
-PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst")
+PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
+               "mdct_compensated")
 
 
 def plc_plain():
     from audio_codec_torch.ops import plc_adv, plc_phecu
     return {"plc_tdc": plc_adv.plc_tdc_plain, "plc_damp_scramble": plc_adv.damp_scramble_plain,
             "phecu_spec_ana": plc_phecu.phecu_spec_ana_plain,
-            "phecu_subst": plc_phecu.phecu_subst_plain}
+            "phecu_subst": plc_phecu.phecu_subst_plain,
+            "mdct_compensated": lambda *a: tuple(
+                t.contiguous() for t in transforms.mdct_plain(*a, compensated=True))}
 
 
 def lossy_block(dev, B: int = 48, T: int = 12):

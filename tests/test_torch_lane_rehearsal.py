@@ -328,6 +328,24 @@ void rehearse_mdct(const float* x, const float* mem, const float* win, const flo
     for (int i = 0; i < N - la; ++i) new_mem[(N - la) * b + i] = x[N * b + la + i];
   }
 }
+void rehearse_mdct_compensated(const float* x, const float* mem, const float* win,
+                               const float* Mt, float* d, int B, int N, int la) {
+  float folded[kDctMaxN];
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < N; ++k)
+      folded[k] = mdct_fold(x + N * b, mem + (N - la) * b, win, N, la, k, true);
+    for (int n = 0; n < N; ++n) d[N * b + n] = dct4_out_compensated(folded, Mt, N, n);
+  }
+}
+// the IMDCT's chain step (xfma_d, the double it keeps) and xfma on the
+// same triples
+void rehearse_xfma_step(const float* a, const float* b, const float* p, double* step,
+                        double* ref, int n) {
+  for (int i = 0; i < n; ++i) {
+    step[i] = xfma_d(a[i], b[i], p[i]);
+    ref[i] = xfma(a[i], b[i], p[i]);
+  }
+}
 void rehearse_imdct(const float* y, const float* mem, const float* win, const float* Mt,
                     float* out, float* new_mem, int B, int N, int la) {
   for (int b = 0; b < B; ++b)
@@ -366,6 +384,15 @@ MUTATIONS = {
 }
 
 
+# mutations of the IMDCT's chain step (dct4.cuh:round_float_near) that the
+# rehearsal must catch: M a power of two too small (the sum rounds to 25
+# bits), and -0 let through the trick (it comes out +0)
+MUTATIONS_DCT4 = {
+    "round_m_28": ("dct4.cuh", "(29u << 20)", "(28u << 20)"),
+    "zero_guard": ("dct4.cuh", "(e < kFloatExpLo && hi != 0u)", "(e < kFloatExpLo && e != 0u)"),
+}
+
+
 def build_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
@@ -374,7 +401,7 @@ def build_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
     if mutation is not None:
         inc = out / "csrc"
         shutil.copytree(CSRC, inc)
-        name, old, new = MUTATIONS[mutation]
+        name, old, new = {**MUTATIONS, **MUTATIONS_DCT4}[mutation]
         text = (inc / name).read_text()
         assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
         (inc / name).write_text(text.replace(old, new))
@@ -529,15 +556,123 @@ def test_pc_classify_lane_matches_plain(lib4, card_order):
     same_bits(xo, pc._peak_detector(torch.from_numpy(sig)).numpy())
 
 
+def xfma_triples(n: int = 1_000_000, seed: int = 0) -> dict[str, tuple[np.ndarray, ...]]:
+    """(a, b, p) float32 triples for the IMDCT's chain step, by kind: seeded
+    triples over the float exponents; triples whose exact double sum lies on
+    a float midpoint, with the lower neighbour's last bit even and odd, and
+    ones whose exact sum lies just below a midpoint, which the double sum
+    rounds onto it; signed zeros; sums near 2^-126 and subnormal; sums near
+    the float maximum and past it."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    sgn = lambda k: rng.choice([-1.0, 1.0], k)
+    rand = lambda k, lo, hi: (sgn(k) * 2.0 ** rng.uniform(lo, hi, k)).astype(f)
+    out = {"seeded": (rand(n, -60, 60), rand(n, -60, 60), rand(n, -100, 100))}
+    k = 4096
+    E = rng.integers(-100, 100, k)
+    m = rng.integers(2 ** 23, 2 ** 24, k)
+    m[: k // 2] &= ~1          # lower neighbour even, then odd
+    m[k // 2:] |= 1
+    s = sgn(k)
+    p = (s * m * 2.0 ** (E - 23)).astype(f)
+    odd = (2 * rng.integers(0, 64, k) + 1).astype(f)
+    half = (s * 2.0 ** (E - 24)).astype(f)          # odd * half an ulp of p
+    below_a = np.full(k, 1 + 2.0 ** -23, f)          # (1 + 2^-23)(1 - 2^-23) half ulps
+    below_b = (s * (1 - 2.0 ** -23) * 2.0 ** (E - 24)).astype(f)
+    out["midpoint"] = (np.concatenate([odd, below_a]), np.concatenate([half, below_b]),
+                       np.concatenate([p, p]))
+    z = np.array([0.0, -0.0], f)
+    za, zb, zp = (v.ravel() for v in np.meshgrid(np.r_[z, f(1.5), f(-2.0)], np.r_[z, f(3.0)], z))
+    # a product cancelling p exactly (+0), and -0 from the products of zeros
+    out["zeros"] = (np.r_[za, f(2.0), f(-2.0)], np.r_[zb, f(3.0), f(3.0)],
+                    np.r_[zp, f(-6.0), f(6.0)])
+    tiny = 2.0 ** rng.uniform(-150, -120, k)
+    out["near 2^-126"] = ((sgn(k) * tiny).astype(f), np.ones(k, f),
+                          (sgn(k) * 2.0 ** rng.uniform(-150, -124, k)).astype(f))
+    big = np.finfo(f).max
+    out["near the float maximum"] = (
+        (sgn(k) * big * rng.uniform(0.25, 1.0, k)).astype(f), rng.uniform(0.5, 2.0, k).astype(f),
+        (sgn(k) * big * rng.uniform(0.0, 1.0, k)).astype(f))
+    return out
+
+
+def xfma_numpy(a, b, p) -> np.ndarray:
+    """xfma as its definition: the double product, one double add, rounded
+    to float."""
+    return (a.astype(np.float64) * b.astype(np.float64) + p.astype(np.float64)).astype(np.float32)
+
+
+def xfma_step_differing(lib) -> dict[str, int]:
+    """Per kind of triple: values where the double that the lane's xfma_d
+    keeps differs, as bits, from xfma's float (and xfma from its definition
+    in numpy). Two NaNs count as equal."""
+    bad = {}
+    with np.errstate(over="ignore"):
+        for kind, (a, b, p) in xfma_triples().items():
+            step, ref = np.zeros(a.size), np.zeros(a.size)
+            lib.rehearse_xfma_step(ptr(a), ptr(b), ptr(p), ptr(step), ptr(ref), a.size)
+            nan = np.isnan(step) & np.isnan(ref)
+            bad[kind] = (int(((step.view(np.int64) != ref.view(np.int64)) & ~nan).sum()) +
+                         C.count_differing(ref.astype(np.float32), xfma_numpy(a, b, p)))
+    return bad
+
+
+def test_xfma_triples_reach_midpoints_in_both_parities():
+    """The midpoint triples' exact double sums lie halfway between two
+    floats whose lower neighbour's last bit is even in some and odd in
+    others; the others round onto a midpoint only in double."""
+    a, b, p = (v.astype(np.float64) for v in xfma_triples(n=1)["midpoint"])
+    x = a * b + p
+    lo = x.astype(np.float32)
+    lo = np.where(np.abs(lo.astype(np.float64)) > np.abs(x), np.nextafter(lo, np.float32(0)), lo)
+    hi = np.nextafter(lo, np.copysign(np.float32(np.inf), lo))
+    on_mid = (lo.astype(np.float64) + hi.astype(np.float64)) / 2 == x
+    assert on_mid.all()
+    parity = lo.view(np.int32) & 1
+    assert (parity == 0).sum() > 1000 and (parity == 1).sum() > 1000
+
+
+def test_imdct_chain_step_equals_xfma(lib4):
+    """dct4.cuh:xfma_d, the IMDCT kernel's step without conversions, equals
+    xfma bit for bit on 10^6 seeded triples and on every adversarial kind."""
+    bad = xfma_step_differing(lib4)
+    assert not any(bad.values()), bad
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_DCT4))
+def test_rehearsal_catches_mutated_chain_step(tmp_path, mutation):
+    bad = xfma_step_differing(build_lanes(tmp_path, mutation))
+    assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_compensated_mdct_lane_matches_plain(lib4, card_order, fs, bitrate):
+    """The TDAC's MDCT in the CPU's compensated order (fold with the CPU's
+    contraction, Dekker products, Neumaier sums) at N = 480 and 160, on the
+    synthetic rows with the extreme ones: the plain version computes it as
+    it does for a tensor on a card."""
+    from audio_codec_torch.ops import transforms
+    cfg = P.Config(fs_in=fs, bitrate=bitrate)
+    N, la = cfg.frame_length, cfg.la_zeroes
+    x, mem = C.transform_rows(N, la, seed=3, extreme=True)
+    win = transforms.window(cfg, "cpu").numpy()
+    Mt = transforms.dct4_mt(N, "cpu").numpy()
+    d = np.zeros((x.shape[0], N), np.float32)
+    lib4.rehearse_mdct_compensated(ptr(x), ptr(mem), ptr(win), ptr(Mt), ptr(d), x.shape[0], N, la)
+    ref = transforms.mdct_plain(cfg, torch.from_numpy(x), torch.from_numpy(mem), compensated=True)
+    same_bits(d, ref[0].numpy())
+    assert np.isfinite(d[:-2]).all() and np.isnan(d[-2:]).all()
+
+
 @pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
 def test_dct4_lanes_match_plain(lib4, card_order, fs, bitrate):
     """The MDCT (fold and DCT-IV) and the IMDCT (DCT-IV, unfold, window and
     overlap-add) at N = 480 and 160 on full-scale, silent and alternating
-    rows."""
+    rows, rows of negative zeros, subnormal-scale rows and rows near 1e37."""
     from audio_codec_torch.ops import transforms
     cfg = P.Config(fs_in=fs, bitrate=bitrate)
     N, la = cfg.frame_length, cfg.la_zeroes
-    x, mem = C.transform_rows(N, la, seed=2)
+    x, mem = C.transform_rows(N, la, seed=2, extreme=True)
     B = x.shape[0]
     win = transforms.window(cfg, "cpu").numpy()
     rwin = np.ascontiguousarray(transforms.window(cfg, "cpu", reverse=True).numpy())
@@ -562,7 +697,7 @@ def test_imdct_single_stream_lane_matches_plain(lib4, fs, bitrate):
     from audio_codec_torch.ops import transforms
     cfg = P.Config(fs_in=fs, bitrate=bitrate)
     N, la = cfg.frame_length, cfg.la_zeroes
-    x, mem = C.transform_rows(N, la, seed=5)
+    x, mem = C.transform_rows(N, la, seed=5, extreme=True)
     rwin = np.ascontiguousarray(transforms.window(cfg, "cpu", reverse=True).numpy())
     Mt = transforms.dct4_mt(N, "cpu").numpy()
     for b in range(x.shape[0]):

@@ -98,6 +98,10 @@ def _sns_and_side_info_calls():
                                            torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
         "imdct": (K.imdct, transforms.imdct, (cfg, torch.zeros((2, cfg.frame_length)),
                                               torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
+        "mdct_compensated": (K.mdct_compensated,
+                             lambda *a: transforms.mdct(*a, compensated=True),
+                             (cfg, torch.zeros((2, cfg.frame_length)),
+                              torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
         "olpa": (K.olpa, analysis.olpa,
                  (cfg, torch.zeros((2, cfg.len_12k8 + 1)), torch.zeros((2, 3)), torch.zeros((2, 114)),
                   i32(2) + 17)),
@@ -164,7 +168,7 @@ def _fixed_decoder_calls():
 
 @pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
-                                  "imdct", "olpa", "ltpf_encode", "noise_residual_enc",
+                                  "imdct", "mdct_compensated", "olpa", "ltpf_encode", "noise_residual_enc",
                                   "spec_decode", "plc_tdc", "plc_damp_scramble",
                                   "phecu_spec_ana", "phecu_subst", "fx_sns_dec",
                                   "fx_spec_decode", "fx_dct4", "fx_ola_ltpf"])
@@ -198,7 +202,7 @@ def test_kernel_list_holds_the_fixed_point_kernels():
     fixed = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
     assert all(k in K.KERNELS and k in K.launches for k in fixed)
     assert {p.stem for p in K.SOURCES} >= set(fixed)
-    assert len(K.KERNELS) == len(set(K.KERNELS)) == 31
+    assert len(K.KERNELS) == len(set(K.KERNELS)) == 32
 
 
 def test_kernel_build_directory_is_named_by_its_inputs():

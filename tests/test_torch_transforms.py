@@ -116,3 +116,39 @@ def test_mdct_bit_exact_on_synthetic_rows(fs, bitrate):
         d, new_mem = PT.mdct(pcfg, t(xs), t(ms))
         np.testing.assert_array_equal(n(d).view(np.int32), np.asarray(ref_d).view(np.int32))
         np.testing.assert_array_equal(n(new_mem), np.asarray(ref_mem))
+
+
+@pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
+def test_compensated_mdct_on_the_card_path_bit_exact(monkeypatch, fs, bitrate):
+    """The TDAC's MDCT in the compensated order that the card takes
+    (`mdct_plain(compensated=True)` with `numerics.on_cpu` false, so every
+    fused multiply-add is `xla_fma` as on a card), run on CPU tensors,
+    against the reference's CPU transform: the synthetic rows, negative
+    zeros and rows near 1e37 (whose split overflows to NaN in both) at
+    N = 480 and 160, four streams a call. (XLA:CPU flushes subnormal inputs
+    to zero, so the subnormal-scale rows are left to the card's tests.)"""
+    jcfg, pcfg = JConfig(fs_in=fs, bitrate=bitrate), P.Config(fs_in=fs, bitrate=bitrate)
+    x, mem = C.transform_rows_jax_safe(pcfg.frame_length, pcfg.la_zeroes, seed=2)
+    monkeypatch.setattr(nm, "on_cpu", lambda v: False)
+    for lo in range(0, x.shape[0], 4):
+        xs, ms = x[lo: lo + 4], mem[lo: lo + 4]
+        ref_d, ref_mem = J(JT.mdct, jcfg)(xs, ms)
+        d, new_mem = PT.mdct_plain(pcfg, t(xs), t(ms), compensated=True)
+        np.testing.assert_array_equal(n(d).view(np.int32), np.asarray(ref_d).view(np.int32))
+        np.testing.assert_array_equal(n(new_mem), np.asarray(ref_mem))
+
+
+def test_compensated_mdct_on_the_card_path_bit_exact_on_a_tdac_input(monkeypatch):
+    """As above on the TDAC's input (ops/plc_adv.py:tdac): the synthesized
+    extension's next frame with its zero tail, and the frame's tail as the
+    memory."""
+    fl, la = PCFG.frame_length, PCFG.la_zeroes
+    rng = np.random.default_rng(7)
+    synth = (rng.standard_normal((4, 2 * fl - la)) * 3000.0).astype(np.float32)
+    synth[1] *= np.float32(1e-3)
+    mem_t = np.ascontiguousarray(synth[:, la:fl])
+    x_next = np.concatenate([synth[:, fl: 2 * fl - la], np.zeros((4, la), np.float32)], 1)
+    ref_d, _ = J(JT.mdct, JCFG)(x_next, mem_t)
+    monkeypatch.setattr(nm, "on_cpu", lambda v: False)
+    d, _ = PT.mdct_plain(PCFG, t(x_next), t(mem_t), compensated=True)
+    np.testing.assert_array_equal(n(d).view(np.int32), np.asarray(ref_d).view(np.int32))

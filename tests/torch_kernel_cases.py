@@ -249,10 +249,20 @@ def pc_branches(args: dict, out: np.ndarray, frame_dms: int = 100) -> dict[str, 
             "kept": int((active & (out == 2)).sum())}
 
 
-def transform_rows(N: int, la: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+def transform_rows(N: int, la: int, seed: int = 0,
+                   extreme: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """[n, N] frames and [n, N - la] memories for the MDCT and IMDCT:
     full-scale noise, silent rows, alternating-sign rows at full scale and
-    small, and seeded rows at several levels."""
+    small, and seeded rows at several levels. With `extreme`, after these:
+    a row of seeded values with one of about 1e-30 every 97 samples (the
+    IMDCT kernel leaves its untested step there, csrc/dct4.cuh:
+    imdct_fast_input), rows of negative zeros, subnormal-scale rows (about
+    1e-39, where a float sum loses the ulp of its exponent) and rows near
+    1e37 (the compensated order's split overflows there, as it does on the
+    CPU). XLA:CPU flushes
+    subnormal inputs to zero, so a comparison with the JAX reference takes
+    the rows without `extreme`, or the extreme rows without the subnormal
+    ones (transform_rows_jax_safe)."""
     rng = np.random.default_rng(seed)
     full = lambda k, m: rng.uniform(-32768.0, 32767.0, (k, m))
     alt = lambda m, a: a * np.where(np.arange(m) % 2 == 0, 1.0, -1.0)[None]
@@ -261,7 +271,29 @@ def transform_rows(N: int, la: int, seed: int = 0) -> tuple[np.ndarray, np.ndarr
     m = N - la
     mem = np.concatenate([full(4, m), np.zeros((2, m)), alt(m, -32768.0), np.zeros((1, m)),
                           rng.standard_normal((8, m)) * 1000.0])
+    if extreme:
+        mixed = rng.standard_normal((1, N)) * 1000.0
+        mixed[:, 40::97] = 1e-30
+        x = np.concatenate([x, mixed, np.full((2, N), -0.0),
+                            rng.standard_normal((2, N)) * 1e-39,
+                            rng.standard_normal((2, N)) * 1e37])
+        mem = np.concatenate([mem, rng.standard_normal((1, m)) * 1000.0,
+                              np.full((1, m), -0.0), np.zeros((1, m)),
+                              rng.standard_normal((2, m)) * 1e-39,
+                              rng.standard_normal((2, m)) * 1e37])
     return x.astype(np.float32), mem.astype(np.float32)
+
+
+EXTREME_SUBNORMAL_ROWS = slice(-4, -2)   # the subnormal-scale rows of transform_rows(extreme=True)
+
+
+def transform_rows_jax_safe(N: int, la: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """transform_rows(extreme=True) without the subnormal-scale rows, which
+    XLA:CPU flushes to zero."""
+    x, mem = transform_rows(N, la, seed, extreme=True)
+    keep = np.ones(x.shape[0], bool)
+    keep[EXTREME_SUBNORMAL_ROWS] = False
+    return x[keep], mem[keep]
 
 
 # ---- the pitch analysis, the noise factor and residual coder, the decoder's
