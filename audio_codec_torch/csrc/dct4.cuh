@@ -12,8 +12,10 @@
 //   rounded one by one (rmul, radd);
 // - the concealment's MDCT (the TDAC, _dct4_compensated,
 //   dct4_out_compensated): the CPU's compensated product on every device,
-//   Dekker-split exact products summed with Neumaier compensation, and the
-//   fold's first product contracted as the CPU contracts it (xfma);
+//   Dekker-split exact products summed with Neumaier compensation (for row
+//   values in range the Dekker term one fused multiply-add,
+//   compensated_step_fast), and the fold's first product contracted as the
+//   CPU contracts it (xfma);
 // - the IMDCT (numerics.xla_dot, xla_dct4_out): the CPU's 68-deep chains of
 //   xfma, written as xfma_d below, on doubles that hold float values.
 #pragma once
@@ -180,16 +182,100 @@ ACX_HD void compensated_step(float a, float ah, float al, float b, float bh, flo
   s = t;
 }
 
+// ---- compensated_step without the split, for inputs in range ----
+// Let the row value a be +-0 or 2^-89 <= |a| < 2^115, and b a DCT-IV entry
+// of N <= 480 (1.05e-4 <= |b| <= 1: |cos| >= sin(pi / 4N) on the matrix's
+// odd multiples of pi / 4N, times sqrt(2 / N)). Then Dekker's error term of
+// compensated_step is fmaf(a, b, -p) bit for bit, and neither operand needs
+// its Veltkamp halves:
+// - 4097 a stays finite (4097 * 2^115 < 2^127.001), so the split is exact:
+//   a = ah + al, each half of at most 12 significant bits on a's grid of
+//   ulp(a) (Veltkamp, Dekker 1971); b likewise.
+// - Every partial product of the halves then fits 24 bits, and every value
+//   of the chain ((ah bh - p) + ah bl) + al bh) + al bl is an integer
+//   multiple of ulp(a) ulp(b) >= 2^(-89-23) * 2^(-14-23) = 2^-149, the
+//   float grid, with at most 24 significant bits (Dekker's theorem, whose
+//   bit count needs only that grid): each is a float, xfma's double holds
+//   it exactly (a product of two floats and a sum that is a float are exact
+//   in double), and the chain ends at a b - p, unrounded.
+// - a b - p is on the same grid and |a b - p| <= ulp(p) / 2 <= 2^23 grid
+//   steps, so fmaf(a, b, -p) returns it unrounded too.
+// - a = +-0: ah = a, al = +0, every product a signed zero, ah bh - p = +0
+//   (opposite zeros), and every later sum +0; fmaf gives +0.
+// Past 2^115 the split may overflow (4097 a reaches the float maximum just
+// below 2^116); below 2^-89 the grid is finer than the float's. The kernel
+// tests each row's values against this range in the fold prologue
+// (compensated_fast_input) and gives the terms of the other rows
+// compensated_step.
+// The Neumaier tail xfma(a, b, -bv), with t = xfma(a, b, s) and
+// bv = fl(t - s), is fmaf(a, b, -bv) for any a and b: a b - bv is exact in
+// double, so xfma's double add rounds nothing. If bv = 0 it is a b (48
+// bits). Otherwise t != s, so |a b| >= ulp(s) / 4 (1 - 2^-28) (s + a b
+// reached the nearer neighbour's midpoint, even through the double's
+// rounding); then ulp(t) <= 8 |a b| (1 + 2^-27) where |a b| <= |s|, and
+// ulp(t) <= 2^-22 |a b| (1 + 2^-23) where not; |t - s - a b| <=
+// ulp(t) / 2 (1 + 2^-29), |bv - (t - s)| <= ulp(bv) / 2, |bv| <= 5 |a b|,
+// and ulp(t) <= 2^25 ulp(bv) (|t - s| is at least the finer ulp of the
+// two, or half of |t|). a b - bv is a multiple of g, the finer of
+// ulp(a) ulp(b) (|a b| < 2^48 of those) and ulp(bv), and |a b - bv| <
+// 2^51 g: at most 53 bits. Zeros, infinities and NaN take the same sign
+// rules and values in both. So only t = xfma(a, b, s) keeps a double
+// multiply-add, on a and b converted once a k-row and s once a term.
+constexpr uint32_t kCompFastLo = 38u << 23;    // float bits of 2^-89
+constexpr uint32_t kCompFastHi = 242u << 23;   // float bits of 2^115
+
+ACX_HD bool compensated_fast_input(float a) {
+  uint32_t u;
+#ifdef __CUDA_ARCH__
+  u = __float_as_uint(a);
+#else
+  std::memcpy(&u, &a, sizeof u);
+#endif
+  u &= 0x7FFFFFFFu;
+  return u == 0u || u - kCompFastLo < kCompFastHi - kCompFastLo;
+}
+
+ACX_HD float rfmaf(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+  return __fmaf_rn(a, b, c);
+#else
+  return std::fmaf(a, b, c);
+#endif
+}
+
+// compensated_step for a in compensated_fast_input's range; ad and bd are a
+// and b as doubles.
+ACX_HD void compensated_step_fast(float a, float b, double ad, double bd, float& s,
+                                  float& comp) {
+  const float p = rmul(a, b);
+  const float err = rfmaf(a, b, -p);
+  float t = to_float(rfma_f64(ad, bd, static_cast<double>(s)));     // xfma(a, b, s)
+  float bv = rsub(t, s);
+  const float tail = rfmaf(a, b, -bv);                               // xfma(a, b, -bv)
+  comp = radd(comp, radd(rsub(s, rsub(t, bv)), tail));
+  s = t;
+  t = radd(s, err);
+  bv = rsub(t, s);
+  comp = radd(comp, radd(rsub(s, rsub(t, bv)), rsub(err, bv)));
+  s = t;
+}
+
+// One term of the compensated product, by the step its row value takes.
+ACX_HD void compensated_term(float a, float b, float& s, float& comp) {
+  if (compensated_fast_input(a)) {
+    compensated_step_fast(a, b, static_cast<double>(a), static_cast<double>(b), s, comp);
+  } else {
+    float ah, al, bh, bl;
+    veltkamp(a, ah, al);
+    veltkamp(b, bh, bl);
+    compensated_step(a, ah, al, b, bh, bl, s, comp);
+  }
+}
+
 // out[n] in the compensated order.
 ACX_HD float dct4_out_compensated(const float* a, const float* Mt, int N, int n) {
   float s = 0.0f, comp = 0.0f;
-  for (int k = 0; k < N; ++k) {
-    float ah, al, bh, bl;
-    const float b = Mt[k * N + n];
-    veltkamp(a[k], ah, al);
-    veltkamp(b, bh, bl);
-    compensated_step(a[k], ah, al, b, bh, bl, s, comp);
-  }
+  for (int k = 0; k < N; ++k) compensated_term(a[k], Mt[k * N + n], s, comp);
   return radd(s, comp);
 }
 

@@ -34,7 +34,7 @@ SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG.parent / "build" / "audio_codec_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_postfilter", "gain_bisection",
+KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_decode", "gain_bisection",
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
            "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
            "tns_filter_analysis", "pc_classify", "mdct", "imdct", "mdct_compensated",
@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
         "acx_ari_encode": [P] * 8 + [I] * 8 + [P],
         "acx_ari_decode": [P] * 10 + [I] * 14 + [P],
-        "acx_ltpf_postfilter": [P] * 11 + [I] * 8 + [P],
+        "acx_ltpf_decode": [P] * 20 + [I] * 10 + [F] + [P],
         "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
         "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
         "acx_tns_synthesis_lattice": [P] * 6 + [I] * 2 + [P],
@@ -137,7 +137,7 @@ def library() -> ctypes.CDLL:
         "acx_tns_filter_analysis": [P] * 8 + [I] * 5 + [F] * 4 + [P],
         "acx_pc_classify": [P] * 7 + [I] * 3 + [F] + [P],
         "acx_mdct": [P] * 7 + [I] * 4 + [P],
-        "acx_mdct_compensated": [P] * 7 + [I] * 4 + [P],
+        "acx_mdct_compensated": [P] * 8 + [I] * 4 + [P],
         "acx_imdct": [P] * 7 + [I] * 3 + [P],
         "acx_olpa": [P] * 10 + [I] * 8 + [P],
         "acx_ltpf_encode": [P] * 16 + [I] * 8 + [P],
@@ -298,22 +298,45 @@ def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
                 bfi=out[4], spec_inv_idx=out[5], b_left=out[6])
 
 
-def ltpf_postfilter(cfg, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, cases):
-    """Launch `ltpf_postfilter` (csrc/ltpf_postfilter.cu); see
-    ops/ltpf_dec.py:ltpf_postfilter_plain."""
-    for name, t in (("x", x), ("mem_x", mem_x), ("mem_y", mem_y), ("a1", a1),
-                    ("b1", b1), ("a2", a2), ("b2", b2)):
-        _check(t, name, torch.float32, 2)
-    for name, t in (("p1", p1), ("p2", p2), ("cases", cases)):
-        _check(t, name, torch.int32, 1)
+def ltpf_decode(cfg, x, bfi, param, mem_param, mem_x, mem_y, mem_pitch_int, mem_pitch_fr,
+                mem_gain, mem_beta_idx):
+    """Launch `ltpf_decode` (csrc/ltpf_decode.cu), the LTPF decoder whole;
+    see ops/ltpf_dec.py:ltpf_decode_plain. Returns (y [B, N], new mem_x,
+    new mem_y, new parameter mems)."""
+    from .models.state import ltpf_dec_lens
+    from .ops.ltpf_dec import _filter
+    _check(x, "x", torch.float32, 2)
     B, N = x.shape
+    dev = x.device
+    Lx, Ly, _, _ = ltpf_dec_lens(cfg)
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    bfi, param, mem_param = i32(bfi), i32(param), i32(mem_param)
+    mem_pitch_int, mem_pitch_fr, mem_beta_idx = i32(mem_pitch_int), i32(mem_pitch_fr), i32(mem_beta_idx)
+    mem_x, mem_y, mem_gain = mem_x.contiguous(), mem_y.contiguous(), mem_gain.contiguous()
+    _rows(mem_x, "mem_x", (B, Lx))
+    _rows(mem_y, "mem_y", (B, Ly))
+    _rows(param, "param", (B, 3), torch.int32)
+    _rows(mem_param, "mem_param", (B, 3), torch.int32)
+    _check_vectors(B, torch.float32, mem_gain=mem_gain)
+    _check_vectors(B, torch.int32, bfi=bfi, mem_pitch_int=mem_pitch_int,
+                   mem_pitch_fr=mem_pitch_fr, mem_beta_idx=mem_beta_idx)
+    inter, tilt = (nm.table(_filter, cfg.fs, k, device=dev) for k in (0, 1))
     y = torch.empty_like(x)
-    _run("ltpf_postfilter", library().acx_ltpf_postfilter(
-        x.data_ptr(), mem_x.data_ptr(), mem_y.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-        a2.data_ptr(), b2.data_ptr(), p1.data_ptr(), p2.data_ptr(), cases.data_ptr(),
-        y.data_ptr(), B, N, mem_x.shape[1], mem_y.shape[1], a1.shape[1], b1.shape[1],
-        max(cfg.fs, 16000) // 8000, int(cfg.fs * 0.0025), _stream()))
-    return y
+    new_mx = torch.empty_like(mem_x)
+    new_my = torch.empty_like(mem_y)
+    out_param = torch.empty_like(param)
+    ints = torch.empty((3, B), dtype=torch.int32, device=dev)
+    gain = torch.empty_like(mem_gain)
+    _run("ltpf_decode", library().acx_ltpf_decode(
+        x.data_ptr(), bfi.data_ptr(), param.data_ptr(), mem_param.data_ptr(), mem_x.data_ptr(),
+        mem_y.data_ptr(), mem_pitch_int.data_ptr(), mem_pitch_fr.data_ptr(), mem_gain.data_ptr(),
+        mem_beta_idx.data_ptr(), inter.data_ptr(), tilt.data_ptr(), y.data_ptr(),
+        new_mx.data_ptr(), new_my.data_ptr(), out_param.data_ptr(), ints[0].data_ptr(),
+        ints[1].data_ptr(), gain.data_ptr(), ints[2].data_ptr(), B, N, Lx, Ly, inter.shape[1],
+        tilt.shape[1], max(cfg.fs, 16000) // 8000, int(cfg.fs * 0.0025), cfg.fs,
+        cfg.ltpf_conf_beta_idx, float(cfg.ltpf_conf_beta), _stream()))
+    return y, new_mx, new_my, dict(param=out_param, pitch_int=ints[0], pitch_fr=ints[1],
+                                   gain=gain, beta_idx=ints[2])
 
 
 def gain_bisection(en, target, offset0: int):
@@ -551,34 +574,43 @@ def _transform_args(name: str, cfg, a, mem):
     return B, N, la
 
 
-def _mdct(name: str, cfg, x, mem, Mt):
-    from .ops.transforms import window
+def _mdct(name: str, cfg, x, mem):
+    """Launch `mdct` or `mdct_compensated`; returns (d, new_mem, and for the
+    compensated order its per-block range flags [ceil(N / 32), B])."""
+    from .ops.transforms import dct4_mt, window
     B, N, la = _transform_args(name, cfg, x, mem)
     Bp = -(-B // DCT4_ROWS) * DCT4_ROWS
-    fold = torch.empty((Mt.shape[0], N, Bp), dtype=torch.float32, device=x.device)
-    d = torch.empty_like(x)
-    new_mem = torch.empty_like(mem)
+    dev = str(x.device)
+    fold = torch.empty((N, Bp), dtype=torch.float32, device=x.device)
+    d, new_mem = torch.empty_like(x), torch.empty_like(mem)
+    ptrs = [x.data_ptr(), mem.data_ptr(), window(cfg, dev).data_ptr(),
+            dct4_mt(N, dev).data_ptr(), fold.data_ptr()]
+    fast = None
+    if name == "mdct_compensated":
+        fast = torch.empty((-(-N // 32), Bp), dtype=torch.int32, device=x.device)
+        ptrs.append(fast.data_ptr())
     _run(name, getattr(library(), "acx_" + name)(
-        x.data_ptr(), mem.data_ptr(), window(cfg, str(x.device)).data_ptr(), Mt.data_ptr(),
-        fold.data_ptr(), d.data_ptr(), new_mem.data_ptr(), B, Bp, N, la, _stream()))
-    return d, new_mem
+        *ptrs, d.data_ptr(), new_mem.data_ptr(), B, Bp, N, la, _stream()))
+    return d, new_mem, fast
 
 
 def mdct(cfg, x, mem):
     """Launch `mdct` (csrc/mdct.cu: the fold prologue, then the product in
     the card's blocked order); see ops/transforms.py:mdct_plain.
     Returns (d [B, N], new_mem [B, N - la])."""
-    from .ops.transforms import dct4_mt
-    N = x.shape[-1]
-    return _mdct("mdct", cfg, x, mem, dct4_mt(N, str(x.device))[None])
+    return _mdct("mdct", cfg, x, mem)[:2]
 
 
-def mdct_compensated(cfg, x, mem):
+def mdct_compensated(cfg, x, mem, fast_rows: bool = False):
     """Launch `mdct_compensated` (csrc/mdct.cu, the CPU's compensated order
     on the card); see ops/transforms.py:mdct_plain(compensated=True).
-    Returns (d [B, N], new_mem [B, N - la])."""
-    from .ops.transforms import dct4_mt_split
-    return _mdct("mdct_compensated", cfg, x, mem, dct4_mt_split(x.shape[-1], str(x.device)))
+    Returns (d [B, N], new_mem [B, N - la]), and with fast_rows a [B] bool,
+    true where every folded value of the row was in the fast step's range
+    (csrc/dct4.cuh:compensated_fast_input)."""
+    d, new_mem, fast = _mdct("mdct_compensated", cfg, x, mem)
+    if fast_rows:
+        return d, new_mem, (fast[:, : x.shape[0]] != 0).all(dim=0)
+    return d, new_mem
 
 
 def imdct(cfg, y, mem):

@@ -1,10 +1,11 @@
 """LTPF decoder post-filter (process_ltpf_decoder_fl, ltpf_decoder.c:13-316).
 
-The pitch-lagged IIR comb filter with a parameter crossfade. The parameter
-decode and the per-stream filter coefficients are tensor code; the sample
-loop (`audio_codec_tpu/ops/ltpf_dec.py:122-161`) is the CUDA kernel
-`ltpf_postfilter` (csrc/ltpf_postfilter.cu) on the card and the plain loop
-`ltpf_postfilter_plain` on the CPU. The reference's five control cases
+The pitch-lagged IIR comb filter with a parameter crossfade. On the card the
+whole stage (the parameter decode, the case word, the filter rows and the
+sample loop of `audio_codec_tpu/ops/ltpf_dec.py:33-166`) is one CUDA kernel,
+`ltpf_decode` (csrc/ltpf_decode.cu); `ltpf_decode_plain` is its plain
+version, which the CPU runs: tensor code for the parameters, then the plain
+sample loop `ltpf_postfilter_plain`. The reference's five control cases
 (off/off, on->off fade-out, off->on fade-in, on->on same pitch, on->on
 pitch change through a scratch buffer) are per-stream flags.
 """
@@ -68,13 +69,12 @@ def _tap_sum(w, v):
 
 
 def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, cases):
-    """Plain version of the `ltpf_postfilter` kernel: the sample loop of
-    ltpf_decode. x [B, N]; mem_x [B, Lx]; mem_y [B, Ly]; a1/a2 [B, inter
+    """The sample loop of ltpf_decode_plain, which the `ltpf_decode` kernel
+    runs in chunks and equals bit for bit. x [B, N]; mem_x [B, Lx]; mem_y [B, Ly]; a1/a2 [B, inter
     taps] and b1/b2 [B, tilt taps] the old/new filters; p1/p2 [B] the
     old/new integer pitch; cases [B] the CASE_* bits. Returns y [B, N].
     Every device computes the CPU's order (the taps' and the crossfade's
-    multiply-adds contracted as numerics.xla_fma), which the kernel follows
-    bit for bit."""
+    multiply-adds contracted as numerics.xla_fma)."""
     B, N = x.shape
     Lx, Ly = mem_x.shape[1], mem_y.shape[1]
     inter_len = max(cfg.fs, 16000) // 8000
@@ -125,23 +125,10 @@ def ltpf_postfilter_plain(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, 
     return torch.stack(ys, dim=-1)
 
 
-def ltpf_postfilter(cfg: Config, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, cases):
-    """The post-filter's sample loop: the CUDA kernel for tensors on the
-    card, its plain version for tensors on the CPU."""
-    args = (cfg, x, mem_x, mem_y, a1, b1, a2, b2, p1, p2, cases)
-    if x.device.type == "cpu":
-        return ltpf_postfilter_plain(*args)
-    return kernels.ltpf_postfilter(*args)
-
-
-def ltpf_decode(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y,
-                mem_pitch_int, mem_pitch_fr, mem_gain, mem_beta_idx):
-    """Returns (y [B, N], new mem_x, new mem_y, new parameter mems).
-    x: [B, N] synthesized PCM; param: [B, 3] parsed LTPF parameters."""
-    B, N = x.shape
-    dev = x.device
-    old_x_len, old_y_len, _, _ = ltpf_dec_lens(cfg)
-
+def _parameters(cfg: Config, bfi, param):
+    """The parameter decode: (param, pitch_int, pitch_fr, gain) of the frame
+    as ltpf_decode keeps them (ltpf_decoder.c:33-66)."""
+    dev = param.device
     bad = bfi == 1   # concealMethod 0: zero parameters (ltpf_decoder.c:33-40)
     param = torch.where(bad[:, None], torch.zeros_like(param), param)
     pitch_int, pitch_fr = decode_pitch(cfg, param)
@@ -154,31 +141,79 @@ def ltpf_decode(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y,
     gain = torch.where(bad, zero, torch.where(param[:, 1] == 1,
                                               torch.full((), cfg.ltpf_conf_beta, dtype=F32,
                                                          device=dev), zero))
-    new_mem = dict(param=param.to(I32), pitch_int=pitch_int, pitch_fr=pitch_fr,
-                   gain=gain.to(F32),
-                   beta_idx=torch.full((B,), cfg.ltpf_conf_beta_idx, dtype=I32, device=dev))
+    return param.to(I32), pitch_int, pitch_fr, gain.to(F32)
+
+
+def _case_word(param, pitch_int, pitch_fr, mem_param, mem_pitch_int, mem_pitch_fr):
+    """The CASE_* bits of each stream from its old and new parameters."""
+    old_on = mem_param[:, 1] == 1
+    new_on = param[:, 1] == 1
+    same_pitch = (mem_pitch_int == pitch_int) & (mem_pitch_fr == pitch_fr)
+    return (torch.where(old_on & ~new_on, CASE_B, 0)
+            | torch.where(~old_on & new_on, CASE_C, 0)
+            | torch.where(old_on & new_on & same_pitch, CASE_D, 0)
+            | torch.where(old_on & new_on & ~same_pitch, CASE_E, 0)
+            | torch.where(new_on, NEW_ON, 0)).to(I32)
+
+
+def case_word(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y, mem_pitch_int,
+              mem_pitch_fr, *_):
+    """The CASE_* bits the post-filter takes for each stream of an
+    ltpf_decode call with these arguments (a record of which cases a run
+    reached)."""
+    param, pitch_int, pitch_fr, _ = _parameters(cfg, bfi, param)
+    return _case_word(param, pitch_int, pitch_fr, mem_param, mem_pitch_int, mem_pitch_fr)
+
+
+def _new_mem(cfg: Config, param, pitch_int, pitch_fr, gain) -> dict:
+    B = param.shape[0]
+    return dict(param=param, pitch_int=pitch_int, pitch_fr=pitch_fr, gain=gain,
+                beta_idx=torch.full((B,), cfg.ltpf_conf_beta_idx, dtype=I32,
+                                    device=param.device))
+
+
+def ltpf_decode_plain(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y,
+                      mem_pitch_int, mem_pitch_fr, mem_gain, mem_beta_idx):
+    """Plain version of the `ltpf_decode` kernel: the parameter decode, the
+    case word and the filter rows as tensor code (each row a separately
+    rounded product, (0.85 * gain) * tilt left to right), then the sample
+    loop `ltpf_postfilter_plain`. Returns (y [B, N], new mem_x, new mem_y,
+    new parameter mems)."""
+    N = x.shape[1]
+    dev = x.device
+    old_x_len, old_y_len, _, _ = ltpf_dec_lens(cfg)
+    param, pitch_int, pitch_fr, gain = _parameters(cfg, bfi, param)
+    new_mem = _new_mem(cfg, param, pitch_int, pitch_fr, gain)
     if cfg.ltpf_conf_beta <= 0:
         return x, mem_x, mem_y, new_mem
 
     inter_t, tilt_t = (nm.table(_filter, cfg.fs, k, device=dev) for k in (0, 1))
-    old_on = mem_param[:, 1] == 1
-    new_on = param[:, 1] == 1
-    same_pitch = (mem_pitch_int == pitch_int) & (mem_pitch_fr == pitch_fr)
-    cases = (torch.where(old_on & ~new_on, CASE_B, 0)
-             | torch.where(~old_on & new_on, CASE_C, 0)
-             | torch.where(old_on & new_on & same_pitch, CASE_D, 0)
-             | torch.where(old_on & new_on & ~same_pitch, CASE_E, 0)
-             | torch.where(new_on, NEW_ON, 0)).to(I32)
+    cases = _case_word(param, pitch_int, pitch_fr, mem_param, mem_pitch_int, mem_pitch_fr)
     conf_alpha = float(np.float32(0.85))
     beta_new = max(cfg.ltpf_conf_beta_idx, 0)
     a1 = mem_gain[:, None] * inter_t[mem_pitch_fr.clamp(0, 3).long()]
     b1 = conf_alpha * mem_gain[:, None] * tilt_t[mem_beta_idx.clamp(0, 3).long()]
     a2 = gain[:, None] * inter_t[pitch_fr.clamp(0, 3).long()]
     b2 = conf_alpha * gain[:, None] * tilt_t[beta_new][None, :]
-    y = ltpf_postfilter(cfg, x.contiguous(), mem_x.contiguous(), mem_y.contiguous(),
-                        a1.contiguous(), b1.contiguous(), a2.contiguous(),
-                        b2.contiguous(), mem_pitch_int.to(I32).contiguous(),
-                        pitch_int.contiguous(), cases)
+    y = ltpf_postfilter_plain(cfg, x, mem_x, mem_y, a1, b1, a2, b2,
+                              mem_pitch_int.to(I32), pitch_int, cases)
     new_mem_x = torch.cat([mem_x, x], dim=-1)[:, N: N + old_x_len]
     new_mem_y = torch.cat([mem_y, y], dim=-1)[:, N: N + old_y_len]
     return y, new_mem_x, new_mem_y, new_mem
+
+
+def ltpf_decode(cfg: Config, x, bfi, param, mem_param, mem_x, mem_y,
+                mem_pitch_int, mem_pitch_fr, mem_gain, mem_beta_idx):
+    """Returns (y [B, N], new mem_x, new mem_y, new parameter mems).
+    x: [B, N] synthesized PCM; param: [B, 3] parsed LTPF parameters. The CUDA
+    kernel for tensors on the card, its plain version for tensors on the CPU;
+    a configuration without the filter (ltpf_conf_beta 0) only keeps the
+    parameters, in tensor code on either."""
+    args = (cfg, x, bfi, param, mem_param, mem_x, mem_y, mem_pitch_int, mem_pitch_fr,
+            mem_gain, mem_beta_idx)
+    if nm.on_cpu(x):
+        return ltpf_decode_plain(*args)
+    if cfg.ltpf_conf_beta <= 0:
+        new_mem = _new_mem(cfg, *_parameters(cfg, bfi, param))
+        return x, mem_x, mem_y, new_mem
+    return kernels.ltpf_decode(*args)

@@ -63,14 +63,6 @@ def _veltkamp(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, v - hi
 
 
-@functools.cache
-def dct4_mt_split(N: int, device: str) -> torch.Tensor:
-    """[3, N, N]: dct4_mt and its Veltkamp halves (hi, lo) on `device`, made
-    once by the plain version's own split (the compensated kernel's table)."""
-    Mt = dct4_mt(N, device)
-    return torch.stack([Mt, *_veltkamp(Mt)]).contiguous()
-
-
 def _dct4_card(a: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
     """a [B, K] @ Mt [K, N] in the kernels' order: k-blocks of DCT4_BLOCK
     (the last one ragged), each a k-ascending chain of separately rounded
@@ -113,6 +105,21 @@ def _dct4_compensated(folded: torch.Tensor, Mt: torch.Tensor) -> torch.Tensor:
     return s + comp
 
 
+def _fold(cfg: Config, x: torch.Tensor, mem: torch.Tensor, cpu_order: bool) -> torch.Tensor:
+    """The windowed and folded MDCT input [B, N] (mdct.c:115-119)."""
+    h = cfg.frame_length // 2
+    win = window(cfg, str(x.device))
+    buf = torch.cat([mem, x], dim=-1)
+    if cfg.la_zeroes:
+        buf = torch.nn.functional.pad(buf, (0, cfg.la_zeroes))
+    rev = lambda v: v[:, 2 * h: 3 * h].flip(-1)
+    # the products XLA:CPU contracts: the second of -w - w, the first of w - w
+    fma = nm.xla_fma if cpu_order else nm.fma
+    out_lo = fma(-buf[:, 3 * h:], win[3 * h:], -(rev(buf) * rev(win[None, :])))
+    out_hi = fma(buf[:, :h], win[:h], -(buf[:, h: 2 * h].flip(-1) * win[h: 2 * h].flip(-1)))
+    return torch.cat([out_lo, out_hi], dim=-1)
+
+
 def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor, compensated: bool = False):
     """Forward low-delay MDCT of one frame per stream; the plain version of
     the `mdct` kernel, and with `compensated` of `mdct_compensated`: the
@@ -121,22 +128,19 @@ def mdct_plain(cfg: Config, x: torch.Tensor, mem: torch.Tensor, compensated: boo
 
     x: [B, N] PCM frame; mem: [B, N - la_zeroes] previous raw input tail.
     Returns (d [B, N] spectrum, new_mem)."""
-    N = cfg.frame_length
-    la = cfg.la_zeroes
-    h = N // 2
-    win = window(cfg, str(x.device))
-    buf = torch.cat([mem, x], dim=-1)
-    if la:
-        buf = torch.nn.functional.pad(buf, (0, la))
-    rev = lambda v: v[:, 2 * h: 3 * h].flip(-1)
-    # the products XLA:CPU contracts: the second of -w - w, the first of w - w
     cpu_order = compensated or nm.on_cpu(x)
-    fma = nm.xla_fma if cpu_order else nm.fma
-    out_lo = fma(-buf[:, 3 * h:], win[3 * h:], -(rev(buf) * rev(win[None, :])))
-    out_hi = fma(buf[:, :h], win[:h], -(buf[:, h: 2 * h].flip(-1) * win[h: 2 * h].flip(-1)))
-    folded = torch.cat([out_lo, out_hi], dim=-1)
-    Mt = dct4_mt(N, str(x.device))
-    return (_dct4_compensated if cpu_order else _dct4_card)(folded, Mt), x[:, la:]
+    folded = _fold(cfg, x, mem, cpu_order)
+    Mt = dct4_mt(cfg.frame_length, str(x.device))
+    return (_dct4_compensated if cpu_order else _dct4_card)(folded, Mt), x[:, cfg.la_zeroes:]
+
+
+def compensated_fast_rows(cfg: Config, x: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+    """[B] bool: the rows whose folded values are all 0 or of 2^-89 <= |v| <
+    2^115, where the `mdct_compensated` kernel's terms take the step without
+    the Veltkamp split (csrc/dct4.cuh:compensated_fast_input); the other rows
+    take the split step."""
+    bits = _fold(cfg, x, mem, True).view(torch.int32) & 0x7FFFFFFF
+    return ((bits == 0) | ((bits >= 38 << 23) & (bits < 242 << 23))).all(dim=-1)
 
 
 def imdct_plain(cfg: Config, y: torch.Tensor, mem: torch.Tensor):

@@ -31,9 +31,14 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                (in both orders) and IMDCT (also one stream a launch) on
                full-scale, silent and alternating rows, rows of negative
                zeros, subnormal-scale rows and rows near 1e37 at N = 480 and
-               160, and the pitch analysis, the LTPF coder, the noise
-               factor and residual coder (64 and 16 kbps) and the spectrum
-               reconstruction on rows that take each of their branches;
+               160 (with the compensated order's rows on its fast and split
+               steps printed; the extreme rows must take the split step),
+               the pitch analysis, the LTPF coder, the noise factor and
+               residual coder (64 and 16 kbps) and the spectrum
+               reconstruction on rows that take each of their branches, and
+               the LTPF decoder on lanes of every case at 48 and 16 kHz
+               (the smallest and largest pitch, pitch 0 with the filter
+               flags set);
   4. block path encode_block + decode_block at --streams x --frames with the
                launch counters reset before and read after; on a few streams
                over all frames the kernel path's payload must equal the plain
@@ -135,8 +140,8 @@ KERNEL_INFO = {
                    "audio_codec_tpu/ops/ari.py:491"),
     "bit_estimate": ("audio_codec_torch/csrc/bit_estimate.cu",
                      "audio_codec_tpu/ops/quant.py:135"),
-    "ltpf_postfilter": ("audio_codec_torch/csrc/ltpf_postfilter.cu",
-                        "audio_codec_tpu/ops/ltpf_dec.py:59"),
+    "ltpf_decode": ("audio_codec_torch/csrc/ltpf_decode.cu",
+                    "audio_codec_tpu/ops/ltpf_dec.py:59"),
     "gain_bisection": ("audio_codec_torch/csrc/gain_bisection.cu",
                        "audio_codec_tpu/ops/quant.py:108"),
     "tns_analysis_lattice": ("audio_codec_torch/csrc/tns_analysis_lattice.cu",
@@ -302,10 +307,13 @@ def matmul_ms(rows) -> float:
 
 
 def outputs(res) -> list:
-    """A kernel's result as a list of tensors."""
+    """A kernel's result as a list of tensors (the values of a dict in it
+    too)."""
     if isinstance(res, dict):
         return list(res.values())
-    return list(res) if isinstance(res, tuple) else [res]
+    if isinstance(res, tuple):
+        return [t for r in res for t in outputs(r)]
+    return [res]
 
 
 def nbytes(*ts) -> int:
@@ -330,7 +338,7 @@ def plain_path():
               fec.fec_encode_plain(data, epmr, slot_bytes, mode, ccc_flag)),
              (fec, "fec_decode", lambda frames, *, slot_bytes, ccc_flag=0, bfi_in=None:
               fec.fec_decode_plain(frames, slot_bytes, ccc_flag, bfi_in)),
-             (ltpf_dec, "ltpf_postfilter", ltpf_dec.ltpf_postfilter_plain),
+             (ltpf_dec, "ltpf_decode", ltpf_dec.ltpf_decode_plain),
              (quant, "gain_bisection", quant.gain_bisection_plain),
              (tns, "tns_analysis_lattice", tns.tns_analysis_lattice_plain),
              (tns, "tns_synthesis_lattice", tns.tns_synthesis_lattice_plain),
@@ -366,13 +374,13 @@ def recording(store: dict, names=None, copy: bool = False):
 
 
 def ltpf_case_counts(launches) -> dict[str, int]:
-    """Stream-frames of the recorded ltpf_postfilter launches in each of
-    the post-filter's cases (the CASE_* bits of its `cases` argument)."""
+    """Stream-frames of the recorded ltpf_decode launches in each of the
+    post-filter's cases (the CASE_* bits of the stream's parameters)."""
     from audio_codec_torch.ops import ltpf_dec as L
     bits = {"on->off": L.CASE_B, "off->on": L.CASE_C, "on->on same pitch": L.CASE_D,
             "on->on new pitch": L.CASE_E, "on": L.NEW_ON}
-    return {k: sum(int(((args[10] & bit) != 0).sum()) for args, _ in launches)
-            for k, bit in bits.items()}
+    words = [L.case_word(*args) for args, _ in launches]
+    return {k: sum(int(((w & bit) != 0).sum()) for w in words) for k, bit in bits.items()}
 
 
 def segmental_snr(ref, out, n: int) -> tuple[float, int]:
@@ -489,9 +497,21 @@ def work_ops(name: str, args) -> float:
         return float(taps.sum())
     if name == "hp50_biquad":
         return float(args[0].numel() * 9)
-    if name == "ltpf_postfilter":
-        x, a1, b1 = args[1], args[4], args[5]
-        return float(x.numel() * (4 * (a1.shape[1] + b1.shape[1]) + 20))
+    if name == "ltpf_decode":
+        # the tap chains a stream's case runs, 2 operations a tap, and the
+        # crossfade's 2 multiply-adds and weight: z (the old filter) in the
+        # crossfade of a fade-out and every sample of a pitch change, y (the
+        # new filter) at every sample where it is on
+        from audio_codec_torch.ops import ltpf_dec as L
+        from audio_codec_torch.models.state import ltpf_dec_lens
+        cfg, N = args[0], args[1].shape[1]
+        _, _, tilt_len, inter_taps = ltpf_dec_lens(cfg)
+        per = 2 * (inter_taps + tilt_len + 1) + 6
+        w = L.case_word(*args)
+        n4 = int(cfg.fs * 0.0025)
+        z = n4 * int(((w & L.CASE_B) != 0).sum()) + N * int(((w & L.CASE_E) != 0).sum())
+        y = N * int(((w & L.NEW_ON) != 0).sum())
+        return float(per * (z + y))
     if name == "ari_decode":
         side = args[2]
         tuples = torch.div(side["lastnz"] + 1, 2, rounding_mode="floor").clamp(max=args[0].yLen // 2)
@@ -542,6 +562,11 @@ def kernel_bytes(name: str, args, outs) -> int:
         _, bfi, inv, stab, _, q_d, _ = args
         rows = int(((bfi == 2) & (inv * 10 < 400) & (stab >= 0.5)).sum())
         return nbytes(*ins[:4], *outs) + 4 * q_d.shape[1] * rows
+    if name == "ltpf_decode":
+        from audio_codec_torch.ops import ltpf_dec as L, numerics
+        cfg, dev = args[0], args[1].device
+        tables = [numerics.table(L._filter, cfg.fs, k, device=dev) for k in (0, 1)]
+        return nbytes(*ins, *outs, *tables)
     return nbytes(*ins, *outs)
 
 
@@ -671,6 +696,17 @@ def slice4_cases(cfg, dev, K, rec):
             # the rows near 1e37 overflow the compensated order's split, as on the CPU
             finite = got[0][:-2] if name == "mdct_compensated" else got[0]
             check(bool(torch.isfinite(finite).all()), f"{name}: not finite")
+        # which rows the compensated kernel gave the step without the split:
+        # the plain range test's, the extreme rows (1e-39, 1e37) not
+        fast = K.mdct_compensated(*targs, fast_rows=True)[2]
+        want = transforms.compensated_fast_rows(*targs)
+        print(f"[kernels] mdct_compensated synthetic rows at N = {c.frame_length}: "
+              f"{int(fast.sum())} rows on the fast step, {int((~fast).sum())} on the split step "
+              f"(rows {torch.nonzero(~fast).flatten().tolist()})", flush=True)
+        check(torch.equal(fast, want), "mdct_compensated: fast rows differ from the range test's")
+        check(not bool(fast[-4:].any()), "mdct_compensated: an extreme row took the fast step")
+        check(bool(fast[: fast.shape[0] - 7].all()),
+              "mdct_compensated: a row at 16-bit scale took the split step")
         for b in range(x.shape[0]):   # one stream a launch: the single-row order
             one = (c, g(x[b: b + 1]), g(mem[b: b + 1]))
             same_bits(K.imdct(*one), [t.contiguous() for t in transforms.imdct_plain(*one)],
@@ -735,6 +771,20 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         branches = branch_counts(name, args, got)
         print(f"[kernels] {what}: {branches}", flush=True)
         check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
+    # the LTPF decoder on lanes of every case, the smallest and largest pitch,
+    # pitch 0 with the filter flags set (chunks of one sample) and, at 48 kHz,
+    # a tap chain whose double sum falls on a float midpoint
+    from audio_codec_torch.ops import ltpf_dec
+    for c in (cfg, P.Config(fs_in=16000, bitrate=32000)):
+        a = C.ltpf_decode_rows(c, seed=5, midpoint=c.fs == 48000)
+        args = (c, *g(a, C.LTPF_DEC_ORDER))
+        got, ref = K.ltpf_decode(*args), ltpf_dec.ltpf_decode_plain(*args)
+        torch.cuda.synchronize()
+        what = f"ltpf_decode (synthetic rows, {c.fs // 1000} kHz, {args[1].shape[0]} streams)"
+        same_bits(got, ref, what)
+        cases = ltpf_case_counts([(args, {})])
+        print(f"[kernels] {what}: lanes per case {cases}", flush=True)
+        check(all(v > 0 for v in cases.values()), f"{what}: a case was not taken: {cases}")
 
 # the decoder's stages in the order decode_block calls them
 DECODER_STAGES = (("bits", "parse_side_info"), ("ari", "decode"), ("sns", "quantize_scf_dec"),
@@ -1179,8 +1229,12 @@ def plc_work(name: str, args, out) -> tuple[int, float]:
 def plc_branches(name: str, args, out) -> dict[str, int]:
     """Stream counts of the branches a concealment kernel's launch took."""
     if name == "mdct_compensated":
+        from audio_codec_torch.ops import transforms
         silent = ~(args[1] != 0).any(-1) & ~(args[2] != 0).any(-1)
-        return {"silent rows": int(silent.sum()), "rows with signal": int((~silent).sum())}
+        fast = transforms.compensated_fast_rows(*args)
+        return {"silent rows": int(silent.sum()), "rows with signal": int((~silent).sum()),
+                "rows on the fast step": int(fast.sum()),
+                "rows on the split step": int((~fast).sum())}
     if name == "plc_tdc":
         lost, nb, pitch, fr, stab = args[1].bool(), args[2], args[6], args[7], args[8]
         first = lost & (nb == 1)
@@ -2027,8 +2081,8 @@ def main() -> int:
     check(set(rec) == set(MAIN), f"kernels not reached on the main path: {set(MAIN) - set(rec)}")
     modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
     check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
-    cases = ltpf_case_counts(rec["ltpf_postfilter"])
-    print(f"[kernels] ltpf_postfilter stream-frames per case over {T} frames: {cases}", flush=True)
+    cases = ltpf_case_counts(rec["ltpf_decode"])
+    print(f"[kernels] ltpf_decode stream-frames per case over {T} frames: {cases}", flush=True)
     check(all(v > 0 for v in cases.values()), f"an LTPF case never occurred: {cases}")
     for name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
         orders = torch.cat([args[2] for args, _ in rec[name]]).flatten()
@@ -2048,7 +2102,7 @@ def main() -> int:
     check(filters[1] > 0 and filters[2] > 0, f"one or two TNS filters never occurred: {filters}")
     check(all(v > 0 for v in ltpf_flags), f"LTPF was never on or never off: {ltpf_flags}")
     plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
-             "ari_decode": ari.decode_plain, "ltpf_postfilter": ltpf_dec.ltpf_postfilter_plain,
+             "ari_decode": ari.decode_plain, "ltpf_decode": ltpf_dec.ltpf_decode_plain,
              "gain_bisection": quant.gain_bisection_plain,
              "tns_analysis_lattice": tns.tns_analysis_lattice_plain,
              "tns_synthesis_lattice": tns.tns_synthesis_lattice_plain,
@@ -2146,7 +2200,7 @@ def main() -> int:
         _, out_p = P.decode_block(cfg, P.dec_state_init(cfg, nb, device=dev), fr_p)
     torch.cuda.synchronize()
     pcm16_k = P.round_pcm(out_k).to(torch.int32)
-    ltpf_on = ltpf_case_counts(rec_k["ltpf_postfilter"])["on"]
+    ltpf_on = ltpf_case_counts(rec_k["ltpf_decode"])["on"]
     bytes_equal = bool(torch.equal(fr_k, fr_p))
     pcm_diff = int((pcm16_k - P.round_pcm(out_p).to(torch.int32)).abs().max())
     print(f"[main] kernel path vs plain path on the card, {nb} streams x {T} frames: "

@@ -154,23 +154,24 @@ def test_ari_decode_matches_plain(recorded, dev):
 
 
 def check_ltpf(launches):
-    """Every launch against the plain version; returns the number of lanes
-    in each case bit over the launches."""
+    """Every launch of ltpf_decode against its plain version; returns the
+    number of lanes in each case bit over the launches."""
     seen = dict.fromkeys(CASE_BITS, 0)
     for args, _ in launches:
-        got, ref = K.ltpf_postfilter(*args), ltpf_dec.ltpf_postfilter_plain(*args)
-        assert same_bits(got, ref)
+        got, ref = K.ltpf_decode(*args), ltpf_dec.ltpf_decode_plain(*args)
+        assert C.count_differing(got, ref) == 0
+        cases = ltpf_dec.case_word(*args)
         for bit in CASE_BITS:
-            seen[bit] += int(((args[10] & bit) != 0).sum())
+            seen[bit] += int(((cases & bit) != 0).sum())
     return seen
 
 
-def test_ltpf_postfilter_matches_plain(recorded):
-    seen = check_ltpf(recorded["ltpf_postfilter"])
+def test_ltpf_decode_matches_plain(recorded):
+    seen = check_ltpf(recorded["ltpf_decode"])
     assert all(v > 0 for v in seen.values()), seen
 
 
-def test_ltpf_postfilter_all_cases(dev):
+def test_ltpf_decode_all_cases(dev):
     """One stream in each cross-fade case, plus a lost frame."""
     cases = [([0, 0, 0], [0, 0, 0]), ([1, 1, 300], [1, 0, 300]),
              ([1, 0, 0], [1, 1, 120]), ([1, 1, 250], [1, 1, 250]),
@@ -197,9 +198,25 @@ def test_ltpf_postfilter_all_cases(dev):
                                  g(mem_beta))[0]
     finally:
         undo()
-    seen = check_ltpf(store["ltpf_postfilter"])
+    seen = check_ltpf(store["ltpf_decode"])
     assert all(v > 0 for v in seen.values()), seen
     assert not torch.equal(y, g(x))
+
+
+@pytest.mark.parametrize("rate", [dict(fs_in=48000, bitrate=64000),
+                                  dict(fs_in=16000, bitrate=32000)])
+def test_ltpf_decode_pitch_zero_and_smallest_pitch(dev, rate):
+    """tests/torch_kernel_cases.py:ltpf_decode_rows: the smallest pitch
+    (the nearest read a chunk allows), pitch 0 with the filter flags set
+    (chunks of one sample), the largest pitch, every case, and at 48 kHz the
+    midpoint lane; bit for bit."""
+    cfg = P.Config(**rate)
+    d = C.ltpf_decode_rows(cfg, seed=4, midpoint=cfg.fs == 48000)
+    args = (cfg, *(torch.from_numpy(d[k]).to(dev) for k in C.LTPF_DEC_ORDER))
+    got, ref = K.ltpf_decode(*args), ltpf_dec.ltpf_decode_plain(*args)
+    assert C.count_differing(got, ref) == 0
+    cases = ltpf_dec.case_word(*args)
+    assert all(bool(((cases & bit) != 0).any()) for bit in CASE_BITS)
 
 
 def same_bits(got, ref) -> bool:
@@ -350,7 +367,7 @@ def test_launch_counts_move(dev):
     _, frames = P.encode_block(CFG, P.enc_state_init(CFG, B, device=dev), pcm)
     P.decode_block(CFG, P.dec_state_init(CFG, B, device=dev), frames)
     assert K.launches == {"ari_encode": 2, "ari_decode": 1, "bit_estimate": 4,
-                          "ltpf_postfilter": 2, "gain_bisection": 2,
+                          "ltpf_decode": 2, "gain_bisection": 2,
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
                           "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
@@ -453,13 +470,18 @@ def test_transform_synthetic_rows(dev, name, fs, bitrate):
 @pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])
 def test_mdct_compensated_synthetic_rows(dev, fs, bitrate):
     """The TDAC's MDCT in the CPU's compensated order on the same rows; the
-    rows near 1e37 overflow its split to NaN, as on the CPU."""
+    rows near 1e37 overflow its split to NaN, as on the CPU, and with the
+    subnormal-scale rows take the split step."""
     cfg = P.Config(fs_in=fs, bitrate=bitrate)
     x, mem = C.transform_rows(cfg.frame_length, cfg.la_zeroes, seed=4, extreme=True)
     args = (cfg, torch.from_numpy(x).to(dev), torch.from_numpy(mem).to(dev))
     got = K.mdct_compensated(*args)
     same_tensors(got, [t.contiguous() for t in transforms.mdct_plain(*args, compensated=True)])
     assert bool(torch.isfinite(got[0][:-2]).all()) and bool(torch.isnan(got[0][-2:]).all())
+    # the extreme rows (1e-39, 1e37) take the split step, the rows at 16-bit scale not
+    fast = K.mdct_compensated(*args, fast_rows=True)[2]
+    assert torch.equal(fast, transforms.compensated_fast_rows(*args))
+    assert not bool(fast[-4:].any()) and bool(fast[: fast.shape[0] - 7].all())
 
 
 @pytest.mark.parametrize("fs,bitrate", [(48000, 64000), (16000, 32000)])

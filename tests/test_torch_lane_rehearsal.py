@@ -371,6 +371,22 @@ void rehearse_levinson(const float* r, float* lpc, float* rc, float* err, float*
     }
   }
 }
+// the compensated product's term: compensated_step_fast where the row value
+// is in range, against compensated_step with the Veltkamp halves
+void rehearse_compensated_step(const float* a, const float* b, const float* s, const float* comp,
+                               float* fast, float* ref, int* in_range, int n) {
+  for (int i = 0; i < n; ++i) {
+    float ah, al, bh, bl;
+    veltkamp(a[i], ah, al);
+    veltkamp(b[i], bh, bl);
+    float s1 = s[i], c1 = comp[i], s2 = s[i], c2 = comp[i];
+    compensated_step(a[i], ah, al, b[i], bh, bl, s1, c1);
+    compensated_step_fast(a[i], b[i], static_cast<double>(a[i]), static_cast<double>(b[i]), s2, c2);
+    ref[2 * i] = s1, ref[2 * i + 1] = c1;
+    fast[2 * i] = s2, fast[2 * i + 1] = c2;
+    in_range[i] = compensated_fast_input(a[i]);
+  }
+}
 int tns_table_words() { return kTnsTableWords; }
 }
 """
@@ -393,6 +409,17 @@ MUTATIONS_DCT4 = {
 }
 
 
+# mutations of the compensated product's fast step (dct4.cuh) that the
+# rehearsal must catch: its range one exponent wider at the top (the split
+# overflows just below 2^116), and the Dekker term as a rounded product
+# instead of one fused multiply-add
+MUTATIONS_COMP = {
+    "range_wider": ("dct4.cuh", "242u << 23;", "243u << 23;"),
+    "err_rmul": ("dct4.cuh", "const float err = rfmaf(a, b, -p);",
+                 "const float err = rsub(rmul(a, b), p);"),
+}
+
+
 def build_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
@@ -401,7 +428,7 @@ def build_lanes(out: Path, mutation: str | None = None) -> ctypes.CDLL:
     if mutation is not None:
         inc = out / "csrc"
         shutil.copytree(CSRC, inc)
-        name, old, new = {**MUTATIONS, **MUTATIONS_DCT4}[mutation]
+        name, old, new = {**MUTATIONS, **MUTATIONS_DCT4, **MUTATIONS_COMP}[mutation]
         text = (inc / name).read_text()
         assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
         (inc / name).write_text(text.replace(old, new))
@@ -642,6 +669,93 @@ def test_imdct_chain_step_equals_xfma(lib4):
 @pytest.mark.parametrize("mutation", list(MUTATIONS_DCT4))
 def test_rehearsal_catches_mutated_chain_step(tmp_path, mutation):
     bad = xfma_step_differing(build_lanes(tmp_path, mutation))
+    assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"
+
+
+def compensated_tuples(n: int = 1_000_000, seed: int = 0) -> dict[str, tuple[np.ndarray, ...]]:
+    """(a, b, s, comp) float32 tuples for the compensated product's term, by
+    kind. b is drawn from the DCT-IV matrices of N = 480, 240, 160 and 80
+    (the frames at 10 ms), a over the fast range 2^-89 <= |a| < 2^115, s and
+    comp over wide exponents: seeded; the range's edges (its first and last
+    floats, and floats just below 2^116, where the split overflows); signed
+    zeros of a, s and comp; the matrices' smallest and largest entries; and
+    values that must take the split step (about 1e37 and 1e-39, and just
+    outside the range)."""
+    from audio_codec_torch import tables as TT
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    entries = np.concatenate([TT.dct4_matrix(N).astype(f).ravel() for N in (480, 240, 160, 80)])
+    sgn = lambda k: rng.choice([-1.0, 1.0], k)
+    rand = lambda k, lo, hi: (sgn(k) * 2.0 ** rng.uniform(lo, hi, k)).astype(f)
+    pick = lambda k: rng.choice(entries, k)
+    sc = lambda k: (rand(k, -60, 60), rand(k, -60, 60))
+    out = {"seeded": (rand(n, -89, 115), pick(n), *sc(n))}
+    k = 8192
+    lo, hi = f(2.0 ** -89), f(2.0 ** 115)
+    edge = np.concatenate([
+        np.full(k // 4, lo), np.full(k // 4, np.nextafter(hi, f(0))),
+        (2.0 ** 116 * (1.0 - 2.0 ** -rng.integers(1, 24, k // 4))).astype(f),
+        (2.0 ** 115 * (1.0 + 2.0 ** -rng.integers(1, 24, k // 4))).astype(f)])
+    out["edges"] = ((sgn(k) * edge).astype(f), pick(k), *sc(k))
+    z = np.array([0.0, -0.0], f)
+    za, zs, zc = (v.ravel() for v in np.meshgrid(z, np.r_[z, f(3.5), f(-1e-20)], np.r_[z, f(2e-9)]))
+    m = za.size
+    out["signed zeros"] = (np.tile(za, 8), np.repeat(pick(8), m), np.tile(zs, 8), np.tile(zc, 8))
+    ext = np.concatenate([entries[np.argsort(np.abs(entries))[:64]],
+                          entries[np.argsort(np.abs(entries))[-64:]]])
+    out["extreme entries"] = (rand(k, -89, 115), rng.choice(ext, k), *sc(k))
+    # the Neumaier tail's edges: products near a fraction of an ulp of s
+    # (absorbed, or reaching the neighbour's midpoint through the double's
+    # rounding), s on a power of two with a product of the other sign
+    sv = rand(k, -40, 40)
+    sv[: k // 4] = (np.sign(sv[: k // 4]) * 2.0 ** rng.integers(-40, 40, k // 4)).astype(f)
+    bv = pick(k)
+    near = np.spacing(np.abs(sv)).astype(np.float64) * 2.0 ** rng.uniform(-4, 1.5, k)
+    near[k // 2:] = np.spacing(np.abs(sv[k // 2:])).astype(np.float64) / 2 * (
+        1 + sgn(k - k // 2) * 2.0 ** -rng.uniform(18, 30, k - k // 2))
+    av = (-np.sign(sv) * sgn(k) ** 0 * near / bv.astype(np.float64)).astype(f)
+    av[k // 8: k // 4] = -av[k // 8: k // 4]
+    out["tail edges"] = (av, bv, sv, rand(k, -60, 60))
+    out["split step"] = (np.concatenate([(sgn(k // 4) * rng.uniform(0.5, 3.0, k // 4) * 1e37),
+                                         (sgn(k // 4) * rng.uniform(0.5, 3.0, k // 4) * 1e-39),
+                                         np.full(k // 4, np.nextafter(lo, f(0))),
+                                         np.full(k // 4, hi)]).astype(f), pick(k), *sc(k))
+    return out
+
+
+def compensated_step_differing(lib) -> tuple[dict[str, int], dict[str, int]]:
+    """Per kind of tuple: terms in the fast step's range whose (s, comp)
+    differ from compensated_step's (two NaNs count as equal), and terms in
+    the range."""
+    bad, fast = {}, {}
+    with np.errstate(over="ignore"):
+        for kind, (a, b, s, c) in compensated_tuples().items():
+            got, ref = np.zeros(2 * a.size, np.float32), np.zeros(2 * a.size, np.float32)
+            inr = np.zeros(a.size, np.int32)
+            lib.rehearse_compensated_step(ptr(a), ptr(b), ptr(s), ptr(c), ptr(got), ptr(ref),
+                                          ptr(inr), a.size)
+            keep = np.repeat(inr != 0, 2)
+            bad[kind] = C.count_differing(got[keep], ref[keep])
+            fast[kind] = int(inr.sum())
+    return bad, fast
+
+
+def test_compensated_fast_step_equals_split_step(lib4):
+    """dct4.cuh:compensated_step_fast, the compensated MDCT's term without
+    the Veltkamp halves (the Dekker term one fused multiply-add), equals
+    compensated_step bit for bit on 10^6 seeded tuples and every kind of
+    compensated_tuples; the values about 1e37 and 1e-39, and just outside
+    the range, are outside compensated_fast_input's range."""
+    bad, fast = compensated_step_differing(lib4)
+    assert not any(bad.values()), bad
+    assert fast["seeded"] == 1_000_000 and fast["signed zeros"] > 0
+    assert fast["split step"] == 0
+    assert fast["edges"] == 4096      # 2^-89 and the last float below 2^115
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_COMP))
+def test_rehearsal_catches_mutated_compensated_step(tmp_path, mutation):
+    bad, _ = compensated_step_differing(build_lanes(tmp_path, mutation))
     assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"
 
 
@@ -1917,3 +2031,142 @@ def test_plc_main_lane_matches_plain(tmp_path, seed):
 def test_rehearsal_catches_mutated_plc_main_lane(tmp_path, mutation):
     lib = build_plc0_lanes(tmp_path, mutation)
     assert sum(plc0_differing(lib, s) for s in (0, 1)) > 0, mutation
+
+
+# ---- the LTPF decoder whole (ltpf_decode.cuh) ----
+
+WRAPPER_LTPF = r"""
+#include "ltpf_decode.cuh"
+using namespace acx;
+
+template <int NI, int NT>
+static void run(const LtpfGeom& g, const float* x, const int* bfi, const int* param,
+                const int* mem_param, const float* mem_x, const float* mem_y, const int* mpi,
+                const int* mpf, const float* mgain, const int* mbeta, const float* inter,
+                const float* tilt, float* y, float* nmx, float* nmy, int* oparam, int* ints,
+                float* ogain, int B) {
+  static float yr[kLtpfRing], zr[kLtpfRing], xs[kLtpfMaxX], zc[kLtpfRing];
+  const LtpfRows rows = {yr, zr, xs, zc};
+  for (int b = 0; b < B; ++b) {
+    const LtpfParams p = ltpf_params(g, bfi[b], param + 3 * b, mem_param + 3 * b, mpi[b], mpf[b]);
+    for (int i = 0; i < 3; ++i) oparam[3 * b + i] = p.param[i];
+    ints[b] = p.pitch_int;
+    ints[B + b] = p.pitch_fr;
+    ints[2 * B + b] = g.beta_idx;
+    ogain[b] = p.gain;
+    LtpfFilters<NI, NT> f;
+    ltpf_filters(g, p, mgain[b], mpf[b], mbeta[b], inter, tilt, f);
+    ltpf_frame(LtpfHostLanes{}, g, p, f, x + g.N * b, mem_x + g.Lx * b, mem_y + g.Ly * b, rows,
+               y + g.N * b, nmx + g.Lx * b, nmy + g.Ly * b);
+  }
+}
+
+extern "C" void rehearse_ltpf_decode(const float* x, const int* bfi, const int* param,
+                                     const int* mem_param, const float* mem_x, const float* mem_y,
+                                     const int* mpi, const int* mpf, const float* mgain,
+                                     const int* mbeta, const float* inter, const float* tilt,
+                                     float* y, float* nmx, float* nmy, int* oparam, int* ints,
+                                     float* ogain, int B, int N, int Lx, int Ly, int n_inter,
+                                     int inter_len, int N4, int fs, int beta_idx, float beta) {
+  const LtpfGeom g = {N, Lx, Ly, inter_len, N4, fs, beta_idx, beta};
+  if (n_inter == 12)
+    run<12, 11>(g, x, bfi, param, mem_param, mem_x, mem_y, mpi, mpf, mgain, mbeta, inter, tilt,
+                y, nmx, nmy, oparam, ints, ogain, B);
+  else
+    run<4, 3>(g, x, bfi, param, mem_param, mem_x, mem_y, mpi, mpf, mgain, mbeta, inter, tilt,
+              y, nmx, nmy, oparam, ints, ogain, B);
+}
+"""
+
+# mutations of the LTPF decoder's steps that the rehearsal must catch: chunks
+# of 128 samples whatever the read distance, the y phase before the z phase,
+# case A (neither filter on) not writing its memories, a fused float
+# multiply-add in place of the tap chains' xfma (seen on the crafted
+# midpoint lane of ltpf_decode_rows)
+MUTATIONS_LTPF = {
+    "chunk_128": ("ltpf_decode.cuh", "return iclamp(dist, 1, kLtpfChunk);", "return 128;"),
+    "y_before_z": ("ltpf_decode.cuh",
+                   "    ltpf_z_phase(w, g, p, f, s, n0, lanes);\n"
+                   "    ltpf_y_phase(w, g, p, f, s, n0, lanes, y);",
+                   "    ltpf_y_phase(w, g, p, f, s, n0, lanes, y);\n"
+                   "    ltpf_z_phase(w, g, p, f, s, n0, lanes);"),
+    "case_a_no_mems": ("ltpf_decode.cuh", "  ltpf_write_mems(w, g, s, new_mx, new_my);",
+                       "  if (p.cases != 0) ltpf_write_mems(w, g, s, new_mx, new_my);"),
+    "tap_fma": ("ltpf_decode.cuh",
+                "return static_cast<float>(std::fma(w, static_cast<double>(v), "
+                "static_cast<double>(acc)));",
+                "return std::fmaf(static_cast<float>(w), v, acc);"),
+}
+
+
+def build_wrapper(out: Path, wrapper: str, stem: str, mutations: dict,
+                  mutation: str | None = None) -> ctypes.CDLL:
+    """g++ builds `wrapper` over csrc/ (or over a copy with one mutation)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the lane functions for the CPU")
+    inc = CSRC
+    if mutation is not None:
+        inc = out / "csrc"
+        shutil.copytree(CSRC, inc)
+        name, old, new = mutations[mutation]
+        text = (inc / name).read_text()
+        assert text.count(old) == 1, f"{mutation}: the line to mutate is not in {name}"
+        (inc / name).write_text(text.replace(old, new))
+    (out / f"{stem}.cpp").write_text(wrapper)
+    r = subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
+                        "-fPIC", f"-I{inc}", str(out / f"{stem}.cpp"), "-o", str(out / f"{stem}.so")],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    return ctypes.CDLL(str(out / f"{stem}.so"))
+
+
+@pytest.fixture(scope="module")
+def lib_ltpf(tmp_path_factory):
+    return build_wrapper(tmp_path_factory.mktemp("lanes_ltpf"), WRAPPER_LTPF, "lanes_ltpf",
+                         MUTATIONS_LTPF)
+
+
+LTPF_RATES = {"48k": dict(fs_in=48000, bitrate=64000), "16k": dict(fs_in=16000, bitrate=32000)}
+
+
+def ltpf_differing(lib, name: str, seed: int = 0) -> int:
+    """The lane functions of ltpf_decode on ltpf_decode_rows (with the
+    midpoint lane at 48 kHz) against ltpf_decode_plain in the card's order:
+    values that differ over y, the new memories and the parameters."""
+    from audio_codec_torch.models.state import ltpf_dec_lens
+    from audio_codec_torch.ops import ltpf_dec
+    cfg = P.Config(**LTPF_RATES[name])
+    d = C.ltpf_decode_rows(cfg, seed, midpoint=cfg.fs == 48000)
+    B, N = d["x"].shape
+    Lx, Ly, _, _ = ltpf_dec_lens(cfg)
+    inter, tilt = (_c(ltpf_dec._filter(cfg.fs, k), np.float32) for k in (0, 1))
+    y, nmx, nmy = (np.zeros((B, n), np.float32) for n in (N, Lx, Ly))
+    oparam, ints, gain = np.zeros((B, 3), np.int32), np.zeros((3, B), np.int32), np.zeros(B, np.float32)
+    lib.rehearse_ltpf_decode(*(ptr(d[k]) for k in C.LTPF_DEC_ORDER), ptr(inter), ptr(tilt),
+                             ptr(y), ptr(nmx), ptr(nmy), ptr(oparam), ptr(ints), ptr(gain), B, N,
+                             Lx, Ly, inter.shape[1], max(cfg.fs, 16000) // 8000,
+                             int(cfg.fs * 0.0025), cfg.fs, cfg.ltpf_conf_beta_idx,
+                             f32p(cfg.ltpf_conf_beta))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(numerics, "on_cpu", lambda x: False)
+        ref = ltpf_dec.ltpf_decode_plain(cfg, *(torch.from_numpy(d[k]) for k in C.LTPF_DEC_ORDER))
+    m = ref[3]
+    return C.count_differing((y, nmx, nmy, oparam, ints[0], ints[1], gain, ints[2]),
+                             (*ref[:3], m["param"], m["pitch_int"], m["pitch_fr"], m["gain"],
+                              m["beta_idx"]))
+
+
+@pytest.mark.parametrize("name", list(LTPF_RATES))
+def test_ltpf_decode_lane_matches_plain(lib_ltpf, name):
+    """The LTPF decoder's parameter decode and chunked sample loop, the
+    lanes of a chunk emulated as a warp runs them (every lane of a phase
+    reads before any writes), against ltpf_decode_plain in the card's order
+    at 48 and 16 kHz on every case of ltpf_decode_rows."""
+    assert ltpf_differing(lib_ltpf, name) == 0
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_LTPF))
+def test_rehearsal_catches_mutated_ltpf_decode(tmp_path, mutation):
+    lib = build_wrapper(tmp_path, WRAPPER_LTPF, "lanes_ltpf", MUTATIONS_LTPF, mutation)
+    assert sum(ltpf_differing(lib, name) for name in LTPF_RATES) > 0, mutation

@@ -77,13 +77,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def _sns_and_side_info_calls():
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import bits, pc, sns, transforms
+    from audio_codec_torch.ops import bits, ltpf_dec, pc, sns, transforms
     cfg = P.Config(fs_in=48000, bitrate=64000)
     i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
     fields = (i32(2), i32(2) + 2, i32(2), i32(2), i32(2) + 1, i32(2, 2), i32(2, 3), i32(2, 7),
               i32(2))
     return {
         "side_info_pack": (K.side_info_pack, bits.pack_side_info, (cfg, *fields)),
+        "ltpf_decode": (K.ltpf_decode, ltpf_dec.ltpf_decode,
+                        (cfg, torch.zeros((2, cfg.frame_length)), i32(2), i32(2, 3), i32(2, 3),
+                         torch.zeros((2, 10)), torch.zeros((2, 861)), i32(2), i32(2),
+                         torch.zeros(2), i32(2))),
         "side_info_parse": (K.side_info_parse, bits.parse_side_info,
                             (cfg, i32(2, cfg.targetBytes))),
         "sns_vq_dec": (K.sns_vq_dec, sns.quantize_scf_dec, (i32(2, 7),)),
@@ -166,14 +170,14 @@ def _fixed_decoder_calls():
             "fx_ola_ltpf": (K.fx_ola_ltpf, fixed_ltpf_dev.ola_ltpf, ola)}
 
 
-@pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "sns_vq_dec",
+@pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "ltpf_decode", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
                                   "imdct", "mdct_compensated", "olpa", "ltpf_encode", "noise_residual_enc",
                                   "spec_decode", "plc_tdc", "plc_damp_scramble",
                                   "phecu_spec_ana", "phecu_subst", "fx_sns_dec",
                                   "fx_spec_decode", "fx_dct4", "fx_ola_ltpf"])
 def test_sns_and_side_info_wrappers_refuse_cpu_tensors(name):
-    """As above for the SNS quantizer, the side information, the TNS filter
+    """As above for the SNS quantizer, the side information, the LTPF decoder, the TNS filter
     analysis, the concealment classifier, the transforms, the pitch and LTPF
     analysis, the noise factor and residual coder and the decoder's spectrum
     reconstruction: the wrapper raises on a CPU tensor, the op of the same

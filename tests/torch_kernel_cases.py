@@ -125,8 +125,8 @@ def corrupt_fields(cfg, trigger: str, n: int = 8, seed: int = 0) -> dict[str, np
 
 def count_differing(got, ref) -> int:
     """How many values of got differ from ref bit for bit. Each is an array
-    or a tensor, or a tuple, list or dict of them (a dict is read key for key
-    of ref). Two NaNs count as equal; an output of another shape or type
+    or a tensor, or a tuple, list or dict of them, nested (a dict is read key
+    for key of ref). Two NaNs count as equal; an output of another shape or type
     counts as differing throughout."""
     if isinstance(ref, dict):
         got, ref = [got[k] for k in ref], list(ref.values())
@@ -134,6 +134,9 @@ def count_differing(got, ref) -> int:
         got, ref = [got], [ref]
     bad = 0
     for g, r in zip(got, ref, strict=True):
+        if isinstance(r, (tuple, list, dict)):
+            bad += count_differing(g, r)
+            continue
         g, r = (np.asarray(a.detach().cpu() if hasattr(a, "detach") else a) for a in (g, r))
         if g.shape != r.shape or g.dtype != r.dtype:
             bad += max(r.size, 1)
@@ -294,6 +297,104 @@ def transform_rows_jax_safe(N: int, la: int, seed: int = 0) -> tuple[np.ndarray,
     keep = np.ones(x.shape[0], bool)
     keep[EXTREME_SUBNORMAL_ROWS] = False
     return x[keep], mem[keep]
+
+
+# ---- the LTPF decoder (ltpf_decode) ----
+
+LTPF_DEC_ORDER = ("x", "bfi", "param", "mem_param", "mem_x", "mem_y", "mem_pitch_int",
+                  "mem_pitch_fr", "mem_gain", "mem_beta_idx")
+# (old parameters [present, active, index], new parameters, bfi) of each lane
+LTPF_DEC_LANES = {
+    "off->off": ([0, 0, 0], [0, 0, 0], 0),
+    "on->off": ([1, 1, 300], [1, 0, 300], 0),
+    "off->on": ([1, 0, 0], [1, 1, 120], 0),
+    "on->on same pitch": ([1, 1, 250], [1, 1, 250], 0),
+    "on->on new pitch": ([1, 1, 250], [1, 1, 410], 0),
+    "smallest pitch": ([1, 1, 0], [1, 1, 0], 0),
+    "to the smallest pitch": ([1, 1, 5], [1, 1, 0], 0),
+    "largest pitch": ([1, 1, 511], [1, 1, 511], 0),
+    "pitch present, filter off": ([1, 0, 200], [1, 0, 340], 0),
+    "pitch 0, flags set": ([0, 1, 0], [0, 1, 0], 0),
+    "to pitch 0, flags set": ([1, 1, 300], [0, 1, 0], 0),
+    "from pitch 0, flags set": ([0, 1, 0], [0, 0, 0], 0),
+    "from pitch 0 to on": ([0, 1, 0], [1, 1, 60], 0),
+    "lost frame": ([1, 1, 200], [1, 1, 200], 1),
+}
+
+
+def ltpf_decode_rows(cfg, seed: int = 0, midpoint: bool = False) -> dict[str, np.ndarray]:
+    """Inputs of ltpf_decode (LTPF_DEC_ORDER) whose lanes take every case
+    (LTPF_DEC_LANES): the five cross-fade cases, the smallest pitch (index 0:
+    120 at 48 kHz, the nearest read 115 samples back) and the largest, a
+    pitch present with the filter off, a pitch of 0 with the filter flag set
+    in the old or new parameters or both (reads of samples not produced yet),
+    a lost frame; at 48 kHz the crossfade of 120 samples ends inside a chunk
+    of 32. PCM seeded at 16-bit scale. With `midpoint` (48 kHz), a further
+    fade-out lane whose first sample's tilt chain has a step whose double sum
+    falls on a float midpoint that the exact sum is not on, so that a fused
+    float multiply-add in its place rounds the other way (ltpf_midpoint)."""
+    import torch
+    from audio_codec_torch.models.state import ltpf_dec_lens
+    from audio_codec_torch.ops import ltpf_dec
+    rng = np.random.default_rng(seed)
+    Lx, Ly, _, _ = ltpf_dec_lens(cfg)
+    N = cfg.frame_length
+    lanes = list(LTPF_DEC_LANES.values())
+    B = len(lanes) + int(midpoint)
+    mem_param = np.array([c[0] for c in lanes] + [[1, 1, 300]] * midpoint, np.int32)
+    param = np.array([c[1] for c in lanes] + [[1, 0, 300]] * midpoint, np.int32)
+    bfi = np.array([c[2] for c in lanes] + [0] * midpoint, np.int32)
+    pi, pf = (v.numpy() for v in ltpf_dec.decode_pitch(cfg, torch.from_numpy(mem_param)))
+    rows = dict(x=rng.standard_normal((B, N)) * 3000.0, bfi=bfi, param=param,
+                mem_param=mem_param, mem_x=rng.standard_normal((B, Lx)) * 3000.0,
+                mem_y=rng.standard_normal((B, Ly)) * 3000.0, mem_pitch_int=pi.astype(np.int32),
+                mem_pitch_fr=pf.astype(np.int32),
+                mem_gain=np.where(mem_param[:, 1] == 1, np.float32(cfg.ltpf_conf_beta), 0),
+                mem_beta_idx=np.full(B, cfg.ltpf_conf_beta_idx, np.int32))
+    rows = {k: np.ascontiguousarray(v, np.float32 if k in ("x", "mem_x", "mem_y", "mem_gain")
+                                    else np.int32) for k, v in rows.items()}
+    if midpoint:
+        ltpf_midpoint(cfg, rows, B - 1, int(pi[-1]))
+    return rows
+
+
+def ltpf_midpoint(cfg, rows: dict, b: int, p1: int):
+    """Makes lane b (fade-out, old pitch p1) reach a float midpoint at its
+    first sample: x[0] = 0, mem_x[-1] = M, mem_x[-2] = v, the rest of the
+    tilt taps and the old pitch taps 0, so that s1_old's chain is
+    fl(b1 M) = A, then A + b1' v where b1' v lies above half an ulp of A by
+    less than half a double ulp of A: the double sum is the midpoint, which
+    rounds to the even A, the exact sum to the next float. The sample is
+    z_0 = -s1_old (the crossfade weight is 1)."""
+    from fractions import Fraction
+    f32, f64 = np.float32, np.float64
+    Lx, Ly = rows["mem_x"].shape[1], rows["mem_y"].shape[1]
+    tilt = np.asarray(T.t("conf_tilt_filter_48"), f32)[rows["mem_beta_idx"][b]]
+    g = f32(f32(0.85) * rows["mem_gain"][b])
+    w1, w2 = f32(g * tilt[1]), f32(g * tilt[2])
+    rows["x"][b, 0] = 0.0
+    rows["mem_x"][b, :] = 0.0
+    base = Ly - p1 + (max(cfg.fs, 16000) // 8000) - 1
+    rows["mem_y"][b, max(base - 12, 0): base + 1] = 0.0
+    for k in range(20000):
+        M = f32(1000.0 + 0.37 * k)
+        A = f32(w1 * M)
+        if A.view(np.int32) & 1:
+            continue
+        h = f64(np.spacing(A)) / 2
+        v0 = f32(h / f64(w2))
+        for v in (v0, np.nextafter(v0, f32(np.inf)), np.nextafter(v0, f32(-np.inf))):
+            d = f64(w2) * f64(v) - h
+            if not 0 < d < 2.0 ** (np.floor(np.log2(f64(A))) - 53):
+                continue
+            exact = Fraction(float(A)) + Fraction(float(w2)) * Fraction(float(v))
+            up = np.nextafter(A, f32(np.inf))
+            assert f32(f64(A) + f64(w2) * f64(v)) == A            # the double's way
+            assert exact - Fraction(float(A)) > Fraction(float(up)) - exact   # the exact way
+            rows["mem_x"][b, Lx - 1] = M
+            rows["mem_x"][b, Lx - 2] = v
+            return
+    raise AssertionError("no midpoint found")
 
 
 # ---- the pitch analysis, the noise factor and residual coder, the decoder's

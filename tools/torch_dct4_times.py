@@ -261,7 +261,7 @@ def variants(spec: Path) -> None:
             lib.acx_imdct.argtypes = [P_] * 7 + [I_] * 3 + [P_]
         else:
             lib.acx_mdct.argtypes = [P_] * 7 + [I_] * 4 + [P_]
-            lib.acx_mdct_compensated.argtypes = [P_] * 7 + [I_] * 4 + [P_]
+            lib.acx_mdct_compensated.argtypes = [P_] * 8 + [I_] * 4 + [P_]
         libs[name] = (fname, lib)
 
     cfg = P.Config(fs_in=48000, bitrate=64000)
@@ -269,7 +269,7 @@ def variants(spec: Path) -> None:
     dev = torch.device("cuda")
     x, mem, y = rows(B, N, la, tested=True)
     win, rwin = TR.window(cfg, "cuda"), TR.window(cfg, "cuda", True)
-    Mt, Mt64, Msplit = TR.dct4_mt(N, "cuda"), TR.dct4_mt64(N, "cuda"), TR.dct4_mt_split(N, "cuda")
+    Mt, Mt64 = TR.dct4_mt(N, "cuda"), TR.dct4_mt64(N, "cuda")
     st = lambda: torch.cuda.current_stream().cuda_stream
 
     def call(name):
@@ -279,12 +279,15 @@ def variants(spec: Path) -> None:
             rc = lib.acx_imdct(y.data_ptr(), mem.data_ptr(), rwin.data_ptr(), Mt.data_ptr(),
                                Mt64.data_ptr(), out.data_ptr(), nm_.data_ptr(), B, N, la, st())
             return rc, (out, nm_)
-        M = Msplit if "compensated" in name else Mt[None]
-        fn = lib.acx_mdct_compensated if "compensated" in name else lib.acx_mdct
-        fold = torch.empty((M.shape[0], N, B), dtype=torch.float32, device=dev)
+        fold = torch.empty((N, B), dtype=torch.float32, device=dev)
         d, nm_ = torch.empty_like(x), torch.empty_like(mem)
-        rc = fn(x.data_ptr(), mem.data_ptr(), win.data_ptr(), M.data_ptr(), fold.data_ptr(),
-                d.data_ptr(), nm_.data_ptr(), B, B, N, la, st())
+        ptrs = [x.data_ptr(), mem.data_ptr(), win.data_ptr(), Mt.data_ptr(), fold.data_ptr()]
+        if "compensated" in name:
+            fast = torch.empty((-(-N // 32), B), dtype=torch.int32, device=dev)
+            rc = lib.acx_mdct_compensated(*ptrs, fast.data_ptr(), d.data_ptr(), nm_.data_ptr(),
+                                          B, B, N, la, st())
+        else:
+            rc = lib.acx_mdct(*ptrs, d.data_ptr(), nm_.data_ptr(), B, B, N, la, st())
         return rc, (d, nm_)
 
     ref = {"imdct.cu": K.imdct(cfg, y, mem), "mdct.cu": K.mdct(cfg, x, mem),

@@ -6,10 +6,15 @@ times every stage that models/encoder.py:encode_frame and
 models/decoder.py:decode_synthesis call, by wrapping the stage functions
 with a device synchronise on each side (host clock). The stages are mostly
 launch-bound chains of small PyTorch ops, so the wrapper's synchronise
-costs little next to them. Prints one JSON line per path with the stage
-times in ms, largest first, and the card's name and power limit.
+costs little next to them. Before the timed block each path runs
+--warmup frames of its own (first uses: allocations, table uploads, the
+concealment and LTPF paths that the first frames do not reach), then the
+timed block of --frames frames starts again from the initial state. Prints
+one JSON line per path with the stage times in ms a frame, largest first,
+each stage's time at every frame of the block, and the card's name and
+power limit.
 
-    python3 tools/torch_stage_times.py [--streams 2048] [--frames 3]
+    python3 tools/torch_stage_times.py [--streams 2048] [--frames 8] [--warmup 4]
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ def timed(stages: dict, totals: dict):
                 t0 = time.perf_counter()
                 r = _fn(*a, **k)
                 torch.cuda.synchronize()
-                totals[_key] += (time.perf_counter() - t0) * 1e3
+                totals[_key].append((time.perf_counter() - t0) * 1e3)
                 return r
             setattr(mod, fn_name, wrap)
 
@@ -77,7 +82,8 @@ def timed(stages: dict, totals: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
-    ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--warmup", type=int, default=4)
     opt = ap.parse_args()
     import numpy as np
     import torch
@@ -91,24 +97,24 @@ def main() -> int:
                          capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
     cfg = P.Config(fs_in=48000, bitrate=64000)
-    B, T = opt.streams, opt.frames
+    B, T, W = opt.streams, opt.frames, max(opt.warmup, 1)
     rng = np.random.default_rng(0)
-    pcm = torch.from_numpy((rng.standard_normal((T + 1, B, 480)) * 3000).astype(np.float32)).cuda()
+    pcm = torch.from_numpy((rng.standard_normal((T, B, 480)) * 3000).astype(np.float32)).cuda()
 
-    st = P.enc_state_init(cfg, B)
-    st, frames = P.encode_block(cfg, st, pcm[:1])          # warm-up
-    enc = defaultdict(float)
+    st0 = P.enc_state_init(cfg, B)
+    P.encode_block(cfg, st0, pcm[:W])                        # warm-up
+    enc = defaultdict(list)
     restore = timed(ENCODER_STAGES, enc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, frames = P.encode_block(cfg, st, pcm[1:])
+    _, frames = P.encode_block(cfg, st0, pcm)
     torch.cuda.synchronize()
     enc_total = (time.perf_counter() - t0) * 1e3
     restore()
 
     ds = P.dec_state_init(cfg, B)
-    P.decode_block(cfg, ds, frames[:1])                      # warm-up
-    dec = defaultdict(float)
+    P.decode_block(cfg, ds, frames[:W])                      # warm-up
+    dec = defaultdict(list)
     restore = timed(DECODER_STAGES, dec)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -118,11 +124,13 @@ def main() -> int:
     restore()
 
     for path, total, table in (("encode_block", enc_total, enc), ("decode_block", dec_total, dec)):
-        rows = dict(sorted(((k, round(v / T, 3)) for k, v in table.items()),
+        rows = dict(sorted(((k, round(sum(v) / T, 3)) for k, v in table.items()),
                            key=lambda kv: -kv[1]))
-        print(json.dumps({"path": path, "card": card, "streams": B, "frames": T,
+        per_frame = {k: [round(x, 3) for x in v] for k, v in table.items()}
+        print(json.dumps({"path": path, "card": card, "streams": B, "frames": T, "warmup": W,
                           "ms_per_frame": round(total / T, 3),
-                          "stage_ms_per_frame": rows}), flush=True)
+                          "stage_ms_per_frame": rows, "stage_ms_at_each_frame": per_frame}),
+              flush=True)
     return 0
 
 
