@@ -7,102 +7,88 @@
 // two filters' ranges. The coefficient lookup and the ranges stay tensor
 // code (ops/tns.py).
 //
-// Bound on an H100: every bin depends on the state the previous bin left, a
-// chain of N = 400 steps per stream of up to 8 lattice taps (4 dependent
-// float ops each); the bytes are x and y (B x 400 x 4 each) plus the filters
-// (B x 88 bytes), about 6.7 MB at B = 2048, 2 us at 3.35 TB/s. The chain is
-// the bound.
-// Design: as tns_analysis_lattice.cu: one thread per stream, rows staged
-// through shared memory with coalesced copies, filtered in place with the
-// state, coefficients and orders in registers; bin membership from the
-// ranges, and every state index static (see tns_analysis_lattice.cu). The
-// taps follow the plain version's contraction, which is XLA:CPU's on every
-// device (ops/tns.py:tns_synthesis_lattice_plain): each contracted product
-// a fused multiply-add in double (`xfma`, as numerics.xla_fma), state lanes
-// 5-7 on a second chain whose first product is contracted, the main chain's
-// first product rounded on its own unless B = 1. So the card's TNS decode
-// equals the CPU port's, and the kernel its plain version, bit for bit.
-#include "acodec.cuh"
+// Bound on an H100: every bin depends on the state the previous bin left;
+// the bytes are x and y (B x 400 x 4 each) plus the filters (B x 88 bytes),
+// about 6.7 MB at B = 2048, 2 us at 3.35 TB/s. The recursion is the bound:
+// along the wavefront below, tap el of bin n waits for tap el-1 of bin
+// n-1, which waits for tap el of bin n-1, so a bin costs two dependent
+// steps of a shuffle and two xfma_d.
+// Design (tns_lattice.cuh): a tap a lane, 8 lanes a stream, 4 streams a
+// warp (512 warps at B = 2048, one on each scheduler of 128 SMs); lane el
+// runs bin n at step 2n + (7 - el), over the hull of the stream's filter
+// ranges only (y = x outside it), and passes the chains down and its state
+// update up one lane a step by __shfl_down_sync / __shfl_up_sync. The
+// state, the chains and the coefficients are doubles that hold float
+// values, rounded by xfma_d (no conversion in the chain). The warp stages
+// its 4 rows in shared memory, filters them in place (lane 7 reads x at
+// step 2n, lane 0 writes y at step 2n + 7) and stores them coalesced. A
+// lane whose step it is not skips it; a tap whose rounding leaves the fast
+// range (tns_lattice.cuh) is taken again with the tested rounding.
+// The taps keep the plain version's contraction, XLA:CPU's on every device
+// (ops/tns.py:tns_synthesis_lattice_plain): state lanes 5-7 on a second
+// chain whose first product is contracted, the main chain's first product
+// rounded on its own unless B = 1. So the card's TNS decode equals the CPU
+// port's, and the kernel its plain version, bit for bit.
+#include "tns_lattice.cuh"
 
 using namespace acx;
 
-constexpr int kLags = 8;
-
-// One stream, in place on x [N] (stride 1); arguments as tns_analysis_lane,
-// and fused_first: B = 1, where the main chain's first product is contracted.
-ACX_HD void tns_synthesis_lane(float* x, int N, const float* rc, const int* order,
-                               const int* lo, const int* hi, bool fused_first) {
-  float st[kLags] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int n = 0; n < N; ++n) {
-    const bool in1 = order[1] > 0 && n >= lo[1] && n <= hi[1];
-    const bool in0 = order[0] > 0 && n >= lo[0] && n <= hi[0];
-    if (!in0 && !in1) continue;                 // y = x, state kept
-    // orders above 8 act as 8, as the plain version's clamped last tap does
-    const int o = imin(in1 ? order[1] : order[0], kLags);
-    const float* r = rc + (in1 ? kLags : 0);
-    float s = x[n], s_f = x[n];
-    // the last tap o-1 first, then taps o-2..0; every state lane is read
-    // before it is written and every index is static once unrolled
-#pragma unroll
-    for (int el = kLags - 1; el >= 0; --el) {
-      if (el == o - 1) {
-        s_f = xfma(-r[el], st[el], x[n]);
-        s = fused_first ? s_f : rsub(x[n], rmul(r[el], st[el]));
-      } else if (el < o - 1) {
-        const float s_new = xfma(-r[el], st[el], s);
-        float upd;
-        if (el >= 4) {
-          s_f = xfma(-r[el], st[el], s_f);
-          upd = xfma(r[el], s_f, st[el]);
-        } else {
-          upd = xfma(r[el], s_new, st[el]);
-        }
-        st[el + 1] = upd;
-        s = s_new;
-      }
-    }
-    st[0] = s;
-    x[n] = s;
-  }
-}
-
 #ifdef __CUDACC__
-constexpr int kTnsThreads = 32;
+constexpr int kSynWarps = 4;                       // warps a block
+constexpr int kSynRows = 32 / kTnsLags;            // streams a warp
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void tns_synthesis_lattice_kernel(const float* __restrict__ x,
-                                             const float* __restrict__ rc,
-                                             const int32_t* __restrict__ order,
-                                             const int32_t* __restrict__ lo,
-                                             const int32_t* __restrict__ hi,
-                                             float* __restrict__ y, int B, int N) {
+__global__ void __launch_bounds__(kSynWarps * 32)
+    tns_synthesis_lattice_kernel(const float* __restrict__ x, const float* __restrict__ rc,
+                                 const int32_t* __restrict__ order, const int32_t* __restrict__ lo,
+                                 const int32_t* __restrict__ hi, float* __restrict__ y, int B,
+                                 int N) {
   extern __shared__ float tile[];
-  const int row0 = blockIdx.x * blockDim.x;
-  const int rows = imin(static_cast<int>(blockDim.x), B - row0);
-  acx_load_rows(tile, x, row0, rows, N);
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < rows) {
-    const int s = row0 + t;
-    float r[2 * kLags];
-#pragma unroll
-    for (int k = 0; k < 2 * kLags; ++k) r[k] = rc[s * 2 * kLags + k];
-    const int o[2] = {order[2 * s], order[2 * s + 1]};
-    const int l[2] = {lo[2 * s], lo[2 * s + 1]};
-    const int h[2] = {hi[2 * s], hi[2 * s + 1]};
-    tns_synthesis_lane(tile + t * ACX_ROW_STRIDE(N), N, r, o, l, h, B == 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * kSynWarps + warp) * kSynRows;
+  if (row0 >= B) return;   // the whole warp leaves together
+  const int rows = imin(kSynRows, B - row0);
+  float* t = tile + static_cast<size_t>(warp) * kSynRows * N;
+  const float* xg = x + static_cast<size_t>(row0) * N;
+  for (int i = lane; i < rows * N; i += 32) t[i] = xg[i];
+  __syncwarp();
+
+  const int g = lane / kTnsLags, el = lane % kTnsLags;
+  const int b = row0 + imin(g, rows - 1);   // a group past the last row repeats it, writes nothing
+  const TnsStream s = tns_stream(order + 2 * static_cast<size_t>(b), lo + 2 * static_cast<size_t>(b),
+                                 hi + 2 * static_cast<size_t>(b), N);
+  const int len = g < rows ? s.b - s.a + 1 : 0;
+  const double r0 = rc[static_cast<size_t>(b) * 2 * kTnsLags + el];
+  const double r1 = rc[static_cast<size_t>(b) * 2 * kTnsLags + kTnsLags + el];
+  const int steps = __reduce_max_sync(kFull, tns_wave_steps(len));
+  float* row = t + g * N;
+  TnsWaveLane L = {0.0, 0.0, 0.0, 0.0, false};
+  const bool fused_first = B == 1;
+  for (int step = 0; step < steps; ++step) {
+    const double s_in = __shfl_down_sync(kFull, L.s, 1);
+    const double sf_in = __shfl_down_sync(kFull, L.sf, 1);
+    const double u_in = __shfl_up_sync(kFull, L.upd, 1);
+    tns_synthesis_step(L, step, el, row, s, len, r0, r1, s_in, sf_in, u_in, fused_first);
   }
-  __syncthreads();
-  acx_store_rows(y, tile, row0, rows, N);
+  __syncwarp();
+  float* yg = y + static_cast<size_t>(row0) * N;
+  for (int i = lane; i < rows * N; i += 32) yg[i] = t[i];
 }
 
 extern "C" int acx_tns_synthesis_lattice(const void* x, const void* rc, const void* order,
                                          const void* lo, const void* hi, void* y, int B, int N,
                                          void* stream) {
-  size_t smem = 0;
-  cudaError_t err = acx_row_tiles_smem(tns_synthesis_lattice_kernel, kTnsThreads, N, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kTnsThreads - 1) / kTnsThreads;
-  tns_synthesis_lattice_kernel<<<blocks, kTnsThreads, smem,
+  if (B == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(kSynWarps) * kSynRows * N * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tns_synthesis_lattice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int per_block = kSynWarps * kSynRows;
+  const int blocks = (B + per_block - 1) / per_block;
+  tns_synthesis_lattice_kernel<<<blocks, kSynWarps * 32, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(rc),
       static_cast<const int32_t*>(order), static_cast<const int32_t*>(lo),

@@ -274,9 +274,11 @@ def tns_analysis_lattice_plain(x, rc, order, lo, hi):
     `tns_analysis_lattice` kernel. x [B, N] f32; rc [B, 2, 8] f32; order,
     lo, hi [B, 2] i32 (see _filter_bins). Returns the filtered x.
 
-    On the CPU each product is contracted where XLA:CPU contracts it in the
-    reference's scan body (read from its object code): every product but,
-    for B > 1, the last tap's product into the output."""
+    Each product is contracted where XLA:CPU contracts it in the reference's
+    scan body (read from its object code): every product but, for B > 1, the
+    last tap's product into the output. The contracted products are
+    `numerics.xla_fma` on every device, card included, so the card takes the
+    CPU's contraction (the kernel writes them as `xfma_d`)."""
     B, N = x.shape
     in_f1, active, ordsel = _filter_bins(order, lo, hi, N)
     lanes = torch.arange(MAXLAG, device=x.device)[None, :]
@@ -290,15 +292,15 @@ def tns_analysis_lattice_plain(x, rc, order, lo, hi):
         new_st = st_c.clone()
         for j in range(MAXLAG - 1):
             live = j < (o - 1)
-            tmp_fl = nm.fma(rcn[:, j], s, st_c[:, j])
-            s_new = nm.fma(rcn[:, j], st_c[:, j], s)
+            tmp_fl = nm.xla_fma(rcn[:, j], s, st_c[:, j])
+            s_new = nm.xla_fma(rcn[:, j], st_c[:, j], s)
             new_st[:, j] = torch.where(act & live, tmp_save, new_st[:, j])
             tmp_save = torch.where(live, tmp_fl, tmp_save)
             s = torch.where(live, s_new, s)
         last = torch.clamp(o - 1, 0, MAXLAG - 1).long()[:, None]
         st_last = torch.gather(st_c, 1, last)[:, 0]
         rc_last = torch.gather(rcn, 1, last)[:, 0]
-        s = nm.fma(rc_last, st_last, s) if B == 1 else s + rc_last * st_last
+        s = nm.xla_fma(rc_last, st_last, s) if B == 1 else s + rc_last * st_last
         new_st = torch.where(act[:, None] & (lanes == last), tmp_save[:, None], new_st)
         ys.append(torch.where(act, s, xb))
         st_c = torch.where(act[:, None], new_st, st_c)
@@ -316,7 +318,7 @@ def tns_synthesis_lattice_plain(x, rc, order, lo, hi):
     lanes 5-7, so those lanes follow a second chain; every later product is
     contracted everywhere, and at B = 1 the first one too. The contracted
     products are `numerics.xla_fma` on every device, card included, so the
-    card takes the CPU's contraction (the kernel writes them as `xfma`)."""
+    card takes the CPU's contraction (the kernel writes them as `xfma_d`)."""
     B, N = x.shape
     in_f1, active, ordsel = _filter_bins(order, lo, hi, N)
     st_c = torch.zeros((B, MAXLAG), dtype=F32, device=x.device)

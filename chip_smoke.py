@@ -38,7 +38,10 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                reconstruction on rows that take each of their branches, and
                the LTPF decoder on lanes of every case at 48 and 16 kHz
                (the smallest and largest pitch, pitch 0 with the filter
-               flags set);
+               flags set); both TNS lattices on the synthetic rows of
+               tns_lattice_rows (also one stream a launch), and on those
+               rows and every main-path launch against their plain versions
+               run on the CPU (the CPU's contraction, on every device);
   4. block path encode_block + decode_block at --streams x --frames with the
                launch counters reset before and read after; on a few streams
                over all frames the kernel path's payload must equal the plain
@@ -643,6 +646,39 @@ def pc_branch_counts(args, out) -> dict[str, int]:
     from tests import torch_kernel_cases as C
     a = {k: v.cpu().numpy() for k, v in zip(C.PC_ORDER, args[1:])}
     return C.pc_branches(a, out.cpu().numpy(), args[0].frame_dms)
+
+
+def tns_lattice_cases(dev, K, rec):
+    """Both TNS lattices: on the synthetic rows of
+    tests/torch_kernel_cases.py:tns_lattice_rows (the filter switch at every
+    offset of a 15-bin chunk, rising and falling orders, orders above 8, one
+    filter or none, the analysis lattice's general path, zeros, subnormal
+    and near-overflow rows), all at once and every fifth alone (B = 1),
+    against their plain versions on the card; and on every recorded launch
+    and the rows against the plain versions run on the CPU, which compute the
+    CPU's contraction as the card's do."""
+    import torch
+    from tests import torch_kernel_cases as C
+    from audio_codec_torch.ops import tns
+    rows = C.tns_lattice_rows(seed=3)
+    cpu_args = tuple(torch.from_numpy(rows[k]) for k in C.TNS_LATTICE_ORDER)
+    args = tuple(a.to(dev) for a in cpu_args)
+    n = args[0].shape[0]
+    for name in ("tns_analysis_lattice", "tns_synthesis_lattice"):
+        plain = getattr(tns, name + "_plain")
+        kernel = getattr(K, name)
+        same_bits(kernel(*args), plain(*args), f"{name} (synthetic rows)")
+        for i in range(0, n, 5):
+            one = tuple(a[i: i + 1] for a in args)
+            same_bits(kernel(*one), plain(*one), f"{name} (synthetic row {i}, B = 1)")
+        same_bits(kernel(*args), plain(*cpu_args), f"{name} (synthetic rows, plain on the CPU)")
+        for j, (largs, _) in enumerate(rec[name]):
+            same_bits(kernel(*largs), plain(*(a.cpu() for a in largs)),
+                      f"{name} (launch {j}, plain on the CPU)")
+        torch.cuda.synchronize()
+        print(f"[kernels] {name}: {n} synthetic rows (and every fifth alone, B = 1) equal the plain "
+              f"version on the card and on the CPU; {len(rec[name])} main-path launches equal "
+              f"the plain version on the CPU", flush=True)
 
 
 def slice4_cases(cfg, dev, K, rec):
@@ -2163,6 +2199,7 @@ def main() -> int:
     synthetic_cases(cfg, dev, K, side, sns)
     slice4_cases(cfg, dev, K, rec)
     pitch_and_spectrum_cases(cfg, dev, K)
+    tns_lattice_cases(dev, K, rec)
 
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)

@@ -18,7 +18,9 @@ zeros, subnormal-scale rows and rows near 1e37 for the MDCT (in both of its
 orders) and the IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
 windowed search taken and not, LTPF rows with each activation rule firing
 alone, residual-coder rows with no zero line and a cut n_res at 64 and
-16 kbps, and spectrum rows in every branch of the partial concealment
+16 kbps, spectrum rows in every branch of the partial concealment, and
+both TNS lattices on tns_lattice_rows (also one stream a launch) and, on
+every launch and those rows, against their plain versions run on the CPU
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
@@ -259,6 +261,27 @@ def test_tns_lattice_matches_plain(recorded, dev, name):
     args = order8_filters(dev, N=launches[0][0][0].shape[1])
     got = getattr(K, name)(*args)
     assert same_bits(got, plain(*args)) and not torch.equal(got, args[0])
+    # the synthetic rows (switch offsets, orders above 8, general ranges,
+    # zeros, subnormal and near-overflow rows), all at once and one a launch
+    rows = C.tns_lattice_rows(seed=3)
+    args = tuple(torch.from_numpy(rows[k]).to(dev) for k in C.TNS_LATTICE_ORDER)
+    same_tensors(getattr(K, name)(*args), plain(*args))
+    for i in range(0, args[0].shape[0], 5):
+        one = tuple(a[i: i + 1] for a in args)
+        same_tensors(getattr(K, name)(*one), plain(*one))
+
+
+@pytest.mark.parametrize("name", ["tns_analysis_lattice", "tns_synthesis_lattice"])
+def test_tns_lattice_card_equals_cpu_plain(recorded, name):
+    """Both lattices take the CPU's contraction on every device: the kernel
+    on the card equals the plain version run on CPU tensors, on every
+    recorded launch and on the synthetic rows."""
+    plain = getattr(tns, name + "_plain")
+    for args, _ in recorded[name]:
+        same_tensors(getattr(K, name)(*args), plain(*(a.cpu() for a in args)))
+    rows = C.tns_lattice_rows(seed=4)
+    args = tuple(torch.from_numpy(rows[k]) for k in C.TNS_LATTICE_ORDER)
+    same_tensors(getattr(K, name)(*(a.cuda() for a in args)), plain(*args))
 
 
 def test_hp50_biquad_matches_plain(recorded):

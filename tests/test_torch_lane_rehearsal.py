@@ -1673,8 +1673,7 @@ def test_rehearsal_catches_mutated_plc_lanes(tmp_path, exact_trig, mutation):
     assert bad > 0, f"the rehearsal did not see the mutation {mutation}"
 
 
-# ---- the bit-exact fixed-point decoder (csrc/fx_*.cuh) and the repaired
-# TNS synthesis lattice ----
+# ---- the bit-exact fixed-point decoder (csrc/fx_*.cuh) ----
 # The fixed-point steps are templates over the group of threads that runs
 # them (csrc/fixed.cuh: a warp or a block on the card, `Host` here). Their
 # arithmetic is integer, so the plain versions need no card order and every
@@ -1685,7 +1684,6 @@ WRAPPER_FX = r"""
 #include "fx_spec_decode.cuh"
 #include "fx_dct4.cuh"
 #include "fx_ola_ltpf.cuh"
-#include "tns_synthesis_lattice.cu"
 #include <vector>
 using namespace acx::fx;
 
@@ -1731,11 +1729,6 @@ void rehearse_fx_ola_ltpf(const i64* ytda, const i64* y_e, const i64* y_s, const
     fx_ola_ltpf_lane(w, ytda + b * g.N, y_e[b], y_s[b], zero[b], lp + 3 * b, tab, g, s, sc.data(),
                      pcm + b * g.N);
   }
-}
-void rehearse_tns_synthesis(float* x, const float* rc, const int* order, const int* lo,
-                            const int* hi, int B, int N) {
-  for (int b = 0; b < B; ++b)
-    tns_synthesis_lane(x + b * N, N, rc + 16 * b, order + 2 * b, lo + 2 * b, hi + 2 * b, B == 1);
 }
 int fx_sns_table_words() { return kFxSnsTableWords; }
 int fx_dct4_table_words() { return kFxDctTableWords; }
@@ -1906,33 +1899,6 @@ def test_fx_ola_ltpf_lane_matches_plain(lib_fx):
     bad, hist = fx_ola_run(lib_fx, C.fx_ola_plan())
     assert bad == 0
     assert bool((hist > 0).all()), hist.tolist()
-
-
-@pytest.mark.parametrize("B", [1, 6])
-def test_tns_synthesis_lane_matches_plain_on_the_cpus_contraction(lib_fx, card_order, B):
-    """The repaired lattice: the plain version in the card's order (which is
-    now the CPU's contraction for every tap) against the lane, order-8
-    filters in both ranges and random orders; B = 1 contracts the first
-    product too."""
-    rng = np.random.default_rng(B)
-    N = 400
-    x = (rng.standard_normal((B, N)) * 10 ** rng.uniform(-2, 4, (B, 1))).astype(np.float32)
-    rc = T_tns_pts()[rng.integers(2, 15, (B, 2, 8))]
-    order = rng.integers(0, 9, (B, 2)).astype(np.int32)
-    order[0] = 8
-    lo = np.tile(np.array([[12, 200]], np.int32), (B, 1))
-    hi = np.tile(np.array([[199, N - 1]], np.int32), (B, 1))
-    from audio_codec_torch.ops import tns
-    ref = tns.tns_synthesis_lattice_plain(*(torch.from_numpy(a) for a in (x, rc, order, lo, hi)))
-    got = x.copy()
-    lib_fx.rehearse_tns_synthesis(ptr(got), ptr(_c(rc, np.float32)), ptr(order), ptr(lo), ptr(hi),
-                                  B, N)
-    assert C.count_differing(got, ref.numpy()) == 0
-
-
-def T_tns_pts() -> np.ndarray:
-    from audio_codec_torch import tables
-    return tables.t("quants_pts_tns").astype(np.float32)
 
 
 @pytest.mark.parametrize("mutation", list(MUTATIONS_FX))
@@ -2170,3 +2136,215 @@ def test_ltpf_decode_lane_matches_plain(lib_ltpf, name):
 def test_rehearsal_catches_mutated_ltpf_decode(tmp_path, mutation):
     lib = build_wrapper(tmp_path, WRAPPER_LTPF, "lanes_ltpf", MUTATIONS_LTPF, mutation)
     assert sum(ltpf_differing(lib, name) for name in LTPF_RATES) > 0, mutation
+
+
+# ---- the TNS lattices (csrc/tns_lattice.cuh) ----
+# K6 runs a chunk of the stream a lane: the lanes read only x and write
+# disjoint bins, so here they run one after the other. K12 runs a tap a
+# lane over the wavefront: every step, each lane first reads its
+# neighbours' values of the step before (as __shfl_down_sync and
+# __shfl_up_sync do), then every lane takes its step. Both lattices' plain
+# versions compute the CPU's contraction on every device, so they run here
+# on CPU tensors as they are.
+
+WRAPPER_TNS = r"""
+#include "tns_lattice.cuh"
+#include <vector>
+using namespace acx;
+
+static TnsStream stream_of(const int* order, const int* lo, const int* hi, int b, int N) {
+  return tns_stream(order + 2 * b, lo + 2 * b, hi + 2 * b, N);
+}
+
+extern "C" {
+void rehearse_tns_analysis(const float* x, const float* rc, const int* order, const int* lo,
+                           const int* hi, float* y, int B, int N) {
+  std::vector<float> ys(N);
+  for (int b = 0; b < B; ++b) {
+    const TnsStream s = stream_of(order, lo, hi, b, N);
+    double r[2 * kTnsLags];
+    for (int k = 0; k < 2 * kTnsLags; ++k) r[k] = rc[2 * kTnsLags * b + k];
+    for (int lane = 0; lane < kTnsLanes; ++lane) {
+      int w, c, e;
+      tns_analysis_span(s, N, lane, w, c, e);
+      tns_analysis_run(x + b * N, ys.data(), w, c, e, s, r, B == 1);
+    }
+    for (int i = 0; i < N; ++i) y[b * N + i] = tns_analysis_wrote(s, N, i) ? ys[i] : x[b * N + i];
+  }
+}
+// x in place; warps of 4 streams as the kernel lays them
+void rehearse_tns_synthesis(float* x, const float* rc, const int* order, const int* lo,
+                            const int* hi, int B, int N) {
+  constexpr int kRows = 32 / kTnsLags;
+  for (int row0 = 0; row0 < B; row0 += kRows) {
+    const int rows = B - row0 < kRows ? B - row0 : kRows;
+    TnsWaveLane L[32];
+    TnsStream s[32];
+    int len[32], steps = 0;
+    double r0[32], r1[32];
+    for (int lane = 0; lane < 32; ++lane) {
+      const int g = lane / kTnsLags, el = lane % kTnsLags;
+      const int b = row0 + imin(g, rows - 1);
+      s[lane] = stream_of(order, lo, hi, b, N);
+      len[lane] = g < rows ? s[lane].b - s[lane].a + 1 : 0;
+      r0[lane] = rc[2 * kTnsLags * b + el];
+      r1[lane] = rc[2 * kTnsLags * b + kTnsLags + el];
+      L[lane] = {0.0, 0.0, 0.0, 0.0, false};
+      steps = imax(steps, tns_wave_steps(len[lane]));
+    }
+    for (int t = 0; t < steps; ++t) {
+      double s_in[32], sf_in[32], u_in[32];
+      for (int lane = 0; lane < 32; ++lane) {
+        s_in[lane] = L[lane < 31 ? lane + 1 : lane].s;
+        sf_in[lane] = L[lane < 31 ? lane + 1 : lane].sf;
+        u_in[lane] = L[lane > 0 ? lane - 1 : lane].upd;
+      }
+      for (int lane = 0; lane < 32; ++lane) {
+        float* row = x + static_cast<size_t>(row0 + imin(lane / kTnsLags, rows - 1)) * N;
+        tns_synthesis_step(L[lane], t, lane % kTnsLags, row, s[lane], len[lane], r0[lane],
+                           r1[lane], s_in[lane], sf_in[lane], u_in[lane], B == 1);
+      }
+    }
+  }
+}
+}
+"""
+
+# mutations the rehearsal must catch: a 7-bin warm-up, a K6 tap's product
+# rounded on its own (the encoder lattice's earlier order), the wavefront
+# one step late (lane 0 misses its last bin), a lane >= 4 updating its
+# state from s instead of s_f, the fast rounding without its test for
+# subnormals or without the sign of zero, and the exact rounding without
+# its conversion out of range
+MUTATIONS_TNS = {
+    "warmup_7": ("tns_lattice.cuh", "constexpr int kTnsWarmup = 8;",
+                 "constexpr int kTnsWarmup = 7;"),
+    "k6_tap_rounded": ("tns_lattice.cuh", "const double sn = tns_fma<kExact>(rj, st[j], sv, far);",
+                       "const double sn = tns_add<kExact>(sv, tns_mul<kExact>(rj, st[j], far), far);"),
+    "wave_offset": ("tns_lattice.cuh", "const int k = t - (kTnsLags - 1 - el);",
+                    "const int k = t - (kTnsLags - el);"),
+    "upd_from_s": ("tns_lattice.cuh",
+                   "const double upd = tns_fma<kExact>(r, el >= 4 ? sf : s, st, far);",
+                   "const double upd = tns_fma<kExact>(r, s, st, far);"),
+    "range_test_dropped": ("tns_lattice.cuh",
+                           "  far = far || e > kFloatExpHi || (e < kFloatExpLo && (hi & 0x7FFFFFFFu) != 0u);",
+                           "  far = far || e > kFloatExpHi;"),
+    "zero_sign_lost": ("tns_lattice.cuh", "  return std::copysign(round_float_in_range(x), x);",
+                       "  return round_float_in_range(x);"),
+    "exact_unranged": ("tns_lattice.cuh", "    return round_float(x);",
+                       "    return round_float_in_range(x);"),
+}
+
+
+@pytest.fixture(scope="module")
+def lib_tns(tmp_path_factory):
+    return build_wrapper(tmp_path_factory.mktemp("lanes_tns"), WRAPPER_TNS, "lanes_tns",
+                         MUTATIONS_TNS)
+
+
+def lattice_args(d: dict) -> tuple:
+    return tuple(np.ascontiguousarray(d[k]) for k in C.TNS_LATTICE_ORDER)
+
+
+def lane_lattice(lib, name: str, args: tuple) -> np.ndarray:
+    x, rc, order, lo, hi = args
+    B, N = x.shape
+    if name == "analysis":
+        y = np.empty_like(x)
+        lib.rehearse_tns_analysis(ptr(x), ptr(rc), ptr(order), ptr(lo), ptr(hi), ptr(y), B, N)
+        return y
+    y = x.copy()
+    lib.rehearse_tns_synthesis(ptr(y), ptr(rc), ptr(order), ptr(lo), ptr(hi), B, N)
+    return y
+
+
+def plain_lattice(name: str, args: tuple) -> np.ndarray:
+    from audio_codec_torch.ops import tns
+    fn = tns.tns_analysis_lattice_plain if name == "analysis" else tns.tns_synthesis_lattice_plain
+    return fn(*(torch.from_numpy(a) for a in args)).numpy()
+
+
+def lattice_differing(lib, name: str, args: tuple) -> int:
+    return C.count_differing(lane_lattice(lib, name, args), plain_lattice(name, args))
+
+
+@pytest.fixture(scope="module")
+def encoder_lattices(encoder_spectra):
+    """The lattices' arguments from the port's encoder: its filters on its
+    own shaped spectra and on tns_rows (filters of order 8 in both ranges),
+    the analysis lattice's output as the synthesis lattice's input."""
+    from audio_codec_torch.ops import tns
+    cfg = C_CFG48
+    x = np.concatenate([encoder_spectra[0], C.tns_rows(seed=1)[0]])
+    bw = np.concatenate([encoder_spectra[1], C.tns_rows(seed=1)[1]])
+    xt, bwt = torch.from_numpy(x), torch.from_numpy(bw)
+    order, _, rc, nf, _ = tns.tns_filter_analysis_plain(cfg, xt, bwt)
+    lo, hi = tns._filter_ranges(cfg, bwt, nf, x.shape[0], "cpu")
+    ana = tuple(np.ascontiguousarray(a.numpy() if hasattr(a, "numpy") else a)
+                for a in (x, rc, order, lo, hi))
+    y = plain_lattice("analysis", ana)
+    syn = (np.ascontiguousarray(y),) + ana[1:]
+    return {"analysis": ana, "synthesis": syn}
+
+
+@pytest.mark.parametrize("name", ["analysis", "synthesis"])
+def test_tns_lattice_lanes_match_plain_on_encoder_spectra(lib_tns, encoder_lattices, name):
+    args = encoder_lattices[name]
+    assert int((args[2] == 8).sum()) > 0, "no filter of order 8"
+    assert lattice_differing(lib_tns, name, args) == 0
+
+
+@pytest.mark.parametrize("B", [1, 63])
+@pytest.mark.parametrize("name", ["analysis", "synthesis"])
+def test_tns_lattice_lanes_match_plain_on_synthetic_rows(lib_tns, name, B):
+    """Every row of tns_lattice_rows together, and one at a time (B = 1:
+    the last tap of K6, the first of K12, contracted)."""
+    args = lattice_args(C.tns_lattice_rows(seed=2))
+    if B == 1:
+        bad = sum(lattice_differing(lib_tns, name, tuple(a[i: i + 1] for a in args))
+                  for i in range(0, args[0].shape[0], 7))
+    else:
+        bad = lattice_differing(lib_tns, name, args)
+    assert bad == 0
+
+
+def test_tns_lattice_rows_reach_both_analysis_paths_and_every_chunk_offset(lib_tns):
+    """The chunked and the general path of K6 both run, and the switch
+    between the filters falls on every offset of a 15-bin chunk."""
+    d = C.tns_lattice_rows(seed=2)
+    lo, hi, order = d["lo"], d["hi"], d["order"]
+    on = order > 0
+    both = on.all(-1)
+    joined = np.maximum(lo[:, 0], lo[:, 1]) <= np.minimum(hi[:, 0], hi[:, 1]) + 1
+    inside = (lo[:, 1] > lo[:, 0]) & (hi[:, 1] < hi[:, 0])
+    general = both & ~(joined & ~inside)
+    assert 0 < int(general.sum()) < len(order)
+    switch = lo[both & ~general, 1] - lo[both & ~general, 0]
+    assert set(range(C.TNS_CHUNK)) <= set((switch % C.TNS_CHUNK).tolist())
+    assert int((order > 8).sum()) >= 2 and int((~on).all(-1).sum()) >= 1
+
+
+@pytest.mark.parametrize("B", [1, 6])
+def test_tns_synthesis_lane_matches_plain_on_the_cpus_contraction(lib_tns, B):
+    """The repaired lattice (the CPU's contraction for every tap, on every
+    device) against the wavefront's lanes: order-8 filters in both ranges and
+    random orders; B = 1 contracts the first product too."""
+    rng = np.random.default_rng(B)
+    N = 400
+    x = (rng.standard_normal((B, N)) * 10 ** rng.uniform(-2, 4, (B, 1))).astype(np.float32)
+    pts = P.tables.t("quants_pts_tns").astype(np.float32)
+    rc = pts[rng.integers(2, 15, (B, 2, 8))]
+    order = rng.integers(0, 9, (B, 2)).astype(np.int32)
+    order[0] = 8
+    lo = np.tile(np.array([[12, 200]], np.int32), (B, 1))
+    hi = np.tile(np.array([[199, N - 1]], np.int32), (B, 1))
+    assert lattice_differing(lib_tns, "synthesis", (x, rc, order, lo, hi)) == 0
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS_TNS))
+def test_rehearsal_catches_mutated_tns_lattice(tmp_path, encoder_lattices, mutation):
+    lib = build_wrapper(tmp_path, WRAPPER_TNS, "lanes_tns", MUTATIONS_TNS, mutation)
+    rows = lattice_args(C.tns_lattice_rows(seed=2))
+    bad = {name: lattice_differing(lib, name, encoder_lattices[name])
+           + lattice_differing(lib, name, rows) for name in ("analysis", "synthesis")}
+    assert sum(bad.values()) > 0, f"the rehearsal did not see the mutation {mutation}: {bad}"

@@ -182,6 +182,73 @@ def tns_rows(seed: int = 0, n_ar: int = 48) -> tuple[np.ndarray, np.ndarray]:
     return x, bw
 
 
+TNS_LATTICE_ORDER = ("x", "rc", "order", "lo", "hi")
+TNS_LATTICE_N = 480
+TNS_CHUNK = 15     # csrc/tns_lattice.cuh: the hull [12, 479] in 32 chunks of 15 bins
+
+
+def tns_lattice_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of both TNS lattices, [n, 480] spectra with their filters
+    (rc [n, 2, 8] from the quantizer's points, order, lo, hi [n, 2]), that
+    take what the encoder's filters may not: the switch between the filters
+    at every offset 0..14 in a 15-bin chunk of the analysis lattice (and so
+    at every offset to the synthesis lattice's wavefront), with the order
+    rising 3 -> 8 and falling 8 -> 1 there; filter 0 off with filter 1 on;
+    a single filter; orders 9 and 12 (which act as 8); both filters off;
+    ranges with a gap, filter 1 inside filter 0 and overlapping ranges (the
+    analysis lattice's general path); rows of zeros and of negative zeros
+    (one with positive coefficients, which carry -0 to the output),
+    subnormal rows, rows near +-3e38 (the sums overflow, and the rounding
+    takes its tested path); and rows of random orders 0-9 and switch bins."""
+    rng = np.random.default_rng(seed)
+    N = TNS_LATTICE_N
+    pts = T.t("quants_pts_tns").astype(np.float32)
+    rows = []
+
+    def add(x, order, lo, hi, rc=None):
+        rc = pts[rng.integers(0, 17, (2, 8))] if rc is None else rc
+        rows.append((x, rc, np.array(order), np.array(lo), np.array(hi)))
+
+    def spectrum(scale=1.0):
+        v = rng.standard_normal(N) * np.linspace(1, 30, N) * 10.0 ** rng.uniform(-1, 3)
+        for i in range(1, N):
+            v[i] += 0.7 * v[i - 1]
+        return v * scale
+
+    for off in range(TNS_CHUNK):
+        switch = 12 + TNS_CHUNK * (1 + off % 24) + off
+        add(spectrum(), (3, 8), (12, switch), (switch - 1, N - 1))
+        add(spectrum(), (8, 1), (12, switch), (switch - 1, N - 1))
+    add(spectrum(), (0, 5), (12, 200), (199, N - 1))
+    add(spectrum(), (0, 8), (12, 240), (239, 399))
+    add(spectrum(), (8, 0), (12, 200), (N - 1, N - 1))
+    add(spectrum(), (6, 0), (12, 0), (399, -1))
+    add(spectrum(), (9, 12), (12, 200), (199, N - 1))
+    add(spectrum(), (12, 2), (12, 150), (149, 399))
+    add(spectrum(), (0, 0), (12, 200), (199, N - 1))
+    add(spectrum(), (8, 7), (12, 300), (199, N - 1))      # a gap of 100 bins
+    add(spectrum(), (8, 5), (12, 150), (N - 1, 250))      # filter 1 inside filter 0
+    add(spectrum(), (5, 8), (12, 150), (250, N - 1))      # overlapping ranges
+    add(np.zeros(N), (8, 8), (12, 200), (199, N - 1))
+    add(np.full(N, -0.0), (8, 4), (12, 200), (199, N - 1))
+    # positive coefficients keep -0 through the synthesis chain to its output
+    add(np.full(N, -0.0), (8, 8), (12, 200), (199, N - 1), pts[rng.integers(9, 17, (2, 8))])
+    add(rng.standard_normal(N) * 1e-39, (8, 8), (12, 200), (199, N - 1))
+    add(rng.standard_normal(N) * 1e-42, (5, 8), (12, 100), (99, N - 1))
+    big = rng.choice([-3e38, 3e38], N) * rng.uniform(0.5, 1.0, N)
+    add(big, (8, 8), (12, 200), (199, N - 1))
+    near = spectrum()
+    add(near / np.abs(near).max() * 1e37, (8, 6), (12, 200), (199, N - 1))
+    for _ in range(16):
+        o = rng.integers(0, 10, 2)
+        switch = int(rng.integers(13, N - 1))
+        add(spectrum(), tuple(o), (int(rng.integers(0, 40)), switch), (switch - 1, N - 1))
+    x, rc, order, lo, hi = (np.stack([r[k] for r in rows]) for k in range(5))
+    return {"x": x.astype(np.float32), "rc": rc.astype(np.float32),
+            "order": order.astype(np.int32), "lo": lo.astype(np.int32),
+            "hi": hi.astype(np.int32)}
+
+
 def pc_base_rows(n: int = 8, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Seeded q_old_d [n, 400] (loud low band) and q_old_res [n, 400]
     (integer-valued, as a decoded residual is) for pc_rows."""
