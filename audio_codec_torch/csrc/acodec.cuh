@@ -33,6 +33,15 @@ ACX_HD int msb32(int v) {
 #endif
 }
 
+// set bits of a 32-lane ballot
+ACX_HD int popc32(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
 // (v << 8) & MASK24 in two's complement, for any int v
 ACX_HD int shl8_24(int v) {
   return static_cast<int>((static_cast<unsigned>(v) << 8) & MASK24);

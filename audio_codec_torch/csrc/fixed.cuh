@@ -82,15 +82,7 @@ ACX_HD i64 ladd(i64 a, i64 b) { return sat32(a + b); }
 ACX_HD i64 lsub(i64 a, i64 b) { return sat32(a - b); }
 ACX_HD i64 lneg(i64 a) { return sat32(-a); }
 
-// set bits of a 32-lane ballot, and the index of its highest set bit (-1 if
-// none)
-ACX_HD int popc32(unsigned m) {
-#ifdef __CUDA_ARCH__
-  return __popc(m);
-#else
-  return __builtin_popcount(m);
-#endif
-}
+// the index of a 32-lane ballot's highest set bit (-1 if none)
 ACX_HD int top32(unsigned m) {
   if (m == 0) return -1;
 #ifdef __CUDA_ARCH__

@@ -123,7 +123,7 @@ def library() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
-        "acx_ari_encode": [P] * 8 + [I] * 8 + [P],
+        "acx_ari_encode": [P] * 14 + [I] * 8 + [P],
         "acx_ari_decode": [P] * 10 + [I] * 14 + [P],
         "acx_ltpf_decode": [P] * 20 + [I] * 10 + [F] + [P],
         "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
@@ -211,10 +211,12 @@ def _bits_tables(device: str) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def bit_estimate(cfg, xq, target, mode: int):
-    """Launch `bit_estimate` (csrc/bit_estimate.cu); see
+    """Launch `bit_estimate` (csrc/bit_estimate.cu, a warp a stream); see
     ops/quant.py:bit_estimate_plain for the outputs."""
     _check(xq, "xq", torch.int32, 2)
     B, N = xq.shape
+    if N > 1024:
+        raise ValueError("bit_estimate takes at most 1024 coefficients a stream")
     tgt = _i32(target, B, xq.device)
     lookup, bits_tab = _bits_tables(str(xq.device))
     out = torch.empty((5, B), dtype=torch.int32, device=xq.device)
@@ -225,31 +227,56 @@ def bit_estimate(cfg, xq, target, mode: int):
     return dict(nbits=out[0], nbits2=out[1], lastnz=out[2], lastnz2=out[3], lsbMode=out[4])
 
 
+@functools.cache
+def _ari_lane0_counter(device: str) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _device_key(device) -> str:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+def ari_encode_lane0_streams(device) -> int:
+    """Streams that `ari_encode` coded on its lane-0 path (their forward
+    bytes reached the side bits: csrc/ari_encode.cuh) on `device` since the
+    last reset_ari_encode_lane0_streams(). Reads the card's counter."""
+    return int(_ari_lane0_counter(_device_key(device)).item())
+
+
+def reset_ari_encode_lane0_streams(device):
+    _ari_lane0_counter(_device_key(device)).zero_()
+
+
 def ari_encode(cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx,
                num_tns_filters, lastnz_wire, lsb_mode, res_bits, n_res):
-    """Launch `ari_encode` (csrc/ari_encode.cu); see ops/ari.py:encode_plain."""
+    """Launch `ari_encode` (csrc/ari_encode.cu, a warp a stream); see
+    ops/ari.py:encode_plain. A stream that takes the kernel's lane-0 path
+    adds one to the device's counter (ari_encode_lane0_streams)."""
     _check(xq, "xq", torch.int32, 2)
     B, N = xq.shape
     if N > 1024:
         raise ValueError("ari_encode keeps at most 1024 LSB bits a stream")
-    buf = buf.to(torch.int32).contiguous()
+    # no copies where the encoder's tensors are int32 and contiguous already
+    buf, tns_order, tns_idx, res = (t.to(torch.int32).contiguous()
+                                    for t in (buf, tns_order, tns_idx, res_bits))
     _check(buf, "buf", torch.int32, 2)
-    dev = xq.device
-    side = torch.stack([_i32(v, B, dev) for v in (
-        bp_side, mask_side, num_tns_filters, lastnz_wire, lsb_mode, n_res)]).contiguous()
-    tns_order = tns_order.to(torch.int32).contiguous()
-    tns_idx = tns_idx.to(torch.int32).contiguous()
-    res = res_bits.to(torch.int32).contiguous()
     _check(tns_order, "tns_order", torch.int32, 2)
     _check(tns_idx, "tns_idx", torch.int32, 3)
     _check(res, "res_bits", torch.int32, 2)
+    dev = xq.device
+    side = [_i32(v, B, dev) for v in (bp_side, mask_side, num_tns_filters, lastnz_wire,
+                                       lsb_mode, n_res)]
     out = torch.empty_like(buf)
+    lane0 = _ari_lane0_counter(_device_key(dev))
     _run("ari_encode", library().acx_ari_encode(
-        buf.data_ptr(), out.data_ptr(), xq.data_ptr(), side.data_ptr(),
+        buf.data_ptr(), out.data_ptr(), xq.data_ptr(), *(v.data_ptr() for v in side),
         tns_order.data_ptr(), tns_idx.data_ptr(), res.data_ptr(),
-        _coder_tables(str(dev)).data_ptr(), B, N, buf.shape[1], res.shape[1],
-        21 if cfg.hrmode else 14, cfg.rateFlag, 1 if cfg.enable_lpc_weighting else 0,
-        cfg.targetBitsAri, _stream()))
+        _coder_tables(str(dev)).data_ptr(), lane0.data_ptr(), B, N,
+        buf.shape[1], res.shape[1], 21 if cfg.hrmode else 14, cfg.rateFlag,
+        1 if cfg.enable_lpc_weighting else 0, cfg.targetBitsAri, _stream()))
     return out
 
 

@@ -41,9 +41,14 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                flags set); both TNS lattices on the synthetic rows of
                tns_lattice_rows (also one stream a launch), and on those
                rows and every main-path launch against their plain versions
-               run on the CPU (the CPU's contraction, on every device);
+               run on the CPU (the CPU's contraction, on every device); both
+               range coders on coder_rows at 64 and 160 kbps and in the
+               high-resolution mode (2048 streams, and every 25th row
+               alone), with ari_encode's two paths counted: the warp path on
+               every main-path launch, the lane-0 path on rows over budget;
   4. block path encode_block + decode_block at --streams x --frames with the
-               launch counters reset before and read after; on a few streams
+               launch counters (and ari_encode's lane-0 counter, which must
+               stay 0) reset before and read after; on a few streams
                over all frames the kernel path's payload must equal the plain
                path's and its PCM must be within +-1, with LTPF on; the same
                streams through the port on the CPU (the path the tests hold
@@ -679,6 +684,57 @@ def tns_lattice_cases(dev, K, rec):
         print(f"[kernels] {name}: {n} synthetic rows (and every fifth alone, B = 1) equal the plain "
               f"version on the card and on the CPU; {len(rec[name])} main-path launches equal "
               f"the plain version on the CPU", flush=True)
+
+
+def coder_cases(dev, K, rec):
+    """Both range-coder kernels on the synthetic rows of
+    tests/torch_kernel_cases.py:coder_rows at 48 kHz 64 kbps, 160 kbps (LSB
+    mode) and in the high-resolution mode (all-zero rows, a single nonzero
+    tuple first or last, |x| up to 2^23, lastnz2 on both sides of every
+    lane boundary, LSB lists past N, TNS orders 0-12, rows over their bit
+    budget), tiled to 2048 streams and every 25th row alone (B = 1):
+    bit_estimate in modes -1, 0 and 1, ari_encode with the histogram of its
+    two paths; the main-path launches of ari_encode must all take the warp
+    path, and the rows over their budget must reach the lane-0 path."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from tests import torch_kernel_cases as C
+    from audio_codec_torch.ops import ari, quant
+    K.reset_ari_encode_lane0_streams(dev)
+    for args, _ in rec["ari_encode"]:
+        K.ari_encode(*args)
+    main_lane0 = K.ari_encode_lane0_streams(dev)
+    launched = sum(int(args[3].shape[0]) for args, _ in rec["ari_encode"])
+    print(f"[kernels] ari_encode paths over the {len(rec['ari_encode'])} main-path launches: "
+          f"warp {launched - main_lane0}, lane 0 {main_lane0}", flush=True)
+    check(main_lane0 == 0, f"ari_encode: {main_lane0} main-path streams took the lane-0 path")
+    for name, kw in C.CODER_CONFIGS.items():
+        cfg = P.Config(**kw)
+        d = C.coder_rows(cfg, seed=3)
+        n = d["xq"].shape[0]
+        for B in (2048, 1):
+            picks = [np.resize(np.arange(n), 2048)] if B > 1 else [[i] for i in range(0, n, 25)]
+            lane0 = 0
+            for pick in picks:
+                t = {k: torch.from_numpy(np.ascontiguousarray(v[pick])).to(dev)
+                     for k, v in d.items()}
+                for mode in (-1, 0, 1):
+                    a = (cfg, t["xq"], t["target"], mode)
+                    same_bits(K.bit_estimate(*a), quant.bit_estimate_plain(*a),
+                              f"bit_estimate ({name}, mode {mode}, B = {B}, rows {pick[:3]}..)")
+                args = (cfg,) + tuple(t[k] for k in C.CODER_ARI_ORDER)
+                K.reset_ari_encode_lane0_streams(dev)
+                same_bits(K.ari_encode(*args), ari.encode_plain(*args),
+                          f"ari_encode ({name}, B = {B}, rows {pick[:3]}..)")
+                lane0 += K.ari_encode_lane0_streams(dev)
+            streams = sum(len(p) for p in picks)
+            print(f"[kernels] coder_rows {name}, {streams} streams at B = {B}: bit_estimate "
+                  f"(modes -1, 0, 1) and ari_encode equal their plain versions; ari_encode "
+                  f"paths: warp {streams - lane0}, lane 0 {lane0}", flush=True)
+            if B > 1:
+                check(0 < lane0 < streams, f"ari_encode ({name}): the rows took {lane0} of "
+                      f"{streams} streams to the lane-0 path")
 
 
 def slice4_cases(cfg, dev, K, rec):
@@ -1768,8 +1824,9 @@ def fixed_phase(dev, frames, K, card) -> list:
 # FILE_RATE in total (64 kbps a channel); at EP3 FILE_EP_RATE gives a 100-byte
 # slot a channel, coded per channel with partial-concealment codewords; the
 # loss pattern holds a burst of 9 frames and a later single loss; ccConvert packs
-# into CC_SLOT-byte slots at EP CC_MODE
-FILE_FRAMES = 48
+# into CC_SLOT-byte slots at EP CC_MODE. The commands run with -device cpu take
+# 2-3 s a frame, the most of this script's time: FILE_FRAMES stays small.
+FILE_FRAMES = 24
 FILE_RATE = 128000
 FILE_EP_RATE = 160000
 CC_SLOT, CC_MODE = 100, 3
@@ -2104,6 +2161,11 @@ def main() -> int:
     pcm = torch.from_numpy(make_pcm(T, B, cfg.frame_length, opt.seed)).to(dev)
 
     # ---- 3. kernels against their plain versions, on main-path inputs ----
+    t_phase = [time.time()]
+
+    def phase_took(n: int):
+        print(f"[time] phase {n} took {time.time() - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = time.time()
     # every launch of a T-frame run is compared: LTPF is off in every stream
     # at frame 0, and the encoder calls bit_estimate in two modes
     rec: dict = {}
@@ -2200,17 +2262,23 @@ def main() -> int:
     slice4_cases(cfg, dev, K, rec)
     pitch_and_spectrum_cases(cfg, dev, K)
     tns_lattice_cases(dev, K, rec)
+    coder_cases(dev, K, rec)
 
+    phase_took(3)
     # ---- 4. the main path ----
     st = P.enc_state_init(cfg, B, device=dev)
     ds = P.dec_state_init(cfg, B, device=dev)
     torch.cuda.synchronize()
+    K.reset_ari_encode_lane0_streams(dev)
     K.reset_launch_counts()
     st, frames = P.encode_block(cfg, st, pcm)
     ds, out = P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
     counts = dict(K.launches)
-    print(f"[main] encode_block + decode_block at B={B} T={T}: launches {counts}", flush=True)
+    lane0 = K.ari_encode_lane0_streams(dev)
+    print(f"[main] encode_block + decode_block at B={B} T={T}: launches {counts}; ari_encode "
+          f"streams on its lane-0 path {lane0} of {T * B}", flush=True)
+    check(lane0 == 0, f"ari_encode took its lane-0 path on {lane0} main-path streams")
     check(all(counts[k] > 0 for k in MAIN), f"a kernel was not launched: {counts}")
     check(counts["plc_main"] == T, f"plc_main launched {counts['plc_main']} times, not {T}")
     check(tuple(frames.shape) == (T, B, cfg.targetBytes) and frames.dtype == torch.uint8,
@@ -2290,6 +2358,7 @@ def main() -> int:
     print(f"[main] segmental SNR of decoded material: {['%.2f dB' % s for s in snr_rows]} "
           f"(lag {lag} samples)", flush=True)
 
+    phase_took(4)
     # ---- 5. times ----
     rows = []
     for name in (k for k in MAIN if k not in PLC0_KERNELS):
@@ -2335,20 +2404,25 @@ def main() -> int:
         print(f"[times] {card} | {what} B={B} T={T}: {ms:.1f} ms, "
               f"{streams:.1f} real-time 10 ms streams", flush=True)
 
+    phase_took(5)
     # ---- 6. the stream path ----
     rows += stream_phase(dev, pcm, K, plain, card)
 
+    phase_took(6)
     # ---- 7. the concealment path ----
     plc_rows, plc_frames, plc_bfi = concealment_phase(dev, opt, K, card)
     rows += plc_rows
 
+    phase_took(7)
     # ---- 8. the bit-exact fixed-point decoder ----
     rows += fixed_phase(dev, frames, K, card)
 
+    phase_took(8)
     # ---- 9. the standard concealment and the file tools ----
     rows += standard_concealment_phase(dev, plc_frames, plc_bfi, K, card)
     file_tools_phase(card)
 
+    phase_took(9)
     # ---- 10. kernels line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

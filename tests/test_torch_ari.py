@@ -145,3 +145,44 @@ def test_pc_decode_exact(epmode):
         eq(got[k], ref[k], k)
     bfi = np.asarray(ref["bfi"])
     assert (bfi == 2).any() and (bfi == 0).any(), np.bincount(bfi)
+
+
+def closed_form_context(xq: np.ndarray, lastnz: np.ndarray, rate_flag: int) -> tuple:
+    """t of every tuple from the spectrum alone, by the window the range
+    coders' kernels take (csrc/bit_estimate.cuh): c[k] = 16 (tn[k-2] & 15) +
+    tn[k-1], tn[-1] = tn[-2] = 0; and the mask of the tuples inside lastnz."""
+    B, N = xq.shape
+    a, b = np.abs(xq[:, 0::2]).astype(np.int64), np.abs(xq[:, 1::2]).astype(np.int64)
+    m = np.maximum(a, b)
+    nlev = np.where(m >= 4, np.maximum(np.floor(np.log2(np.maximum(m, 1))).astype(np.int64) - 1,
+                                       0), 0)
+    aa, bb = a >> nlev, b >> nlev
+    levm1 = np.minimum(nlev, 3) - 1
+    tn = np.where(levm1 <= 0, 1 + (aa + bb) * (levm1 + 2), 13 + levm1)
+    pad = np.concatenate([np.zeros((B, 2), np.int64), tn], axis=1)
+    c = (pad[:, :-2] & 15) * 16 + pad[:, 1:-1]
+    k = np.arange(N // 2)
+    t = c + rate_flag + np.where(k > N // 4, 256, 0)[None, :]
+    return t, 2 * k[None, :] < lastnz[:, None]
+
+
+@pytest.mark.parametrize("source", ["encoder_64k", "encoder_160k", *C.CODER_CONFIGS])
+def test_tuple_context_is_a_two_tuple_window(source):
+    """The premise of the warp kernels K8 and K10: inside lastnz the context
+    the reference carries from tuple to tuple (audio_codec_tpu
+    ops/ari.py:_tuple_context, a lax.scan) equals the closed form from the
+    two tuples before, on the encoder's spectra and on coder_rows."""
+    if source.startswith("encoder"):
+        bitrate = 64000 if source == "encoder_64k" else 160000
+        xq = np.concatenate([coder_inputs(f, bitrate)[2][3] for f in (0, 1)])
+        lastnz = np.concatenate([coder_inputs(f, bitrate)[2][7] for f in (0, 1)])
+        kw = dict(fs_in=48000, bitrate=bitrate)
+    else:
+        kw = C.CODER_CONFIGS[source]
+        d = C.coder_rows(P.Config(**kw), seed=4)
+        xq, lastnz = d["xq"], d["lastnz"]
+    jcfg = JConfig(**kw)
+    ref = np.asarray(J(JAR._tuple_context, jcfg)(xq, lastnz)["t"])
+    t, inside = closed_form_context(xq, lastnz, jcfg.rateFlag)
+    assert inside.sum() > 0
+    np.testing.assert_array_equal(t[inside], ref[inside])

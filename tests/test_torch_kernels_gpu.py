@@ -20,7 +20,10 @@ windowed search taken and not, LTPF rows with each activation rule firing
 alone, residual-coder rows with no zero line and a cut n_res at 64 and
 16 kbps, spectrum rows in every branch of the partial concealment, and
 both TNS lattices on tns_lattice_rows (also one stream a launch) and, on
-every launch and those rows, against their plain versions run on the CPU
+every launch and those rows, against their plain versions run on the CPU,
+and both range coders on coder_rows at 64 and 160 kbps and in the
+high-resolution mode, 2048 streams a launch and one (ari_encode's lane-0
+path never taken on the main path, taken on the rows over their budget)
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
@@ -120,7 +123,17 @@ def recorded(dev):
     return store
 
 
-def test_bit_estimate_matches_plain(recorded):
+def coder_case_args(name: str, dev, B: int | None = None) -> tuple:
+    """coder_rows at a configuration of C.CODER_CONFIGS on the card, tiled
+    to B streams where B is given: (cfg, the rows as tensors)."""
+    cfg = P.Config(**C.CODER_CONFIGS[name])
+    d = C.coder_rows(cfg, seed=2)
+    n = d["xq"].shape[0]
+    pick = np.arange(n) if B is None else np.resize(np.arange(n), B)
+    return cfg, {k: torch.from_numpy(np.ascontiguousarray(v[pick])).to(dev) for k, v in d.items()}
+
+
+def test_bit_estimate_matches_plain(recorded, dev):
     launches = recorded["bit_estimate"]
     assert sorted({a[3] for a, _ in launches}) == sorted({-1, CFG.modeFlag})
     for args, _ in launches:
@@ -133,11 +146,43 @@ def test_bit_estimate_matches_plain(recorded):
         got, ref = K.bit_estimate(*a), quant.bit_estimate_plain(*a)
         for k in ref:
             assert torch.equal(got[k], ref[k]), (mode, k)
+    # coder_rows at each configuration and mode, all at once (B = 2048) and
+    # every seventh alone (B = 1)
+    for name in C.CODER_CONFIGS:
+        for B in (2048, None):
+            cfg, d = coder_case_args(name, dev, B)
+            for mode in (-1, 0, 1):
+                rows = range(d["xq"].shape[0]) if B is None else [None]
+                for i in rows:
+                    if i is not None and i % 7:
+                        continue
+                    one = slice(None) if i is None else slice(i, i + 1)
+                    a = (cfg, d["xq"][one], d["target"][one], mode)
+                    got, ref = K.bit_estimate(*a), quant.bit_estimate_plain(*a)
+                    for k in ref:
+                        assert torch.equal(got[k], ref[k]), (name, B, i, mode, k)
 
 
-def test_ari_encode_matches_plain(recorded):
+def test_ari_encode_matches_plain(recorded, dev):
+    """Every main-path launch takes the warp path (the lane-0 counter stays
+    0); coder_rows at each configuration, at B = 2048 and every seventh row
+    alone, equal the plain version, and the rows over their budget take the
+    lane-0 path."""
+    K.reset_ari_encode_lane0_streams(dev)
     for args, _ in recorded["ari_encode"]:
         assert torch.equal(K.ari_encode(*args), ari.encode_plain(*args))
+    assert K.ari_encode_lane0_streams(dev) == 0
+    for name in C.CODER_CONFIGS:
+        cfg, d = coder_case_args(name, dev, 2048)
+        args = tuple(d[k] for k in C.CODER_ARI_ORDER)
+        K.reset_ari_encode_lane0_streams(dev)
+        assert torch.equal(K.ari_encode(cfg, *args), ari.encode_plain(cfg, *args)), name
+        lane0 = K.ari_encode_lane0_streams(dev)
+        assert 0 < lane0 < 2048, (name, lane0)
+        cfg, d = coder_case_args(name, dev)
+        for i in range(0, d["xq"].shape[0], 7):
+            one = tuple(d[k][i: i + 1] for k in C.CODER_ARI_ORDER)
+            assert torch.equal(K.ari_encode(cfg, *one), ari.encode_plain(cfg, *one)), (name, i)
 
 
 def test_ari_decode_matches_plain(recorded, dev):

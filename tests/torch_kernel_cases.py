@@ -249,6 +249,132 @@ def tns_lattice_rows(seed: int = 0) -> dict[str, np.ndarray]:
             "hi": hi.astype(np.int32)}
 
 
+# the range coders' rows: the configurations of the CPU rehearsal and the
+# card's checks (lsb_mode 1 at 160 kbps; N = 480 and 21 escape levels in
+# the high-resolution mode)
+CODER_CONFIGS = {"48k_64k": dict(fs_in=48000, bitrate=64000),
+                 "48k_160k": dict(fs_in=48000, bitrate=160000),
+                 "48k_hr": dict(fs_in=48000, bitrate=256000, hrmode=True)}
+# the keys of coder_rows(), in the argument order of ari.encode after cfg
+CODER_ARI_ORDER = ("buf", "bp_side", "mask_side", "xq", "tns_order", "tns_idx", "num_tns",
+                   "lastnz", "lsb_mode", "res_bits", "n_res")
+
+
+def coder_rows(cfg, seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of both range-coder kernels (bit_estimate: xq, target;
+    ari_encode: CODER_ARI_ORDER) at cfg's N and frame size, rows that take
+    what the encoder's spectra may not: an all-zero row, only tuple 0
+    nonzero, only the last tuple nonzero (small and with escapes), dense rows
+    at four scales, |x| up to 2^15 and powers of two up to 2^23 (escape
+    levels beyond 3 and beyond max_lev), a dense row with the targets that
+    put bit_estimate's lastnz2 on both sides of every boundary between two
+    lanes' runs of tuples (found with the plain version), LSB-mode rows of
+    many escaped tuples (LSB lists of hundreds of entries, past N), TNS
+    orders 0-8 (and 9, 12) in both filters with indices from -1 to 17, a
+    family of dense rows coded whole (lastnz = N) over 48 scales, whose
+    forward bytes reach the side bits from some scale on (ari_encode's
+    lane-0 path), and one row near its budget coded whole behind side
+    information of 16, 18, .. 124 bits, whose forward bytes end below, on
+    and past the byte of the tuples' last side bit. lastnz, lsb_mode
+    and target follow from the plain bit_estimate where the row does not set
+    them; the side information is otherwise 30-90 bits from the frame's end."""
+    import torch
+    from audio_codec_torch.ops import quant
+    rng = np.random.default_rng(seed)
+    N, nbytes = cfg.yLen, cfg.targetBytes
+    NT = N // 2
+    run = -(-NT // 32)
+    xs, fixed_lastnz, fixed_target, lsb_one = [], [], [], []
+
+    def add(x, lastnz=None, target=None, lsb=False):
+        xs.append(np.asarray(np.round(x), np.int64).clip(-2 ** 23, 2 ** 23))
+        fixed_lastnz.append(lastnz)
+        fixed_target.append(target)
+        lsb_one.append(lsb)
+
+    z = np.zeros(N)
+    add(z)
+    r = z.copy(); r[0], r[1] = 3, -1
+    add(r)
+    r = z.copy(); r[0] = -40
+    add(r)
+    r = z.copy(); r[N - 2], r[N - 1] = -2, 1
+    add(r)
+    r = z.copy(); r[N - 1] = 300
+    add(r, lastnz=N)
+    for scale in (0.6, 2.0, 6.0, 20.0):
+        add(rng.laplace(0.0, scale, N) * np.linspace(2.0, 0.3, N))
+    add(rng.integers(-2 ** 15, 2 ** 15 + 1, N), lastnz=N)
+    r = z.copy()
+    r[: 2 * 24: 2] = 2.0 ** np.arange(24) * rng.choice([-1, 1], 24)
+    r[N // 2: N // 2 + 24] = 2.0 ** rng.integers(10, 24, 24)
+    add(r, lastnz=N)
+    # lastnz2 on both sides of every lane boundary: a dense row whose every
+    # tuple costs more than a bit, at the targets that end it there
+    dense = np.where(rng.random(N) < 0.5, -1, 1) * rng.integers(4, 30, N)
+    cand = np.arange(0, 8 * N, dtype=np.int32)
+    d = torch.from_numpy(np.tile(dense.astype(np.int32), (len(cand), 1)))
+    l2 = quant.bit_estimate_plain(cfg, d, torch.from_numpy(cand), 0)["lastnz2"].numpy()
+    for kb in range(run, NT, run):
+        for k in (kb - 1, kb):
+            hit = np.flatnonzero(l2 == 2 * k + 2)
+            if hit.size:
+                add(dense, target=int(cand[hit[0]]))
+    # LSB-mode rows: many escaped tuples, magnitudes 1 beside them
+    for _ in range(4):
+        r = rng.integers(4, 64, N) * np.where(rng.random(N) < 0.5, -1, 1)
+        r[rng.random(N) < 0.3] = rng.choice([-1, 1])
+        add(r, lsb=True)
+    r = rng.integers(4, 9, N) * np.where(rng.random(N) < 0.5, -1, 1)
+    r[1::4] = 1
+    add(r, lastnz=N, lsb=True)
+    # coded whole over 48 scales: within the budget, near it, over it
+    shape = rng.laplace(0.0, 1.0, N) * np.linspace(1.5, 0.5, N)
+    for scale in np.geomspace(1.0, 60.0, 48):
+        add(shape * scale, lastnz=N, lsb=bool(rng.random() < 0.25))
+    # the scale whose estimate leaves 70 bits of the frame, coded whole
+    # behind side information of 16-124 bits: the forward bytes end from
+    # about 7 bytes below the tuples' last side bit to 7 bytes past it
+    scales = np.geomspace(0.05, 60.0, 400)
+    cand = torch.from_numpy(np.round(shape[None] * scales[:, None]).astype(np.int32))
+    nb = quant.bit_estimate_plain(cfg, cand, torch.zeros(len(scales), dtype=torch.int32),
+                                  -1)["nbits"].numpy()
+    edge = cand[int(np.argmin(np.abs(nb - (8 * nbytes - 70))))].numpy()
+    n_fixed = len(xs)
+    for _ in range(0, 109, 2):
+        add(edge, lastnz=N)
+    xq = np.stack(xs).astype(np.int32)
+    B = xq.shape[0]
+
+    xt = torch.from_numpy(xq)
+    need = quant.bit_estimate_plain(cfg, xt, torch.full((B,), 10 ** 6, dtype=torch.int32), -1)
+    target = (need["nbits"].numpy() * rng.uniform(0.3, 1.2, B)).astype(np.int32)
+    target = np.array([t if f is None else f for t, f in zip(target, fixed_target)], np.int32)
+    est = quant.bit_estimate_plain(cfg, xt, torch.from_numpy(target), cfg.modeFlag)
+    lastnz = np.array([int(e) if f is None else f for e, f in
+                       zip(est["lastnz2"].numpy(), fixed_lastnz)], np.int32)
+    lsb_mode = np.where(lsb_one, 1, est["lsbMode"].numpy()).astype(np.int32)
+    tns_order = rng.integers(0, 9, (B, 2))
+    tns_order[:3] = [[9, 12], [8, 8], [0, 8]]
+    num_tns = rng.integers(1, 3, B)
+    tns_idx = rng.integers(0, 17, (B, 2, 8))
+    tns_idx[:4, :, ::3] = rng.choice([-1, 17], (4, 2, 3))
+    n_side = rng.integers(30, 91, B)
+    n_side[n_fixed:] = 16 + 2 * np.arange(B - n_fixed)
+    lsb_mode[n_fixed:] = 0
+    tns_order[n_fixed:] = 0
+    q = 8 * (nbytes - 1) - n_side
+    bp_side = (q + 7) >> 3
+    width = quant.residual_max_bits(cfg)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return {"xq": xq, "target": target, "buf": i32(rng.integers(0, 256, (B, nbytes))),
+            "bp_side": i32(bp_side), "mask_side": i32(1 << (8 * bp_side - q)),
+            "tns_order": i32(tns_order), "tns_idx": i32(tns_idx), "num_tns": i32(num_tns),
+            "lastnz": lastnz, "lsb_mode": lsb_mode,
+            "res_bits": i32(rng.integers(0, 2, (B, width))),
+            "n_res": i32(rng.integers(0, width + 1, B))}
+
+
 def pc_base_rows(n: int = 8, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Seeded q_old_d [n, 400] (loud low band) and q_old_res [n, 400]
     (integer-valued, as a decoded residual is) for pc_rows."""
