@@ -11,66 +11,46 @@
 // adds per stream, 800 in all; the bytes are en read once (B x 100 x 4) and
 // one int32 out, about 0.8 MB at B = 2048, a quarter of a microsecond at
 // 3.35 TB/s. The chain is the bound.
-// Design: one thread per stream; a block stages its streams' en rows in
-// shared memory with coalesced loads (the eight passes re-read them there),
-// and keeps ener, iszero and the offset in registers. Every sum is rounded
-// on its own (radd/rsub/rmul), as the plain version's PyTorch ops round them,
-// so the two agree bit for bit.
-#include "acodec.cuh"
+// Design: a warp a stream with speculative halvings
+// (gain_bisection.cuh:gain_bisection_warp): the 31 offsets halvings 1-5 may
+// test on 31 lanes, a ballot and a walk of the decision tree, then the 7 of
+// halvings 6-8 below the walked node, two chains a lane in all. A step's
+// values are all computed, then selected, so that lanes testing other
+// offsets never diverge (gain_bisection.cuh:gain_tests). Every lane reads
+// en[j] at the same j, a broadcast from the row staged in shared memory with
+// coalesced loads. Eight streams a block (256 blocks at 2048 streams, all
+// resident in one wave). Every sum is rounded on its own (radd/rsub/rmul),
+// as the plain version's PyTorch ops round them, so the two agree bit for
+// bit.
+#include "gain_bisection.cuh"
 
 using namespace acx;
 
-// The reference's float32 thresholds: tmp < 7*(28/20), the gap 2.7*(28/20),
-// tmp > 50*(28/20) (quant.py:99-101).
-constexpr float kLow = 9.8f;
-constexpr float kGap = 3.78f;
-constexpr float kHigh = 70.0f;
-
-// One stream: en [M] (stride 1), returns the final offset.
-ACX_HD int gain_bisection_lane(const float* en, int M, float target, int offset) {
-  int fac = 256;
-  for (int it = 0; it < 8; ++it) {
-    fac >>= 1;
-    offset -= fac;
-    const float offs_f = static_cast<float>(offset);
-    float ener = 0.0f;
-    bool iszero = true;
-    for (int j = M - 1; j >= 0; --j) {
-      const float t = rsub(en[j], offs_f);
-      const bool low = t < kLow;
-      const float add = low ? ((!iszero) ? kGap : 0.0f)
-                            : (t >= kHigh ? rsub(rmul(2.0f, t), kHigh) : t);
-      ener = radd(ener, add);
-      iszero = iszero && low;
-    }
-    if (ener > target && !iszero) offset += fac;
-  }
-  return offset;
-}
-
 #ifdef __CUDACC__
-constexpr int kGainThreads = 32;
+constexpr int kGainWarps = 8;   // streams a block
 
-__global__ void gain_bisection_kernel(const float* __restrict__ en,
-                                      const float* __restrict__ target,
-                                      int32_t* __restrict__ out, int B, int M, int offset0) {
-  extern __shared__ float tile[];
-  const int row0 = blockIdx.x * blockDim.x;
-  const int rows = imin(static_cast<int>(blockDim.x), B - row0);
-  acx_load_rows(tile, en, row0, rows, M);
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= rows) return;
-  const int s = row0 + threadIdx.x;
-  out[s] = gain_bisection_lane(tile + threadIdx.x * ACX_ROW_STRIDE(M), M, target[s], offset0);
+__global__ void __launch_bounds__(kGainWarps * 32)
+    gain_bisection_kernel(const float* __restrict__ en, const float* __restrict__ target,
+                          int32_t* __restrict__ out, int B, int M, int offset0) {
+  extern __shared__ float rows[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * kGainWarps + warp;
+  if (s >= B) return;   // the whole warp leaves together
+  float* row = rows + static_cast<size_t>(warp) * M;
+  const float* g = en + static_cast<size_t>(s) * M;
+  for (int i = lane; i < M; i += 32) row[i] = g[i];
+  __syncwarp();
+  const int offset = gain_bisection_warp(CoderCardWarp{lane}, row, M, target[s], offset0);
+  if (lane == 0) out[s] = offset;
 }
 
 extern "C" int acx_gain_bisection(const void* en, const void* target, void* out, int B, int M,
                                   int offset0, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = acx_row_tiles_smem(gain_bisection_kernel, kGainThreads, M, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kGainThreads - 1) / kGainThreads;
-  gain_bisection_kernel<<<blocks, kGainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (M < 1 || M > kGainMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(kGainWarps) * M * sizeof(float);
+  const int blocks = (B + kGainWarps - 1) / kGainWarps;
+  gain_bisection_kernel<<<blocks, kGainWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(en), static_cast<const float*>(target),
       static_cast<int32_t*>(out), B, M, offset0);
   return static_cast<int>(cudaGetLastError());

@@ -13,70 +13,66 @@
 // 0.0013 ms at 3.35 TB/s. Per stream the work is a chain: about 400 bins x 9
 // lags of multiply-adds per filter, then two recursions of about 100
 // dependent operations.
-// Design: one thread per stream; a block stages its streams' rows in shared
-// memory with coalesced loads, and each thread sums only its filters'
-// subdivisions, each lag one chain in a register, bins ascending, then runs
-// the recursions in registers (tns_analysis.cuh). It computes the weighting
-// and the quantizer only for a filter whose gain turns TNS on: the outputs of
-// a filter that is off are masked.
+// Design: a warp a stream (tns_analysis.cuh:tns_filter_analysis_warp). Each
+// (subdivision, lag) chain of a filter is independent, so a lane runs one of
+// them for filter 0 and, interleaved, the same one for filter 1: at most
+// about 130 dependent multiply-adds a lane; the lane then divides its two
+// sums by their subdivision's energy. Shuffles gather the quotients onto
+// lanes 0 and 1, which sum them and run the two filters' recursions side by
+// side. (The 54 divisions on lanes 0 and 1 instead measured 0.0159 against
+// 0.0110 ms at 2048 streams on an H100: tools/torch_tns_times.py
+// --analysis-variants.) Eight streams a block (256 blocks at 2048 streams,
+// all resident in one wave); each warp stages its row in shared memory with
+// coalesced loads, only the bins below its bandwidth's cutoff, and the
+// tables once a block. A filter's weighting and quantizer run only where its
+// gain turns TNS on: the outputs of a filter that is off are masked.
 #include "tns_analysis.cuh"
 
 using namespace acx;
 
 #ifdef __CUDACC__
-constexpr int kTnsAnaThreads = 32;
+constexpr int kTnsAnaWarps = 8;   // streams a block
 
 template <int ORDER, int NSUB>
-__global__ void tns_filter_analysis_kernel(const float* __restrict__ x,
-                                           const int32_t* __restrict__ bw_idx,
-                                           const int32_t* __restrict__ tables, TnsGeom g,
-                                           int32_t* __restrict__ order,
-                                           int32_t* __restrict__ rc_idx,
-                                           float* __restrict__ rc_q,
-                                           int32_t* __restrict__ numfilters,
-                                           int32_t* __restrict__ bits, int B) {
-  extern __shared__ float tile[];
+__global__ void __launch_bounds__(kTnsAnaWarps * 32)
+    tns_filter_analysis_kernel(const float* __restrict__ x, const int32_t* __restrict__ bw_idx,
+                               const int32_t* __restrict__ tables, TnsGeom g,
+                               int32_t* __restrict__ order, int32_t* __restrict__ rc_idx,
+                               float* __restrict__ rc_q, int32_t* __restrict__ numfilters,
+                               int32_t* __restrict__ bits, int B) {
+  extern __shared__ float rows[];
   __shared__ int32_t tab[kTnsTableWords];
   acx_load_shared(tab, tables, kTnsTableWords);
-  const int row0 = blockIdx.x * blockDim.x;
-  const int rows = imin(static_cast<int>(blockDim.x), B - row0);
-  acx_load_rows(tile, x, row0, rows, g.N);
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= rows) return;
-  const int s = row0 + t;
-  int o[2], idx[2 * kTnsLags], nf, nb;
-  float q[2 * kTnsLags];
-  tns_filter_analysis_lane<ORDER, NSUB>(tile + t * ACX_ROW_STRIDE(g.N), bw_idx[s], tab, g, o, idx,
-                                        q, &nf, &nb);
-  order[2 * s] = o[0];
-  order[2 * s + 1] = o[1];
-#pragma unroll
-  for (int k = 0; k < 2 * kTnsLags; ++k) {
-    rc_idx[2 * kTnsLags * s + k] = idx[k];
-    rc_q[2 * kTnsLags * s + k] = q[k];
-  }
-  numfilters[s] = nf;
-  bits[s] = nb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * kTnsAnaWarps + warp;
+  if (s >= B) return;   // the whole warp leaves together
+  float* row = rows + static_cast<size_t>(warp) * g.N;
+  const float* src = x + static_cast<size_t>(s) * g.N;
+  const int bw = bw_idx[s];
+  const int n = tns_row_bins(bw, tab, g);
+  for (int i = lane; i < n; i += 32) row[i] = src[i];
+  __syncwarp();
+  tns_filter_analysis_warp<ORDER, NSUB>(CoderCardWarp{lane}, row, bw, tab, g, order + 2 * s,
+                                        rc_idx + 2 * kTnsLags * s, rc_q + 2 * kTnsLags * s,
+                                        numfilters + s, bits + s, nullptr);
 }
 
 template <int ORDER, int NSUB>
 static int launch(const void* x, const void* bw_idx, const void* tables, const TnsGeom& g,
                   void* order, void* rc_idx, void* rc_q, void* numfilters, void* bits, int B,
                   cudaStream_t stream) {
-  auto kernel = tns_filter_analysis_kernel<ORDER, NSUB>;
-  size_t smem = 0;
-  const cudaError_t err = acx_row_tiles_smem(kernel, kTnsAnaThreads, g.N, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kTnsAnaThreads - 1) / kTnsAnaThreads;
-  kernel<<<blocks, kTnsAnaThreads, smem, stream>>>(
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(kTnsAnaWarps) * g.N * sizeof(float);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + kTnsAnaWarps - 1) / kTnsAnaWarps;
+  tns_filter_analysis_kernel<ORDER, NSUB><<<blocks, kTnsAnaWarps * 32, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(bw_idx),
       static_cast<const int32_t*>(tables), g, static_cast<int32_t*>(order),
       static_cast<int32_t*>(rc_idx), static_cast<float*>(rc_q), static_cast<int32_t*>(numfilters),
       static_cast<int32_t*>(bits), B);
   return static_cast<int>(cudaGetLastError());
 }
-
 // max_order 8 with 3 subdivisions (10 ms frames) or 4 with 2 (shorter frames)
 extern "C" int acx_tns_filter_analysis(const void* x, const void* bw_idx, const void* tables,
                                        void* order, void* rc_idx, void* rc_q, void* numfilters,

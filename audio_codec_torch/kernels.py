@@ -366,6 +366,10 @@ def ltpf_decode(cfg, x, bfi, param, mem_param, mem_x, mem_y, mem_pitch_int, mem_
                                    gain=gain, beta_idx=ints[2])
 
 
+# csrc/gain_bisection.cuh:kGainMaxM, the most blocks of a row the kernel stages
+GAIN_MAX_M = 1024
+
+
 def gain_bisection(en, target, offset0: int):
     """Launch `gain_bisection` (csrc/gain_bisection.cu); see
     ops/quant.py:gain_bisection_plain."""
@@ -374,6 +378,8 @@ def gain_bisection(en, target, offset0: int):
     B, M = en.shape
     if target.shape[0] != B:
         raise ValueError(f"target: expected {B} streams, got {target.shape[0]}")
+    if not 1 <= M <= GAIN_MAX_M:
+        raise ValueError(f"gain_bisection: {M} blocks a row, the kernel takes 1..{GAIN_MAX_M}")
     out = torch.empty((B,), dtype=torch.int32, device=en.device)
     _run("gain_bisection", library().acx_gain_bisection(
         en.data_ptr(), target.data_ptr(), out.data_ptr(), B, M, int(offset0), _stream()))

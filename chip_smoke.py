@@ -46,6 +46,11 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                high-resolution mode (2048 streams, and every 25th row
                alone), with ari_encode's two paths counted: the warp path on
                every main-path launch, the lane-0 path on rows over budget;
+               the TNS filter analysis on tns_rows one stream, 33 and 2047
+               streams a launch, and the gain bisection on gain_rows (M =
+               25, 50, 100 and 120 blocks from every configuration's starting
+               offset; 24, 33 and 2047 streams a launch, and each row alone
+               at two of them);
   4. block path encode_block + decode_block at --streams x --frames with the
                launch counters (and ari_encode's lane-0 counter, which must
                stay 0) reset before and read after; on a few streams
@@ -806,6 +811,64 @@ def slice4_cases(cfg, dev, K, rec):
     print("[kernels] mdct, imdct (also one stream a launch) and mdct_compensated on full-scale, "
           "silent and alternating rows, negative zeros, subnormal-scale rows and rows near 1e37 "
           "at N = 480 and 160 equal their plain versions", flush=True)
+
+
+def rate_cases(dev, K):
+    """The two warp kernels of the rate path in launches of other sizes: the
+    TNS filter analysis on tns_rows (silent subdivisions, order 8 in both
+    filters, the weighting deciding) at both TNS configurations, each row
+    alone (B = 1), 33 and 2047 streams of the rows tiled; the gain bisection
+    on gain_rows (tests/torch_kernel_cases.py: iszero throughout, blocks on
+    both thresholds, targets within an ulp of a tested ener) at M = 25, 50,
+    100 and 120 from every configuration's starting offset, 24, 33 and 2047
+    streams a launch, and each row alone at the first offset of M = 25 and
+    100. The plain version runs once a case, on the 2047 streams (its rows
+    are computed independently); every launch's rows must equal its rows of
+    the same inputs."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from tests import torch_kernel_cases as C
+    from audio_codec_torch.ops import quant, tns
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = lambda res, pick: [r[torch.as_tensor(pick, device=dev)] for r in outputs(res)]
+    launches = 0
+    for name, kw in C.TNS_CONFIGS.items():
+        c = P.Config(**kw)
+        x, bw = C.tns_rows(seed=2)
+        n = x.shape[0]
+        big = np.arange(2047) % n
+        ref = tns.tns_filter_analysis_plain(c, g(x[big]), g(bw[big]))
+        picks = [[i] for i in range(n)] + [np.arange(s, s + 33) % n for s in (0, 26)] + [big]
+        for pick in picks:
+            got = K.tns_filter_analysis(c, g(x[pick]), g(bw[pick]))
+            same_bits(got, rows(ref, pick),
+                      f"tns_filter_analysis (tns_rows at {name}, B = {len(pick)}, rows {list(pick[:3])}..)")
+            launches += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] tns_filter_analysis on tns_rows at {list(C.TNS_CONFIGS)}: {launches} launches "
+          f"(each row alone, B = 33 twice, B = 2047) equal the plain version", flush=True)
+    launches, finals = 0, set()
+    for M, offsets in C.GAIN_OFFSETS.items():
+        for offset0 in offsets:
+            en, target = C.gain_rows(M, offset0)
+            n = en.shape[0]
+            big = np.arange(2047) % n
+            ref = quant.gain_bisection_plain(g(en[big]), g(target[big]), offset0)
+            picks = [np.arange(n), np.arange(33) % n, big]
+            if offset0 == offsets[0] and M in (25, 100):
+                picks += [[i] for i in range(n)]
+            for pick in picks:
+                got = K.gain_bisection(g(en[pick]), g(target[pick]), offset0)
+                same_bits(got, rows(ref, pick)[0],
+                          f"gain_bisection (gain_rows M = {M}, offset0 {offset0}, B = {len(pick)})")
+                launches += 1
+            finals |= set((ref[:n].cpu().numpy() - offset0).tolist())
+    torch.cuda.synchronize()
+    print(f"[kernels] gain_bisection on gain_rows, M = {list(C.GAIN_OFFSETS)} from "
+          f"{sum(len(v) for v in C.GAIN_OFFSETS.values())} starting offsets: {launches} launches "
+          f"equal the plain version; {len(finals)} distinct final offsets", flush=True)
+    check(len(finals) >= 100, f"gain_bisection: the rows reached {len(finals)} final offsets")
 
 
 BRANCHED_KERNELS = ("olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
@@ -2263,6 +2326,7 @@ def main() -> int:
     pitch_and_spectrum_cases(cfg, dev, K)
     tns_lattice_cases(dev, K, rec)
     coder_cases(dev, K, rec)
+    rate_cases(dev, K)
 
     phase_took(3)
     # ---- 4. the main path ----

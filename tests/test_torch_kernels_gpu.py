@@ -9,7 +9,11 @@ stream at the first frames, and the encoder calls bit_estimate in two
 modes). Every kernel must match its plain version bit for bit.
 Synthetic cases add what the main path may not reach: TNS filters of order 8
 in both ranges, a stream whose gain bisection never leaves `iszero`, every
-SNS submode with its field widths, the pulse search's silent-target branch,
+SNS submode with its field widths, gain_rows at M = 25-120 from every
+configuration's starting offset (iszero throughout, blocks on both
+thresholds, targets within an ulp of a tested ener; 1, 24, 33 and 2047
+streams a launch), tns_rows 1, 33 and 2047 streams a launch, the pulse
+search's silent-target branch,
 frames that fire each of the side-info parser's bad-frame triggers, TNS
 spectra with dead subdivisions, filters of order 8 and (at 32 kbps) gains
 where the LPC weighting decides, concealment rows that take every branch of
@@ -283,6 +287,30 @@ def test_gain_bisection_matches_plain(recorded, dev):
     assert int(got[0]) == offset0 - 255   # never raised: the bisection ends at its floor
 
 
+@pytest.mark.parametrize("M", list(C.GAIN_OFFSETS))
+def test_gain_bisection_gain_rows(dev, M):
+    """gain_rows from every starting offset of the configurations with M
+    blocks, 24, 33 and 2047 streams a launch, and each row alone from the
+    first offset."""
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for offset0 in C.GAIN_OFFSETS[M]:
+        en, target = C.gain_rows(M, offset0)
+        n = en.shape[0]
+        picks = [np.arange(n), np.arange(33) % n, np.arange(2047) % n]
+        if offset0 == C.GAIN_OFFSETS[M][0]:
+            picks += [[i] for i in range(n)]
+        for pick in picks:
+            args = (g(en[pick]), g(target[pick]), offset0)
+            assert torch.equal(K.gain_bisection(*args), quant.gain_bisection_plain(*args)), \
+                (offset0, len(pick))
+
+
+def test_gain_bisection_rejects_rows_it_does_not_stage(dev):
+    en = torch.zeros((4, K.GAIN_MAX_M + 1), device=dev)
+    with pytest.raises(ValueError):
+        K.gain_bisection(en, torch.zeros(4, device=dev), 119)
+
+
 def order8_filters(dev, B: int = 64, N: int = 400):
     """Seeded spectra and filters of order 8 in two adjoining ranges."""
     rng = np.random.default_rng(4)
@@ -475,6 +503,20 @@ def test_tns_filter_analysis_synthetic_rows(dev, name):
     assert bool((got[0][:, 0] == 8).any()) and bool((got[0][:, 1] == 8).any())
     if name == "48k_32kbps":
         assert int(((gains > 1.5) & (gains < 2.0)).sum()) >= 4
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047])
+@pytest.mark.parametrize("name", list(C.TNS_CONFIGS))
+def test_tns_filter_analysis_batches(dev, name, B):
+    """tns_rows B streams a launch: each row alone, or the rows tiled."""
+    cfg = P.Config(**C.TNS_CONFIGS[name])
+    x, bw = C.tns_rows(seed=2)
+    n = x.shape[0]
+    picks = [[i] for i in range(n)] if B == 1 else [np.arange(s, s + B) % n for s in (0, 26)]
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for pick in picks:
+        args = (cfg, g(x[pick]), g(bw[pick]))
+        same_tensors(K.tns_filter_analysis(*args), tns.tns_filter_analysis_plain(*args))
 
 
 def test_pc_classify_matches_plain_on_the_main_path(recorded):

@@ -10,7 +10,8 @@ csrc/dct4.cuh, the concealment's csrc/plc*.cuh and phecu.cuh, the
 fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
 plain C++ as
 well as for the card (the warp kernels of olpa and ltpf_encode share their
-steps with a lane function that runs them in order). Here g++ builds them (with
+steps with a lane function that runs them in order; the TNS filter analysis
+is a template over the warp, here the host warp of csrc/warp.cuh). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
 the kernels round them) into a shared library in a temporary directory,
 called through ctypes. The plain versions run with `numerics.on_cpu` patched
@@ -289,6 +290,31 @@ def test_sns_enc_lane_matches_plain_on_encoder_scale_factors(lib, card_order):
 
 # ---- slice 4: the TNS filter analysis, the concealment classifier, the DCT-IV ----
 
+# the TNS filter analysis of B streams on the host warp, each row staged as
+# the kernel stages it (the bins from tns_row_bins on NaN, so that a read
+# past them shows); gains [B][2] the prediction gains
+TNS_REHEARSE = r"""
+void rehearse_tns(const float* x, const int* bw, const int* tab, int B, int N, int startfreq0,
+                  int nf_max, int max_order, float max_pg, float inv_nsub, float c_alpha,
+                  float inv_span, int* order, int* rc_idx, float* rc_q, int* nf, int* bits,
+                  float* gains) {
+  const TnsGeom g = {N, startfreq0, nf_max, max_pg, inv_nsub, c_alpha, inv_span};
+  float row[2048];
+  for (int b = 0; b < B; ++b) {
+    const int n = tns_row_bins(bw[b], tab, g);
+    for (int i = 0; i < N; ++i) row[i] = i < n ? x[static_cast<size_t>(N) * b + i] : NAN;
+    if (max_order == 8)
+      tns_filter_analysis_warp<8, 3>(CoderHostWarp{}, row, bw[b], tab, g, order + 2 * b,
+                                     rc_idx + 16 * b, rc_q + 16 * b, nf + b, bits + b,
+                                     gains + 2 * b);
+    else
+      tns_filter_analysis_warp<4, 2>(CoderHostWarp{}, row, bw[b], tab, g, order + 2 * b,
+                                     rc_idx + 16 * b, rc_q + 16 * b, nf + b, bits + b,
+                                     gains + 2 * b);
+  }
+}
+"""
+
 WRAPPER4 = r"""
 #include "tns_analysis.cuh"
 #include "pc_classify.cuh"
@@ -296,19 +322,7 @@ WRAPPER4 = r"""
 using namespace acx;
 
 extern "C" {
-void rehearse_tns(const float* x, const int* bw, const int* tab, int B, int N, int startfreq0,
-                  int nf_max, int max_order, float max_pg, float inv_nsub, float c_alpha,
-                  float inv_span, int* order, int* rc_idx, float* rc_q, int* nf, int* bits) {
-  const TnsGeom g = {N, startfreq0, nf_max, max_pg, inv_nsub, c_alpha, inv_span};
-  for (int b = 0; b < B; ++b) {
-    if (max_order == 8)
-      tns_filter_analysis_lane<8, 3>(x + N * b, bw[b], tab, g, order + 2 * b, rc_idx + 16 * b,
-                                     rc_q + 16 * b, nf + b, bits + b);
-    else
-      tns_filter_analysis_lane<4, 2>(x + N * b, bw[b], tab, g, order + 2 * b, rc_idx + 16 * b,
-                                     rc_q + 16 * b, nf + b, bits + b);
-  }
-}
+""" + TNS_REHEARSE + r"""
 void rehearse_pc(const int* bfi, const int* inv, const float* stab, const int* pitch,
                  const float* qd, const float* qres, int* out, int B, int N, int frame_dms,
                  float inv_n) {
@@ -450,6 +464,8 @@ def f32p(v: float):
 
 
 def lane_tns(lib, cfg, x: np.ndarray, bw: np.ndarray):
+    """The warp function of tns_filter_analysis on the host warp: (order,
+    rc_idx, rc_q, numfilters, bits) and the prediction gains [B, 2]."""
     from audio_codec_torch.ops import tns
     _, startfreq0, nf_max, max_order, n_sub, max_pg, _ = tns._tns_geometry(cfg)
     B, N = x.shape
@@ -458,12 +474,14 @@ def lane_tns(lib, cfg, x: np.ndarray, bw: np.ndarray):
     q = np.zeros((B, 2, 8), np.float32)
     nf = np.zeros(B, np.int32)
     bits = np.zeros(B, np.int32)
+    gains = np.zeros((B, 2), np.float32)
     tab = K._tns_tables("cpu", cfg.frame_dms, max_pg == 1.5).numpy()
     inv_span = 1.0 / (max_pg - 1.5) if max_pg > 1.5 else 0.0
-    lib.rehearse_tns(ptr(np.ascontiguousarray(x)), ptr(bw), ptr(tab), B, N, startfreq0, nf_max,
-                     max_order, f32p(max_pg), f32p(1.0 / n_sub), f32p(0.85 - 1.0), f32p(inv_span),
-                     ptr(order), ptr(idx), ptr(q), ptr(nf), ptr(bits))
-    return order, idx, q, nf, bits
+    lib.rehearse_tns(ptr(np.ascontiguousarray(x, np.float32)), ptr(np.ascontiguousarray(bw, np.int32)),
+                     ptr(tab), B, N, startfreq0, nf_max, max_order, f32p(max_pg),
+                     f32p(1.0 / n_sub), f32p(0.85 - 1.0), f32p(inv_span), ptr(order), ptr(idx),
+                     ptr(q), ptr(nf), ptr(bits), ptr(gains))
+    return (order, idx, q, nf, bits), gains
 
 
 def test_tns_table_layout_matches_header(lib4):
@@ -478,8 +496,10 @@ def test_tns_filter_analysis_lane_matches_plain(lib4, card_order, name):
     cfg = P.Config(**C.TNS_CONFIGS[name])
     x, bw = C.tns_rows(seed=1)
     ref, gains = tns._analyze(cfg, torch.from_numpy(x), torch.from_numpy(bw))
-    for got, r in zip(lane_tns(lib4, cfg, x, bw), ref, strict=True):
-        same_bits(got, r.numpy())
+    got, got_gains = lane_tns(lib4, cfg, x, bw)
+    for g, r in zip(got, ref, strict=True):
+        same_bits(g, r.numpy())
+    same_bits(got_gains, gains.numpy())
     order = ref[0].numpy()
     assert (order[:, 0] == 8).any() and (order[:, 1] == 8).any() and (order == 0).any()
     if name == "48k_32kbps":
@@ -492,9 +512,11 @@ def test_tns_filter_analysis_lane_matches_plain_on_encoder_spectra(lib4, encoder
     """The shaped spectra of the port's own encoder on seeded noise."""
     from audio_codec_torch.ops import tns
     r = encoder_spectra
-    ref = tns.tns_filter_analysis_plain(C_CFG48, torch.from_numpy(r[0]), torch.from_numpy(r[1]))
-    for got, e in zip(lane_tns(lib4, C_CFG48, *r), ref, strict=True):
-        same_bits(got, e.numpy())
+    ref, gains = tns._analyze(C_CFG48, torch.from_numpy(r[0]), torch.from_numpy(r[1]))
+    got, got_gains = lane_tns(lib4, C_CFG48, *r)
+    for g, e in zip(got, ref, strict=True):
+        same_bits(g, e.numpy())
+    same_bits(got_gains, gains.numpy())
 
 
 C_CFG48 = P.Config(**C.TNS_CONFIGS["48k"])

@@ -182,6 +182,117 @@ def tns_rows(seed: int = 0, n_ar: int = 48) -> tuple[np.ndarray, np.ndarray]:
     return x, bw
 
 
+# ---- the gain bisection (K7) ----
+
+# the rows' block counts M = lg / 4 (25: 2.5 ms frames, 50: 5 ms, 100: 10 ms,
+# 120: 10 ms in the high-resolution mode), and the starting offsets 255 +
+# quantizedGainOff of the configurations with M blocks (8-96 kHz, 2.5-10 ms
+# frames, 16-500 kbps, both modes)
+GAIN_OFFSETS = {
+    25: (98, 101, 109, 111, 117, 119, 120, 121, 122, 123, 124, 125),
+    50: (71, 76, 93, 96, 108, 109, 112, 113, 115, 116, 119, 120, 121, 122, 123, 124),
+    100: (17, 25, 60, 65, 91, 93, 98, 100, 105, 106, 112, 113, 115, 116, 119, 120, 121, 122),
+    120: (17, 25, 60, 65, 79, 91, 93, 96, 98, 100, 105, 106, 107, 110, 112, 113, 115, 116, 118,
+          119, 120, 121, 122)}
+GAIN_LOW, GAIN_GAP, GAIN_HIGH = np.float32(9.8), np.float32(3.78), np.float32(70.0)
+
+
+def gain_node_test(offset0: int, h: int) -> int:
+    """The offset heap node h (1..255) of the eight halvings tests: the
+    decisions above it are the bits of h below its leading one, a passed
+    halving giving its fac back (csrc/gain_bisection.cuh)."""
+    k = h.bit_length() - 1
+    return offset0 - (256 - (256 >> k)) + ((h - (1 << k)) << (8 - k)) - (128 >> k)
+
+
+def gain_chain(en: np.ndarray, offs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """One halving's test of each row of en [n, M] at its offset offs [n]
+    (ops/quant.py:gain_bisection_plain's inner loop, in float32): ener [n],
+    iszero [n]."""
+    o = offs.astype(np.float32)
+    ener = np.zeros(en.shape[0], np.float32)
+    iszero = np.ones(en.shape[0], bool)
+    for j in range(en.shape[1] - 1, -1, -1):
+        t = en[:, j] - o
+        low = t < GAIN_LOW
+        hi = np.where(t >= GAIN_HIGH, np.float32(2.0) * t - GAIN_HIGH, t)
+        ener = ener + np.where(low, np.where(iszero, np.float32(0.0), GAIN_GAP), hi)
+        iszero &= low
+    return ener, iszero
+
+
+def gain_path(en: np.ndarray, target: np.ndarray, offset0: int):
+    """The eight halvings of each row as the plain version walks them: the
+    offsets tested [n, 8], their ener [n, 8], and the final offset [n]."""
+    n = en.shape[0]
+    offset = np.full(n, offset0, np.int64)
+    tested, eners = np.zeros((n, 8), np.int64), np.zeros((n, 8), np.float32)
+    fac = 256
+    for k in range(8):
+        fac //= 2
+        offset -= fac
+        ener, iszero = gain_chain(en, offset)
+        tested[:, k], eners[:, k] = offset, ener
+        offset += np.where((ener > target) & ~iszero, fac, 0)
+    return tested, eners, offset
+
+
+def gain_rows(M: int, offset0: int, seed: int = 0, n: int = 24) -> tuple[np.ndarray, np.ndarray]:
+    """[n, M] float32 block energies and [n] float32 targets of the gain
+    bisection at the starting offset offset0: a row below the low threshold
+    at every offset the halvings may test (iszero throughout); rows whose
+    blocks sit on 9.8 and 70 above the offsets of a path down the tree (the
+    first halving's always among them), within two ulps either side; rows with quiet blocks at the top and in the middle (the gap
+    filling); falling envelopes; and targets that are a halving's ener on the
+    walked path, or one ulp either side of it, beside targets at random
+    offsets."""
+    rng = np.random.default_rng([seed, M, offset0])
+    f32 = np.float32
+    lowest = offset0 - 255
+    en = np.zeros((n, M), np.float32)
+    en[0] = lowest - 300.0
+    for r in range(1, n):
+        kind = r % 4
+        env = rng.uniform(20.0, 180.0) - np.linspace(0.0, rng.uniform(10.0, 120.0), M)
+        row = (env + rng.normal(0.0, 8.0, M)).astype(np.float32)
+        if kind == 1:           # blocks on both thresholds above the offsets of a path
+            path = [1]
+            while len(path) < 8:
+                path.append(2 * path[-1] + int(rng.integers(0, 2)))
+            c = np.float32([gain_node_test(offset0, h) for h in path])[rng.integers(0, 8, M)]
+            edge = np.where(rng.random(M) < 0.5, c + GAIN_LOW, c + GAIN_HIGH).astype(np.float32)
+            steps = rng.integers(-2, 3, M)
+            for s in (-2, -1, 1, 2):
+                sel = steps == s
+                edge[sel] = np.nextafter(edge[sel], np.float32(np.inf if s > 0 else -np.inf))
+                if abs(s) == 2:
+                    edge[sel] = np.nextafter(edge[sel], np.float32(np.inf if s > 0 else -np.inf))
+            pick = rng.random(M) < 0.6
+            row[pick] = edge[pick]
+        elif kind == 2:         # quiet blocks at the top and in the middle
+            row[M - M // 3:] = lowest - rng.uniform(0.0, 50.0, M // 3)
+            mid = int(rng.integers(0, M // 2))
+            row[mid: mid + M // 5] = lowest - 10.0
+        elif kind == 3:         # a row near one node's offset throughout
+            c = gain_node_test(offset0, int(rng.integers(1, 256)))
+            row = (c + rng.uniform(-20.0, 90.0, M)).astype(np.float32)
+        en[r] = row
+    # targets: the ener at a random offset, then on odd rows a halving's ener
+    # on the walked path itself, or one ulp either side
+    offs = rng.integers(lowest, offset0 + 1, n)
+    target = gain_chain(en, offs)[0] * rng.uniform(0.9, 1.1, n).astype(np.float32)
+    target = target.astype(np.float32)
+    tie = np.arange(n) % 2 == 1
+    _, eners, _ = gain_path(en, target, offset0)
+    level = rng.integers(0, 8, n)
+    e = eners[np.arange(n), level]
+    nudge = rng.integers(-1, 2, n)
+    e = np.where(nudge > 0, np.nextafter(e, np.float32(np.inf)),
+                 np.where(nudge < 0, np.nextafter(e, np.float32(-np.inf)), e)).astype(np.float32)
+    target[tie] = e[tie]
+    return en, target
+
+
 TNS_LATTICE_ORDER = ("x", "rc", "order", "lo", "hi")
 TNS_LATTICE_N = 480
 TNS_CHUNK = 15     # csrc/tns_lattice.cuh: the hull [12, 479] in 32 chunks of 15 bins

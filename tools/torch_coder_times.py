@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the range-coder kernels of audio_codec_torch on a CUDA card: each
-kernel (bit_estimate, ari_encode) and its stage (ops/quant.py:bit_estimate,
-ops/ari.py:encode) on the inputs the flagship path gives them. Every line
-printed carries the card's name and power limit.
+"""Times the rate-path kernels of audio_codec_torch on a CUDA card: each
+kernel (bit_estimate, ari_encode, gain_bisection) and its stage
+(ops/quant.py:bit_estimate, ops/ari.py:encode,
+ops/quant.py:estimate_global_gain) on the inputs the flagship path gives
+them. Every line printed carries the card's name and power limit.
 
 The inputs: chip_smoke.make_pcm's material (a third speech, a third music, a
 third noise) at 48 kHz / 64 kbps, B streams, encoded for T frames by the
@@ -26,18 +27,32 @@ each kernel checked against its plain version bit for bit.
                 and the context update, the tables in shared memory). K10's
                 lane 0 runs one symbol step a coded symbol, so the symbol
                 step times the symbols of a stream are its floor.
-  --scaling     both kernels at 4, 32, 512 and 2048 streams of the recorded
-                flagship rows (tiled), and on all-busy rows (every tuple
-                nonzero with an escape level, lastnz = N: bit_estimate at 64
-                kbps, ari_encode at 160 kbps, whose frame holds them): graph
-                ms, and ari_encode's lane-0 streams.
+  --scaling     the three kernels at 4, 32, 512 and 2048 streams of the
+                recorded flagship rows (tiled), and the range coders on
+                all-busy rows (every tuple nonzero with an escape level,
+                lastnz = N: bit_estimate at 64 kbps, ari_encode at 160 kbps,
+                whose frame holds them): graph ms, and ari_encode's lane-0
+                streams.
+  --gain-variants  gain_bisection's warp designs built side by side
+                (GAIN_VARIANTS): the kept one, two rounds of one chain a lane
+                (the 31 offsets of halvings 1-5, then the 7 of halvings 6-8),
+                each step's values computed and then selected, the block loop
+                unrolled by 4; one round of all 255 offsets of the decision
+                tree, 8 chains a lane interleaved; the two rounds with the
+                first warp design's step (its conditions compiled to
+                branches, which diverge), rolled and unrolled by 8; the kept
+                step rolled; and the row staged with one ballot and no chain
+                (the floor of the launch, the staging and the write); each
+                bisection checked against the plain version and timed (graph
+                ms, two rounds) at 4, 32, 512 and 2048 streams of the
+                recorded flagship rows.
   --tables      both kernels with their tables read from global memory
                 through L1 (the kept sources) and staged in shared memory
                 once a block (TABLE_VARIANTS, text substitutions), built side
                 by side, on the recorded launches: graph ms, two rounds.
 
     python3 tools/torch_coder_times.py [--streams 2048] [--frames 8] [--other DIR]
-    python3 tools/torch_coder_times.py --step-bench --scaling --tables
+    python3 tools/torch_coder_times.py --step-bench --scaling --tables --gain-variants
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 from torch_dct4_times import NVCC_FLAGS, card, graph_ms, loop_ms, nvcc  # noqa: E402
 from torch_ltpf_times import make_pcm, times  # noqa: E402
+from torch_tns_times import stage_times  # noqa: E402
 
 CSRC = ROOT / "audio_codec_torch" / "csrc"
 OUT = ROOT / "build" / "coder_times"
@@ -177,10 +193,12 @@ def record_launches(B: int, T: int):
     from audio_codec_torch.ops import ari, quant
     cfg = P.Config(fs_in=48000, bitrate=64000)
     pcm = torch.from_numpy(make_pcm(T, B, 480)).cuda()
-    stages = {"quant.bit_estimate": [], "ari.encode": []}
-    kernels = {"bit_estimate": [], "ari_encode": []}
+    stages = {"quant.bit_estimate": [], "ari.encode": [], "quant.estimate_global_gain": []}
+    kernels = {"bit_estimate": [], "ari_encode": [], "gain_bisection": []}
     mods = {"quant.bit_estimate": (quant, "bit_estimate"), "ari.encode": (ari, "encode"),
-            "bit_estimate": (K, "bit_estimate"), "ari_encode": (K, "ari_encode")}
+            "quant.estimate_global_gain": (quant, "estimate_global_gain"),
+            "bit_estimate": (K, "bit_estimate"), "ari_encode": (K, "ari_encode"),
+            "gain_bisection": (K, "gain_bisection")}
     saved = {n: getattr(m, a) for n, (m, a) in mods.items()}
 
     def recorder(store, fn):
@@ -210,13 +228,17 @@ def measure(root: Path, B: int, T: int) -> dict:
     K.library()
     cfg, stages, kernels, fns = record_launches(B, T)
     out = {"root": str(root), "card": card(), "streams": B, "frames": T}
-    plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain}
-    # the last frame: bit_estimate in modes -1 and cfg.modeFlag, one ari_encode
+    plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
+             "gain_bisection": quant.gain_bisection_plain}
+    # the last frame: bit_estimate in modes -1 and cfg.modeFlag, one
+    # ari_encode, one gain_bisection
     for tag, stage, kernel, back in (("bit_estimate mode -1", "quant.bit_estimate",
                                       "bit_estimate", 2),
                                      (f"bit_estimate mode {cfg.modeFlag}",
                                       "quant.bit_estimate", "bit_estimate", 1),
-                                     ("ari_encode", "ari.encode", "ari_encode", 1)):
+                                     ("ari_encode", "ari.encode", "ari_encode", 1),
+                                     ("gain_bisection", "quant.estimate_global_gain",
+                                      "gain_bisection", 1)):
         (sargs, skw), (kargs, kkw) = stages[stage][-back], kernels[kernel][-back]
         lane0 = None
         if hasattr(K, "reset_ari_encode_lane0_streams") and kernel == "ari_encode":
@@ -227,7 +249,7 @@ def measure(root: Path, B: int, T: int) -> dict:
             lane0 = K.ari_encode_lane0_streams("cuda")
         out[tag] = {"differ": count_differing(got, ref), "lane0_streams": lane0,
                     "kernel": times(lambda: fns[kernel](*kargs, **kkw)),
-                    "stage": times(lambda: fns[stage](*sargs, **skw))}
+                    "stage": stage_times(lambda: fns[stage](*sargs, **skw))}
     return out
 
 
@@ -252,6 +274,7 @@ def scaling(B: int, T: int) -> None:
     K.library()
     cfg, _, kernels, _ = record_launches(B, T)
     be, ae = kernels["bit_estimate"][-1][0], kernels["ari_encode"][-1][0]
+    gb = kernels["gain_bisection"][-1][0]
 
     def tile(a, n):
         if not isinstance(a, torch.Tensor) or a.dim() == 0:
@@ -270,6 +293,10 @@ def scaling(B: int, T: int) -> None:
         ms = min(graph_ms(lambda: K.ari_encode(*a)) for _ in range(3))
         print(f"[scaling] {card()} | ari_encode: {n} streams of the flagship rows: graph "
               f"{ms:.5f} ms, lane-0 streams {lane0}", flush=True)
+        a = tuple(tile(v, n) for v in gb)
+        ms = min(graph_ms(lambda: K.gain_bisection(*a)) for _ in range(3))
+        print(f"[scaling] {card()} | gain_bisection: {n} streams of the flagship rows (M = "
+              f"{gb[0].shape[1]}): graph {ms:.5f} ms", flush=True)
     # all-busy rows
     cfg160 = P.Config(fs_in=48000, bitrate=160000)
     for n in (4, 32, 512, 2048):
@@ -326,7 +353,7 @@ def build_variant(name: str, source: str, subs) -> ctypes.CDLL:
     d = OUT / "tables" / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for f in ("acodec.cuh", "bit_estimate.cuh", "ari_encode.cuh"):
+    for f in ("acodec.cuh", "warp.cuh", "bit_estimate.cuh", "ari_encode.cuh"):
         shutil.copy(CSRC / f, d / f)
     text = (CSRC / source).read_text()
     for old, new in subs:
@@ -402,6 +429,162 @@ def tables(B: int, T: int) -> None:
                       flush=True)
 
 
+# gain_bisection's warp designs: V 0 the kept one
+# (gain_bisection.cuh:gain_bisection_warp: two rounds of one chain a lane,
+# every value of a step computed and then selected, the block loop unrolled
+# by 4), V 1 one round of every node of the decision tree, 8 chains a lane,
+# V 2-3 the two rounds with the first warp design's step, V 4 the kept step
+# not unrolled, V 5 the floor (the row staged, one ballot, no chain)
+GAIN_VARIANTS = r"""
+#include "gain_bisection.cuh"
+using namespace acx;
+
+// all 255 nodes at once: node ln + 1 + 32 c on lane ln (c = 0..7; lane 31's
+// last chain repeats node 255, and the walk never reads its bit), one
+// ballot a chain, an 8-level walk
+__device__ int gain_bisection_all(int lane, const float* en, int M, float target, int offset0) {
+  int offs[8];
+  bool pass[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) offs[c] = gain_node_test(offset0, 8, imin(lane + 1 + 32 * c, 255));
+  gain_tests<8>(en, M, target, offs, pass);
+  unsigned mask[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) mask[c] = __ballot_sync(0xFFFFFFFFu, pass[c]);
+  int h = 1;
+  for (int k = 0; k < 8; ++k) {
+    const int i = h - 1;
+    unsigned word = 0u;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) word = c == (i >> 5) ? mask[c] : word;
+    h = 2 * h + static_cast<int>((word >> (i & 31)) & 1u);
+  }
+  return gain_node_offset(offset0, 8, h);
+}
+
+// the first warp design's step (its conditions as nvcc compiled them: a
+// branch each), the block loop unrolled U times
+template <int U>
+__device__ bool gain_test_branches(const float* en, int M, float target, int offset) {
+  const float offs_f = static_cast<float>(offset);
+  float ener = 0.0f;
+  bool iszero = true;
+#pragma unroll (U)
+  for (int j = M - 1; j >= 0; --j) {
+    const float t = rsub(en[j], offs_f);
+    const bool low = t < kGainLow;
+    const float add = low ? ((!iszero) ? kGainGap : 0.0f)
+                          : (t >= kGainHigh ? rsub(rmul(2.0f, t), kGainHigh) : t);
+    ener = radd(ener, add);
+    iszero = iszero && low;
+  }
+  return ener > target && !iszero;
+}
+
+// the kept step, the block loop not unrolled
+__device__ bool gain_test_rolled(const float* en, int M, float target, int offset) {
+  const float offs_f = static_cast<float>(offset);
+  float ener = 0.0f;
+  unsigned iszero = 1u;
+#pragma unroll 1
+  for (int j = M - 1; j >= 0; --j) {
+    const float t = rsub(en[j], offs_f);
+    const float high = rsub(rmul(2.0f, t), kGainHigh);
+    const unsigned low = t < kGainLow ? 1u : 0u;
+    const float above = t >= kGainHigh ? high : t;
+    const float gap = iszero != 0u ? 0.0f : kGainGap;
+    ener = radd(ener, low != 0u ? gap : above);
+    iszero &= low;
+  }
+  return ener > target && iszero == 0u;
+}
+
+// the kept two rounds over another step (S 1: the first design's, unrolled
+// U times; S 2: the kept step not unrolled)
+template <int S, int U>
+__device__ int gain_bisection_step(int lane, const float* en, int M, float target, int offset0) {
+  auto test = [&](int offset) {
+    return S == 1 ? gain_test_branches<U>(en, M, target, offset)
+                  : gain_test_rolled(en, M, target, offset);
+  };
+  const bool pa = lane < 31 && test(gain_node_test(offset0, 8, lane + 1));
+  const int o5 = gain_node_offset(offset0, 8, gain_walk(__ballot_sync(0xFFFFFFFFu, pa), 1, 5));
+  const bool pb = lane < 7 && test(gain_node_test(o5, 3, lane + 1));
+  return gain_node_offset(o5, 3, gain_walk(__ballot_sync(0xFFFFFFFFu, pb), 1, 3));
+}
+
+template <int V>
+__global__ void __launch_bounds__(256) kernel(const float* en, const float* target, int* out,
+                                              int B, int M, int offset0) {
+  extern __shared__ float rows[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int s = blockIdx.x * 8 + warp;
+  if (s >= B) return;
+  float* row = rows + static_cast<size_t>(warp) * M;
+  for (int i = lane; i < M; i += 32) row[i] = en[static_cast<size_t>(s) * M + i];
+  __syncwarp();
+  int o = 0;
+  if (V == 0) o = gain_bisection_warp(CoderCardWarp{lane}, row, M, target[s], offset0);
+  if (V == 1) o = gain_bisection_all(lane, row, M, target[s], offset0);
+  if (V == 2) o = gain_bisection_step<1, 1>(lane, row, M, target[s], offset0);
+  if (V == 3) o = gain_bisection_step<1, 8>(lane, row, M, target[s], offset0);
+  if (V == 4) o = gain_bisection_step<2, 1>(lane, row, M, target[s], offset0);
+  if (V == 5) o = __ballot_sync(0xFFFFFFFFu, row[lane % M] > target[s]);   // no chain: the floor
+  if (lane == 0) out[s] = o;
+}
+extern "C" int run(int v, const void* en, const void* target, void* out, int B, int M,
+                   int offset0, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = 8 * static_cast<size_t>(M) * sizeof(float);
+  const int blocks = (B + 7) / 8;
+  const float* E = static_cast<const float*>(en);
+  const float* T = static_cast<const float*>(target);
+  int* O = static_cast<int*>(out);
+  if (v == 0) kernel<0><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  if (v == 1) kernel<1><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  if (v == 2) kernel<2><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  if (v == 3) kernel<3><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  if (v == 4) kernel<4><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  if (v == 5) kernel<5><<<blocks, 256, smem, st>>>(E, T, O, B, M, offset0);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+GAIN_DESIGNS = ("kept: two rounds (31 + 7 nodes, one chain a lane), steps selected, unrolled by 4",
+                "one round (255 nodes, 8 chains a lane)",
+                "two rounds, the first design's step (a branch a condition)",
+                "two rounds, the first design's step, unrolled by 8",
+                "two rounds, the kept step not unrolled",
+                "the row staged and one ballot, no chain (the floor; not a bisection)")
+
+
+def gain_variants(B: int, T: int) -> None:
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from audio_codec_torch.ops import quant
+    lib = build_bench(OUT / "gain_variants", GAIN_VARIANTS)
+    lib.run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    _, _, kernels, _ = record_launches(B, T)
+    en, target, offset0 = kernels["gain_bisection"][-1][0]
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    for rnd in range(2):
+        for n in (4, 32, 512, 2048):
+            idx = torch.arange(n, device="cuda") % en.shape[0]
+            e, tg = en[idx].contiguous(), target[idx].contiguous()
+            ref = quant.gain_bisection_plain(e, tg, offset0)
+            out = torch.empty(n, dtype=torch.int32, device="cuda")
+            for v, name in enumerate(GAIN_DESIGNS):
+                call = lambda: lib.run(v, e.data_ptr(), tg.data_ptr(), out.data_ptr(), n,
+                                       e.shape[1], offset0, st())
+                rc = call()
+                torch.cuda.synchronize()
+                differ = None if v == 5 else int((out != ref).sum())
+                ms = min(graph_ms(call) for _ in range(3))
+                print(f"[gain variants] {card()} | round {rnd}, {n} streams, {name}: rc {rc}, "
+                      f"{differ} offsets differ from the plain version, graph {ms:.5f} ms",
+                      flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -410,18 +593,21 @@ def main() -> int:
     ap.add_argument("--step-bench", action="store_true")
     ap.add_argument("--scaling", action="store_true")
     ap.add_argument("--tables", action="store_true")
+    ap.add_argument("--gain-variants", action="store_true")
     ap.add_argument("--root", type=Path, default=None, help=argparse.SUPPRESS)
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_coder_times: no CUDA device")
-    if opt.step_bench or opt.scaling or opt.tables:
+    if opt.step_bench or opt.scaling or opt.tables or opt.gain_variants:
         if opt.step_bench:
             step_bench()
         if opt.scaling:
             scaling(opt.streams, opt.frames)
         if opt.tables:
             tables(opt.streams, opt.frames)
+        if opt.gain_variants:
+            gain_variants(opt.streams, opt.frames)
         return 0
     if opt.root is not None or opt.other is None:
         print(json.dumps(measure((opt.root or ROOT).resolve(), opt.streams, opt.frames)),

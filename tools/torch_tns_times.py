@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Times the TNS lattices of audio_codec_torch on a CUDA card: each kernel
-(tns_analysis_lattice, tns_synthesis_lattice) and its stage (ops/tns.py:
-tns_encode, tns_decode) on the inputs the flagship path gives them. Every
-line printed carries the card's name and power limit.
+"""Times the TNS kernels of audio_codec_torch on a CUDA card: each kernel
+(tns_filter_analysis, tns_analysis_lattice, tns_synthesis_lattice) and its
+stage (ops/tns.py: tns_encode, which holds the first two, and tns_decode) on
+the inputs the flagship path gives them. Every line printed carries the
+card's name and power limit.
 
 The inputs: chip_smoke.make_pcm's material (a third speech, a third music, a
 third noise) at 48 kHz / 64 kbps, B streams, encoded and decoded for T
 frames by the checkout's own encode_block and decode_block; the arguments of
 tns_encode and tns_decode at the last frame are recorded, and those of the
-two lattice launches inside them. Each is timed as median loop ms (5 loops
+three kernel launches inside them. Each is timed as median loop ms (5 loops
 of 20 calls) and graph ms (20 calls replayed from a CUDA graph, the best of
 3), each kernel checked against its plain version bit for bit.
 
@@ -33,10 +34,19 @@ of 20 calls) and graph ms (20 calls replayed from a CUDA graph, the best of
                 work in tns_synthesis_lattice and one lane's chunk in
                 tns_analysis_lattice: a time that stays as the streams grow
                 is one warp's latency, a time that grows is the card's
-                throughput.
+                throughput. Then tns_filter_analysis (a warp a stream) on
+                tests/torch_kernel_cases.py:tns_rows tiled, every stream with
+                two filters, at 4, 32, 512 and 2048 streams.
+  --analysis-variants  tns_filter_analysis built from changes of its header's
+                text side by side (ANALYSIS_VARIANTS: the kept source, whose
+                chain lanes divide their lags by the energy; the first warp
+                design, where lanes 0 and 1 divide all of them; the kept
+                source with the lag chains unrolled by 4) on tns_rows at 4
+                and 2048 streams, checked against the plain version, graph
+                ms.
 
     python3 tools/torch_tns_times.py [--streams 2048] [--frames 8] [--other DIR]
-    python3 tools/torch_tns_times.py --step-bench --scaling
+    python3 tools/torch_tns_times.py --step-bench --scaling --analysis-variants
 """
 from __future__ import annotations
 
@@ -149,6 +159,110 @@ def scaling() -> None:
             ms = min(graph_ms(lambda: fn(*args)) for _ in range(3))
             print(f"[scaling] {card()} | {name}: {B} streams, hull {hull} bins: graph {ms:.5f} "
                   f"ms, {ms * 1e3 / hull:.4f} us a bin", flush=True)
+    import audio_codec_torch as P
+    from tests.torch_kernel_cases import tns_rows
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    x, _ = tns_rows(seed=2)
+    for B in (4, 32, 512, 2048):
+        idx = np.arange(B) % x.shape[0]
+        args = (cfg, torch.tensor(x[idx], device="cuda"),
+                torch.full((B,), 4, dtype=torch.int32, device="cuda"))
+        ms = min(graph_ms(lambda: K.tns_filter_analysis(*args)) for _ in range(3))
+        print(f"[scaling] {card()} | tns_filter_analysis: {B} streams of tns_rows, two filters "
+              f"each: graph {ms:.5f} ms", flush=True)
+
+
+# the gather of the first warp design: lanes 0 and 1 divide every chain by
+# its energy
+GATHER_LANES_01 = """#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub) {
+    const float e0 = w.shfl(acf0, sub * kLags), e1 = w.shfl(acf1, sub * kLags);
+#pragma unroll
+    for (int l = 0; l < kLags; ++l) {
+      const float a0 = w.shfl(acf0, sub * kLags + l), a1 = w.shfl(acf1, sub * kLags + l);
+      w.lanes([&](int ln) {
+        if (ln < 2) {
+          const float e = ln == 0 ? e0 : e1;
+          const float den = e < static_cast<float>(1e-30) ? static_cast<float>(1e-30) : e;
+          sum[ln].r[l] = radd(sum[ln].r[l], rdiv(ln == 0 ? a0 : a1, den));
+          if (l == 0) sum[ln].dead = sum[ln].dead || e == 0.0f;
+        }
+      });
+    }
+  }
+"""
+# the kept gather (csrc/tns_analysis.cuh): the same quotients, each on its
+# chain's lane, then lanes 0 and 1 add them
+GATHER_KEPT_START = "  float den0[NSUB], den1[NSUB];\n"
+GATHER_KEPT_END = "\n  typename W::template Lanes<TnsFilter> f;"
+
+
+def gather_lanes_01(text: str) -> str:
+    """tns_analysis.cuh with the first design's gather in place of the kept one."""
+    i, j = text.index(GATHER_KEPT_START), text.index(GATHER_KEPT_END)
+    return text[:i] + GATHER_LANES_01 + text[j:]
+
+
+# tns_filter_analysis built from csrc/tns_analysis.cuh and changes of its text
+ANALYSIS_VARIANTS = {
+    "kept (quotients on the chain lanes)": lambda s: s,
+    "quotients on lanes 0 and 1 (the first warp design)": gather_lanes_01,
+    "kept, the lag chains unrolled by 4": lambda s: s.replace(
+        "      for (int k = 0; k < n; ++k) {\n        if (k < n0)",
+        "#pragma unroll 4\n      for (int k = 0; k < n; ++k) {\n        if (k < n0)", 1),
+}
+
+
+def analysis_variants() -> None:
+    """tns_filter_analysis of each of ANALYSIS_VARIANTS, built side by side,
+    on tns_rows tiled (every stream with two filters, and the rows' own
+    bandwidths) at 4 and 2048 streams: differing values against the plain
+    version and graph ms, two rounds."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import audio_codec_torch as P
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import tns
+    from tests.torch_kernel_cases import count_differing, tns_rows
+    argtypes = K.library().acx_tns_filter_analysis.argtypes
+    libs = {}
+    for i, (name, change) in enumerate(ANALYSIS_VARIANTS.items()):
+        d = OUT / "analysis_variants" / str(i)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(CSRC, d)
+        text = (d / "tns_analysis.cuh").read_text()
+        changed = change(text)
+        if i > 0 and changed == text:
+            raise SystemExit(f"{name}: the change does not apply to tns_analysis.cuh")
+        (d / "tns_analysis.cuh").write_text(changed)
+        r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"),
+                            str(d / "tns_filter_analysis.cu")], capture_output=True, text=True)
+        if r.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{r.stdout}{r.stderr}")
+        libs[name] = ctypes.CDLL(str(d / "lib.so"))
+        libs[name].acx_tns_filter_analysis.argtypes = argtypes
+        libs[name].acx_tns_filter_analysis.restype = ctypes.c_int
+    cfg = P.Config(fs_in=48000, bitrate=64000)
+    x, bw = tns_rows(seed=2)
+    library = K.library
+    try:
+        for rnd in range(2):
+            for B in (4, 2048):
+                idx = np.arange(B) % x.shape[0]
+                for bws in ("two filters", "the rows' bandwidths"):
+                    b = np.full(B, 4, np.int32) if bws == "two filters" else bw[idx]
+                    args = (cfg, torch.tensor(x[idx], device="cuda"), torch.tensor(b, device="cuda"))
+                    ref = tns.tns_filter_analysis_plain(*args)
+                    for name, lib in libs.items():
+                        K.library = lambda lib=lib: lib
+                        differ = count_differing(K.tns_filter_analysis(*args), ref)
+                        ms = min(graph_ms(lambda: K.tns_filter_analysis(*args)) for _ in range(3))
+                        print(f"[analysis variants] {card()} | round {rnd}, {B} streams, {bws}, "
+                              f"{name}: {differ} values differ from the plain version, graph "
+                              f"{ms:.5f} ms", flush=True)
+    finally:
+        K.library = library
 
 
 def stage_times(fn) -> dict:
@@ -176,7 +290,8 @@ def measure(root: Path, B: int, T: int) -> dict:
     cfg = P.Config(fs_in=48000, bitrate=64000)
     pcm = torch.from_numpy(pcm_np).cuda()
     stages = {"tns_encode": [], "tns_decode": []}
-    kernels = {"tns_analysis_lattice": [], "tns_synthesis_lattice": []}
+    kernels = {"tns_filter_analysis": [], "tns_analysis_lattice": [],
+               "tns_synthesis_lattice": []}
     saved = {n: getattr(tns, n) for n in stages} | {n: getattr(K, n) for n in kernels}
 
     def recorder(store, fn):
@@ -196,14 +311,17 @@ def measure(root: Path, B: int, T: int) -> dict:
             setattr(tns if n in stages else K, n, fn)
     torch.cuda.synchronize()
     out = {"root": str(root), "card": card(), "streams": B, "frames": T}
-    for stage, kernel in (("tns_encode", "tns_analysis_lattice"),
+    for stage, kernel in (("tns_encode", "tns_filter_analysis"),
+                          ("tns_encode", "tns_analysis_lattice"),
                           ("tns_decode", "tns_synthesis_lattice")):
         sargs, kargs = stages[stage][-1], kernels[kernel][-1]
         fn, plain = getattr(K, kernel), getattr(tns, kernel + "_plain")
         got, ref = fn(*kargs), plain(*kargs)
         torch.cuda.synchronize()
-        orders = torch.bincount(kargs[2].clamp(0, 8).flatten().long(), minlength=9).tolist()
-        out[stage] = stage_times(lambda: getattr(tns, stage)(*sargs))
+        orders = got[0] if kernel == "tns_filter_analysis" else kargs[2]
+        orders = torch.bincount(orders.clamp(0, 8).flatten().long(), minlength=9).tolist()
+        if stage not in out:
+            out[stage] = stage_times(lambda: getattr(tns, stage)(*sargs))
         out[kernel] = {"differ": count_differing(got, ref), "orders_0_8": orders,
                        **times(lambda: fn(*kargs))}
     return out
@@ -216,16 +334,19 @@ def main() -> int:
     ap.add_argument("--other", type=Path, default=None)
     ap.add_argument("--step-bench", action="store_true")
     ap.add_argument("--scaling", action="store_true")
+    ap.add_argument("--analysis-variants", action="store_true")
     ap.add_argument("--root", type=Path, default=None, help=argparse.SUPPRESS)
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_tns_times: no CUDA device")
-    if opt.step_bench or opt.scaling:
+    if opt.step_bench or opt.scaling or opt.analysis_variants:
         if opt.step_bench:
             step_bench()
         if opt.scaling:
             scaling()
+        if opt.analysis_variants:
+            analysis_variants()
         return 0
     if opt.root is not None or opt.other is None:
         print(json.dumps(measure((opt.root or ROOT).resolve(), opt.streams, opt.frames)),
