@@ -113,17 +113,12 @@ __device__ __forceinline__ void acx_load_shared(int32_t* dst, const int32_t* src
 
 // Row tiles of a [B, N] array of 32-bit words in shared memory, one row per thread of
 // the block, rows ACX_ROW_STRIDE(N) floats apart (an odd stride, so that the
-// threads walking their rows in step hit different banks). The copies are
-// coalesced: neighbouring threads move neighbouring elements.
+// threads walking their rows in step hit different banks). The copy out is
+// coalesced: neighbouring threads move neighbouring elements. (A copy in
+// written the same way, each load stored to shared memory before the next
+// load, keeps one load in flight a thread: hp50_biquad lost 0.03 ms to it,
+// tools/torch_biquad_times.py --phases.)
 #define ACX_ROW_STRIDE(N) ((N) | 1)
-
-template <typename T>
-__device__ __forceinline__ void acx_load_rows(T* tile, const T* g, int row0, int rows, int N) {
-  const int stride = ACX_ROW_STRIDE(N);
-  for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
-    tile[(i / N) * stride + i % N] = g[static_cast<size_t>(row0) * N + i];
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ void acx_store_rows(T* g, const T* tile, int row0, int rows, int N) {

@@ -1,97 +1,174 @@
-// ari_decode: the range decoder of one frame per lane.
+// ari_decode: the range decoder, a thread a frame, 128 frames a block (4
+// warps; fewer where their rows do not fit in shared memory).
 //
 // Replaces audio_codec_tpu/ops/ari.py:decode (ari.py:491) with dec_init
 // (:419), ac_decode (:455) and the partial-concealment hooks (_pc_check
-// :379): processAriDecoder_fl in ari_codec.c. The lane function is
-// ari_decode_lane (ari_decode.cuh), a template on the partial-concealment
-// mode: no PC block (the main path's frames), a relocated PC block (EP3/EP4
-// frames of 80 bytes or more, with the channel decoder's bfi 2 and corrupt
-// bit range), and the encoder's simulation that finds b_left. The mode is
-// one per launch, so the lanes of a launch never diverge on it.
-// decode_block runs the kernel once over the T*B frames of a block
-// (models/decoder.py); the stream engine once per frame.
+// :379): processAriDecoder_fl in ari_codec.c. Plain version:
+// ops/ari.py:decode_plain. The steps are in ari_decode.cuh, a template on
+// the partial-concealment mode: no PC block (the main path's frames), a
+// relocated PC block (EP3/EP4 frames of 80 bytes or more, with the channel
+// decoder's bfi 2 and corrupt bit range), and the encoder's simulation that
+// finds b_left. The mode is one per launch, so the lanes of a launch never
+// diverge on it. decode_block runs the kernel once over the T*B frames of a
+// block (models/decoder.py); the stream engine once per frame.
 //
-// Bound on an H100: a chain of dependent steps per lane (each symbol's
-// table row depends on the previous tuple's context, and each step does a
-// 17-entry search of the cumulative frequencies); the bytes are the frames
-// (T*B x 80 x 4) in and x (T*B x 400 x 4) plus residual bits out, about
-// 7 MB at T*B = 4096, or 2 us at 3.35 TB/s. The chain is the bound. The
-// per-symbol table gathers are what docs/PERF.md:126-134 names as the decode
-// bottleneck of the reference package.
-// Design: one thread per lane keeps low, range, both pointers, the PC
-// pointer state and the context in registers; the frame bytes of the lane
-// and the 4096-entry lookup and [64,18] cumulative frequency tables sit in
-// shared memory. Every buffer index is clipped: the PC pointers jump
-// (bp -> 0, bp_side -> pc_bytes - 1).
+// Bound on an H100: the bytes are the frames in (T*B x 80 x 4: the payload
+// arrives a byte a word), the side information, and x (T*B x 400 x 4), the
+// residual bits (T*B x 400 x 4 at 48 kHz), the TNS entries and 7 scalars
+// out: about 61 MB at T*B = 16 384, 0.018 ms at 3.35 TB/s. The chain is
+// longer: each symbol needs the coder state after the one before and its
+// table row the context of the tuples before, about 200 tuples and 300
+// symbols a frame at 64 kbps; one warp's 32 frames take about 0.1 ms
+// (tools/torch_coder_times.py --decode-variants at 4 frames), and 16 384
+// frames are 512 warps, four an SM: the kernel is one warp's chain long.
+// Design: the chain stays one frame's and everything else comes off it
+// (ari_decode.cuh): a block of four warps stages the tables (lookup,
+// cumulative frequencies, TNS, and the inverse of the spectral rows: 85 KB)
+// in shared memory with 16-byte loads, and each warp decodes 32 frames, a
+// thread a frame; a spectral symbol is one byte of the inverse table at
+// floor(low / tmp) instead of 17 products and compares; without a PC block
+// the next bytes wait in registers and the side bits are read without
+// branches. The warp stages its frames' bytes with coalesced loads, keeps
+// each frame's rows in shared memory (x as int16 but in the high-resolution
+// mode), sums the nonzero count and the seed as it goes, and writes every
+// row out coalesced, the zeros included. The timing tool builds the designs
+// it was compared with (the count, a binary search, groups of 4 and 8 lanes
+// a frame, tables through L1, smaller blocks) from this text by
+// substitutions (--decode-variants), and the first design with each of its
+// phases removed (--decode-phases).
 #include "ari_decode.cuh"
 
 using namespace acx;
 
 #ifdef __CUDACC__
-constexpr int kAriDecThreads = 32;
-constexpr int kDecTabWords = 4096 + 64 * 18 + 2 * 9 + 8 * 18;
+// the words of kernels._decoder_tables: lookup, cumf, the TNS tables; the
+// inverse of the spectral rows from word kDecInvWord (16-byte aligned)
+constexpr int kDecInvWord = 5412;
+constexpr int kDecInvWords = 64 * kDecInvQ / 4;
+// what a block stages in shared memory: every table, the inverse included
+constexpr int kDecStageWords = kDecInvWord + kDecInvWords;
+// frames a warp (a thread a frame) and warps a block
+constexpr int kDecFrames = 32;
+constexpr int kDecWarps = 4;
 
-__global__ void ari_decode_kernel(const int32_t* __restrict__ frames,
-                                  const int32_t* __restrict__ side,  // [9, L]
-                                  const int32_t* __restrict__ pc_in,  // [3, L] or null
-                                  const int32_t* __restrict__ tabs,
-                                  int32_t* __restrict__ x, int32_t* __restrict__ tns_order,
-                                  int32_t* __restrict__ tns_idx, int32_t* __restrict__ res,
-                                  uint8_t* __restrict__ levs, int32_t* __restrict__ out,
-                                  int L, int nbytes, DecGeom g, int pc_mode) {
-  extern __shared__ int32_t smem[];
-  acx_load_shared(smem, tabs, kDecTabWords);
+// Words of shared memory of a warp: the rows of its frames (stride
+// kDecFrames + 1) and their bytes.
+__host__ __device__ inline size_t dec_warp_words(int xbytes, int N, int max_res,
+                                                 int nbytes) {
+  constexpr int S = kDecFrames + 1;
+  return (static_cast<size_t>(N) * S * xbytes + 3) / 4 +
+         static_cast<size_t>(dec_lev_words(N) + dec_res_words(max_res) + 18 + 2) * S +
+         (static_cast<size_t>(kDecFrames) * nbytes + 3) / 4;
+}
+
+// the block's threads copy n words (n a multiple of 4, both ends 16-byte
+// aligned) with 16-byte loads, eight in flight a thread before any store
+// (a load stored before the next is issued keeps one in flight)
+__device__ inline void dec_stage(int32_t* dst, const int32_t* src, int n) {
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* d4 = reinterpret_cast<int4*>(dst);
+  const int n4 = n / 4, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += 8 * step) {
+    int4 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * step < n4) v[u] = __ldg(s4 + i0 + u * step);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * step < n4) d4[i0 + u * step] = v[u];
+  }
+}
+
+// A block of blockDim.x / 32 warps: the block stages every table, then each
+// warp decodes its own kDecFrames frames into its own rows.
+template <int kPc, typename XT>
+__global__ void __launch_bounds__(128) ari_decode_kernel(DecIo io,
+                                                         const int32_t* __restrict__ tabs,
+                                                         DecGeom g) {
+  extern __shared__ int4 smem4[];
+  constexpr int S = kDecFrames + 1;
+  const int N = g.N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int32_t* p = reinterpret_cast<int32_t*>(smem4);
+  dec_stage(p, tabs, kDecStageWords);
   __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= L) return;
+  const int32_t* t = p;
   DecTables tb;
-  tb.lookup = smem;
-  tb.cumf = smem + 4096;
+  tb.lookup = t;
+  tb.cumf = t + 4096;
   tb.order_cf = tb.cumf + 64 * 18;
   tb.coef_cf = tb.order_cf + 2 * 9;
-  uint8_t* buf = reinterpret_cast<uint8_t*>(smem + kDecTabWords) + threadIdx.x * nbytes;
-  const int32_t* in = frames + static_cast<size_t>(s) * nbytes;
-  for (int i = 0; i < nbytes; ++i) buf[i] = static_cast<uint8_t>(in[i]);
-  int32_t sd[9];
-  for (int j = 0; j < 9; ++j) sd[j] = side[j * L + s];
-  const int bfi_in = pc_in == nullptr ? 0 : pc_in[s];
-  const int be_l = pc_in == nullptr ? -1 : pc_in[L + s];
-  const int be_r = pc_in == nullptr ? -1 : pc_in[2 * L + s];
-  int32_t* xs = x + static_cast<size_t>(s) * g.N;
-  int32_t* rs = res + static_cast<size_t>(s) * g.max_res;
-  uint8_t* ls = levs + static_cast<size_t>(s) * (g.N / 2);
-  if (pc_mode == kPcDecode) {
-    ari_decode_lane<kPcDecode>(buf, nbytes, sd, tb, g, bfi_in, be_l, be_r, xs, tns_order + 2 * s,
-                               tns_idx + 16 * s, rs, ls, out + s, L);
-  } else if (pc_mode == kPcEncSim) {
-    ari_decode_lane<kPcEncSim>(buf, nbytes, sd, tb, g, bfi_in, be_l, be_r, xs, tns_order + 2 * s,
-                               tns_idx + 16 * s, rs, ls, out + s, L);
-  } else {
-    ari_decode_lane<kPcNone>(buf, nbytes, sd, tb, g, bfi_in, be_l, be_r, xs, tns_order + 2 * s,
-                             tns_idx + 16 * s, rs, ls, out + s, L);
+  tb.inv = reinterpret_cast<const uint8_t*>(t + kDecInvWord);
+  p += kDecStageWords;
+  const int s0 = (blockIdx.x * (blockDim.x / 32) + warp) * kDecFrames;
+  if (s0 >= io.L) return;   // the whole warp leaves together
+  const int nf = imin(kDecFrames, io.L - s0);
+  p += warp * dec_warp_words(sizeof(XT), N, g.max_res, io.nbytes);
+  DecRows<XT> rows;
+  rows.stride = S;
+  rows.x = reinterpret_cast<XT*>(p);
+  p += (static_cast<size_t>(N) * S * sizeof(XT) + 3) / 4;
+  rows.lev = reinterpret_cast<uint32_t*>(p);
+  p += dec_lev_words(N) * S;
+  rows.res = reinterpret_cast<uint32_t*>(p);
+  p += dec_res_words(g.max_res) * S;
+  rows.tns = p;
+  p += 18 * S;
+  rows.len = p;
+  p += 2 * S;
+  ari_decode_warp<kPc>(CoderCardWarp{lane}, io, s0, nf, tb, g, reinterpret_cast<uint8_t*>(p),
+                       rows);
+}
+
+// Blocks of kDecWarps warps, fewer where their shared memory would pass the
+// 227 KB a block may have (one in the high-resolution mode, whose x is int32).
+template <int kPc, typename XT>
+inline cudaError_t ari_decode_launch(const DecIo& io, const int32_t* tabs, const DecGeom& g,
+                                     cudaStream_t st) {
+  const auto kernel = ari_decode_kernel<kPc, XT>;
+  const size_t per_warp = dec_warp_words(sizeof(XT), g.N, g.max_res, io.nbytes) * 4;
+  const size_t stage = static_cast<size_t>(kDecStageWords) * 4;
+  int warps = kDecWarps;
+  while (warps > 1 && stage + warps * per_warp > 232448) warps /= 2;
+  const size_t smem = stage + warps * per_warp;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
+  const int F = kDecFrames * warps;
+  kernel<<<(io.L + F - 1) / F, 32 * warps, smem, st>>>(io, tabs, g);
+  return cudaGetLastError();
+}
+
+// x as int16 but in the high-resolution mode
+template <int kPc>
+inline cudaError_t ari_decode_mode(const DecIo& io, const int32_t* tabs, const DecGeom& g,
+                                   cudaStream_t st) {
+  if (g.hrmode) return ari_decode_launch<kPc, int32_t>(io, tabs, g, st);
+  return ari_decode_launch<kPc, int16_t>(io, tabs, g, st);
 }
 
 extern "C" int acx_ari_decode(const void* frames, const void* side, const void* pc_in,
                               const void* tabs, void* x, void* tns_order, void* tns_idx, void* res,
-                              void* levs, void* out, int L, int nbytes, int N, int max_lev,
-                              int hrmode, int tns_max, int lpcw, int rate_flag, int total_bits,
-                              int max_res, int res_iters, int pc_mode, int pc_bytes,
-                              int numbytes, void* stream) {
-  const size_t smem = kDecTabWords * sizeof(int32_t) + static_cast<size_t>(kAriDecThreads) * nbytes;
-  cudaError_t err = cudaFuncSetAttribute(ari_decode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+                              void* out, int L, int nbytes, int N, int max_lev, int hrmode,
+                              int tns_max, int lpcw, int rate_flag, int total_bits, int max_res,
+                              int res_iters, int pc_mode, int pc_bytes, int numbytes,
+                              void* stream) {
+  if (L == 0) return static_cast<int>(cudaSuccess);
+  // x stays int16 only where no value can pass 2^15 - 1 (13 escape levels)
+  if (!hrmode && max_lev > 14) return static_cast<int>(cudaErrorInvalidValue);
   const DecGeom g = {N, max_lev, hrmode, tns_max, lpcw, rate_flag, total_bits, max_res,
                      res_iters, pc_bytes, numbytes};
-  const int blocks = (L + kAriDecThreads - 1) / kAriDecThreads;
-  ari_decode_kernel<<<blocks, kAriDecThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(frames), static_cast<const int32_t*>(side),
-      static_cast<const int32_t*>(pc_in), static_cast<const int32_t*>(tabs),
-      static_cast<int32_t*>(x), static_cast<int32_t*>(tns_order), static_cast<int32_t*>(tns_idx),
-      static_cast<int32_t*>(res), static_cast<uint8_t*>(levs), static_cast<int32_t*>(out), L,
-      nbytes, g, pc_mode);
-  return static_cast<int>(cudaGetLastError());
+  const auto I = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto O = [](void* p) { return static_cast<int32_t*>(p); };
+  const DecIo io = {I(frames), I(side), I(pc_in), O(x), O(tns_order), O(tns_idx), O(res), O(out),
+                    L, nbytes};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (pc_mode == kPcDecode) err = ari_decode_mode<kPcDecode>(io, I(tabs), g, st);
+  else if (pc_mode == kPcEncSim) err = ari_decode_mode<kPcEncSim>(io, I(tabs), g, st);
+  else err = ari_decode_mode<kPcNone>(io, I(tabs), g, st);
+  return static_cast<int>(err);
 }
 #endif

@@ -1,6 +1,6 @@
 // The two warps that run the steps of the warp-a-stream kernels written as
 // templates over the warp (bit_estimate.cuh, ari_encode.cuh,
-// tns_analysis.cuh, gain_bisection.cuh).
+// tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
 // collectives __shfl_up_sync, __shfl_sync, __ballot_sync and the warp
@@ -8,7 +8,8 @@
 // each step in turn, a Lanes<T> an array of 32, every collective reading all
 // lanes before it writes any; with it g++ compiles the steps for the CPU
 // rehearsals (tests/test_torch_coder_rehearsal.py,
-// tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py).
+// tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py,
+// tests/test_torch_decode_rehearsal.py).
 #pragma once
 
 #include "acodec.cuh"

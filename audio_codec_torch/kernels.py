@@ -124,7 +124,7 @@ def library() -> ctypes.CDLL:
     sigs = {
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
         "acx_ari_encode": [P] * 14 + [I] * 8 + [P],
-        "acx_ari_decode": [P] * 10 + [I] * 14 + [P],
+        "acx_ari_decode": [P] * 9 + [I] * 14 + [P],
         "acx_ltpf_decode": [P] * 20 + [I] * 10 + [F] + [P],
         "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
         "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
@@ -196,12 +196,29 @@ def _coder_tables(device: str) -> torch.Tensor:
         device=device)
 
 
+DEC_INV_Q = 1024   # csrc/ari_decode.cuh:kDecInvQ
+DEC_INV_WORD = 5412   # the inverse table's first word in _decoder_tables (16-byte aligned)
+
+
+def decoder_inverse() -> np.ndarray:
+    """[64, DEC_INV_Q] uint8: the number of j < 17 with cumf[r][j] <= q,
+    for each spectral row r of ari_spec_cumfreq_fl (csrc/ari_decode.cuh)."""
+    cumf = T.t("ari_spec_cumfreq_fl").astype(np.int64)
+    q = np.arange(DEC_INV_Q)
+    return (cumf[:, None, :17] <= q[None, :, None]).sum(-1).astype(np.uint8)
+
+
 @functools.cache
 def _decoder_tables(device: str) -> torch.Tensor:
-    return torch.as_tensor(np.concatenate([
+    """lookup [4096] ++ cumfreq [64,18] ++ the TNS order and coefficient
+    tables, two words of padding, then the inverse of the spectral rows
+    (decoder_inverse, four bytes a word), int32 on `device`."""
+    head = np.concatenate([
         T.t("ari_spec_lookup_fl").ravel(), T.t("ari_spec_cumfreq_fl").ravel(),
-        T.t("ari_tns_order_cf").ravel(), T.t("ari_tns_freq_cf").ravel()]).astype(np.int32),
-        device=device)
+        T.t("ari_tns_order_cf").ravel(), T.t("ari_tns_freq_cf").ravel()]).astype(np.int32)
+    pad = np.zeros(DEC_INV_WORD - head.size, np.int32)
+    inv = decoder_inverse().ravel().view(np.int32)
+    return torch.as_tensor(np.concatenate([head, pad, inv]), device=device)
 
 
 @functools.cache
@@ -282,7 +299,8 @@ def ari_encode(cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx,
 
 def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
                pc_enc_sim: bool = False):
-    """Launch `ari_decode` (csrc/ari_decode.cu); returns the dict of
+    """Launch `ari_decode` (csrc/ari_decode.cu, a thread a frame, 128 frames
+    a block (4 warps), fewer where the rows do not fit); returns the dict of
     ops/ari.py:decode_plain. With a partial-concealment block (cfg.n_pc > 0)
     or pc_enc_sim the lanes run the PC hooks; bfi_in and the corrupt bit
     range enter only there."""
@@ -308,13 +326,12 @@ def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
     max_res = min(residual_max_bits(cfg), total_bits)
     e = lambda *s, dt=torch.int32: torch.empty((L, *s), dtype=dt, device=dev)
     x, tns_order, tns_idx, res = e(N), e(2), e(2, 8), e(max_res)
-    levs = e(N // 2, dt=torch.uint8)
     out = torch.empty((7, L), dtype=torch.int32, device=dev)
     _run("ari_decode", library().acx_ari_decode(
         buf.data_ptr(), side_in.data_ptr(), None if pc_in is None else pc_in.data_ptr(),
         _decoder_tables(str(dev)).data_ptr(),
         x.data_ptr(), tns_order.data_ptr(), tns_idx.data_ptr(), res.data_ptr(),
-        levs.data_ptr(), out.data_ptr(), L, nbytes, N, 22 if cfg.hrmode else 14,
+        out.data_ptr(), L, nbytes, N, 22 if cfg.hrmode else 14,
         int(cfg.hrmode), 8 if cfg.frame_dms == 100 else 4,
         1 if cfg.enable_lpc_weighting else 0,
         cfg.rateFlag if cfg.fs_idx != 5 else 0, total_bits, max_res,

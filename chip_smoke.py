@@ -50,7 +50,12 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                streams a launch, and the gain bisection on gain_rows (M =
                25, 50, 100 and 120 blocks from every configuration's starting
                offset; 24, 33 and 2047 streams a launch, and each row alone
-               at two of them);
+               at two of them); the range decoder on decode_rows (coded
+               coder_rows with LSB-mode and bad frames at 64 and 160 kbps,
+               in the high-resolution mode and at EP3/EP4 in both PC modes)
+               every 25th row alone and at 33, 2047 and 16 384 frames a
+               launch, and the resampler's biquad on biquad_rows at 1, 33
+               and 2047 streams over 3 frames;
   4. block path encode_block + decode_block at --streams x --frames with the
                launch counters (and ari_encode's lane-0 counter, which must
                stay 0) reset before and read after; on a few streams
@@ -869,6 +874,71 @@ def rate_cases(dev, K):
           f"{sum(len(v) for v in C.GAIN_OFFSETS.values())} starting offsets: {launches} launches "
           f"equal the plain version; {len(finals)} distinct final offsets", flush=True)
     check(len(finals) >= 100, f"gain_bisection: the rows reached {len(finals)} final offsets")
+
+
+def decode_cases(dev, K):
+    """The range decoder on tests/torch_kernel_cases.py:decode_rows
+    (coder_rows coded by the plain range encoder: escapes to the last level
+    and past it, LSB-mode rows, TNS orders 0-12, rows over their budget and
+    rows with bytes replaced) at 64 and 160 kbps, in the high-resolution mode
+    and at EP3/EP4 with the PC block (the decoder's hooks over four corrupt
+    ranges, and the encoder's simulation): every 25th row alone, 33, 2047 and
+    16 384 frames a launch; the resampler's biquad on biquad_rows at 1, 33 and
+    2047 streams over 3 frames, the memories carried. The plain version runs
+    once a case on all its rows (rows are decoded independently); every
+    launch's rows must equal its rows of the same inputs."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from tests import torch_kernel_cases as C
+    from audio_codec_torch.ops import analysis, ari
+    launches = 0
+    for name, kw in C.DECODE_CONFIGS.items():
+        cfg = P.Config(**kw)
+        d = C.decode_rows(name)
+        n = len(d["frames"])
+
+        def rows(pick):
+            t = {k: torch.from_numpy(np.ascontiguousarray(v[pick])).to(dev) for k, v in d.items()}
+            flags = [t[k] for k in ("bfi_in", "be_l", "be_r")] if cfg.n_pc else []
+            return t["frames"], {k: t[k] for k in C.DECODE_SIDE_KEYS}, flags
+        frames, side, flags = rows(np.arange(n))
+        for sim in ((False, True) if cfg.n_pc else (False,)):
+            ref = ari.decode_plain(cfg, frames, side, *flags, pc_enc_sim=sim)
+            picks = [[i] for i in range(0, n, 25)] + [np.resize(np.arange(n), L)
+                                                      for L in (33, 2047, 16384)]
+            for pick in picks:
+                f_, sd, fl = rows(pick)
+                got = K.ari_decode(cfg, f_, sd, *fl, pc_enc_sim=sim)
+                idx = torch.as_tensor(pick, device=dev)
+                same_bits([got[k] for k in ref], [v[idx] for v in ref.values()],
+                          f"ari_decode (decode_rows {name}, pc_enc_sim {sim}, L = {len(pick)})")
+                launches += 1
+            bfi = torch.bincount(ref["bfi"].long().cpu(), minlength=3).tolist()
+            lsb = int(((side["lsb_mode"] == 1) & (ref["bfi"] == 0)).sum())
+            print(f"[kernels] ari_decode on decode_rows {name} ({n} rows, pc_enc_sim {sim}): bfi "
+                  f"0/1/2 {bfi}, good LSB-mode rows {lsb}", flush=True)
+            check(bfi[0] > 0 and bfi[1] > 0, f"ari_decode {name}: bfi {bfi}")
+            if cfg.n_pc and not sim:
+                check(bfi[2] > 0, f"ari_decode {name}: no bfi 2 row")
+            if name == "48k_160k":
+                check(lsb > 0, "ari_decode: no good LSB-mode row")
+    torch.cuda.synchronize()
+    print(f"[kernels] ari_decode on decode_rows at {list(C.DECODE_CONFIGS)}: {launches} launches "
+          f"(every 25th row alone, L = 33, 2047, 16384) equal the plain version", flush=True)
+    launches = 0
+    for B in (1, 33, 2047):
+        x = C.biquad_rows(B)
+        mem_k = torch.zeros((B, 2), device=dev)
+        mem_p = mem_k.clone()
+        for f in range(3):
+            xf = torch.from_numpy(x[f]).to(dev)
+            (y, mem_k), (ry, mem_p) = K.hp50_biquad(xf, mem_k), analysis.hp50_biquad_plain(xf, mem_p)
+            same_bits([y, mem_k], [ry, mem_p], f"hp50_biquad (biquad_rows, B = {B}, frame {f})")
+            launches += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] hp50_biquad on biquad_rows at B = 1, 33, 2047 over 3 frames: {launches} "
+          f"launches equal the plain version", flush=True)
 
 
 BRANCHED_KERNELS = ("olpa", "ltpf_encode", "noise_residual_enc", "spec_decode")
@@ -2327,6 +2397,7 @@ def main() -> int:
     tns_lattice_cases(dev, K, rec)
     coder_cases(dev, K, rec)
     rate_cases(dev, K)
+    decode_cases(dev, K)
 
     phase_took(3)
     # ---- 4. the main path ----

@@ -31,7 +31,10 @@ path never taken on the main path, taken on the rows over their budget)
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors, the range decoder on frames with a partial-concealment
-block (bfi 0 and 2, and the encoder's simulation); the four concealment
+block (bfi 0 and 2, and the encoder's simulation) and on decode_rows (coded
+coder_rows with LSB-mode and bad frames, in all three of its modes) at 1, 33,
+2047 and 16 384 frames a launch, the resampler's biquad at 1, 33 and 2047
+streams over 3 frames, also on rows that take its general loop; the four concealment
 kernels and the TDAC's compensated MDCT (plc_mode 1) and the standard concealment's plc_main (plc_mode 0) on
 every launch of a lossy block over speech, music, noise and tones and on
 their synthetic rows (plc_main: every damping branch, the generator's edge
@@ -202,6 +205,55 @@ def test_ari_decode_matches_plain(recorded, dev):
     got, ref = K.ari_decode(cfg, bad, bside), ari.decode_plain(cfg, bad, bside)
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
+
+
+def decode_rows_on_card(name: str, dev, pick=None) -> tuple:
+    """tests/torch_kernel_cases.py:decode_rows at DECODE_CONFIGS[name] on the
+    card, the rows `pick` (all where None): (cfg, frames, side, the PC
+    flags or [])."""
+    cfg = P.Config(**C.DECODE_CONFIGS[name])
+    d = C.decode_rows(name)
+    pick = np.arange(len(d["frames"])) if pick is None else np.asarray(pick)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v[pick])).to(dev) for k, v in d.items()}
+    flags = [t[k] for k in ("bfi_in", "be_l", "be_r")] if cfg.n_pc else []
+    return cfg, t["frames"], {k: t[k] for k in C.DECODE_SIDE_KEYS}, flags
+
+
+@pytest.mark.parametrize("name", list(C.DECODE_CONFIGS))
+def test_ari_decode_decode_rows_at_every_size(dev, name):
+    """decode_rows every 25th row alone, and tiled to 33, 2047 and 16 384
+    frames a launch, in each of the kernel's modes (no PC block; the PC
+    decode and the encoder's simulation at EP3/EP4): every output equals the
+    plain version's rows of the same inputs."""
+    cfg, frames, side, flags = decode_rows_on_card(name, dev)
+    n = frames.shape[0]
+    for sim in ((False, True) if cfg.n_pc else (False,)):
+        ref = ari.decode_plain(cfg, frames, side, *flags, pc_enc_sim=sim)
+        assert bool((ref["bfi"] != 0).any()) and bool((ref["bfi"] == 0).any())
+        picks = [[i] for i in range(0, n, 25)] + [np.resize(np.arange(n), L)
+                                                  for L in (33, 2047, 16384)]
+        for pick in picks:
+            c, f, sd, fl = decode_rows_on_card(name, dev, pick)
+            got = K.ari_decode(c, f, sd, *fl, pc_enc_sim=sim)
+            idx = torch.as_tensor(pick, device=dev)
+            same_tensors([got[k] for k in ref], [v[idx] for v in ref.values()])
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047])
+def test_hp50_biquad_rows_over_three_frames(dev, B):
+    """biquad_rows over 3 frames, the memories carried, through the
+    register path (N = 128, aligned rows) and the general loop (N = 100,
+    and N = 128 rows 4 bytes off a 16-byte boundary)."""
+    x = C.biquad_rows(B)
+    for N, shift in ((128, 0), (100, 0), (128, 1)):
+        mem_k = torch.zeros((B, 2), device=dev)
+        mem_p = mem_k.clone()
+        for f in range(3):
+            buf = torch.empty(B * N + shift, device=dev)
+            xf = buf[shift:].view(B, N)
+            xf.copy_(torch.from_numpy(x[f, :, :N]).to(dev))
+            (y, mem_k), (ry, mem_p) = K.hp50_biquad(xf, mem_k), analysis.hp50_biquad_plain(xf, mem_p)
+            assert same_bits(y, ry) and same_bits(mem_k, mem_p), (N, shift, f)
 
 
 def check_ltpf(launches):

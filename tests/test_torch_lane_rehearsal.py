@@ -1148,10 +1148,12 @@ def test_rehearsal_catches_mutated_pitch_and_spectrum_lanes(tmp_path, card_order
 
 WRAPPER_PC = r"""
 #include "ari_decode.cuh"
+#include <vector>
 
 extern "C" {
 // side [9][L], pc_in [3][L] (bfi_in, be_l, be_r), geom: N max_lev hrmode tns_max lpcw
-// rate_flag total_bits max_res res_iters pc_bytes numbytes
+// rate_flag total_bits max_res res_iters pc_bytes numbytes; the kernel's warp
+// (a thread a frame) run by the host warp
 void rehearse_ari_decode(const int* frames, const int* side, const int* pc_in, const int* tabs,
                          const int* geom, int pc_mode, int L, int nbytes, int* x, int* tns_order,
                          int* tns_idx, int* res, int* out) {
@@ -1162,22 +1164,21 @@ void rehearse_ari_decode(const int* frames, const int* side, const int* pc_in, c
   tb.cumf = tabs + 4096;
   tb.order_cf = tb.cumf + 64 * 18;
   tb.coef_cf = tb.order_cf + 2 * 9;
-  uint8_t buf[1024], levs[512];
-  for (int s = 0; s < L; ++s) {
-    for (int i = 0; i < nbytes; ++i) buf[i] = static_cast<uint8_t>(frames[s * nbytes + i]);
-    int sd[9];
-    for (int j = 0; j < 9; ++j) sd[j] = side[j * L + s];
-    int* xs = x + s * g.N;
-    int* rs = res + s * g.max_res;
+  tb.inv = reinterpret_cast<const uint8_t*>(tabs + 5412);
+  const DecIo io = {frames, side, pc_in, x, tns_order, tns_idx, res, out, L, nbytes};
+  const int S = 33;
+  std::vector<int32_t> xs(g.N * S), tns(18 * S), len(2 * S);
+  std::vector<uint32_t> lev(dec_lev_words(g.N) * S), rs(dec_res_words(g.max_res) * S);
+  std::vector<uint8_t> fbuf(32 * nbytes);
+  const DecRows<int32_t> rows = {xs.data(), lev.data(), rs.data(), tns.data(), len.data(), S};
+  for (int s0 = 0; s0 < L; s0 += 32) {
+    const int nf = imin(32, L - s0);
     if (pc_mode == 1)
-      ari_decode_lane<kPcDecode>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
-                                 xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+      ari_decode_warp<kPcDecode>(CoderHostWarp{}, io, s0, nf, tb, g, fbuf.data(), rows);
     else if (pc_mode == 2)
-      ari_decode_lane<kPcEncSim>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
-                                 xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+      ari_decode_warp<kPcEncSim>(CoderHostWarp{}, io, s0, nf, tb, g, fbuf.data(), rows);
     else
-      ari_decode_lane<kPcNone>(buf, nbytes, sd, tb, g, pc_in[s], pc_in[L + s], pc_in[2 * L + s],
-                               xs, tns_order + 2 * s, tns_idx + 16 * s, rs, levs, out + s, L);
+      ari_decode_warp<kPcNone>(CoderHostWarp{}, io, s0, nf, tb, g, fbuf.data(), rows);
   }
 }
 }

@@ -1160,6 +1160,78 @@ def pc_decode_rows(epmode: int, seed: int = 0) -> dict[str, np.ndarray]:
                 be_r=np.where(bfi_in == 2, be_r, -1))
 
 
+# the side fields ari_decode reads, in the order of decode_rows' keys
+DECODE_SIDE_KEYS = ("lastnz", "lsb_mode", "num_tns", "tns_on", "bp_side", "mask_side",
+                    "gg_idx", "fac_ns_idx")
+# the configurations of decode_rows: no PC block (at 64 and 160 kbps and in
+# the high-resolution mode) and the EP modes whose frames carry one
+DECODE_CONFIGS = {"48k_64k": dict(fs_in=48000, bitrate=64000),
+                  "48k_160k": dict(fs_in=48000, bitrate=160000),
+                  "48k_hr": dict(fs_in=48000, bitrate=256000, hrmode=True),
+                  "ep3": dict(fs_in=48000, bitrate=64000, epmode=3),
+                  "ep4": dict(fs_in=48000, bitrate=64000, epmode=4)}
+
+
+@functools.cache
+def decode_rows(name: str, seed: int = 3) -> dict[str, np.ndarray]:
+    """Frames for the range decoder at DECODE_CONFIGS[name]: coder_rows
+    coded by the plain range encoder (escapes to the last level and past it,
+    LSB-mode rows, TNS orders 0-12, rows over their budget), with the side
+    information the encoder set (DECODE_SIDE_KEYS; the TNS filters on where
+    their order is nonzero, a gain index of 0 and a noise factor of 7 on
+    every third row, so that zero frames occur); every seventh row has 1-24
+    bytes replaced. At EP3/EP4 the channel's flags of pc_decode_rows follow
+    (bfi_in 0 and 2 in turn, four corrupt ranges), and pc_decode_rows' own
+    frames (the encoder's payloads with the PC block moved) are appended."""
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch.ops import ari, bits
+    cfg = P.Config(**DECODE_CONFIGS[name])
+    d = coder_rows(cfg, seed=seed)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(d[k], dtype=np.int32))
+                 for k in CODER_ARI_ORDER)
+    frames = ari.encode_plain(cfg, *args).numpy().astype(np.int32)
+    rng = np.random.default_rng(seed)
+    for i in range(0, len(frames), 7):
+        at = rng.integers(0, frames.shape[1], rng.integers(1, 25))
+        frames[i, at] = rng.integers(0, 256, at.size)
+    third = np.arange(len(frames)) % 3 == 0
+    out = {"frames": frames, "lastnz": d["lastnz"], "lsb_mode": d["lsb_mode"],
+           "num_tns": d["num_tns"], "tns_on": (d["tns_order"] > 0).astype(np.int32),
+           "bp_side": d["bp_side"], "mask_side": d["mask_side"],
+           "gg_idx": np.where(third, 0, 17).astype(np.int32),
+           "fac_ns_idx": np.where(third, 7, 3).astype(np.int32)}
+    if cfg.n_pc == 0:
+        return out
+    pc = pc_decode_rows(cfg.epmode, seed=seed)
+    side = bits.parse_side_info_plain(cfg, torch.from_numpy(pc["frames"]))
+    out = {k: np.concatenate([v, pc["frames"] if k == "frames" else
+                              side[k].numpy().astype(np.int32)]) for k, v in out.items()}
+    L = len(out["frames"])
+    pcb = (cfg.n_pc + 1) >> 1
+    spans = [(0, 8 * pcb - 1), (4 * pcb, 8 * pcb - 1), (8, 15), (0, 7)]
+    bfi_in = np.where(np.arange(L) % 2 == 1, 2, 0).astype(np.int32)
+    out["bfi_in"] = bfi_in
+    out["be_l"] = np.where(bfi_in == 2, [spans[i // 2 % 4][0] for i in range(L)], -1)
+    out["be_r"] = np.where(bfi_in == 2, [spans[i // 2 % 4][1] for i in range(L)], -1)
+    out["be_l"], out["be_r"] = (out[k].astype(np.int32) for k in ("be_l", "be_r"))
+    return out
+
+
+def biquad_rows(B: int, frames: int = 3, seed: int = 0) -> np.ndarray:
+    """[frames, B, 128] float32 input rows of the resampler's biquad:
+    seeded noise at levels from 1 to 3e4, a silent stream, a full-scale
+    square wave, and a stream of tiny values (1e-30)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((frames, B, 128)) * 10.0 ** rng.uniform(0, 4.5, (1, B, 1))
+    x[:, 0] = 0.0
+    if B > 1:
+        x[:, 1] = np.where(np.arange(128) % 16 < 8, 32767.0, -32768.0)
+    if B > 2:
+        x[:, 2] *= 1e-34
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
 def stream_plan(T: int, B: int) -> tuple[np.ndarray, np.ndarray]:
     """The channel of a stream-engine run: per frame and stream a kind
     (clean, correctable, pc_codeword, heavy in turn) and per frame a bfi for

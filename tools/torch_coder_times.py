@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Times the rate-path kernels of audio_codec_torch on a CUDA card: each
-kernel (bit_estimate, ari_encode, gain_bisection) and its stage
-(ops/quant.py:bit_estimate, ops/ari.py:encode,
-ops/quant.py:estimate_global_gain) on the inputs the flagship path gives
-them. Every line printed carries the card's name and power limit.
+"""Times the range coders and the rate-path kernels of audio_codec_torch on a
+CUDA card: each kernel (bit_estimate, ari_encode, gain_bisection,
+ari_decode) and its stage (ops/quant.py:bit_estimate, ops/ari.py:encode,
+ops/quant.py:estimate_global_gain, ops/ari.py:decode) on the inputs the
+flagship path gives them. Every line printed carries the card's name and
+power limit.
 
 The inputs: chip_smoke.make_pcm's material (a third speech, a third music, a
 third noise) at 48 kHz / 64 kbps, B streams, encoded for T frames by the
 checkout's own encode_block; the arguments of the stages at the last frame
 are recorded (bit_estimate twice a frame: modes -1 and 0), and those of the
-kernel launches inside them. Each is timed as median loop ms (5 loops of 20
-calls) and graph ms (20 calls replayed from a CUDA graph, the best of 3),
-each kernel checked against its plain version bit for bit.
+kernel launches inside them; the T frames are then decoded by decode_block,
+whose one ari_decode launch covers all T * B frames. ari_decode is also
+timed on tests/torch_kernel_cases.py:pc_decode_rows at EP3 tiled to B rows,
+with the partial-concealment block (the decoder's hooks, and the encoder's
+simulation). Each is timed as median loop ms (5 loops of 20 calls) and graph
+ms (20 calls replayed from a CUDA graph, the best of 3), each kernel checked
+against its plain version bit for bit.
 
   (default)     this checkout, one JSON line.
   --other DIR   the same for a checkout of another commit (for example the
@@ -26,7 +31,16 @@ each kernel checked against its plain version bit for bit.
                 memory) and ns a tuple step of bit_estimate (be_tuple_bits
                 and the context update, the tables in shared memory). K10's
                 lane 0 runs one symbol step a coded symbol, so the symbol
-                step times the symbols of a stream are its floor.
+                step times the symbols of a stream are its floor. And ns a
+                symbol step of the range decoder (csrc/ari_decode.cuh:
+                dec_symbol with its renormalisations and the tuple context,
+                one chain a thread over a frame of seeded bytes; the time of
+                300 rounds less that of 100, so that the staging cancels):
+                the inverse table, the count and the binary search (the
+                count built with DECODE_BINARY's substitution), the tables
+                through L1 and in shared memory, and the step's parts
+                alone (a shared load; the lookup, inverse and row loads; the
+                quotient).
   --scaling     the three kernels at 4, 32, 512 and 2048 streams of the
                 recorded flagship rows (tiled), and the range coders on
                 all-busy rows (every tuple nonzero with an escape level,
@@ -51,8 +65,33 @@ each kernel checked against its plain version bit for bit.
                 once a block (TABLE_VARIANTS, text substitutions), built side
                 by side, on the recorded launches: graph ms, two rounds.
 
+  --decode-variants  ari_decode's designs, each built from this checkout's
+                csrc/ari_decode.cu and ari_decode.cuh with text
+                substitutions (DECODE_VARIANTS), side by side: the kept one
+                (a thread a frame, the spectral symbol from the inverse
+                table, 4-warp blocks sharing every table in shared memory),
+                2-warp and one-warp blocks, the tables through L1, x as
+                int32, the count of the 17 entries on every row, a binary
+                search, groups of 4 and 8 lanes a frame splitting the count;
+                and the kept one with one phase removed (DECODE_CUTS: the
+                side bits in branches, the rows' write-out, the TNS and
+                tuple loops); on the recorded block launch at T * B frames,
+                and its first 2048 and 4 frames: graph ms, two rounds, each
+                checked against the plain version.
+  --decode-phases DIR  the first design of ari_decode (a thread a frame,
+                blocks of 32 threads, the tables staged by each block, the
+                rows in device memory) of the checkout DIR with
+                one phase removed at a time (DECODE_PHASES: the tables'
+                staging, the rows' zero fills, the nonzero count's and the
+                seed's passes over x, the tuple loop's stores, the decode
+                loops, everything but the staging and the frame copy), built
+                from DIR's sources with text substitutions, on the recorded
+                block launch: graph ms, two rounds, with the outputs that
+                differ from the plain version.
+
     python3 tools/torch_coder_times.py [--streams 2048] [--frames 8] [--other DIR]
     python3 tools/torch_coder_times.py --step-bench --scaling --tables --gain-variants
+    python3 tools/torch_coder_times.py --decode-variants --decode-phases DIR
 """
 from __future__ import annotations
 
@@ -193,12 +232,14 @@ def record_launches(B: int, T: int):
     from audio_codec_torch.ops import ari, quant
     cfg = P.Config(fs_in=48000, bitrate=64000)
     pcm = torch.from_numpy(make_pcm(T, B, 480)).cuda()
-    stages = {"quant.bit_estimate": [], "ari.encode": [], "quant.estimate_global_gain": []}
-    kernels = {"bit_estimate": [], "ari_encode": [], "gain_bisection": []}
+    stages = {"quant.bit_estimate": [], "ari.encode": [], "quant.estimate_global_gain": [],
+              "ari.decode": []}
+    kernels = {"bit_estimate": [], "ari_encode": [], "gain_bisection": [], "ari_decode": []}
     mods = {"quant.bit_estimate": (quant, "bit_estimate"), "ari.encode": (ari, "encode"),
             "quant.estimate_global_gain": (quant, "estimate_global_gain"),
+            "ari.decode": (ari, "decode"),
             "bit_estimate": (K, "bit_estimate"), "ari_encode": (K, "ari_encode"),
-            "gain_bisection": (K, "gain_bisection")}
+            "gain_bisection": (K, "gain_bisection"), "ari_decode": (K, "ari_decode")}
     saved = {n: getattr(m, a) for n, (m, a) in mods.items()}
 
     def recorder(store, fn):
@@ -209,12 +250,32 @@ def record_launches(B: int, T: int):
     for n, (m, a) in mods.items():
         setattr(m, a, recorder((stages | kernels)[n], saved[n]))
     try:
-        P.encode_block(cfg, P.enc_state_init(cfg, B), pcm)
+        _, frames = P.encode_block(cfg, P.enc_state_init(cfg, B), pcm)
+        P.decode_block(cfg, P.dec_state_init(cfg, B), frames)
     finally:
         for n, (m, a) in mods.items():
             setattr(m, a, saved[n])
     torch.cuda.synchronize()
     return cfg, stages, kernels, saved
+
+
+def pc_launches(B: int):
+    """ari_decode's arguments on tests/torch_kernel_cases.py:pc_decode_rows
+    at EP3 tiled to B rows (the frames carry a partial-concealment block,
+    half of them bfi 2 with a corrupt range), in the decoder's mode and in
+    the encoder's simulation: [(tag, args, kwargs)]."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch.ops import bits
+    from tests.torch_kernel_cases import pc_decode_rows
+    cfg = P.Config(fs_in=48000, bitrate=64000, epmode=3)
+    a = pc_decode_rows(3)
+    pick = np.resize(np.arange(a["frames"].shape[0]), B)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v[pick])).cuda() for k, v in a.items()}
+    side = bits.parse_side_info(cfg, t["frames"])
+    args = (cfg, t["frames"], side, t["bfi_in"], t["be_l"], t["be_r"])
+    return [("ari_decode PC EP3", args, {}), ("ari_decode PC sim EP3", args, {"pc_enc_sim": True})]
 
 
 def measure(root: Path, B: int, T: int) -> dict:
@@ -250,6 +311,19 @@ def measure(root: Path, B: int, T: int) -> dict:
         out[tag] = {"differ": count_differing(got, ref), "lane0_streams": lane0,
                     "kernel": times(lambda: fns[kernel](*kargs, **kkw)),
                     "stage": stage_times(lambda: fns[stage](*sargs, **skw))}
+    # the decoder: one launch over the block's T * B frames, and the PC rows
+    (sargs, skw), (kargs, kkw) = stages["ari.decode"][-1], kernels["ari_decode"][-1]
+    got, ref = fns["ari_decode"](*kargs, **kkw), ari.decode_plain(*kargs, **kkw)
+    torch.cuda.synchronize()
+    out[f"ari_decode {kargs[1].shape[0]} frames"] = {
+        "differ": count_differing(got, ref),
+        "kernel": times(lambda: fns["ari_decode"](*kargs, **kkw)),
+        "stage": stage_times(lambda: fns["ari.decode"](*sargs, **skw))}
+    for tag, args, kw in pc_launches(B):
+        got, ref = fns["ari_decode"](*args, **kw), ari.decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        out[tag] = {"differ": count_differing(got, ref),
+                    "kernel": times(lambda: fns["ari_decode"](*args, **kw))}
     return out
 
 
@@ -321,6 +395,12 @@ def scaling(B: int, T: int) -> None:
         ms = min(graph_ms(lambda: K.ari_encode(*args)) for _ in range(3))
         print(f"[scaling] {card()} | ari_encode at 160 kbps: {n} all-busy streams (200 tuples "
               f"with escapes): graph {ms:.5f} ms, lane-0 streams {lane0}", flush=True)
+    args = kernels["ari_decode"][-1][0]
+    for n in (32, 128, 2048, args[1].shape[0]):
+        a = decode_slice(args, n)
+        ms = min(graph_ms(lambda: K.ari_decode(*a)) for _ in range(3))
+        print(f"[scaling] {card()} | ari_decode: {n} frames of the block launch: graph "
+              f"{ms:.5f} ms", flush=True)
 
 
 # the kept sources read their tables from global memory through L1; these
@@ -585,6 +665,407 @@ def gain_variants(B: int, T: int) -> None:
                       flush=True)
 
 
+def decode_slice(args, n: int):
+    """ari_decode's (cfg, buf, side) for the first n frames of a launch,
+    tiled where n is larger."""
+    import torch
+    cfg, buf, side = args[:3]
+    idx = torch.arange(n, device=buf.device) % buf.shape[0]
+    return (cfg, buf[idx].contiguous(),
+            {k: v[idx].contiguous() if isinstance(v, torch.Tensor) and v.dim() else v
+             for k, v in side.items()})
+
+
+def decode_c_args(args):
+    """The C arguments of an ari_decode launch without a PC block, as the
+    wrapper builds them: (inputs, outputs, ints after L and nbytes)."""
+    import torch
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops.quant import residual_max_bits
+    cfg, buf, side = args[:3]
+    L, nbytes = buf.shape
+    dev = buf.device
+    side_in = torch.stack([K._i32(side[k], L, dev) for k in ("lastnz", "lsb_mode", "num_tns")]
+                          + [K._i32(side["tns_on"][:, 0], L, dev),
+                             K._i32(side["tns_on"][:, 1], L, dev)]
+                          + [K._i32(side[k], L, dev) for k in ("bp_side", "mask_side", "gg_idx",
+                                                               "fac_ns_idx")]).contiguous()
+    total_bits = cfg.targetBytes * 8
+    max_res = min(residual_max_bits(cfg), total_bits)
+    e = lambda *s, dt=torch.int32: torch.empty((L, *s), dtype=dt, device=dev)
+    outs = dict(x=e(cfg.yLen), tns_order=e(2), tns_idx=e(2, 8), res_bits=e(max_res),
+                levs=e(cfg.yLen // 2, dt=torch.uint8), out=torch.empty((7, L), dtype=torch.int32,
+                                                                       device=dev))
+    ints = (cfg.yLen, 22 if cfg.hrmode else 14, int(cfg.hrmode), 8 if cfg.frame_dms == 100 else 4,
+            1 if cfg.enable_lpc_weighting else 0, cfg.rateFlag if cfg.fs_idx != 5 else 0,
+            total_bits, max_res, 20 if cfg.hrmode else 1)
+    return (buf.to(torch.int32).contiguous(), side_in, K._decoder_tables(str(dev))), outs, ints
+
+
+DEC_NAMES = ("nf_seed", "zero_frame", "n_res", "residual_present", "bfi", "spec_inv_idx",
+             "b_left")
+
+
+def decode_differing(outs: dict, ref: dict) -> dict:
+    """The outputs that differ from the plain version's, with their counts."""
+    got = {k: outs[k] for k in ("x", "tns_order", "tns_idx", "res_bits")}
+    got.update(zip(DEC_NAMES, outs["out"]))
+    bad = {k: int((got[k] != ref[k]).sum()) for k in got}
+    return {k: v for k, v in bad.items() if v}
+
+
+DEC_STEP_BENCH = r"""
+#include "ari_decode.cuh"
+// one chain a thread: a tuple's first symbol (the lookup, the search, the
+// renormalisation) and the context, 16 a round, over a frame of 64 seeded
+// bytes a thread (the pointer wraps). V 0: the inverse table, 1: the count
+// (a binary search where the library is built with DECODE_BINARY); V | 4:
+// the tables (and the inverse) in shared memory.
+template <int V>
+__global__ void bench(const int32_t* tabs, const uint8_t* bytes, int32_t* out, int iters) {
+  extern __shared__ int4 smem4[];
+  int32_t* t = reinterpret_cast<int32_t*>(smem4);
+  uint8_t* frames = reinterpret_cast<uint8_t*>(t + 5412 + 16384);
+  if (V & 4) {
+    for (int i = threadIdx.x; i < 5412 + 16384; i += blockDim.x) t[i] = tabs[i];
+  }
+  for (int i = threadIdx.x; i < 256 * 64; i += blockDim.x) frames[i] = bytes[i];
+  __syncthreads();
+  const int32_t* tab = (V & 4) ? t : tabs;
+  const uint8_t* inv = reinterpret_cast<const uint8_t*>(tab + 5412);
+  constexpr bool kInv = (V & 3) == 0;
+  acx::Dec d;
+  d.buf = frames + threadIdx.x * 64;
+  d.nbytes = 64;
+  d.bp = 3;
+  d.low = ((d.buf[0] << 16) + (d.buf[1] << 8) + d.buf[2]) >> 1;
+  d.range = acx::MASK24;
+  d.ber = 0;
+  d.nb = d.buf[3];
+  int c = 0;
+  bool stop;
+  if (V >= 12) {   // the step's parts alone, tables in shared memory
+    const uint8_t* sinv = reinterpret_cast<const uint8_t*>(t + 5412);
+    int low = d.low, tmp = 1 + (threadIdx.x & 255);
+    for (int it = 0; it < iters; ++it) {
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        if (V == 12) c = t[c & 4095];                           // one shared load
+        if (V == 13) {                                         // lookup, inverse, row
+          const int pki = t[c & 4095];
+          const int cnt = sinv[pki * acx::kDecInvQ + (c & 1023)];
+          c += t[4096 + pki * 18 + cnt];
+        }
+        if (V == 14) {                                         // the quotient
+          const int q = acx::dec_quotient(low, tmp);
+          low = (low + q + s) & 0xFFFFF;
+          c += q;
+        }
+      }
+    }
+    out[blockIdx.x * blockDim.x + threadIdx.x] = c + low;
+    return;
+  }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      const int pki = tab[(c + (s > 8 ? 256 : 0)) & 4095];
+      const int sym = acx::dec_symbol<acx::kPcNone, 17, kInv>(
+          d, tab + 4096 + pki * 18, inv + pki * acx::kDecInvQ, 0, &stop);
+      c = (c & 15) * 16 + 1 + (sym & 7);
+      d.bp &= 63;
+    }
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = c + d.low + d.ber;
+}
+template <int V>
+static int launch(const int32_t* T, const uint8_t* Bt, int32_t* O, int iters, int blocks,
+                  int threads, cudaStream_t st) {
+  const int smem = (5412 + 16384) * 4 + 256 * 64;
+  const cudaError_t e = cudaFuncSetAttribute(bench<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bench<V><<<blocks, threads, smem, st>>>(T, Bt, O, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int run(int v, const void* tabs, const void* bytes, void* out, int iters, int blocks,
+                   int threads, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* T = static_cast<const int32_t*>(tabs);
+  const uint8_t* Bt = static_cast<const uint8_t*>(bytes);
+  int32_t* O = static_cast<int32_t*>(out);
+  switch (v) {
+    case 0: return launch<0>(T, Bt, O, iters, blocks, threads, st);
+    case 1: return launch<1>(T, Bt, O, iters, blocks, threads, st);
+    case 4: return launch<4>(T, Bt, O, iters, blocks, threads, st);
+    case 5: return launch<5>(T, Bt, O, iters, blocks, threads, st);
+    case 8: return launch<12>(T, Bt, O, iters, blocks, threads, st);
+    case 9: return launch<13>(T, Bt, O, iters, blocks, threads, st);
+    case 10: return launch<14>(T, Bt, O, iters, blocks, threads, st);
+  }
+  return -1;
+}
+"""
+# (library: 0 this checkout's headers, 1 with DECODE_BINARY; V; name)
+DEC_STEPS = ((0, 0, "the inverse table, tables through L1"),
+             (0, 1, "the count, tables through L1"),
+             (1, 1, "the binary search, tables through L1"),
+             (0, 4, "the inverse table, tables in shared memory (kept)"),
+             (0, 5, "the count, tables in shared memory"),
+             (1, 5, "the binary search, tables in shared memory"),
+             (0, 8, "part: one shared load"),
+             (0, 9, "part: the lookup, inverse and row loads"),
+             (0, 10, "part: the quotient (dec_quotient)"))
+
+
+def decode_step_bench() -> None:
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from audio_codec_torch import kernels as K
+    libs = build_all([(OUT / f"dec_step_bench{i}", CSRC, DECODE_FILES, subs, DEC_STEP_BENCH)
+                      for i, subs in enumerate(((), DECODE_BINARY))])
+    for lib in libs:
+        lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    tabs = K._decoder_tables("cuda")
+    rng = np.random.default_rng(0)
+    bytes_ = torch.from_numpy(rng.integers(0, 256, 256 * 64).astype(np.uint8)).cuda()
+    out = torch.empty(132 * 256, dtype=torch.int32, device="cuda")
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    for warps in (1, 4):
+        for i, v, name in DEC_STEPS:
+            # the difference of 300 and 100 rounds: the staging cancels
+            ms = [min(graph_ms(lambda: libs[i].run(v, tabs.data_ptr(), bytes_.data_ptr(),
+                                                   out.data_ptr(), iters, 132, 32 * warps, st()))
+                      for _ in range(3)) for iters in (100, 300)]
+            print(f"[step] {card()} | range decoder symbol step (dec_symbol), {name}, {warps} "
+                  f"warp(s) an SM: {(ms[1] - ms[0]) * 1e6 / (16 * 200):.3f} ns a dependent step",
+                  flush=True)
+
+
+DECODE_FILES = ("acodec.cuh", "warp.cuh", "ari_decode.cuh", "ari_decode.cu")
+# The designs the kept one was compared with, as text substitutions (file,
+# old, new) of this checkout's csrc/ari_decode.cu and ari_decode.cuh. Every
+# build keeps only the launch without a PC block, which is what is timed.
+_NONE_ONLY = ("ari_decode.cu",
+              "  if (pc_mode == kPcDecode) err = ari_decode_mode<kPcDecode>(io, I(tabs), g, st);\n"
+              "  else if (pc_mode == kPcEncSim) err = ari_decode_mode<kPcEncSim>(io, I(tabs), g, st);\n"
+              "  else err", "  err")
+_COUNT = (("ari_decode.cuh", "const int sym = dec_symbol<kPc, 17, true>(",
+           "const int sym = dec_symbol<kPc, 17, false>("),)
+_COUNT_LINE = "  for (int j = 0; j < kSym; ++j) cnt += tmp * row[j] <= low ? 1 : 0;\n"
+DECODE_BINARY = (("ari_decode.cuh", _COUNT_LINE,
+                  "  for (int step = 16; step > 0; step >>= 1) {\n"
+                  "    const int j = cnt + step - 1;\n"
+                  "    if (j < kSym && tmp * row[j] <= low) cnt += step;\n"
+                  "  }\n"),)
+
+
+def _groups(G: int):
+    """G lanes a frame: each lane of a group holds the frame's whole state,
+    and the group splits the count, lane g testing j = g mod G."""
+    return (("ari_decode.cuh", "#pragma once\n", f"#pragma once\n#define DEC_G {G}\n"),
+            ("ari_decode.cuh", _COUNT_LINE,
+             "#ifdef __CUDA_ARCH__\n"
+             "  const int gl = threadIdx.x % 32 % DEC_G;\n"
+             "  for (int j = gl; j < kSym; j += DEC_G) cnt += tmp * row[j] <= low ? 1 : 0;\n"
+             "  cnt = __reduce_add_sync(((1u << DEC_G) - 1u) << (threadIdx.x % 32 / DEC_G * DEC_G),"
+             " cnt);\n"
+             "#endif\n"),
+            ("ari_decode.cuh", "  w.lanes([&](int q) {\n    if (q >= nf) return;",
+             "  w.lanes([&](int q) {\n    q /= DEC_G;\n    if (q >= nf) return;"),
+            ("ari_decode.cu", "constexpr int kDecFrames = 32;",
+             "constexpr int kDecFrames = 32 / DEC_G;"))
+
+
+def _warps(n: int):
+    return (("ari_decode.cu", "constexpr int kDecWarps = 4;", f"constexpr int kDecWarps = {n};"),)
+
+
+_STAGE_ALL = "constexpr int kDecStageWords = kDecInvWord + kDecInvWords;"
+_L1 = (("ari_decode.cu", _STAGE_ALL, "constexpr int kDecStageWords = 0;"),
+       ("ari_decode.cu", "  const int32_t* t = p;", "  const int32_t* t = tabs;"))
+_TABLES_ONLY = (("ari_decode.cu", _STAGE_ALL, "constexpr int kDecStageWords = kDecInvWord;"),
+                ("ari_decode.cu", "tb.inv = reinterpret_cast<const uint8_t*>(t + kDecInvWord);",
+                 "tb.inv = reinterpret_cast<const uint8_t*>(tabs + kDecInvWord);"))
+_X32 = (("ari_decode.cu", "  if (g.hrmode) return ari_decode_launch<kPc, int32_t>",
+         "  if (true) return ari_decode_launch<kPc, int32_t>"),)
+DECODE_VARIANTS = {
+    "kept: a thread a frame, the inverse table, 4-warp blocks sharing it and the tables in "
+    "shared memory, x as int16": (),
+    "the same, 2-warp blocks": _warps(2),
+    "the inverse table and the tables through L1, one-warp blocks": _L1 + _warps(1),
+    "the inverse table, x as int32 (2-warp blocks: 4 do not fit)": _X32,
+    "the count of 17 products, 4-warp blocks sharing the tables in shared memory":
+        _COUNT + _TABLES_ONLY,
+    "the count, one-warp blocks, tables through L1 (the first redesign)":
+        _COUNT + _L1 + _warps(1),
+    "the binary search, 4-warp blocks sharing the tables": _COUNT + DECODE_BINARY + _TABLES_ONLY,
+    "groups of 4 lanes a frame splitting the count, 4-warp blocks":
+        _COUNT + _groups(4) + _TABLES_ONLY,
+    "groups of 8 lanes a frame splitting the count, 4-warp blocks":
+        _COUNT + _groups(8) + _TABLES_ONLY,
+}
+# the kept design with one phase removed (text substitutions of ari_decode.cuh)
+DECODE_CUTS = {
+    "kept, the side bits read in branches (as with a PC block)": (
+        ("      if constexpr (kPc == kPcNone) {\n        // no hook can stop a read",
+         "      if constexpr (kPc < 0) {\n        // no hook can stop a read"),
+        ("    if constexpr (kPc == kPcNone) {\n      if (dec_side_bit_where(d, ak > 0",
+         "    if constexpr (kPc < 0) {\n      if (dec_side_bit_where(d, ak > 0")),
+    "kept, no write-out of x and the residual bits": (
+        ("  for (int q = 0; q < nf; ++q) {\n    const size_t s = static_cast<size_t>(s0 + q);",
+         "  for (int q = 0; q < 0; ++q) {\n    const size_t s = static_cast<size_t>(s0 + q);"),),
+    "kept, no TNS and tuple loops (the staging, the write-out of zeros, the scalars)": (
+        ("  for (int f = 0; f < 2; ++f) {\n    if (!(f < num_tns",
+         "  for (int f = 0; f < 0; ++f) {\n    if (!(f < num_tns"),
+        ("  for (int k = 0; k < N / 2; ++k) {\n    if (!(2 * k < lastnz && bfi == 0)) break;",
+         "  for (int k = 0; k < 0; ++k) {\n    if (!(2 * k < lastnz && bfi == 0)) break;")),
+}
+
+# the first design (ari_decode.cu as first written, a thread a frame in blocks of 32
+# threads) with one phase removed: substitutions of (file, old, new)
+_ZERO = ("ari_decode.cuh", "  for (int i = 0; i < N; ++i) x[i] = 0;\n"
+         "  for (int i = 0; i < N / 2; ++i) levs[i] = 0;\n", "")
+_ZERO_RES = ("ari_decode.cuh", "  for (int i = 0; i < g.max_res; ++i) res[i] = 0;\n", "")
+_NZ_DECL = ("ari_decode.cuh", "  int c = 0;\n  bool trig;", "  int c = 0, nz_in = 0;\n  bool trig;")
+_NZ_COUNT = ("ari_decode.cuh", "    const int lev1 = imin(lev_eff, 3);",
+             "    nz_in += (ak != 0 ? 1 : 0) + (bk != 0 ? 1 : 0);\n"
+             "    const int lev1 = imin(lev_eff, 3);")
+_NZ_PASS = ("ari_decode.cuh",
+            "  int nz = 0;\n  for (int i = 0; i < N; ++i) nz += x[i] != 0 ? 1 : 0;",
+            "  int nz = nz_in;")
+_SEED = ("ari_decode.cuh", "  for (int i = 0; i < spec_inv; ++i)\n"
+         "    seed += static_cast<unsigned>(iabs(x[i])) * static_cast<unsigned>(i);\n", "")
+_STORES = ("ari_decode.cuh", "    x[2 * k] = ak;\n    x[2 * k + 1] = bk;\n"
+           "    levs[k] = static_cast<uint8_t>(lev_eff);\n", "")
+_TABLES = (("ari_decode.cu", "  acx_load_shared(smem, tabs, kDecTabWords);\n", ""),
+           ("ari_decode.cu", "  tb.lookup = smem;\n  tb.cumf = smem + 4096;",
+            "  tb.lookup = tabs;\n  tb.cumf = tabs + 4096;"))
+_NO_DECODE = (("ari_decode.cuh", "  for (int f = 0; f < 2; ++f) {\n    if (!(f < num_tns",
+               "  for (int f = 0; f < 0; ++f) {\n    if (!(f < num_tns"),
+              ("ari_decode.cuh", "  for (int k = 0; k < N / 2; ++k) {\n"
+               "    if (!(2 * k < lastnz && bfi == 0)) break;",
+               "  for (int k = 0; k < 0; ++k) {\n    if (!(2 * k < lastnz && bfi == 0)) break;"))
+_COPY_ONLY = (("ari_decode.cu", "  int32_t sd[9];",
+               "  {\n    int cs = 0;\n    for (int i = 0; i < nbytes; ++i) cs += buf[i];\n"
+               "    out[s] = cs;\n    return;\n  }\n  int32_t sd[9];"),)
+_NZ = (_NZ_DECL, _NZ_COUNT, _NZ_PASS)
+DECODE_PHASES = {
+    "first design as it is": (),
+    "tables through L1 (no staging a block)": _TABLES,
+    "no zero fills of x, levs, res (the buffers hold the last launch's rows)": (_ZERO, _ZERO_RES),
+    "the nonzero count in the tuple loop (no pass over x)": _NZ,
+    "no seed pass over x (nf_seed differs)": (_SEED,),
+    "no row traffic but the zero fills (nonzero count in the loop, no seed pass, no "
+    "tuple stores)": _NZ + (_SEED, _STORES),
+    "no row traffic (also no zero fills)": _NZ + (_SEED, _STORES, _ZERO, _ZERO_RES),
+    "no row traffic, tables through L1 (the chain, the staging of the frame)":
+        _NZ + (_SEED, _STORES, _ZERO, _ZERO_RES) + _TABLES,
+    "no TNS and tuple loops (the staging, zero fills, passes, residual, scalars)": _NO_DECODE,
+    "the tables' staging and the frame copy alone": _COPY_ONLY,
+    "the frame copy alone (tables through L1)": _COPY_ONLY + _TABLES,
+}
+
+
+def build_decode(d: Path, csrc: Path, files, subs, bench: str | None = None) -> ctypes.CDLL:
+    """nvcc builds csrc's `files` (with subs applied: (file, old, new)) in d,
+    ari_decode.cu itself or, with `bench`, a source that includes it."""
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    text = {f: (csrc / f).read_text() for f in files}
+    for f, old, new in subs:
+        if old not in text[f]:
+            raise SystemExit(f"{d.name}: {old!r} is not in {csrc / f}")
+        text[f] = text[f].replace(old, new)
+    for f, t in text.items():
+        (d / f).write_text(t)
+    main = "ari_decode.cu"
+    if bench is not None:
+        (d / "bench.cu").write_text(bench)
+        main = "bench.cu"
+    r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / main)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"nvcc failed on {d.name}:\n{r.stdout}{r.stderr}")
+    return ctypes.CDLL(str(d / "lib.so"))
+
+
+def decode_runs(B: int, T: int, runs, tag: str, sizes) -> None:
+    """Each (name, call) of runs on the first n frames of the recorded block
+    launch for n in sizes: call(inputs, outputs, ints, L, nbytes, stream)
+    launches; two rounds of graph ms, the outputs checked against the plain
+    version."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from audio_codec_torch import kernels as K
+    from audio_codec_torch.ops import ari
+    K.library()
+    _, _, kernels, _ = record_launches(B, T)
+    block = kernels["ari_decode"][-1][0]
+    st = lambda: torch.cuda.current_stream().cuda_stream
+    cases = []
+    for n in sizes:
+        n = block[1].shape[0] if n is None else n
+        a = decode_slice(block, n)
+        ins, outs, ints = decode_c_args(a)
+        ref = {k: v for k, v in ari.decode_plain(*a).items()}
+        cases.append((n, ins, outs, ints, ref))
+    for rnd in range(2):
+        for n, ins, outs, ints, ref in cases:
+            L, nbytes = ins[0].shape
+            for name, call in runs:
+                for t in outs.values():
+                    t.fill_(-1)
+                rc = call(ins, outs, ints, L, nbytes, st())
+                torch.cuda.synchronize()
+                bad = decode_differing(outs, ref)
+                ms = min(graph_ms(lambda: call(ins, outs, ints, L, nbytes, st())) for _ in range(3))
+                print(f"[{tag}] {card()} | round {rnd}, {n} frames, {name}: rc {rc}, differing "
+                      f"outputs {bad or 'none'}, graph {ms:.5f} ms", flush=True)
+
+
+def build_all(jobs) -> list[ctypes.CDLL]:
+    """build_decode over each job's arguments, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        return list(ex.map(lambda a: build_decode(*a), jobs))
+
+
+def decode_variants(B: int, T: int) -> None:
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    designs = {**DECODE_VARIANTS,
+               **{name: tuple(("ari_decode.cuh", o, n) for o, n in subs)
+                  for name, subs in DECODE_CUTS.items()}}
+    libs = build_all([(OUT / f"decode_variant{i}", CSRC, DECODE_FILES, (_NONE_ONLY, *subs))
+                      for i, subs in enumerate(designs.values())])
+    runs = []
+    for name, lib in zip(designs, libs):
+        lib.acx_ari_decode.argtypes = [P_] * 9 + [I_] * 14 + [P_]
+        runs.append((name, lambda ins, o, ints, L, nb, st, lib=lib: lib.acx_ari_decode(
+            ins[0].data_ptr(), ins[1].data_ptr(), None, ins[2].data_ptr(), o["x"].data_ptr(),
+            o["tns_order"].data_ptr(), o["tns_idx"].data_ptr(), o["res_bits"].data_ptr(),
+            o["out"].data_ptr(), L, nb, *ints, 0, 0, 0, st)))
+    decode_runs(B, T, runs, "decode variants", (None, 2048, 4))
+
+
+def decode_phases(B: int, T: int, other: Path) -> None:
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    csrc = other.resolve() / "audio_codec_torch" / "csrc"
+    runs = []
+    libs = build_all([(OUT / f"decode_phase{i}", csrc, ("acodec.cuh", "ari_decode.cuh",
+                                                         "ari_decode.cu"), subs)
+                      for i, subs in enumerate(DECODE_PHASES.values())])
+    for name, lib in zip(DECODE_PHASES, libs):
+        lib.acx_ari_decode.argtypes = [P_] * 10 + [I_] * 14 + [P_]
+        runs.append((name, lambda ins, o, ints, L, nb, st, lib=lib: lib.acx_ari_decode(
+            ins[0].data_ptr(), ins[1].data_ptr(), None, ins[2].data_ptr(), o["x"].data_ptr(),
+            o["tns_order"].data_ptr(), o["tns_idx"].data_ptr(), o["res_bits"].data_ptr(),
+            o["levs"].data_ptr(), o["out"].data_ptr(), L, nb, *ints, 0, 0, 0, st)))
+    decode_runs(B, T, runs, "decode phases", (None, 32))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
@@ -594,20 +1075,28 @@ def main() -> int:
     ap.add_argument("--scaling", action="store_true")
     ap.add_argument("--tables", action="store_true")
     ap.add_argument("--gain-variants", action="store_true")
+    ap.add_argument("--decode-variants", action="store_true")
+    ap.add_argument("--decode-phases", type=Path, default=None)
     ap.add_argument("--root", type=Path, default=None, help=argparse.SUPPRESS)
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_coder_times: no CUDA device")
-    if opt.step_bench or opt.scaling or opt.tables or opt.gain_variants:
+    if (opt.step_bench or opt.scaling or opt.tables or opt.gain_variants
+            or opt.decode_variants or opt.decode_phases):
         if opt.step_bench:
             step_bench()
+            decode_step_bench()
         if opt.scaling:
             scaling(opt.streams, opt.frames)
         if opt.tables:
             tables(opt.streams, opt.frames)
         if opt.gain_variants:
             gain_variants(opt.streams, opt.frames)
+        if opt.decode_variants:
+            decode_variants(opt.streams, opt.frames)
+        if opt.decode_phases:
+            decode_phases(opt.streams, opt.frames, opt.decode_phases)
         return 0
     if opt.root is not None or opt.other is None:
         print(json.dumps(measure((opt.root or ROOT).resolve(), opt.streams, opt.frames)),
