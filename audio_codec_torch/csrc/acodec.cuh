@@ -107,8 +107,27 @@ ACX_HD float xfma(float a, float b, float c) {
 
 #ifdef __CUDACC__
 // Copies n int32 words from global to shared memory with the whole block.
-__device__ __forceinline__ void acx_load_shared(int32_t* dst, const int32_t* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+// Each thread issues the loads of a round (kAcxLoadRound words, blockDim.x
+// apart) before it stores any of them: a copy that stores each load before
+// issuing the next keeps one load in flight a thread (hp50_biquad's first
+// design lost 0.03 ms to it, tools/torch_biquad_times.py --phases).
+constexpr int kAcxLoadRound = 8;
+
+__device__ __forceinline__ void acx_load_shared(int32_t* __restrict__ dst,
+                                                const int32_t* __restrict__ src, int n) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kAcxLoadRound * blockDim.x) {
+    int32_t v[kAcxLoadRound];
+#pragma unroll
+    for (int u = 0; u < kAcxLoadRound; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      v[u] = i < n ? __ldg(src + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kAcxLoadRound; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      if (i < n) dst[i] = v[u];
+    }
+  }
 }
 
 // Row tiles of a [B, N] array of 32-bit words in shared memory, one row per thread of
@@ -116,8 +135,7 @@ __device__ __forceinline__ void acx_load_shared(int32_t* dst, const int32_t* src
 // threads walking their rows in step hit different banks). The copy out is
 // coalesced: neighbouring threads move neighbouring elements. (A copy in
 // written the same way, each load stored to shared memory before the next
-// load, keeps one load in flight a thread: hp50_biquad lost 0.03 ms to it,
-// tools/torch_biquad_times.py --phases.)
+// load, keeps one load in flight a thread: see acx_load_shared.)
 #define ACX_ROW_STRIDE(N) ((N) | 1)
 
 template <typename T>

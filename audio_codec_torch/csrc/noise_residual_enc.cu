@@ -10,75 +10,54 @@
 // Bound on an H100: reads the spectrum (400 floats), the quantized spectrum
 // (400 ints) and five scalars, writes 400 residual bits (int32) and two
 // scalars: about 4.8 KB a stream, 9.9 MB at B = 2048, 0.0029 ms at
-// 3.35 TB/s.
-// Design: one warp per stream, lane l on the lines l, l + 32, ...: the
-// zero-line tests and |x / gain| in parallel into shared memory, the counts by
-// ballots; lane 0 then runs the chains over the 400 values in line order, as
-// the plain version orders them (noise_residual_enc.cuh); a nonzero line's
+// 3.35 TB/s. What a stream waits for is the noise factor's chain: one
+// dependent add a zero line.
+// Design: a warp a stream (noise_residual_enc.cuh:noise_residual_enc_warp),
+// lane l on the lines l, l + 32, ..., the row loaded once into registers
+// with coalesced loads; the nonzero lines as ballots, so that a zero-line
+// test is bit operations on two 64-bit words of them; the zero lines'
+// values |x / gain| stored compacted in line order in shared memory, and
+// the chains over them alone (adding the +0 of a line that is not a zero
+// line gives the sum back), 16-byte loads issued a round ahead of the adds,
+// the half means' chains on lanes 1 and 2 beside lane 0's; a nonzero line's
 // residual rank is its ballot prefix, so the bits are written in parallel.
+// NC = ceil(N / 32) is a template parameter, so the row stays in registers.
 #include "noise_residual_enc.cuh"
 
 using namespace acx;
 
 #ifdef __CUDACC__
-constexpr int kNfWarps = 4;
-constexpr int kNfChunks = kNfMaxLines / 32;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kNfWarps = 4;   // streams a block
 
-__global__ void noise_residual_enc_kernel(const float* __restrict__ x,
-                                          const int32_t* __restrict__ xq,
-                                          const float* __restrict__ gain,
-                                          const int32_t* __restrict__ bw_bin,
-                                          const int32_t* __restrict__ target,
-                                          const int32_t* __restrict__ nbits2,
-                                          const int32_t* __restrict__ lsb_mode,
-                                          int32_t* __restrict__ fac_ns_idx,
-                                          int32_t* __restrict__ res, int32_t* __restrict__ n_res,
-                                          int B, NfEncGeom g) {
-  __shared__ float vals[kNfWarps][kNfMaxLines];
-  __shared__ unsigned zero_mask[kNfWarps][kNfChunks];
+template <int NC>
+__global__ void __launch_bounds__(kNfWarps * 32)
+    noise_residual_enc_kernel(const float* __restrict__ x, const int32_t* __restrict__ xq,
+                              const float* __restrict__ gain, const int32_t* __restrict__ bw_bin,
+                              const int32_t* __restrict__ target,
+                              const int32_t* __restrict__ nbits2,
+                              const int32_t* __restrict__ lsb_mode,
+                              int32_t* __restrict__ fac_ns_idx, int32_t* __restrict__ res,
+                              int32_t* __restrict__ n_res, int B, NfEncGeom g) {
+  __shared__ alignas(16) float vals[kNfWarps][kNfScratch];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kNfWarps + warp;
   if (b >= B) return;   // the whole warp leaves together
   const size_t row = static_cast<size_t>(b) * g.N;
-  const float* xr = x + row;
-  const int32_t* qr = xq + row;
-  const float gn = gain[b];
-  const int bw = iclamp(bw_bin[b], 0, g.N);
-  float* v = vals[warp];
-  int kcnt = 0, lines = 0, n_nz = 0;
-  for (int c = 0; c * 32 < g.N; ++c) {
-    const int k = c * 32 + lane;
-    const bool z = k < g.N && nf_enc_zero_line(qr, k, bw, g);
-    if (k < g.N) v[k] = nf_enc_value(xr, k, gn, z);
-    const unsigned zm = __ballot_sync(kFullMask, z);
-    if (lane == 0) zero_mask[warp][c] = zm;
-    kcnt += __popc(zm);
-    lines += z ? k + 1 : 0;
-    // the residual bit of a nonzero line at its rank among the nonzero lines
-    const bool nz = k < g.N && qr[k] != 0;
-    const unsigned nm = __ballot_sync(kFullMask, nz);
-    const int rank = n_nz + __popc(nm & ((1u << lane) - 1u));
-    if (nz && rank < g.max_res) {
-      res[static_cast<size_t>(b) * g.max_res + rank] = nf_enc_res_bit(xr, qr, k, gn);
-    }
-    n_nz += __popc(nm);
-  }
-  for (int i = imin(n_nz, g.max_res) + lane; i < g.max_res; i += 32) {
-    res[static_cast<size_t>(b) * g.max_res + i] = 0;
-  }
-  lines = __reduce_add_sync(kFullMask, lines);
-  __syncwarp();
-  if (lane == 0) {
-    const int mid = kcnt > 0 ? lines / kcnt : 0;
-    int nlo = 0;
-    for (int c = 0; c * 32 < mid; ++c) {
-      const int below = mid - c * 32;
-      nlo += __popc(below >= 32 ? zero_mask[warp][c] : zero_mask[warp][c] & ((1u << below) - 1u));
-    }
-    fac_ns_idx[b] = nf_enc_index(v, g.N, kcnt, mid, nlo, g);
-    n_res[b] = nf_enc_n_res(n_nz, target[b], nbits2[b], lsb_mode[b]);
-  }
+  noise_residual_enc_warp<NC>(CoderCardWarp{lane}, x + row, xq + row, gain[b], bw_bin[b],
+                              target[b], nbits2[b], lsb_mode[b], g, vals[warp], fac_ns_idx + b,
+                              res + static_cast<size_t>(b) * g.max_res, n_res + b);
+}
+
+template <int NC>
+static void launch(const void* const* a, void* const* o, int B, const NfEncGeom& g,
+                   cudaStream_t stream) {
+  const int blocks = (B + kNfWarps - 1) / kNfWarps;
+  noise_residual_enc_kernel<NC><<<blocks, 32 * kNfWarps, 0, stream>>>(
+      static_cast<const float*>(a[0]), static_cast<const int32_t*>(a[1]),
+      static_cast<const float*>(a[2]), static_cast<const int32_t*>(a[3]),
+      static_cast<const int32_t*>(a[4]), static_cast<const int32_t*>(a[5]),
+      static_cast<const int32_t*>(a[6]), static_cast<int32_t*>(o[0]),
+      static_cast<int32_t*>(o[1]), static_cast<int32_t*>(o[2]), B, g);
 }
 
 extern "C" int acx_noise_residual_enc(const void* x, const void* xq, const void* gain,
@@ -90,13 +69,24 @@ extern "C" int acx_noise_residual_enc(const void* x, const void* xq, const void*
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const NfEncGeom g = {N, width, start, half_means, max_res};
-  const int blocks = (B + kNfWarps - 1) / kNfWarps;
-  noise_residual_enc_kernel<<<blocks, 32 * kNfWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int32_t*>(xq),
-      static_cast<const float*>(gain), static_cast<const int32_t*>(bw_bin),
-      static_cast<const int32_t*>(target), static_cast<const int32_t*>(nbits2),
-      static_cast<const int32_t*>(lsb_mode), static_cast<int32_t*>(fac_ns_idx),
-      static_cast<int32_t*>(res), static_cast<int32_t*>(n_res), B, g);
+  const void* a[7] = {x, xq, gain, bw_bin, target, nbits2, lsb_mode};
+  void* o[3] = {fac_ns_idx, res, n_res};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((N + 31) / 32) {
+    case 1: launch<1>(a, o, B, g, s); break;
+    case 2: launch<2>(a, o, B, g, s); break;
+    case 3: launch<3>(a, o, B, g, s); break;
+    case 4: launch<4>(a, o, B, g, s); break;
+    case 5: launch<5>(a, o, B, g, s); break;
+    case 6: launch<6>(a, o, B, g, s); break;
+    case 7: launch<7>(a, o, B, g, s); break;
+    case 8: launch<8>(a, o, B, g, s); break;
+    case 9: launch<9>(a, o, B, g, s); break;
+    case 10: launch<10>(a, o, B, g, s); break;
+    case 11: launch<11>(a, o, B, g, s); break;
+    case 12: launch<12>(a, o, B, g, s); break;
+    default: launch<13>(a, o, B, g, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -1,15 +1,16 @@
 // The two warps that run the steps of the warp-a-stream kernels written as
 // templates over the warp (bit_estimate.cuh, ari_encode.cuh,
-// tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh).
+// tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh, sns_vq_enc.cuh,
+// noise_residual_enc.cuh).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
-// collectives __shfl_up_sync, __shfl_sync, __ballot_sync and the warp
+// collectives __shfl_up_sync, __shfl_sync, __shfl_xor_sync, __ballot_sync and the warp
 // reductions. On the host CoderHostWarp: one thread running the 32 lanes of
 // each step in turn, a Lanes<T> an array of 32, every collective reading all
 // lanes before it writes any; with it g++ compiles the steps for the CPU
 // rehearsals (tests/test_torch_coder_rehearsal.py,
 // tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py,
-// tests/test_torch_decode_rehearsal.py).
+// tests/test_torch_decode_rehearsal.py, tests/test_torch_sns_nf_rehearsal.py).
 #pragma once
 
 #include "acodec.cuh"
@@ -44,6 +45,13 @@ struct CoderHostWarp {
   template <class T>
   T shfl(const Lanes<T>& x, int src) const {
     return x[src];
+  }
+  // lane l gets x[l ^ m]
+  template <class T>
+  Lanes<T> shfl_xor(const Lanes<T>& x, int m) const {
+    Lanes<T> y;
+    for (int l = 0; l < kCoderLanes; ++l) y[l] = x[l ^ m];
+    return y;
   }
   template <class T>
   T uniform(const T& v) const {   // a value lane 0 holds, for every lane
@@ -108,6 +116,14 @@ struct CoderCardWarp {
     return __shfl_sync(0xFFFFFFFFu, x.v, src);
 #else
     return x.v;
+#endif
+  }
+  template <class T>
+  __host__ __device__ Lanes<T> shfl_xor(const Lanes<T>& x, int m) const {
+#ifdef __CUDA_ARCH__
+    return {__shfl_xor_sync(0xFFFFFFFFu, x.v, m)};
+#else
+    return x;
 #endif
   }
   template <class T>

@@ -24,7 +24,10 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                residual coder and the spectrum reconstruction that the
                material reaches are printed; then the side-info parser on
                frames that fire each of its bad-frame triggers, the SNS
-               quantizer on all-zero and silent-residual rows, the TNS filter
+               quantizer on all-zero and silent-residual rows (and, at 1,
+               33 and 2047 streams a launch, on codebook halves tied at
+               their minimum and rows whose distances and gain errors are
+               all infinite), the TNS filter
                analysis on silent, all-zero and order-8 spectra at 64 and 32
                kbps (where the LPC weighting decides), the concealment
                classifier on rows that take each of its branches, the MDCT
@@ -34,7 +37,8 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                160 (with the compensated order's rows on its fast and split
                steps printed; the extreme rows must take the split step),
                the pitch analysis, the LTPF coder, the noise factor and
-               residual coder (64 and 16 kbps) and the spectrum
+               residual coder (48 kHz at 64 and 16 kbps, 16 kHz at 32 and
+               16 kbps; also at 1, 33 and 2047 streams a launch) and the spectrum
                reconstruction on rows that take each of their branches, and
                the LTPF decoder on lanes of every case at 48 and 16 kHz
                (the smallest and largest pitch, pitch 0 with the filter
@@ -642,6 +646,16 @@ def synthetic_cases(cfg, dev, K, side, sns):
     print(f"[kernels] sns_vq_dec on {grid.shape[0]} grid indices and sns_vq_enc on an all-zero "
           f"row, silent-residual rows and the decoded rows equal their plain versions; "
           f"submodes found again {back}", flush=True)
+    # the warp design at 1, 33 and 2047 streams a launch: codebook halves tied
+    # at their minimum, rows whose every distance and gain error is infinite
+    ties = C.sns_tie_rows()
+    for n in (1, 33, 2047):
+        scf = g(ties[np.resize(np.arange(ties.shape[0]), n)])
+        got, ref = K.sns_vq_enc(scf), sns.sns_vq_enc_plain(scf)
+        torch.cuda.synchronize()
+        same_bits(got, ref, f"sns_vq_enc (tie rows, {n} streams)")
+    print(f"[kernels] sns_vq_enc on {ties.shape[0]} tie and silent rows at 1, 33 and 2047 "
+          f"streams a launch equals its plain version", flush=True)
 
 
 def tns_on_off(out):
@@ -977,15 +991,13 @@ def pitch_and_spectrum_cases(cfg, dev, K):
     import audio_codec_torch as P
     from audio_codec_torch.ops import analysis, quant
     g = lambda a, order: tuple(torch.from_numpy(np.ascontiguousarray(a[k])).to(dev) for k in order)
-    cfg16 = P.Config(fs_in=48000, bitrate=16000)
+    nre_cfgs = [P.Config(**c) for c in C.NRE_CONFIGS.values()]
     cases = [("olpa", cfg, C.olpa_rows(seed=2), C.OLPA_ORDER, analysis.olpa_plain),
-             ("ltpf_encode", cfg, C.ltpf_rows(seed=2), C.LTPF_ORDER, analysis.ltpf_encode_plain),
-             ("noise_residual_enc", cfg, C.nre_rows(cfg, seed=3), C.NRE_ORDER,
-              quant.noise_residual_enc_plain),
-             ("noise_residual_enc", cfg16, C.nre_rows(cfg16, seed=3), C.NRE_ORDER,
-              quant.noise_residual_enc_plain),
-             ("spec_decode", cfg, C.spec_rows(cfg, seed=4), C.SPEC_ORDER,
-              quant.spectrum_decode_plain)]
+             ("ltpf_encode", cfg, C.ltpf_rows(seed=2), C.LTPF_ORDER, analysis.ltpf_encode_plain)]
+    cases += [("noise_residual_enc", c, C.nre_rows(c, seed=3), C.NRE_ORDER,
+               quant.noise_residual_enc_plain) for c in nre_cfgs]
+    cases += [("spec_decode", cfg, C.spec_rows(cfg, seed=4), C.SPEC_ORDER,
+               quant.spectrum_decode_plain)]
     for name, c, a, order, plain in cases:
         args = (c, *g(a, order))
         got = getattr(K, name)(*args)
@@ -996,6 +1008,19 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         branches = branch_counts(name, args, got)
         print(f"[kernels] {what}: {branches}", flush=True)
         check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
+    # the residual coder's warp at 1, 33 and 2047 streams a launch, at 48 and 16 kHz
+    for c in nre_cfgs:
+        a = C.nre_rows(c, seed=6)
+        for n in (1, 33, 2047):
+            pick = np.resize(np.arange(a["dy"].shape[0]), n)
+            args = (c, *(torch.from_numpy(np.ascontiguousarray(a[k][pick])).to(dev)
+                         for k in C.NRE_ORDER))
+            got, ref = K.noise_residual_enc(*args), quant.noise_residual_enc_plain(*args)
+            torch.cuda.synchronize()
+            same_bits(got, [t.contiguous() for t in ref],
+                      f"noise_residual_enc ({c.fs // 1000} kHz, {c.bitrate // 1000} kbps, {n} streams)")
+    print(f"[kernels] noise_residual_enc on nre_rows at {len(nre_cfgs)} configurations, 1, 33 "
+          f"and 2047 streams a launch, equals its plain version", flush=True)
     # the LTPF decoder on lanes of every case, the smallest and largest pitch,
     # pitch 0 with the filter flags set (chunks of one sample) and, at 48 kHz,
     # a tap chain whose double sum falls on a float midpoint

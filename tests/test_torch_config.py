@@ -12,6 +12,8 @@ from audio_codec_torch import tables as PT
 from audio_codec_tpu import tables as JT
 from audio_codec_tpu.config import Config as JConfig
 
+from tests import torch_threads  # noqa: F401  (one torch thread a test process)
+
 GRID = [
     (fs, dms, br, hr)
     for fs, dms, br, hr in itertools.product(

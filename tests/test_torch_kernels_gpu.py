@@ -508,6 +508,22 @@ def test_sns_vq_enc_synthetic_rows(dev, seed):
     assert bool((seen > 0).all()), seen.tolist()
 
 
+def tiled(rows: np.ndarray, B: int) -> np.ndarray:
+    """rows cycled to B rows."""
+    return np.ascontiguousarray(rows[np.resize(np.arange(rows.shape[0]), B)])
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047, 2048])
+def test_sns_vq_enc_rows_at_every_size(recorded, dev, B):
+    """The warp design at 1, 33, 2047 and 2048 streams a launch: codebook
+    halves tied at their minimum, rows whose distances and gain errors are
+    all infinite, scf_rows and the main path's scale factors."""
+    main = torch.cat([a[0] for a, _ in recorded["sns_vq_enc"]]).cpu().numpy()
+    rows = np.concatenate([C.sns_tie_rows(), C.scf_rows(1, 400), main])
+    scf = torch.from_numpy(tiled(rows, B)).to(dev)
+    same_tensors(K.sns_vq_enc(scf), sns.sns_vq_enc_plain(scf))
+
+
 def test_launch_counts_move(dev):
     K.reset_launch_counts()
     B = 8
@@ -716,6 +732,26 @@ def test_noise_residual_enc_synthetic_rows(dev, bitrate):
     same_tensors(got, quant.noise_residual_enc_plain(*args))
     branches = C.nre_branches(a, [t.cpu().numpy() for t in got], cfg)
     assert all(v > 0 for v in branches.values()), branches
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047, 2048])
+@pytest.mark.parametrize("name", list(C.NRE_CONFIGS))
+def test_noise_residual_enc_rows_at_every_size(dev, name, B):
+    """nre_rows at 48 and 16 kHz (at 16 kbps the half means) at 1, 33, 2047
+    and 2048 streams a launch."""
+    cfg = P.Config(**C.NRE_CONFIGS[name])
+    a = C.nre_rows(cfg, seed=5)
+    args = (cfg, *(torch.from_numpy(tiled(a[k], B)).to(dev) for k in C.NRE_ORDER))
+    same_tensors(K.noise_residual_enc(*args), quant.noise_residual_enc_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047, 2048])
+def test_noise_residual_enc_main_path_rows_at_every_size(recorded, dev, B):
+    launches = recorded["noise_residual_enc"]
+    cfg = launches[0][0][0]
+    rows = [torch.cat([a[i] for a, _ in launches]).cpu().numpy() for i in range(1, 8)]
+    args = (cfg, *(torch.from_numpy(tiled(r, B)).to(dev) for r in rows))
+    same_tensors(K.noise_residual_enc(*args), quant.noise_residual_enc_plain(*args))
 
 
 def spec_case_args(dev, seed: int = 4):

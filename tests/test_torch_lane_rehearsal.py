@@ -10,8 +10,10 @@ csrc/dct4.cuh, the concealment's csrc/plc*.cuh and phecu.cuh, the
 fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
 plain C++ as
 well as for the card (the warp kernels of olpa and ltpf_encode share their
-steps with a lane function that runs them in order; the TNS filter analysis
-is a template over the warp, here the host warp of csrc/warp.cuh). Here g++ builds them (with
+steps with a lane function that runs them in order; the TNS filter analysis,
+the SNS quantizer's encoder (csrc/sns_vq_enc.cuh) and the noise factor and
+residual coder are templates over the warp, here the host warp of
+csrc/warp.cuh). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
 the kernels round them) into a shared library in a temporary directory,
 called through ctypes. The plain versions run with `numerics.on_cpu` patched
@@ -40,9 +42,63 @@ from tests import torch_kernel_cases as C
 
 CSRC = Path(K.__file__).resolve().parent / "csrc"
 
+# the SNS quantizer's encoder warp on the host warp (inside extern "C"), and
+# the noise factor and residual coder's (at file scope); shared with
+# tests/test_torch_sns_nf_rehearsal.py
+SNS_ENC_REHEARSE = r"""
+// the encoder's warp design (sns_vq_enc.cuh) on the host warp, a stream at
+// a time, its scratch filled with a byte pattern before each stream
+static SnsEncTables enc_tables(const int* tables, float* d2t) {
+  const SnsTables st = sns_tables(tables);
+  for (int i = 0; i < kSnsM * kSnsM; ++i) d2t[i] = st.f[kOffD2 + (i % kSnsM) * kSnsM + i / kSnsM];
+  return {st.f, st.A, d2t};
+}
+void rehearse_sns_enc(const float* scf, const int* tables, int* idx, float* q, int B) {
+  float d2t[kSnsM * kSnsM];
+  const SnsEncTables t = enc_tables(tables, d2t);
+  SnsEncScratch S;
+  for (int b = 0; b < B; ++b) {
+    std::memset(&S, 0x5A, sizeof S);
+    sns_vq_enc_warp(CoderHostWarp{}, scf + 16 * b, t, S, idx + 7 * b, q + 16 * b);
+  }
+}
+"""
+NRE_REHEARSE = r"""
+// the noise factor and residual coder's warp (noise_residual_enc.cuh) on the
+// host warp, NC = ceil(N / 32), its shared values filled with a byte pattern
+// before each stream
+template <int NC>
+static void nre_rows(const float* x, const int* xq, const float* gain, const int* bw,
+                     const int* target, const int* nbits2, const int* lsb, int B,
+                     const NfEncGeom& g, int* fac, int* res, int* n_res) {
+  alignas(16) float vz[kNfScratch];
+  for (int b = 0; b < B; ++b) {
+    std::memset(vz, 0x5A, sizeof vz);   // what the warp before left
+    noise_residual_enc_warp<NC>(CoderHostWarp{}, x + g.N * b, xq + g.N * b, gain[b], bw[b],
+                                target[b], nbits2[b], lsb[b], g, vz, fac + b,
+                                res + g.max_res * b, n_res + b);
+  }
+}
+
+extern "C" void rehearse_nre(const float* x, const int* xq, const float* gain, const int* bw,
+                  const int* target, const int* nbits2, const int* lsb, int B, int N, int width,
+                  int start, int half, int max_res, int* fac, int* res, int* n_res) {
+  const NfEncGeom g = {N, width, start, half, max_res};
+  switch ((N + 31) / 32) {
+#define NRE_CASE(c) \
+  case c: nre_rows<c>(x, xq, gain, bw, target, nbits2, lsb, B, g, fac, res, n_res); break;
+    NRE_CASE(1) NRE_CASE(2) NRE_CASE(3) NRE_CASE(4) NRE_CASE(5) NRE_CASE(6) NRE_CASE(7)
+    NRE_CASE(8) NRE_CASE(9) NRE_CASE(10) NRE_CASE(11) NRE_CASE(12)
+#undef NRE_CASE
+    default: nre_rows<13>(x, xq, gain, bw, target, nbits2, lsb, B, g, fac, res, n_res);
+  }
+}
+"""
+
 WRAPPER = r"""
 #include "side_info.cuh"
-#include "sns_vq.cuh"
+#include "sns_vq_enc.cuh"
+#include <cstring>
 using namespace acx;
 
 static SideLayout layout(const int* L) { return {L[0], L[1], L[2], L[3], L[4], L[5], L[6]}; }
@@ -77,25 +133,22 @@ void rehearse_parse(const int* buf, const int* L, int* out, int B) {
     for (int k = 0; k < 3; ++k) o[18 + k] = s.ltpf[k];
   }
 }
-void rehearse_sns_enc(const float* scf, const int* tables, int* idx, float* q, int B) {
-  for (int b = 0; b < B; ++b) sns_vq_enc_lane(scf + 16 * b, sns_tables(tables), idx + 7 * b, q + 16 * b);
-}
+""" + SNS_ENC_REHEARSE + r"""
 void rehearse_sns_dec(const int* idx, const int* tables, float* q, int B) {
   for (int b = 0; b < B; ++b) sns_vq_dec_lane(idx + 7 * b, sns_tables(tables), q + 16 * b);
 }
-// shape 0..3: the four searches of the encoder (lanes, pulses)
+// shape 0..3: the four searches of the encoder (lanes, pulses), each a group
+// of the warp's search; every group gets the same target
 void rehearse_pvq_search(const float* x, int shape, int* ys, float* en, int B) {
+  SnsEncScratch S;
   for (int b = 0; b < B; ++b) {
-    float xv[16], e[16];
-    int y[16];
-    for (int i = 0; i < 16; ++i) xv[i] = x[16 * b + i];
-    if (shape == 0) pvq_search<10, 10>(xv, y, e);
-    if (shape == 1) pvq_search<6, 1>(xv, y, e);
-    if (shape == 2) pvq_search<16, 8>(xv, y, e);
-    if (shape == 3) pvq_search<16, 6>(xv, y, e);
+    std::memset(&S, 0x5A, sizeof S);
+    for (int g = 0; g < kPvqGroups; ++g)
+      for (int i = 0; i < 16; ++i) S.x[g][i] = x[16 * b + i];
+    sns_pvq_search_warp(CoderHostWarp{}, S);
     for (int i = 0; i < 16; ++i) {
-      ys[16 * b + i] = y[i];
-      en[16 * b + i] = e[i];
+      ys[16 * b + i] = S.ys[shape][i];
+      en[16 * b + i] = S.en[shape][i];
     }
   }
 }
@@ -871,8 +924,9 @@ WRAPPER_PITCH = r"""
 #include "ltpf_encode.cuh"
 #include "noise_residual_enc.cuh"
 #include "spec_decode.cuh"
+#include <cstring>
 using namespace acx;
-
+""" + NRE_REHEARSE + r"""
 extern "C" {
 void rehearse_olpa(const float* s, const float* m12, const float* m64, const int* mp,
                    const float* tab, int B, int s_stride, int length, int len2, int mem_in_len,
@@ -901,15 +955,6 @@ void rehearse_ltpf(const float* s, const int* pol, const float* ncol, const floa
     on_out[b] = o.on;
     pitch[b] = o.pitch;
   }
-}
-void rehearse_nre(const float* x, const int* xq, const float* gain, const int* bw,
-                  const int* target, const int* nbits2, const int* lsb, int B, int N, int width,
-                  int start, int half, int max_res, int* fac, int* res, int* n_res) {
-  const NfEncGeom g = {N, width, start, half, max_res};
-  float v[kNfMaxLines];
-  for (int b = 0; b < B; ++b)
-    noise_residual_enc_lane(x + N * b, xq + N * b, gain[b], bw[b], target[b], nbits2[b], lsb[b],
-                            g, v, fac + b, res + max_res * b, n_res + b);
 }
 // ints [11][B]: bfi rframe inv bw_idx fac_ns res_present n_res seed zero prev_bw nb_lost;
 // floats [3][B]: gain prev_gg prev_fac_ns (the layout of spec_decode.cu)
@@ -956,8 +1001,8 @@ MUTATIONS_PITCH = {
     "take2_factor": ("olpa.cuh", "rmul(nc1, 0.85f)", "rmul(nc1, 0.8f)"),
     "ltpf_corr_fma": ("ltpf_encode.cuh", "acc = radd(acc, rmul(a[j], b[j]));",
                       "acc = fmaf(a[j], b[j], acc);"),
-    "zero_line_window": ("noise_residual_enc.cuh", "imin(k + g.width, bw - 1)",
-                         "imin(k + g.width - 1, bw - 1)"),
+    "zero_line_window": ("noise_residual_enc.cuh", "(uint64_t{2} << width) - 1u",
+                         "(uint64_t{1} << width) - 1u"),
     "lcg_skipped_step": ("spec_decode.cuh", "const int steps = iclamp(r + 1, 0, N);",
                          "const int steps = iclamp(r, 0, N);"),
 }
@@ -1040,8 +1085,8 @@ def lane_nre(lib, cfg, a: dict):
     max_res, width, start = K._spectral_geometry(cfg, "noise_residual_enc")
     args = [_c(a[k], np.float32 if k in ("dy", "gain") else np.int32) for k in C.NRE_ORDER]
     B, N = args[0].shape
-    fac, n_res = np.zeros(B, np.int32), np.zeros(B, np.int32)
-    res = np.zeros((B, max_res), np.int32)
+    fac, n_res = np.full(B, -7, np.int32), np.full(B, -7, np.int32)
+    res = np.full((B, max_res), -7, np.int32)   # a value no path writes
     lib.rehearse_nre(*(ptr(v) for v in args), B, N, width, start,
                      int(cfg.frame_dms == 100 and cfg.targetBytes <= 20), max_res, ptr(fac),
                      ptr(res), ptr(n_res))

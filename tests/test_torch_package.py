@@ -14,6 +14,8 @@ import torch
 import audio_codec_torch as P
 from audio_codec_torch.ops import analysis, ari, bits, quant, tns
 
+from tests import torch_threads  # noqa: F401  (one torch thread a test process)
+
 PKG = Path(P.__file__).resolve().parent
 
 

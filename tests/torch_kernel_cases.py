@@ -15,6 +15,8 @@ import numpy as np
 
 from audio_codec_torch import tables as T
 
+from tests import torch_threads  # noqa: F401  (one torch thread a test process)
+
 # with and without the bandwidth field, and a 2.5 ms frame (always one TNS filter)
 CONFIGS = {"48k": dict(fs_in=48000, bitrate=64000), "8k": dict(fs_in=8000, bitrate=32000),
            "48k_2.5ms": dict(fs_in=48000, bitrate=64000, frame_dms=25)}
@@ -70,6 +72,47 @@ def scf_rows(seed: int = 0, n: int = 40) -> np.ndarray:
     rows += [sns.sns_vq_dec_plain(torch.from_numpy(scf_idx_grid(s, 4, seed + 20))).numpy()
              for s in range(4)]
     return np.concatenate(rows).astype(np.float32)
+
+
+def codebook_distances(t: np.ndarray, cb: np.ndarray) -> np.ndarray:
+    """The SNS quantizer's stage-1 distances of rows t [n, 8] to the
+    entries of cb [8, 32] in float32, summed left to right as
+    ops/sns.py:sns_vq_enc_plain sums them on the card: [n, 32]."""
+    d = np.square(t[:, :1] - cb[0][None, :])
+    for k in range(1, 8):
+        d = d + np.square(t[:, k: k + 1] - cb[k][None, :])
+    return d
+
+
+def tied_halves(cb: np.ndarray) -> np.ndarray:
+    """Midpoints of pairs of codebook entries whose two distances tie at the
+    minimum in float32 (the plain version takes the lower entry)."""
+    a, b = np.triu_indices(cb.shape[1], 1)
+    mid = ((cb[:, a] + cb[:, b]) * np.float32(0.5)).T.astype(np.float32)
+    d = codebook_distances(mid, cb)
+    m = d.min(-1, keepdims=True)
+    return mid[(d == m).sum(-1) >= 2]
+
+
+@functools.cache
+def sns_tie_rows() -> np.ndarray:
+    """[n, 16] scale factors: halves tied between two codebook entries,
+    rows of values near 1e20 (every distance and gain error overflows to
+    infinity, so every argmin is a tie), and scf_rows (silent targets, an
+    all-zero row, every submode)."""
+    C1, C2 = T.t("sns_C1").astype(np.float32), T.t("sns_C2").astype(np.float32)
+    h1, h2 = tied_halves(C1), tied_halves(C2)
+    assert len(h1) >= 4 and len(h2) >= 4, (len(h1), len(h2))
+    rng = np.random.default_rng(3)
+    n = 24
+    lo = h1[rng.integers(0, len(h1), n)]
+    hi = h2[rng.integers(0, len(h2), n)]
+    mixed = np.concatenate([np.concatenate([lo, hi], 1),
+                            np.concatenate([lo, rng.standard_normal((n, 8)) * 2.0], 1),
+                            np.concatenate([rng.standard_normal((n, 8)) * 2.0, hi], 1)])
+    huge = np.stack([np.full(16, 1e20), np.tile([3e19, -3e19], 8),
+                     np.linspace(4e19, 2e20, 16) * (-1.0) ** np.arange(16), -np.full(16, 5e19)])
+    return np.concatenate([mixed, huge, scf_rows(5, 40)]).astype(np.float32)
 
 
 def side_fields(cfg, n: int = 48, seed: int = 0) -> dict[str, np.ndarray]:
@@ -851,6 +894,11 @@ def ltpf_branches(args: dict, out, frame_dms: int = 100) -> dict[str, int]:
 
 
 NRE_ORDER = ("dy", "xq", "gain", "bw_bin", "target", "nbits2", "lsb_mode")
+# the residual coder's rows at 48 and 16 kHz, at 20 bytes with the half means
+NRE_CONFIGS = {"48k_64k": dict(fs_in=48000, bitrate=64000),
+               "48k_16k": dict(fs_in=48000, bitrate=16000),
+               "16k_32k": dict(fs_in=16000, bitrate=32000),
+               "16k_16k": dict(fs_in=16000, bitrate=16000)}
 
 
 def nre_rows(cfg, seed: int = 0, n: int = 64) -> dict[str, np.ndarray]:

@@ -24,6 +24,8 @@ from audio_codec_tpu.config import Config as JConfig
 from audio_codec_tpu.models import encoder as JE
 from audio_codec_tpu.models import state as JS
 
+from tests import torch_threads  # noqa: F401  (one torch thread a test process)
+
 ROOT = Path(__file__).resolve().parent.parent
 FLAGSHIP = dict(fs_in=48000, bitrate=64000)
 JCFG = JConfig(**FLAGSHIP)
