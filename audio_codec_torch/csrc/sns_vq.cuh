@@ -1,8 +1,10 @@
 // The SNS vector quantizer's tables and its decoder, one stream per call:
 // MPVQ indexing and de-indexing and the decoder's 16-point DCT-II
-// (sns_quantize_scf.c). sns_vq_dec.cu launches sns_vq_dec_lane one thread
-// per stream; the encoder's warp (sns_vq_enc.cuh) indexes its shape with
-// mpvq_enc.
+// (sns_quantize_scf.c). sns_vq_dec.cu runs sns_vq_dec_warp a warp a stream;
+// it is a template over the warp (warp.cuh), so g++ compiles it for the CPU
+// rehearsals (tests/test_torch_dec_rehearsal.py,
+// tests/test_torch_lane_rehearsal.py). The encoder's warp (sns_vq_enc.cuh)
+// indexes its shape with mpvq_enc.
 //
 // Every float result must equal the plain versions' (ops/sns.py) on the card
 // bit for bit: a last-place difference flips an argmin or a pulse. So every
@@ -15,6 +17,7 @@
 #pragma once
 
 #include "acodec.cuh"
+#include "warp.cuh"
 
 namespace acx {
 
@@ -46,19 +49,6 @@ ACX_HD SnsTables sns_tables(const int32_t* words) {
 
 ACX_HD float sq(float v) { return rmul(v, v); }
 
-// out[n] = sum_k in[k] * D2[k][n] in the decoder's order (numerics.xla_dot,
-// the reference's): four fused multiply-add chains from zero, term k in chain
-// k % 4, combined (c0 + c1) + (c2 + c3).
-ACX_HD void sns_dct_chains4(const float (&in)[kSnsM], const float* D2, float (&out)[kSnsM]) {
-#pragma unroll
-  for (int n = 0; n < kSnsM; ++n) {
-    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < kSnsM; ++k) c[k % 4] = xfma(in[k], D2[k * kSnsM + n], c[k % 4]);
-    out[n] = radd(radd(c[0], c[1]), radd(c[2], c[3]));
-  }
-}
-
 // MPVQ index of the LEN pulses p[OFF .. OFF+LEN) (pvq_enc): the leading
 // sign (0 plus, 1 minus, -1 where there is no pulse) and the index.
 template <int LEN, int OFF>
@@ -76,66 +66,126 @@ ACX_HD void mpvq_enc(const int (&p)[kSnsM], const int32_t* A, int* ls_out, int* 
   *mpvq_out = mpvq;
 }
 
-// MPVQ de-indexing (pvq_dec, sns_quantize_scf.c:520-560): K pulses over the
-// LEN lanes p[OFF .. OFF+LEN), from the leading sign and the index.
-template <int K, int LEN, int OFF>
-ACX_HD void mpvq_dec(int ls_ind, int mpvq, const int32_t* A, int (&p)[kSnsM]) {
+// The A columns lane j reads: A[r][j] for the 16 rows (lanes from 11 on read
+// column 10, which no compare of theirs uses).
+struct MpvqColumn {
+  int32_t a[kSnsM];
+};
+
+// MPVQ de-indexing (pvq_dec, sns_quantize_scf.c:520-560) on a warp: K pulses
+// over the LEN positions OFF .. OFF+LEN, from the leading sign and the index,
+// into p (position i on lane i). One uniform chain: at each position lanes
+// j <= K compare the index with A[LEN - pos - 1][j], a ballot and its
+// popcount give the count of offsets at or below it, and the chosen offset
+// comes from its lane by a shuffle; the integers are the lane function's.
+template <int K, int LEN, int OFF, class W>
+ACX_HD void mpvq_dec_warp(const W& w, int ls_ind, int mpvq,
+                          const typename W::template Lanes<MpvqColumn>& col,
+                          typename W::template Lanes<int>& p) {
+  using IL = typename W::template Lanes<int>;
   int leading_sign = 1 - 2 * ls_ind;
   int kk = K;
   bool done = false;
 #pragma unroll
   for (int pos = 0; pos < LEN; ++pos) {
-    const int32_t* row = A + (LEN - pos - 1) * kMpvqCols;
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j <= K; ++j) cnt += mpvq >= row[j] ? 1 : 0;
+    IL a, ge;
+    w.lanes([&](int ln) {
+      a[ln] = col[ln].a[LEN - pos - 1];
+      ge[ln] = ln <= K && mpvq >= a[ln] ? 1 : 0;
+    });
+    const int cnt = popc32(w.ballot(ge));
     const int idx = imin(imax(cnt - 1, 0), kk);
+    int put = 0;
+    bool set = false;
     if (mpvq == 0 && !done) {
-      p[OFF + pos] = leading_sign * kk;
-      done = true;
+      put = leading_sign * kk;
+      set = done = true;
+    } else if (!done) {
+      int next = mpvq - w.shfl(a, iclamp(idx, 0, K));
+      const int k_delta = kk - idx;
+      if (k_delta != 0) {
+        put = leading_sign * k_delta;
+        set = true;
+        leading_sign = (next & 1) != 0 ? -1 : 1;
+        next >>= 1;  // floor division by 2
+        kk -= k_delta;
+      }
+      mpvq = next;
     }
-    if (done) continue;
-    int next = mpvq - row[iclamp(idx, 0, K)];
-    const int k_delta = kk - idx;
-    if (k_delta != 0) {
-      p[OFF + pos] = leading_sign * k_delta;
-      leading_sign = (next & 1) != 0 ? -1 : 1;
-      next >>= 1;  // floor division by 2
-      kk -= k_delta;
-    }
-    mpvq = next;
+    if (set) w.lanes([&](int ln) { p[ln] = ln == OFF + pos ? put : p[ln]; });
   }
 }
 
-// process_snsQuantizesScf_Dec: the seven indices -> 16 quantized scale factors.
-ACX_HD void sns_vq_dec_lane(const int* idx, const SnsTables& t, float* scf_q) {
-  int p[kSnsM];
+// process_snsQuantizesScf_Dec on a warp, one stream: its seven indices idx ->
+// its 16 quantized scale factors scf_q, lane n output n (lanes from 16 on
+// compute output n - 16 again and store nothing). words: the tables
+// (kernels.py:_sns_tables).
+//  1. the pulses of the submode's shape (mpvq_dec_warp), position i on lane i;
+//  2. their energy: the plain version's float chain of the squares, left to
+//     right. The squares are integers and their sum is at most 121 (a shape
+//     has at most 10 + 1 pulses), so every partial sum is exact and the
+//     integer sum converted once is the same float;
+//  3. lane k divides its pulse by the root of the energy (IEEE);
+//  4. the DCT-II in the decoder's order (numerics.xla_dot, the reference's):
+//     lane n runs output n's four fused multiply-add chains from zero, term k
+//     (v[k] shuffled from lane k) in chain k % 4, combined (c0 + c1) +
+//     (c2 + c3);
+//  5. the submode's gain over it and the stage-1 vector, one xfma a lane.
+template <class W>
+ACX_HD void sns_vq_dec_warp(const W& w, const int32_t* idx_in, const int32_t* words,
+                            float* scf_q) {
+  using IL = typename W::template Lanes<int>;
+  using FL = typename W::template Lanes<float>;
+  struct Lane {
+    float d2[kSnsM];   // D2[k][n], n = lane % 16
+    float c[4];        // the DCT-II's chains
+  };
+  const SnsTables t = sns_tables(words);
+  typename W::template Lanes<MpvqColumn> col;
+  typename W::template Lanes<Lane> ln_;
+  int idx[7];
 #pragma unroll
-  for (int i = 0; i < kSnsM; ++i) p[i] = 0;
+  for (int k = 0; k < 7; ++k) idx[k] = idx_in[k];
+  w.lanes([&](int ln) {
+#pragma unroll
+    for (int r = 0; r < kSnsM; ++r) col[ln].a[r] = t.A[r * kMpvqCols + imin(ln, kMpvqCols - 1)];
+#pragma unroll
+    for (int k = 0; k < kSnsM; ++k) ln_[ln].d2[k] = t.f[kOffD2 + k * kSnsM + ln % kSnsM];
+  });
+  IL p;
+  w.lanes([&](int ln) { p[ln] = 0; });
   const int sub = idx[2];
   if (sub < 2) {
-    mpvq_dec<10, 10, 0>(idx[4], idx[5], t.A, p);
-    if (sub == 0) mpvq_dec<1, 6, 10>(idx[6] & 1, idx[6] >> 1, t.A, p);
+    mpvq_dec_warp<10, 10, 0>(w, idx[4], idx[5], col, p);
+    if (sub == 0) mpvq_dec_warp<1, 6, 10>(w, idx[6] & 1, idx[6] >> 1, col, p);
   } else if (sub == 2) {
-    mpvq_dec<8, 16, 0>(idx[4], idx[5], t.A, p);
+    mpvq_dec_warp<8, 16, 0>(w, idx[4], idx[5], col, p);
   } else {
-    mpvq_dec<6, 16, 0>(idx[4], idx[5], t.A, p);
+    mpvq_dec_warp<6, 16, 0>(w, idx[4], idx[5], col, p);
   }
-  float en = static_cast<float>(p[0] * p[0]);
+  typename W::template Lanes<unsigned> sq;
+  w.lanes([&](int ln) { sq[ln] = static_cast<unsigned>(p[ln] * p[ln]); });
+  const float norm = rroot(static_cast<float>(w.reduce_add(sq)));
+  FL v;
+  w.lanes([&](int ln) {
+    v[ln] = rdiv(static_cast<float>(p[ln]), norm);
 #pragma unroll
-  for (int i = 1; i < kSnsM; ++i) en = radd(en, static_cast<float>(p[i] * p[i]));
-  const float norm = rroot(en);
-  float v[kSnsM], w[kSnsM];
+    for (int j = 0; j < 4; ++j) ln_[ln].c[j] = 0.0f;
+  });
 #pragma unroll
-  for (int i = 0; i < kSnsM; ++i) v[i] = rdiv(static_cast<float>(p[i]), norm);
-  sns_dct_chains4(v, t.f + kOffD2, w);
+  for (int k = 0; k < kSnsM; ++k) {
+    const float vk = w.shfl(v, k);
+    w.lanes([&](int ln) { ln_[ln].c[k % 4] = xfma(vk, ln_[ln].d2[k], ln_[ln].c[k % 4]); });
+  }
   const float g = t.f[kOffDecG + iclamp(sub, 0, 3) * 8 + iclamp(idx[3], 0, 7)];
   const int i0 = iclamp(idx[0], 0, kSnsCb - 1), i1 = iclamp(idx[1], 0, kSnsCb - 1);
-#pragma unroll
-  for (int i = 0; i < kSnsM; ++i) {
-    const float st1 = i < 8 ? t.f[kOffC1 + i * kSnsCb + i0] : t.f[kOffC2 + (i - 8) * kSnsCb + i1];
-    scf_q[i] = xfma(g, w[i], st1);
-  }
+  w.lanes([&](int ln) {
+    const int n = ln % kSnsM;
+    const float st1 = n < 8 ? t.f[kOffC1 + n * kSnsCb + i0] : t.f[kOffC2 + (n - 8) * kSnsCb + i1];
+    const float* c = ln_[ln].c;
+    const float wn = radd(radd(c[0], c[1]), radd(c[2], c[3]));
+    if (ln < kSnsM) scf_q[n] = xfma(g, wn, st1);
+  });
 }
 
 }  // namespace acx

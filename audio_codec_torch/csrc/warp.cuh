@@ -1,7 +1,7 @@
 // The two warps that run the steps of the warp-a-stream kernels written as
 // templates over the warp (bit_estimate.cuh, ari_encode.cuh,
 // tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh, sns_vq_enc.cuh,
-// noise_residual_enc.cuh).
+// noise_residual_enc.cuh, spec_decode.cuh, sns_vq.cuh's decoder).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
 // collectives __shfl_up_sync, __shfl_sync, __shfl_xor_sync, __ballot_sync and the warp
@@ -10,7 +10,8 @@
 // lanes before it writes any; with it g++ compiles the steps for the CPU
 // rehearsals (tests/test_torch_coder_rehearsal.py,
 // tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py,
-// tests/test_torch_decode_rehearsal.py, tests/test_torch_sns_nf_rehearsal.py).
+// tests/test_torch_decode_rehearsal.py, tests/test_torch_sns_nf_rehearsal.py,
+// tests/test_torch_dec_rehearsal.py).
 #pragma once
 
 #include "acodec.cuh"
@@ -45,6 +46,13 @@ struct CoderHostWarp {
   template <class T>
   T shfl(const Lanes<T>& x, int src) const {
     return x[src];
+  }
+  // lane l gets x[src[l]]
+  template <class T>
+  Lanes<T> shfl_from(const Lanes<T>& x, const Lanes<int>& src) const {
+    Lanes<T> y;
+    for (int l = 0; l < kCoderLanes; ++l) y[l] = x[src[l] & (kCoderLanes - 1)];
+    return y;
   }
   // lane l gets x[l ^ m]
   template <class T>
@@ -116,6 +124,14 @@ struct CoderCardWarp {
     return __shfl_sync(0xFFFFFFFFu, x.v, src);
 #else
     return x.v;
+#endif
+  }
+  template <class T>
+  __host__ __device__ Lanes<T> shfl_from(const Lanes<T>& x, const Lanes<int>& src) const {
+#ifdef __CUDA_ARCH__
+    return {__shfl_sync(0xFFFFFFFFu, x.v, src.v)};
+#else
+    return x;
 #endif
   }
   template <class T>

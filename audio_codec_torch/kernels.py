@@ -798,14 +798,6 @@ def _bw_bins(device: str, frame_dms: int) -> torch.Tensor:
     return torch.as_tensor(T.bw_cutoff_bins(frame_dms).astype(np.int32), device=device)
 
 
-@functools.cache
-def _lcg_table(device: str, N: int) -> torch.Tensor:
-    """The noise-filling generator's closed form, mult [N + 1] ++ add [N + 1]
-    (ops/quant.py:lcg_tables), as int32 on `device` (csrc/spec_decode.cuh)."""
-    from .ops.quant import lcg_tables
-    return torch.as_tensor(np.concatenate(lcg_tables(N + 1)).astype(np.int32), device=device)
-
-
 def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, residual_present,
                 res_bits, n_res, nf_seed, zero_frame, q_old_res, q_old_d, prev_gg, prev_bw_idx,
                 prev_fac_ns, nb_lost):
@@ -836,7 +828,7 @@ def spec_decode(cfg, x, gain, bfi, rframe, spec_inv_idx, bw_idx, fac_ns_idx, res
     _run("spec_decode", library().acx_spec_decode(
         x.data_ptr(), ints.data_ptr(), floats.data_ptr(), res_bits.data_ptr(),
         q_old_res.data_ptr(), q_old_d.data_ptr(), _bw_bins(str(dev), cfg.frame_dms).data_ptr(),
-        _lcg_table(str(dev), N).data_ptr(), x_out.data_ptr(), q_out.data_ptr(),
+        None, x_out.data_ptr(), q_out.data_ptr(),
         prev_gg_out.data_ptr(), bw_out.data_ptr(),
         fac_out.data_ptr(), nb_out.data_ptr(), B, N, width, start, res_width, _stream()))
     return x_out, q_out, prev_gg_out, bw_out, fac_out, nb_out

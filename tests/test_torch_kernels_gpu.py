@@ -22,7 +22,10 @@ zeros, subnormal-scale rows and rows near 1e37 for the MDCT (in both of its
 orders) and the IMDCT at N = 480 and 160, pitch-analysis rows at the lag limits with the
 windowed search taken and not, LTPF rows with each activation rule firing
 alone, residual-coder rows with no zero line and a cut n_res at 64 and
-16 kbps, spectrum rows in every branch of the partial concealment, and
+16 kbps, spectrum rows in every branch of the partial concealment and
+spec_edge_rows (lines at the bandwidth and the windows' and chunks' edges,
+lines a nudge makes zero) at 48 and 16 kHz, and SNS indices of every submode
+and damaged ones, at 1, 33 and 2048 streams a launch, and
 both TNS lattices on tns_lattice_rows (also one stream a launch) and, on
 every launch and those rows, against their plain versions run on the CPU,
 and both range coders on coder_rows at 64 and 160 kbps and in the
@@ -497,6 +500,19 @@ def test_sns_vq_dec_damaged_indices(dev):
     same_tensors([K.sns_vq_dec(idx)], [sns.sns_vq_dec_plain(idx)])
 
 
+@pytest.mark.parametrize("B", [1, 33, 2048])
+def test_sns_vq_dec_rows_at_every_size(dev, B):
+    """The warp design at 1, 33 and 2048 streams a launch: scf_idx_grid of
+    every submode and damaged indices."""
+    rng = np.random.default_rng(10)
+    bad = np.concatenate([C.scf_idx_grid(s, 64, seed=11) for s in range(4)])
+    bad[:, 5] = rng.integers(0, 1 << 25, bad.shape[0])
+    bad[:, 6] = rng.integers(-2, 12, bad.shape[0])
+    rows = np.concatenate([C.scf_idx_grid(s, 64, seed=12) for s in range(4)] + [bad])
+    idx = torch.from_numpy(tiled(rows, B)).to(dev)
+    same_tensors([K.sns_vq_dec(idx)], [sns.sns_vq_dec_plain(idx)])
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_sns_vq_enc_synthetic_rows(dev, seed):
     """Seeded rows, an all-zero row, rows with a silent residual (the
@@ -766,6 +782,25 @@ def test_spec_decode_synthetic_rows(dev):
     same_tensors(K.spec_decode(*args), [t.contiguous() for t in quant.spectrum_decode_plain(*args)])
     branches = C.spec_branches(a, CFG)
     assert all(v > 0 for v in branches.values()), branches
+
+
+SPEC_RATES = {"48k": CFG, "16k": P.Config(fs_in=16000, bitrate=32000)}
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("rows", ["spec_rows", "spec_edge_rows", "spec_edge_rows_42_bits"])
+@pytest.mark.parametrize("rate", list(SPEC_RATES))
+def test_spec_decode_rows_at_every_size(dev, rate, rows, B):
+    """The warp design at 1, 33 and 2048 streams a launch at 48 and 16 kHz:
+    spec_rows, and spec_edge_rows (nonzero lines at the bandwidth and the
+    windows' and chunks' edges, n_res 0, the full count and above, lines a
+    nudge makes zero, synthesised lines at the 0.625 threshold), also with
+    42 residual bits a frame."""
+    cfg = SPEC_RATES[rate]
+    a = (C.spec_rows(cfg, seed=7) if rows == "spec_rows"
+         else C.spec_edge_rows(cfg, seed=8, res_width=42 if rows.endswith("42_bits") else None))
+    args = (cfg, *(torch.from_numpy(tiled(a[k], B)).to(dev) for k in C.SPEC_ORDER))
+    same_tensors(K.spec_decode(*args), [t.contiguous() for t in quant.spectrum_decode_plain(*args)])
 
 
 def test_spec_decode_does_not_synchronise(dev):

@@ -11,9 +11,10 @@ fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
 plain C++ as
 well as for the card (the warp kernels of olpa and ltpf_encode share their
 steps with a lane function that runs them in order; the TNS filter analysis,
-the SNS quantizer's encoder (csrc/sns_vq_enc.cuh) and the noise factor and
-residual coder are templates over the warp, here the host warp of
-csrc/warp.cuh). Here g++ builds them (with
+the SNS quantizer's encoder (csrc/sns_vq_enc.cuh) and decoder
+(csrc/sns_vq.cuh), the noise factor and residual coder and the decoder's
+spectrum reconstruction (csrc/spec_decode.cuh) are templates over the warp,
+here the host warp of csrc/warp.cuh). Here g++ builds them (with
 -ffp-contract=off, so that every product and sum is rounded on its own, as
 the kernels round them) into a shared library in a temporary directory,
 called through ctypes. The plain versions run with `numerics.on_cpu` patched
@@ -95,6 +96,72 @@ extern "C" void rehearse_nre(const float* x, const int* xq, const float* gain, c
 }
 """
 
+# the decoder's two warps on the host warp, a stream at a time, their
+# outputs filled with a byte pattern before each stream (at file scope);
+# shared with tests/test_torch_dec_rehearsal.py
+SNS_DEC_REHEARSE = r"""
+extern "C" void rehearse_sns_dec(const int* idx, const int* tables, float* q, int B) {
+  std::memset(q, 0x5A, sizeof(float) * 16 * B);
+  for (int b = 0; b < B; ++b) sns_vq_dec_warp(CoderHostWarp{}, idx + 7 * b, tables, q + 16 * b);
+}
+"""
+SPEC_DEC_REHEARSE = r"""
+// ints [11][B]: bfi rframe inv bw_idx fac_ns res_present n_res seed zero prev_bw nb_lost;
+// floats [3][B]: gain prev_gg prev_fac_ns (the layout of spec_decode.cu)
+template <int NC>
+static void spec_rows(const float* x, const int* ints, const float* floats, const int* res_bits,
+                      const float* qr, const float* qd, const int* bins, int B,
+                      const SpecGeom& g, float* x_out, float* q_out, float* pgg, int* pbw,
+                      float* pfac, int* nbl) {
+  const int N = g.N;
+  std::memset(x_out, 0x5A, sizeof(float) * N * B);   // a value no path writes
+  std::memset(q_out, 0x5A, sizeof(float) * N * B);
+  for (int b = 0; b < B; ++b) {
+    const int* in = ints + b;
+    SpecScalars s;
+    s.gain = floats[b];
+    s.bfi = in[0];
+    s.rframe = in[B];
+    s.spec_inv_idx = in[2 * B];
+    s.bw_idx = in[3 * B];
+    s.fac_ns_idx = in[4 * B];
+    s.residual_present = in[5 * B];
+    s.n_res = in[6 * B];
+    s.nf_seed = in[7 * B];
+    s.zero_frame = in[8 * B];
+    s.prev_bw_idx = in[9 * B];
+    s.nb_lost = in[10 * B];
+    s.prev_gg = floats[B + b];
+    s.prev_fac_ns = floats[2 * B + b];
+    const SpecHistory h = spec_decode_warp<NC>(CoderHostWarp{}, x + N * b, qr + N * b,
+                                               qd + N * b, res_bits + g.res_width * b, s, bins,
+                                               g, x_out + N * b, q_out + N * b);
+    pgg[b] = h.prev_gg;
+    pbw[b] = h.prev_bw_idx;
+    pfac[b] = h.prev_fac_ns;
+    nbl[b] = h.nb_lost;
+  }
+}
+
+extern "C" void rehearse_spec(const float* x, const int* ints, const float* floats,
+                              const int* res_bits, const float* qr, const float* qd,
+                              const int* bins, int B, int N, int width,
+                              int start, int res_width, float* x_out, float* q_out, float* pgg,
+                              int* pbw, float* pfac, int* nbl) {
+  const SpecGeom g = {N, width, start, res_width};
+  switch ((N + 31) / 32) {
+#define SPEC_CASE(c) \
+  case c: spec_rows<c>(x, ints, floats, res_bits, qr, qd, bins, B, g, x_out, q_out, pgg, pbw, \
+                       pfac, nbl); break;
+    SPEC_CASE(1) SPEC_CASE(2) SPEC_CASE(3) SPEC_CASE(4) SPEC_CASE(5) SPEC_CASE(6) SPEC_CASE(7)
+    SPEC_CASE(8) SPEC_CASE(9) SPEC_CASE(10) SPEC_CASE(11) SPEC_CASE(12)
+#undef SPEC_CASE
+    default: spec_rows<13>(x, ints, floats, res_bits, qr, qd, bins, B, g, x_out, q_out, pgg,
+                           pbw, pfac, nbl);
+  }
+}
+"""
+
 WRAPPER = r"""
 #include "side_info.cuh"
 #include "sns_vq_enc.cuh"
@@ -102,6 +169,7 @@ WRAPPER = r"""
 using namespace acx;
 
 static SideLayout layout(const int* L) { return {L[0], L[1], L[2], L[3], L[4], L[5], L[6]}; }
+""" + SNS_DEC_REHEARSE + r"""
 
 extern "C" {
 // fields [B][18]: bw_idx lastnz lsb_mode gg_idx num_tns tns_order[2] ltpf[3] scf_idx[7] fac_ns
@@ -134,9 +202,6 @@ void rehearse_parse(const int* buf, const int* L, int* out, int B) {
   }
 }
 """ + SNS_ENC_REHEARSE + r"""
-void rehearse_sns_dec(const int* idx, const int* tables, float* q, int B) {
-  for (int b = 0; b < B; ++b) sns_vq_dec_lane(idx + 7 * b, sns_tables(tables), q + 16 * b);
-}
 // shape 0..3: the four searches of the encoder (lanes, pulses), each a group
 // of the warp's search; every group gets the same target
 void rehearse_pvq_search(const float* x, int shape, int* ys, float* en, int B) {
@@ -926,7 +991,7 @@ WRAPPER_PITCH = r"""
 #include "spec_decode.cuh"
 #include <cstring>
 using namespace acx;
-""" + NRE_REHEARSE + r"""
+""" + NRE_REHEARSE + SPEC_DEC_REHEARSE + r"""
 extern "C" {
 void rehearse_olpa(const float* s, const float* m12, const float* m64, const int* mp,
                    const float* tab, int B, int s_stride, int length, int len2, int mem_in_len,
@@ -956,40 +1021,6 @@ void rehearse_ltpf(const float* s, const int* pol, const float* ncol, const floa
     pitch[b] = o.pitch;
   }
 }
-// ints [11][B]: bfi rframe inv bw_idx fac_ns res_present n_res seed zero prev_bw nb_lost;
-// floats [3][B]: gain prev_gg prev_fac_ns (the layout of spec_decode.cu)
-void rehearse_spec(const float* x, const int* ints, const float* floats, const int* res_bits,
-                   const float* qr, const float* qd, const int* bins, const int* lcg, int B,
-                   int N, int width,
-                   int start, int res_width, float* x_out, float* q_out, float* pgg, int* pbw,
-                   float* pfac, int* nbl) {
-  const SpecGeom g = {N, width, start, res_width};
-  for (int b = 0; b < B; ++b) {
-    const int* in = ints + b;
-    SpecScalars s;
-    s.gain = floats[b];
-    s.bfi = in[0];
-    s.rframe = in[B];
-    s.spec_inv_idx = in[2 * B];
-    s.bw_idx = in[3 * B];
-    s.fac_ns_idx = in[4 * B];
-    s.residual_present = in[5 * B];
-    s.n_res = in[6 * B];
-    s.nf_seed = in[7 * B];
-    s.zero_frame = in[8 * B];
-    s.prev_bw_idx = in[9 * B];
-    s.nb_lost = in[10 * B];
-    s.prev_gg = floats[B + b];
-    s.prev_fac_ns = floats[2 * B + b];
-    const SpecHistory h = spec_decode_lane(x + N * b, qr + N * b, qd + N * b,
-                                           res_bits + res_width * b, s, bins, lcg, g,
-                                           x_out + N * b, q_out + N * b);
-    pgg[b] = h.prev_gg;
-    pbw[b] = h.prev_bw_idx;
-    pfac[b] = h.prev_fac_ns;
-    nbl[b] = h.nb_lost;
-  }
-}
 }
 """
 
@@ -1003,8 +1034,8 @@ MUTATIONS_PITCH = {
                       "acc = fmaf(a[j], b[j], acc);"),
     "zero_line_window": ("noise_residual_enc.cuh", "(uint64_t{2} << width) - 1u",
                          "(uint64_t{1} << width) - 1u"),
-    "lcg_skipped_step": ("spec_decode.cuh", "const int steps = iclamp(r + 1, 0, N);",
-                         "const int steps = iclamp(r, 0, N);"),
+    "lcg_skipped_step": ("spec_decode.cuh", "  return (kLcgMul * uj + kLcgAdd) & 0xffffu;",
+                         "  return uj;"),
 }
 
 
@@ -1106,6 +1137,7 @@ SPEC_INTS = ("bfi", "rframe", "spec_inv_idx", "bw_idx", "fac_ns_idx", "residual_
 def lane_spec(lib, cfg, a: dict):
     res_width, width, start = K._spectral_geometry(cfg, "spec_decode")
     B, N = a["x"].shape
+    res_width = min(res_width, a["res_bits"].shape[1])   # as kernels.spec_decode takes it
     ints = _c(np.stack([a[k] for k in SPEC_INTS]), np.int32)
     floats = _c(np.stack([a[k] for k in ("gain", "prev_gg", "prev_fac_ns")]), np.float32)
     x_out, q_out = np.zeros((B, N), np.float32), np.zeros((B, N), np.float32)
@@ -1115,7 +1147,7 @@ def lane_spec(lib, cfg, a: dict):
                       ptr(_c(a["res_bits"], np.int32)), ptr(_c(a["q_old_res"], np.float32)),
                       ptr(_c(a["q_old_d"], np.float32)),
                       ptr(K._bw_bins("cpu", cfg.frame_dms).numpy()),
-                      ptr(K._lcg_table("cpu", N).numpy()), B, N, width, start,
+                      B, N, width, start,
                       res_width, ptr(x_out), ptr(q_out), ptr(pgg), ptr(pbw), ptr(pfac), ptr(nbl))
     return x_out, q_out, pgg, pbw, pfac, nbl
 

@@ -1006,6 +1006,54 @@ def spec_rows(cfg, seed: int = 0, n: int = 96, res_width: int | None = None) -> 
         nb_lost=rng.integers(0, 4, n).astype(np.int32))
 
 
+def spec_edge_rows(cfg, seed: int = 0, n: int = 64, res_width: int | None = None
+                   ) -> dict[str, np.ndarray]:
+    """spec_rows with lines where a warp's ballots and ranks meet their edges:
+    every other row silent but for nonzero lines drawn from the edges of the
+    zero-line windows (a line width and width + 1 lines from another), of
+    the bandwidth (bw_bin_nf - 1 and bw_bin_nf, with bw_idx equal to the
+    previous one so that no redo moves it), of the first filled line and of
+    the 32-line chunks; n_res 0, the count of nonzero lines and above it in
+    turn; decoded lines of +-0.1875, which a nudge makes zero (the zero-line
+    test must see the row after the residual); and on partially corrupt
+    frames, whose synthesis factor is then 1 (the gains' ratio, the low band
+    of q_old_d silent), previous residual lines of +-0.625, a float below it
+    and above it (spec_concealed's threshold)."""
+    a = spec_rows(cfg, seed, n, res_width)
+    rng = np.random.default_rng(seed + 100)
+    N = cfg.yLen
+    width, start = (3, 24) if cfg.frame_dms == 100 else (1, {50: 12, 25: 6}[cfg.frame_dms])
+    bins = T.bw_cutoff_bins(cfg.frame_dms)
+    x, q_old_res, q_old_d = a["x"], a["q_old_res"], a["q_old_d"]
+    below = np.nextafter(np.float32(0.625), np.float32(0))
+    above = np.nextafter(np.float32(0.625), np.float32(1))
+    for i in range(0, n, 2):
+        a["prev_bw_idx"][i] = a["bw_idx"][i]
+        bw = min(int(bins[a["bw_idx"][i]]), N)
+        p = int(rng.integers(start, max(start + 1, bw - 3 * width - 3)))
+        edges = [bw - 1, bw, bw + 1, bw - 2 - width, start - width - 1, start - width, start,
+                 p, p + width + 1, p + 2 * width + 2, p + 2 * width + 3]
+        edges += list(range(31, N, 32)) + list(range(32, N, 32))
+        edges = np.array([e for e in edges if 0 <= e < N])
+        keep = edges[rng.random(edges.size) < 0.6]
+        x[i] = 0.0
+        x[i, keep] = rng.choice([-3.0, -1.0, 1.0, 2.0], keep.size)
+        if i % 8 == 0:
+            x[i, edges[: edges.size // 2]] = rng.choice([-0.1875, 0.1875], edges.size // 2)
+        if a["bfi"][i] == 2:
+            inv = int(a["spec_inv_idx"][i])
+            a["prev_gg"][i] = a["gain"][i]
+            q_old_d[i, :inv] = 0.0
+            q_old_d[i, inv:] = 1.0
+            q_old_res[i, inv:] = rng.choice([0.625, -0.625, below, -below, above, -above, 0.0],
+                                            N - inv)
+    n_nz = (x != 0).sum(-1)
+    a["n_res"] = np.stack([np.zeros(n), n_nz, n_nz + 5])[np.arange(n) % 3, np.arange(n)]
+    a["n_res"] = a["n_res"].astype(np.int32)
+    a["residual_present"][::2] = 1
+    return a
+
+
 def spec_branches(args: dict, cfg) -> dict[str, int]:
     """Rows of a spec_decode launch in each branch of the concealment and
     reconstruction (float64 from the inputs; the counts only show that a

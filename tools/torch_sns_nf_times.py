@@ -3,10 +3,12 @@
 of audio_codec_torch on a CUDA card: the kernels `sns_vq_enc`
 (csrc/sns_vq_enc.cu) and `noise_residual_enc` (csrc/noise_residual_enc.cu)
 and their stages (ops/sns.py:quantize_scf_enc, ops/quant.py:
-noise_residual_enc) on the inputs the flagship path gives them, and the
+noise_residual_enc) on the inputs the flagship path gives them, the
 kernels that stage their tables through csrc/acodec.cuh:acx_load_shared
-(`sns_vq_dec`, `tns_filter_analysis`, `fec_encode`, `fec_decode`). Every
-line printed carries the card's name and power limit.
+(`tns_filter_analysis`, `fec_encode`, `fec_decode`) and `sns_vq_dec` (which
+read its tables through L1 from its redesign on; tools/torch_spec_dec_times.py
+times it with the decoder's inputs). Every line printed carries the card's
+name and power limit.
 
 The inputs: chip_smoke.make_pcm's material at 48 kHz / 64 kbps, B streams,
 encoded for T frames by the checkout's own encode_block; the arguments of
