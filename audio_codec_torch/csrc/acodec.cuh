@@ -129,30 +129,4 @@ __device__ __forceinline__ void acx_load_shared(int32_t* __restrict__ dst,
     }
   }
 }
-
-// Row tiles of a [B, N] array of 32-bit words in shared memory, one row per thread of
-// the block, rows ACX_ROW_STRIDE(N) floats apart (an odd stride, so that the
-// threads walking their rows in step hit different banks). The copy out is
-// coalesced: neighbouring threads move neighbouring elements. (A copy in
-// written the same way, each load stored to shared memory before the next
-// load, keeps one load in flight a thread: see acx_load_shared.)
-#define ACX_ROW_STRIDE(N) ((N) | 1)
-
-template <typename T>
-__device__ __forceinline__ void acx_store_rows(T* g, const T* tile, int row0, int rows, int N) {
-  const int stride = ACX_ROW_STRIDE(N);
-  for (int i = threadIdx.x; i < rows * N; i += blockDim.x) {
-    g[static_cast<size_t>(row0) * N + i] = tile[(i / N) * stride + i % N];
-  }
-}
-
-// Dynamic shared memory for a block of `threads` row tiles of N words; sets
-// the kernel's limit where the tiles pass the 48 KB default.
-template <typename Kernel>
-inline cudaError_t acx_row_tiles_smem(Kernel kernel, int threads, int N, size_t* bytes) {
-  *bytes = static_cast<size_t>(threads) * ACX_ROW_STRIDE(N) * sizeof(float);
-  if (*bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
-}
 #endif

@@ -10,20 +10,25 @@
 // six scalars, writes the memory again and ten scalars: about 2.9 KB a
 // stream, 6.0 MB at B = 2048, 0.0018 ms at 3.35 TB/s. The work is 17 lags x
 // 128 samples x 2 multiply-adds, the energy, <= 7 x 17 interpolation taps and
-// 128 x 3 normcorr products a stream, about 11 M operations at B = 2048.
-// Design: one warp per stream, the row (memory and frame) in shared memory.
-// Lane i < 17 sums window entry i (the correlation and energy chains over the
-// 128 samples, in the plain version's order, ltpf_encode.cuh); lane 0 runs
-// the searches on the 17 values; the lanes filter the samples of the
-// normcorr in parallel, and lanes 0-2 each run one of its three chains, which
-// the plain version's order keeps sequential; lane 0 decides.
+// 128 x 3 normcorr products a stream, about 11 M operations at B = 2048. What
+// bounds it is the chains the plain version's order keeps sequential: a lag's
+// correlation and energy over 128 samples, the interpolation over 17 entries,
+// the normcorr's three sums over 128 products.
+// Design: a warp a stream (ltpf_encode.cuh:ltpf_encode_warp), blocks of 4
+// warps sharing the tables; the row staged in shared memory with 16-byte
+// loads of the memory, every load of a lane in flight at once; each chain on
+// a lane of its own, unrolled at a compile-time correlation length (ACF, 128
+// at 10 ms, 64 at 5 and 2.5 ms), the block's energy on lane 17 beside the 17
+// window lanes, the <= 7 fractional candidates on lanes 0-6 at once, the
+// searches as first-maximum shuffle trees.
 #include "ltpf_encode.cuh"
 
 using namespace acx;
 
 #ifdef __CUDACC__
-constexpr int kLtpfWarps = 4;
+constexpr int kLtpfWarps = 4;   // streams a block
 
+template <int ACF>
 __global__ void ltpf_encode_kernel(const float* __restrict__ s12k8,
                                    const int32_t* __restrict__ pitch_ol,
                                    const float* __restrict__ nc_ol,
@@ -38,45 +43,18 @@ __global__ void ltpf_encode_kernel(const float* __restrict__ s12k8,
                                    int32_t* __restrict__ on_out, float* __restrict__ pitch_out,
                                    int B, LtpfGeom g) {
   __shared__ float tab[kLtpfTableWords];
-  __shared__ float rows[kLtpfWarps][kLtpfMaxRow];
-  __shared__ float cors[kLtpfWarps][kLtpfWin];
-  __shared__ float cfs[kLtpfWarps][kLtpfMaxAcf];
-  __shared__ float pfs[kLtpfWarps][kLtpfMaxAcf];
-  __shared__ float sums[kLtpfWarps][3];
-  __shared__ LtpfPitch pitches[kLtpfWarps];
+  __shared__ LtpfScratch scratch[kLtpfWarps];
   for (int i = threadIdx.x; i < kLtpfTableWords; i += blockDim.x) tab[i] = tables[i];
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kLtpfWarps + warp;
   if (b >= B) return;   // the whole warp leaves together
-  float* buf = rows[warp];
-  const float* mi = mem_in + static_cast<size_t>(b) * g.mem_len;
-  const float* s = s12k8 + static_cast<size_t>(b) * g.xlen;
-  for (int i = lane; i < g.mem_len; i += 32) buf[i] = mi[i];
-  for (int i = lane; i < g.xlen; i += 32) buf[g.mem_len + i] = s[i];
-  __syncwarp();
-  for (int i = lane; i < g.mem_len; i += 32) {
-    new_mem_in[static_cast<size_t>(b) * g.mem_len + i] = buf[g.N + i];
-  }
-  const int pol = pitch_ol[b];
-  if (lane < kLtpfWin) {
-    cors[warp][lane] = ltpf_window_nc(buf, g, pol, lane, ltpf_energy(buf, g));
-  }
-  __syncwarp();
-  if (lane == 0) pitches[warp] = ltpf_pitch_search(cors[warp], pol, tab);
-  __syncwarp();
-  const LtpfPitch p = pitches[warp];
-  for (int j = lane; j < g.acflen; j += 32) {
-    ltpf_filtered(buf, g, tab + kLtpfInterTaps, p, j, &cfs[warp][j], &pfs[warp][j]);
-  }
-  __syncwarp();
-  if (lane == 0) sums[warp][0] = ltpf_chain(cfs[warp], pfs[warp], g.acflen);
-  if (lane == 1) sums[warp][1] = ltpf_chain(cfs[warp], cfs[warp], g.acflen);
-  if (lane == 2) sums[warp][2] = ltpf_chain(pfs[warp], pfs[warp], g.acflen);
-  __syncwarp();
+  const LtpfStream s = {s12k8 + static_cast<size_t>(b) * g.xlen,
+                        mem_in + static_cast<size_t>(b) * g.mem_len,
+                        pitch_ol[b], nc_ol[b], mem_nc[b], mem_mem_nc[b], mem_on[b], mem_pitch[b]};
+  const LtpfOut o = ltpf_encode_warp<ACF>(CoderCardWarp{lane}, s, tab, g, scratch[warp],
+                                          new_mem_in + static_cast<size_t>(b) * g.mem_len);
   if (lane == 0) {
-    const LtpfOut o = ltpf_decide(sums[warp][0], sums[warp][1], sums[warp][2], p, nc_ol[b],
-                                  mem_nc[b], mem_mem_nc[b], mem_on[b], mem_pitch[b], g);
     param[3 * static_cast<size_t>(b)] = o.param[0];
     param[3 * static_cast<size_t>(b) + 1] = o.param[1];
     param[3 * static_cast<size_t>(b) + 2] = o.param[2];
@@ -88,6 +66,19 @@ __global__ void ltpf_encode_kernel(const float* __restrict__ s12k8,
   }
 }
 
+template <int ACF>
+static void ltpf_encode_launch(const void* const* a, void* const* o, int B, const LtpfGeom& g,
+                               cudaStream_t stream) {
+  const int blocks = (B + kLtpfWarps - 1) / kLtpfWarps;
+  auto f = [](const void* v) { return static_cast<const float*>(v); };
+  auto i = [](const void* v) { return static_cast<const int32_t*>(v); };
+  ltpf_encode_kernel<ACF><<<blocks, 32 * kLtpfWarps, 0, stream>>>(
+      f(a[0]), i(a[1]), f(a[2]), f(a[3]), f(a[4]), f(a[5]), i(a[6]), f(a[7]), f(a[8]),
+      static_cast<int32_t*>(o[0]), static_cast<int32_t*>(o[1]), static_cast<float*>(o[2]),
+      static_cast<float*>(o[3]), static_cast<float*>(o[4]), static_cast<int32_t*>(o[5]),
+      static_cast<float*>(o[6]), B, g);
+}
+
 extern "C" int acx_ltpf_encode(const void* s12k8, const void* pitch_ol, const void* nc_ol,
                                const void* mem_in, const void* mem_nc, const void* mem_mem_nc,
                                const void* mem_on, const void* mem_pitch, const void* tables,
@@ -96,21 +87,20 @@ extern "C" int acx_ltpf_encode(const void* s12k8, const void* pitch_ol, const vo
                                int N, int mem_len, int acflen, int xbase, int frame_dms,
                                int enable, void* stream) {
   const LtpfGeom g = {xlen, N, mem_len, acflen, xbase, frame_dms, enable};
-  if (ltpf_row_len(g) > kLtpfMaxRow || acflen > kLtpfMaxAcf || acflen < 1 ||
+  if (ltpf_row_len(g) > kLtpfMaxRow || (acflen != 128 && acflen != 64) || xbase % 4 != 0 ||
       xbase - kLtpfLag0 - (kLtpfLags - 1) < 0 || xbase + acflen >= ltpf_row_len(g) ||
       N + mem_len > ltpf_row_len(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (B + kLtpfWarps - 1) / kLtpfWarps;
-  ltpf_encode_kernel<<<blocks, 32 * kLtpfWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s12k8), static_cast<const int32_t*>(pitch_ol),
-      static_cast<const float*>(nc_ol), static_cast<const float*>(mem_in),
-      static_cast<const float*>(mem_nc), static_cast<const float*>(mem_mem_nc),
-      static_cast<const int32_t*>(mem_on), static_cast<const float*>(mem_pitch),
-      static_cast<const float*>(tables), static_cast<int32_t*>(param),
-      static_cast<int32_t*>(bits), static_cast<float*>(new_mem_in), static_cast<float*>(nc_out),
-      static_cast<float*>(mem_mem_out), static_cast<int32_t*>(on_out),
-      static_cast<float*>(pitch_out), B, g);
+  const void* a[9] = {s12k8, pitch_ol, nc_ol, mem_in, mem_nc, mem_mem_nc, mem_on, mem_pitch,
+                      tables};
+  void* const o[7] = {param, bits, new_mem_in, nc_out, mem_mem_out, on_out, pitch_out};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (acflen == 128) {
+    ltpf_encode_launch<128>(a, o, B, g, st);
+  } else {
+    ltpf_encode_launch<64>(a, o, B, g, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif

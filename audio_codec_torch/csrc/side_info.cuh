@@ -2,14 +2,19 @@
 // the frame's end, one stream per call (processEncoderEntropy_fl,
 // enc_entropy.c:13-115; processDecoderEntropy_fl, dec_entropy.c:121-270).
 //
-// The functions are lane functions: side_info_pack.cu and side_info_parse.cu
-// launch them one thread per stream, and the range-coder kernels can call
-// them on the row they already hold. A row is `nbytes` int32 words, one byte
-// in each; every byte index is clipped into the row, as the plain versions
-// (ops/bits.py) clip it.
+// A row is `nbytes` int32 words, one byte in each; every byte index is
+// clipped into the row, as the plain versions (ops/bits.py) clip it.
+// side_info_pack.cu runs side_info_pack_warp, a warp a stream: the stream's
+// side bits assembled in registers as a bit string (side_info_pack_bits, a
+// lane function the range encoder can call on the fields it holds), then
+// each byte of the row written once. side_info_pack_lane, the backward
+// writer one read-modify-write a bit, stays as the order the CPU rehearsals
+// hold the string to. side_info_parse.cu runs side_info_parse_lane a thread
+// a stream.
 #pragma once
 
 #include "acodec.cuh"
+#include "warp.cuh"
 
 namespace acx {
 
@@ -122,6 +127,109 @@ ACX_HD SideCursor side_info_pack_lane(int32_t* row, const SideLayout& L, const S
   }
   side_write_uint(row, n, c, s.fac_ns_idx, 3);
   return c;
+}
+
+// The side bits of a stream as a string: bit k is the k-th bit the backward
+// writer writes, in word k / 32 at bit k % 32. At most 64 + bw_bits +
+// lastnz_bits bits, 76 at every configuration (the entry point takes at most
+// 96).
+constexpr int kSideWords = 3;
+
+struct SideBits {
+  uint32_t w[kSideWords];
+  int n;   // bits in the string
+};
+
+// The nbits (0..25) low bits of v appended at bit s.n, by shifts at known
+// offsets: (v >> k) & 1 for k < nbits is bit s.n + k.
+ACX_HD void side_put(SideBits& s, int v, int nbits) {
+  const uint32_t field = static_cast<uint32_t>(v) & ((1u << nbits) - 1u);
+  const int word = s.n >> 5;
+  const uint64_t wide = static_cast<uint64_t>(field) << (s.n & 31);
+  const uint32_t lo = static_cast<uint32_t>(wide), hi = static_cast<uint32_t>(wide >> 32);
+#pragma unroll
+  for (int k = 0; k < kSideWords; ++k) s.w[k] |= (k == word ? lo : 0u) | (k == word + 1 ? hi : 0u);
+  s.n += nbits;
+}
+
+// One bit: set where the value is not zero (side_write_bit).
+ACX_HD void side_put_bit(SideBits& s, int bit) { side_put(s, bit != 0 ? 1 : 0, 1); }
+
+// One stream's side bits in side_info_pack_lane's order: the same fields,
+// widths and branches.
+ACX_HD SideBits side_info_pack_bits(const SideLayout& L, const SideFields& s) {
+  SideBits b = {{0u, 0u, 0u}, 0};
+  if (L.bw_bits > 0) side_put(b, s.bw_idx, L.bw_bits);
+  side_put(b, (s.lastnz >> 1) - 1, L.lastnz_bits);
+  side_put_bit(b, s.lsb_mode);
+  side_put(b, s.gg_idx, 8);
+  if (s.num_tns > 0) side_put_bit(b, imin(s.tns_on[0], 1));
+  if (s.num_tns > 1) side_put_bit(b, imin(s.tns_on[1], 1));
+  side_put_bit(b, s.ltpf[0]);
+  side_put(b, s.scf_idx[0], 5);
+  side_put(b, s.scf_idx[1], 5);
+
+  const int submode = iclamp(s.scf_idx[2], 0, 3);
+  const int submode_msb = s.scf_idx[2] >> 1;
+  const int submode_lsb = s.scf_idx[2] & 1;
+  const int gain_lsb_bits = submode & 1;
+  const int gain_lsb = s.scf_idx[3] & 1;
+  side_put_bit(b, submode_msb);
+  side_put(b, s.scf_idx[3] >> gain_lsb_bits, submode < 2 ? 1 : 2);
+  side_put_bit(b, s.scf_idx[4]);
+  if (submode_msb == 0) {
+    const int hi = submode_lsb == 0 ? s.scf_idx[6] + 2 : gain_lsb;
+    side_put(b, side_mad(hi, kMpvqSplit, s.scf_idx[5]), 25);
+  } else {
+    side_put(b, submode_lsb != 0 ? side_mad(2, s.scf_idx[5], gain_lsb + kMpvqNear)
+                                 : s.scf_idx[5], 24);
+  }
+  if (s.ltpf[0] == 1) {
+    side_put(b, s.ltpf[1], 1);
+    side_put(b, s.ltpf[2], 9);
+  }
+  side_put(b, s.fac_ns_idx, 3);
+  return b;
+}
+
+// Byte j of the string (its bits 8j..8j+7), zero outside it.
+ACX_HD uint32_t side_string_byte(const SideBits& b, int j) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (int k = 0; k < kSideWords; ++k) v |= (j >> 2) == k ? b.w[k] : 0u;
+  return j >= 0 && j < 4 * kSideWords ? (v >> (8 * (j & 3))) & 255u : 0u;
+}
+
+// Byte t of the row: the string's byte start - t. Where the clipped indices
+// put several string bytes on the row's first or last byte, the last write of
+// each bit wins: the last of them, over the one before it where the last is
+// partial. A byte no bit reaches is zero.
+ACX_HD int side_row_byte(const SideBits& b, const SideLayout& L, int t) {
+  const int jmax = (b.n - 1) >> 3;   // the string's last byte
+  const int jhi = imin(t == 0 ? jmax : L.start - t, jmax);
+  const int jlo = imax(t == L.nbytes - 1 ? 0 : L.start - t, 0);
+  if (jhi < jlo) return 0;
+  const int fresh = imin(b.n - 8 * jhi, 8);   // bits of byte jhi in the string
+  const uint32_t under = jhi > jlo ? side_string_byte(b, jhi - 1) & (0xFFu << fresh) & 255u : 0u;
+  return static_cast<int>(side_string_byte(b, jhi) | under);
+}
+
+// The cursor behind the string's last bit.
+ACX_HD SideCursor side_string_cursor(const SideBits& b, const SideLayout& L) {
+  return {L.start - (b.n >> 3), 1 << (b.n & 7)};
+}
+
+// One stream's side information on a warp: every lane builds the string,
+// lane l writes bytes l, l + 32, ... of the row, each once, zeros included.
+// Returns the cursor (the same on every lane).
+template <class W>
+ACX_HD SideCursor side_info_pack_warp(const W& w, const SideLayout& L, const SideFields& s,
+                                      int32_t* row) {
+  const SideBits b = side_info_pack_bits(L, s);
+  w.lanes([&](int l) {
+    for (int t = l; t < L.nbytes; t += kCoderLanes) row[t] = side_row_byte(b, L, t);
+  });
+  return side_string_cursor(b, L);
 }
 
 // Reads one stream's side information; *bfi is 1 where a field is out of

@@ -621,6 +621,16 @@ def synthetic_cases(cfg, dev, K, side, sns):
         fired = got["bfi"].tolist()
         check(fired == [0 if what == "clean" else 1] * len(fired),
               f"side_info_parse ({what}): bfi {fired}")
+    # rows shorter than the side bits: the string clipped at the row's first byte
+    from types import SimpleNamespace
+    f = C.side_fields(cfg, 256, seed=5)
+    for nbytes in (1, 5, 9):
+        short = SimpleNamespace(targetBytes=nbytes, BW_cutoff_bits=cfg.BW_cutoff_bits,
+                                lastnz_bits=cfg.lastnz_bits)
+        args = (short, *(g(np.asarray(f[k], np.int32)) for k in C.FIELD_ORDER))
+        packed, ref = K.side_info_pack(*args), side.pack_side_info_plain(*args)
+        torch.cuda.synchronize()
+        same_bits(packed, ref, f"side_info_pack ({nbytes}-byte rows)")
     rows = torch.randint(0, 256, (4096, cfg.targetBytes), device=dev, dtype=torch.int32,
                          generator=torch.Generator(device=dev).manual_seed(1))
     got = K.side_info_parse(cfg, rows)
@@ -1008,6 +1018,32 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         branches = branch_counts(name, args, got)
         print(f"[kernels] {what}: {branches}", flush=True)
         check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
+    # the LTPF coder's warp at every frame size (correlation lengths 128 and
+    # 64) on the edge rows (the pitch at each lag limit and resolution step,
+    # tied window values and candidates, negative correlations), at 1, 33
+    # and 2047 streams a launch, the last also with unaligned memory rows
+    for dms in (100, 50, 25):
+        c = P.Config(fs_in=cfg.fs, bitrate=cfg.bitrate, frame_dms=dms)
+        a = C.ltpf_edge_rows(c, seed=2)
+        for n in (1, 33, 2047):
+            pick = np.resize(np.arange(a["pitch_ol"].shape[0]), n)
+            args = [c, *(torch.from_numpy(np.ascontiguousarray(a[k][pick])).to(dev)
+                         for k in C.LTPF_ORDER)]
+            for aligned in (True, False) if n == 2047 else (True,):
+                if not aligned:   # rows a word off 16-byte alignment
+                    m = args[4]
+                    args[4] = torch.empty(m.numel() + 1, device=dev)[1:].view_as(m).copy_(m)
+                got = K.ltpf_encode(*args)
+                ref = [t.contiguous() for t in analysis.ltpf_encode_plain(*args)]
+                torch.cuda.synchronize()
+                what = (f"ltpf_encode (edge rows, {dms / 10} ms, {n} streams"
+                        f"{'' if aligned else ', unaligned memory'})")
+                same_bits(got, ref, what)
+        hist = branch_counts("ltpf_encode", args, got)
+        check(all(hist[k] > 0 for k in ("searched", "not searched", "fresh alone")),
+              f"ltpf_encode (edge rows, {dms / 10} ms): {hist}")
+    print("[kernels] ltpf_encode on ltpf_edge_rows at 10, 5 and 2.5 ms, 1, 33 and 2047 streams a "
+          "launch and unaligned memory rows, equals its plain version", flush=True)
     # the residual coder's warp at 1, 33 and 2047 streams a launch, at 48 and 16 kHz
     for c in nre_cfgs:
         a = C.nre_rows(c, seed=6)

@@ -737,6 +737,48 @@ def test_ltpf_encode_synthetic_rows(dev):
     assert all(v > 0 for v in branches.values()), branches
 
 
+LTPF_FRAMES = {"10ms": 100, "5ms": 50, "2.5ms": 25}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("frames", list(LTPF_FRAMES))
+def test_ltpf_encode_rows_at_every_size(dev, frames, B, aligned):
+    """The warp design at 1, 33 and 2048 streams a launch and every frame
+    size (correlation lengths 128 and 64): ltpf_edge_rows (the pitch at each
+    lag limit and resolution step, tied window values and candidates,
+    negative correlations), with ltpf_rows at 10 ms; the memory rows aligned
+    for 16-byte loads and a word off."""
+    cfg = P.Config(fs_in=48000, bitrate=64000, frame_dms=LTPF_FRAMES[frames])
+    a = C.ltpf_edge_rows(cfg, seed=2)
+    if cfg.frame_dms == 100:
+        b = C.ltpf_rows(seed=3)
+        a = {k: np.concatenate([a[k], b[k]]) for k in a}
+    args = [cfg, *on_card({k: tiled(v, B) for k, v in a.items()}, C.LTPF_ORDER, dev)]
+    if not aligned:
+        m = args[4]
+        args[4] = torch.empty(m.numel() + 1, device=dev)[1:].view_as(m).copy_(m)
+        assert args[4].data_ptr() % 16 != 0
+    got = K.ltpf_encode(*args)
+    same_tensors(got, [t.contiguous() for t in analysis.ltpf_encode_plain(*args)])
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("name", list(C.CONFIGS))
+def test_side_info_pack_rows_at_every_size(dev, name, B):
+    """The warp design at 1, 33 and 2048 streams a launch on side_fields of
+    every configuration, and on rows of 1, 5 and 9 bytes, shorter than the
+    side bits (the string clipped at the row's first byte)."""
+    from types import SimpleNamespace
+    cfg = P.Config(**C.CONFIGS[name])
+    f = {k: tiled(v, B) for k, v in C.side_fields(cfg, 256, seed=5).items()}
+    for nbytes in (cfg.targetBytes, 1, 5, 9):
+        c = SimpleNamespace(targetBytes=nbytes, BW_cutoff_bits=cfg.BW_cutoff_bits,
+                            lastnz_bits=cfg.lastnz_bits)
+        args = pack_args(c, f, dev)
+        same_tensors(K.side_info_pack(*args), bits.pack_side_info_plain(*args))
+
+
 @pytest.mark.parametrize("bitrate", [64000, 16000])
 def test_noise_residual_enc_synthetic_rows(dev, bitrate):
     """No zero line, silent rows, n_res cut below the nonzero lines, lsbMode;

@@ -9,8 +9,9 @@ here with its partial-concealment hooks), the DCT-IV, fold and unfold of
 csrc/dct4.cuh, the concealment's csrc/plc*.cuh and phecu.cuh, the
 fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
 plain C++ as
-well as for the card (the warp kernels of olpa and ltpf_encode share their
-steps with a lane function that runs them in order; the TNS filter analysis,
+well as for the card (the warp kernel of olpa shares its steps with a lane
+function that runs them in order; the LTPF parameter coder
+(csrc/ltpf_encode.cuh), the TNS filter analysis,
 the SNS quantizer's encoder (csrc/sns_vq_enc.cuh) and decoder
 (csrc/sns_vq.cuh), the noise factor and residual coder and the decoder's
 spectrum reconstruction (csrc/spec_decode.cuh) are templates over the warp,
@@ -158,6 +159,39 @@ extern "C" void rehearse_spec(const float* x, const int* ints, const float* floa
 #undef SPEC_CASE
     default: spec_rows<13>(x, ints, floats, res_bits, qr, qd, bins, B, g, x_out, q_out, pgg,
                            pbw, pfac, nbl);
+  }
+}
+"""
+
+# the LTPF parameter coder's warp on the host warp (at file scope), shared
+# with tests/test_torch_pitch_side_rehearsal.py: the warp's shared memory
+# and the stream's outputs are filled with a byte pattern before each stream;
+# mem_stride is the distance between the memory rows (the memory's 16-byte
+# loads are taken where a row is aligned)
+LTPF_REHEARSE = r"""
+extern "C" void rehearse_ltpf(const float* s, const int* pol, const float* ncol,
+                              const float* mem_in, const float* mnc, const float* mmnc,
+                              const int* on, const float* mpitch, const float* tab, int B,
+                              int xlen, int N, int mem_len, int acflen, int xbase, int frame_dms,
+                              int enable, int* param, int* bits, float* new_mem, float* nc,
+                              float* mm, int* on_out, float* pitch, int mem_stride) {
+  const LtpfGeom g = {xlen, N, mem_len, acflen, xbase, frame_dms, enable};
+  static LtpfScratch S;
+  for (int b = 0; b < B; ++b) {
+    std::memset(&S, 0x5A, sizeof S);
+    std::memset(new_mem + mem_len * b, 0x5A, sizeof(float) * mem_len);
+    std::memset(param + 3 * b, 0x5A, 3 * sizeof(int));
+    const LtpfStream st = {s + xlen * b, mem_in + mem_stride * b, pol[b], ncol[b], mnc[b], mmnc[b],
+                           on[b], mpitch[b]};
+    const LtpfOut o = acflen == 128
+        ? ltpf_encode_warp<128>(CoderHostWarp{}, st, tab, g, S, new_mem + mem_len * b)
+        : ltpf_encode_warp<64>(CoderHostWarp{}, st, tab, g, S, new_mem + mem_len * b);
+    for (int k = 0; k < 3; ++k) param[3 * b + k] = o.param[k];
+    bits[b] = o.bits;
+    nc[b] = o.nc;
+    mm[b] = o.mem_mem_nc;
+    on_out[b] = o.on;
+    pitch[b] = o.pitch;
   }
 }
 """
@@ -1002,27 +1036,8 @@ void rehearse_olpa(const float* s, const float* m12, const float* m64, const int
     olpa_lane(s + s_stride * b, m12 + 3 * b, m64 + mem_in_len * b, mp[b], tab, g, row, pitch2 + b,
               nc + b, t0 + b, n12 + 3 * b, n64 + mem_in_len * b);
 }
-void rehearse_ltpf(const float* s, const int* pol, const float* ncol, const float* mem_in,
-                   const float* mnc, const float* mmnc, const int* on, const float* mpitch,
-                   const float* tab, int B, int xlen, int N, int mem_len, int acflen, int xbase,
-                   int frame_dms, int enable, int* param, int* bits, float* new_mem, float* nc,
-                   float* mm, int* on_out, float* pitch) {
-  const LtpfGeom g = {xlen, N, mem_len, acflen, xbase, frame_dms, enable};
-  float buf[kLtpfMaxRow];
-  for (int b = 0; b < B; ++b) {
-    const LtpfOut o = ltpf_encode_lane(s + xlen * b, pol[b], ncol[b], mem_in + mem_len * b, mnc[b],
-                                       mmnc[b], on[b], mpitch[b], tab, g, buf,
-                                       new_mem + mem_len * b);
-    for (int k = 0; k < 3; ++k) param[3 * b + k] = o.param[k];
-    bits[b] = o.bits;
-    nc[b] = o.nc;
-    mm[b] = o.mem_mem_nc;
-    on_out[b] = o.on;
-    pitch[b] = o.pitch;
-  }
 }
-}
-"""
+""" + LTPF_REHEARSE
 
 # mutations of the slice's lane functions that the rehearsal must catch, one
 # per kernel (the first maximum is shared by olpa and ltpf_encode)
@@ -1030,8 +1045,9 @@ MUTATIONS_PITCH = {
     "first_max_ge": ("olpa.cuh", "return v > bv || (v == bv && i < bi);",
                      "return v >= bv || (v == bv && i < bi);"),
     "take2_factor": ("olpa.cuh", "rmul(nc1, 0.85f)", "rmul(nc1, 0.8f)"),
-    "ltpf_corr_fma": ("ltpf_encode.cuh", "acc = radd(acc, rmul(a[j], b[j]));",
-                      "acc = fmaf(a[j], b[j], acc);"),
+    "ltpf_corr_fma": ("ltpf_encode.cuh",
+                      "*cf = radd(radd(rmul(buf[imin(n + 1, last)], ef[0]), rmul(buf[n], ef[1])),",
+                      "*cf = radd(fmaf(buf[imin(n + 1, last)], ef[0], rmul(buf[n], ef[1])),"),
     "zero_line_window": ("noise_residual_enc.cuh", "(uint64_t{2} << width) - 1u",
                          "(uint64_t{1} << width) - 1u"),
     "lcg_skipped_step": ("spec_decode.cuh", "  return (kLcgMul * uj + kLcgAdd) & 0xffffu;",
@@ -1102,7 +1118,8 @@ def lane_ltpf(lib, cfg, a: dict):
     nc, mm, pitch = (np.zeros(B, np.float32) for _ in range(3))
     lib.rehearse_ltpf(*(ptr(v) for v in args), ptr(K._ltpf_tables("cpu").numpy()), B, xlen, N,
                       mem_len, acflen, xbase, cfg.frame_dms, int(bool(cfg.ltpf_enable)),
-                      ptr(param), ptr(bits), ptr(new_mem), ptr(nc), ptr(mm), ptr(on), ptr(pitch))
+                      ptr(param), ptr(bits), ptr(new_mem), ptr(nc), ptr(mm), ptr(on), ptr(pitch),
+                      mem_len)
     return param, bits, new_mem, nc, mm, on, pitch
 
 

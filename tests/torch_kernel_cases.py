@@ -893,6 +893,82 @@ def ltpf_branches(args: dict, out, frame_dms: int = 100) -> dict[str, int]:
             "lag 32": int((s & (pint == 32)).sum()), "lag 228": int((s & (pint == 228)).sum())}
 
 
+# open-loop pitches at the lag limits and on both sides of the resolution
+# steps: MIN_PITCH_12K8, RES4_PITCH_12K8 - 1 and RES4, RES2 - 1 and RES2,
+# MAX_PITCH_12K8 (the window clamped at the last lag)
+LTPF_EDGE_PITCHES = (32, 126, 127, 156, 157, 228)
+
+
+def ltpf_edge_rows(cfg, seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of ltpf_encode at cfg's frame size (10, 5 or 2.5 ms) that
+    force its edges: the open-loop pitch at each of LTPF_EDGE_PITCHES with
+    pulse trains and tones of that period; silent, constant and
+    alternating rows, whose window values are all tied (every lag sees the
+    same samples) and whose candidates tie too (silence); pulse trains whose
+    sign flips every period, so the correlation at the pitch is negative;
+    and noise. The previous frame is set up for each activation rule, nc_ol
+    on both sides of 0.6."""
+    rng = np.random.default_rng(seed)
+    xlen, mem_len = cfg.len_12k8 + 1, cfg.ltpf_mem_in_len
+    n = mem_len + xlen
+    t_ = np.arange(n)
+    rows = []
+    for Q in LTPF_EDGE_PITCHES:
+        for kind in ("pulse", "tone"):
+            for noise in (0.0, 0.2):
+                u = _periodic(kind, Q, n, int(rng.integers(0, Q)), rng)
+                rows.append((u + rng.standard_normal(n) * noise * 3000.0, Q))
+        flip = np.where(t_ % Q == 0, 8000.0, 0.0) * (-1.0) ** (t_ // Q)
+        rows.append((flip, Q))
+        rows.append((np.zeros(n), Q))
+        rows.append((np.full(n, 1234.5), Q))
+        rows.append((np.where(t_ % 2 == 0, 700.0, -700.0), Q))
+        rows.append((rng.standard_normal(n) * 2000.0, Q))
+    cols = {k: [] for k in LTPF_ORDER}
+    rules = ("fresh", "keep", "track", "none")
+    for i, (u, Q) in enumerate(rows):
+        cols["mem_in"].append(u[:mem_len])
+        cols["s12k8"].append(u[mem_len:])
+        cols["pitch_ol"].append(Q)
+        cols["nc_ol"].append(0.59 if i % 7 == 3 else 0.95)
+        on, mem_nc, mem_pitch = {"fresh": (0, 0.97, 0.0), "keep": (1, 0.5, Q + 10.0),
+                                 "track": (1, 0.8, float(Q)), "none": (0, 0.5, 0.0)}[rules[i % 4]]
+        cols["mem_on"].append(on)
+        cols["mem_normcorr"].append(mem_nc)
+        cols["mem_mem_normcorr"].append(rng.uniform(0.9, 1.0))
+        cols["mem_pitch"].append(mem_pitch)
+    dt = dict(pitch_ol=np.int32, mem_on=np.int32)
+    return {k: np.ascontiguousarray(np.stack(v) if k in ("s12k8", "mem_in") else np.asarray(v),
+                                    dt.get(k, np.float32)) for k, v in cols.items()}
+
+
+def side_layout_rows(seed: int = 0, n: int = 96) -> tuple[np.ndarray, np.ndarray]:
+    """Side layouts and fields for the bit string of the side information
+    against the backward writer, outside what a configuration gives: rows of
+    1-12 bytes, fewer than the side bits (the clip at the row's first byte),
+    the first side bit at, below and above the last byte (the clip at the
+    last), every bandwidth and lastnz width; fields at random over all of
+    int32 and at their extremes, lastnz 0 and negative (a negative
+    lastnz / 2 - 1). Returns (layouts [n, 7] as side_info.cuh:SideLayout,
+    fields [n, 18] in FIELD_ORDER's columns)."""
+    rng = np.random.default_rng(seed)
+    L = np.zeros((n, 7), np.int32)
+    L[:, 0] = rng.integers(1, 13, n)
+    L[:, 1] = L[:, 0] - 1 + rng.choice([0, 0, -1, 2, 9], n)
+    L[:, 2] = rng.integers(0, 4, n)
+    L[:, 3] = rng.integers(1, 17, n)
+    ext = np.array([0, 1, -1, 2**31 - 1, -2**31, 255, 2**25 - 1, 2**24], np.int64)
+    F = rng.integers(-2**31, 2**31, (n, 18), dtype=np.int64)
+    pick = rng.random((n, 18)) < 0.3
+    F[pick] = rng.choice(ext, int(pick.sum()))
+    F[:, 4] = rng.integers(-1, 4, n)                 # num_tns
+    F[:, 7] = rng.choice([0, 1, 1, 2, -1], n)        # ltpf active (1: the pitch follows)
+    F[:, 12] = rng.integers(-1, 5, n)                # submode, also out of 0..3
+    F[::5, 1] = 0
+    F[1::5, 1] = -rng.integers(1, 1000, len(F[1::5]))
+    return L, F.astype(np.int32)
+
+
 NRE_ORDER = ("dy", "xq", "gain", "bw_bin", "target", "nbits2", "lsb_mode")
 # the residual coder's rows at 48 and 16 kHz, at 20 bytes with the half means
 NRE_CONFIGS = {"48k_64k": dict(fs_in=48000, bitrate=64000),
