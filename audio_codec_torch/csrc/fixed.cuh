@@ -107,10 +107,28 @@ ACX_HD unsigned upto32(int j) { return (2u << j) - 1u; }
 // pred of a whole chunk is read before f runs on it. The host's scans build
 // each chunk's ballot bit by bit and apply the same mask arithmetic, so the
 // rehearsal runs it too.
+//   chunk(n, read, write) (n <= 32): v_k = read(k) for every k < n, then
+//   write(k, v_k); no write before every read, on the host too, so a
+//   rehearsal sees a chunk that reads what it writes.
+//   each_loaded(n, load, f): f(i, load(i)) for every i < n; the warp issues
+//   the loads of kLoadRound elements a lane before it runs f on any of
+//   them, so that a lane's global loads are in flight together.
+constexpr int kLoadRound = 8;
+
 struct Host {
   template <class F>
   void each(int n, F&& f) const {
     for (int i = 0; i < n; ++i) f(i);
+  }
+  template <class L, class F>
+  void each_loaded(int n, L&& load, F&& f) const {
+    for (int i = 0; i < n; ++i) f(i, load(i));
+  }
+  template <class R, class F>
+  void chunk(int n, R&& read, F&& write) const {
+    decltype(read(0)) v[32];
+    for (int k = 0; k < n; ++k) v[k] = read(k);
+    for (int k = 0; k < n; ++k) write(k, v[k]);
   }
   void sync() const {}
   bool leader() const { return true; }
@@ -154,8 +172,30 @@ struct Warp {
   __device__ void each(int n, F&& f) const {
     for (int i = lane; i < n; i += 32) f(i);
   }
+  template <class L, class F>
+  __device__ void each_loaded(int n, L&& load, F&& f) const {
+    for (int i0 = lane; i0 < n; i0 += 32 * kLoadRound) {
+      decltype(load(0)) v[kLoadRound];
+#pragma unroll
+      for (int u = 0; u < kLoadRound; ++u) {
+        if (i0 + 32 * u < n) v[u] = load(i0 + 32 * u);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadRound; ++u) {
+        if (i0 + 32 * u < n) f(i0 + 32 * u, v[u]);
+      }
+    }
+  }
   __device__ void sync() const { __syncwarp(); }
   __device__ bool leader() const { return lane == 0; }
+  template <class R, class F>
+  __device__ void chunk(int n, R&& read, F&& write) const {
+    decltype(read(0)) v{};
+    if (lane < n) v = read(lane);
+    __syncwarp();
+    if (lane < n) write(lane, v);
+    __syncwarp();
+  }
   __device__ i64 min(i64 v) const {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v = min64(v, __shfl_xor_sync(0xffffffffu, v, o));

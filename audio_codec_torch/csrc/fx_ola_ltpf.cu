@@ -11,28 +11,30 @@
 // state (mem, mem_e, old_x, old_y, old_e, pitch_int, pitch_fr, gain,
 // mem_active, old_sfi) updated in place. One launch a frame.
 //
-// Bound on an H100: the post-filter's sample loop, 120 + 360 samples (and
-// 120 more on a crossfade) of up to 12 + 11 dependent multiply-adds with
-// saturation each, the output read back `pitch_int` samples; the bytes are
-// the frame, the two histories and the memory in and out, about 19 KB a
-// stream (B = 2048: 39 MB, 0.012 ms at 3.35 TB/s). The sample loop is the
-// bound.
-// Design: a warp a stream (kFxOlaWarps a block). Lanes 0-31 do the
+// Bound on an H100: the bytes are the frame, the two histories and the
+// memory in and out, about 19 KB a stream (B = 2048: 39 MB, 0.012 ms at
+// 3.35 TB/s); the post-filter's 120 + 360 samples (and 120 more on a
+// crossfade) of up to 12 + 11 multiply-adds with saturation each are a few
+// thousand warp instructions a stream once they run across the lanes.
+// Design: a warp a stream, blocks of 4 warps. Lanes 0-31 do the
 // overlap-add's headroom (a warp minimum), window, unfold and overlap-add,
-// the histories' headrooms and rescaling, and the PCM rounding; the filter's
-// sample loop runs on lane 0 (splitting it by the pitch lag is later work,
-// ROADMAP Queue 2 item 1). The buffers live in shared memory.
+// the histories' headrooms and rescaling, the PCM rounding, and the
+// post-filter's three passes in chunks of min(32, pitch_int - shift)
+// samples, a sample a lane (fx_ola_ltpf.cuh:synth_filter_warp; lane 0 alone
+// in the reference's order where pitch_int <= shift). The Word16 buffers
+// live in shared memory as int32: 9 KB a stream, so every stream of
+// B = 2048 is resident at once.
 #include "fx_ola_ltpf.cuh"
 
 using namespace acx::fx;
 
-constexpr int kFxOlaWarps = 2;
+constexpr int kFxOlaWarps = 4;
 
 __global__ void fx_ola_ltpf_kernel(const i64* __restrict__ ytda, const i64* __restrict__ y_e,
                                    const i64* __restrict__ y_s, const bool* __restrict__ zero,
                                    const int32_t* __restrict__ lp, const i64* __restrict__ tab,
                                    OlaState st, int16_t* __restrict__ pcm, int B, OlaGeom g) {
-  extern __shared__ i64 smem[];
+  extern __shared__ OlaWord smem[];
   const int wi = threadIdx.x >> 5;
   const int b = blockIdx.x * kFxOlaWarps + wi;
   if (b >= B) return;            // whole warps leave together
@@ -58,7 +60,12 @@ extern "C" int acx_fx_ola_ltpf(const void* ytda, const void* y_e, const void* y_
                     static_cast<i64*>(old_e), static_cast<i64*>(pitch_int),
                     static_cast<i64*>(pitch_fr), static_cast<i64*>(gain),
                     static_cast<i64*>(mem_active), static_cast<i64*>(old_sfi)};
-  const size_t smem = static_cast<size_t>(kFxOlaWarps) * ola_scratch_words(g) * sizeof(i64);
+  if (g.ilen < 1 || g.ilen > kOlaMaxIlen || g.tlen < 0 || g.tlen > kOlaMaxTlen ||
+      g.x_len < g.tlen || g.N4 > g.N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      static_cast<size_t>(kFxOlaWarps) * ola_scratch_words(g) * sizeof(OlaWord);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fx_ola_ltpf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -115,7 +115,9 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                synthetic rows of tests/torch_kernel_cases.py (every submode,
                out-of-range MPVQ indices, silent, full-scale and order-8
                spectra, all-zero, full-scale and alternating DCT rows, the
-               post-filter plan through passthrough, pat2, pat3, pat4, pat1);
+               post-filter plan through passthrough, pat2, pat3, pat4, pat1
+               at 48 and 8 kHz with its edge streams: passes with d =
+               pitch_int - shift >= 32, < 32 and <= 0 each required);
                the stored reference (audio_codec_torch/data/fixed_pcm_ref.npz,
                the reference FixedDecoder's PCM) decoded on the card bit for
                bit; 12 streams of the block against the port on the CPU bit
@@ -1018,6 +1020,23 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         branches = branch_counts(name, args, got)
         print(f"[kernels] {what}: {branches}", flush=True)
         check(all(v > 0 for v in branches.values()), f"{what}: a branch was not taken: {branches}")
+    # the pitch search's warp at every frame size (correlation lengths 64 and
+    # 32) on the synthetic rows, at 1, 33 and 2047 streams a launch
+    for dms in (100, 50, 25):
+        c = P.Config(fs_in=cfg.fs, bitrate=cfg.bitrate, frame_dms=dms)
+        a = C.olpa_rows(seed=2, frame_dms=dms)
+        for n in (1, 33, 2047):
+            pick = np.resize(np.arange(a["mem_pitch"].shape[0]), n)
+            args = (c, *(torch.from_numpy(np.ascontiguousarray(a[k][pick])).to(dev)
+                         for k in C.OLPA_ORDER))
+            got = K.olpa(*args)
+            ref = [t.contiguous() for t in analysis.olpa_plain(*args)]
+            torch.cuda.synchronize()
+            same_bits(got, ref, f"olpa (synthetic rows, {dms / 10} ms, {n} streams)")
+        hist = branch_counts("olpa", args, got)
+        check(all(v > 0 for v in hist.values()), f"olpa (synthetic rows, {dms / 10} ms): {hist}")
+    print("[kernels] olpa on olpa_rows at 10, 5 and 2.5 ms, 1, 33 and 2047 streams a launch, "
+          "equals its plain version and takes both window branches", flush=True)
     # the LTPF coder's warp at every frame size (correlation lengths 128 and
     # 64) on the edge rows (the pitch at each lag limit and resolution step,
     # tied window values and candidates, negative correlations), at 1, 33
@@ -1877,8 +1896,11 @@ def fixed_synthetic(cfg, dev, K) -> dict:
     fixed-point kernel against its plain version: every SNS submode, both
     leading signs and out-of-range indices; silent, full-scale, zero-frame
     and order-8 spectra; all-zero, full-scale and alternating DCT rows; the
-    post-filter plan through passthrough, pat2, pat3, pat4 and pat1."""
+    post-filter plan through passthrough, pat2, pat3, pat4 and pat1 at 48
+    and 8 kHz, with its edge streams (passes at pitch_int <= shift, chunks
+    shorter than a warp at 8 kHz)."""
     import torch
+    import audio_codec_torch as P
     from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
     from audio_codec_torch.ops import fixed_dev as fv
     from tests import torch_kernel_cases as C
@@ -1895,17 +1917,27 @@ def fixed_synthetic(cfg, dev, K) -> dict:
     y, y_e = C.fx_dct4_rows()
     out, _ = fixed_equal(K, "fx_dct4", (g(y), g(y_e), cfg.frame_length, cfg.frame_dms))
     hist["fx_dct4"] = fixed_branches("fx_dct4", None, out, cfg.fs_idx)
-    plan = C.fx_ola_plan(B=64)
-    dec = DeviceFixedDecoder(cfg, 64, device=dev)
-    pats = {}
-    for t in range(len(C.LTPF_PLAN)):
-        args = (cfg, dec.state, *(g(plan[k][t]) for k in ("ytda", "y_e", "y_s", "zero", "lp")),
-                dec.sfi)
-        b = fixed_branches("fx_ola_ltpf", args, None, cfg.fs_idx)
-        pats = {k: pats.get(k, 0) + v for k, v in b.items()}
-        fixed_equal(K, "fx_ola_ltpf", args)
-        K.fx_ola_ltpf(*args)               # step the plan's state
+    # the post-filter plan at 48 kHz, and at 8 kHz (pitch lags from 19:
+    # chunks shorter than a warp), each also with its edge streams (pitch
+    # indices at their ranges' ends, passes at pitch 0 where pitch_int <=
+    # shift, silent and full-scale frames)
+    pats, lags = {}, {}
+    cfg8 = P.Config(fs_in=8000, bitrate=24000)
+    for c, plan in ((cfg, C.fx_ola_plan(B=64)), (cfg, C.fx_ola_edge_plan(B=64)),
+                    (cfg8, C.fx_ola_plan(B=64, N=80)), (cfg8, C.fx_ola_edge_plan(B=64, N=80))):
+        dec = DeviceFixedDecoder(c, 64, device=dev)
+        for t in range(len(C.LTPF_PLAN)):
+            args = (c, dec.state, *(g(plan[k][t]) for k in ("ytda", "y_e", "y_s", "zero", "lp")),
+                    dec.sfi)
+            b = fixed_branches("fx_ola_ltpf", args, None, c.fs_idx)
+            pats = {k: pats.get(k, 0) + v for k, v in b.items()}
+            key = f"{c.fs // 1000} kHz"
+            for k, v in C.fx_ola_pass_lags(dec.state, plan["lp"][t], c.fs_idx, dec.sfi).items():
+                lags[f"{key} {k}"] = lags.get(f"{key} {k}", 0) + v
+            fixed_equal(K, "fx_ola_ltpf", args)
+            K.fx_ola_ltpf(*args)               # step the plan's state
     hist["fx_ola_ltpf"] = pats
+    hist["fx_ola_ltpf passes"] = lags
     return hist
 
 
@@ -1965,6 +1997,10 @@ def fixed_phase(dev, frames, K, card) -> list:
     print(f"[fixed] synthetic rows equal their plain versions; {syn}", flush=True)
     check(all(v > 0 for v in syn["fx_ola_ltpf"].values()),
           f"a post-filter branch was not reached: {syn['fx_ola_ltpf']}")
+    lags = syn["fx_ola_ltpf passes"]
+    check(all(lags[k] > 0 for k in ("48 kHz d >= 32", "48 kHz d <= 0", "8 kHz d < 32",
+                                    "8 kHz d <= 0")),
+          f"a post-filter pass lag was not reached: {lags}")
     check(all(v > 0 for v in syn["fx_sns_dec"].values()) and syn["fx_dct4"]["all-zero rows"] > 0,
           "a synthetic SNS submode, out-of-range index or all-zero DCT row is missing")
 

@@ -48,8 +48,11 @@ bit-exact fixed-point decoder (DeviceFixedDecoder) run on every launch of a
 B = 64 block with silent streams and on their synthetic rows (every SNS
 submode and out-of-range indices, silent, full-scale and order-8 spectra,
 all-zero, full-scale and alternating DCT rows, the post-filter through
-passthrough and its four patterns), equal to their plain versions with no
-tolerance; the card's PCM equals the stored reference's and the CPU's."""
+passthrough and its four patterns, at 48 and 8 kHz with passes at
+pitch_int <= shift, 1, 33 and 2048 streams a launch), equal to their plain
+versions with no tolerance; the card's PCM equals the stored reference's and
+the CPU's. The pitch search runs its rows at 10, 5 and 2.5 ms, 1, 33 and
+2048 streams a launch."""
 from __future__ import annotations
 
 import wave
@@ -725,6 +728,27 @@ def test_olpa_synthetic_rows(dev):
     assert all(v > 0 for v in branches.values()), branches
 
 
+OLPA_FRAMES = {"10ms": 100, "5ms": 50, "2.5ms": 25}
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("frames", list(OLPA_FRAMES))
+def test_olpa_rows_at_every_size(dev, frames, B):
+    """The warp's chains at both correlation lengths (64, 32) on the
+    synthetic rows, tiled to B streams a launch."""
+    dms = OLPA_FRAMES[frames]
+    cfg = P.Config(fs_in=48000, bitrate=64000, frame_dms=dms)
+    a = C.olpa_rows(seed=2, frame_dms=dms)
+    pick = np.resize(np.arange(a["mem_pitch"].shape[0]), B)
+    args = (cfg, *on_card({k: v[pick] for k, v in a.items()}, C.OLPA_ORDER, dev))
+    got = K.olpa(*args)
+    same_tensors(got, [t.contiguous() for t in analysis.olpa_plain(*args)])
+    if B == 2048:
+        branches = C.olpa_branches({k: v[pick] for k, v in a.items()},
+                                   [t.cpu().numpy() for t in got])
+        assert all(v > 0 for v in branches.values()), branches
+
+
 def test_ltpf_encode_synthetic_rows(dev):
     """Periods at both lag limits and across the resolution steps, the
     search's lowest lag, each activation rule firing alone, nc_ol on both
@@ -1193,6 +1217,42 @@ def test_fixed_kernels_synthetic_rows(dev):
         fixed_same("fx_ola_ltpf", args)
         K.fx_ola_ltpf(*args)
     assert bool((seen > 0).all()), seen.tolist()
+
+
+OLA_RATES = {"48k": dict(fs_in=48000, bitrate=64000), "8k": dict(fs_in=8000, bitrate=24000)}
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("plan", ["plan", "edge_plan"])
+@pytest.mark.parametrize("rate", list(OLA_RATES))
+def test_fx_ola_ltpf_plans_at_every_size(dev, rate, plan, B):
+    """The post-filter across the lanes at 48 kHz (chunks of 32) and 8 kHz
+    (chunks from 19), the edge plan's passes at pitch_int <= shift, every
+    stream from its own state, B streams a launch (the plan's streams
+    tiled)."""
+    from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
+    from audio_codec_torch.ops import fixed_ltpf_dev
+    cfg = P.Config(**OLA_RATES[rate])
+    make = C.fx_ola_plan if plan == "plan" else C.fx_ola_edge_plan
+    p = make(B=33, seed=4, N=cfg.frame_length)
+    pick = np.resize(np.arange(33), B)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a[:, pick])).to(dev)
+    p = {k: g(v) for k, v in p.items()}
+    dec = DeviceFixedDecoder(cfg, B, device=dev)
+    seen, lags = torch.zeros(5, dtype=torch.long), {}
+    for t in range(len(C.LTPF_PLAN)):
+        args = (cfg, dec.state, *(p[k][t] for k in ("ytda", "y_e", "y_s", "zero", "lp")), dec.sfi)
+        seen += torch.bincount(fixed_ltpf_dev.ltpf_patterns(dec.state, args[6], cfg.fs_idx),
+                               minlength=5).cpu()
+        for k, v in C.fx_ola_pass_lags(dec.state, args[6].cpu(), cfg.fs_idx, dec.sfi).items():
+            lags[k] = lags.get(k, 0) + v
+        fixed_same("fx_ola_ltpf", args)
+        K.fx_ola_ltpf(*args)
+    if B > 1:
+        assert bool((seen > 0).all()), seen.tolist()
+        assert lags["d < 32" if rate == "8k" else "d >= 32"] > 0, lags
+        if plan == "edge_plan":
+            assert lags["d <= 0"] > 0, lags
 
 
 def test_fixed_decoder_card_equals_stored_reference_and_cpu(dev, fixed_recorded):

@@ -9,9 +9,8 @@ here with its partial-concealment hooks), the DCT-IV, fold and unfold of
 csrc/dct4.cuh, the concealment's csrc/plc*.cuh and phecu.cuh, the
 fixed-point decoder's csrc/fx_*.cuh and the TNS synthesis lattice compile as
 plain C++ as
-well as for the card (the warp kernel of olpa shares its steps with a lane
-function that runs them in order; the LTPF parameter coder
-(csrc/ltpf_encode.cuh), the TNS filter analysis,
+well as for the card (the open-loop pitch search (csrc/olpa.cuh), the LTPF
+parameter coder (csrc/ltpf_encode.cuh), the TNS filter analysis,
 the SNS quantizer's encoder (csrc/sns_vq_enc.cuh) and decoder
 (csrc/sns_vq.cuh), the noise factor and residual coder and the decoder's
 spectrum reconstruction (csrc/spec_decode.cuh) are templates over the warp,
@@ -1031,10 +1030,16 @@ void rehearse_olpa(const float* s, const float* m12, const float* m64, const int
                    const float* tab, int B, int s_stride, int length, int len2, int mem_in_len,
                    int acflen, int base, int* pitch2, float* nc, int* t0, float* n12, float* n64) {
   const OlpaGeom g = {length, len2, mem_in_len, acflen, base};
-  float row[kOlpaMaxRow];
-  for (int b = 0; b < B; ++b)
-    olpa_lane(s + s_stride * b, m12 + 3 * b, m64 + mem_in_len * b, mp[b], tab, g, row, pitch2 + b,
-              nc + b, t0 + b, n12 + 3 * b, n64 + mem_in_len * b);
+  OlpaScratch S;
+  for (int b = 0; b < B; ++b) {
+    const OlpaStream st = {s + s_stride * b, m12 + 3 * b, m64 + mem_in_len * b, mp[b]};
+    const OlpaOut o = acflen == 64
+        ? olpa_warp<64>(CoderHostWarp{}, st, tab, g, S, n12 + 3 * b, n64 + mem_in_len * b)
+        : olpa_warp<32>(CoderHostWarp{}, st, tab, g, S, n12 + 3 * b, n64 + mem_in_len * b);
+    t0[b] = o.t0;
+    pitch2[b] = 2 * o.t0;
+    nc[b] = o.nc;
+  }
 }
 }
 """ + LTPF_REHEARSE
@@ -1837,7 +1842,7 @@ void rehearse_fx_ola_ltpf(const i64* ytda, const i64* y_e, const i64* y_s, const
                           int16_t* pcm) {
   const OlaGeom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[7],
                   geom[8], geom[9], geom[10], geom[11], geom[12], geom[13]};
-  std::vector<i64> sc(ola_scratch_words(g));
+  std::vector<OlaWord> sc(ola_scratch_words(g));
   const Host w;
   const int memLen = g.wLen - g.N;
   for (int b = 0; b < B; ++b) {

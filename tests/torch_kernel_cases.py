@@ -760,8 +760,9 @@ def _periodic(kind: str, period: int, n: int, phase: int, rng) -> np.ndarray:
     raise ValueError(kind)
 
 
-def olpa_rows(seed: int = 0) -> dict[str, np.ndarray]:
-    """Inputs of olpa (s12k8 [n, 129], mem_s12k8 [n, 3], mem_s6k4 [n, 114],
+def olpa_rows(seed: int = 0, frame_dms: int = 100) -> dict[str, np.ndarray]:
+    """Inputs of olpa (s12k8 [n, 129], mem_s12k8 [n, 3], mem_s6k4 [n, 114]
+    at 10 ms; [n, 65] and [n, 114] at 5 ms, [n, 33] and [n, 130] at 2.5 ms;
     mem_pitch [n]) from one 12.8 kHz signal a row, the memories its earlier
     samples decimated as the frame is: pulse trains and tones whose period
     at 6.4 kHz is each lag limit (17, 114) and lags between, each with the
@@ -769,10 +770,13 @@ def olpa_rows(seed: int = 0) -> dict[str, np.ndarray]:
     over), at 1.5 times it (it does not), at both limits and out of range
     (an empty window); tones with the previous pitch 4-14 lags above the
     period (the windowed correlation near 0.85 of the other); silent rows
-    (every lag ties, the first wins); seeded noise."""
+    (every lag ties, the first wins); seeded noise; constant rows (every lag
+    ties at a nonzero correlation: the window's first lag takes over)."""
     rng = np.random.default_rng(seed)
     w = T.t("olpa_down2")
-    n12 = 228 + 3 + 129
+    length = T.LEN_12K8 * frame_dms // 100
+    mem = T.MAX_PITCH_6K4 + (16 if frame_dms == 25 else 0)
+    n12 = 2 * mem + 3 + length + 1
     sigs, pitches = [], []
     for P in (17, 18, 29, 50, 57, 113, 114):
         for kind, phases in (("pulse", (0, P // 3, (2 * P) // 3)), ("tone", (0,))):
@@ -792,11 +796,17 @@ def olpa_rows(seed: int = 0) -> dict[str, np.ndarray]:
     for k in range(8):
         sigs.append(rng.standard_normal(n12) * 10.0 ** rng.uniform(0, 4))
         pitches.append(int(rng.integers(17, 115)))
+    # constant rows: every lag ties at one nonzero correlation, so the
+    # windowed search's first lag takes over wherever it is not the
+    # weighted one
+    for mp in (21, 50, 60, 61, 62, 63, 100, 110):
+        sigs.append(np.full(n12, 1000.0 + mp))
+        pitches.append(mp)
     u = np.stack(sigs)
     filt = np.stack([np.convolve(r, w)[: n12] for r in u])
-    return dict(s12k8=np.ascontiguousarray(u[:, 231:], np.float32),
-                mem_s12k8=np.ascontiguousarray(u[:, 228:231], np.float32),
-                mem_s6k4=np.ascontiguousarray(filt[:, 4:232:2], np.float32),
+    return dict(s12k8=np.ascontiguousarray(u[:, 2 * mem + 3:], np.float32),
+                mem_s12k8=np.ascontiguousarray(u[:, 2 * mem: 2 * mem + 3], np.float32),
+                mem_s6k4=np.ascontiguousarray(filt[:, 4: 2 * mem + 4: 2], np.float32),
                 mem_pitch=np.asarray(pitches, np.int32))
 
 
@@ -804,11 +814,17 @@ def olpa_weighted_lag(args: dict) -> np.ndarray:
     """T0 of olpa's weighted search alone (float64, from the inputs), to tell
     the rows where the windowed search took over."""
     w = T.t("olpa_down2")
-    buf = np.concatenate([args["mem_s12k8"], args["s12k8"][:, :128]], axis=1).astype(np.float64)
+    length = args["s12k8"].shape[1] - 1
+    mem = args["mem_s6k4"].shape[1]
+    acf = length // 2 + mem - T.MAX_PITCH_6K4     # 64 at 10 ms, 32 at 5 and 2.5 ms
+    buf = np.concatenate([args["mem_s12k8"], args["s12k8"][:, :length]],
+                         axis=1).astype(np.float64)
     filt = np.stack([np.convolve(r, w)[: buf.shape[1]] for r in buf])
-    row = np.concatenate([args["mem_s6k4"].astype(np.float64), filt[:, 4::2][:, :64]], axis=1)
-    cur = row[:, 114:178]
-    R = np.stack([(cur * row[:, 114 - lag: 178 - lag]).sum(-1) for lag in range(17, 115)], -1)
+    row = np.concatenate([args["mem_s6k4"].astype(np.float64), filt[:, 4::2][:, :length // 2]],
+                         axis=1)
+    cur = row[:, 114:114 + acf]
+    R = np.stack([(cur * row[:, 114 - lag: 114 + acf - lag]).sum(-1) for lag in range(17, 115)],
+                 -1)
     return np.argmax(R * T.t("olpa_acw")[None], axis=-1).astype(np.int32) + 17
 
 
@@ -1742,17 +1758,17 @@ def _norm_l(v: np.ndarray) -> np.ndarray:
     return np.where(v == 0, 0, 31 - bl)
 
 
-def fx_ola_plan(B: int = 8, seed: int = 0) -> dict[str, np.ndarray]:
+def fx_ola_plan(B: int = 8, seed: int = 0, N: int = 480) -> dict[str, np.ndarray]:
     """Five frames of fx_ola_ltpf inputs that walk every stream through the
     passthrough, pat2 (LTPF switched on), pat3 (same pitch), pat4 (a new
     pitch: the crossfade) and pat1 (switched off). Pitch indices from all
     three of the decoder's ranges; seeded frames at several levels and
     exponents (the passthrough's history shifts both ways), an all-zero
-    frame in some streams. Keys: ytda [5, B, 480], y_e, y_s [5, B] int64,
-    zero [5, B] bool, lp [5, B, 3] int32 (the LTPF side words: on, active,
-    pitch index)."""
+    frame in some streams. Keys: ytda [5, B, N] (N the frame length, 480
+    at 48 kHz, 80 at 8 kHz), y_e, y_s [5, B] int64, zero [5, B] bool, lp
+    [5, B, 3] int32 (the LTPF side words: on, active, pitch index)."""
     rng = np.random.default_rng(1000 + seed)
-    T, N = len(LTPF_PLAN), 480
+    T = len(LTPF_PLAN)
     mag = rng.laplace(0, 1, (T, B, N)) * 2.0 ** rng.integers(10, 29, (T, B, 1))
     ytda = np.clip(np.floor(mag), -(1 << 31), (1 << 31) - 1).astype(np.int64)
     zero = np.zeros((T, B), bool)
@@ -1773,6 +1789,85 @@ def fx_ola_plan(B: int = 8, seed: int = 0) -> dict[str, np.ndarray]:
     lp[4, :, 0] = np.arange(B) % 2           # switched off: with and without a pitch
     lp[4, :, 2] = np.where(np.arange(B) % 2 == 1, pb, 0)
     return dict(ytda=ytda, y_e=y_e, y_s=y_s, zero=zero, lp=lp)
+
+
+def _full_scale(N: int, sign: int, period: int) -> np.ndarray:
+    """A frame at the int32 limits, its sign flipping every `period` samples."""
+    s = np.where((np.arange(N) // period) % 2 == 0, sign, -sign)
+    return np.where(s > 0, (1 << 31) - 1, -(1 << 31)).astype(np.int64)
+
+
+def fx_ola_edge_plan(B: int = 16, seed: int = 0, N: int = 480) -> dict[str, np.ndarray]:
+    """fx_ola_plan with its first 10 streams set to edges
+    of the post-filter: the pitch indices at the ends of the decoder's three
+    ranges (0, 379, 380, 439, 440, 511); the LTPF field off with the filter
+    active (pitch_int 0, so pitch_int <= shift: the pass in the reference's
+    own order) switched on after and before a real pitch, so that pat2,
+    pat3, pat4 (either pass) and pat1 run a pass at pitch 0 with each fade
+    sign; a silent stream; full-scale frames (every sample at the int32
+    limits) at exponents 60, 45 and 30, so that the PCM's shift up saturates
+    and wraps past 64 bits where it is not clamped."""
+    assert B >= 10
+    p = fx_ola_plan(B, seed, N)
+    lp, ytda, y_e, y_s, zero = p["lp"], p["ytda"], p["y_e"], p["y_s"], p["zero"]
+    on = lambda s, frames, pidx, ltpf=1: (lp.__setitem__((frames, s, 0), ltpf),
+                                          lp.__setitem__((frames, s, 1), 1),
+                                          lp.__setitem__((frames, s, 2), pidx))
+    for s, (a, b) in enumerate(((0, 511), (379, 380), (439, 440))):
+        on(s, slice(1, 3), a)
+        on(s, 3, b)
+        lp[4, s] = (1, 0, b)
+    # pitch 0 from the start: pat2 and pat3 at pitch 0, pat4's first pass at
+    # the old pitch 0, pat1 at a real pitch
+    on(3, slice(1, 3), 77, ltpf=0)
+    on(4, 3, 200)
+    lp[4, 3] = (0, 0, 0)
+    on(3, 3, 200)
+    # a real pitch, then pitch 0: pat4's second pass and phase 2 at pitch 0,
+    # pat1's fade-out at the old pitch 0
+    on(4, slice(1, 3), 100)
+    on(4, 3, 5, ltpf=0)
+    lp[4, 4] = (0, 0, 0)
+    # silent
+    zero[:, 5] = True
+    ytda[:, 5] = 0
+    # full scale
+    for s, (e, sign, period) in zip((6, 7, 8), ((60, 1, 7), (45, -1, 1), (30, 1, N))):
+        ytda[:, s] = _full_scale(N, sign, period)
+        zero[:, s] = False
+        y_e[:, s] = e
+    on(9, slice(1, 4), 300)
+    ytda[:, 9] = _full_scale(N, -1, 3)
+    zero[:, 9] = False
+    y_e[:, 9] = 52
+    nz = np.where(ytda != 0, _norm_l(ytda), 32).min(axis=2)
+    p["y_s"] = np.where(zero, 31, nz - 1).astype(np.int64)
+    return p
+
+
+def fx_ola_pass_lags(st: dict, lp, fs_idx: int, sfi: int) -> dict[str, int]:
+    """The post-filter passes one fx_ola_ltpf frame runs, by d = pitch_int -
+    shift of the pass: "d <= 0" (lane 0 in the reference's order), "d < 32"
+    (chunks shorter than a warp) and "d >= 32". st: the state before the
+    frame (tensors); lp [B, 3]."""
+    import torch
+    from audio_codec_torch.ops import fixed_ltpf_dev as fld
+    geo = fld.filter_geometry(fs_idx)
+    lp = torch.as_tensor(np.asarray(lp)).to(torch.int64)
+    st = {k: torch.as_tensor(st[k]).cpu() for k in ("mem_active", "pitch_int", "pitch_fr")}
+    pint, pfr = fld.decode_pitch(lp[:, 0], lp[:, 2], geo["pitch_scale"])
+    active = lp[:, 1] if sfi >= 0 else torch.zeros_like(lp[:, 1])
+    mem = st["mem_active"] != 0
+    passthrough = (active == 0) & ~mem
+    same = (pint == st["pitch_int"]) & (pfr == st["pitch_fr"])
+    pat1 = (active == 0) & ~passthrough
+    pat4 = (active != 0) & mem & ~same
+    use_old = pat1 | pat4
+    passes = [(torch.where(use_old, st["pitch_int"], pint), ~passthrough), (pint, pat4),
+              (pint, (active > 0) & ~passthrough)]
+    d = torch.cat([(pi - geo["shift"])[m] for pi, m in passes])
+    return {"d <= 0": int((d <= 0).sum()), "d < 32": int(((d > 0) & (d < 32)).sum()),
+            "d >= 32": int((d >= 32).sum())}
 
 
 # ---- the standard concealment (plc_mode 0, plc_main) ----
