@@ -81,6 +81,43 @@ ACX_HD i64 shl16(i64 x, i64 s) {
 ACX_HD i64 ladd(i64 a, i64 b) { return sat32(a + b); }
 ACX_HD i64 lsub(i64 a, i64 b) { return sat32(a - b); }
 ACX_HD i64 lneg(i64 a) { return sat32(-a); }
+// sat32(a + b) and sat32(a - b) of two Word32 values in 32-bit arithmetic
+// (add.sat.s32 on the card)
+ACX_HD int32_t add_sat32(int32_t a, int32_t b) {
+#ifdef __CUDA_ARCH__
+  int32_t r;
+  asm("add.sat.s32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  return static_cast<int32_t>(sat32(static_cast<i64>(a) + b));
+#endif
+}
+ACX_HD int32_t sub_sat32(int32_t a, int32_t b) {
+#ifdef __CUDA_ARCH__
+  int32_t r;
+  asm("sub.sat.s32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  return static_cast<int32_t>(sat32(static_cast<i64>(a) - b));
+#endif
+}
+// mpy_32_16 of a Word32 x and a Word16 y in 32-bit registers: the product
+// a 32 x 32 -> 64 multiply (mul.wide.s32), |p| <= 2^46, so p >> 15 fits in
+// 32 bits but at p = 2^46 (x = y = the most negative value), where it
+// saturates: on the card the low word of p >> 15 is one funnel shift of
+// p's two words, and p = 2^46 is p's high word reaching 2^14.
+ACX_HD int32_t mpy32_16(int32_t x, int32_t y) {
+#ifdef __CUDA_ARCH__
+  i64 p;
+  asm("mul.wide.s32 %0, %1, %2;" : "=l"(p) : "r"(x), "r"(y));
+  const int32_t hi = static_cast<int32_t>(p >> 32);
+  const int32_t r = static_cast<int32_t>(
+      __funnelshift_r(static_cast<uint32_t>(p), static_cast<uint32_t>(hi), 15));
+  return hi >= 0x4000 ? static_cast<int32_t>(MAX32) : r;
+#else
+  return static_cast<int32_t>(min64((static_cast<i64>(x) * y) >> 15, MAX32));
+#endif
+}
 
 // the index of a 32-lane ballot's highest set bit (-1 if none)
 ACX_HD int top32(unsigned m) {

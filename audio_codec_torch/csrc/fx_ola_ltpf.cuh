@@ -85,26 +85,6 @@ ACX_HD i64 headroom16_0(const W& w, const T* x, int n) {
   return w.min(m);
 }
 
-// sat32(a + b) and sat32(a - b) of two Word32 values in 32-bit arithmetic
-// (add.sat.s32 on the card)
-ACX_HD int32_t add_sat32(int32_t a, int32_t b) {
-#ifdef __CUDA_ARCH__
-  int32_t r;
-  asm("add.sat.s32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-#else
-  return static_cast<int32_t>(sat32(static_cast<i64>(a) + b));
-#endif
-}
-ACX_HD int32_t sub_sat32(int32_t a, int32_t b) {
-#ifdef __CUDA_ARCH__
-  int32_t r;
-  asm("sub.sat.s32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-#else
-  return static_cast<int32_t>(sat32(static_cast<i64>(a) - b));
-#endif
-}
 // L_mult, round_fx, mult_r and sat16 of Word16 values in 32-bit arithmetic:
 // a product of two Word16 values fits, and twice it saturates only at 2^30
 ACX_HD int32_t lmult16(int32_t a, int32_t b) {

@@ -11,21 +11,33 @@
 // Bound on an H100: the TNS lattice, up to 400 bins x 8 taps a frame, each
 // tap a dependent multiply and saturation; the bytes are about 9.6 KB a
 // lane (L = 16384: 157 MB, 0.05 ms at 3.35 TB/s).
-// Design: a warp a frame (kFxSpecWarps a block). The elementwise lines run
-// on 32 lanes, the headroom and maximum over the warp with shuffles; the
-// residual's and the noise filler's ranks and the zero runs are warp scans
+// Design: a block of four warps takes four frames (kFxSpecFrames). The
+// stages before and after the lattice run a frame a warp: the elementwise
+// lines, the headroom and maximum over the warp with shuffles, the
+// residual's and the noise filler's ranks and the zero runs as warp scans
 // over 13 chunks of 32 bins (a ballot, then popc or the highest set bit,
-// fixed.cuh); only the lattice runs on lane 0 (its state and coefficients in
-// registers, indexed statically). The spectrum and the zero runs sit in
-// shared memory.
+// fixed.cuh). Between them warp 0 runs the four frames' lattices at once,
+// a wavefront of a tap a lane (fx_spec_decode.cuh:fx_tns_wave). The spectra
+// (int32) and each warp's zero runs (int16) sit in shared memory.
 #include "fx_spec_decode.cuh"
 
+using namespace acx;
 using namespace acx::fx;
 
-constexpr int kFxSpecWarps = 4;
+constexpr int kFxSpecWarps = 4;   // a frame a warp
+static_assert(kFxSpecWarps == kFxSpecFrames, "a block's warps are its frames");
 
-// a warp's shared words: the spectrum (yLen) and the zero runs (yLen int32)
-__host__ __device__ inline int spec_smem_words(int yLen) { return yLen + (yLen + 1) / 2; }
+// a block's shared bytes: the four lattices and the four spectra (yLen words
+// each), then each warp's zero runs (yLen int16), each part a multiple of 16
+__host__ __device__ inline int spec_frames_bytes(int yLen) {
+  const int b = kFxSpecFrames * static_cast<int>(sizeof(FxTnsFrame)) +
+                kFxSpecFrames * yLen * static_cast<int>(sizeof(SpecWord));
+  return (b + 15) / 16 * 16;
+}
+__host__ __device__ inline int spec_run_bytes(int yLen) { return (yLen * 2 + 15) / 16 * 16; }
+__host__ __device__ inline int spec_block_bytes(int yLen) {
+  return spec_frames_bytes(yLen) + kFxSpecWarps * spec_run_bytes(yLen);
+}
 
 __global__ void fx_spec_decode_kernel(const int32_t* __restrict__ x,
                                       const int32_t* __restrict__ res,
@@ -34,17 +46,29 @@ __global__ void fx_spec_decode_kernel(const int32_t* __restrict__ x,
                                       const i64* __restrict__ scf, const i64* __restrict__ scf_e,
                                       const i64* __restrict__ tab, i64* __restrict__ out,
                                       i64* __restrict__ x_e, int L, SpecGeom g) {
-  extern __shared__ i64 smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int wi = threadIdx.x >> 5;
-  const int l = blockIdx.x * kFxSpecWarps + wi;
-  if (l >= L) return;            // whole warps leave together
-  i64* xs = smem + wi * spec_smem_words(g.yLen);
-  int32_t* run = reinterpret_cast<int32_t*>(xs + g.yLen);
-  const Warp w{static_cast<int>(threadIdx.x & 31)};
-  const size_t ls = static_cast<size_t>(l);
-  fx_spec_decode_lane(w, x + ls * g.yLen, res + ls * g.R, side + ls * kSpecSideWords,
-                      tidx + ls * 16, scf + ls * g.n_bands, scf_e + ls * g.n_bands, tab, g, xs,
-                      run, out + ls * g.N, x_e + ls);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int l0 = blockIdx.x * kFxSpecFrames;
+  const int nf = imin(kFxSpecFrames, L - l0);
+  FxTnsFrame* tf = reinterpret_cast<FxTnsFrame*>(smem);
+  SpecWord* xs = reinterpret_cast<SpecWord*>(tf + kFxSpecFrames);
+  int16_t* run = reinterpret_cast<int16_t*>(smem + spec_frames_bytes(g.yLen) +
+                                            wi * spec_run_bytes(g.yLen));
+  const size_t l = static_cast<size_t>(l0) + wi;
+  if (wi < nf) {
+    fx_spec_pre(Warp{lane}, x + l * g.yLen, res + l * g.R, side + l * kSpecSideWords, tab, g,
+                xs + wi * g.yLen, run, tf + wi);
+  }
+  __syncthreads();
+  if (wi == 0) {
+    fx_tns_wave(CoderCardWarp{lane}, nf, tf, xs, g.yLen, tidx + static_cast<size_t>(l0) * 16, tab);
+  }
+  __syncthreads();
+  if (wi < nf) {
+    fx_spec_post(Warp{lane}, xs + wi * g.yLen, scf + l * g.n_bands, scf_e + l * g.n_bands, tab, g,
+                 tf[wi].x_e, out + l * g.N, x_e + l);
+  }
 }
 
 extern "C" int acx_fx_spec_decode(const void* x, const void* res, const void* side,
@@ -52,13 +76,15 @@ extern "C" int acx_fx_spec_decode(const void* x, const void* res, const void* si
                                   const void* tab, void* out, void* x_e, int L, int yLen, int N,
                                   int n_bands, int frame_dms, int gg_off, int R, void* stream) {
   const SpecGeom g{yLen, N, n_bands, frame_dms, gg_off, R};
-  const size_t smem = static_cast<size_t>(kFxSpecWarps) * spec_smem_words(yLen) * sizeof(i64);
+  if (yLen > 32767) return static_cast<int>(cudaErrorInvalidValue);   // int16 zero runs
+  const size_t smem = static_cast<size_t>(spec_block_bytes(yLen));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fx_spec_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = (L + kFxSpecWarps - 1) / kFxSpecWarps;
+  if (L == 0) return static_cast<int>(cudaSuccess);
+  const int blocks = (L + kFxSpecFrames - 1) / kFxSpecFrames;
   fx_spec_decode_kernel<<<blocks, 32 * kFxSpecWarps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(res),
       static_cast<const int32_t*>(side), static_cast<const int32_t*>(tidx),

@@ -20,16 +20,35 @@
 #include <cstring>
 
 #include "acodec.cuh"
+#include "warp.cuh"
 
 namespace acx {
+
+// each_u<U>(n, f): f(i) for every i < n, as each; on the card a lane runs U
+// of its elements (i, i + 32, ...) in one unrolled iteration, so that their
+// independent chains overlap. each_loaded(n, load, f): f(i, load(i)) for
+// every i < n; on the card a lane issues the loads of kPlcLoadRound of its
+// elements before it runs f on any of them, so that its global loads are in
+// flight together. coder(): the same lanes as a warp of warp.cuh, for steps
+// written over lane registers and shuffles.
+constexpr int kPlcLoadRound = 8;
 
 struct HostWarp {
   template <class F>
   void each(int n, F&& f) const {
     for (int i = 0; i < n; ++i) f(i);
   }
+  template <int U, class F>
+  void each_u(int n, F&& f) const {
+    for (int i = 0; i < n; ++i) f(i);
+  }
+  template <class L, class F>
+  void each_loaded(int n, L&& load, F&& f) const {
+    for (int i = 0; i < n; ++i) f(i, load(i));
+  }
   void sync() const {}
   bool leader() const { return true; }
+  CoderHostWarp coder() const { return CoderHostWarp{}; }
 };
 
 #ifdef __CUDACC__
@@ -39,12 +58,36 @@ struct CardWarp {
   __host__ __device__ void each(int n, F&& f) const {
     for (int i = lane; i < n; i += 32) f(i);
   }
+  template <int U, class F>
+  __host__ __device__ void each_u(int n, F&& f) const {
+    int i = lane;
+    for (; i + 32 * (U - 1) < n; i += 32 * U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) f(i + 32 * u);
+    }
+    for (; i < n; i += 32) f(i);
+  }
+  template <class L, class F>
+  __host__ __device__ void each_loaded(int n, L&& load, F&& f) const {
+    for (int i0 = lane; i0 < n; i0 += 32 * kPlcLoadRound) {
+      decltype(load(0)) v[kPlcLoadRound];
+#pragma unroll
+      for (int u = 0; u < kPlcLoadRound; ++u) {
+        if (i0 + 32 * u < n) v[u] = load(i0 + 32 * u);
+      }
+#pragma unroll
+      for (int u = 0; u < kPlcLoadRound; ++u) {
+        if (i0 + 32 * u < n) f(i0 + 32 * u, v[u]);
+      }
+    }
+  }
   __host__ __device__ void sync() const {
 #ifdef __CUDA_ARCH__
     __syncwarp();
 #endif
   }
   __host__ __device__ bool leader() const { return lane == 0; }
+  __host__ __device__ CoderCardWarp coder() const { return CoderCardWarp{lane}; }
 };
 #endif
 
@@ -85,11 +128,19 @@ ACX_HD float wsum(const W& w, int n, float* scratch, float* slot, G get) {
   } else {
     const int tot = (n + 31) / 32 * 32, left = (tot - n) / 2;
     w.each(tot / 32, [&](int j) {
-      float acc = 0.0f;
+      // the window's 32 terms first (their loads at once), then its sum; a
+      // term of the pad is +0 by a mask of its bits, not a branch around
+      // the term's loads
+      float v[32];
+#pragma unroll
       for (int k = 0; k < 32; ++k) {
         const int i = j * 32 + k - left;
-        acc = radd(acc, (i >= 0 && i < n) ? get(i) : 0.0f);
+        const float g = get(iclamp(i, 0, n - 1));
+        v[k] = float_of(bits_of(g) & ((i >= 0 && i < n) ? -1 : 0));
       }
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc = radd(acc, v[k]);
       scratch[j] = acc;
     });
     w.sync();

@@ -11,36 +11,43 @@
 // burst's method is 3.
 //
 // Bound on an H100: per TD-PLC stream at a first loss about 19 000 fused
-// multiply-adds for the residual, 11 000 for the filters, 12 500 dependent
-// ones for the order-16 synthesis over 780 samples and 780 for the
-// de-emphasis; the bytes are the rows in and out, 16 KB a stream (33 MB at
-// B = 2048 if every stream were concealed). The synthesis is a recurrence:
-// one lane runs it, 780 x 16 steps of three double operations in a chain,
-// which bounds a concealed stream far above its bytes or its operations.
-// Design: a warp a stream, one block a warp; the residual, the filters, the
-// generator (in closed form), the ramps and the windowed sums spread over the
-// lanes; the Levinson recursion, the synthesis and the de-emphasis on lane 0.
-// The work rows (19 KB) live in shared memory. The float order is the plain
+// multiply-adds for the residual, 11 000 for the filters, 12 500 for the
+// order-16 synthesis over 780 samples and 780 for the de-emphasis; the
+// bytes are the rows in and out, 16 KB a stream (33 MB at B = 2048 if every
+// stream were concealed). The synthesis is a recurrence, one xfma and one
+// rsub a sample on its chain in transposed order (plc_tdc.cuh), which bounds
+// a concealed stream above its bytes or its operations.
+// Design: a warp a stream (kTdcWarps a block); the residual, the filters
+// (four chains a lane at once), the generator (in closed form), the ramps
+// and the windowed sums spread over the lanes; the Levinson recursion on
+// lane 0; the synthesis and the de-emphasis on 16 lanes, lane m mod 16
+// holding the pending sum of sample m (tdc_synth_warp). The work rows live
+// in shared memory, the buffers whose lives do not overlap in one storage
+// (13 176 bytes: B = 2048 in one wave). The float order is the plain
 // version's (plc_tdc.cuh, plc.cuh), so the two agree bit for bit.
 #include "plc_tdc.cuh"
 
 using namespace acx;
 
+constexpr int kTdcWarps = 1;   // streams a block
+
 #ifdef __CUDACC__
-__global__ void plc_tdc_kernel(const float* __restrict__ x, const float* __restrict__ scf,
-                               const float* __restrict__ q, const float* __restrict__ a_in,
-                               const float* __restrict__ harm_in,
-                               const float* __restrict__ hist_in, const int32_t* __restrict__ ints,
-                               const float* __restrict__ floats, const float* __restrict__ ftab,
-                               const int32_t* __restrict__ itab, float* __restrict__ a_out,
-                               float* __restrict__ synth, float* __restrict__ harm,
-                               float* __restrict__ hist, int32_t* __restrict__ iout,
-                               float* __restrict__ fout, int B, TdcGeom g) {
+// at most 128 registers a thread: 16 warps an SM, as the shared memory allows
+__global__ void __launch_bounds__(32 * kTdcWarps, 16 / kTdcWarps)
+plc_tdc_kernel(const float* __restrict__ x, const float* __restrict__ scf,
+               const float* __restrict__ q, const float* __restrict__ a_in,
+               const float* __restrict__ harm_in, const float* __restrict__ hist_in,
+               const int32_t* __restrict__ ints, const float* __restrict__ floats,
+               const float* __restrict__ ftab, const int32_t* __restrict__ itab,
+               float* __restrict__ a_out, float* __restrict__ synth, float* __restrict__ harm,
+               float* __restrict__ hist, int32_t* __restrict__ iout, float* __restrict__ fout,
+               int B, TdcGeom g) {
   extern __shared__ float smem[];
-  TdcWork* ws = reinterpret_cast<TdcWork*>(smem);
-  const int b = blockIdx.x;
-  if (b >= B) return;
-  const CardWarp w{static_cast<int>(threadIdx.x)};
+  const int wi = static_cast<int>(threadIdx.x >> 5);
+  TdcWork* ws = reinterpret_cast<TdcWork*>(smem) + wi;
+  const int b = blockIdx.x * kTdcWarps + wi;
+  if (b >= B) return;            // whole warps leave together
+  const CardWarp w{static_cast<int>(threadIdx.x & 31)};
   const size_t bb = static_cast<size_t>(b);
   TdcStream s;
   s.x = x + bb * g.L;
@@ -82,18 +89,24 @@ extern "C" int acx_plc_tdc(const void* x, const void* scf, const void* q, const 
                            int rect, int pitch_min2, int frame_dms, float pre_fac, float atten,
                            float cent_fac, void* stream) {
   const int fl2 = fl / 2;
-  if (MP + fl2 + kTdcOrder > static_cast<int>(sizeof(TdcWork::pe) / 4) ||
-      MP + fl2 > static_cast<int>(sizeof(TdcWork::exc) / 4) ||
-      length > static_cast<int>(sizeof(TdcWork::e2) / 4) ||
-      length + kTdcFir - 1 > static_cast<int>(sizeof(TdcWork::rnd) / 4) ||
+  if (MP + fl2 + kTdcOrder > kTdcPeWords || MP + fl2 > kTdcExcWords ||
+      tdc_padded(L) > kTdcBufWords || N > kTdcBufWords - tdc_padded(L) ||
+      tdc_padded(tdc_synth_len(length)) > kTdcExcSpan || length + kTdcFir - 1 > kTdcRndWords ||
       MP > static_cast<int>(sizeof(TdcWork::harm) / 4) || n_bands > kTdcMaxBands ||
-      lpc_order > kTdcOrder || rect > 1024 || fl2 > 1024 || frame_dms != 100) {
+      lpc_order > kTdcOrder || rect > 1024 || fl2 > 1024 || fl < kTdcOrder || frame_dms != 100) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return static_cast<int>(cudaSuccess);
   const TdcGeom g = {L, MP, fl, length, N, lpc_order, n_bands, rect, pitch_min2, frame_dms,
                      pre_fac, atten, cent_fac};
-  plc_tdc_kernel<<<B, 32, sizeof(TdcWork), static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(TdcWork) * kTdcWarps;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        plc_tdc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (B + kTdcWarps - 1) / kTdcWarps;
+  plc_tdc_kernel<<<blocks, 32 * kTdcWarps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(scf), static_cast<const float*>(q),
       static_cast<const float*>(a_in), static_cast<const float*>(harm_in),
       static_cast<const float*>(hist_in), static_cast<const int32_t*>(ints),

@@ -4,8 +4,8 @@
 // noise_residual_enc.cuh, spec_decode.cuh, sns_vq.cuh's decoder).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
-// collectives __shfl_up_sync, __shfl_sync, __shfl_xor_sync, __ballot_sync and the warp
-// reductions. On the host CoderHostWarp: one thread running the 32 lanes of
+// collectives __shfl_up_sync, __shfl_down_sync, __shfl_sync,
+// __shfl_xor_sync, __ballot_sync and the warp reductions. On the host CoderHostWarp: one thread running the 32 lanes of
 // each step in turn, a Lanes<T> an array of 32, every collective reading all
 // lanes before it writes any; with it g++ compiles the steps for the CPU
 // rehearsals (tests/test_torch_coder_rehearsal.py,
@@ -41,6 +41,13 @@ struct CoderHostWarp {
   Lanes<T> shfl_up(const Lanes<T>& x, int d) const {
     Lanes<T> y;
     for (int l = 0; l < kCoderLanes; ++l) y[l] = x[l >= d ? l - d : l];
+    return y;
+  }
+  // lane l gets x[l + d], lanes from 32 - d their own
+  template <class T>
+  Lanes<T> shfl_down(const Lanes<T>& x, int d) const {
+    Lanes<T> y;
+    for (int l = 0; l < kCoderLanes; ++l) y[l] = x[l + d < kCoderLanes ? l + d : l];
     return y;
   }
   template <class T>
@@ -114,6 +121,14 @@ struct CoderCardWarp {
   __host__ __device__ Lanes<T> shfl_up(const Lanes<T>& x, int d) const {
 #ifdef __CUDA_ARCH__
     return {__shfl_up_sync(0xFFFFFFFFu, x.v, d)};
+#else
+    return x;
+#endif
+  }
+  template <class T>
+  __host__ __device__ Lanes<T> shfl_down(const Lanes<T>& x, int d) const {
+#ifdef __CUDA_ARCH__
+    return {__shfl_down_sync(0xFFFFFFFFu, x.v, d)};
 #else
     return x;
 #endif

@@ -103,15 +103,19 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                encode/decode per frame at each mode;
   7. concealment the plc_mode=1 path (see concealment_phase): every launch of
                its four kernels, of the TDAC's compensated MDCT and of the
-               IMDCT equal to its plain version, its stage-by-stage trace card against CPU,
-               whose first difference must not be the TDAC's MDCT;
+               IMDCT equal to its plain version, plc_tdc also with all B
+               streams at a TD-PLC first loss (all_tdc_args), its
+               stage-by-stage trace card against CPU, whose first
+               difference must not be the TDAC's MDCT;
   8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
                phase 4's payloads with a group of silent streams (zero
                frames), B x T: the launch counts (the frontend's two, one
                fx_sns_dec, fx_spec_decode and fx_dct4, T fx_ola_ltpf); every
                launch of the four fixed-point kernels equal to its plain
                version with no tolerance, with the SNS submodes, TNS on/off,
-               zero frames and the post-filter's branches printed; the
+               zero frames and the post-filter's branches printed, and
+               fx_spec_decode's one-filter, two-filter and filter-1-only
+               frames required (on the block or the synthetic rows); the
                synthetic rows of tests/torch_kernel_cases.py (every submode,
                out-of-range MPVQ indices, silent, full-scale and order-8
                spectra, all-zero, full-scale and alternating DCT rows, the
@@ -1616,6 +1620,50 @@ def plc_synthetic(dev, K):
     return hist
 
 
+def all_tdc_args(dev, B: int):
+    """plc_tdc's arguments with every stream at a TD-PLC first loss: the
+    lanes of tests/torch_kernel_cases.py:tdc_stream_rows at a first loss
+    with a pitch that the classifier sends to TD-PLC (method 3 in the plain
+    version), tiled to B streams."""
+    import numpy as np
+    import torch
+    from audio_codec_torch.ops import plc_adv
+    from tests import torch_kernel_cases as C
+    cfg = __import__("audio_codec_torch").Config(fs_in=48000, bitrate=64000, plc_mode=1)
+    keys = ("lost", "nb", "x_old_tot", "scf", "q_d", "pitch", "fract", "stab", "meth", "a_st",
+            "seed", "gain_c", "alpha", "fract_st", "harm", "harm_len", "synth_hist")
+    lanes = []
+    for group in C.TDC_LANES:
+        d = C.tdc_stream_rows(group)
+        for b in range(len(d["nb"])):
+            if d["lost"][b] and d["nb"][b] == 1 and d["pitch"][b] > 0:
+                lanes.append({k: np.asarray(d[k])[b] for k in keys})
+    rows = {k: torch.as_tensor(np.stack([e[k] for e in lanes])) for k in keys}
+    meth = plc_adv.plc_tdc_plain(cfg, *(rows[k] for k in keys))["meth"]
+    sel = torch.nonzero(meth == 3).flatten()
+    idx = sel[torch.arange(B) % len(sel)]
+    return (cfg, *(rows[k][idx].contiguous().to(dev) for k in keys))
+
+
+def all_tdc_launch(dev, K, B: int, card: str) -> float:
+    """plc_tdc at B streams all at a TD-PLC first loss (the launch whose
+    streams fill the card), against its plain version; its graph ms."""
+    import torch
+    from audio_codec_torch.ops import plc_adv
+    args = all_tdc_args(dev, B)
+    got, ref = K.plc_tdc(*args), plc_adv.plc_tdc_plain(*args)
+    torch.cuda.synchronize()
+    same_bits(got, ref, "plc_tdc (every stream at a TD-PLC first loss)")
+    b = plc_branches("plc_tdc", args, got)
+    check(b["method 3"] == B, f"plc_tdc's all-TD-PLC launch: {b}")
+    gms = graph_ms(lambda: K.plc_tdc(*args))
+    print(f"[plc] plc_tdc with all {B} streams at a TD-PLC first loss equals its plain version "
+          f"bit for bit; branches {b}", flush=True)
+    print(f"[times] {card} | plc_tdc, all {B} streams at a TD-PLC first loss: {gms:.4f} ms "
+          f"replayed from a CUDA graph", flush=True)
+    return gms
+
+
 def concealment_phase(dev, opt, K, card):
     """Phase 7: decode_block at plc_mode 1 over a loss plan; the four
     concealment kernels against their plain versions; times. Returns the
@@ -1681,6 +1729,7 @@ def concealment_phase(dev, opt, K, card):
     meth = {k: hist["plc_tdc"][f"method {k}"] for k in (2, 3, 4)}
     print(f"[plc] methods chosen at first losses: {meth}", flush=True)
     check(all(v > 0 for v in meth.values()), f"a concealment method never occurred: {meth}")
+    all_tdc_launch(dev, K, B, card)
     syn = plc_synthetic(dev, K)
     print(f"[plc] synthetic rows equal their plain versions; branches {syn}", flush=True)
     check(syn["plc_tdc"]["no pitch at a first loss"] > 0 and
@@ -1820,8 +1869,12 @@ def fixed_branches(name: str, args, out, fs_idx: int) -> dict[str, int]:
         return {f"submode {k}": sub[k] for k in range(4)} | {"MPVQ index out of range": ber}
     if name == "fx_spec_decode":
         on = (args[10] > 0).any(dim=1)
+        o0, o1, two = args[10][:, 0] > 0, args[10][:, 1] > 0, args[7] >= 3   # 10 ms frames
         return {"TNS on": int(on.sum()), "TNS off": int((~on).sum()),
-                "zero frames": int((args[5] != 0).sum())}
+                "zero frames": int((args[5] != 0).sum()),
+                "one filter": int((o0 & ~(o1 & two)).sum()),
+                "two filters": int((o0 & o1 & two).sum()),
+                "filter 0 off, filter 1 on": int((~o0 & o1 & two).sum())}
     if name == "fx_dct4":
         return {"all-zero rows": int((out[3]).sum()), "rows": int(out[3].numel())}
     pats = torch.bincount(fld.ltpf_patterns(args[1], args[6], fs_idx), minlength=5).tolist()
@@ -1991,12 +2044,17 @@ def fixed_phase(dev, frames, K, card) -> list:
         print(f"[fixed] {name}: {len(rec[name])} launches equal their plain version; "
               f"{hist[name]}", flush=True)
     check(hist["fx_spec_decode"]["zero frames"] > 0, "no zero frame in the fixed-point block")
+    kinds = ("one filter", "two filters", "filter 0 off, filter 1 on")
     check(all(hist["fx_sns_dec"][f"submode {k}"] > 0 for k in range(4)),
           f"an SNS submode never occurred: {hist['fx_sns_dec']}")
     syn = fixed_synthetic(cfg, dev, K)
     print(f"[fixed] synthetic rows equal their plain versions; {syn}", flush=True)
     check(all(v > 0 for v in syn["fx_ola_ltpf"].values()),
           f"a post-filter branch was not reached: {syn['fx_ola_ltpf']}")
+    reached = {k: hist["fx_spec_decode"][k] + syn["fx_spec_decode"][k] for k in kinds}
+    print(f"[fixed] fx_spec_decode's TNS filters on the block and the synthetic rows: {reached}",
+          flush=True)
+    check(all(v > 0 for v in reached.values()), f"a TNS filter kind was not reached: {reached}")
     lags = syn["fx_ola_ltpf passes"]
     check(all(lags[k] > 0 for k in ("48 kHz d >= 32", "48 kHz d <= 0", "8 kHz d < 32",
                                     "8 kHz d <= 0")),

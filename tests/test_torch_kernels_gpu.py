@@ -1052,15 +1052,37 @@ def test_plc_kernels_match_plain_on_a_lossy_run(plc_recorded, name):
         same_tensors(getattr(K, name)(*a, **k), plain(*a, **k))
 
 
-def test_plc_tdc_synthetic_rows(dev):
+TDC_ARGS = ("lost", "nb", "x_old_tot", "scf", "q_d", "pitch", "fract", "stab", "meth", "a_st",
+            "seed", "gain_c", "alpha", "fract_st", "harm", "harm_len", "synth_hist")
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+def test_plc_tdc_synthetic_rows(dev, B):
+    """Every TDC_LANES group as it is, and tdc_edge_rows (first losses with a
+    full-scale and a subnormal history, a subnormal and a signed-zero
+    synthesis, past the fade-out) tiled to B streams."""
     from audio_codec_torch.ops import plc_adv
     for group in C.TDC_LANES:
         d = C.tdc_stream_rows(group)
         t_ = lambda k: torch.as_tensor(np.asarray(d[k])).to(dev)
-        args = (PLC_CFG, t_("lost"), t_("nb"), t_("x_old_tot"), t_("scf"), t_("q_d"), t_("pitch"),
-                t_("fract"), t_("stab"), t_("meth"), t_("a_st"), t_("seed"), t_("gain_c"),
-                t_("alpha"), t_("fract_st"), t_("harm"), t_("harm_len"), t_("synth_hist"))
+        args = (PLC_CFG, *(t_(k) for k in TDC_ARGS))
         same_tensors(K.plc_tdc(*args), plc_adv.plc_tdc_plain(*args))
+    d = C.tdc_edge_rows()
+    idx = np.arange(B) % len(d["nb"])
+    args = (PLC_CFG, *(torch.as_tensor(np.ascontiguousarray(np.asarray(d[k])[idx])).to(dev)
+                       for k in TDC_ARGS))
+    same_tensors(K.plc_tdc(*args), plc_adv.plc_tdc_plain(*args))
+
+
+def test_plc_tdc_all_streams_at_a_tdplc_first_loss(dev):
+    """The launch whose 2048 streams all run TD-PLC from a first loss
+    (chip_smoke.all_tdc_args), the one whose streams fill the card."""
+    import chip_smoke
+    from audio_codec_torch.ops import plc_adv
+    args = chip_smoke.all_tdc_args(dev, 2048)
+    got = K.plc_tdc(*args)
+    same_tensors(got, plc_adv.plc_tdc_plain(*args))
+    assert bool((got["meth"] == 3).all())
 
 
 def test_plc_damp_and_phecu_synthetic_rows(dev):
@@ -1217,6 +1239,20 @@ def test_fixed_kernels_synthetic_rows(dev):
         fixed_same("fx_ola_ltpf", args)
         K.fx_ola_ltpf(*args)
     assert bool((seen > 0).all()), seen.tolist()
+
+
+@pytest.mark.parametrize("streams", [1, 33, 2048])
+def test_fx_spec_decode_tns_rows_at_every_size(dev, streams):
+    """fx_spec_tns_rows (every TNS filter kind, every order 1-8 in each
+    filter, saturating taps, zero frames) tiled to streams x 8 frames, so
+    that the wave's groups of four frames end short and full."""
+    from audio_codec_torch.ops import fixed_dev
+    d = C.fx_spec_tns_rows()
+    L = 1 if streams == 1 else streams * 8
+    idx = np.arange(L) % len(d["x"])
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+    scf, scf_e = fixed_dev.sns_decode_plain(g(d["scf_idx"]), CFG.bands_number)
+    fixed_same("fx_spec_decode", (CFG, *(g(d[k]) for k in C.FX_SPEC_ORDER), scf, scf_e))
 
 
 OLA_RATES = {"48k": dict(fs_in=48000, bitrate=64000), "8k": dict(fs_in=8000, bitrate=24000)}

@@ -1816,18 +1816,21 @@ void rehearse_fx_sns_dec(const int32_t* idx, const i64* tab, int n_bands, int L,
   for (int l = 0; l < L; ++l)
     fx_sns_dec_lane(idx + 7 * l, tab, n_bands, scratch, scf + l * n_bands, scf_e + l * n_bands, 1);
 }
-// geom: yLen N n_bands frame_dms gg_off R
+// geom: yLen N n_bands frame_dms gg_off R; frames in groups of kFxSpecFrames,
+// the lattices of a group at once on the host's coder-warp
 void rehearse_fx_spec_decode(const int32_t* x, const int32_t* res, const int32_t* side,
                              const int32_t* tidx, const i64* scf, const i64* scf_e,
                              const i64* tab, const int* geom, int L, i64* out, i64* x_e) {
   const SpecGeom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
-  std::vector<i64> xs(g.yLen);
-  std::vector<int32_t> run(g.yLen);
+  std::vector<SpecWord> xs(kFxSpecFrames * g.yLen);
+  std::vector<int16_t> run(g.yLen);
+  FxTnsFrame tf[kFxSpecFrames];
   const Host w;
-  for (int l = 0; l < L; ++l)
-    fx_spec_decode_lane(w, x + l * g.yLen, res + l * g.R, side + l * kSpecSideWords, tidx + 16 * l,
+  for (int l = 0; l < L; l += kFxSpecFrames)
+    fx_spec_decode_lane(w, acx::CoderHostWarp{}, L - l < kFxSpecFrames ? L - l : kFxSpecFrames,
+                        x + l * g.yLen, res + l * g.R, side + l * kSpecSideWords, tidx + 16 * l,
                         scf + l * g.n_bands, scf_e + l * g.n_bands, tab, g, xs.data(), run.data(),
-                        out + l * g.N, x_e + l);
+                        tf, out + l * g.N, x_e + l);
 }
 void rehearse_fx_dct4(const i64* y, const i64* y_e, const i64* tab, int L, i64* ytda, i64* ye,
                       i64* ys, bool* zero) {
@@ -1866,10 +1869,11 @@ MUTATIONS_FX = {
     "sns_en1_rounding": ("fx_sns_dec.cuh",
                          "y[k] = round_fx(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num));",
                          "y[k] = sat16(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num) >> 16);"),
-    # fx_spec_decode: a lattice tap without its saturation
+    # fx_spec_decode: a lattice tap without its saturation (a 32-bit wrap)
     "spec_lattice_saturation": ("fx_spec_decode.cuh",
-                                "xi = sat32(xi - mpy_32_16(st[kk], rc[kk]));",
-                                "xi = xi - mpy_32_16(st[kk], rc[kk]);"),
+                                "const int32_t sub = sub_sat32(x, mpy32_16(s, rc));",
+                                "const int32_t sub = static_cast<int32_t>(static_cast<uint32_t>(x)"
+                                " - static_cast<uint32_t>(mpy32_16(s, rc)));"),
     # fx_spec_decode's prefix counts (the residual's and the noise filler's
     # ranks): a bin counted in its own rank
     "scan_rank_inclusive": ("fixed.cuh",

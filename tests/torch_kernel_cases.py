@@ -1673,6 +1673,57 @@ def tdc_stream_rows(group: int) -> dict[str, np.ndarray]:
     return d
 
 
+TDC_EDGE_KEYS = ("lost", "nb", "pitch", "fract", "meth", "seed", "fract_st", "harm_len", "stab",
+                 "gain_c", "alpha", "x_old_tot", "scf", "q_d", "a_st", "harm", "synth_hist")
+
+
+def _tdc_lane(d: dict, b: int) -> dict:
+    return {k: np.asarray(d[k])[b] for k in TDC_EDGE_KEYS}
+
+
+def tdc_edge_rows() -> dict[str, np.ndarray]:
+    """33 streams: the three TDC_LANES groups, the same lanes with halved
+    histories and other seeds, and the edge rows: a first loss with a
+    full-scale history (TD-PLC), a first loss with a subnormal history, a
+    later loss whose memory, harmonic cycle and excitation are subnormal, a
+    later loss from a synthesis memory of +0 and -0 over a silent
+    excitation, and losses past the fade-out (the last concealed frame and
+    a silent one)."""
+    lanes = []
+    for group in TDC_LANES:
+        d = tdc_stream_rows(group)
+        lanes += [_tdc_lane(d, b) for b in range(4)]
+    for group in TDC_LANES:
+        d = tdc_stream_rows(group)
+        for b in range(4):
+            e = _tdc_lane(d, b)
+            e["x_old_tot"] = (e["x_old_tot"] * 0.5).astype(np.float32)
+            e["seed"] = np.int32((int(e["seed"]) + 977) % 32768)
+            lanes.append(e)
+    voiced = _tdc_lane(tdc_stream_rows(0), 0)           # a first loss TD-PLC takes
+    full = dict(voiced)
+    full["x_old_tot"] = np.clip(voiced["x_old_tot"] * 64.0, -32767, 32767).astype(np.float32)
+    tiny = dict(voiced)
+    tiny["x_old_tot"] = (voiced["x_old_tot"] * np.float32(2.0 ** -140)).astype(np.float32)
+    later = dict(voiced, lost=np.bool_(True), nb=np.int32(2), meth=np.int32(3),
+                 gain_c=np.float32(0.0))
+    stable = np.zeros(17, np.float32)                 # a stable order-2 filter
+    stable[:3] = (1.0, -0.9, 0.2)
+    sub = dict(later, a_st=stable)
+    sub["x_old_tot"] = (voiced["x_old_tot"] * np.float32(2.0 ** -140)).astype(np.float32)
+    sub["synth_hist"] = (voiced["synth_hist"] * np.float32(2.0 ** -140)).astype(np.float32)
+    sub["harm"] = (voiced["harm"] * np.float32(2.0 ** -136)).astype(np.float32)
+    zero = dict(later, a_st=stable)
+    zero["x_old_tot"] = np.zeros_like(voiced["x_old_tot"])
+    zero["synth_hist"] = np.where(np.arange(16) % 2 == 0, np.float32(0.0), np.float32(-0.0))
+    zero["harm"] = np.zeros_like(voiced["harm"])
+    fade = dict(later, nb=np.int32(6), gain_c=np.float32(120.0))
+    silent = dict(later, nb=np.int32(7), gain_c=np.float32(120.0))
+    lanes += [full, tiny, sub, zero, fade, silent]
+    lanes += lanes[:33 - len(lanes)]
+    return {k: np.stack([np.asarray(e[k]) for e in lanes]) for k in TDC_EDGE_KEYS}
+
+
 # ---- the bit-exact fixed-point decoder (fx_sns_dec, fx_spec_decode,
 # fx_dct4, fx_ola_ltpf) ----
 
@@ -1732,6 +1783,41 @@ def fx_spec_rows(cfg, seed: int = 0, n: int = 48) -> dict[str, np.ndarray]:
 
 FX_SPEC_ORDER = ("x", "res_bits", "n_res", "nf_seed", "zero_frame", "fac_ns_idx", "bw_idx",
                  "gg_idx", "tns_idx", "tns_order")
+
+
+
+def fx_spec_tns_rows() -> dict[str, np.ndarray]:
+    """fx_spec_rows (48 frames: silent, zero, full-scale, order-8 frames,
+    every bandwidth) then, at bandwidth 4 (both filters possible) and 1 (one
+    filter), every order 1-8: filter 0 alone, both filters, filter 1 alone,
+    filter 0 alone at bandwidth 1; TNS off; and full-scale spectra with the
+    extreme reflection indices, whose taps saturate (48 kHz, 64 kbps)."""
+    from audio_codec_torch.config import Config
+    cfg = Config(fs_in=48000, bitrate=64000)
+    base = fx_spec_rows(cfg)
+    extra = fx_spec_rows(cfg, seed=5, n=40)
+    n = 40
+    o = np.zeros((n, 2), np.int32)
+    bw = np.full(n, 4, np.int32)
+    for k in range(8):
+        o[k] = (k + 1, 0)                 # filter 0 alone
+        o[8 + k] = (k + 1, 8 - k)         # both filters
+        o[16 + k] = (0, k + 1)            # filter 1 alone
+        o[24 + k] = (k + 1, k + 1)
+        bw[24 + k] = 1                    # one filter: bandwidth below 3
+    o[32:36] = 0                          # TNS off
+    o[36:40] = (8, 8)
+    extra["tns_order"] = o
+    extra["bw_idx"] = bw
+    extra["zero_frame"][:] = 0
+    extra["zero_frame"][34] = 1
+    rng = np.random.default_rng(17)
+    full = np.where(rng.random((8, cfg.yLen)) < 0.5, -32767, 32767).astype(np.int32)
+    extra["x"][32:40] = full
+    extra["x"][12:16] = full[:4]
+    extra["tns_idx"][36:40] = np.where(rng.random((4, 2, 8)) < 0.5, 0, 16)
+    extra["tns_idx"][12:16] = np.where(rng.random((4, 2, 8)) < 0.5, 0, 16)
+    return {k: np.concatenate([base[k], extra[k]]) for k in base}
 
 
 def fx_dct4_rows(seed: int = 0, n: int = 16) -> tuple[np.ndarray, np.ndarray]:

@@ -147,7 +147,7 @@ _FK_WARPS = "constexpr int kFxOlaWarps = 4;"
 _FK_CHUNK = "  const int c = static_cast<int>(min64(d, kOlaChunk));\n"
 _FK_FILTERS = "    synth_filter_warp(w, ybuf, Wy, y_len, xbuf, x_len, g.N4, pint_A, gain_A, icA, tcA, g, fade_A);\n"
 _FK_PCM = "  // ---- round_pcm16 (dec_lc3.c:289-295)\n"
-_FK_NO_ASM = tuple(("fx_ola_ltpf.cuh", f'#ifdef __CUDA_ARCH__\n  int32_t r;\n  asm("{op}.sat.s32',
+_FK_NO_ASM = tuple(("fixed.cuh", f'#ifdef __CUDA_ARCH__\n  int32_t r;\n  asm("{op}.sat.s32',
                      f'#if 0\n  int32_t r;\n  asm("{op}.sat.s32') for op in ("add", "sub"))
 VARIANTS = {
     "olpa": {
