@@ -1,30 +1,34 @@
-// The LC3plus channel coder of one slot per lane: GF(16) Reed-Solomon with
-// mode detection, the CRCs and the partial-concealment span.
+// The LC3plus channel coder: GF(16) Reed-Solomon with mode detection, the
+// CRCs and the partial-concealment span.
 //
-// Lane functions of csrc/fec_encode.cu and csrc/fec_decode.cu, which replace
+// The steps of csrc/fec_encode.cu (fec_encode_lane, a thread a slot) and
+// csrc/fec_decode.cu (fec_decode_warp, a warp a slot), which replace
 // audio_codec_tpu/ops/fec.py:fec_encode (fec.py:628) and :fec_decode
 // (fec.py:696). They follow the plain versions in
 // audio_codec_torch/ops/fec.py step for step; every value is an integer, so
-// a lane must equal its plain version bit for bit.
+// each must equal its plain version bit for bit.
 //
 // The slot's geometry (codeword count and lengths, the redundancy of each
 // codeword, the payload split) is computed here from the slot size and the
 // mode, as fec.py's _slot_plan/_mode_plan compute it. The CRCs run as a
 // Horner scheme over the nibbles with the generator polynomial, which gives
 // the same remainder as the plain version's position tables (the CRC is
-// linear: both are sum_i v_i x^(4(i + 2h)) mod P). The GF(16) tables, the
-// syndrome points, the signalling polynomials and their syndromes, the risk
-// table and the RS parity bases come in one int32 table (fec_tables in
-// kernels.py) in the layout of FecTables.
+// linear: both are sum_i v_i x^(4(i + 2h)) mod P); the decoder splits the
+// scheme over its lanes. The GF(16) tables, the syndrome points, the
+// signalling polynomials and their syndromes, the risk table and the RS
+// parity bases come in one int32 table (fec_tables in kernels.py) in the
+// layout of FecTables; the decoder's (fec_dec_tables) adds its packed
+// syndrome terms and the CRC powers of its lanes.
 //
 // The decoder commits early where the plain version's lane-wise merge makes
 // the rest irrelevant: a slot that passes the EP1 check returns the EP1
 // payload, and only the detected mode's codewords are corrected (the plain
-// version corrects all three and selects one; the EPMR estimate needs
-// codeword 0 of the two upper modes, which is corrected on its own).
+// version corrects all three and selects one); the EPMR estimate of a
+// failed frame uses the detections of codeword 0 under the two upper modes.
 #pragma once
 
 #include "acodec.cuh"
+#include "warp.cuh"
 
 // member functions (ACX_HD is `static` on the host)
 #ifdef __CUDACC__
@@ -329,242 +333,409 @@ ACX_HD void sf_mul(int& m1, int& e1, int m2, int e2) {
 ACX_HD bool sf_le(int m1, int e1, int m2, int e2) { return e1 < e2 || (e1 == e2 && m1 <= m2); }
 ACX_HD bool sf_lt(int m1, int e1, int m2, int e2) { return e1 < e2 || (e1 == e2 && m1 < m2); }
 
-// The scratch of one decoding lane.
-struct FecDecScratch {
-  uint8_t cw[kFecMaxCw][16];   // codewords, column 15 a dump slot
-  uint8_t dw[kFecMaxNib];      // data word of a mode
-  uint8_t synd[kFecMaxCw][6];  // the six syndromes of each codeword
+// ---- the decoder: a warp a slot (fec_decode.cu) ----
+//
+// fec_decode_warp runs the lane decoder's steps (fec_decoder, al_fec.c:711-882;
+// fec.py:fec_decode_plain) across the lanes of a warp:
+//  - lane l holds codewords l and l + 32 (slots of 241 bytes and more have
+//    up to 40), each packed in a 64-bit word (nibble j at bits 4j), and their
+//    six syndromes packed in a 32-bit word (syndrome k at bits 4k): the
+//    syndromes are linear in the codeword, so one table word a (position,
+//    nibble) gives all six terms (kFecSyn6), 15 independent lookups a
+//    codeword;
+//  - the 18 detections of codewords 0..5 under the three internal modes run
+//    on lanes 6m + i at once, each packed into one word (fec_detect_word); the
+//    EPMR estimate of a failed frame reuses those of (m = 1, 2; i = 0);
+//  - the clean, blacklist and Chien-failure flags are ballots; the risk
+//    products stay a chain of six sf_mul in codeword order 0..5, lane m mode
+//    m's (sf_mul truncates, so the order sets the products' last bits,
+//    though no decision they reach changes with it:
+//    tests/test_torch_fxdct_fec_rehearsal.py);
+//  - the correction runs a codeword a lane; the corrected bits are a warp
+//    sum, the broken, failure and trust flags ballots;
+//  - the data word is gathered into shared memory by its codewords' lanes
+//    at offsets known in closed form;
+//  - each CRC is split over the lanes: the remainder is linear over GF(2),
+//    sum_i v_i x^(4(i + 2h)) mod P, so lane l sums the terms of nibbles l,
+//    l + 32, ..., each from x^(4(i + 2h)) mod P (a table, kFecCrcPow, read
+//    through L1) and three steps of x, and the lanes' sums are XOR-reduced:
+//    no chain longer than a lane's 19 independent terms; the EPMR embedding
+//    of CRC1 is added once.
+// Everything else is uniform: every lane runs the scalar decisions.
+
+// the decoder's table: fec_tables' words, then (kernels.py:fec_dec_tables)
+// the packed syndrome terms, both staged in shared memory, then the CRC
+// powers, read through L1
+constexpr int kFecSyn6 = kFecTableWords;             // [15][16] the six syndrome terms, packed
+constexpr int kFecCrcPow = kFecSyn6 + 15 * 16;       // [3][kFecCrcPowers]: x^(4k) mod P of
+constexpr int kFecCrcPowers = kFecMaxNib + 8;        //   CRC1 (2 bytes, 3 bytes) and CRC2
+constexpr int kFecDecTableWords = kFecCrcPow + 3 * kFecCrcPowers;
+static_assert(kFecMaxCw <= 64, "a lane holds two codewords");
+
+// a warp's shared scratch: the slot's bytes and a data word of nibbles
+struct FecWarpScratch {
+  uint8_t frame[kFecMaxSlot];
+  uint8_t dw[kFecMaxNib];
 };
 
-// the data word of plan p from the codewords (fec.py:fec_decode's flat/dw_pos
-// gather and bit swap)
-ACX_HD void fec_extract_dw(const FecDecScratch& sc, const FecPlan& p, uint8_t* dw) {
-  int k = 0;
-  for (int i = 0; i < p.ncw; ++i) {
-    const int len = fec_cw_len(p.slot, i);
-    for (int j = p.red(i); j < len; ++j) dw[k++] = sc.cw[i][j];
+ACX_HD int nib64(uint64_t w, int j) { return static_cast<int>((w >> (4 * j)) & 15); }
+ACX_HD int nib32(uint32_t w, int k) { return static_cast<int>((w >> (4 * k)) & 15); }
+
+// codeword i of the slot's bytes (its len nibbles; fec_deinterleave_unpack)
+ACX_HD uint64_t fec_codeword(const uint8_t* frame, int slot, int ncw, int i, int len) {
+  uint64_t cw = 0;
+  for (int j = 0; j < 15; ++j) {
+    if (j < len) {
+      const int o = 2 * slot - 1 - (j * ncw + i);
+      cw |= static_cast<uint64_t>((frame[o >> 1] >> (4 * (o & 1))) & 15) << (4 * j);
+    }
   }
-  fec_bitswap(dw, p.ind0, p.ind1);
+  return cw;
 }
 
-// the payload bytes of a data word (fec.py:_dw_to_bytes), zero padded
-ACX_HD void fec_dw_bytes(const uint8_t* dw, const FecPlan& p, int32_t* data) {
-  const int top = p.dw_len - 2 * p.data_bytes;
-  for (int j = 0; j < p.data_bytes; ++j) {
-    const int q = p.data_bytes - 1 - j;
-    data[j] = dw[top + 2 * q] * 16 | dw[top + 2 * q + 1];
-  }
-  for (int j = p.data_bytes; j < p.slot; ++j) data[j] = 0;
+// the six syndromes of a codeword, packed (fec.py:_syndromes6)
+ACX_HD uint32_t fec_syndromes(const int32_t* tw, uint64_t cw) {
+  uint32_t s = 0;
+  for (int j = 0; j < 15; ++j) s ^= static_cast<uint32_t>(tw[kFecSyn6 + 16 * j + nib64(cw, j)]);
+  return s;
 }
 
-// detection of codeword i < 6 under internal mode m (t = m + 1)
-struct Det {
-  Elp elp;
-  int pos[3];
-  bool fail;
-};
-
-ACX_HD Det fec_detect(const FecTables& tb, const FecDecScratch& sc, int slot, int m, int i) {
-  int s[6];
-  for (int k = 0; k < 6; ++k) s[k] = sc.synd[i][k] ^ tb.w[kFecSigSyndr + (m + 1) * 6 + k];
-  Det d;
-  d.elp = peterson(tb, s, m + 1);
-  d.fail = chien(tb, d.elp, fec_cw_len(slot, i) - 1, d.pos);
-  return d;
+// (r * x) mod P for r of degree < deg
+ACX_HD int crc_mulx(int r, int poly, int deg) {
+  r <<= 1;
+  return ((r >> deg) & 1) != 0 ? r ^ poly : r;
 }
 
-// the masked error magnitudes of a detection (fec.py: msk6)
-ACX_HD void fec_det_errors(const FecTables& tb, const FecDecScratch& sc, const Det& d, int m,
-                           int i, int* err) {
-  int s[6];
-  for (int k = 0; k < 6; ++k) s[k] = sc.synd[i][k] ^ tb.w[kFecSigSyndr + (m + 1) * 6 + k];
-  forney(tb, d.pos, d.elp.deg, s, err);
-  for (int jj = 0; jj < 3; ++jj)
-    if (!(jj < d.elp.deg && !d.fail && d.elp.deg <= m + 1)) err[jj] = 0;
-}
-
-// codeword 0's EPMR bits once corrected under internal mode m (epmr_det)
-ACX_HD int fec_epmr_det(const FecTables& tb, const FecDecScratch& sc, const Det& d0, int m,
-                        int len0) {
-  int err[3];
-  fec_det_errors(tb, sc, d0, m, 0, err);
-  int v = sc.cw[0][len0 - 1];
-  for (int jj = 0; jj < 3; ++jj)
-    if (d0.pos[jj] == len0 - 1) v ^= err[jj];
-  return (v ^ tb.w[kFecSigPolys + (m + 1) * 15 + len0 - 1]) & 3;
-}
-
-// fec_decoder (al_fec.c:711-882) of one slot: frame [slot] bytes -> data
-// [slot] bytes and out[k * stride] for the FecOut fields.
-ACX_HD void fec_decode_lane(const int32_t* frame, int bfi_in, const FecTables& tb, int slot,
-                            int ccc, FecDecScratch& sc, int32_t* data, int32_t* out,
-                            int stride) {
-  const int ncw = fec_ncw(slot), n_nib = 2 * slot, len0 = fec_cw_len(slot, 0);
-  // unpack and deinterleave, then the syndromes
-  for (int i = 0; i < ncw; ++i) {
-    const int len = fec_cw_len(slot, i);
-    for (int j = 0; j < 16; ++j) {
-      int v = 0;
-      if (j < len) {
-        const int o = n_nib - 1 - (j * ncw + i);
-        v = (frame[o >> 1] >> (4 * (o & 1))) & 15;
+// sum_i v[i] x^(4(i + 2h)) mod P over n nibbles (the remainder of crc_rem),
+// pw[k] = x^(4k) mod P: nibble i on lane i mod 32, v[i] x^(4(i + 2h)) as
+// the XOR of x^(4(i + 2h) + b) over v[i]'s bits b
+template <class W>
+ACX_HD int fec_crc_warp(const W& w, const uint8_t* v, int n, int h, const int32_t* pw, int poly,
+                        int deg) {
+  typename W::template Lanes<unsigned> r;
+  w.lanes([&](int l) {
+    int acc = 0;
+    for (int i = l; i < n; i += 32) {
+      const int vi = v[i];
+      int p = pw[i + 2 * h];
+      for (int b = 0; b < 4; ++b) {
+        if (((vi >> b) & 1) != 0) acc ^= p;
+        p = crc_mulx(p, poly, deg);
       }
-      sc.cw[i][j] = static_cast<uint8_t>(v);
     }
-    for (int k = 0; k < 6; ++k) {
-      int acc = 0;
-      for (int j = 0; j < 15; ++j) acc ^= tb.mul(sc.cw[i][j], tb.w[kFecSyndPow + k * 15 + j]);
-      sc.synd[i][k] = static_cast<uint8_t>(acc);
+    r[l] = static_cast<unsigned>(acc);
+  });
+  return static_cast<int>(w.reduce_xor(r));
+}
+
+// the CRC1 remainder with the EPMR embedding (crc1_rem); cp: the CRC powers
+template <class W>
+ACX_HD int fec_crc1_warp(const W& w, const int32_t* cp, const uint8_t* v, int n, int n_crc1,
+                         int epmr) {
+  const int poly = crc1_poly(n_crc1), deg = crc1_deg(n_crc1);
+  int e = epmr << 2;
+  for (int k = 0; k < 2 * n_crc1 - 1; ++k) e = crc_mulx4(e, poly, deg);
+  const int32_t* pw = cp + (n_crc1 == 2 ? 0 : kFecCrcPowers);
+  return fec_crc_warp(w, v, n, n_crc1, pw, poly, deg) ^ e ^ (epmr << deg);
+}
+
+ACX_HD bool fec_crc_ok(const uint8_t* dw, int rem, int nibbles) {
+  bool ok = true;
+  for (int q = 0; q < nibbles; ++q)
+    if (dw[q] != ((rem >> (4 * q)) & 15)) ok = false;
+  return ok;
+}
+
+// The data word of plan p from the codewords (fec.py:fec_decode's flat/dw_pos
+// gather and bit swap): lane l writes the data nibbles of its codewords at
+// their offsets, sum over i' < i of len(i') - red(i') = i q + min(i, r) -
+// red0 - (i - 1) red1 (n_nib = q ncw + r: the first r codewords are q + 1
+// long, the others q).
+template <class W, class L64>
+ACX_HD void fec_data_word(const W& w, const L64& cwA, const L64& cwB, const FecPlan& p,
+                          uint8_t* dw) {
+  const int q = p.n_nib / p.ncw, rr = p.n_nib % p.ncw;
+  w.lanes([&](int l) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = l + 32 * h;
+      if (i < p.ncw) {
+        const uint64_t cw = h == 0 ? cwA[l] : cwB[l];
+        const int len = fec_cw_len(p.slot, i), red = p.red(i);
+        const int k = i * q + imin(i, rr) - (i > 0 ? p.red0 + (i - 1) * p.red1 : 0) - red;
+        for (int j = red; j < len; ++j) dw[k + j] = static_cast<uint8_t>(nib64(cw, j));
+      }
     }
+  });
+  w.sync();
+  w.leader([&] { fec_bitswap(dw, p.ind0, p.ind1); });
+  w.sync();
+}
+
+// A detection (Peterson, Chien, the masked Forney magnitudes; fec.py:
+// _peterson_elp, _chien, _forney and msk6) packed in a word: the three root
+// positions (bits 0-11), the three error magnitudes (12-23), the degree
+// (24-27) and the Chien failure (28).
+ACX_HD int fec_detect_word(const FecTables& tb, const int* s, int t, int max_pos) {
+  const Elp elp = peterson(tb, s, t);
+  int pos[3], err[3];
+  const bool fail = chien(tb, elp, max_pos, pos);
+  forney(tb, pos, elp.deg, s, err);
+  int word = elp.deg << 24 | (fail ? 1 << 28 : 0);
+  for (int jj = 0; jj < 3; ++jj) {
+    if (!(jj < elp.deg && !fail && elp.deg <= t)) err[jj] = 0;
+    word |= pos[jj] << (4 * jj) | err[jj] << (12 + 4 * jj);
   }
-  const int epmr_raw = sc.cw[0][len0 - 1] & 3;
+  return word;
+}
+ACX_HD int det_pos(int d, int jj) { return (d >> (4 * jj)) & 15; }
+ACX_HD int det_err(int d, int jj) { return (d >> (12 + 4 * jj)) & 15; }
+ACX_HD int det_deg(int d) { return (d >> 24) & 15; }
+ACX_HD bool det_fail(int d) { return ((d >> 28) & 1) != 0; }
+
+// codeword cw with a detection's errors applied (the dump position 15 lies
+// past the 15 nibbles)
+ACX_HD uint64_t det_apply(uint64_t cw, int d) {
+  for (int jj = 0; jj < 3; ++jj) cw ^= static_cast<uint64_t>(det_err(d, jj)) << (4 * det_pos(d, jj));
+  return cw;
+}
+
+// mode m's signalling polynomial, packed as a codeword
+ACX_HD uint64_t fec_sig_word(const int32_t* tw, int m) {
+  uint64_t v = 0;
+  for (int j = 0; j < 15; ++j) v |= static_cast<uint64_t>(tw[kFecSigPolys + m * 15 + j]) << (4 * j);
+  return v;
+}
+
+// fec_decoder (al_fec.c:711-882) of one slot on a warp: frame [slot] bytes
+// -> data [slot] bytes and out[k * stride] for the FecOut fields. tw: the
+// decoder's table up to kFecCrcPow; cp: its CRC powers; ws: the warp's
+// scratch.
+template <class W>
+ACX_HD void fec_decode_warp(const W& w, const int32_t* frame, int bfi_in, const int32_t* tw,
+                            const int32_t* cp, int slot, int ccc, FecWarpScratch* ws,
+                            int32_t* data, int32_t* out, int stride) {
+  using IL = typename W::template Lanes<int>;
+  using UL = typename W::template Lanes<uint32_t>;
+  using L64 = typename W::template Lanes<unsigned long long>;
+  FecTables tb;
+  tb.w = tw;
+  const int ncw = fec_ncw(slot), len0 = fec_cw_len(slot, 0);
+  // the slot's bytes, every load of a lane in flight
+  w.lanes([&](int l) {
+    constexpr int kRounds = (kFecMaxSlot + 31) / 32;
+    int32_t v[kRounds];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) v[u] = l + 32 * u < slot ? frame[l + 32 * u] : 0;
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u)
+      if (l + 32 * u < slot) ws->frame[l + 32 * u] = static_cast<uint8_t>(v[u]);
+  });
+  w.sync();
+  // the codewords and their syndromes, codeword l (A) and l + 32 (B) a lane
+  L64 cwA, cwB;
+  UL synA, synB;
+  w.lanes([&](int l) {
+    cwA[l] = cwB[l] = 0;
+    synA[l] = synB[l] = 0;
+    if (l < ncw) {
+      cwA[l] = fec_codeword(ws->frame, slot, ncw, l, fec_cw_len(slot, l));
+      synA[l] = fec_syndromes(tw, cwA[l]);
+    }
+    if (l + 32 < ncw) {
+      cwB[l] = fec_codeword(ws->frame, slot, ncw, l + 32, fec_cw_len(slot, l + 32));
+      synB[l] = fec_syndromes(tw, cwB[l]);
+    }
+  });
+  const uint32_t syn0 = w.shfl(synA, 0);
+  const int epmr_raw = nib64(w.shfl(cwA, 0), len0 - 1) & 3;
 
   int bfi = 1, mode = -1, er = kBecMask, epmr = 0, data_bytes = 0, n_pc = 0, n_pccw = 0;
   int be_l = -1, be_r = -1;
   bool data_set = false;
+  FecPlan pd = fec_plan(slot, 1, ccc);   // the plan of the data word in ws->dw
 
   // stage 1: EP1 by codeword 0's syndromes and CRC1
-  const bool ep1_syn_ok = (sc.synd[0][0] | sc.synd[0][1]) == 0;
+  const bool ep1_syn_ok = (syn0 & 0xFF) == 0;
   bool ep1_ok = false;
   if (ep1_syn_ok) {
-    const FecPlan p1 = fec_plan(slot, 1, ccc);
-    fec_extract_dw(sc, p1, sc.dw);
-    const int rem = crc1_rem(sc.dw + 2 * p1.n_crc1, p1.crc1_n, p1.n_crc1, epmr_raw);
-    ep1_ok = true;
-    for (int q = 0; q < 2 * p1.n_crc1; ++q)
-      if (sc.dw[q] != ((rem >> (4 * q)) & 15)) ep1_ok = false;
+    fec_data_word(w, cwA, cwB, pd, ws->dw);
+    const int rem = fec_crc1_warp(w, cp, ws->dw + 2 * pd.n_crc1, pd.crc1_n, pd.n_crc1, epmr_raw);
+    ep1_ok = fec_crc_ok(ws->dw, rem, 2 * pd.n_crc1);
     if (ep1_ok) {
-      fec_dw_bytes(sc.dw, p1, data);
       data_set = true;
       bfi = 0;
       mode = 1;
       er = kAllOk;
       epmr = epmr_raw;
-      data_bytes = p1.data_bytes;
+      data_bytes = pd.data_bytes;
     }
   }
 
   if (!ep1_ok) {
-    // stage 2: detection on codewords 0..5 under each internal mode
-    bool clean[3], blacklist[3], chfail_any[3];
-    int pm[3], pe[3];
-    for (int m = 0; m < 3; ++m) {
-      const int t = m + 1;
-      clean[m] = true;
-      blacklist[m] = false;
-      chfail_any[m] = false;
-      pm[m] = 16384;
-      pe[m] = 0;
-      for (int i = 0; i < 6; ++i) {
-        for (int k = 0; k < 2 * t; ++k)
-          if ((sc.synd[i][k] ^ tb.w[kFecSigSyndr + (m + 1) * 6 + k]) != 0) clean[m] = false;
-        const Det d = fec_detect(tb, sc, slot, m, i);
-        if (d.elp.deg > t) blacklist[m] = true;
-        if (d.fail) chfail_any[m] = true;
-        const int dc = iclamp(d.elp.deg, 0, 3);
-        sf_mul(pm[m], pe[m], tb.w[kFecRiskM + (m + 1) * 4 + dc],
-               tb.w[kFecRiskE + (m + 1) * 4 + dc]);
+    // stage 2: the 18 detections, codeword i < 6 under internal mode m on
+    // lane 6m + i (lanes 18-31 idle)
+    IL src;
+    w.lanes([&](int l) { src[l] = l < 18 ? l % 6 : 0; });
+    const UL sdet = w.shfl_from(synA, src);
+    const uint64_t cw0 = w.shfl(cwA, 0);
+    IL det, cleanL, blackL, failL, dcL, epL;
+    w.lanes([&](int l) {
+      const int m = imin(l / 6, 2), i = l % 6, t = m + 1;
+      int s[6];
+      bool clean = true;
+      for (int k = 0; k < 6; ++k) {
+        s[k] = nib32(sdet[l], k) ^ tw[kFecSigSyndr + (m + 1) * 6 + k];
+        if (k < 2 * t && s[k] != 0) clean = false;
       }
+      const int d = l < 18 ? fec_detect_word(tb, s, t, fec_cw_len(slot, i) - 1) : 0;
+      det[l] = d;
+      cleanL[l] = l < 18 && clean;
+      blackL[l] = l < 18 && det_deg(d) > t;
+      failL[l] = l < 18 && det_fail(d);
+      dcL[l] = imin(det_deg(d), 3);
+      // codeword 0's EPMR bits once corrected under m (epmr_det)
+      int v = nib64(cw0, len0 - 1);
+      for (int jj = 0; jj < 3; ++jj)
+        if (det_pos(d, jj) == len0 - 1) v ^= det_err(d, jj);
+      epL[l] = (v ^ tw[kFecSigPolys + (m + 1) * 15 + len0 - 1]) & 3;
+    });
+    const unsigned cleanB = w.ballot(cleanL), blackB = w.ballot(blackL), failB = w.ballot(failL);
+    // the risk products: lane m multiplies mode m's six risks in codeword order
+    IL pmL, peL;
+    w.lanes([&](int l) {
+      pmL[l] = 16384;
+      peL[l] = 0;
+    });
+    for (int i = 0; i < 6; ++i) {
+      IL from;
+      w.lanes([&](int l) { from[l] = imin(6 * l + i, 31); });
+      const IL dc = w.shfl_from(dcL, from);
+      w.lanes([&](int l) {
+        const int m = imin(l, 2);
+        sf_mul(pmL[l], peL[l], tw[kFecRiskM + (m + 1) * 4 + dc[l]],
+               tw[kFecRiskE + (m + 1) * 4 + dc[l]]);
+      });
     }
     int clean_m = -1;
     for (int m = 2; m >= 0; --m)
-      if (clean[m]) clean_m = m;
+      if (((cleanB >> (6 * m)) & 63) == 63) clean_m = m;
     // candidate pick (al_fec.c:1190-1290)
     const int thr_m = slot <= 40 ? 21990 : 25166, thr_e = slot <= 40 ? -23 : -10;
     int sel_m = -1, sel_mant = 0, sel_e = 0;
     for (int m = 0; m < 3; ++m) {
-      const bool viable = !blacklist[m] && sf_le(pm[m], pe[m], thr_m, thr_e) && !chfail_any[m];
-      if (viable && (sel_m < 0 || sf_lt(pm[m], pe[m], sel_mant, sel_e))) {
+      const int pm = w.shfl(pmL, m), pe = w.shfl(peL, m);
+      const bool viable = ((blackB >> (6 * m)) & 63) == 0 && sf_le(pm, pe, thr_m, thr_e)
+                          && ((failB >> (6 * m)) & 63) == 0;
+      if (viable && (sel_m < 0 || sf_lt(pm, pe, sel_mant, sel_e))) {
         sel_m = m;
-        sel_mant = pm[m];
-        sel_e = pe[m];
+        sel_mant = pm;
+        sel_e = pe;
       }
     }
     const int det_m = clean_m >= 0 ? clean_m : sel_m;
 
-    // codeword 0 under the two upper modes: the EPMR estimate of a failure
-    const Det d0_2 = fec_detect(tb, sc, slot, 1, 0), d0_3 = fec_detect(tb, sc, slot, 2, 0);
-    const int epmr_det2 = fec_epmr_det(tb, sc, d0_2, 1, len0);
-    const int epmr_det3 = fec_epmr_det(tb, sc, d0_3, 2, len0);
-
     if (det_m < 0) {
-      // total failure (fec_estimate_epmr_from_cw0, al_fec.c:908-1010)
-      const int ep2_s01 = (sc.synd[0][0] ^ tb.w[kFecSigSyndr + 6])
-                          | (sc.synd[0][1] ^ tb.w[kFecSigSyndr + 7]);
+      // total failure (fec_estimate_epmr_from_cw0, al_fec.c:908-1010):
+      // codeword 0 under the two upper modes, lanes 6 and 12
+      const int d2 = w.shfl(det, 6), d3 = w.shfl(det, 12);
+      const int epmr_det2 = w.shfl(epL, 6), epmr_det3 = w.shfl(epL, 12);
+      const int ep2_s01 = (nib32(syn0, 0) ^ tw[kFecSigSyndr + 6])
+                          | (nib32(syn0, 1) ^ tw[kFecSigSyndr + 7]);
       int est_exp = (ep1_syn_ok || ep2_s01 == 0) ? -8 : 0;
-      const int dc2 = iclamp(d0_2.elp.deg, 0, 3), dc3 = iclamp(d0_3.elp.deg, 0, 3);
-      const int re2 = tb.w[kFecRiskE + 2 * 4 + dc2], rm2 = tb.w[kFecRiskM + 2 * 4 + dc2];
-      const int re3 = tb.w[kFecRiskE + 3 * 4 + dc3], rm3 = tb.w[kFecRiskM + 3 * 4 + dc3];
-      const bool cand2 = d0_2.elp.deg <= 2 && re2 <= -8;
-      const bool cand3 = d0_3.elp.deg <= 3 && re3 <= -8;
+      const int dc2 = imin(det_deg(d2), 3), dc3 = imin(det_deg(d3), 3);
+      const int re2 = tw[kFecRiskE + 2 * 4 + dc2], rm2 = tw[kFecRiskM + 2 * 4 + dc2];
+      const int re3 = tw[kFecRiskE + 3 * 4 + dc3], rm3 = tw[kFecRiskM + 3 * 4 + dc3];
+      const bool cand2 = det_deg(d2) <= 2 && re2 <= -8;
+      const bool cand3 = det_deg(d3) <= 3 && re3 <= -8;
       const bool first_is_2 = (cand2 && cand3) ? sf_lt(rm2, re2, rm3, re3) : cand2;
-      const bool pick2 = cand2 && !d0_2.fail, pick3 = cand3 && !d0_3.fail;
+      const bool pick2 = cand2 && !det_fail(d2), pick3 = cand3 && !det_fail(d3);
       const bool use2 = pick2 && (first_is_2 || !pick3);
       const bool use3 = pick3 && !use2;
       est_exp = use2 ? re2 : (use3 ? re3 : est_exp);
       const int base = use2 ? epmr_det2 : (use3 ? epmr_det3 : epmr_raw);
       epmr = base + 4 * (est_exp > -16 ? 1 : 0) + 4 * (est_exp > -8 ? 1 : 0);
     } else {
-      // the detected mode: correct every codeword
+      // the detected mode: correct every codeword, a codeword a lane;
+      // codewords 0..5 take their detection under m (lane 6m + i)
       const int m = det_m, t = m + 1;
-      const FecPlan p = fec_plan(slot, m + 2, ccc);
-      int bits = 0, deg0 = 0;
-      bool bfi1 = false, bfi2 = false, any_hardfail = false;
-      bool broken[4] = {false, false, false, false};
-      bool trust[kFecMaxCw];
-      for (int i = 0; i < ncw; ++i) {
-        int err[3], pos[3], deg;
-        if (i < 6) {
-          const Det d = fec_detect(tb, sc, slot, m, i);
-          fec_det_errors(tb, sc, d, m, i, err);
-          for (int jj = 0; jj < 3; ++jj) pos[jj] = d.pos[jj];
-          deg = d.elp.deg;
-          if (i == 0) deg0 = iclamp(deg, 0, 3);
-          for (int b = 0; b < 4; ++b)
-            if (b < m + 1 && deg > b) broken[b] = true;
-        } else {
-          int s[6];
-          for (int k = 0; k < 6; ++k) s[k] = sc.synd[i][k];
-          const Elp elp = peterson(tb, s, t);
-          const bool chien_fail = chien(tb, elp, fec_cw_len(slot, i) - 1, pos);
-          const bool hardfail = elp.deg > t || chien_fail;
-          forney(tb, pos, elp.deg, s, err);
-          for (int jj = 0; jj < 3; ++jj)
-            if (!(jj < elp.deg && !hardfail)) err[jj] = 0;
-          deg = elp.deg;
-          const bool is_pc = i >= ncw - p.n_pccw;
-          if (hardfail && !is_pc) bfi1 = true;
-          if (hardfail && is_pc) bfi2 = true;
-          if (hardfail) any_hardfail = true;
-          trust[i] = !hardfail && !(tb.w[kFecRiskE + (m + 1) * 4 + iclamp(deg, 0, 3)] + 16 > 0);
-          for (int b = 0; b < 4; ++b)
-            if (b < m + 1 && deg > b) broken[b] = true;
+      pd = fec_plan(slot, m + 2, ccc);
+      const FecPlan& p = pd;
+      IL from;
+      w.lanes([&](int l) { from[l] = l < 6 ? 6 * m + l : l; });
+      const IL mine = w.shfl_from(det, from);
+      const uint64_t sig = fec_sig_word(tw, m + 1);
+      const int risk_e = kFecRiskE + (m + 1) * 4;
+      IL bitsL, degL, brokenL, bfi1L, bfi2L, hardL, untrustA, untrustB;
+      w.lanes([&](int l) {
+        int bits = 0, broken = 0, bfi1 = 0, bfi2 = 0, hard = 0, deg_a = 0;
+        untrustA[l] = untrustB[l] = 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = l + 32 * h;
+          if (i < ncw) {
+            int d;
+            if (i < 6) {
+              d = mine[l];
+            } else {
+              const uint32_t sy = h == 0 ? synA[l] : synB[l];
+              int s[6];
+              for (int k = 0; k < 6; ++k) s[k] = nib32(sy, k);
+              d = fec_detect_word(tb, s, t, fec_cw_len(slot, i) - 1);
+              const bool hardfail = det_deg(d) > t || det_fail(d);
+              const bool is_pc = i >= ncw - p.n_pccw;
+              if (hardfail && !is_pc) bfi1 = 1;
+              if (hardfail && is_pc) bfi2 = 1;
+              if (hardfail) hard = 1;
+              const bool trust = !hardfail && !(tw[risk_e + imin(det_deg(d), 3)] + 16 > 0);
+              (h == 0 ? untrustA : untrustB)[l] = trust ? 0 : 1;
+            }
+            const int deg = det_deg(d);
+            if (h == 0) deg_a = deg;
+            for (int b = 0; b < 4; ++b)
+              if (b < m + 1 && deg > b) broken |= 1 << b;
+            for (int jj = 0; jj < 3; ++jj) bits += tw[kFecBitcnt + det_err(d, jj)];
+            uint64_t cw = det_apply(h == 0 ? cwA[l] : cwB[l], d);
+            if (i < 6) cw ^= sig;
+            (h == 0 ? cwA : cwB)[l] = cw;
+          }
         }
-        for (int jj = 0; jj < 3; ++jj) {
-          bits += tb.w[kFecBitcnt + err[jj]];
-          sc.cw[i][imin(pos[jj], 15)] ^= static_cast<uint8_t>(err[jj]);
-        }
-        if (i < 6)
-          for (int j = 0; j < 15; ++j)
-            sc.cw[i][j] ^= static_cast<uint8_t>(tb.w[kFecSigPolys + (m + 1) * 15 + j]);
+        bitsL[l] = bits;
+        degL[l] = deg_a;
+        brokenL[l] = broken;
+        bfi1L[l] = bfi1;
+        bfi2L[l] = bfi2;
+        hardL[l] = hard;
+      });
+      typename W::template Lanes<unsigned> bitsU;
+      w.lanes([&](int l) { bitsU[l] = static_cast<unsigned>(bitsL[l]); });
+      const int bits = static_cast<int>(w.reduce_add(bitsU));
+      const bool bfi1 = w.ballot(bfi1L) != 0, bfi2 = w.ballot(bfi2L) != 0;
+      const bool any_hardfail = w.ballot(hardL) != 0;
+      const unsigned untrust0 = w.ballot(untrustA), untrust1 = w.ballot(untrustB);
+      bool broken[4];
+      for (int b = 0; b < 4; ++b) {
+        IL bb;
+        w.lanes([&](int l) { bb[l] = (brokenL[l] >> b) & 1; });
+        broken[b] = w.ballot(bb) != 0;
       }
+      const int deg0 = imin(w.shfl(degL, 0), 3);
       if (ncw > 6 && any_hardfail)
         for (int b = 0; b < 4; ++b) broken[b] = true;
-      const int epmr_det = sc.cw[0][len0 - 1] & 3;
-      fec_extract_dw(sc, p, sc.dw);
-      const int tmp_epmr = sc.dw[2 * p.n_crc1 - 1] >> 2;
+      const int epmr_det = nib64(w.shfl(cwA, 0), len0 - 1) & 3;
+      fec_data_word(w, cwA, cwB, p, ws->dw);
+      const int tmp_epmr = ws->dw[2 * p.n_crc1 - 1] >> 2;
       const int c12 = 2 * (p.n_crc1 + p.n_crc2);
-      const int remc = crc1_rem(sc.dw + c12, p.crc1_n, p.n_crc1, tmp_epmr);
-      bool crc1_ok = true, crc2_ok = true;
-      for (int q = 0; q < 2 * p.n_crc1; ++q)
-        if (sc.dw[q] != ((remc >> (4 * q)) & 15)) crc1_ok = false;
+      const int remc = fec_crc1_warp(w, cp, ws->dw + c12, p.crc1_n, p.n_crc1, tmp_epmr);
+      const bool crc1_ok = fec_crc_ok(ws->dw, remc, 2 * p.n_crc1);
+      bool crc2_ok = true;
       if (p.n_crc2) {
-        const int rem2 = crc2_rem(sc.dw + p.dw_len - p.pc_split, p.pc_split);
-        for (int q = 0; q < 2 * p.n_crc2; ++q)
-          if (sc.dw[2 * p.n_crc1 + q] != ((rem2 >> (4 * q)) & 15)) crc2_ok = false;
+        const int rem2 = fec_crc_warp(w, ws->dw + p.dw_len - p.pc_split, p.pc_split, 2,
+                                      cp + 2 * kFecCrcPowers, 0x1A2EB, 16);
+        crc2_ok = fec_crc_ok(ws->dw + 2 * p.n_crc1, rem2, 2 * p.n_crc2);
       }
       // EPMR of the corrected path (al_fec.c:1177,1359-1370)
-      const int exp0 = tb.w[kFecRiskE + (m + 1) * 4 + deg0];
+      const int exp0 = tw[kFecRiskE + (m + 1) * 4 + deg0];
       epmr = clean_m >= 0 ? epmr_raw
                           : epmr_det + 8 - 4 * (exp0 <= -8 ? 1 : 0) - 4 * (exp0 <= -16 ? 1 : 0);
       int broken_bits = 0;
@@ -599,7 +770,9 @@ ACX_HD void fec_decode_lane(const int32_t* frame, int bfi_in, const FecTables& t
       if (m >= 1 && p.n_pccw > 0 && bfi == 2) {
         int first_bad = p.n_pccw, last_bad = -1;
         for (int q = 0; q < p.n_pccw; ++q) {
-          if (!trust[ncw - 1 - q]) {
+          const int i = ncw - 1 - q;
+          const bool untrusted = (((i < 32 ? untrust0 : untrust1) >> (i & 31)) & 1u) != 0;
+          if (untrusted) {
             if (first_bad == p.n_pccw) first_bad = q;
             last_bad = q;
           }
@@ -610,7 +783,6 @@ ACX_HD void fec_decode_lane(const int32_t* frame, int bfi_in, const FecTables& t
       }
       if (bfi == 1 && cap_fail) mode = -1;
       if (bfi != 1) {
-        fec_dw_bytes(sc.dw, p, data);
         data_set = true;
         data_bytes = p.data_bytes;
       }
@@ -620,23 +792,31 @@ ACX_HD void fec_decode_lane(const int32_t* frame, int bfi_in, const FecTables& t
       if (bfi != 2) be_l = be_r = -1;
     }
   }
-  if (!data_set)
-    for (int j = 0; j < slot; ++j) data[j] = 0;
+  // the payload bytes of the data word (fec.py:_dw_to_bytes), zero padded
+  const int top = pd.dw_len - 2 * pd.data_bytes, nd = data_set ? pd.data_bytes : 0;
+  w.lanes([&](int l) {
+    for (int j = l; j < slot; j += 32) {
+      const int q = pd.data_bytes - 1 - j;
+      data[j] = j < nd ? ws->dw[top + 2 * q] * 16 | ws->dw[top + 2 * q + 1] : 0;
+    }
+  });
   if (bfi_in == 1) {
     bfi = 1;
     er = -1;
     data_bytes = 0;
     mode = -1;
   }
-  out[FEC_DATA_BYTES * stride] = data_bytes;
-  out[FEC_BFI * stride] = bfi;
-  out[FEC_EPMR * stride] = epmr;
-  out[FEC_ERROR_REPORT * stride] = er;
-  out[FEC_MODE * stride] = mode;
-  out[FEC_N_PCCW * stride] = n_pccw;
-  out[FEC_N_PC * stride] = n_pc;
-  out[FEC_BE_LEFT * stride] = be_l;
-  out[FEC_BE_RIGHT * stride] = be_r;
+  w.leader([&] {
+    out[FEC_DATA_BYTES * stride] = data_bytes;
+    out[FEC_BFI * stride] = bfi;
+    out[FEC_EPMR * stride] = epmr;
+    out[FEC_ERROR_REPORT * stride] = er;
+    out[FEC_MODE * stride] = mode;
+    out[FEC_N_PCCW * stride] = n_pccw;
+    out[FEC_N_PC * stride] = n_pc;
+    out[FEC_BE_LEFT * stride] = be_l;
+    out[FEC_BE_RIGHT * stride] = be_r;
+  });
 }
 
 }  // namespace acx

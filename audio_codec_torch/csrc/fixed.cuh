@@ -134,8 +134,9 @@ ACX_HD unsigned upto32(int j) { return (2u << j) - 1u; }
 
 // ---- the groups of threads a step runs over ----
 // On the host one thread runs every element in turn (the rehearsal); on the
-// card a warp (32 lanes) or a block takes every 32nd or blockDim-th element.
-// min/max combine each thread's partial over the group.
+// card a warp (32 lanes) takes every 32nd element (fx_dct4.cu's RowLanes,
+// with bor, every 16th). min/max/bor combine each thread's partial over the
+// group.
 // The warp's scans run over chunks of 32 elements, a ballot of pred each:
 //   scan_count(n, pred, f) calls f(i, rank, p) with p = pred(i) and rank the
 //   count of j < i with pred(j), and returns the total;
@@ -171,6 +172,7 @@ struct Host {
   bool leader() const { return true; }
   i64 min(i64 v) const { return v; }
   i64 max(i64 v) const { return v; }
+  uint32_t bor(uint32_t v) const { return v; }
   template <class P>
   static unsigned ballot(int base, int n, P& pred) {
     unsigned m = 0;
@@ -266,34 +268,6 @@ struct Warp {
       if (m != 0) last = base + top32(m);
     }
   }
-};
-
-// A block of blockDim.x threads (a multiple of 32, at most 1024); `red` is
-// 32 words of shared memory for the reductions.
-struct Block {
-  i64* red;
-  template <class F>
-  __device__ void each(int n, F&& f) const {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) f(i);
-  }
-  __device__ void sync() const { __syncthreads(); }
-  __device__ bool leader() const { return threadIdx.x == 0; }
-  template <bool kMin>
-  __device__ i64 reduce(i64 v) const {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const i64 u = __shfl_xor_sync(0xffffffffu, v, o);
-      v = kMin ? min64(v, u) : max64(v, u);
-    }
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    v = red[0];
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) v = kMin ? min64(v, red[w]) : max64(v, red[w]);
-    return v;
-  }
-  __device__ i64 min(i64 v) const { return reduce<true>(v); }
-  __device__ i64 max(i64 v) const { return reduce<false>(v); }
 };
 #endif
 

@@ -1,7 +1,8 @@
 // The two warps that run the steps of the warp-a-stream kernels written as
 // templates over the warp (bit_estimate.cuh, ari_encode.cuh,
 // tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh, sns_vq_enc.cuh,
-// noise_residual_enc.cuh, spec_decode.cuh, sns_vq.cuh's decoder).
+// noise_residual_enc.cuh, spec_decode.cuh, sns_vq.cuh's decoder, fec.cuh's
+// decoder).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
 // collectives __shfl_up_sync, __shfl_down_sync, __shfl_sync,
@@ -11,7 +12,7 @@
 // rehearsals (tests/test_torch_coder_rehearsal.py,
 // tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py,
 // tests/test_torch_decode_rehearsal.py, tests/test_torch_sns_nf_rehearsal.py,
-// tests/test_torch_dec_rehearsal.py).
+// tests/test_torch_dec_rehearsal.py, tests/test_torch_fxdct_fec_rehearsal.py).
 #pragma once
 
 #include "acodec.cuh"
@@ -85,6 +86,11 @@ struct CoderHostWarp {
   unsigned reduce_add(const Lanes<unsigned>& x) const {
     unsigned s = 0u;
     for (int l = 0; l < kCoderLanes; ++l) s += x[l];
+    return s;
+  }
+  unsigned reduce_xor(const Lanes<unsigned>& x) const {
+    unsigned s = 0u;
+    for (int l = 0; l < kCoderLanes; ++l) s ^= x[l];
     return s;
   }
   // bit `bit` of the 32-bit word at w set to v (shared memory on the card,
@@ -182,6 +188,13 @@ struct CoderCardWarp {
   __host__ __device__ unsigned reduce_add(const Lanes<unsigned>& x) const {
 #ifdef __CUDA_ARCH__
     return __reduce_add_sync(0xFFFFFFFFu, x.v);
+#else
+    return x.v;
+#endif
+  }
+  __host__ __device__ unsigned reduce_xor(const Lanes<unsigned>& x) const {
+#ifdef __CUDA_ARCH__
+    return __reduce_xor_sync(0xFFFFFFFFu, x.v);
 #else
     return x.v;
 #endif

@@ -855,6 +855,28 @@ def fec_tables(device: str) -> torch.Tensor:
     return torch.as_tensor(words.astype(np.int32), device=device)
 
 
+CRC_POWERS = 608    # csrc/fec.cuh:kFecCrcPowers
+
+
+@functools.cache
+def fec_dec_tables(device: str) -> torch.Tensor:
+    """The decoder's tables (csrc/fec.cuh:kFecDecTableWords): fec_tables'
+    words; [15][16] the six syndrome terms of nibble v at position j,
+    mul(v, SYND_POW[k][j]) at bits 4k; [3][CRC_POWERS] x^(4k) mod P of CRC1
+    of 2 and of 3 bytes and of CRC2."""
+    from .ops import fec as F
+    syn = np.zeros((15, 16), np.int64)
+    for j in range(15):
+        for v in range(16):
+            for k in range(6):
+                syn[j, v] |= int(F._MUL[v, F._SYND_POW[k, j]]) << (4 * k)
+    polys = (F._CRC1_POLY[2][0], F._CRC1_POLY[3][0], F._CRC2_POLY[2][0])
+    pw = np.array([[F._clmod(1 << (4 * k), poly) for k in range(CRC_POWERS)] for poly in polys],
+                  np.int64)
+    words = np.concatenate([fec_tables("cpu").numpy(), syn.ravel(), pw.ravel()])
+    return torch.as_tensor(words.astype(np.int32), device=device)
+
+
 def _fec_slot(slot_bytes: int):
     from .ops import fec as F
     if not F.FEC_SLOT_BYTES_MIN <= slot_bytes <= F.FEC_SLOT_BYTES_MAX:
@@ -898,7 +920,7 @@ def fec_decode(frames, slot_bytes: int, ccc_flag: int, bfi_in=None):
     out = torch.empty((9, B), dtype=torch.int32, device=dev)
     _run("fec_decode", library().acx_fec_decode(
         frames.data_ptr(), None if bfi_in is None else bfi_in.data_ptr(),
-        fec_tables(str(dev)).data_ptr(), data.data_ptr(), out.data_ptr(), B, slot_bytes,
+        fec_dec_tables(str(dev)).data_ptr(), data.data_ptr(), out.data_ptr(), B, slot_bytes,
         int(ccc_flag), _stream()))
     names = ("data_bytes", "bfi", "epmr", "error_report", "mode", "n_pccw", "n_pc",
              "be_bp_left", "be_bp_right")
@@ -1123,7 +1145,8 @@ def fx_spec_table_pack(yLen: int, fs_idx: int, frame_dms: int, hrmode: bool) -> 
 
 
 def fx_dct4_table_pack() -> np.ndarray:
-    """The DCT-IV's tables in the layout of csrc/fx_dct4.cuh."""
+    """The DCT-IV's tables in the layout of csrc/fx_dct4.cuh (Word16 values,
+    int32 on the card)."""
     return _i64_table("fx_SineWindow480", "fx_SineTable480", "fx_RotVector_480")
 
 
@@ -1211,8 +1234,10 @@ def fx_dct4(y, y_e, N: int, frame_dms: int = 100):
     _lanes(L, "fx_dct4")
     _rows(y, "y", (L, N), torch.int64)
     _check_vectors(L, torch.int64, y_e=y_e)
+    if y.data_ptr() % 16:   # the kernel reads a row's pairs with 16-byte loads
+        y = y.clone()
     dev = y.device
-    tab = nm.table(fx_dct4_table_pack, device=dev, dtype=torch.int64)
+    tab = nm.table(fx_dct4_table_pack, device=dev, dtype=torch.int32)
     ytda = torch.empty_like(y)
     ye, ys = (torch.empty((L,), dtype=torch.int64, device=dev) for _ in range(2))
     zero = torch.empty((L,), dtype=torch.bool, device=dev)

@@ -11,7 +11,7 @@ transform as the `fx_dct4` kernel (csrc/fx_dct4.cu); this module is its
 plain version's core (`fixed_dev.batch_dct4_plain`).
 
 The 2.5 and 5 ms sizes (cfft 60 and the fftN2_4/fftN2_12 cores) and HR
-mode are not ported (ROADMAP Queue 1 item 9): `cfft` raises for them.
+mode are not ported (ROADMAP Queue 1 item 3): `cfft` raises for them.
 """
 from __future__ import annotations
 

@@ -1368,6 +1368,29 @@ def stream_phase(dev, pcm, K, plain, card):
     got = K.fec_decode(synth, 80, 0)
     same_bits(got, fec.fec_decode_plain(synth, 80, 0), "fec_decode (wrong-mode and risk rows)")
     check(bool((got["bfi"] == 1).all()), "fec_decode: a wrong-mode or risk row was not lost")
+    # total failures (the EPMR estimate) at three slot sizes, and the
+    # 40-byte slot's low-rate cap at EP2-4
+    failures, capped = 0, []
+    for slot in (40, 80, 300):
+        rows_f = g(C.fec_failure_rows(slot))
+        got = K.fec_decode(rows_f, slot, 0)
+        same_bits(got, fec.fec_decode_plain(rows_f, slot, 0), f"fec_decode failure rows {slot}")
+        failures += int(((got["mode"] == -1) & (got["error_report"] == 0x7FF)).sum())
+    for ep in (2, 3, 4):
+        rows_c = g(C.fec_cap_rows(ep))
+        got = K.fec_decode(rows_c, 40, 0)
+        same_bits(got, fec.fec_decode_plain(rows_c, 40, 0), f"fec_decode cap rows EP{ep}")
+        capped.append(got)
+    er = torch.cat([o["error_report"] for o in capped])
+    md = torch.cat([o["mode"] for o in capped])
+    rejected = int(((md == -1) & (er != 0x7FF)).sum())
+    cleared = int(((md >= 3) & ((er & 0x1000) == 0)).sum())
+    print(f"[stream] fec_decode edge rows: {failures} total failures at slots 40/80/300, at the "
+          f"40-byte cap {rejected} rejected and {cleared} with flags cleared, equal to the plain "
+          f"version", flush=True)
+    check(failures == 24 and rejected > 0 and cleared > 0,
+          f"fec_decode edge rows missed a path: {failures} failures, {rejected} rejected, "
+          f"{cleared} cleared")
     for ep in (3, 4):
         a = C.pc_decode_rows(ep)
         cfg = P.Config(fs_in=48000, bitrate=64000, epmode=ep)
@@ -1948,10 +1971,12 @@ def fixed_synthetic(cfg, dev, K) -> dict:
     """The synthetic rows of tests/torch_kernel_cases.py through each
     fixed-point kernel against its plain version: every SNS submode, both
     leading signs and out-of-range indices; silent, full-scale, zero-frame
-    and order-8 spectra; all-zero, full-scale and alternating DCT rows; the
+    and order-8 spectra; all-zero, full-scale and alternating DCT rows and
+    the DCT's edge rows (fx_dct4_edge_rows); the
     post-filter plan through passthrough, pat2, pat3, pat4 and pat1 at 48
     and 8 kHz, with its edge streams (passes at pitch_int <= shift, chunks
     shorter than a warp at 8 kHz)."""
+    import numpy as np
     import torch
     import audio_codec_torch as P
     from audio_codec_torch.fixed_decoder_dev import DeviceFixedDecoder
@@ -1970,6 +1995,14 @@ def fixed_synthetic(cfg, dev, K) -> dict:
     y, y_e = C.fx_dct4_rows()
     out, _ = fixed_equal(K, "fx_dct4", (g(y), g(y_e), cfg.frame_length, cfg.frame_dms))
     hist["fx_dct4"] = fixed_branches("fx_dct4", None, out, cfg.fs_idx)
+    # the edge rows of its 32-bit words (-2^31, headroom 0, 30 and 31, rows
+    # the pre-scale takes to full scale, all-zero rows among nonzero ones),
+    # alone and tiled to 2047 rows
+    y, y_e = C.fx_dct4_edge_rows()
+    for n in (len(y), 2047):
+        i = np.arange(n) % len(y)
+        out, _ = fixed_equal(K, "fx_dct4", (g(y[i]), g(y_e[i]), cfg.frame_length, cfg.frame_dms))
+    hist["fx_dct4 edge rows"] = fixed_branches("fx_dct4", None, out, cfg.fs_idx)
     # the post-filter plan at 48 kHz, and at 8 kHz (pitch lags from 19:
     # chunks shorter than a warp), each also with its edge streams (pitch
     # indices at their ranges' ends, passes at pitch 0 where pitch_int <=

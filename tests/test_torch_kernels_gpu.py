@@ -33,7 +33,8 @@ high-resolution mode, 2048 streams a launch and one (ari_encode's lane-0
 path never taken on the main path, taken on the rows over their budget)
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
-injected errors, the range decoder on frames with a partial-concealment
+injected errors (the decoder also at 1, 33 and 2048 slots a launch, on
+total failures and on the 40-byte slot's cap), the range decoder on frames with a partial-concealment
 block (bfi 0 and 2, and the encoder's simulation) and on decode_rows (coded
 coder_rows with LSB-mode and bad frames, in all three of its modes) at 1, 33,
 2047 and 16 384 frames a launch, the resampler's biquad at 1, 33 and 2047
@@ -49,7 +50,8 @@ B = 64 block with silent streams and on their synthetic rows (every SNS
 submode and out-of-range indices, silent, full-scale and order-8 spectra,
 all-zero, full-scale and alternating DCT rows, the post-filter through
 passthrough and its four patterns, at 48 and 8 kHz with passes at
-pitch_int <= shift, 1, 33 and 2048 streams a launch), equal to their plain
+pitch_int <= shift, 1, 33 and 2048 streams a launch; the DCT-IV's edge rows
+at 1, 33 and 16 384 rows), equal to their plain
 versions with no tolerance; the card's PCM equals the stored reference's and
 the CPU's. The pitch search runs its rows at 10, 5 and 2.5 ms, 1, 33 and
 2048 streams a launch."""
@@ -939,6 +941,27 @@ def test_fec_decode_wrong_mode_and_risk_rows(dev):
     assert bool((got["bfi"] == 1).all())
 
 
+@pytest.mark.parametrize("slots", [1, 33, 2048])
+@pytest.mark.parametrize("slot", C.FEC_SLOTS)
+def test_fec_decode_every_mode_at_scale(dev, slot, slots):
+    """The warp decoder at each slot size x EP1-4 x ccc 0/1 on 1, 33 and
+    2048 slots a launch (the case's rows tiled), and on the total-failure
+    rows; at slot 40 also the low-rate cap's rows."""
+    from audio_codec_torch.ops import fec
+    tile = lambda t: t[torch.arange(slots, device=t.device) % t.shape[0]].contiguous()
+    cases = []
+    for mode in (1, 2, 3, 4):
+        for ccc in (0, 1):
+            _, _, frames, bfi_in = fec_case_on_card(dev, slot, mode, ccc)
+            cases.append((tile(frames), ccc, tile(bfi_in)))
+    synth = [C.fec_failure_rows(slot)] + ([C.fec_cap_rows(m) for m in (2, 3, 4)] if slot == 40 else [])
+    cases += [(tile(torch.from_numpy(f).to(dev)), 0, None) for f in synth]
+    for frames, ccc, bfi_in in cases:
+        got = K.fec_decode(frames, slot, ccc, bfi_in)
+        ref = fec.fec_decode_plain(frames, slot, ccc, bfi_in)
+        same_tensors([got[k] for k in ref], list(ref.values()))
+
+
 def pc_args(dev, epmode):
     a = C.pc_decode_rows(epmode)
     cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
@@ -1216,6 +1239,19 @@ def test_fixed_kernel_matches_plain_on_every_launch(fixed_recorded, name):
     assert len(store[name]) == counts[name] == (4 if name == "fx_ola_ltpf" else 1)
     for args, _ in store[name]:
         fixed_same(name, args)
+
+
+@pytest.mark.parametrize("rows", [1, 33, 16384])
+def test_fx_dct4_edge_rows(dev, rows):
+    """The DCT-IV on fx_dct4_edge_rows and fx_dct4_rows (-2^31, headroom 0,
+    30 and 31, rows the pre-scale takes to full scale, all-zero rows among
+    nonzero ones) tiled to 1, 33 and 16 384 rows a launch."""
+    y0, e0 = C.fx_dct4_edge_rows()
+    y1, e1 = C.fx_dct4_rows()
+    y, e = np.concatenate([y0, y1]), np.concatenate([e0, e1])
+    idx = np.arange(rows) % len(y)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    fixed_same("fx_dct4", (g(y[idx]), g(e[idx]), 480))
 
 
 def test_fixed_kernels_synthetic_rows(dev):

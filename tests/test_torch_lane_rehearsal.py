@@ -1300,15 +1300,17 @@ void rehearse_fec_encode(const int* data, const int* epmr, const int* tabs, int 
   for (int b = 0; b < B; ++b)
     fec_encode_lane(data + D * b, epmr[b], tb, slot, mode, ccc, dw, cw, out + slot * b);
 }
+// the kernel's warp (a warp a slot) run by the host warp; tabs: the
+// decoder's table
 void rehearse_fec_decode(const int* frames, const int* bfi_in, const int* tabs, int B, int slot,
                          int ccc, int* data, int* out) {
-  FecTables tb;
-  tb.w = tabs;
-  FecDecScratch sc;
+  FecWarpScratch ws;
   for (int b = 0; b < B; ++b)
-    fec_decode_lane(frames + slot * b, bfi_in[b], tb, slot, ccc, sc, data + slot * b, out + b, B);
+    fec_decode_warp(CoderHostWarp{}, frames + slot * b, bfi_in[b], tabs, tabs + kFecCrcPow,
+                    slot, ccc, &ws, data + slot * b, out + b, B);
 }
 int fec_table_words() { return kFecTableWords; }
+int fec_dec_table_words() { return kFecDecTableWords; }
 }
 """
 
@@ -1318,8 +1320,8 @@ MUTATIONS_FEC = {
     # (the risk thresholds themselves are no reachable risk product, so a
     # changed compare against them gives the same results)
     "risk_compare_lt": ("fec.cuh", "4 * (exp0 <= -8 ? 1 : 0)", "4 * (exp0 < -8 ? 1 : 0)"),
-    "deinterleave_length": ("fec.cuh", "      if (j < len) {\n        const int o",
-                            "      if (j < len - 1) {\n        const int o"),
+    "deinterleave_length": ("fec.cuh", "    if (j < len) {\n      const int o",
+                            "    if (j < len - 1) {\n      const int o"),
 }
 
 
@@ -1361,7 +1363,7 @@ def lane_fec_decode(lib, frames, bfi_in, slot, ccc) -> dict:
     frames, bfi_in = _c(frames, np.int32), _c(bfi_in, np.int32)
     B = frames.shape[0]
     data, out = np.zeros((B, slot), np.int32), np.zeros((9, B), np.int32)
-    lib.rehearse_fec_decode(ptr(frames), ptr(bfi_in), ptr(K.fec_tables("cpu").numpy()), B, slot,
+    lib.rehearse_fec_decode(ptr(frames), ptr(bfi_in), ptr(K.fec_dec_tables("cpu").numpy()), B, slot,
                             ccc, ptr(data), ptr(out))
     return dict(zip(fec.DECODE_FIELDS, [data, *out]))
 
@@ -1388,6 +1390,7 @@ def fec_differing(lib, slot, mode, ccc) -> int:
 
 def test_fec_table_layout_matches_header(lib_fec):
     assert lib_fec.fec_table_words() == K.fec_tables("cpu").numel()
+    assert lib_fec.fec_dec_table_words() == K.fec_dec_tables("cpu").numel()
 
 
 @pytest.mark.parametrize("slot", C.FEC_SLOTS)
@@ -1832,9 +1835,9 @@ void rehearse_fx_spec_decode(const int32_t* x, const int32_t* res, const int32_t
                         scf + l * g.n_bands, scf_e + l * g.n_bands, tab, g, xs.data(), run.data(),
                         tf, out + l * g.N, x_e + l);
 }
-void rehearse_fx_dct4(const i64* y, const i64* y_e, const i64* tab, int L, i64* ytda, i64* ye,
+void rehearse_fx_dct4(const i64* y, const i64* y_e, const w32* tab, int L, i64* ytda, i64* ye,
                       i64* ys, bool* zero) {
-  i64 a[kDctN], b[kDctN];
+  w32 a[kDctN], b[kDctN];
   const Host g;
   for (int l = 0; l < L; ++l)
     fx_dct4_row(g, y + l * kDctN, y_e[l], tab, a, b, ytda + l * kDctN, ye + l, ys + l, zero + l);
@@ -1880,8 +1883,8 @@ MUTATIONS_FX = {
                             "f(base + j, r + popc32(m & below32(j)), ((m >> j) & 1u) != 0);",
                             "f(base + j, r + popc32(m & upto32(j)), ((m >> j) & 1u) != 0);"),
     # fx_dct4: the radix-8 rows' SCALEFACTORN2 - 1 shift one short
-    "dct4_bfly_shift": ("fx_dct4.cuh", "auto ps = [](i64 v) { return v >> 2; };",
-                        "auto ps = [](i64 v) { return v >> 1; };"),
+    "dct4_bfly_shift": ("fx_dct4.cuh", "auto ps = [](w32 v) { return v >> 2; };",
+                        "auto ps = [](w32 v) { return v >> 1; };"),
     # fx_ola_ltpf: the passthrough's shift of the frame without its clamp at 15
     "ola_shift_clamp": ("fx_ola_ltpf.cuh",
                         "v = k < keep ? ybuf[k + N] : (sA > 15 ? 0 : shr64(x_in[k - keep], sA));",
@@ -1952,7 +1955,8 @@ def lane_fx_dct4(lib, y: np.ndarray, y_e: np.ndarray):
     L = y.shape[0]
     ytda, ye, ys = np.zeros_like(y), np.zeros(L, np.int64), np.zeros(L, np.int64)
     zero = np.zeros(L, np.bool_)
-    lib.rehearse_fx_dct4(ptr(y), ptr(y_e), ptr(K.fx_dct4_table_pack()), L, ptr(ytda), ptr(ye),
+    tab = _c(K.fx_dct4_table_pack(), np.int32)
+    lib.rehearse_fx_dct4(ptr(y), ptr(y_e), ptr(tab), L, ptr(ytda), ptr(ye),
                          ptr(ys), ptr(zero))
     return ytda, ye, ys, zero
 

@@ -1292,6 +1292,45 @@ def epmr_risk_rows(slot: int = 80, n: int = 8, seed: int = 0) -> np.ndarray:
     return _frames_of(cws, slot)
 
 
+def fec_failure_rows(slot: int = 80, n: int = 8, seed: int = 0) -> np.ndarray:
+    """Random bytes that the decoder reads as no mode at all (mode -1, the
+    error report 0x7FF): the EPMR estimate of a total failure, found by a
+    seeded search with the plain decoder."""
+    import torch
+    from audio_codec_torch.ops import fec
+    rng = np.random.default_rng(seed + slot)
+    found = []
+    while len(found) < n:
+        frames = rng.integers(0, 256, (64, slot)).astype(np.int32)
+        out = fec.fec_decode_plain(torch.from_numpy(frames), slot)
+        hit = (out["mode"].numpy() == -1) & (out["error_report"].numpy() == 0x7FF)
+        found.extend(frames[hit][: n - len(found)])
+    return np.stack(found).astype(np.int32)
+
+
+def fec_cap_rows(mode: int, n: int = 24, seed: int = 0) -> np.ndarray:
+    """EP2-4 frames in the 40-byte slot (six codewords, all under mode
+    detection) with 1-6 of them changed in 1..t nibbles: the low-rate cap
+    rejects some (bfi 1, mode -1) and clears the error report's flags of
+    others (al_fec.c:760-783)."""
+    import torch
+    from audio_codec_torch.ops import fec
+    slot, t = 40, mode - 1
+    rng = np.random.default_rng(seed + 10 * mode)
+    sp = fec._slot_plan(slot)
+    D = fec.fec_get_data_size(mode, 0, slot)
+    data = rng.integers(0, 256, (n, D)).astype(np.int32)
+    epmr = (np.arange(n) % 4).astype(np.int32)
+    enc = fec.fec_encode_plain(torch.from_numpy(data), torch.from_numpy(epmr), slot, mode).numpy()
+    cws = _codeword_nibbles(enc.astype(np.int64), slot)
+    for b in range(n):
+        for i in rng.choice(6, size=1 + b % 6, replace=False):
+            k = int(rng.integers(1, t + 1))
+            pos = rng.choice(sp["lens"][i], size=k, replace=False)
+            cws[b, sp["offs"][i] + pos] ^= rng.integers(1, 16, size=k)
+    return _frames_of(cws, slot)
+
+
 PC_EP_MODES = (3, 4)
 
 
@@ -1831,6 +1870,38 @@ def fx_dct4_rows(seed: int = 0, n: int = 16) -> tuple[np.ndarray, np.ndarray]:
                         np.where(np.arange(480) >= 400, 12345, 0)])
     mag = rng.laplace(0, 1, (n, 480)) * 2.0 ** rng.integers(4, 31, (n, 1))
     y = np.concatenate([special, np.clip(np.floor(mag), -M - 1, M)]).astype(np.int64)
+    y_e = rng.integers(-12, 30, len(y)).astype(np.int64)
+    return y, y_e
+
+
+def fx_dct4_edge_rows(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(y [14, 480] int64, y_e [14]) at the edges of the kernel's 32-bit
+    words: a row holding -2^31 (headroom 0), a row of -2^31 and one
+    alternating -2^31 and 2^31 - 1, rows of headroom 31 (every nonzero
+    value -1) and 30 (values -2..1), rows the pre-scale takes to full scale
+    (largest values 2^k - 1 and -2^k, shifted by 31 - k, k = 20 and 7),
+    all-zero rows among nonzero ones, a row nonzero at bin 399 alone (the
+    cap's last bin) and seeded rows of headroom 0 to 3."""
+    rng = np.random.default_rng(950 + seed)
+    M = 1 << 31
+    n = 480
+    lap = lambda s: np.floor(rng.laplace(0, 1, n) * s)
+    one_min = np.clip(lap(2.0 ** 24), -M, M - 1)
+    one_min[int(rng.integers(0, 400))] = -M
+    alt = np.where(np.arange(n) % 2 == 0, -M, M - 1)
+    h31 = np.where(rng.random(n) < 0.4, -1, 0)
+    h30 = rng.integers(-2, 2, n)
+    full = []
+    for k in (20, 7):
+        r = np.clip(lap(2.0 ** (k - 3)), -(1 << k) + 1, (1 << k) - 2)
+        r[int(rng.integers(0, 200))] = (1 << k) - 1
+        r[int(rng.integers(200, 400))] = -(1 << k)
+        full.append(r)
+    bin399 = np.zeros(n)
+    bin399[399] = -12345
+    seeded = [np.clip(lap(2.0 ** (27 + h)), -M, M - 1) for h in range(4)]
+    y = np.stack([one_min, np.full(n, -M), alt, h31, np.zeros(n), h30, *full, np.zeros(n),
+                  bin399, *seeded]).astype(np.int64)
     y_e = rng.integers(-12, 30, len(y)).astype(np.int64)
     return y, y_e
 
