@@ -1,8 +1,8 @@
 // The LC3plus channel coder: GF(16) Reed-Solomon with mode detection, the
 // CRCs and the partial-concealment span.
 //
-// The steps of csrc/fec_encode.cu (fec_encode_lane, a thread a slot) and
-// csrc/fec_decode.cu (fec_decode_warp, a warp a slot), which replace
+// The steps of csrc/fec_encode.cu (fec_encode_warp) and csrc/fec_decode.cu
+// (fec_decode_warp), a warp a slot each, which replace
 // audio_codec_tpu/ops/fec.py:fec_encode (fec.py:628) and :fec_decode
 // (fec.py:696). They follow the plain versions in
 // audio_codec_torch/ops/fec.py step for step; every value is an integer, so
@@ -10,15 +10,14 @@
 //
 // The slot's geometry (codeword count and lengths, the redundancy of each
 // codeword, the payload split) is computed here from the slot size and the
-// mode, as fec.py's _slot_plan/_mode_plan compute it. The CRCs run as a
-// Horner scheme over the nibbles with the generator polynomial, which gives
-// the same remainder as the plain version's position tables (the CRC is
-// linear: both are sum_i v_i x^(4(i + 2h)) mod P); the decoder splits the
-// scheme over its lanes. The GF(16) tables, the syndrome points, the
-// signalling polynomials and their syndromes, the risk table and the RS
-// parity bases come in one int32 table (fec_tables in kernels.py) in the
-// layout of FecTables; the decoder's (fec_dec_tables) adds its packed
-// syndrome terms and the CRC powers of its lanes.
+// mode, as fec.py's _slot_plan/_mode_plan compute it. The CRCs are split
+// over the lanes: the remainder is linear, sum_i v_i x^(4(i + 2h)) mod P,
+// the same as the plain version's position tables. The GF(16) tables, the
+// syndrome points, the signalling polynomials and their syndromes, the risk
+// table and the RS parity bases come in one int32 table (fec_tables in
+// kernels.py) in the layout of FecTables; the decoder's (fec_dec_tables)
+// adds its packed syndrome terms and the CRC powers of its lanes, the
+// encoder's (fec_enc_tables) the packed parity terms after those.
 //
 // The decoder commits early where the plain version's lane-wise merge makes
 // the rest irrelevant: a slot that passes the EP1 check returns the EP1
@@ -132,86 +131,14 @@ ACX_HD int crc_mulx4(int r, int poly, int deg) {
   return r;
 }
 
-// sum_i v[i] x^(4(i + 2h)) mod P: the remainder of fec.py:_crc_eval
-ACX_HD int crc_rem(const uint8_t* v, int n, int h, int poly, int deg) {
-  int r = 0;
-  for (int i = n - 1; i >= 0; --i) r = crc_mulx4(r, poly, deg) ^ v[i];
-  for (int k = 0; k < 2 * h; ++k) r = crc_mulx4(r, poly, deg);
-  return r;
-}
-
 ACX_HD int crc1_poly(int n_crc1) { return n_crc1 == 2 ? 0x4645 : 0x490F29; }
 ACX_HD int crc1_deg(int n_crc1) { return n_crc1 == 2 ? 14 : 22; }
-
-// the CRC1 remainder with the EPMR embedding (fec.py:_crc1_rem)
-ACX_HD int crc1_rem(const uint8_t* v, int n, int n_crc1, int epmr) {
-  const int poly = crc1_poly(n_crc1), deg = crc1_deg(n_crc1);
-  int e = epmr << 2;
-  for (int k = 0; k < 2 * n_crc1 - 1; ++k) e = crc_mulx4(e, poly, deg);
-  return crc_rem(v, n, n_crc1, poly, deg) ^ e ^ (epmr << deg);
-}
-
-ACX_HD int crc2_rem(const uint8_t* v, int n) { return crc_rem(v, n, 2, 0x1A2EB, 16); }
 
 // dw0_bitswap (al_fec.c:358-385); an involution
 ACX_HD void fec_bitswap(uint8_t* dw, int ind0, int ind1) {
   const int a = dw[ind0], b = dw[ind1];
   dw[ind0] = static_cast<uint8_t>((a & 3) | ((b & 3) << 2));
   dw[ind1] = static_cast<uint8_t>((b & 12) | ((a >> 2) & 3));
-}
-
-ACX_HD const int32_t* fec_basis(const FecTables& tb, int hd) {
-  return tb.w + kFecBasis + (hd == 3 ? 0 : (hd == 5 ? 1 : 2)) * 78;
-}
-
-// fec_encoder (al_fec.c:481-557) of one slot: data [data_bytes] bytes ->
-// out [slot] bytes. dw and cw are scratch of kFecMaxNib nibbles.
-ACX_HD void fec_encode_lane(const int32_t* data, int epmr, const FecTables& tb, int slot,
-                            int mode, int ccc, uint8_t* dw, uint8_t* cw, int32_t* out) {
-  const FecPlan p = fec_plan(slot, mode, ccc);
-  const int D = p.data_bytes, c12 = 2 * (p.n_crc1 + p.n_crc2);
-  epmr = iclamp(epmr, 0, 3);
-  for (int j = 0; j < D; ++j) {
-    const int byte = data[D - 1 - j] & 255;
-    dw[c12 + 2 * j] = static_cast<uint8_t>(byte >> 4);
-    dw[c12 + 2 * j + 1] = static_cast<uint8_t>(byte & 15);
-  }
-  const int rem1 = crc1_rem(dw + c12, p.crc1_n, p.n_crc1, epmr);
-  for (int q = 0; q < 2 * p.n_crc1; ++q) dw[q] = static_cast<uint8_t>((rem1 >> (4 * q)) & 15);
-  if (p.n_crc2) {
-    const int rem2 = crc2_rem(dw + c12 + p.crc1_n, p.pc_split);
-    for (int q = 0; q < 2 * p.n_crc2; ++q)
-      dw[2 * p.n_crc1 + q] = static_cast<uint8_t>((rem2 >> (4 * q)) & 15);
-  }
-  fec_bitswap(dw, p.ind0, p.ind1);
-  int k = 0, off = 0;
-  for (int i = 0; i < p.ncw; ++i) {
-    const int len = fec_cw_len(slot, i), red = p.red(i), nd = len - red;
-    for (int j = 0; j < nd; ++j) cw[off + red + j] = dw[k + j];
-    if (red > 0) {
-      const int32_t* basis = fec_basis(tb, red + 1);
-      for (int q = 0; q < red; ++q) {
-        int par = 0;
-        for (int c = 0; c < imin(nd, 13); ++c) par ^= tb.mul(dw[k + c], basis[c * 6 + q]);
-        cw[off + q] = static_cast<uint8_t>(par);
-      }
-      if (i < 6)
-        for (int q = 0; q < 13; ++q) cw[off + q] ^= tb.w[kFecSigPolys + (mode - 1) * 15 + q];
-    }
-    k += nd;
-    off += len;
-  }
-  // interleave: codeword i position j -> nibble n_nib-1-(j*ncw+i)
-  for (int b = 0; b < slot; ++b) out[b] = 0;
-  off = 0;
-  for (int i = 0; i < p.ncw; ++i) {
-    const int len = fec_cw_len(slot, i);
-    for (int j = 0; j < len; ++j) {
-      const int o = p.n_nib - 1 - (j * p.ncw + i);
-      out[o >> 1] |= cw[off + j] << (4 * (o & 1));
-    }
-    off += len;
-  }
 }
 
 // ---- decoder ----
@@ -406,8 +333,8 @@ ACX_HD int crc_mulx(int r, int poly, int deg) {
   return ((r >> deg) & 1) != 0 ? r ^ poly : r;
 }
 
-// sum_i v[i] x^(4(i + 2h)) mod P over n nibbles (the remainder of crc_rem),
-// pw[k] = x^(4k) mod P: nibble i on lane i mod 32, v[i] x^(4(i + 2h)) as
+// sum_i v[i] x^(4(i + 2h)) mod P over n nibbles (the CRC remainder of
+// fec.py:_crc_eval's position tables), pw[k] = x^(4k) mod P: nibble i on lane i mod 32, v[i] x^(4(i + 2h)) as
 // the XOR of x^(4(i + 2h) + b) over v[i]'s bits b
 template <class W>
 ACX_HD int fec_crc_warp(const W& w, const uint8_t* v, int n, int h, const int32_t* pw, int poly,
@@ -446,15 +373,21 @@ ACX_HD bool fec_crc_ok(const uint8_t* dw, int rem, int nibbles) {
   return ok;
 }
 
+// The data-word offset of codeword i's first data nibble (its nibble
+// red(i)): the sum over i' < i of len(i') - red(i') = i q + min(i, r) - red0
+// - (i - 1) red1 (n_nib = q ncw + r: the first r codewords are q + 1 long,
+// the others q).
+ACX_HD int fec_dw_start(const FecPlan& p, int i) {
+  const int q = p.n_nib / p.ncw, r = p.n_nib % p.ncw;
+  return i * q + imin(i, r) - (i > 0 ? p.red0 + (i - 1) * p.red1 : 0);
+}
+
 // The data word of plan p from the codewords (fec.py:fec_decode's flat/dw_pos
 // gather and bit swap): lane l writes the data nibbles of its codewords at
-// their offsets, sum over i' < i of len(i') - red(i') = i q + min(i, r) -
-// red0 - (i - 1) red1 (n_nib = q ncw + r: the first r codewords are q + 1
-// long, the others q).
+// their offsets.
 template <class W, class L64>
 ACX_HD void fec_data_word(const W& w, const L64& cwA, const L64& cwB, const FecPlan& p,
                           uint8_t* dw) {
-  const int q = p.n_nib / p.ncw, rr = p.n_nib % p.ncw;
   w.lanes([&](int l) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -462,7 +395,7 @@ ACX_HD void fec_data_word(const W& w, const L64& cwA, const L64& cwB, const FecP
       if (i < p.ncw) {
         const uint64_t cw = h == 0 ? cwA[l] : cwB[l];
         const int len = fec_cw_len(p.slot, i), red = p.red(i);
-        const int k = i * q + imin(i, rr) - (i > 0 ? p.red0 + (i - 1) * p.red1 : 0) - red;
+        const int k = fec_dw_start(p, i) - red;
         for (int j = red; j < len; ++j) dw[k + j] = static_cast<uint8_t>(nib64(cw, j));
       }
     }
@@ -816,6 +749,138 @@ ACX_HD void fec_decode_warp(const W& w, const int32_t* frame, int bfi_in, const 
     out[FEC_N_PC * stride] = n_pc;
     out[FEC_BE_LEFT * stride] = be_l;
     out[FEC_BE_RIGHT * stride] = be_r;
+  });
+}
+
+// ---- the encoder: a warp a slot (fec_encode.cu) ----
+//
+// fec_encode_warp runs the steps of fec_encoder (al_fec.c:481-557;
+// fec.py:fec_encode_plain) across the lanes of a warp:
+//  - the payload row is loaded coalesced, a byte a lane, every load of a
+//    lane in flight, and stored into the warp's shared scratch as the data
+//    word's nibbles (reversed byte order, after the CRC nibbles);
+//  - CRC1 (with the EPMR embedding) and CRC2 are split over the lanes as the
+//    decoder's are (fec_crc1_warp, fec_crc_warp): 19 independent terms a
+//    lane at most, XOR-reduced; lanes 0 to c12 - 1 then store the CRC
+//    nibbles at the data word's head;
+//  - lane l builds codewords l and l + 32 as 64-bit words (nibble j at bits
+//    4j), the data nibbles from their closed-form offset (fec_dw_start);
+//  - the bit swap touches codeword 0's data alone: ind0 = 2 n_crc1 - 1 <= 5
+//    and ind1 = nd0 - 1, where nd0 = len0 - red0 >= 14 - 6 = 8 (a slot of
+//    40..300 bytes has 6..40 codewords and codeword 0 is 14 or 15 nibbles
+//    long), so ind0 < ind1 < nd0 at every slot and mode
+//    (tests/test_torch_fecenc_phecu_rehearsal.py checks each); lane 0 swaps
+//    the bits in its register before the parity;
+//  - the parity is linear in the data nibbles: a table word a (hd, data
+//    position c, nibble value) packs all `red` parity nibbles
+//    (kFecParity), so a codeword's parity is at most 13 independent lookups
+//    XORed; the mode's signalling polynomial is one packed word, XORed into
+//    codewords 0..5 where they carry parity;
+//  - the codewords go to shared memory, then lane l assembles output bytes
+//    b = l, l + 32, ...: nibble o = 2b (low half) and 2b + 1 (high half) of
+//    the slot is nibble (n_nib - 1 - o) div ncw of codeword
+//    (n_nib - 1 - o) mod ncw. Each byte is written once, coalesced.
+
+// the encoder's table: fec_dec_tables' words (the CRC powers read at
+// kFecCrcPow), then [3][13][16] the parity terms of hd 3, 5 and 7:
+// nibble q of word (h, c, v) is mul(v, basis_h[c][q])
+constexpr int kFecParity = kFecDecTableWords;
+constexpr int kFecEncTableWords = kFecParity + 3 * 13 * 16;
+
+// a warp's shared scratch: the codewords and the data word of nibbles
+struct FecEncScratch {
+  unsigned long long cw[kFecMaxCw];
+  uint8_t dw[kFecMaxNib];
+};
+
+// the bit swap of fec_bitswap on a codeword's data nibbles (nibble c at bits 4c)
+ACX_HD uint64_t fec_bitswap64(uint64_t d, int ind0, int ind1) {
+  const uint64_t a = (d >> (4 * ind0)) & 15, b = (d >> (4 * ind1)) & 15;
+  d &= ~((15ull << (4 * ind0)) | (15ull << (4 * ind1)));
+  return d | ((a & 3) | ((b & 3) << 2)) << (4 * ind0) | ((b & 12) | ((a >> 2) & 3)) << (4 * ind1);
+}
+
+// the red parity nibbles (nibble q at bits 4q) of a codeword of nd data
+// nibbles d (nibble c at bits 4c), red > 0 (fec.py:_rs_parity)
+ACX_HD uint32_t fec_parity(const int32_t* tw, int red, uint64_t d, int nd) {
+  const int32_t* par = tw + kFecParity + (red / 2 - 1) * 13 * 16;
+  uint32_t r = 0;
+#pragma unroll
+  for (int c = 0; c < 13; ++c)
+    if (c < nd) r ^= static_cast<uint32_t>(par[16 * c + nib64(d, c)]);
+  return r;
+}
+
+// fec_encoder (al_fec.c:481-557) of one slot on a warp: data [data_bytes]
+// bytes -> out [slot] bytes. tw: the encoder's table (fec_enc_tables); ws:
+// the warp's scratch.
+template <class W>
+ACX_HD void fec_encode_warp(const W& w, const int32_t* data, int epmr, const int32_t* tw,
+                            int slot, int mode, int ccc, FecEncScratch* ws, int32_t* out) {
+  const FecPlan p = fec_plan(slot, mode, ccc);
+  const int D = p.data_bytes, c12 = 2 * (p.n_crc1 + p.n_crc2);
+  epmr = iclamp(epmr, 0, 3);
+  // payload byte j -> data-word nibbles c12 + 2 (D - 1 - j) (high) and + 1 (low)
+  w.lanes([&](int l) {
+    constexpr int kRounds = (kFecMaxSlot + 31) / 32;
+    int32_t v[kRounds];
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) v[u] = l + 32 * u < D ? data[l + 32 * u] : 0;
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) {
+      const int j = l + 32 * u;
+      if (j < D) {
+        const int at = c12 + 2 * (D - 1 - j);
+        ws->dw[at] = static_cast<uint8_t>((v[u] & 255) >> 4);
+        ws->dw[at + 1] = static_cast<uint8_t>(v[u] & 15);
+      }
+    }
+  });
+  w.sync();
+  // the CRCs over the lanes, then their nibbles at the data word's head
+  const int32_t* cp = tw + kFecCrcPow;
+  const int rem1 = fec_crc1_warp(w, cp, ws->dw + c12, p.crc1_n, p.n_crc1, epmr);
+  const int rem2 = p.n_crc2 ? fec_crc_warp(w, ws->dw + c12 + p.crc1_n, p.pc_split, 2,
+                                           cp + 2 * kFecCrcPowers, 0x1A2EB, 16)
+                            : 0;
+  w.lanes([&](int l) {
+    const int n1 = 2 * p.n_crc1;
+    if (l < c12)
+      ws->dw[l] = static_cast<uint8_t>(l < n1 ? (rem1 >> (4 * l)) & 15 : (rem2 >> (4 * (l - n1))) & 15);
+  });
+  w.sync();
+  // codewords l and l + 32: data, bit swap (codeword 0), parity, signalling
+  const uint64_t sig = fec_sig_word(tw, mode - 1) & ((1ull << 52) - 1);   // nibbles 0..12
+  w.lanes([&](int l) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = l + 32 * h;
+      if (i < p.ncw) {
+        const int red = p.red(i), nd = fec_cw_len(slot, i) - red;
+        const uint8_t* src = ws->dw + fec_dw_start(p, i);
+        uint64_t d = 0;
+#pragma unroll
+        for (int c = 0; c < 15; ++c)
+          if (c < nd) d |= static_cast<uint64_t>(src[c]) << (4 * c);
+        if (i == 0) d = fec_bitswap64(d, p.ind0, p.ind1);
+        uint64_t cw = d << (4 * red);
+        if (red > 0) {
+          cw |= fec_parity(tw, red, d, nd);
+          if (i < 6) cw ^= sig;
+        }
+        ws->cw[i] = cw;
+      }
+    }
+  });
+  w.sync();
+  // the interleave: codeword i nibble j is slot nibble n_nib - 1 - (j ncw + i)
+  w.lanes([&](int l) {
+    for (int b = l; b < slot; b += 32) {
+      const int t = p.n_nib - 1 - 2 * b;   // the low half's; the high half's is t - 1
+      const int i = t % p.ncw, j = t / p.ncw;
+      const int i1 = i > 0 ? i - 1 : p.ncw - 1, j1 = i > 0 ? j : j - 1;
+      out[b] = nib64(ws->cw[i], j) | nib64(ws->cw[i1], j1) << 4;
+    }
   });
 }
 

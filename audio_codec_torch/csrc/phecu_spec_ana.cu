@@ -12,11 +12,15 @@
 // Bound on an H100: the bytes, two [321] complex rows in and a [321] row and
 // 18 energies out per stream (6.5 KB, 13 MB at B = 2048, 4 us at 3.35 TB/s,
 // if every stream were at such a first loss). The hysteresis scan is a
-// recurrence over the 321 bins: one lane runs it.
-// Design: a warp a stream, one block of four warps; magnitudes, the
-// refinement and the group sums (one lane a group) spread over the lanes;
-// the scan on lane 0 with the magnitudes in shared memory. The float order
-// is the plain version's (phecu.cuh), so the two agree bit for bit.
+// recurrence over the 321 bins: one stream's chain of 321 short steps is the
+// floor of a launch.
+// Design: a warp a stream, blocks of four warps (phecu.cuh:ph_spec_ana_warp):
+// the four rows read once, coalesced, and staged in the warp's shared
+// scratch; the extremes warp reductions; the group energies on 18 lanes,
+// each over its own group's bins; the scan one short select chain run by
+// every lane alike; the count and the low-frequency test ballots; the
+// refinement a bin a lane. The float order is the plain version's, so the
+// two agree bit for bit.
 #include "phecu.cuh"
 
 using namespace acx;
@@ -24,13 +28,13 @@ using namespace acx;
 #ifdef __CUDACC__
 constexpr int kPhWarps = 4;
 
-__global__ void phecu_spec_ana_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                                      const float* __restrict__ xor_, const float* __restrict__ xoi,
-                                      const float* __restrict__ nc,
-                                      const int32_t* __restrict__ active, float* __restrict__ f0,
-                                      int32_t* __restrict__ npl, float* __restrict__ e, int B,
-                                      PhGeom g) {
-  __shared__ PhWork work[kPhWarps];
+__global__ void __launch_bounds__(32 * kPhWarps)
+    phecu_spec_ana_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                          const float* __restrict__ xor_, const float* __restrict__ xoi,
+                          const float* __restrict__ nc, const int32_t* __restrict__ active,
+                          float* __restrict__ f0, int32_t* __restrict__ npl,
+                          float* __restrict__ e, int B, PhGeom g) {
+  __shared__ PhAnaWork work[kPhWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kPhWarps + warp;
   if (b >= B) return;   // the whole warp leaves together
@@ -43,11 +47,8 @@ __global__ void phecu_spec_ana_kernel(const float* __restrict__ xr, const float*
     if (lane == 0) npl[b] = 0;
     return;
   }
-  const CardWarp w{lane};
-  int count;
-  ph_spec_ana_stream(w, g, xr + row, xi + row, xor_ + row, xoi + row, nc[b], &work[warp],
-                     f0 + row, &count, eo, el);
-  if (lane == 0) npl[b] = count;
+  ph_spec_ana_warp(CoderCardWarp{lane}, g, xr + row, xi + row, xor_ + row, xoi + row, nc[b],
+                   &work[warp], f0 + row, npl + b, eo, el);
 }
 
 extern "C" int acx_phecu_spec_ana(const void* xr, const void* xi, const void* xor_,

@@ -2,7 +2,7 @@
 // templates over the warp (bit_estimate.cuh, ari_encode.cuh,
 // tns_analysis.cuh, gain_bisection.cuh, ari_decode.cuh, sns_vq_enc.cuh,
 // noise_residual_enc.cuh, spec_decode.cuh, sns_vq.cuh's decoder, fec.cuh's
-// decoder).
+// encoder and decoder, phecu.cuh's first-loss analysis).
 //
 // On the card CoderCardWarp: a thread a lane, a Lanes<T> a register, the
 // collectives __shfl_up_sync, __shfl_down_sync, __shfl_sync,
@@ -12,7 +12,8 @@
 // rehearsals (tests/test_torch_coder_rehearsal.py,
 // tests/test_torch_rate_rehearsal.py, tests/test_torch_lane_rehearsal.py,
 // tests/test_torch_decode_rehearsal.py, tests/test_torch_sns_nf_rehearsal.py,
-// tests/test_torch_dec_rehearsal.py, tests/test_torch_fxdct_fec_rehearsal.py).
+// tests/test_torch_dec_rehearsal.py, tests/test_torch_fxdct_fec_rehearsal.py,
+// tests/test_torch_fecenc_phecu_rehearsal.py).
 #pragma once
 
 #include "acodec.cuh"

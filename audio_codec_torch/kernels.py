@@ -877,6 +877,23 @@ def fec_dec_tables(device: str) -> torch.Tensor:
     return torch.as_tensor(words.astype(np.int32), device=device)
 
 
+@functools.cache
+def fec_enc_tables(device: str) -> torch.Tensor:
+    """The encoder's tables (csrc/fec.cuh:kFecEncTableWords): fec_dec_tables'
+    words, then [3][13][16] the parity terms of hd 3, 5 and 7: word (h, c,
+    v) holds mul(v, basis[c][q]) at bits 4q for every parity nibble q."""
+    from .ops import fec as F
+    par = np.zeros((3, 13, 16), np.int64)
+    for h, hd in enumerate((3, 5, 7)):
+        basis = F._rs_basis(hd, 13)
+        for c in range(13):
+            for v in range(16):
+                for q in range(hd - 1):
+                    par[h, c, v] |= int(F._MUL[v, basis[c, q]]) << (4 * q)
+    words = np.concatenate([fec_dec_tables("cpu").numpy(), par.ravel()])
+    return torch.as_tensor(words.astype(np.int32), device=device)
+
+
 def _fec_slot(slot_bytes: int):
     from .ops import fec as F
     if not F.FEC_SLOT_BYTES_MIN <= slot_bytes <= F.FEC_SLOT_BYTES_MAX:
@@ -901,7 +918,7 @@ def fec_encode(data, epmr, slot_bytes: int, mode: int, ccc_flag: int):
     _check_vectors(B, torch.int32, epmr=epmr)
     out = torch.empty((B, slot_bytes), dtype=torch.int32, device=data.device)
     _run("fec_encode", library().acx_fec_encode(
-        data.data_ptr(), epmr.data_ptr(), fec_tables(str(data.device)).data_ptr(),
+        data.data_ptr(), epmr.data_ptr(), fec_enc_tables(str(data.device)).data_ptr(),
         out.data_ptr(), B, D, slot_bytes, mode, int(ccc_flag), _stream()))
     return out
 

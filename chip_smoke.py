@@ -95,7 +95,7 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                the last frame at the EP core sizes; a bfi 0 frame gives back
                the encoder's payload; the bfi and detected-mode histograms are
                printed and bfi 0/1 (and 2 at EP3/EP4) must occur; synthetic
-               rows (slots 40/80/150/300, combined channel coding, the 40-byte
+               rows (slots 40/80/150/241/300, combined channel coding, the 40-byte
                cap, every EPMR, a wrong but CRC-failing mode, the EPMR risk,
                PC decodes over four corrupt ranges); on a few streams at EP3
                the kernel path's payloads, flags and PCM (+-1) against the
@@ -104,7 +104,9 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
   7. concealment the plc_mode=1 path (see concealment_phase): every launch of
                its four kernels, of the TDAC's compensated MDCT and of the
                IMDCT equal to its plain version, plc_tdc also with all B
-               streams at a TD-PLC first loss (all_tdc_args), its
+               streams at a TD-PLC first loss (all_tdc_args),
+               phecu_spec_ana also on the peak analysis's edge rows (a tie,
+               edge peaks, a scan that ends in mode 1, the drop rule), its
                stage-by-stage trace card against CPU, whose first
                difference must not be the TDAC's MDCT;
   8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
@@ -1347,11 +1349,12 @@ def stream_phase(dev, pcm, K, plain, card):
           f"({pc_launches}) equals its plain version; the other kernels at the EP core sizes "
           f"76/66/53/42 bytes too", flush=True)
 
-    # the synthetic rows: slots 40/150/300, ccc, the 40-byte cap, every EPMR,
-    # a wrong mode whose CRC fails, the EPMR risk
+    # the synthetic rows: slots 40/150/300 and 241 (the first slot of 33
+    # codewords), ccc, the 40-byte cap, every EPMR, a wrong mode whose CRC
+    # fails, the EPMR risk
     g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     n_rows = 0
-    for slot in C.FEC_SLOTS:
+    for slot in C.FEC_SLOTS + (241,):
         for mode in STREAM_MODES:
             for ccc in (0, 1):
                 data, epmr, kinds_s, bfi_in = C.fec_rows(slot, mode, ccc)
@@ -1403,7 +1406,7 @@ def stream_phase(dev, pcm, K, plain, card):
                       ari.decode_plain(cfg, fr, side, *flags, pc_enc_sim=sim),
                       f"ari_decode PC rows EP{ep} (pc_enc_sim {sim})")
     print(f"[stream] synthetic rows: fec_encode and fec_decode on {n_rows} rows at slots "
-          f"{C.FEC_SLOTS} x EP1-4 x ccc 0/1 (clean, corrected, PC codeword destroyed, heavy, "
+          f"{C.FEC_SLOTS + (241,)} x EP1-4 x ccc 0/1 (clean, corrected, PC codeword destroyed, heavy, "
           f"bfi_in 1, EPMR 0-3), wrong-mode and EPMR-risk rows, and the PC decoder on EP3/EP4 "
           f"rows with bfi_in 2 over four corrupt ranges equal their plain versions", flush=True)
 
@@ -1600,7 +1603,9 @@ def plc_synthetic(dev, K):
     """The concealment kernels on tests/torch_kernel_cases.py's rows, which
     take the branches a material run may miss: pitch 0, a fractional pitch,
     stab_fac >= 1, past the fade-out, the peak-dense drop rule, one and two
-    peaks, bursts past 3 frames. Returns the branch counts."""
+    peaks, bursts past 3 frames, and the peak analysis's edge rows. Returns
+    the branch counts, and under "phecu_spec_ana edges" which of those
+    rows' edges the card took."""
     import numpy as np
     import torch
     from audio_codec_torch.ops import plc_adv, plc_phecu as H
@@ -1640,6 +1645,13 @@ def plc_synthetic(dev, K):
             (cfg, t_(s["Xr"]), t_(s["Xi"]), f0, npl, t_(s["nb_cur"]), t_(s["e_oold"]),
              t_(s["e_old"]), t_(s["mag_chg_1st"]), t_(s["beta_mute"]), t_(s["xavg"]),
              t_(s["is_trans"]), t_(s["active"] != 0)))
+    # the peak analysis's edge rows: which of their edges the card took
+    e = C.phecu_edge_rows()
+    args = (cfg, t_(e["Xr"]), t_(e["Xi"]), t_(e["Xor"]), t_(e["Xoi"]), t_(e["nc"]),
+            t_(np.ones(len(e["nc"]), bool)))
+    one("phecu_spec_ana", K.phecu_spec_ana, H.phecu_spec_ana_plain, args)
+    f0, npl = K.phecu_spec_ana(*args)[:2]
+    hist["phecu_spec_ana edges"] = C.phecu_edges_reached(f0.cpu().numpy(), npl.cpu().numpy())
     return hist
 
 
@@ -1761,6 +1773,8 @@ def concealment_phase(dev, opt, K, card):
           f"plc_tdc: a rare branch was not reached: {syn['plc_tdc']}")
     check(syn["phecu_spec_ana"]["1-2 peaks"] > 0 and syn["phecu_spec_ana"]["no peak (or dropped)"] > 0,
           f"phecu_spec_ana: a rare branch was not reached: {syn['phecu_spec_ana']}")
+    check(all(syn["phecu_spec_ana edges"].values()),
+          f"phecu_spec_ana: an edge row missed its branch: {syn['phecu_spec_ana edges']}")
     check(syn["phecu_subst"]["burst > 3 (DC/Nyquist attenuated)"] > 0, "phecu_subst: no burst > 3")
 
     # a few streams: the kernel path against the plain path, and the card

@@ -34,7 +34,9 @@ path never taken on the main path, taken on the rows over their budget)
 (tests/torch_kernel_cases.py). The channel coder's kernels run on slots of
 40-300 bytes at EP1-4 with and without combined channel coding and on
 injected errors (the decoder also at 1, 33 and 2048 slots a launch, on
-total failures and on the 40-byte slot's cap), the range decoder on frames with a partial-concealment
+total failures and on the 40-byte slot's cap; the encoder at every slot of
+FEC_SLOTS and at 241, the first of 33 codewords, at 1, 33 and 2048 slots
+a launch), the range decoder on frames with a partial-concealment
 block (bfi 0 and 2, and the encoder's simulation) and on decode_rows (coded
 coder_rows with LSB-mode and bad frames, in all three of its modes) at 1, 33,
 2047 and 16 384 frames a launch, the resampler's biquad at 1, 33 and 2047
@@ -42,7 +44,9 @@ streams over 3 frames, also on rows that take its general loop; the four conceal
 kernels and the TDAC's compensated MDCT (plc_mode 1) and the standard concealment's plc_main (plc_mode 0) on
 every launch of a lossy block over speech, music, noise and tones and on
 their synthetic rows (plc_main: every damping branch, the generator's edge
-seeds, bfi 2); a warmed encode_frame, decode_frame (plc_mode 0, clean and
+seeds, bfi 2; phecu_spec_ana also on phecu_edge_rows at 1, 8, 33 and 2048
+streams a launch: a tie, edge peaks, a scan that ends in mode 1, an all-zero
+row, a many-peak row, the drop rule taken and not); a warmed encode_frame, decode_frame (plc_mode 0, clean and
 lossy, and 1) and the stream path's device step at EP3 run under
 torch.cuda.set_sync_debug_mode("error"). The four kernels of the
 bit-exact fixed-point decoder (DeviceFixedDecoder) run on every launch of a
@@ -962,6 +966,22 @@ def test_fec_decode_every_mode_at_scale(dev, slot, slots):
         same_tensors([got[k] for k in ref], list(ref.values()))
 
 
+@pytest.mark.parametrize("slots", [1, 33, 2048])
+@pytest.mark.parametrize("slot", C.FEC_SLOTS + (241,))
+def test_fec_encode_every_mode_at_scale(dev, slot, slots):
+    """The warp encoder at each slot size (and 241, the first slot of 33
+    codewords) x EP1-4 x ccc 0/1 on 1, 33 and 2048 slots a launch (the
+    rows tiled)."""
+    from audio_codec_torch.ops import fec
+    tile = lambda t: t[torch.arange(slots, device=t.device) % t.shape[0]].contiguous()
+    for mode in (1, 2, 3, 4):
+        for ccc in (0, 1):
+            data, epmr, _, _ = C.fec_rows(slot, mode, ccc)
+            data, epmr = (tile(torch.from_numpy(v).to(dev)) for v in (data, epmr))
+            same_tensors([K.fec_encode(data, epmr, slot, mode, ccc)],
+                         [fec.fec_encode_plain(data, epmr, slot, mode, ccc)])
+
+
 def pc_args(dev, epmode):
     a = C.pc_decode_rows(epmode)
     cfg = P.Config(fs_in=48000, bitrate=64000, epmode=epmode)
@@ -1129,6 +1149,25 @@ def test_plc_damp_and_phecu_synthetic_rows(dev):
                 t_(s["e_old"]), t_(s["mag_chg_1st"]), t_(s["beta_mute"]), t_(s["xavg"]),
                 t_(s["is_trans"]), t_(s["active"] != 0))
         same_tensors(K.phecu_subst(*args), H.phecu_subst_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 2048])
+def test_phecu_spec_ana_edge_rows(dev, B):
+    """phecu_edge_rows tiled to B streams a launch; at 8 (the rows once)
+    every edge they are made for is taken."""
+    from audio_codec_torch.ops import plc_phecu as H
+    e = C.phecu_edge_rows()
+    t_ = lambda v: torch.as_tensor(np.asarray(v))[torch.arange(B) % len(e["nc"])].contiguous().to(dev)
+    args = (PLC_CFG, t_(e["Xr"]), t_(e["Xi"]), t_(e["Xor"]), t_(e["Xoi"]), t_(e["nc"]),
+            t_(np.arange(len(e["nc"])) % 7 != 6))
+    got = K.phecu_spec_ana(*args)
+    same_tensors(got, H.phecu_spec_ana_plain(*args))
+    if B == 8:
+        args = args[:6] + (torch.ones(8, dtype=torch.bool, device=dev),)
+        got = K.phecu_spec_ana(*args)
+        same_tensors(got, H.phecu_spec_ana_plain(*args))
+        reached = C.phecu_edges_reached(got[0].cpu().numpy(), got[1].cpu().numpy())
+        assert all(reached.values()), reached
 
 
 def test_warmed_plc_mode1_decode_frame_does_not_synchronise(dev):

@@ -1292,13 +1292,14 @@ WRAPPER_FEC = r"""
 using namespace acx;
 
 extern "C" {
+// the encoder's warp (a warp a slot) run by the host warp; tabs: the
+// encoder's table
 void rehearse_fec_encode(const int* data, const int* epmr, const int* tabs, int B, int D,
                          int slot, int mode, int ccc, int* out) {
-  FecTables tb;
-  tb.w = tabs;
-  uint8_t dw[kFecMaxNib], cw[kFecMaxNib];
+  FecEncScratch ws;
   for (int b = 0; b < B; ++b)
-    fec_encode_lane(data + D * b, epmr[b], tb, slot, mode, ccc, dw, cw, out + slot * b);
+    fec_encode_warp(CoderHostWarp{}, data + D * b, epmr[b], tabs, slot, mode, ccc, &ws,
+                    out + slot * b);
 }
 // the kernel's warp (a warp a slot) run by the host warp; tabs: the
 // decoder's table
@@ -1311,6 +1312,7 @@ void rehearse_fec_decode(const int* frames, const int* bfi_in, const int* tabs, 
 }
 int fec_table_words() { return kFecTableWords; }
 int fec_dec_table_words() { return kFecDecTableWords; }
+int fec_enc_table_words() { return kFecEncTableWords; }
 }
 """
 
@@ -1353,7 +1355,7 @@ def lib_fec(tmp_path_factory):
 def lane_fec_encode(lib, data, epmr, slot, mode, ccc):
     data, epmr = _c(data, np.int32), _c(epmr, np.int32)
     out = np.zeros((data.shape[0], slot), np.int32)
-    lib.rehearse_fec_encode(ptr(data), ptr(epmr), ptr(K.fec_tables("cpu").numpy()),
+    lib.rehearse_fec_encode(ptr(data), ptr(epmr), ptr(K.fec_enc_tables("cpu").numpy()),
                             data.shape[0], data.shape[1], slot, mode, ccc, ptr(out))
     return out
 
@@ -1391,6 +1393,7 @@ def fec_differing(lib, slot, mode, ccc) -> int:
 def test_fec_table_layout_matches_header(lib_fec):
     assert lib_fec.fec_table_words() == K.fec_tables("cpu").numel()
     assert lib_fec.fec_dec_table_words() == K.fec_dec_tables("cpu").numel()
+    assert lib_fec.fec_enc_table_words() == K.fec_enc_tables("cpu").numel()
 
 
 @pytest.mark.parametrize("slot", C.FEC_SLOTS)
@@ -1544,11 +1547,11 @@ void rehearse_damp(const float* x, const float* q, const int32_t* ints, const fl
     iout[B + b] = io[1];
   }
 }
+// the analysis's warp (phecu.cuh:ph_spec_ana_warp) run by the host warp
 void rehearse_spec_ana(const float* xr, const float* xi, const float* xor_, const float* xoi,
                        const float* nc, const int32_t* active, float* f0, int32_t* npl, float* e,
                        int B, int ns, int n_lgw) {
-  std::vector<PhWork> work(1);
-  const HostWarp w;
+  std::vector<PhAnaWork> work(1);
   const PhGeom g = {ns, 0, n_lgw, 0, 0, 0};
   for (int b = 0; b < B; ++b) {
     const size_t row = (size_t)b * ns;
@@ -1560,10 +1563,8 @@ void rehearse_spec_ana(const float* xr, const float* xi, const float* xor_, cons
       npl[b] = 0;
       continue;
     }
-    int count;
-    ph_spec_ana_stream(w, g, xr + row, xi + row, xor_ + row, xoi + row, nc[b], work.data(),
-                       f0 + row, &count, eo, el);
-    npl[b] = count;
+    ph_spec_ana_warp(CoderHostWarp{}, g, xr + row, xi + row, xor_ + row, xoi + row, nc[b],
+                     work.data(), f0 + row, npl + b, eo, el);
   }
 }
 void rehearse_subst(const float* xr, const float* xi, const float* f0, const int32_t* ints,
@@ -1597,8 +1598,8 @@ MUTATIONS_PLC = {
     # the rapid fade of a full-frame loss starts a frame late
     "damp_fade_late": ("plc_damp.cuh", "(nb > 2 ? 0.5f : 1.0f)", "(nb > 3 ? 0.5f : 1.0f)"),
     # `>` for `>=` where a later equal magnitude takes the peak candidate
-    "peak_better_gt": ("phecu.cuh", "const bool better = mode == 1 && m >= cand;",
-                       "const bool better = mode == 1 && m > cand;"),
+    "peak_better_gt": ("phecu.cuh", "const uint32_t better = all_if(m >= cand) & mode;",
+                       "const uint32_t better = all_if(m > cand) & mode;"),
     # the upper neighbour's peak before the lower one's at equal distance
     "subst_lower_first": ("phecu.cuh", "if (!assigned && k + d < ns && is_peak(k + d)) {",
                           "if (!assigned && k - d >= 0 && is_peak(k - d)) {"),

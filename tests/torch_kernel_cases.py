@@ -1640,6 +1640,60 @@ def phecu_peak_rows(seed: int = 0, B: int = 8) -> dict[str, np.ndarray]:
     return dict(Xr=allX.real.astype(np.float32), Xi=allX.imag.astype(np.float32), nc=nc)
 
 
+# the rows of phecu_edge_rows, in order
+PHECU_EDGE_ROWS = ("tie", "edges", "mode 1 at the end", "bin 0", "all zero", "noise",
+                   "dense, dropped", "dense, kept")
+
+
+def phecu_edge_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Spectra [8, PHECU_BINS] (real, imag, and the window a frame earlier)
+    and norm_corr for the peak analysis's edges (PHECU_EDGE_ROWS): a plateau
+    of three equal magnitudes (the later bin wins, `>=`); peaks at bins 1
+    and 319 (the parabola's edge bins); a rise at bin 320 that ends the scan
+    in mode 1; a maximum at bin 0 (a rising test there compares the bin with
+    itself, so bin 0 is never a peak) with a peak at bin 2; an all-zero
+    spectrum; seeded complex noise (many peaks); a comb of more than 14
+    peaks with one in bins 1-6 at norm_corr 0.3 (dropped) and the same at
+    0.5 (kept)."""
+    rng = np.random.default_rng(800 + seed)
+    n = PHECU_BINS
+    noise = lambda s: (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * s
+    rows = np.zeros((len(PHECU_EDGE_ROWS), n), np.complex128)
+    rows[0] = noise(10.0)
+    rows[0, 100:103] = 5e4                    # equal magnitudes, imaginary parts 0
+    rows[1] = noise(10.0)
+    rows[1, 1], rows[1, 319] = 6e4, 7e4 * np.exp(0.7j)
+    rows[2] = noise(10.0)
+    rows[2, 320] = 8e4
+    rows[3] = noise(10.0)
+    rows[3, 0], rows[3, 2] = 9e4, 5e4
+    rows[5] = noise(1000.0)
+    comb = np.zeros(n, np.complex128)
+    for k in range(3, n - 3, 9):
+        comb[k] = 4e4 * np.exp(1j * rng.uniform(0, 6))
+    rows[6] = rows[7] = comb + noise(50.0)
+    old = np.stack([noise(3000.0) for _ in range(len(PHECU_EDGE_ROWS))])
+    old[4] = 0.0
+    nc = np.array([0.9, 0.8, 0.7, 0.6, 0.2, 0.6, 0.3, 0.5], np.float32)
+    f = lambda a: a.astype(np.float32)
+    return dict(Xr=f(rows.real), Xi=f(rows.imag), Xor=f(old.real), Xoi=f(old.imag), nc=nc)
+
+
+def phecu_edges_reached(f0, npl) -> dict[str, bool]:
+    """Which of phecu_edge_rows' branches the analysis's outputs (f0est [8,
+    bins], num_plocs [8]) show: the tie taken by the later bin, the edge
+    peaks, the scan's end in mode 1, no peak at bin 0, the silent row, and
+    the drop rule on the comb at norm_corr 0.3 and not at 0.5."""
+    f0, npl = np.asarray(f0), np.asarray(npl)
+    return {"tie to the later bin": bool(f0[0, 102] >= 0 and (f0[0, 100:102] < 0).all()),
+            "peaks at bins 1 and 319": bool(f0[1, 1] >= 0 and f0[1, 319] >= 0),
+            "a peak at bin 320 (mode 1 at the end)": bool(f0[2, 320] >= 0),
+            "no peak at bin 0": bool(f0[3, 0] < 0 and f0[3, 2] >= 0),
+            "all-zero row": bool(npl[4] == 0),
+            "many peaks": bool(npl[5] > 14),
+            "drop": bool(npl[6] == 0 and npl[7] > 14 and (f0[7, 1:7] >= 0).any())}
+
+
 # per lane of plc_damp_scramble: (ns_lane, lost, is_pc, nb_cur, pc_nb_lost,
 # pitch_int, pc_pitch, spec_inv_idx)
 DAMP_STREAM_LANES = (
