@@ -1,8 +1,8 @@
 // One stream of the Phase ECU (phecu_spec_ana.cu, phecu_subst.cu): the
 // first-loss peak analysis and group energies, and the per-frame burst
 // analysis and spectrum substitution (ops/plc_phecu.py:
-// phecu_spec_ana_plain, phecu_subst_plain). The analysis is written over
-// the warps of warp.cuh, the substitution over a warp policy (plc.cuh).
+// phecu_spec_ana_plain, phecu_subst_plain). Both are written over the
+// warps of warp.cuh.
 #pragma once
 
 #include "plc.cuh"
@@ -21,11 +21,6 @@ struct PhGeom {
   int fl;          // frame length
   int t_adv;       // phase-evolution time advance
   int lprot;       // prototype length
-};
-
-// the substitution's per-group factors (ph_burst, ph_subst_stream)
-struct PhWork {
-  float mc[kPhGroups], alpha[kPhGroups], beta[kPhGroups];
 };
 
 ACX_HD float ph_sq(float r, float i) { return radd(rmul(r, r), rmul(i, i)); }
@@ -54,11 +49,8 @@ ACX_HD int ph_group_start(int g) {
   constexpr int kStarts[kPhGroups + 1] = {0, 12, 20, 36, 68, 132, 196, 260, 324, 1 << 20};
   return kStarts[iclamp(g, 0, kPhGroups)];
 }
-ACX_HD int ph_group(int k) {
-  int g = 0;
-#pragma unroll
-  for (int b = 1; b < kPhGroups; ++b) g = k >= ph_group_start(b) ? b : g;
-  return g;
+ACX_HD int ph_group(int k) {   // the starts from 36 on are 4 + 64 (g - 3) + 32
+  return k >= 36 ? imin(3 + ((k - 4) >> 6), kPhGroups - 1) : (k >= 20 ? 2 : (k >= 12 ? 1 : 0));
 }
 
 // ---- the first-loss analysis: the stream's work over the lanes of a warp
@@ -103,15 +95,6 @@ struct alignas(16) PhAnaWork {
   float mag[kPhPad], xr[kPhPad], xi[kPhPad], sq[2][kPhPad];   // sq: |X|^2, |Xo|^2
   uint32_t take[kPhWords], peak[kPhWords];   // the scan's events, a bit a bin
 };
-
-// all ones where p holds; a where mask is all ones, else b: selects as bit
-// operations, which the compiler keeps as such (a select of floats on a
-// condition it may compile into a branch)
-ACX_HD uint32_t all_if(bool p) { return 0u - static_cast<uint32_t>(p); }
-ACX_HD float fsel_bits(uint32_t mask, float a, float b) {
-  return float_of(static_cast<int>((static_cast<uint32_t>(bits_of(a)) & mask) |
-                                   (static_cast<uint32_t>(bits_of(b)) & ~mask)));
-}
 
 // four consecutive staged values from a 16-byte aligned address
 ACX_HD void ph_load4(const float* p, float* v) {
@@ -280,17 +263,66 @@ ACX_HD void ph_spec_ana_warp(const W& w, const PhGeom& g, const float* xr, const
   });
 }
 
-// trans_burst_ana's attenuations for the substitution (group g), into ws
+// ---- the burst analysis and the substitution: the stream's work over the
+// lanes of a warp (phecu_subst.cu) ----
+//
+// ph_subst_warp runs ops/plc_phecu.py:phecu_subst_plain's steps for one
+// concealed stream (the plain version's trans_burst_ana and _subst) on a
+// warp of warp.cuh, bin k on lane k % 32:
+//  - every load of a lane is issued first: the row (13 bins a lane), the
+//    peak row and the generator's jumps tab[k], tab[ns + k] (11 bins a
+//    lane), each loaded once for both of the generator's seeds, and the
+//    group rows; the bins' outputs are computed into registers before any
+//    is stored;
+//  - the nine groups' factors run on lanes 0-8 (ph_burst_warp), the
+//    product beta * xavg of a group computed there once;
+//  - the peak mask (f0 >= 0 and num_plocs > 0) is a string of 11 ballot
+//    words held by every lane; a bin's nearest peak within DELTA_CORR, in
+//    the plain version's order (the bin itself, then k + d before k - d for
+//    d = 1..5), is the lowest set bit of the string's six bits from k up
+//    against the highest of its six bits up to k: no read per neighbour;
+//  - a peak's angle is computed once, by the lane of its bin, and its
+//    cosine and sine once, a peak a lane in the order of the peaks (the
+//    angles compacted by rank, the count of set bits below the peak); a bin
+//    finds its peak's values by that rank;
+//  - the generator's phases take 32 values, pi / 16 times the top five bits
+//    of the state: lane l makes the cosine and sine of phase l, at the very
+//    argument ph1 and ph2 take, so that cos(ph1), cos(ph2), sin(ph2) and,
+//    on a bin no peak claims, cos(theta) and sin(theta) are table reads (32
+//    floats, one a bank: no conflict). The sine and cosine are the card's
+//    accurate sinf and cosf everywhere (ph_cos, ph_sin);
+//  - a bin's choices (its peak's values or the table's, the valley
+//    scaling, the zero rule, the interior, DC and Nyquist) are selects of
+//    bits, not branches, so that the 13 bins of a lane run interleaved.
+
+constexpr int kPhRounds = (kPhAll + 31) / 32;   // rounds of 32 bins of a row
+constexpr float kPhStep = 0x1.921fb6p-3f;       // f32(2 pi / 32), a generator phase's step
+
+// a warp's shared scratch
+struct alignas(16) PhWork {
+  float mc[kPhGroups], alpha[kPhGroups], amp[kPhGroups];   // amp: beta * xavg
+  float tc[32], ts[32];                   // cosine and sine of the 32 generator phases
+  float pc[kPhBins], ps[kPhBins];         // a peak's angle, then its cosine; its sine (by rank)
+};
+
+// a stream's group rows, group g on lane g (the lanes past them hold group 8)
 template <class W>
-ACX_HD void ph_burst(const W& w, int nb, const float* e_oold, const float* e_old, const float* mc1,
-                     float beta_mute, PhWork* ws) {
+struct PhGroups {
+  typename W::template Lanes<float> e_oold, e_old, mc1, xavg;
+};
+
+// trans_burst_ana's attenuations for the substitution, group g on lane g
+template <class W>
+ACX_HD void ph_burst_warp(const W& w, int nb, const PhGroups<W>& gr, float beta_mute, PhWork* ws) {
   const bool first = nb <= 1;
   const float bm = first ? 0.25f : (nb > 4 ? rmul(beta_mute, 0.5f) : beta_mute);
-  w.each(kPhGroups, [&](int gi) {
-    const float el = fmax2(e_oold[gi], 0x1.12e0bep-30f), er = fmax2(e_old[gi], 0x1.12e0bep-30f);
+  w.lanes([&](int gi) {
+    if (gi >= kPhGroups) return;
+    const float el = fmax2(gr.e_oold[gi], 0x1.12e0bep-30f);
+    const float er = fmax2(gr.e_old[gi], 0x1.12e0bep-30f);
     const bool tr = el <= rmul(0x1.99999ap-4f, er) || rmul(0x1.99999ap-4f, el) >= er;
     const float att1 = (tr && er < el) ? rroot(rdiv(er, el)) : 1.0f;
-    const float m1 = first ? att1 : mc1[gi];
+    const float m1 = first ? att1 : gr.mc1[gi];
     const float att = xla_exp2f(-static_cast<float>(iclamp(nb - 2, 0, 30)));
     const float mc = first ? att1 : rmul(m1, att);
     const float alpha = first ? 1.0f : mc;
@@ -299,91 +331,167 @@ ACX_HD void ph_burst(const W& w, int nb, const float* e_oold, const float* e_old
     beta = rmul(beta, (nb == 2 && m1 < 1.0f) ? 0.5f : 1.0f);
     ws->mc[gi] = mc;
     ws->alpha[gi] = alpha;
-    ws->beta[gi] = beta;
+    ws->amp[gi] = rmul(beta, gr.xavg[gi]);
   });
-  w.sync();
 }
 
-// The LCG state of rand_phase_fx at bin k from seed0: tables A [ns] ++ B [ns].
-ACX_HD float ph_rand(int seed0, int k, const int32_t* tab, int ns) {
-  const uint32_t s0 = static_cast<uint32_t>(((seed0 % 65536) + 65536) % 65536);
-  const uint32_t s = (s0 * static_cast<uint32_t>(tab[k]) + static_cast<uint32_t>(tab[ns + k])) & 0xFFFFu;
-  return rmul(0x1.921fb6p-3f, static_cast<float>(s >> 11));
+// The generator phase index (the top five bits of rand_phase_fx's state)
+// at a bin from seed0, given the bin's jumps a = tab[k], c = tab[ns + k].
+ACX_HD int ph_phase(uint32_t s0, int32_t a, int32_t c) {
+  const uint32_t s = (s0 * static_cast<uint32_t>(a) + static_cast<uint32_t>(c)) & 0xFFFFu;
+  return static_cast<int>(s >> 11);
+}
+ACX_HD uint32_t ph_seed(int seed0) {
+  return static_cast<uint32_t>(((seed0 % 65536) + 65536) % 65536);
 }
 
-// phecu_subst for one concealed stream: out [nsf] real and imaginary parts.
+// phecu_subst for one concealed stream on warp w: out [nsf] real and
+// imaginary parts. f0: the stream's peaks [ns]; e_oold, e_old, mc1, xavg:
+// its group rows [9].
 template <class W>
-ACX_HD void ph_subst_stream(const W& w, const PhGeom& g, const float* xr, const float* xi,
-                            const float* f0, int num_plocs, int nb, int is_trans,
-                            const float* xavg, const int32_t* tab, PhWork* ws, float* outr,
-                            float* outi) {
-  const int ns = g.ns, nsf = g.nsf, nyq = nsf - 1;
+ACX_HD void ph_subst_warp(const W& w, const PhGeom& g, const float* xr, const float* xi,
+                          const float* f0, int num_plocs, int nb, int is_trans,
+                          const float* e_oold, const float* e_old, const float* mc1,
+                          float beta_mute, const float* xavg, const int32_t* tab, PhWork* ws,
+                          float* outr, float* outi) {
+  using FL = typename W::template Lanes<float>;
+  using IL = typename W::template Lanes<int>;
+  const int ns = g.ns, nsf = g.nsf, nyq = nsf - 1, hi = imin(ns, nyq);
   const int time_offs = imax(nb - 1, 0) * g.fl;
-  const int burst_len = time_offs / g.fl + 1;
+  const bool burst = time_offs / g.fl + 1 > 3;
   const int npl = is_trans ? 0 : num_plocs;
   const float adv = static_cast<float>(g.t_adv + time_offs);
   const float inv_lp = 1.0f / static_cast<float>(g.lprot);
-  auto is_peak = [&](int k) { return f0[k] >= 0.0f && npl > 0; };
-  auto ang = [&](int k) {
-    return rmul(rmul(rmul(0x1.921fb6p+2f, is_peak(k) ? f0[k] : 0.0f), adv), inv_lp);
-  };
-  const bool burst = burst_len > 3;
-  w.each(nsf, [&](int k) {
-    float r, i;
-    if (k >= ns) {
-      r = xr[k];
-      i = xi[k];
-    } else if (k == 0 || k >= imin(ns, nyq)) {
-      r = xr[k];
-      i = xi[k];
-    } else {
-      // the nearest peak within DELTA_CORR: the bin itself, then k + d before k - d
-      bool assigned = is_peak(k);
-      float pa = assigned ? ang(k) : 0.0f;
+  // every load of a lane first; the generator phases' cosines and sines
+  // while they are in flight
+  FL re[kPhRounds], im[kPhRounds], fk[kPhWords];
+  IL ja[kPhWords], jc[kPhWords];
+  PhGroups<W> gr;
+  w.lanes([&](int l) {
+    const int gl = imin(l, kPhGroups - 1);
+    gr.e_oold[l] = e_oold[gl];
+    gr.e_old[l] = e_old[gl];
+    gr.mc1[l] = mc1[gl];
+    gr.xavg[l] = xavg[gl];
 #pragma unroll
-      for (int d = 1; d <= kPhDelta; ++d) {
-        if (!assigned && k + d < ns && is_peak(k + d)) {
-          assigned = true;
-          pa = ang(k + d);
-        }
-        if (!assigned && k - d >= 0 && is_peak(k - d)) {
-          assigned = true;
-          pa = ang(k - d);
-        }
+    for (int u = 0; u < kPhRounds; ++u) {
+      const int k = imin(l + 32 * u, nsf - 1);
+      re[u][l] = xr[k];
+      im[u][l] = xi[k];
+    }
+#pragma unroll
+    for (int u = 0; u < kPhWords; ++u) {
+      const int k = imin(l + 32 * u, ns - 1);
+      fk[u][l] = f0[k];
+      ja[u][l] = tab[k];
+      jc[u][l] = tab[ns + k];
+    }
+    const float ph = rmul(kPhStep, static_cast<float>(l));
+    ws->tc[l] = ph_cos(ph);
+    ws->ts[l] = ph_sin(ph);
+  });
+  ph_burst_warp(w, nb, gr, beta_mute, ws);
+  // the peak mask: bit l of word u marks bin l + 32 u; cum[u]: the peaks
+  // before word u
+  uint32_t word[kPhWords + 1];
+  int cum[kPhWords + 1];
+  cum[0] = 0;
+#pragma unroll
+  for (int u = 0; u < kPhWords; ++u) {
+    IL p;
+    w.lanes([&](int l) { p[l] = l + 32 * u < ns && fk[u][l] >= 0.0f && npl > 0; });
+    word[u] = w.ballot(p);
+    cum[u + 1] = cum[u] + popc32(word[u]);
+  }
+  word[kPhWords] = 0u;
+  const int npk = cum[kPhWords];
+  // each peak's angle at its rank, by the lane of its bin
+  w.lanes([&](int l) {
+#pragma unroll
+    for (int u = 0; u < kPhWords; ++u) {
+      if ((word[u] >> l) & 1u) {
+        ws->pc[cum[u] + popc32(word[u] & ((1u << l) - 1u))] =
+            rmul(rmul(rmul(0x1.921fb6p+2f, fk[u][l]), adv), inv_lp);
       }
-      const float ph1 = ph_rand(time_offs, k, tab, ns), ph2 = ph_rand(time_offs + 1, k, tab, ns);
-      const float theta = assigned ? pa : ph1;
-      const float c = ph_cos(theta), s = ph_sin(theta);
-      float rr = xfma(xr[k], c, -rmul(xi[k], s));
-      float ri = xfma(xr[k], s, rmul(xi[k], c));
-      if ((npl == 0 || time_offs != 0) && !assigned) {
+    }
+  });
+  w.sync();
+  // each peak's cosine and sine, a peak a lane
+  w.lanes([&](int l) {
+    for (int j = l; j < npk; j += 32) {
+      const float a = ws->pc[j];
+      ws->pc[j] = ph_cos(a);
+      ws->ps[j] = ph_sin(a);
+    }
+  });
+  w.sync();
+  // the bins into registers, every bin before any store (a store between
+  // them would keep each bin's loads of the scratch behind the bin before)
+  const uint32_t s1 = ph_seed(time_offs), s2 = ph_seed(time_offs + 1);
+  w.lanes([&](int l) {
+#pragma unroll
+    for (int u = 0; u < kPhRounds; ++u) {
+      const int k = l + 32 * u;
+      float r = re[u][l], i = im[u][l];
+      if (u < kPhWords) {
+        const int su = u < kPhWords ? u : 0;   // (a static index below kPhWords)
+        // the nearest peak: bits k..k+5 from k up, bits k-5..k up to k
+        const uint32_t lo = su > 0 ? word[su - 1] : 0u, mid = word[su], up_w = word[su + 1];
+        const uint64_t w_up = (static_cast<uint64_t>(up_w) << 32) | mid;
+        const uint64_t w_dn = (static_cast<uint64_t>(mid) << 32) | lo;
+        const uint32_t up = static_cast<uint32_t>(w_up >> l) & 0x3Fu;
+        const uint32_t dn = static_cast<uint32_t>(w_dn >> (27 + l)) & 0x3Fu;
+        const int du = up ? msb32(static_cast<int>(up & (0u - up))) : kPhDelta + 1;
+        const int dd = dn ? kPhDelta - msb32(static_cast<int>(dn)) : kPhDelta + 1;
+        const bool assigned = imin(du, dd) <= kPhDelta;
+        // the peak's rank: the peaks before its word and before it in the word
+        const int kp = du <= dd ? k + du : k - dd, side = (kp >> 5) - su;   // -1, 0 or 1
+        const uint32_t wv = side < 0 ? lo : (side > 0 ? up_w : mid);
+        const int before = side < 0 ? cum[su > 0 ? su - 1 : 0] : (side > 0 ? cum[su + 1] : cum[su]);
+        const int rank = imin(before + popc32(wv & ((1u << (kp & 31)) - 1u)), kPhBins - 1);
+        const int p1 = ph_phase(s1, ja[su][l], jc[su][l]), p2 = ph_phase(s2, ja[su][l], jc[su][l]);
+        const uint32_t am = all_if(assigned);
+        const float c = fsel_bits(am, ws->pc[rank], ws->tc[p1]);
+        const float s = fsel_bits(am, ws->ps[rank], ws->ts[p1]);
+        float rr = xfma(r, c, -rmul(i, s));
+        float ri = xfma(r, s, rmul(i, c));
+        const float ph2 = rmul(kPhStep, static_cast<float>(p2));
         const float vfac = radd(1.0f, rmul(0.25f, radd(rmul(0.5f, rsub(rmul(ph2, 0x1.45f306p-2f), 1.0f)),
-                                                       rmul(0.5f, ph_cos(ph1)))));
-        rr = rmul(rr, vfac);
-        ri = rmul(ri, vfac);
+                                                       rmul(0.5f, ws->tc[p1]))));
+        const uint32_t scale = all_if((npl == 0 || time_offs != 0) && !assigned);
+        rr = fsel_bits(scale, rmul(rr, vfac), rr);
+        ri = fsel_bits(scale, rmul(ri, vfac), ri);
+        const int gi = ph_group(k);
+        const uint32_t zero = all_if(npl > 0 && npl < 3 && !assigned);
+        rr = fsel_bits(zero, 0.0f, rr);
+        ri = fsel_bits(zero, 0.0f, ri);
+        const float amp = fsel_bits(zero, 0.0f, ws->amp[gi]);
+        const uint32_t interior = all_if(k >= 1 && k < hi);
+        r = fsel_bits(interior, xfma(ws->mc[gi], rr, rmul(amp, ws->tc[p2])), r);
+        i = fsel_bits(interior, xfma(ws->mc[gi], ri, rmul(amp, ws->ts[p2])), i);
       }
-      const int gi = ph_group(k);
-      const bool zero = npl > 0 && npl < 3 && !assigned;
-      if (zero) rr = ri = 0.0f;
-      const float amp = zero ? 0.0f : rmul(ws->beta[gi], xavg[gi]);
-      r = xfma(ws->mc[gi], rr, rmul(amp, ph_cos(ph2)));
-      i = xfma(ws->mc[gi], ri, rmul(amp, ph_sin(ph2)));
+      // DC and Nyquist
+      const uint32_t none = all_if(npl == 0), att = all_if(burst);
+      const float dr = fsel_bits(none, 0.0f, r), di = fsel_bits(none, 0.0f, i);
+      if (u == 0) {
+        const uint32_t dc = all_if(k == 0);
+        r = fsel_bits(dc, fsel_bits(att, rmul(dr, ws->alpha[0]), dr), r);
+        i = fsel_bits(dc, fsel_bits(att, rmul(di, ws->alpha[0]), di), i);
+      }
+      const uint32_t ny = all_if(k == nyq);
+      r = fsel_bits(ny, fsel_bits(att, rmul(dr, ws->alpha[g.n_lgw - 1]), dr), r);
+      i = fsel_bits(ny, 0.0f, i);
+      re[u][l] = r;
+      im[u][l] = i;
     }
-    if (k == 0) {
-      r = npl == 0 ? 0.0f : xr[0];
-      i = npl == 0 ? 0.0f : xi[0];
-      if (burst) {
-        r = rmul(r, ws->alpha[0]);
-        i = rmul(i, ws->alpha[0]);
+#pragma unroll
+    for (int u = 0; u < kPhRounds; ++u) {
+      const int k = l + 32 * u;
+      if (k < nsf) {
+        outr[k] = re[u][l];
+        outi[k] = im[u][l];
       }
     }
-    if (k == nyq) {
-      r = npl == 0 ? 0.0f : r;
-      if (burst) r = rmul(r, ws->alpha[g.n_lgw - 1]);
-      i = 0.0f;
-    }
-    outr[k] = r;
-    outi[k] = i;
   });
 }
 

@@ -2,11 +2,12 @@
 // plc_damp_scramble.cu, phecu_spec_ana.cu, phecu_subst.cu).
 //
 // Each kernel runs a warp a stream. A stream's steps are written once, as
-// templates over the warp that runs them: on the card `CardWarp` (32 lanes,
-// each taking every 32nd element of a loop, lane 0 alone for the sequential
-// parts), on the host `HostWarp` (one thread running every element in turn),
-// which is how the steps compile as plain C++ for the rehearsal
-// (tests/test_torch_lane_rehearsal.py).
+// templates over the warp that runs them. plc_tdc's run over the policies
+// here: on the card `CardWarp` (32 lanes, each taking every 32nd element of
+// a loop, lane 0 alone for the sequential parts), on the host `HostWarp`
+// (one thread running every element in turn), which is how the steps
+// compile as plain C++ for the rehearsals (tests/test_torch_lane_rehearsal.py).
+// The other three kernels' run over the warps of warp.cuh.
 //
 // The float order is the plain versions' (ops/plc_adv.py, ops/plc_phecu.py),
 // which is the reference's (XLA:CPU's) on every device: sums of more than 32
@@ -113,6 +114,15 @@ ACX_HD float float_of(int b) {
 #endif
 }
 
+// all ones where p holds; a where mask is all ones, else b: selects as bit
+// operations, which the compiler keeps as such (a select of floats on a
+// condition it may compile into a branch)
+ACX_HD uint32_t all_if(bool p) { return 0u - static_cast<uint32_t>(p); }
+ACX_HD float fsel_bits(uint32_t mask, float a, float b) {
+  return float_of(static_cast<int>((static_cast<uint32_t>(bits_of(a)) & mask) |
+                                   (static_cast<uint32_t>(bits_of(b)) & ~mask)));
+}
+
 // numerics.xla_sum of get(0..n-1), n <= 1024: windows of 32 after half the
 // zero pad, each summed from zero by one lane, then the window sums from zero
 // by the leader. scratch: 32 floats; slot: where the leader leaves the sum
@@ -187,6 +197,26 @@ ACX_HD float xla_rsqrtf(float x, const float* table) {
 #pragma unroll
   for (int s = 0; s < 2; ++s) y = xfma(rmul(y, -0.5f), xfma(rmul(x, y), y, -1.0f), y);
   return y;
+}
+
+// A per-stream vector as the wrapper hands it over, read where the kernel
+// needs it (phecu_subst.cu, plc_damp_scramble.cu): its address, its stride
+// in elements and its element type, so that the tensors the decoder passes
+// (bool masks, int32 counters, columns of wider rows) need no cast or copy.
+// vec_int reads bool or int32 as an int; vec_float reads float32.
+enum : int { kVecBool = 0, kVecInt32 = 1, kVecFloat32 = 2 };
+struct StreamVec {
+  const void* p;
+  int stride;
+  int type;
+};
+ACX_HD int vec_int(const StreamVec& v, int b) {
+  const size_t i = static_cast<size_t>(b) * v.stride;
+  if (v.type == kVecBool) return static_cast<const uint8_t*>(v.p)[i] != 0;
+  return static_cast<const int32_t*>(v.p)[i];
+}
+ACX_HD float vec_float(const StreamVec& v, int b) {
+  return static_cast<const float*>(v.p)[static_cast<size_t>(b) * v.stride];
 }
 
 // The 16-bit generator seed' = 16831 + 12821 seed (mod 2^16) k steps from

@@ -148,7 +148,7 @@ def library() -> ctypes.CDLL:
         "acx_plc_tdc": [P] * 16 + [I] * 11 + [F] * 3 + [P],
         "acx_plc_damp_scramble": [P] * 8 + [I] * 3 + [P],
         "acx_phecu_spec_ana": [P] * 9 + [I] * 3 + [P],
-        "acx_phecu_subst": [P] * 9 + [I] * 7 + [P],
+        "acx_phecu_subst": [P] * 12 + [I] * 7 + [P],
         "acx_fx_sns_dec": [P] * 4 + [I] * 2 + [P],
         "acx_fx_spec_decode": [P] * 9 + [I] * 7 + [P],
         "acx_fx_dct4": [P] * 7 + [I] + [P],
@@ -692,6 +692,29 @@ def _rows(t, name: str, shape: tuple, dtype=torch.float32):
         raise ValueError(f"{name}: expected {list(shape)}, got {list(t.shape)}")
 
 
+# the element types of csrc/plc.cuh:StreamVec
+_VEC_TYPES = {torch.bool: 0, torch.int32: 1, torch.float32: 2}
+
+
+def _stream_vecs(B: int, ints: dict, floats: dict):
+    """Per-stream vectors handed to a kernel as they are (csrc/plc.cuh:
+    StreamVec): their addresses, and their (stride, element type) pairs, as
+    ctypes arrays in that order, ints first. Each is a CUDA vector of B
+    values at any stride: the int ones bool or int32 (the types the decoder
+    passes), the float ones float32."""
+    ptrs, meta = [], []
+    int_types = (torch.bool, torch.int32)
+    for named, types in ((ints, int_types), (floats, (torch.float32,))):
+        for name, t in named.items():
+            if t.device.type != "cuda" or t.dtype not in types or t.dim() != 1 or t.shape[0] != B:
+                raise ValueError(f"{name}: expected a CUDA vector of {B} values of "
+                                 f"{' or '.join(map(str, types))}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+            ptrs.append(t.data_ptr())
+            meta += (t.stride(0), _VEC_TYPES[t.dtype])
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(meta))(*meta)
+
+
 @functools.cache
 def _olpa_tables(device: str) -> torch.Tensor:
     """olpa_down2 (5) ++ olpa_acw (98) as float32 on `device` (csrc/olpa.cuh)."""
@@ -1018,7 +1041,8 @@ def plc_damp_scramble(cfg, x, q_d_prev, ns_lane, lost, is_pc, nb_cur, pc_nb_lost
                       pitch_int, pc_pitch, cum_fflc, cum_slow, cum_fast, ns_seed, pc_seed,
                       spec_inv_idx):
     """Launch `plc_damp_scramble` (csrc/plc_damp_scramble.cu); returns the
-    tuple of ops/plc_adv.py:damp_scramble_plain."""
+    tuple of ops/plc_adv.py:damp_scramble_plain. The per-stream vectors go
+    to the kernel as they are (_stream_vecs): no cast or copy."""
     from .ops.plc_adv import lcg_pows
     if cfg.frame_dms != 100:
         raise ValueError("plc_damp_scramble: the kernel takes 10 ms frames (other frame sizes "
@@ -1026,19 +1050,19 @@ def plc_damp_scramble(cfg, x, q_d_prev, ns_lane, lost, is_pc, nb_cur, pc_nb_lost
     _check(x, "x", torch.float32, 2)
     B, N = x.shape
     _rows(q_d_prev, "q_d_prev", (B, N))
-    ints = torch.stack([t.to(torch.int32) for t in (
-        ns_lane, lost, is_pc, nb_cur, pc_nb_lost, pitch_int, pc_pitch, ns_seed, pc_seed,
-        spec_inv_idx)]).contiguous()
-    floats = torch.stack([t.to(torch.float32) for t in (stab_fac, cum_fflc, cum_slow,
-                                                        cum_fast)]).contiguous()
+    vecs, meta = _stream_vecs(B, dict(
+        ns_lane=ns_lane, lost=lost, is_pc=is_pc, nb_cur=nb_cur, pc_nb_lost=pc_nb_lost,
+        pitch_int=pitch_int, pc_pitch=pc_pitch, ns_seed=ns_seed, pc_seed=pc_seed,
+        spec_inv_idx=spec_inv_idx), dict(stab_fac=stab_fac, cum_fflc=cum_fflc,
+                                         cum_slow=cum_slow, cum_fast=cum_fast))
     dev = x.device
     pows = nm.table(lcg_pows, N, device=dev, dtype=torch.int32)
     spec = torch.empty_like(x)
     fout = torch.empty((3, B), dtype=torch.float32, device=dev)
     iout = torch.empty((2, B), dtype=torch.int32, device=dev)
     _run("plc_damp_scramble", library().acx_plc_damp_scramble(
-        x.data_ptr(), q_d_prev.data_ptr(), ints.data_ptr(), floats.data_ptr(), pows.data_ptr(),
-        spec.data_ptr(), fout.data_ptr(), iout.data_ptr(), B, N, cfg.frame_dms, _stream()))
+        x.data_ptr(), q_d_prev.data_ptr(), vecs, meta, pows.data_ptr(), spec.data_ptr(),
+        fout.data_ptr(), iout.data_ptr(), B, N, cfg.frame_dms, _stream()))
     return spec, fout[0], fout[1], fout[2], iout[0], iout[1]
 
 
@@ -1104,27 +1128,26 @@ def phecu_spec_ana(cfg, Xr, Xi, Xor, Xoi, norm_corr, active):
 def phecu_subst(cfg, Xr, Xi, f0est, num_plocs, nb_cur, e_oold, e_old, mag_chg_1st, beta_mute,
                 xavg, is_trans, active):
     """Launch `phecu_subst` (csrc/phecu_subst.cu); returns the tuple of
-    ops/plc_phecu.py:phecu_subst_plain."""
+    ops/plc_phecu.py:phecu_subst_plain. The per-stream vectors go to the
+    kernel as they are (_stream_vecs), the group rows by their own
+    pointers: no stack or cast."""
     ns, nsf, lgw, H = _phecu_geom(cfg)
     _check(Xr, "Xr", torch.float32, 2)
     B = Xr.shape[0]
-    _rows(Xi, "Xi", (B, nsf))
     _rows(Xr, "Xr", (B, nsf))
-    f0 = f0est.to(torch.float32).contiguous()
-    _rows(f0, "f0est", (B, ns))
-    ints = torch.stack([t.to(torch.int32) for t in (num_plocs, nb_cur, is_trans,
-                                                    active)]).contiguous()
-    groups = torch.stack([t.to(torch.float32) for t in (e_oold, e_old, mag_chg_1st,
-                                                        xavg)]).contiguous()
-    if tuple(groups.shape) != (4, B, H.MAX_LGW):
-        raise ValueError(f"phecu_subst: expected [{B}, {H.MAX_LGW}] group rows")
-    bm = beta_mute.to(torch.float32).contiguous()
+    _rows(Xi, "Xi", (B, nsf))
+    _rows(f0est, "f0est", (B, ns))
+    groups = dict(e_oold=e_oold, e_old=e_old, mag_chg_1st=mag_chg_1st, xavg=xavg)
+    for name, t in groups.items():
+        _rows(t, name, (B, H.MAX_LGW))
+    vecs, meta = _stream_vecs(B, dict(num_plocs=num_plocs, nb_cur=nb_cur, is_trans=is_trans,
+                                      active=active), dict(beta_mute=beta_mute))
     dev = Xr.device
     tab = nm.table(H.lcg_tables, ns, device=dev, dtype=torch.int32)
     outr, outi = torch.empty_like(Xr), torch.empty_like(Xi)
     _run("phecu_subst", library().acx_phecu_subst(
-        Xr.data_ptr(), Xi.data_ptr(), f0.data_ptr(), ints.data_ptr(), groups.data_ptr(),
-        bm.data_ptr(), tab.data_ptr(), outr.data_ptr(), outi.data_ptr(), B, ns, nsf, lgw,
+        Xr.data_ptr(), Xi.data_ptr(), f0est.data_ptr(), *(t.data_ptr() for t in groups.values()),
+        vecs, meta, tab.data_ptr(), outr.data_ptr(), outi.data_ptr(), B, ns, nsf, lgw,
         cfg.frame_length, H.t_adv(cfg), H.lprot(cfg), _stream()))
     return outr, outi
 

@@ -106,9 +106,11 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                IMDCT equal to its plain version, plc_tdc also with all B
                streams at a TD-PLC first loss (all_tdc_args),
                phecu_spec_ana also on the peak analysis's edge rows (a tie,
-               edge peaks, a scan that ends in mode 1, the drop rule), its
-               stage-by-stage trace card against CPU, whose first
-               difference must not be the TDAC's MDCT;
+               edge peaks, a scan that ends in mode 1, the drop rule),
+               phecu_subst and plc_damp_scramble also with every stream at
+               work (all_active_args, their graph ms) and on their edge rows
+               (every edge required), its stage-by-stage trace card against
+               CPU, whose first difference must not be the TDAC's MDCT;
   8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
                phase 4's payloads with a group of silent streams (zero
                frames), B x T: the launch counts (the frontend's two, one
@@ -1550,8 +1552,9 @@ def plc_work(name: str, args, out) -> tuple[int, float]:
         x = args[1]
         N = x.shape[1]
         work = int((args[4] | args[5]).sum())
-        ns = int(args[3].sum())
-        return B * N * 4 * 2 + ns * N * 4 + B * 19 * 4, float(work * N * 12)
+        # one row read a stream (q_d_prev where noise-substituted, else x),
+        # its output row written, and its 19 scalars
+        return B * N * 4 * 2 + B * 19 * 4, float(work * N * 12)
     if name == "phecu_spec_ana":
         act = int(args[6].sum())
         ns = args[1].shape[1]
@@ -1603,9 +1606,11 @@ def plc_synthetic(dev, K):
     """The concealment kernels on tests/torch_kernel_cases.py's rows, which
     take the branches a material run may miss: pitch 0, a fractional pitch,
     stab_fac >= 1, past the fade-out, the peak-dense drop rule, one and two
-    peaks, bursts past 3 frames, and the peak analysis's edge rows. Returns
-    the branch counts, and under "phecu_spec_ana edges" which of those
-    rows' edges the card took."""
+    peaks, bursts past 3 frames, and the edge rows of the peak analysis, the
+    substitution and the damping (its rows also off 16-byte alignment).
+    Returns the branch counts, under "phecu_spec_ana edges" which of its
+    edge rows' edges the card took, and under "<kernel> edge inputs" which
+    edges the other two kernels' rows hold (a guard on the inputs)."""
     import numpy as np
     import torch
     from audio_codec_torch.ops import plc_adv, plc_phecu as H
@@ -1652,7 +1657,63 @@ def plc_synthetic(dev, K):
     one("phecu_spec_ana", K.phecu_spec_ana, H.phecu_spec_ana_plain, args)
     f0, npl = K.phecu_spec_ana(*args)[:2]
     hist["phecu_spec_ana edges"] = C.phecu_edges_reached(f0.cpu().numpy(), npl.cpu().numpy())
+    # the substitution's and the damping's edge rows, held bit for bit against
+    # their plain versions; which edges the rows hold is a guard on these
+    # inputs (it reads nothing the card computed)
+    r = C.phecu_subst_edge_rows()
+    one("phecu_subst", K.phecu_subst, H.phecu_subst_plain,
+        (cfg, *(t_(r[k]) for k in C.PHECU_SUBST_ARGS)))
+    hist["phecu_subst edge inputs"] = C.phecu_subst_edges_reached(r)
+    d = C.damp_edge_rows()
+    args = (cfg, *(t_(d[k] != 0) if k in C.DAMP_MASKS else t_(d[k]) for k in C.DAMP_ARGS))
+    one("plc_damp_scramble", K.plc_damp_scramble, plc_adv.damp_scramble_plain, args)
+    # the same rows 4 bytes off 16-byte alignment (the kernel's 4-byte loads)
+    off = lambda t: torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape).copy_(t)
+    one("plc_damp_scramble", K.plc_damp_scramble, plc_adv.damp_scramble_plain,
+        (cfg, off(args[1]), off(args[2]), *args[3:]))
+    hist["plc_damp_scramble edge inputs"] = C.damp_edges_reached(d)
     return hist
+
+
+def all_active_args(name: str, args, B: int):
+    """The arguments of a concealment launch with every stream at work, at B
+    streams: phecu_subst's Phase ECU streams tiled (every stream concealed
+    by the Phase ECU), plc_damp_scramble's streams tiled and all lost and
+    noise-substituted from their first loss on (the scrambling pass on every
+    warp)."""
+    import torch
+    dev = args[1].device
+    act = torch.nonzero(args[12]).flatten() if name == "phecu_subst" else \
+        torch.arange(args[1].shape[0], device=dev)
+    sel = act[torch.arange(B, device=dev) % len(act)]
+    a = [x[sel].contiguous() if isinstance(x, torch.Tensor) else x for x in args]
+    if name == "plc_damp_scramble":
+        ones = torch.ones(B, dtype=torch.bool, device=dev)
+        a[3], a[4], a[5] = ones, ones.clone(), torch.zeros_like(ones)
+        a[6] = torch.clamp(a[6], min=1)
+    return tuple(a)
+
+
+def all_active_launches(K, busiest: dict, B: int, card: str):
+    """phecu_subst and plc_damp_scramble with every stream at work
+    (all_active_args of their busiest launches), against their plain
+    versions; their graph ms."""
+    import torch
+    from audio_codec_torch.ops import plc_adv, plc_phecu
+    plain = {"phecu_subst": plc_phecu.phecu_subst_plain,
+             "plc_damp_scramble": plc_adv.damp_scramble_plain}
+    what = {"phecu_subst": "concealed by the Phase ECU",
+            "plc_damp_scramble": "lost and noise-substituted"}
+    for name in ("phecu_subst", "plc_damp_scramble"):
+        args = all_active_args(name, busiest[name][1], B)
+        got, ref = getattr(K, name)(*args), plain[name](*args)
+        torch.cuda.synchronize()
+        same_bits(got, ref, f"{name} (every stream {what[name]})")
+        gms = graph_ms(lambda: getattr(K, name)(*args))
+        print(f"[plc] {name} with all {B} streams {what[name]} equals its plain version bit for "
+              f"bit; branches {plc_branches(name, args, got)}", flush=True)
+        print(f"[times] {card} | {name}, all {B} streams {what[name]}: {gms:.4f} ms replayed "
+              f"from a CUDA graph", flush=True)
 
 
 def all_tdc_args(dev, B: int):
@@ -1765,6 +1826,7 @@ def concealment_phase(dev, opt, K, card):
     print(f"[plc] methods chosen at first losses: {meth}", flush=True)
     check(all(v > 0 for v in meth.values()), f"a concealment method never occurred: {meth}")
     all_tdc_launch(dev, K, B, card)
+    all_active_launches(K, busiest, B, card)
     syn = plc_synthetic(dev, K)
     print(f"[plc] synthetic rows equal their plain versions; branches {syn}", flush=True)
     check(syn["plc_tdc"]["no pitch at a first loss"] > 0 and
@@ -1776,6 +1838,9 @@ def concealment_phase(dev, opt, K, card):
     check(all(syn["phecu_spec_ana edges"].values()),
           f"phecu_spec_ana: an edge row missed its branch: {syn['phecu_spec_ana edges']}")
     check(syn["phecu_subst"]["burst > 3 (DC/Nyquist attenuated)"] > 0, "phecu_subst: no burst > 3")
+    for name in ("phecu_subst", "plc_damp_scramble"):
+        check(all(syn[f"{name} edge inputs"].values()),
+              f"{name}: an edge row lacks its edge: {syn[f'{name} edge inputs']}")
 
     # a few streams: the kernel path against the plain path, and the card
     # against the port on the CPU (the path the tests hold to the reference)

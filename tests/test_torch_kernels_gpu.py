@@ -46,7 +46,9 @@ every launch of a lossy block over speech, music, noise and tones and on
 their synthetic rows (plc_main: every damping branch, the generator's edge
 seeds, bfi 2; phecu_spec_ana also on phecu_edge_rows at 1, 8, 33 and 2048
 streams a launch: a tie, edge peaks, a scan that ends in mode 1, an all-zero
-row, a many-peak row, the drop rule taken and not); a warmed encode_frame, decode_frame (plc_mode 0, clean and
+row, a many-peak row, the drop rule taken and not; phecu_subst and
+plc_damp_scramble on their edge rows and with every stream at work at 1, 33,
+2047 and 2048 streams a launch); a warmed encode_frame, decode_frame (plc_mode 0, clean and
 lossy, and 1) and the stream path's device step at EP3 run under
 torch.cuda.set_sync_debug_mode("error"). The four kernels of the
 bit-exact fixed-point decoder (DeviceFixedDecoder) run on every launch of a
@@ -1168,6 +1170,41 @@ def test_phecu_spec_ana_edge_rows(dev, B):
         same_tensors(got, H.phecu_spec_ana_plain(*args))
         reached = C.phecu_edges_reached(got[0].cpu().numpy(), got[1].cpu().numpy())
         assert all(reached.values()), reached
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047, 2048])
+def test_phecu_subst_and_damp_edge_rows(dev, B):
+    """phecu_subst_edge_rows and damp_edge_rows tiled to B streams a launch
+    (the damping's also with its rows off 16-byte alignment); the rows hold
+    every edge they are made for (peaks at the edge bins, equidistant and
+    adjacent peaks, the zero rule, a transient, angles on sinf's slow path;
+    partial concealment from bins 0, 1, 398, 399, 400, an all-zero and a
+    60 dB row, generator values on the sign threshold)."""
+    from audio_codec_torch.ops import plc_adv, plc_phecu as H
+    r, d = C.phecu_subst_edge_rows(), C.damp_edge_rows()
+    assert all(C.phecu_subst_edges_reached(r).values()) and all(C.damp_edges_reached(d).values())
+    t_ = lambda v: torch.as_tensor(np.asarray(v))[torch.arange(B) % len(v)].contiguous().to(dev)
+    args = (PLC_CFG, *(t_(r[k]) for k in C.PHECU_SUBST_ARGS))
+    same_tensors(K.phecu_subst(*args), H.phecu_subst_plain(*args))
+    args = (PLC_CFG, *(t_(d[k] != 0) if k in C.DAMP_MASKS else t_(d[k]) for k in C.DAMP_ARGS))
+    same_tensors(K.plc_damp_scramble(*args), plc_adv.damp_scramble_plain(*args))
+    # rows 4 bytes off 16-byte alignment: the kernel's 4-byte loads
+    off = lambda t: torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape).copy_(t)
+    args = (*args[:1], off(args[1]), off(args[2]), *args[3:])
+    same_tensors(K.plc_damp_scramble(*args), plc_adv.damp_scramble_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 33, 2047, 2048])
+def test_phecu_subst_and_damp_all_active(plc_recorded, B):
+    """Each kernel's busiest launch of the lossy run with every stream at
+    work, at B streams (chip_smoke.all_active_args: every stream concealed by
+    the Phase ECU; every stream lost and noise-substituted)."""
+    import chip_smoke
+    plain = plc_plain()
+    for name in ("phecu_subst", "plc_damp_scramble"):
+        a, k = max(plc_recorded[name], key=lambda c: chip_smoke.plc_work(name, c[0], None)[1])
+        args = chip_smoke.all_active_args(name, a, B)
+        same_tensors(getattr(K, name)(*args, **k), plain[name](*args, **k))
 
 
 def test_warmed_plc_mode1_decode_frame_does_not_synchronise(dev):

@@ -1491,8 +1491,9 @@ def test_rehearsal_catches_mutated_pc_lanes(tmp_path):
 
 
 # ---- advanced concealment (csrc/plc_tdc.cuh, plc_damp.cuh, phecu.cuh) ----
-# The steps are templates over the warp that runs them (csrc/plc.cuh); here
-# HostWarp runs every lane's share in turn. The plain versions take the
+# The steps are templates over the warp that runs them: plc_tdc's over
+# csrc/plc.cuh's, here HostWarp, which runs every lane's share in turn; the
+# others' over csrc/warp.cuh's, here CoderHostWarp. The plain versions take the
 # reference's order on every device, so they need no card_order; the Phase
 # ECU's sine and cosine are the double's, correctly rounded, on both sides
 # (the card's sinf and cosf are first seen on the card).
@@ -1530,21 +1531,23 @@ void rehearse_plc_tdc(const float* x, const float* scf, const float* q, const fl
     plc_tdc_stream(w, s, g, tdc_tables(ftab, itab, g.n_bands), work.data());
   }
 }
+// the damping's warp (plc_damp.cuh:damp_warp) run by the host warp, the
+// vectors int32 and float32 rows of ints and floats
 void rehearse_damp(const float* x, const float* q, const int32_t* ints, const float* floats,
                    const int32_t* pows, float* spec, float* fout, int32_t* iout, int B, int N) {
   std::vector<DampWork> work(1);
-  const HostWarp w;
+  StreamVec v[kDampVecs];
+  for (int k = 0; k < 10; ++k) v[k] = {ints + (size_t)k * B, 1, kVecInt32};
+  for (int k = 0; k < 4; ++k) v[10 + k] = {floats + (size_t)k * B, 1, kVecFloat32};
   for (int b = 0; b < B; ++b) {
-    int iv[10];
-    float fv[4], fo[3];
-    int io[2];
-    for (int k = 0; k < 10; ++k) iv[k] = ints[k * B + b];
-    for (int k = 0; k < 4; ++k) fv[k] = floats[k * B + b];
-    damp_stream(w, x + (size_t)b * N, q + (size_t)b * N, iv, fv, pows, N, work.data(),
-                spec + (size_t)b * N, fo, io);
-    for (int k = 0; k < 3; ++k) fout[k * B + b] = fo[k];
-    iout[b] = io[0];
-    iout[B + b] = io[1];
+    DampOut o;
+    damp_warp(CoderHostWarp{}, damp_in(v, b), x + (size_t)b * N, q + (size_t)b * N, pows, N,
+              work.data(), spec + (size_t)b * N, o);
+    fout[b] = o.st.cf;
+    fout[B + b] = o.st.cs;
+    fout[2 * B + b] = o.st.cfa;
+    iout[b] = o.ns_seed;
+    iout[B + b] = o.pc_seed;
   }
 }
 // the analysis's warp (phecu.cuh:ph_spec_ana_warp) run by the host warp
@@ -1567,11 +1570,11 @@ void rehearse_spec_ana(const float* xr, const float* xi, const float* xor_, cons
                      work.data(), f0 + row, npl + b, eo, el);
   }
 }
+// the substitution's warp (phecu.cuh:ph_subst_warp) run by the host warp
 void rehearse_subst(const float* xr, const float* xi, const float* f0, const int32_t* ints,
                     const float* groups, const float* beta_mute, const int32_t* tab, float* outr,
                     float* outi, int B, const int* gi) {
   std::vector<PhWork> work(1);
-  const HostWarp w;
   const PhGeom g = {gi[0], gi[1], gi[2], gi[3], gi[4], gi[5]};
   for (int b = 0; b < B; ++b) {
     const size_t row = (size_t)b * g.nsf;
@@ -1579,13 +1582,11 @@ void rehearse_subst(const float* xr, const float* xi, const float* f0, const int
       for (int k = 0; k < g.nsf; ++k) outr[row + k] = outi[row + k] = 0.0f;
       continue;
     }
-    const int nb = ints[B + b];
     const size_t gb = (size_t)b * 9, gB = (size_t)B * 9;
-    ph_burst(w, nb, groups + gb, groups + gB + gb, groups + 2 * gB + gb, beta_mute[b],
-             work.data());
-    ph_subst_stream(w, g, xr + row, xi + row, f0 + (size_t)b * g.ns, ints[b], nb,
-                    ints[2 * B + b], groups + 3 * gB + gb, tab, work.data(), outr + row,
-                    outi + row);
+    ph_subst_warp(CoderHostWarp{}, g, xr + row, xi + row, f0 + (size_t)b * g.ns, ints[b],
+                  ints[B + b], ints[2 * B + b], groups + gb, groups + gB + gb,
+                  groups + 2 * gB + gb, beta_mute[b], groups + 3 * gB + gb, tab, work.data(),
+                  outr + row, outi + row);
   }
 }
 }
@@ -1601,8 +1602,8 @@ MUTATIONS_PLC = {
     "peak_better_gt": ("phecu.cuh", "const uint32_t better = all_if(m >= cand) & mode;",
                        "const uint32_t better = all_if(m > cand) & mode;"),
     # the upper neighbour's peak before the lower one's at equal distance
-    "subst_lower_first": ("phecu.cuh", "if (!assigned && k + d < ns && is_peak(k + d)) {",
-                          "if (!assigned && k - d >= 0 && is_peak(k - d)) {"),
+    "subst_lower_first": ("phecu.cuh", "const int kp = du <= dd ? k + du : k - dd",
+                          "const int kp = du < dd ? k + du : k - dd"),
 }
 
 

@@ -1753,6 +1753,186 @@ def phecu_subst_rows(seed: int = 0) -> dict[str, np.ndarray]:
                 active=np.array([1, 1, 1, 1, 1, 1, 0, 1], np.int32)[:B])
 
 
+# the arguments of phecu_subst and plc_damp_scramble after cfg, in order, and
+# the latter's masks
+PHECU_SUBST_ARGS = ("Xr", "Xi", "f0est", "num_plocs", "nb_cur", "e_oold", "e_old", "mag_chg_1st",
+                    "beta_mute", "xavg", "is_trans", "active")
+DAMP_ARGS = ("x", "q_d_prev", "ns_lane", "lost", "is_pc", "nb_cur", "pc_nb_lost", "stab_fac",
+             "pitch_int", "pc_pitch", "cum_fflc", "cum_slow", "cum_fast", "ns_seed", "pc_seed",
+             "spec_inv_idx")
+DAMP_MASKS = ("ns_lane", "lost", "is_pc")
+
+# the rows of phecu_subst_edge_rows, in order
+PHECU_SUBST_EDGE_ROWS = ("edge peaks", "equidistant", "adjacent", "one peak", "two peaks",
+                         "transient", "long burst", "no peak")
+PHECU_NBINS = 385    # plc_phecu.nbins at 48 kHz
+PHECU_FL, PHECU_T_ADV = 480, 684   # the frame and plc_phecu.t_adv at 48 kHz
+
+
+def phecu_subst_edge_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of phecu_subst (every stream active) for the substitution's
+    edges (PHECU_SUBST_EDGE_ROWS): peaks at bins 0-5 and 315-320; bins
+    equidistant from two peaks (at 2 and at 5, the upper peak wins); three
+    adjacent peaks; num_plocs 1 and 2 (the zero rule); a transient stream; a
+    burst of 100 frames with peaks at bins 305 and 310, whose angles (above
+    105 615) take the card's sinf and cosf down their slow path; a stream
+    with no peak. Seeded noise spectra [385] with the peaks raised."""
+    rng = np.random.default_rng(900 + seed)
+    B, ns, nsf = len(PHECU_SUBST_EDGE_ROWS), PHECU_BINS, PHECU_NBINS
+    peaks = {0: [0, 1, 2, 3, 4, 5, 315, 316, 317, 318, 319, 320], 1: [100, 104, 200, 210, 260],
+             2: [150, 151, 152], 3: [60], 4: [90, 240], 5: [40, 80, 120], 6: [20, 305, 310], 7: []}
+    f0 = np.full((B, ns), -1.0, np.float32)
+    X = (rng.standard_normal((B, nsf)) + 1j * rng.standard_normal((B, nsf))) * 300.0
+    npl = np.zeros(B, np.int32)
+    for b, ks in peaks.items():
+        for k in ks:
+            frac = rng.uniform(-0.45, 0.45) if k > 0 else rng.uniform(0.0, 0.45)
+            f0[b, k] = np.float32(k + frac)
+            X[b, k] *= 40.0
+        npl[b] = len(ks)
+    e = (np.abs(rng.standard_normal((2, B, 9))) * 1e8).astype(np.float32)
+    e[0, 5] *= 20.0                      # a falling transient in the groups
+    return dict(Xr=X.real.astype(np.float32), Xi=X.imag.astype(np.float32), f0est=f0, num_plocs=npl,
+                nb_cur=np.array([1, 2, 4, 1, 3, 2, 100, 5], np.int32),
+                e_oold=e[0], e_old=e[1], mag_chg_1st=(rng.random((B, 9)) * 1.2).astype(np.float32),
+                beta_mute=rng.random(B).astype(np.float32),
+                xavg=(rng.random((B, 9)) * 300).astype(np.float32),
+                is_trans=(np.arange(B) == PHECU_SUBST_EDGE_ROWS.index("transient")).astype(
+                    np.int32),
+                active=np.ones(B, bool))
+
+
+def phecu_subst_edges_reached(r: dict) -> dict[str, bool]:
+    """Which of phecu_subst_edge_rows' edges the rows r (the arguments, as
+    numpy arrays) hold: peaks at the edge bins, a bin equidistant from two
+    peaks with none nearer, adjacent peaks, 1 and 2 peaks with no
+    transient, a transient with peaks, all 32 generator phases on the
+    interior bins of each seed, and a peak angle past 105 615."""
+    from audio_codec_torch.ops import plc_phecu as H
+    pk = (r["f0est"] >= 0) & (r["num_plocs"] > 0)[:, None] & (r["is_trans"] == 0)[:, None] \
+        & r["active"][:, None]
+    ns = pk.shape[1]
+
+    def equidistant(row):
+        for k in range(1, ns):
+            for d in range(1, 6):
+                if not pk[row, max(k - d + 1, 0):k + d].any() and k - d >= 0 and k + d < ns \
+                        and pk[row, k - d] and pk[row, k + d]:
+                    return True
+        return False
+    tab = H.lcg_tables(ns)
+    phases = set()
+    for nb in r["nb_cur"][r["active"]]:
+        t = max(int(nb) - 1, 0) * PHECU_FL
+        for s0 in (t, t + 1):
+            phases |= set((((s0 % 65536) * tab[0, 1:] + tab[1, 1:]) & 0xFFFF) >> 11)
+    t_off = np.maximum(r["nb_cur"].astype(np.float64) - 1, 0) * PHECU_FL
+    ang = 2 * np.pi * np.where(pk, r["f0est"], 0.0) * (PHECU_T_ADV + t_off)[:, None] / PHECU_LPROT
+    npl = np.where(r["is_trans"] != 0, 0, r["num_plocs"])
+    edges = pk[:, :6].all(1).any() and pk[:, ns - 6:].all(1).any()
+    return {"peaks at bins 0-5 and 315-320": bool(edges),
+            "a bin equidistant from two peaks": any(equidistant(b) for b in range(len(pk))),
+            "adjacent peaks": bool((pk[:, 1:] & pk[:, :-1]).any()),
+            "one and two peaks (the zero rule)": bool((npl == 1).any() and (npl == 2).any()),
+            "a transient with peaks": bool(((r["is_trans"] != 0) & (r["num_plocs"] > 0)).any()),
+            "all 32 generator phases": len(phases) == 32,
+            "a peak angle past 105 615": bool((ang > 105615.0).any())}
+
+
+# the rows of damp_edge_rows, in order, and their (ns_lane, lost, is_pc,
+# nb_cur, pc_nb_lost, pitch_int, pc_pitch, spec_inv_idx)
+DAMP_EDGE_ROWS = ("bfi 2 from bin 0", "bfi 2 from bin 1", "bfi 2 from bin 398",
+                  "bfi 2 from bin 399", "bfi 2 from bin 400", "all zero", "60 dB",
+                  "threshold, noise substitution", "threshold, bfi 2")
+DAMP_EDGE_LANES = (
+    (0, 0, 1, 0, 3, 200, 1, 0),
+    (0, 0, 1, 0, 4, 200, 1, 1),
+    (0, 0, 1, 0, 2, 0, 0, 398),
+    (0, 0, 1, 0, 5, 100, 1, 399),
+    (0, 0, 1, 0, 3, 100, 1, 400),
+    (1, 1, 0, 2, 0, 0, 0, 400),
+    (1, 1, 0, 3, 0, 250, 0, 400),
+    (1, 1, 0, 4, 0, 300, 0, 400),   # lin 0.5: the threshold -16384
+    (0, 0, 1, 0, 3, 0, 1, 0),       # lin 0.75: the threshold -24576
+)
+DAMP_THRESHOLD_BIN = 37   # the bin whose generator value sits on the threshold
+
+
+def _damp_values(seed: int, N: int) -> np.ndarray:
+    """The sign scrambling's generator values at bins 0..N-1 from seed."""
+    from audio_codec_torch.ops.plc_adv import lcg_pows
+    pows = lcg_pows(N)
+    s = ((seed & 0xFFFF) * pows[0, 1:] + pows[1, 1:]) & 0xFFFF
+    return np.where(s >= 32768, s - 65536, s)
+
+
+def _damp_seed_at(value: int, k: int, N: int) -> int:
+    """The seed whose generator value at bin k is `value` (the step's
+    multiplier is odd, so invertible mod 2^16)."""
+    from audio_codec_torch.ops.plc_adv import lcg_pows
+    pows = lcg_pows(N)
+    m, a = int(pows[0, k + 1]), int(pows[1, k + 1])
+    s = ((value & 0xFFFF) - a) * pow(m, -1, 65536) % 65536
+    return s - 65536 if s >= 32768 else s
+
+
+def damp_edge_rows(seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of plc_damp_scramble for its edges (DAMP_EDGE_ROWS): partial
+    concealment from bins 0, 1, 398, 399 and 400 (nothing left to
+    scramble), an all-zero substituted spectrum (energy 0), a substituted
+    row spanning 60 dB, and a generator value on the sign threshold
+    (-32768 lin) in a noise-substitution and a partial-concealment pass;
+    the seeds -32768 and 32767 on the first two rows."""
+    rng = np.random.default_rng(950 + seed)
+    B, N = len(DAMP_EDGE_ROWS), 400
+    cols = np.array(DAMP_EDGE_LANES, np.int32).T
+    out = {k: cols[i].copy() for i, k in enumerate(DAMP_STREAM_INTS)}
+    x = (rng.standard_normal((B, N)) * 300).astype(np.float32)
+    q = (rng.standard_normal((B, N)) * 300).astype(np.float32)
+    q[DAMP_EDGE_ROWS.index("all zero")] = 0.0
+    span = 10.0 ** rng.uniform(0.0, 3.0, N) * rng.choice([-1.0, 1.0], N)
+    span[[7, 230]] = 1.0, -1000.0
+    q[DAMP_EDGE_ROWS.index("60 dB")] = span.astype(np.float32)
+    ns_seed = rng.integers(-32768, 32768, B).astype(np.int32)
+    pc_seed = rng.integers(-32768, 32768, B).astype(np.int32)
+    pc_seed[0], pc_seed[1] = -32768, 32767
+    ns_seed[DAMP_EDGE_ROWS.index("threshold, noise substitution")] = \
+        _damp_seed_at(-16384, DAMP_THRESHOLD_BIN, N)
+    pc_seed[DAMP_EDGE_ROWS.index("threshold, bfi 2")] = _damp_seed_at(-24576, DAMP_THRESHOLD_BIN, N)
+    out.update(x=x, q_d_prev=q, stab_fac=rng.random(B).astype(np.float32),
+               cum_fflc=rng.random(B).astype(np.float32), cum_slow=rng.random(B).astype(np.float32),
+               cum_fast=rng.random(B).astype(np.float32), ns_seed=ns_seed, pc_seed=pc_seed)
+    return out
+
+
+def damp_edges_reached(d: dict) -> dict[str, bool]:
+    """Which of damp_edge_rows' edges the rows d hold: partial concealment
+    from bins 0, 1, 398, 399 and 400, an all-zero and a 60 dB substituted
+    row, and a generator value equal to the pass's sign threshold (a pitched
+    pass: -32768 lin) at a scrambled bin of a noise-substitution and of a
+    partial-concealment pass."""
+    N = d["x"].shape[1]
+    ns, pc = d["ns_lane"] != 0, d["is_pc"] != 0
+    sub = np.abs(d["q_d_prev"][ns])
+
+    def lin(nb):
+        return min(max((6 - nb) / 4.0, 0.0), 1.0) if nb > 2 else 1.0
+
+    def on_threshold(seed, nb, inv):
+        return bool((_damp_values(int(seed), N)[inv:] == -32768.0 * lin(int(nb))).any())
+    span = sub.max(1) / np.maximum(sub.min(1), 1e-30)
+    return {"spec_inv_idx 0, 1, 398, 399, 400":
+                {0, 1, 398, 399, 400} <= set(d["spec_inv_idx"][pc].tolist()),
+            "an all-zero spectrum": bool((sub.max(1) == 0).any()),
+            "a row spanning 60 dB": bool((span >= 999.0).any()),
+            "the threshold in a noise-substitution pass": any(
+                on_threshold(d["ns_seed"][b], d["nb_cur"][b], 0)
+                for b in np.nonzero(ns & (d["pitch_int"] > 0))[0]),
+            "the threshold in a bfi 2 pass": any(
+                on_threshold(d["pc_seed"][b], d["pc_nb_lost"][b], d["spec_inv_idx"][b])
+                for b in np.nonzero(pc & (d["pc_pitch"] != 0))[0])}
+
+
 def tdc_stream_rows(group: int) -> dict[str, np.ndarray]:
     """plc_adv_rows with the state of plc_tdc: lanes lost and not, first
     losses and later ones, a method kept from the burst (a_st, fract_st:
