@@ -106,6 +106,21 @@ ACX_HD float xfma(float a, float b, float c) {
 }  // namespace acx
 
 #ifdef __CUDACC__
+// Asynchronous 16-byte copies from device to shared memory (cp.async.cg):
+// a copy whose source is not valid writes zeros.
+__device__ __forceinline__ void acx_cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void acx_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void acx_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Copies n int32 words from global to shared memory with the whole block.
 // Each thread issues the loads of a round (kAcxLoadRound words, blockDim.x
 // apart) before it stores any of them: a copy that stores each load before

@@ -376,21 +376,6 @@ ACX_HD void imdct_scatter(float t, int c, int N, int la, const float* win, const
 }  // namespace acx
 
 #ifdef __CUDACC__
-// Asynchronous 16-byte copies from device to shared memory (cp.async.cg):
-// a copy whose source is not valid writes zeros.
-__device__ __forceinline__ void acx_cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void acx_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void acx_cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Sets a kernel's dynamic shared memory limit once, where it passes the
 // 48 KB default.
 template <typename Kernel>

@@ -8,36 +8,38 @@
 // indices -> the bands' scale factors [L, n_bands] Word16 and exponents, L =
 // T x B frames of a block.
 //
-// Bound on an H100: about 20 de-index steps of up to 12 offsets each, the
-// 16-point idct and 64 interpolated bands a lane, all integer; the bytes are
-// 28 in and 1 KB out a lane (L = 16384: 17 MB, 5 us at 3.35 TB/s). The
-// per-lane chain is the bound.
-// Design: one thread a lane (kFxSnsThreads a block). Only the lane's
-// submode's de-index runs. The offsets h and the 64 interpolated bands,
-// indexed at run time, live in shared memory (kSnsScratch words a thread);
-// the pulses and the idct's values in registers, indexed statically.
+// Bound on an H100: 28 bytes in and 1 KB out a frame (L = 16384: 17 MB,
+// 5 us at 3.35 TB/s); about 1 000 warp instructions a frame.
+// Design: a warp a frame (fx_sns_dec.cuh:fx_sns_dec_warp), blocks of
+// kFxSnsWarps warps, every value 32-bit: the de-index one chain of a ballot
+// and a shuffle a position over the MPVQ offsets table, the idct on every
+// lane, the 64 bands in the warp's shared words, each output row one
+// coalesced store. The tables are read through L1.
 #include "fx_sns_dec.cuh"
 
+using namespace acx;
 using namespace acx::fx;
 
-constexpr int kFxSnsThreads = 64;
+constexpr int kFxSnsWarps = 4;
 
-__global__ void fx_sns_dec_kernel(const int32_t* __restrict__ idx, const i64* __restrict__ tab,
-                                  i64* __restrict__ scf, i64* __restrict__ scf_e, int L,
-                                  int n_bands) {
-  __shared__ i64 scratch[kFxSnsThreads * kSnsScratch];
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(32 * kFxSnsWarps)
+    fx_sns_dec_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ tab,
+                      i64* __restrict__ scf, i64* __restrict__ scf_e, int L, int n_bands) {
+  __shared__ int32_t bands[kFxSnsWarps][64];
+  const int wid = threadIdx.x >> 5;
+  const int l = blockIdx.x * kFxSnsWarps + wid;
   if (l >= L) return;
-  fx_sns_dec_lane(idx + 7 * static_cast<size_t>(l), tab, n_bands,
-                  scratch + threadIdx.x * kSnsScratch, scf + static_cast<size_t>(l) * n_bands,
-                  scf_e + static_cast<size_t>(l) * n_bands, 1);
+  const size_t row = static_cast<size_t>(l) * n_bands;
+  fx_sns_dec_warp(CoderCardWarp{static_cast<int>(threadIdx.x & 31)},
+                  idx + 7 * static_cast<size_t>(l), tab, n_bands, bands[wid], scf + row,
+                  scf_e + row);
 }
 
 extern "C" int acx_fx_sns_dec(const void* idx, const void* tab, void* scf, void* scf_e, int L,
                               int n_bands, void* stream) {
-  const int blocks = (L + kFxSnsThreads - 1) / kFxSnsThreads;
-  fx_sns_dec_kernel<<<blocks, kFxSnsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const i64*>(tab), static_cast<i64*>(scf),
+  const int blocks = (L + kFxSnsWarps - 1) / kFxSnsWarps;
+  fx_sns_dec_kernel<<<blocks, 32 * kFxSnsWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(tab), static_cast<i64*>(scf),
       static_cast<i64*>(scf_e), L, n_bands);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,127 +1,117 @@
-// The lane function of fx_sns_dec.cu: one frame's fixed-point SNS decode
-// (ops/fixed_dev.py:sns_decode_scf, sns_interpolate). Compiles for the card
-// and, with g++, for the rehearsal (tests/test_torch_lane_rehearsal.py).
+// The steps of fx_sns_dec.cu: one frame's fixed-point SNS decode
+// (ops/fixed_dev.py:sns_decode_scf, sns_interpolate) on a warp. A template
+// over the warp (warp.cuh), so that g++ compiles it for the rehearsal
+// (tests/test_torch_snsdec_pc_rehearsal.py, tests/test_torch_lane_rehearsal.py).
+//
+// Every value is a Word16 or a Word32, so the arithmetic is 32-bit: the
+// Word16 operators below saturate where the ITU-T basic operator does, and
+// their comments say which inputs can reach the saturation. The plain
+// version computes in int64; the integers are the same.
 #pragma once
 
 #include "fixed.cuh"
+#include "warp.cuh"
 
 namespace acx {
 namespace fx {
 
-// the table pack (kernels.py:fx_sns_table_pack): stage-1 codebooks, the four
-// submodes' gains, the isqrt tables and InvLog2_16's two tables
+// the table pack (kernels.py:fx_sns_table_pack), int32 words: stage-1
+// codebooks, the four submodes' gains, the isqrt tables, InvLog2_16's two
+// tables, then the MPVQ offsets A(n, k) for n = 1..16 (row n - 1), k = 0..10
 constexpr int kSnsLf = 0, kSnsHf = 256, kSnsGain0 = 512, kSnsIsqQ16 = 530, kSnsIsq = 595,
-              kSnsIsqDiff = 627, kSnsInvLog1 = 659, kSnsInvLog2 = 723, kFxSnsTableWords = 787;
-// the submodes' gain tables (offset in the pack, length) and largest k
-ACX_HD int sns_gain_off(int sm) { return sm == 0 ? 0 : (sm == 1 ? 2 : (sm == 2 ? 6 : 10)); }
-ACX_HD int sns_gain_len(int sm) { return sm == 0 ? 2 : (sm == 3 ? 8 : 4); }
-ACX_HD int sns_maxk(int sm) { return sm < 2 ? 10 : (sm == 2 ? 8 : 6); }
-// scratch words of one lane: h (12), then the 64 interpolated bands
-constexpr int kSnsScratch = 12 + 64;
+              kSnsIsqDiff = 627, kSnsInvLog1 = 659, kSnsInvLog2 = 723, kSnsMpvq = 787;
+constexpr int kSnsMpvqCols = 11;
+constexpr int kFxSnsTableWords = kSnsMpvq + 16 * kSnsMpvqCols;
+// the submodes' gain tables (offset in the pack 0, 2, 6, 10; length 2, 4,
+// 4, 8) and largest k (10, 10, 8, 6), sm = 0..3, as arithmetic of
+// comparisons. Written as chained selects, the card's build read the wrong
+// gain for submodes 1, 2 and 4 (4 clipped to 3) where the gain index was past
+// its table, and g++'s build the right one (tests/torch_kernel_cases.py:
+// fx_sns_edge_rows)
+ACX_HD int sns_gain_off(int sm) { return 4 * sm - 2 + 2 * (sm == 0); }
+ACX_HD int sns_gain_len(int sm) { return 2 + 2 * (sm != 0) + 4 * (sm == 3); }
+ACX_HD int sns_maxk(int sm) { return 10 - 2 * (sm == 2) - 4 * (sm == 3); }
 
-ACX_HD i64 tab_at(const i64* tab, int off, int len, i64 i) {
-  return tab[off + clamp64(i, 0, len - 1)];
+// ---- Word16 operators in 32 bits ----
+ACX_HD int32_t sat16w(int32_t x) { return x > 32767 ? 32767 : (x < -32768 ? -32768 : x); }
+// mult_r of two Word16 values: a * b + 0x4000 fits in 32 bits; only
+// -32768 * -32768 leaves Word16
+ACX_HD int32_t mult_rw(int32_t a, int32_t b) { return sat16w((a * b + 0x4000) >> 15); }
+// L_mult of two Word16 values: only -32768 * -32768 saturates
+ACX_HD int32_t L_multw(int32_t a, int32_t b) {
+  const int32_t p = a * b;
+  return p == 0x40000000 ? static_cast<int32_t>(MAX32) : p * 2;
+}
+// round_fx of a Word32: the sum saturates, the shifted value is a Word16
+ACX_HD int32_t round_w(int32_t L) { return add_sat32(L, 0x8000) >> 16; }
+ACX_HD int32_t mac_rw(int32_t L, int32_t a, int32_t b) { return round_w(add_sat32(L, L_multw(a, b))); }
+ACX_HD int32_t msu_rw(int32_t L, int32_t a, int32_t b) { return round_w(sub_sat32(L, L_multw(a, b))); }
+// shl16 of a Word16: a count above 16 saturates every nonzero value as 16
+// does, a negative count is an arithmetic shift right clamped to 31
+ACX_HD int32_t shl16w(int32_t x, int32_t s) {
+  return s >= 0 ? sat16w(static_cast<int32_t>(static_cast<uint32_t>(x) << (s < 16 ? s : 16)))
+                : x >> (-s < 31 ? -s : 31);
+}
+// L_shl of a Word32 by 0..31, saturating
+ACX_HD int32_t L_shlw(int32_t x, int s) {
+  const int32_t r = static_cast<int32_t>(static_cast<uint32_t>(x) << s);
+  return (r >> s) == x ? r : (x < 0 ? static_cast<int32_t>(MIN32) : static_cast<int32_t>(MAX32));
+}
+ACX_HD int32_t norm_sw(int32_t x) { return static_cast<int32_t>(norm_s(x)); }
+ACX_HD int32_t tab_w(const int32_t* tab, int off, int len, int32_t i) {
+  return tab[off + (i < 0 ? 0 : (i > len - 1 ? len - 1 : i))];
 }
 
-// mpvq_deindex_fx of one (DIM, KVAL) shape (fixed_dev.py:_mpvq_deindex_batch
-// on one lane): writes DIM pulses to y, returns ber. h: KVAL + 2 words of
-// scratch, indexed at run time (shared memory on the card: a runtime-indexed
-// register array read back stale on sm_90a); y is indexed only statically
-// once the position loop is unrolled.
-template <int DIM, int KVAL>
-ACX_HD i64 mpvq_deindex(const i64* h0, i64 ls_ind, i64 index, i64* h, i64* y) {
-  constexpr int K = KVAL + 2;
-  for (int k = 0; k < K; ++k) h[k] = h0[k];
-  const i64 size = 1 + h0[KVAL + 1] + (h0[KVAL] >> 1);
-  const i64 ber = (DIM != 1 && index >= size) ? 1 : 0;
-  i64 ind = ber ? 0 : index;
-  i64 sign = ls_ind != 0 ? -1 : 1;
-  i64 k_max = KVAL;
-  bool done = false;
-#pragma unroll
-  for (int pos = 0; pos < DIM; ++pos) {
-    i64 out = 0;
-    if (!done) {
-      if (ind == 0) {
-        out = sign >= 0 ? k_max : -k_max;
-        done = true;
-      } else {
-        // k_acc: the number of k <= k_max with h[k] <= ind, less one, clipped
-        i64 cnt = 0;
-        for (int k = 0; k < K; ++k) cnt += (k <= k_max && h[k] <= ind) ? 1 : 0;
-        const i64 k_acc = clamp64(cnt - 1, 0, KVAL);
-        const i64 ind2 = ind - h[k_acc];
-        const i64 k_delta = k_max - k_acc;
-        const bool moved = k_delta != 0;
-        if (moved) {
-          out = sign >= 0 ? k_delta : -k_delta;
-          sign = (ind2 & 1) != 0 ? -1 : 1;
-        }
-        ind = moved ? (ind2 >> 1) : ind2;
-        k_max = moved ? k_acc : k_max;
-        // a_bwd over h[0..k_max+1]
-        i64 a0 = 0;
-        for (int i = 1; i < K; ++i) {
-          if (i <= k_max + 1) {
-            const i64 a1 = h[i] - a0 - h[i - 1];
-            h[i - 1] = a0;
-            a0 = a1;
-          }
-        }
-        if (k_max + 1 < K) h[k_max + 1] = a0;
-      }
-    }
-    y[pos] = out;
-  }
-  return ber;
+// ISqrt16: (mantissa, exponent) of 1/sqrt, for 64 <= mantissa < 2^15
+ACX_HD void isqrt16w(const int32_t* tab, int32_t mantissa, int32_t exponent, int32_t* m_out,
+                     int32_t* e_out) {
+  const int32_t pre = norm_sw(mantissa);
+  const int32_t e = exponent - pre;
+  const int32_t m = shl16w(mantissa, pre);
+  const int32_t idx = mac_rw(-32768 - (32 << 16), m, 1 << 6);
+  const int32_t frac = m & 0x1FF;
+  const int32_t m2 = msu_rw(tab_w(tab, kSnsIsq, 32, idx), tab_w(tab, kSnsIsqDiff, 32, idx), frac);
+  *m_out = (e & 1) == 0 ? mult_rw(m2, 0x5A82) : m2;
+  *e_out = msu_rw(1 << 15, e, 1 << 14);
 }
 
-// ISqrt16: (mantissa, exponent) of 1/sqrt
-ACX_HD void isqrt16(const i64* tab, i64 mantissa, i64 exponent, i64* m_out, i64* e_out) {
-  const i64 pre = norm_s(mantissa);
-  const i64 e = exponent - pre;
-  const i64 m = shl16(mantissa, pre);
-  const i64 idx = mac_r(-32768 - (32LL << 16), m, 1 << 6);
-  const i64 frac = m & 0x1FF;
-  const i64 m2 = msu_r(tab_at(tab, kSnsIsq, 32, idx), tab_at(tab, kSnsIsqDiff, 32, idx), frac);
-  *m_out = (e & 1) == 0 ? mult_r(m2, 0x5A82) : m2;
-  *e_out = msu_r(1 << 15, e, 1 << 14);
-}
-
-// idct16_fx (dct2_fx.c:120-215), in place on 16 Word16 values
-ACX_HD void idct16(i64* v) {
-  auto m = [](i64 a, i64 c) { return mult_r(a, c); };
-  auto ad = [](i64 a, i64 b) { return sat16(a + b); };
-  auto sb = [](i64 a, i64 b) { return sat16(a - b); };
-  const i64* i = v;
-  i64 a8 = ad(m(i[1], 1136), m(i[15], -11529));
-  i64 a9 = ad(m(i[9], 8956), m(i[7], -7350));
-  i64 a10 = ad(m(i[5], 5461), m(i[11], -10217));
-  i64 a11 = ad(m(i[13], 11086), m(i[3], -3363));
-  i64 a12 = ad(m(i[3], 11086), m(i[13], 3363));
-  i64 a13 = ad(m(i[11], 5461), m(i[5], 10217));
-  i64 a14 = ad(m(i[7], 8956), m(i[9], 7350));
-  i64 a15 = ad(m(i[15], 1136), m(i[1], 11529));
-  i64 b4 = ad(m(i[2], 2260), m(i[14], -11363));
-  i64 b5 = ad(m(i[10], 9633), m(i[6], -6436));
-  i64 b6 = ad(m(i[6], 9633), m(i[10], 6436));
-  i64 b7 = ad(m(i[14], 2260), m(i[2], 11363));
-  i64 b8 = ad(a9, a8);
-  i64 b9 = sb(a8, a9);
-  i64 b10 = sb(a11, a10);
-  i64 b11 = ad(a10, a11);
-  i64 b12 = ad(a13, a12);
-  i64 b13 = sb(a12, a13);
-  i64 b14 = sb(a15, a14);
-  i64 b15 = ad(a14, a15);
-  i64 a0 = ad(m(i[0], 8192), m(i[8], 8192));
-  i64 a1 = ad(m(i[8], -8192), m(i[0], 8192));
-  i64 a2 = ad(m(i[4], 4433), m(i[12], -10703));
-  i64 a3 = ad(m(i[12], 4433), m(i[4], 10703));
-  i64 a4 = ad(b5, b4);
-  i64 a5 = sb(b4, b5);
-  i64 a6 = sb(b7, b6);
-  i64 a7 = ad(b6, b7);
+// idct16_fx (dct2_fx.c:120-215) of 16 Word16 values, the output k returned
+// (every lane runs the whole butterfly, about 280 operations; k is a lane's
+// index, so the outputs are picked by selects, never by a register index).
+// Every coefficient c has |c| <= 30274, so |a c + 0x4000| < 2^30 and
+// (a c + 0x4000) >> 15 lies in Word16: mult_r's saturation never acts.
+ACX_HD int32_t idct16_pick(const int32_t* i, int k) {
+  auto m = [](int32_t a, int32_t c) { return (a * c + 0x4000) >> 15; };
+  auto ad = [](int32_t a, int32_t b) { return sat16w(a + b); };
+  auto sb = [](int32_t a, int32_t b) { return sat16w(a - b); };
+  int32_t a8 = ad(m(i[1], 1136), m(i[15], -11529));
+  int32_t a9 = ad(m(i[9], 8956), m(i[7], -7350));
+  int32_t a10 = ad(m(i[5], 5461), m(i[11], -10217));
+  int32_t a11 = ad(m(i[13], 11086), m(i[3], -3363));
+  int32_t a12 = ad(m(i[3], 11086), m(i[13], 3363));
+  int32_t a13 = ad(m(i[11], 5461), m(i[5], 10217));
+  int32_t a14 = ad(m(i[7], 8956), m(i[9], 7350));
+  int32_t a15 = ad(m(i[15], 1136), m(i[1], 11529));
+  int32_t b4 = ad(m(i[2], 2260), m(i[14], -11363));
+  int32_t b5 = ad(m(i[10], 9633), m(i[6], -6436));
+  int32_t b6 = ad(m(i[6], 9633), m(i[10], 6436));
+  int32_t b7 = ad(m(i[14], 2260), m(i[2], 11363));
+  int32_t b8 = ad(a9, a8);
+  int32_t b9 = sb(a8, a9);
+  int32_t b10 = sb(a11, a10);
+  int32_t b11 = ad(a10, a11);
+  int32_t b12 = ad(a13, a12);
+  int32_t b13 = sb(a12, a13);
+  int32_t b14 = sb(a15, a14);
+  int32_t b15 = ad(a14, a15);
+  int32_t a0 = ad(m(i[0], 8192), m(i[8], 8192));
+  int32_t a1 = ad(m(i[8], -8192), m(i[0], 8192));
+  int32_t a2 = ad(m(i[4], 4433), m(i[12], -10703));
+  int32_t a3 = ad(m(i[12], 4433), m(i[4], 10703));
+  int32_t a4 = ad(b5, b4);
+  int32_t a5 = sb(b4, b5);
+  int32_t a6 = sb(b7, b6);
+  int32_t a7 = ad(b6, b7);
   a8 = b8;
   a9 = ad(m(b9, -30274), m(b14, 12540));
   a10 = ad(m(b10, -12540), m(b13, -30274));
@@ -130,10 +120,10 @@ ACX_HD void idct16(i64* v) {
   a13 = ad(m(b13, 12540), m(b10, -30274));
   a14 = ad(m(b14, 30274), m(b9, 12540));
   a15 = b15;
-  i64 b0 = ad(a3, a0);
-  i64 b1 = ad(a2, a1);
-  i64 b2 = sb(a1, a2);
-  i64 b3 = sb(a0, a3);
+  int32_t b0 = ad(a3, a0);
+  int32_t b1 = ad(a2, a1);
+  int32_t b2 = sb(a1, a2);
+  int32_t b3 = sb(a0, a3);
   b4 = a4;
   b5 = ad(m(a5, -23170), m(a6, 23170));
   b6 = ad(m(a6, 23170), m(a5, 23170));
@@ -158,111 +148,216 @@ ACX_HD void idct16(i64* v) {
   a11 = ad(m(b11, -23170), m(b12, 23170));
   a12 = ad(m(b12, 23170), m(b11, 23170));
   a13 = ad(m(b13, 23170), m(b10, 23170));
-  const i64 o[16] = {ad(b15, a0), ad(b14, a1), ad(a13, a2), ad(a12, a3),
-                     ad(a11, a4), ad(a10, a5), ad(b9, a6), ad(b8, a7),
-                     sb(a7, b8), sb(a6, b9), sb(a5, a10), sb(a4, a11),
-                     sb(a3, a12), sb(a2, a13), sb(a1, b14), sb(a0, b15)};
+  const int32_t o[16] = {ad(b15, a0), ad(b14, a1), ad(a13, a2), ad(a12, a3),
+                         ad(a11, a4), ad(a10, a5), ad(b9, a6), ad(b8, a7),
+                         sb(a7, b8), sb(a6, b9), sb(a5, a10), sb(a4, a11),
+                         sb(a3, a12), sb(a2, a13), sb(a1, b14), sb(a0, b15)};
+  int32_t r = o[0];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) v[k] = o[k];
+  for (int j = 1; j < 16; ++j) r = k == j ? o[j] : r;
+  return r;
 }
 
-// One lane: scf_idx[7] -> scf[n_bands], scf_e[n_bands] (stride `os` between
-// bands). Only the de-index of the lane's submode runs (the plain version
-// runs all four and selects; the results are the same). scratch:
-// kSnsScratch words.
-ACX_HD void fx_sns_dec_lane(const int32_t* idx, const i64* tab, int n_bands, i64* scratch,
-                            i64* scf, i64* scf_e, int os) {
-  const i64 idx0 = idx[0], idx1 = idx[1], submode = idx[2], gidx = idx[3], ls = idx[4],
-            mpvq = idx[5], idxB = idx[6];
-  const int sm = static_cast<int>(clamp64(submode, 0, 3));
-  // the MPVQ offsets h[0..k+1] mpvq_deindex_fx starts from, per (dim, k) of
-  // the submodes' shapes: the exact recurrence of fixed_dec.py:_pascal_A,
-  // h[k+1] halved where k is below the tabled maximum
-  // (fixed_dev.py:mpvq_offsets)
-  const i64 h10k10[12] = {0, 1, 19, 181, 1159, 5641, 22363, 75517, 224143, 598417, 1462563,
-                          1658722};
-  const i64 h6k1[3] = {0, 1, 5};
-  const i64 h16k8[10] = {0, 1, 31, 481, 4991, 39041, 246047, 1303777, 5984767, 12165888};
-  const i64 h16k6[8] = {0, 1, 31, 481, 4991, 39041, 246047, 651888};
-  i64 y[16];
-  i64* h = scratch;
+// The MPVQ offsets lane j reads: A(n, min(j, 10)) for n = 1..16 (row n - 1).
+struct SnsMpvqColumn {
+  int32_t a[16];
+};
+
+// mpvq_deindex_fx of the shape (DIM, KVAL) (fixed_dev.py:_mpvq_deindex_batch)
+// on a warp, its pulses on lanes OFF .. OFF + DIM - 1 of y. The plain
+// version carries the offsets h and updates them after each position by the
+// a_bwd recurrence; on every entry a position counts (k <= k_max), h at
+// position pos holds A(DIM - pos, k), the offsets of the remaining length,
+// whatever path the index took (tests/test_torch_snsdec_pc_rehearsal.py
+// holds the table to the recurrence). So lane j <= KVAL holds A(DIM - pos, j)
+// from the table, a ballot counts the offsets at or below the index, and the
+// chosen offset comes from its lane by a shuffle: one uniform chain.
+// SIZE: the shape's set size, 1 + U(KVAL + 1) + A(KVAL) / 2 (the index is
+// out of range, ber, at or above it and then de-indexes as 0).
+template <int DIM, int KVAL, int OFF, int SIZE, class W>
+ACX_HD void sns_deindex_warp(const W& w, int32_t ls_ind, int32_t index,
+                             const typename W::template Lanes<SnsMpvqColumn>& col,
+                             typename W::template Lanes<int>& y) {
+  using IL = typename W::template Lanes<int>;
+  int32_t ind = index >= SIZE ? 0 : index;
+  int32_t sign = ls_ind != 0 ? -1 : 1;
+  int32_t k_max = KVAL;
+  bool done = false;
+#pragma unroll
+  for (int pos = 0; pos < DIM; ++pos) {
+    int32_t out = 0;
+    if (!done) {
+      if (ind == 0) {
+        out = sign >= 0 ? k_max : -k_max;
+        done = true;
+      } else {
+        IL a, ge;
+        w.lanes([&](int j) {
+          a[j] = col[j].a[DIM - pos - 1];
+          ge[j] = j <= k_max && a[j] <= ind ? 1 : 0;
+        });
+        // the count of k <= k_max with h[k] <= ind, less one, clipped
+        const int32_t cnt = popc32(w.ballot(ge));
+        const int32_t k_acc = cnt - 1 < 0 ? 0 : (cnt - 1 > KVAL ? KVAL : cnt - 1);
+        const int32_t ind2 = ind - w.shfl(a, k_acc);
+        const int32_t k_delta = k_max - k_acc;
+        if (k_delta != 0) {
+          out = sign >= 0 ? k_delta : -k_delta;
+          sign = (ind2 & 1) != 0 ? -1 : 1;
+          ind = ind2 >> 1;
+          k_max = k_acc;
+        } else {
+          ind = ind2;
+        }
+      }
+    }
+    w.lanes([&](int j) { y[j] = j == OFF + pos ? out : y[j]; });
+  }
+}
+
+// One frame: scf_idx[7] -> scf[n_bands], scf_e[n_bands] (int64), on a warp.
+//  1. the submode's de-index (a warp-uniform branch: a warp is one frame),
+//     position i on lane i;
+//  2. pvq_dec_en1_normQ14_fx: the energy a warp sum, lane k its pulse;
+//  3. the idct whole on every lane, lane k (mod 16) keeping output k, and the
+//     stage-1 vector and gain over it: q[k] on lane k;
+//  4. the interpolation: lane i (1-15) bands 4i-2 .. 4i+1 from q[i-1] and
+//     q[i], lane 0 bands 0-1, lane 15 also 62-63, into the warp's 64 band
+//     words c (shared memory on the card), then the n_bands < 64 folds, each
+//     lane reading its sources before any lane writes;
+//  5. InvLog2 on bands l and l + 32 on lane l, each output row written by the
+//     warp in one coalesced store.
+template <class W>
+ACX_HD void fx_sns_dec_warp(const W& w, const int32_t* idx, const int32_t* tab, int n_bands,
+                            int32_t* c, i64* scf, i64* scf_e) {
+  using IL = typename W::template Lanes<int>;
+  typename W::template Lanes<SnsMpvqColumn> col;
+  IL iv, y;
+  w.lanes([&](int j) {
+    iv[j] = j < 7 ? idx[j] : 0;
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      col[j].a[r] = tab[kSnsMpvq + r * kSnsMpvqCols + (j < kSnsMpvqCols ? j : kSnsMpvqCols - 1)];
+    y[j] = 0;
+  });
+  const int32_t idx0 = w.shfl(iv, 0), idx1 = w.shfl(iv, 1), submode = w.shfl(iv, 2),
+                gidx = w.shfl(iv, 3), ls = w.shfl(iv, 4), mpvq = w.shfl(iv, 5), idxB = w.shfl(iv, 6);
+  const int sm = imin(imax(submode, 0), 3);
   // the plain version's where-chain: submode 0, 1, 2, else 3 (unclipped)
-  if (submode == 0) {
-    mpvq_deindex<10, 10>(h10k10, ls, mpvq, h, y);
-    mpvq_deindex<6, 1>(h6k1, idxB & 1, idxB >> 1, h, y + 10);
-  } else if (submode == 1) {
-    mpvq_deindex<10, 10>(h10k10, ls, mpvq, h, y);
-#pragma unroll
-    for (int k = 10; k < 16; ++k) y[k] = 0;
+  if (submode == 0 || submode == 1) {
+    sns_deindex_warp<10, 10, 0, 2390004>(w, ls, mpvq, col, y);
+    if (submode == 0) sns_deindex_warp<6, 1, 10, 6>(w, idxB & 1, idxB >> 1, col, y);
   } else if (submode == 2) {
-    mpvq_deindex<16, 8>(h16k8, ls, mpvq, h, y);
+    sns_deindex_warp<16, 8, 0, 15158272>(w, ls, mpvq, col, y);
   } else {
-    mpvq_deindex<16, 6>(h16k6, ls, mpvq, h, y);
+    sns_deindex_warp<16, 6, 0, 774912>(w, ls, mpvq, col, y);
   }
-  // pvq_dec_en1_normQ14_fx with the submode's k_val_max
-  i64 L_yy = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) L_yy += y[k] * y[k];
-  i64 iq;
+  // the pulses' energy: at most 10^2 + 1^2 (a shape's pulses sum to at most
+  // its KVAL), so the isqrt's mantissa is the energy itself
+  typename W::template Lanes<unsigned> sq;
+  w.lanes([&](int j) { sq[j] = static_cast<unsigned>(y[j] * y[j]); });
+  const int32_t L_yy = static_cast<int32_t>(w.reduce_add(sq));
+  int32_t iq;
   if (L_yy < 64) {
-    iq = tab_at(tab, kSnsIsqQ16, 65, clamp64(L_yy, 0, 63));
+    iq = tab_w(tab, kSnsIsqQ16, 65, L_yy);
   } else {
-    i64 t2, e2;
-    isqrt16(tab, L_yy & 0xFFFF, 15, &t2, &e2);
-    iq = shl16(t2, e2 + 1);
+    int32_t t2, e2;
+    isqrt16w(tab, L_yy & 0xFFFF, 15, &t2, &e2);
+    iq = shl16w(t2, e2 + 1);
   }
-  const i64 shift_num = norm_s(sns_maxk(sm));
+  const int32_t shift_num = norm_sw(sns_maxk(sm));
+  IL en1;
+  w.lanes([&](int j) {
+    en1[j] = round_w(L_shlw(L_multw(iq, shl16w(y[j], shift_num)), 13 - shift_num));
+  });
+  int32_t v[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k)
-    y[k] = round_fx(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num));
-  idct16(y);
-  const i64 gval = tab_at(tab, kSnsGain0 + sns_gain_off(sm), sns_gain_len(sm), gidx);
-  i64 q[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const i64 base = k < 8 ? tab[kSnsLf + clamp64(idx0, 0, 31) * 8 + k]
-                           : tab[kSnsHf + clamp64(idx1, 0, 31) * 8 + (k - 8)];
-    q[k] = sat16(base + mult_r(gval, y[k]));
-  }
-  // processSnsInterpolateScf_fx into the 64 band words of the scratch
-  i64* c = scratch + 12;
-  c[0] = q[0];
-  c[1] = q[0];
-  i64 tmp2 = 0;
-#pragma unroll
-  for (int i = 1; i < 16; ++i) {
-    const i64 d = sat16(q[i] - q[i - 1]);
-    tmp2 = mult_r(d, 8192);
-    const i64 tmp = mult_r(d, 4096);
-    c[i * 4 - 2] = sat16(q[i - 1] + tmp);
-    c[i * 4 - 1] = sat16(c[i * 4 - 2] + tmp2);
-    c[i * 4] = sat16(c[i * 4 - 1] + tmp2);
-    c[i * 4 + 1] = sat16(c[i * 4] + tmp2);
-  }
-  c[62] = sat16(c[61] + tmp2);
-  c[63] = sat16(c[62] + tmp2);
+  for (int k = 0; k < 16; ++k) v[k] = w.shfl(en1, k);
+  const int32_t gval = tab[kSnsGain0 + sns_gain_off(sm) + imin(imax(gidx, 0), sns_gain_len(sm) - 1)];
+  const int32_t i0 = idx0 < 0 ? 0 : (idx0 > 31 ? 31 : idx0);
+  const int32_t i1 = idx1 < 0 ? 0 : (idx1 > 31 ? 31 : idx1);
+  IL q;
+  w.lanes([&](int j) {
+    const int k = j & 15;
+    const int32_t base = k < 8 ? tab[kSnsLf + i0 * 8 + k] : tab[kSnsHf + i1 * 8 + (k - 8)];
+    q[j] = sat16w(base + mult_rw(gval, idct16_pick(v, k)));
+  });
+  // processSnsInterpolateScf_fx into the band words
+  const IL qp = w.shfl_up(q, 1);
+  w.lanes([&](int j) {
+    if (j == 0) {
+      c[0] = q[j];
+      c[1] = q[j];
+    } else if (j < 16) {
+      const int32_t d = sat16w(q[j] - qp[j]);
+      const int32_t tmp2 = mult_rw(d, 8192);
+      const int32_t tmp = mult_rw(d, 4096);
+      const int32_t b0 = sat16w(qp[j] + tmp);
+      const int32_t b1 = sat16w(b0 + tmp2);
+      const int32_t b2 = sat16w(b1 + tmp2);
+      const int32_t b3 = sat16w(b2 + tmp2);
+      c[j * 4 - 2] = b0;
+      c[j * 4 - 1] = b1;
+      c[j * 4] = b2;
+      c[j * 4 + 1] = b3;
+      if (j == 15) {
+        c[62] = sat16w(b3 + tmp2);
+        c[63] = sat16w(c[62] + tmp2);
+      }
+    }
+  });
+  w.sync();
   if (n_bands < 32) {
-    // every read index (4i+3 < 4t, 4t+2i+1 < 2 n_bands) lies above every
-    // written one, so the in-place update reads the original values
+    // band l from the originals: 4 of them for l < t, 2 above
     const int t = 32 - n_bands;
-    for (int i = 0; i < t; ++i)
-      c[i] = sat16(mac_r(L_mult(c[4 * i], 8192), c[4 * i + 1], 8192) +
-                   mac_r(L_mult(c[4 * i + 2], 8192), c[4 * i + 3], 8192));
-    for (int i = 0; i < n_bands - t; ++i)
-      c[t + i] = mac_r(L_mult(c[4 * t + 2 * i], 16384), c[4 * t + 2 * i + 1], 16384);
+    IL nv;
+    w.lanes([&](int j) {
+      nv[j] = 0;
+      if (j < t) {
+        nv[j] = sat16w(mac_rw(L_multw(c[4 * j], 8192), c[4 * j + 1], 8192) +
+                       mac_rw(L_multw(c[4 * j + 2], 8192), c[4 * j + 3], 8192));
+      } else if (j < n_bands) {
+        const int i = j - t;
+        nv[j] = mac_rw(L_multw(c[4 * t + 2 * i], 16384), c[4 * t + 2 * i + 1], 16384);
+      }
+    });
+    w.sync();
+    w.lanes([&](int j) {
+      if (j < n_bands) c[j] = nv[j];
+    });
+    w.sync();
   } else if (n_bands < 64) {
+    // bands l and l + 32: pairs below t, the bands t above them after
     const int t = 64 - n_bands;
-    for (int i = 0; i < t; ++i) c[i] = mac_r(L_mult(c[2 * i], 16384), c[2 * i + 1], 16384);
-    for (int i = t; i < n_bands; ++i) c[i] = c[t + i];
+    IL lo, hi;
+    w.lanes([&](int j) {
+      const int o0 = j, o1 = j + 32;
+      lo[j] = o0 < t ? mac_rw(L_multw(c[2 * o0], 16384), c[2 * o0 + 1], 16384)
+                     : (o0 < n_bands ? c[t + o0] : 0);
+      hi[j] = o1 < t ? mac_rw(L_multw(c[2 * o1], 16384), c[2 * o1 + 1], 16384)
+                     : (o1 < n_bands ? c[t + o1] : 0);
+    });
+    w.sync();
+    w.lanes([&](int j) {
+      if (j < n_bands) c[j] = lo[j];
+      if (j + 32 < n_bands) c[j + 32] = hi[j];
+    });
+    w.sync();
   }
-  // BASOP_Util_InvLog2_16
-  for (int b = 0; b < n_bands; ++b) {
-    const i64 x = c[b];
-    const i64 t1 = (x & 2047) >> 5;
-    const i64 t2 = (x & 31) << 4;
-    scf[b * os] = mac_r(tab_at(tab, kSnsInvLog1, 64, t1), tab_at(tab, kSnsInvLog2, 64, t1), t2);
-    scf_e[b * os] = (x >> 11) + 1;
-  }
+  // BASOP_Util_InvLog2_16 of bands l and l + 32
+  w.lanes([&](int j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = j + 32 * h;
+      if (b < n_bands) {
+        const int32_t x = c[b];
+        const int32_t t1 = (x & 2047) >> 5;
+        const int32_t t2 = (x & 31) << 4;
+        scf[b] = mac_rw(tab[kSnsInvLog1 + t1], tab[kSnsInvLog2 + t1], t2);
+        scf_e[b] = (x >> 11) + 1;
+      }
+    }
+  });
 }
 
 }  // namespace fx

@@ -135,7 +135,7 @@ def library() -> ctypes.CDLL:
         "acx_sns_vq_dec": [P] * 3 + [I] + [P],
         "acx_sns_vq_enc": [P] * 4 + [I] + [P],
         "acx_tns_filter_analysis": [P] * 8 + [I] * 5 + [F] * 4 + [P],
-        "acx_pc_classify": [P] * 7 + [I] * 3 + [F] + [P],
+        "acx_pc_classify": [P] * 9 + [I] * 3 + [F] + [P],
         "acx_mdct": [P] * 7 + [I] * 4 + [P],
         "acx_mdct_compensated": [P] * 8 + [I] * 4 + [P],
         "acx_imdct": [P] * 7 + [I] * 3 + [P],
@@ -585,25 +585,34 @@ def tns_filter_analysis(cfg, x, bw_idx):
     return order, rc_idx, rc_q, numfilters, bits
 
 
-def pc_classify(cfg, bfi, spec_inv_idx, stab_fac, pitch_present, q_old_d, q_old_res):
-    """Launch `pc_classify` (csrc/pc_classify.cu); see
-    ops/pc.py:pc_classify_plain. Returns bfi' [B] int32."""
-    for name, t in (("bfi", bfi), ("spec_inv_idx", spec_inv_idx),
-                    ("pitch_present", pitch_present)):
-        _check(t, name, torch.int32, 1)
-    _check(stab_fac, "stab_fac", torch.float32, 1)
+PC_MAX_N = 400    # csrc/pc_classify.cuh:kPcMaxN
+
+
+def pc_classify(cfg, bfi, spec_inv_idx, pitch_present, q_old_d, q_old_res, scf_q, old_scf,
+                old_old_scf, prev_bfi, prev_prev_bfi):
+    """Launch `pc_classify` (csrc/pc_classify.cu): the stability factor and
+    the classifier in one launch; see ops/pc.py:pc_classify_plain. The five
+    per-stream vectors go to the kernel as they are (_stream_vecs): no cast
+    or copy. Returns (bfi' [B] int32, stab_fac [B] float32)."""
     _check(q_old_d, "q_old_d", torch.float32, 2)
-    _check(q_old_res, "q_old_res", torch.float32, 2)
     B, N = q_old_d.shape
-    if tuple(q_old_res.shape) != (B, N) or any(
-            t.shape[0] != B for t in (bfi, spec_inv_idx, stab_fac, pitch_present)):
-        raise ValueError(f"pc_classify: expected [{B}] vectors and [{B}, {N}] rows")
-    out = torch.empty_like(bfi)
+    _rows(q_old_res, "q_old_res", (B, N))
+    for name, t in (("scf_q", scf_q), ("old_scf", old_scf), ("old_old_scf", old_old_scf)):
+        _rows(t, name, (B, 16))
+    if N % 4 or not 6 <= N <= PC_MAX_N or q_old_d.data_ptr() % 16 or q_old_res.data_ptr() % 16:
+        raise ValueError(f"pc_classify: rows of 6..{PC_MAX_N} bins, a multiple of 4, "
+                         f"16-byte aligned; got {N}")
+    vecs, meta = _stream_vecs(B, dict(bfi=bfi, spec_inv_idx=spec_inv_idx,
+                                      pitch_present=pitch_present, prev_bfi=prev_bfi,
+                                      prev_prev_bfi=prev_prev_bfi), {})
+    dev = q_old_d.device
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    stab = torch.empty((B,), dtype=torch.float32, device=dev)
     _run("pc_classify", library().acx_pc_classify(
-        bfi.data_ptr(), spec_inv_idx.data_ptr(), stab_fac.data_ptr(), pitch_present.data_ptr(),
-        q_old_d.data_ptr(), q_old_res.data_ptr(), out.data_ptr(), B, N, cfg.frame_dms,
-        float(np.float32(1.0 / N)), _stream()))
-    return out
+        vecs, meta, q_old_d.data_ptr(), q_old_res.data_ptr(), scf_q.data_ptr(),
+        old_scf.data_ptr(), old_old_scf.data_ptr(), out.data_ptr(), stab.data_ptr(), B, N,
+        cfg.frame_dms, float(np.float32(1.0 / N)), _stream()))
+    return out, stab
 
 
 DCT4_MAX_N = 480    # csrc/dct4.cuh:kDctMaxN
@@ -1154,7 +1163,7 @@ def phecu_subst(cfg, Xr, Xi, f0est, num_plocs, nb_cur, e_oold, e_old, mag_chg_1s
 
 # ---- the bit-exact fixed-point decoder (fixed_decoder_dev.py) ----
 
-FX_SNS_TABLE_WORDS = 787       # csrc/fx_sns_dec.cuh:kFxSnsTableWords
+FX_SNS_TABLE_WORDS = 963       # csrc/fx_sns_dec.cuh:kFxSnsTableWords
 FX_DCT4_TABLE_WORDS = 1862     # csrc/fx_dct4.cuh:kFxDctTableWords
 FX_DCT4_N = 480                # csrc/fx_dct4.cuh:kDctN
 
@@ -1163,13 +1172,23 @@ def _i64_table(*names) -> np.ndarray:
     return np.concatenate([np.asarray(T.t(n)).ravel().astype(np.int64) for n in names])
 
 
+def fx_sns_mpvq_offsets() -> np.ndarray:
+    """The MPVQ offsets A(n, k), n = 1..16 (row n - 1), k = 0..10: the
+    de-index's offsets h at each position (csrc/fx_sns_dec.cuh:
+    sns_deindex_warp)."""
+    from .ops.fixed_dec import _pascal_A
+    return np.array([_pascal_A(n, 11)[:11] for n in range(1, 17)], np.int64)
+
+
 def fx_sns_table_pack() -> np.ndarray:
-    """The SNS decode's tables in the layout of csrc/fx_sns_dec.cuh."""
-    return _i64_table("fx_st1SCF0_7_base5_32x8_Q14", "fx_st1SCF8_15_base5_32x8_Q14",
-                      "fx_sns_vq_reg_adj_gains", "fx_sns_vq_reg_lf_adj_gains",
-                      "fx_sns_vq_near_adj_gains", "fx_sns_vq_far_adj_gains", "fx_isqrt_Q16tab",
-                      "fx_ISqrtTable", "fx_ISqrtDiffTable", "fx_InvLog2_16_table1",
-                      "fx_InvLog2_16_table2")
+    """The SNS decode's tables in the layout of csrc/fx_sns_dec.cuh (Word16
+    and Word32 values, int32 on the card)."""
+    return np.concatenate([
+        _i64_table("fx_st1SCF0_7_base5_32x8_Q14", "fx_st1SCF8_15_base5_32x8_Q14",
+                   "fx_sns_vq_reg_adj_gains", "fx_sns_vq_reg_lf_adj_gains",
+                   "fx_sns_vq_near_adj_gains", "fx_sns_vq_far_adj_gains", "fx_isqrt_Q16tab",
+                   "fx_ISqrtTable", "fx_ISqrtDiffTable", "fx_InvLog2_16_table1",
+                   "fx_InvLog2_16_table2"), fx_sns_mpvq_offsets().ravel()])
 
 
 def fx_spec_table_pack(yLen: int, fs_idx: int, frame_dms: int, hrmode: bool) -> np.ndarray:
@@ -1217,7 +1236,7 @@ def fx_sns_dec(scf_idx, n_bands: int):
     dev = scf_idx.device
     scf = torch.empty((L, n_bands), dtype=torch.int64, device=dev)
     scf_e = torch.empty_like(scf)
-    tab = nm.table(fx_sns_table_pack, device=dev, dtype=torch.int64)
+    tab = nm.table(fx_sns_table_pack, device=dev, dtype=torch.int32)
     _run("fx_sns_dec", library().acx_fx_sns_dec(scf_idx.data_ptr(), tab.data_ptr(),
                                                  scf.data_ptr(), scf_e.data_ptr(), L, n_bands,
                                                  _stream()))

@@ -70,15 +70,14 @@ def decode_synthesis(cfg: Config, st: DecState, side, dec, bfi_ext=None):
     bfi = torch.where(rf, 2, bfi).to(I32)
     spec_inv_idx = torch.where(rf, torch.maximum(side["lastnz"], bw_bin), spec_inv_idx)
 
-    good = bfi != 1
     x = dec["x"].to(F32)
     scf_q = sns.quantize_scf_dec(side["scf_idx"])
 
-    stab_fac = pc.compute_stab_fac(scf_q, st.plc_scf_q, st.plc_old_scf_q,
-                                   bfi, st.plc_prevBfi, st.plc_prevprevBfi)
-    bfi = torch.where(good, pc.pc_classify(cfg, bfi, spec_inv_idx, stab_fac,
-                                           side["ltpf_param"][:, 0],
-                                           st.plc_q_d_prev, st.pc_q_old_res), bfi)
+    # the stability factor and the classifier: one kernel on the card
+    # (csrc/pc_classify.cu), which leaves bfi as it is but where bfi is 2
+    bfi, stab_fac = pc.pc_classify(cfg, bfi, spec_inv_idx, side["ltpf_param"][:, 0],
+                                   st.plc_q_d_prev, st.pc_q_old_res, scf_q, st.plc_scf_q,
+                                   st.plc_old_scf_q, st.plc_prevBfi, st.plc_prevprevBfi)
     good = bfi != 1
     # partial concealment, residual, noise filling and global gain: one
     # kernel on the card (csrc/spec_decode.cu)

@@ -4,9 +4,9 @@ Counterpart of `audio_codec_tpu/ops/pc.py` (processPCmain_fx,
 processPCclassify_fx / peakDetector_fx, processPCapply_fx,
 processPCupdate_fx and the PLC stability factor). These run on every
 decoded frame; on clean frames they only carry the history forward. On the
-card the classifier with its peak detector is the CUDA kernel
-csrc/pc_classify.cu; `pc_classify_plain` is its plain version. pc_apply and
-pc_update run on the card inside the decoder's spectrum kernel
+card the stability factor and the classifier with its peak detector are one
+CUDA kernel, csrc/pc_classify.cu; `pc_classify_plain` is its plain version.
+pc_apply and pc_update run on the card inside the decoder's spectrum kernel
 (ops/quant.py:spectrum_decode, csrc/spec_decode.cu).
 """
 from __future__ import annotations
@@ -26,10 +26,20 @@ _THR1 = 8
 
 
 def compute_stab_fac(scf_q, old_scf, old_old_scf, bfi, prev_bfi, prev_prev_bfi):
-    """Scale-factor stability in [0,1] (processPLCcomputeStabFac_main)."""
+    """Scale-factor stability in [0,1] (processPLCcomputeStabFac_main).
+
+    For a tensor on the card it states the `pc_classify` kernel's order: the
+    16 squared differences one chain (`numerics.chain_sum`), divided by 25
+    with IEEE division (a tensor divisor: PyTorch's CUDA division by a
+    scalar multiplies by its reciprocal), the clamp and the three selects."""
     def stab(a, b, pbfi):
-        d = torch.sum((a - b) ** 2, dim=-1)
-        s = torch.clamp(1.25 - d / 25.0, 0.0, 1.0)
+        if nm.on_cpu(a):
+            d = torch.sum((a - b) ** 2, dim=-1)
+            s = torch.clamp(1.25 - d / 25.0, 0.0, 1.0)
+        else:
+            t = a - b
+            d = nm.chain_sum(t * t)
+            s = torch.clamp(1.25 - d / torch.full_like(d, 25.0), 0.0, 1.0)
         return torch.where(pbfi == 1, 0.8, s)
 
     s1 = stab(old_scf, old_old_scf, prev_prev_bfi)
@@ -101,12 +111,12 @@ def _peak_detector(sig):
     return xover.to(I32)
 
 
-def pc_classify_plain(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
-                      q_old_d, q_old_res):
-    """processPCclassify_fx: downgrade bfi 2 -> 1 when the corrupt region is
-    too low-frequency to conceal partially; the plain version of the
-    `pc_classify` kernel. For a tensor on the card the two energies are
-    chains (`numerics.chain_sum`)."""
+def classify_given_stab(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
+                        q_old_d, q_old_res):
+    """processPCclassify_fx with the stability factor given: downgrade bfi
+    2 -> 1 when the corrupt region is too low-frequency to conceal
+    partially. For a tensor on the card the two energies are chains
+    (`numerics.chain_sum`)."""
     N = cfg.yLen
     low_region = spec_inv_idx * 10 < 4 * cfg.frame_dms
     unstable = stab_fac < 0.5
@@ -123,17 +133,27 @@ def pc_classify_plain(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
     return torch.where((bfi == 2) & low_region & bad, 1, bfi).to(I32)
 
 
-def pc_classify(cfg: Config, bfi, spec_inv_idx, stab_fac, pitch_present,
-                q_old_d, q_old_res):
-    """The classifier: the CUDA kernel for a tensor on the card, its plain
-    version for a tensor on the CPU."""
+def pc_classify_plain(cfg: Config, bfi, spec_inv_idx, pitch_present, q_old_d, q_old_res,
+                      scf_q, old_scf, old_old_scf, prev_bfi, prev_prev_bfi):
+    """The stability factor (compute_stab_fac) and the classifier on it
+    (classify_given_stab): the plain version of the `pc_classify` kernel.
+    Returns (bfi' [B] int32, stab_fac [B] float32); bfi' is bfi but where a
+    bfi 2 frame is downgraded to 1."""
+    stab = compute_stab_fac(scf_q, old_scf, old_old_scf, bfi, prev_bfi, prev_prev_bfi)
+    return classify_given_stab(cfg, bfi, spec_inv_idx, stab, pitch_present, q_old_d,
+                               q_old_res), stab
+
+
+def pc_classify(cfg: Config, bfi, spec_inv_idx, pitch_present, q_old_d, q_old_res, scf_q,
+                old_scf, old_old_scf, prev_bfi, prev_prev_bfi):
+    """The stability factor and the classifier: one launch of the CUDA
+    kernel for a tensor on the card (the vectors as they are), the plain
+    version for a tensor on the CPU. Returns (bfi', stab_fac)."""
+    args = (cfg, bfi, spec_inv_idx, pitch_present, q_old_d, q_old_res, scf_q, old_scf,
+            old_old_scf, prev_bfi, prev_prev_bfi)
     if nm.on_cpu(q_old_d):
-        return pc_classify_plain(cfg, bfi, spec_inv_idx, stab_fac, pitch_present,
-                                 q_old_d, q_old_res)
-    return kernels.pc_classify(
-        cfg, *(t.to(I32).contiguous() for t in (bfi, spec_inv_idx)),
-        stab_fac.to(F32).contiguous(), pitch_present.to(I32).contiguous(),
-        q_old_d.contiguous(), q_old_res.contiguous())
+        return pc_classify_plain(*args)
+    return kernels.pc_classify(*args)
 
 
 def pc_apply(cfg: Config, bfi, x, q_old_res, q_old_d, spec_inv_idx, gg_idx,

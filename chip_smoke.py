@@ -30,7 +30,10 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                all infinite), the TNS filter
                analysis on silent, all-zero and order-8 spectra at 64 and 32
                kbps (where the LPC weighting decides), the concealment
-               classifier on rows that take each of its branches, the MDCT
+               classifier with the stability factor on rows that take each
+               branch of both and of the peak detector (both outputs), and
+               with every stream of a launch on the detector's path and on
+               the energy path (their graph ms), the MDCT
                (in both orders) and IMDCT (also one stream a launch) on
                full-scale, silent and alternating rows, rows of negative
                zeros, subnormal-scale rows and rows near 1e37 at N = 480 and
@@ -85,7 +88,8 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                rows), and of the encode and decode blocks, as real-time
                stream equivalents;
   6. stream    StreamEncoder -> channel -> StreamDecoder at EP1-4 over the
-               same material, the counters reset before and read after (every
+               block's first STREAM_FRAMES frames, the counters reset before
+               and read after (every
                kernel must launch); each frame's streams take clean, corrected
                symbol errors, a destroyed partial-concealment codeword and
                heavy corruption in turn, frame 3 is lost and frame 4 a
@@ -121,7 +125,9 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                fx_spec_decode's one-filter, two-filter and filter-1-only
                frames required (on the block or the synthetic rows); the
                synthetic rows of tests/torch_kernel_cases.py (every submode,
-               out-of-range MPVQ indices, silent, full-scale and order-8
+               out-of-range MPVQ indices, a seeded sample of each shape's
+               indices and every index's clamps at every band count of the
+               configurations, silent, full-scale and order-8
                spectra, all-zero, full-scale and alternating DCT rows, the
                post-filter plan through passthrough, pat2, pat3, pat4, pat1
                at 48 and 8 kHz with its edge streams: passes with d =
@@ -246,6 +252,10 @@ FIXED_SILENT = 64          # streams of silence in phase 8's block: zero frames
 PLC0_KERNELS = ("plc_main",)
 PC_ROWS = ("ari_decode_pc", "ari_decode_pc_enc_sim")
 STREAM_MODES = (1, 2, 3, 4)
+# frames of the stream path: the block's first 6 (frame 3 lost, frame 4 a
+# redundancy frame, every channel kind on every stream by frame 3); 8 until
+# the run approached its time limit
+STREAM_FRAMES = 6
 TNS_BINS = 400     # the highest bandwidth cutoff: the TNS analysis reads no bin above it
 
 
@@ -503,11 +513,14 @@ def work_ops(name: str, args) -> float:
         bins = cut[bw_idx.long()].to(torch.float64)
         return float((2 * 9 * bins + 400 * torch.where(bw_idx >= 3, 2, 1)).sum())
     if name == "pc_classify":
-        _, bfi, inv, stab, pitch, q_d, _ = args
+        # the stability factor's 16 differences, squares and adds where it
+        # reads its rows; the detector's chain and candidate tests, or the
+        # two energy chains, where the frame is past the early return
+        bfi, inv, pitch, q_d = args[1], args[2], args[3], args[4]
         N = q_d.shape[1]
-        active = (bfi == 2) & (inv * 10 < 400) & (stab >= 0.5)
+        rows, active = pc_row_streams(args)
         per = torch.where(pitch == 1, 2 * N + 12 * (N - 5), 4 * N)
-        return float(torch.where(active, per, 0).sum())
+        return float(torch.where(active, per, 0).sum()) + 48.0 * float(rows.sum())
     if name == "side_info_pack":
         cfg, num_tns, ltpf, scf_idx = args[0], args[5], args[7], args[8]
         return 8 * float(side_bits(cfg, num_tns, scf_idx[:, 2], ltpf[:, 0]).sum())
@@ -588,12 +601,14 @@ def kernel_bytes(name: str, args, outs) -> int:
         hist_rows = int((bfi == 1).sum()) + 2 * int((bfi == 2).sum())
         return nbytes(x, *vecs, *outs) + 4 * res_words + 4 * N * hist_rows
     if name == "pc_classify":
-        # the four [B] vectors, and one [N] row of each stream whose frame is
-        # partially corrupt in the low region and stable (the peak detector
-        # reads q_old_d, the energy path q_old_res)
-        _, bfi, inv, stab, _, q_d, _ = args
-        rows = int(((bfi == 2) & (inv * 10 < 400) & (stab >= 0.5)).sum())
-        return nbytes(*ins[:4], *outs) + 4 * q_d.shape[1] * rows
+        # the five [B] vectors (4 bytes a stream each, the pitch flag a
+        # strided column) and the two outputs; two [16] scale-factor rows of
+        # each stream whose stability factor reads them; one [N] row of each
+        # stream past the early return (the peak detector reads q_old_d, the
+        # energy path q_old_res)
+        B, N = args[4].shape
+        rows, active = pc_row_streams(args)
+        return 4 * 5 * B + nbytes(*outs) + 2 * 64 * int(rows.sum()) + 4 * N * int(active.sum())
     if name == "ltpf_decode":
         from audio_codec_torch.ops import ltpf_dec as L, numerics
         cfg, dev = args[0], args[1].device
@@ -691,10 +706,37 @@ def tns_on_off(out):
 
 
 def pc_branch_counts(args, out) -> dict[str, int]:
-    """Streams of a pc_classify launch in each of the classifier's branches."""
+    """Streams of a pc_classify launch in each branch of the stability
+    factor, the classifier and the peak detector (out: bfi', stab_fac)."""
     from tests import torch_kernel_cases as C
-    a = {k: v.cpu().numpy() for k, v in zip(C.PC_ORDER, args[1:])}
-    return C.pc_branches(a, out.cpu().numpy(), args[0].frame_dms)
+    a = {k: v.cpu().numpy() for k, v in zip(C.PC_FUSED_ORDER, args[1:])}
+    return C.pc_fused_branches(a, *(t.cpu().numpy() for t in out), args[0].frame_dms)
+
+
+def pc_row_streams(args):
+    """Of a pc_classify launch's streams: those whose stability factor reads
+    its two scale-factor rows (bfi 1 after a good frame, bfi 2; not where the
+    previous frame's flag makes it 0.8), and those past the early return
+    (bfi 2 in the low region, stable), which read one [N] row."""
+    from audio_codec_torch.ops import pc
+    cfg, bfi, inv, _, _, _, scf, old, old_old, prev, prev2 = args
+    rows = ((bfi == 1) & (prev != 1) & (prev2 != 1)) | ((bfi == 2) & (prev != 1))
+    stab = pc.compute_stab_fac(scf, old, old_old, bfi, prev, prev2)
+    active = (bfi == 2) & (inv * 10 < 4 * cfg.frame_dms) & ~(stab < 0.5)
+    return rows, active
+
+
+def pc_all_path_args(args, pitch: int):
+    """A pc_classify launch's arguments with every stream past the early
+    return on one path: bfi 2 after a good frame, the frame's scale factors
+    the last good ones (stability 1), spec_inv_idx 20 (the low region), the
+    pitch flag `pitch` (1: the peak detector on q_old_d, 0: the two energy
+    chains on q_old_res)."""
+    import torch
+    cfg, bfi, inv, _, q_d, q_res, scf, old, old_old, prev, prev2 = args
+    full = lambda v: torch.full_like(bfi, v)
+    return (cfg, full(2), full(20), full(pitch), q_d, q_res, old.clone(), old, old_old, full(0),
+            full(0))
 
 
 def tns_lattice_cases(dev, K, rec):
@@ -781,7 +823,7 @@ def coder_cases(dev, K, rec):
                       f"{streams} streams to the lane-0 path")
 
 
-def slice4_cases(cfg, dev, K, rec):
+def slice4_cases(cfg, dev, K, rec, card):
     """The TNS filter analysis on all-zero, half-silent, order-8 and AR(1)
     spectra, at the flagship and at 32 kbps (max_pg 2.0, where the LPC
     weighting decides); the concealment classifier on rows built from the
@@ -809,14 +851,27 @@ def slice4_cases(cfg, dev, K, rec):
         check(bool((got[0] == 8).any(dim=0).all()), f"{name}: no order 8 in a filter")
         if name == "48k_32kbps":
             check(weighted > 0, "no prediction gain where the weighting decides")
+    # the classifier with the stability factor: rows that take each branch of
+    # both and of the detector (bfi', stab_fac against the plain version),
+    # then every stream of the recorded launch on the detector's path and on
+    # the energy path (each launch's graph ms)
     args = rec["pc_classify"][-1][0]
-    a = C.pc_rows(*(t[:16].cpu().numpy() for t in args[5:7]), seed=3)
-    pargs = (cfg, *(g(a[k]) for k in C.PC_ORDER))
+    a = C.pc_fused_rows(*(t[:16].cpu().numpy() for t in args[4:6]), seed=3)
+    pargs = (cfg, *(g(a[k]) for k in C.PC_FUSED_ORDER))
     got = K.pc_classify(*pargs)
     same_bits(got, pc.pc_classify_plain(*pargs), "pc_classify (synthetic rows)")
     branches = pc_branch_counts(pargs, got)
-    print(f"[kernels] pc_classify synthetic rows ({got.shape[0]} streams): {branches}", flush=True)
+    print(f"[kernels] pc_classify synthetic rows ({got[0].shape[0]} streams): {branches}",
+          flush=True)
     check(all(v > 0 for v in branches.values()), f"a pc_classify branch was not taken: {branches}")
+    for pitch, what in ((1, "the detector"), (0, "the energy path")):
+        pargs = pc_all_path_args(args, pitch)
+        got = K.pc_classify(*pargs)
+        same_bits(got, pc.pc_classify_plain(*pargs), f"pc_classify (every stream on {what})")
+        gms = graph_ms(lambda: K.pc_classify(*pargs))
+        print(f"[times] {card} | pc_classify, all {got[0].shape[0]} streams on {what}: "
+              f"{gms:.5f} ms replayed from a CUDA graph; downgraded {int((got[0] == 1).sum())}",
+              flush=True)
     for fs, bitrate in ((48000, 64000), (16000, 32000)):
         c = P.Config(fs_in=fs, bitrate=bitrate)
         x, mem = C.transform_rows(c.frame_length, c.la_zeroes, seed=4, extreme=True)
@@ -1101,7 +1156,7 @@ def pitch_and_spectrum_cases(cfg, dev, K):
 
 # the decoder's stages in the order decode_block calls them
 DECODER_STAGES = (("bits", "parse_side_info"), ("ari", "decode"), ("sns", "quantize_scf_dec"),
-                  ("pc", "compute_stab_fac"), ("pc", "pc_classify"), ("quant", "global_gain"),
+                  ("pc", "pc_classify"), ("quant", "global_gain"),
                   ("quant", "spectrum_decode"), ("tns", "tns_decode"), ("sns", "interpolate_scf"),
                   ("sns", "mdct_shaping"), ("plc", "plc_main_update"), ("transforms", "imdct"),
                   ("plc", "plc_update"), ("ltpf_dec", "ltpf_decode"))
@@ -2066,6 +2121,14 @@ def fixed_synthetic(cfg, dev, K) -> dict:
     idx = g(C.fx_sns_rows())
     fixed_equal(K, "fx_sns_dec", (idx, cfg.bands_number))
     hist["fx_sns_dec"] = fixed_branches("fx_sns_dec", (idx,), None, cfg.fs_idx)
+    # a seeded sample of every shape's indices with the first and last, and
+    # the out-of-range indices and clamps, at every band count of the
+    # configurations (the card path runs 64)
+    idx = g(np.concatenate([C.fx_sns_edge_rows(), C.fx_sns_sample_rows()]))
+    for nb in C.FX_SNS_BANDS:
+        fixed_equal(K, "fx_sns_dec", (idx, nb))
+    hist["fx_sns_dec sample and edge rows"] = fixed_branches("fx_sns_dec", (idx,), None,
+                                                             cfg.fs_idx)
     d = C.fx_spec_rows(cfg)
     scf, scf_e = fv.sns_decode_plain(g(d["scf_idx"]), cfg.bands_number)
     args = (cfg, *(g(d[k]) for k in C.FX_SPEC_ORDER), scf, scf_e)
@@ -2171,7 +2234,9 @@ def fixed_phase(dev, frames, K, card) -> list:
     check(all(lags[k] > 0 for k in ("48 kHz d >= 32", "48 kHz d <= 0", "8 kHz d < 32",
                                     "8 kHz d <= 0")),
           f"a post-filter pass lag was not reached: {lags}")
-    check(all(v > 0 for v in syn["fx_sns_dec"].values()) and syn["fx_dct4"]["all-zero rows"] > 0,
+    check(all(v > 0 for v in syn["fx_sns_dec"].values())
+          and all(v > 0 for v in syn["fx_sns_dec sample and edge rows"].values())
+          and syn["fx_dct4"]["all-zero rows"] > 0,
           "a synthetic SNS submode, out-of-range index or all-zero DCT row is missing")
 
     # the card against the reference: the stored PCM, bit for bit
@@ -2659,7 +2724,7 @@ def main() -> int:
         check(all(branch_hist[name][k] > 0 for k in keys),
               f"{name}: a branch the material reaches was not taken: {branch_hist[name]}")
     synthetic_cases(cfg, dev, K, side, sns)
-    slice4_cases(cfg, dev, K, rec)
+    slice4_cases(cfg, dev, K, rec, card)
     pitch_and_spectrum_cases(cfg, dev, K)
     tns_lattice_cases(dev, K, rec)
     coder_cases(dev, K, rec)
@@ -2808,7 +2873,7 @@ def main() -> int:
 
     phase_took(5)
     # ---- 6. the stream path ----
-    rows += stream_phase(dev, pcm, K, plain, card)
+    rows += stream_phase(dev, pcm[:STREAM_FRAMES], K, plain, card)
 
     phase_took(6)
     # ---- 7. the concealment path ----

@@ -615,26 +615,28 @@ def test_tns_filter_analysis_batches(dev, name, B):
 
 
 def test_pc_classify_matches_plain_on_the_main_path(recorded):
+    """Both outputs, the flags and the stability factor, of every launch."""
     launches = recorded["pc_classify"]
     assert len(launches) == 8
     for args, _ in launches:
-        same_tensors([K.pc_classify(*args)], [pc.pc_classify_plain(*args)])
+        same_tensors(K.pc_classify(*args), pc.pc_classify_plain(*args))
 
 
 def pc_case_args(recorded, dev):
-    """Synthetic classifier rows built from the recorded q_old_d and
-    q_old_res of the last frame's launch (tests/torch_kernel_cases.py)."""
+    """Synthetic rows of the classifier with the stability factor, built
+    from the recorded q_old_d and q_old_res of the last frame's launch
+    (tests/torch_kernel_cases.py:pc_fused_rows)."""
     args = recorded["pc_classify"][-1][0]
-    base = [a[:16].cpu().numpy() for a in args[5:7]]
-    a = C.pc_rows(*base, seed=3)
-    return a, (CFG, *(torch.from_numpy(a[k]).to(dev) for k in C.PC_ORDER))
+    base = [a[:16].cpu().numpy() for a in args[4:6]]
+    a = C.pc_fused_rows(*base, seed=3)
+    return a, (CFG, *(torch.from_numpy(a[k]).to(dev) for k in C.PC_FUSED_ORDER))
 
 
 def test_pc_classify_every_branch(recorded, dev):
     a, args = pc_case_args(recorded, dev)
     got = K.pc_classify(*args)
-    same_tensors([got], [pc.pc_classify_plain(*args)])
-    branches = C.pc_branches(a, got.cpu().numpy())
+    same_tensors(got, pc.pc_classify_plain(*args))
+    branches = C.pc_fused_branches(a, *(t.cpu().numpy() for t in got))
     assert all(v > 0 for v in branches.values()), branches
 
 
@@ -644,10 +646,10 @@ def test_pc_classify_does_not_synchronise(recorded, dev):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = pc.pc_classify(*args)
+        out, stab = pc.pc_classify(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert out.shape == args[1].shape
+    assert out.shape == args[1].shape and stab.shape == args[1].shape
 
 
 @pytest.mark.parametrize("name", ["mdct", "imdct"])
@@ -1328,6 +1330,18 @@ def test_fx_dct4_edge_rows(dev, rows):
     idx = np.arange(rows) % len(y)
     g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     fixed_same("fx_dct4", (g(y[idx]), g(e[idx]), 480))
+
+
+@pytest.mark.parametrize("rows", [1, 33, 16384])
+def test_fx_sns_dec_sample_and_edge_rows(dev, rows):
+    """The SNS decode on fx_sns_sample_rows (a seeded sample of every
+    shape's indices with the first and last) and fx_sns_edge_rows
+    (out-of-range indices, every clamp) at every band count of the
+    configurations, 1, 33 and 16 384 frames a launch."""
+    idx = np.concatenate([C.fx_sns_edge_rows(), C.fx_sns_sample_rows()])
+    pick = torch.from_numpy(np.ascontiguousarray(idx[np.arange(rows) % len(idx)])).to(dev)
+    for nb in C.FX_SNS_BANDS:
+        fixed_same("fx_sns_dec", (pick, nb))
 
 
 def test_fixed_kernels_synthetic_rows(dev):

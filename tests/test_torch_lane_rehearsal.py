@@ -474,15 +474,35 @@ using namespace acx;
 
 extern "C" {
 """ + TNS_REHEARSE + r"""
-void rehearse_pc(const int* bfi, const int* inv, const float* stab, const int* pitch,
-                 const float* qd, const float* qres, int* out, int B, int N, int frame_dms,
-                 float inv_n) {
-  for (int b = 0; b < B; ++b)
-    out[b] = pc_classify_lane(bfi[b], inv[b], stab[b], pitch[b], qd + N * b, qres + N * b, N,
-                              frame_dms, inv_n);
+void rehearse_pc(const int* bfi, const int* inv, const int* pitch, const float* qd,
+                 const float* qres, const float* scf, const float* old, const float* old_old,
+                 const int* prev, const int* prev2, int B, int N, int frame_dms, float inv_n,
+                 int* out, float* stab) {
+  static float stage[kPcGroup * kPcStride];
+  PcArgs p{};
+  const int* v[kPcVecs] = {bfi, inv, pitch, prev, prev2};
+  for (int k = 0; k < kPcVecs; ++k) p.vec[k] = {v[k], 1, kVecInt32};
+  p.q_old_d = qd;
+  p.q_old_res = qres;
+  p.scf_q = scf;
+  p.old_scf = old;
+  p.old_old_scf = old_old;
+  p.B = B;
+  p.N = N;
+  p.frame_dms = frame_dms;
+  p.inv_n = inv_n;
+  p.bfi_out = out;
+  p.stab_out = stab;
+  for (int b0 = 0; b0 < B; b0 += 32) pc_classify_warp(CoderHostWarp{}, p, b0, stage);
 }
+// the warp's peak detector on rows of sig, the mean energy its chain
 void rehearse_peak(const float* sig, int* out, int B, int N, float inv_n) {
-  for (int b = 0; b < B; ++b) out[b] = pc_peak_detector(sig + N * b, N, inv_n);
+  for (int b = 0; b < B; ++b) {
+    float sum = 0.0f;
+    for (int i = 0; i < N; ++i) sum = radd(sum, rmul(sig[N * b + i], sig[N * b + i]));
+    const float mean_nrg = rmul(rmul(sum, inv_n), static_cast<float>(kPcBlock * kPcThr1));
+    out[b] = pc_detect_warp(CoderHostWarp{}, sig + N * b, N, mean_nrg);
+  }
 }
 void rehearse_mdct(const float* x, const float* mem, const float* win, const float* Mt,
                    float* d, float* new_mem, int B, int N, int la) {
@@ -558,10 +578,10 @@ int tns_table_words() { return kTnsTableWords; }
 
 # mutations of the lane functions that the rehearsal must catch
 MUTATIONS = {
-    "locmax_strict": ("pc_classify.cuh", "ak1 >= ak && ak1 >= ak2", "ak1 > ak && ak1 >= ak2"),
+    "locmax_strict": ("pc_classify.cuh", "b1 >= b0 && b1 >= b2 && cent", "b1 > b0 && b1 >= b2 && cent"),
     "levinson_fma": ("tns_analysis.cuh", "radd(rmul(-g, a[t - j]), a[j - 1])",
                      "fmaf(-g, a[t - j], a[j - 1])"),
-    "hysteresis_factor": ("pc_classify.cuh", "rmul(0.3f, max_peak)", "rmul(0.25f, max_peak)"),
+    "hysteresis_factor": ("pc_classify.cuh", "rmul(0.3f, pm)", "rmul(0.25f, pm)"),
 }
 
 
@@ -731,24 +751,33 @@ def test_levinson_and_poly2rc_lanes_match_plain(lib4, card_order):
 
 def pc_case_rows():
     d, r = C.pc_base_rows(8, seed=5)
-    return C.pc_rows(d, r, seed=5)
+    return C.pc_fused_rows(d, r, seed=5)
 
 
-def lane_pc(lib, cfg, a: dict) -> np.ndarray:
+def lane_pc(lib, cfg, a: dict) -> tuple[np.ndarray, np.ndarray]:
+    """The classifier's warp function with the stability factor on the host
+    warp: (bfi', stab_fac)."""
     B, N = a["q_old_d"].shape
-    out = np.zeros(B, np.int32)
-    lib.rehearse_pc(*(ptr(a[k]) for k in C.PC_ORDER), ptr(out), B, N, cfg.frame_dms,
-                    f32p(1.0 / N))
-    return out
+    out, stab = np.zeros(B, np.int32), np.zeros(B, np.float32)
+    lib.rehearse_pc(*(ptr(a[k]) for k in C.PC_FUSED_ORDER), B, N, cfg.frame_dms,
+                    f32p(1.0 / N), ptr(out), ptr(stab))
+    return out, stab
+
+
+def plain_pc(cfg, a: dict) -> list[np.ndarray]:
+    from audio_codec_torch.ops import pc
+    return [t.numpy() for t in pc.pc_classify_plain(
+        cfg, *(torch.from_numpy(a[k]) for k in C.PC_FUSED_ORDER))]
 
 
 def test_pc_classify_lane_matches_plain(lib4, card_order):
     from audio_codec_torch.ops import pc
     a = pc_case_rows()
-    ref = pc.pc_classify_plain(C_CFG48, *(torch.from_numpy(a[k]) for k in C.PC_ORDER)).numpy()
-    got = lane_pc(lib4, C_CFG48, a)
-    same_bits(got, ref)
-    branches = C.pc_branches(a, ref)
+    ref_bfi, ref_stab = plain_pc(C_CFG48, a)
+    got_bfi, got_stab = lane_pc(lib4, C_CFG48, a)
+    same_bits(got_bfi, ref_bfi)
+    same_bits(got_stab, ref_stab)
+    branches = C.pc_branches({**a, "stab_fac": ref_stab}, ref_bfi)
     assert all(v > 0 for v in branches.values()), branches
     sig = a["q_old_d"]
     xo = np.zeros(sig.shape[0], np.int32)
@@ -1008,8 +1037,7 @@ def test_rehearsal_catches_mutated_lanes(tmp_path, card_order, mutation):
                   for g, e in zip(lane_levinson(lib, r), plain_levinson(r)))
     else:
         a = pc_case_rows()
-        ref = pc.pc_classify_plain(C_CFG48, *(torch.from_numpy(a[k]) for k in C.PC_ORDER))
-        bad = C.count_differing(lane_pc(lib, C_CFG48, a), ref.numpy())
+        bad = C.count_differing(list(lane_pc(lib, C_CFG48, a)), plain_pc(C_CFG48, a))
     assert bad > 0, f"the rehearsal did not see the mutation {mutation}"
 
 
@@ -1815,11 +1843,12 @@ WRAPPER_FX = r"""
 using namespace acx::fx;
 
 extern "C" {
-void rehearse_fx_sns_dec(const int32_t* idx, const i64* tab, int n_bands, int L, i64* scf,
+void rehearse_fx_sns_dec(const int32_t* idx, const int32_t* tab, int n_bands, int L, i64* scf,
                          i64* scf_e) {
-  i64 scratch[kSnsScratch];
+  int32_t bands[64];
   for (int l = 0; l < L; ++l)
-    fx_sns_dec_lane(idx + 7 * l, tab, n_bands, scratch, scf + l * n_bands, scf_e + l * n_bands, 1);
+    fx_sns_dec_warp(acx::CoderHostWarp{}, idx + 7 * l, tab, n_bands, bands, scf + l * n_bands,
+                    scf_e + l * n_bands);
 }
 // geom: yLen N n_bands frame_dms gg_off R; frames in groups of kFxSpecFrames,
 // the lattices of a group at once on the host's coder-warp
@@ -1872,8 +1901,8 @@ int fx_dct4_table_words() { return kFxDctTableWords; }
 MUTATIONS_FX = {
     # fx_sns_dec: the normalised pulses truncated, not rounded
     "sns_en1_rounding": ("fx_sns_dec.cuh",
-                         "y[k] = round_fx(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num));",
-                         "y[k] = sat16(L_shl(L_mult(iq, shl16(y[k], shift_num)), 13 - shift_num) >> 16);"),
+                         "en1[j] = round_w(L_shlw(L_multw(iq, shl16w(y[j], shift_num)), 13 - shift_num));",
+                         "en1[j] = L_shlw(L_multw(iq, shl16w(y[j], shift_num)), 13 - shift_num) >> 16;"),
     # fx_spec_decode: a lattice tap without its saturation (a 32-bit wrap)
     "spec_lattice_saturation": ("fx_spec_decode.cuh",
                                 "const int32_t sub = sub_sat32(x, mpy32_16(s, rc));",
@@ -1923,8 +1952,8 @@ def lane_fx_sns(lib, idx: np.ndarray, n_bands: int = 64):
     idx = _c(idx, np.int32)
     L = idx.shape[0]
     scf, scf_e = np.zeros((L, n_bands), np.int64), np.zeros((L, n_bands), np.int64)
-    lib.rehearse_fx_sns_dec(ptr(idx), ptr(K.fx_sns_table_pack()), n_bands, L, ptr(scf),
-                            ptr(scf_e))
+    lib.rehearse_fx_sns_dec(ptr(idx), ptr(_c(K.fx_sns_table_pack(), np.int32)), n_bands, L,
+                            ptr(scf), ptr(scf_e))
     return scf, scf_e
 
 

@@ -98,8 +98,9 @@ def _sns_and_side_info_calls():
         "tns_filter_analysis": (K.tns_filter_analysis, tns.tns_filter_analysis,
                                 (cfg, torch.zeros((2, cfg.frame_length)), i32(2) + 4)),
         "pc_classify": (K.pc_classify, pc.pc_classify,
-                        (cfg, i32(2) + 2, i32(2) + 5, torch.ones(2), i32(2) + 1,
-                         torch.zeros((2, cfg.yLen)), torch.zeros((2, cfg.yLen)))),
+                        (cfg, i32(2) + 2, i32(2) + 5, i32(2) + 1, torch.zeros((2, cfg.yLen)),
+                         torch.zeros((2, cfg.yLen)), torch.ones((2, 16)), torch.ones((2, 16)),
+                         torch.ones((2, 16)), i32(2), i32(2))),
         "mdct": (K.mdct, transforms.mdct, (cfg, torch.zeros((2, cfg.frame_length)),
                                            torch.zeros((2, cfg.frame_length - cfg.la_zeroes)))),
         "imdct": (K.imdct, transforms.imdct, (cfg, torch.zeros((2, cfg.frame_length)),

@@ -62,7 +62,7 @@ def test_partial_concealment(seed):
     eq(PP._peak_detector(t(d["q_d"])), J(JP._peak_detector)(d["q_d"]))
     cargs = (d["bfi"], d["inv"], stab, d["pitch"], d["q_d"], d["q_res"])
     bfi = np.asarray(J(JP.pc_classify, JCFG)(*cargs))
-    eq(PP.pc_classify(PCFG, *map(t, cargs)), bfi)
+    eq(PP.classify_given_stab(PCFG, *map(t, cargs)), bfi)
     aargs = (bfi, d["x"], d["q_res"], d["q_d"], d["inv"], d["gg"], d["prev_gg"], d["nb_lost"])
     ref = J(JP.pc_apply, JCFG)(*aargs)
     got = PP.pc_apply(PCFG, *map(t, aargs))
@@ -107,8 +107,67 @@ def test_peak_detector_and_classifier_every_branch(seed):
     for lo in range(0, a["bfi"].shape[0], 8):
         args = [a[k][lo: lo + 8] for k in C.PC_ORDER]
         ref = J(JP.pc_classify, JCFG)(*args)
-        got = PP.pc_classify(PCFG, *map(t, args))
+        got = PP.classify_given_stab(PCFG, *map(t, args))
         eq(got, ref)
         outs.append(n(got))
     branches = C.pc_branches(a, np.concatenate(outs))
     assert all(v > 0 for v in branches.values()), branches
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_stability_and_classifier_match_jax(seed):
+    """ops/pc.py:pc_classify (the stability factor and the classifier in one
+    call, as the decoder makes it) against the reference's compute_stab_fac
+    followed by pc_classify, on rows that take every branch of both
+    (tests/torch_kernel_cases.py:pc_fused_rows): equal flags; the factors
+    within this file's float tolerance, as compute_stab_fac's above (the CPU
+    branch sums the 16 squares with torch.sum, whose order differs from
+    XLA's in the last place on about a tenth of the streams)."""
+    d, r = C.pc_base_rows(4, seed=seed)
+    a = C.pc_fused_rows(d, r, seed=seed)
+    stab = np.asarray(J(JP.compute_stab_fac)(*(a[k] for k in (
+        "scf_q", "old_scf", "old_old_scf", "bfi", "prev_bfi", "prev_prev_bfi"))))
+    bfi = np.asarray(J(JP.pc_classify, JCFG)(*(a[k] if k != "stab_fac" else stab for k in (
+        "bfi", "spec_inv_idx", "stab_fac", "pitch_present", "q_old_d", "q_old_res"))))
+    got_bfi, got_stab = PP.pc_classify(PCFG, *(t(a[k]) for k in C.PC_FUSED_ORDER))
+    eq(got_bfi, bfi)
+    close(got_stab, stab)
+    branches = C.pc_fused_branches(a, bfi, stab)
+    assert all(v > 0 for v in branches.values()), branches
+
+
+def test_decode_synthesis_without_the_classifier_where_is_unchanged(monkeypatch):
+    """The decoder once wrapped the classifier in torch.where(bfi != 1, ...,
+    bfi); the classifier returns bfi wherever it is not 2, so the where
+    changed nothing. Four frames of 8 streams, with lost, partially corrupt
+    and redundancy frames, decode to the same PCM, flags and state with the
+    where put back."""
+    import torch
+    import audio_codec_torch as P
+    from audio_codec_torch.models import decoder as D
+    B, T = 8, 4
+    rng = np.random.default_rng(3)
+    pcm = (rng.standard_normal((T, B, PCFG.frame_length)) * 3000.0).astype(np.float32)
+    _, frames = P.encode_block(PCFG, P.enc_state_init(PCFG, B, device="cpu"),
+                               torch.from_numpy(pcm))
+    bfi_ext = np.array([[0] * 8, [2, 1, 0, 3, 2, 2, 0, 1], [2, 2, 1, 0, 3, 2, 2, 0],
+                        [0, 2, 2, 1, 2, 3, 0, 2]], np.int32)
+
+    def run():
+        st, outs = P.dec_state_init(PCFG, B, device="cpu"), []
+        for f in range(T):
+            st, y, aux = D.decode_frame(PCFG, st, frames[f], torch.from_numpy(bfi_ext[f]))
+            outs.append((y, aux["bfi"], aux["spec"]))
+        return outs, st
+
+    ref, st_ref = run()
+    fused = PP.pc_classify
+
+    def with_where(cfg, bfi, *args):
+        out, stab = fused(cfg, bfi, *args)
+        return torch.where(bfi != 1, out, bfi), stab
+    monkeypatch.setattr(PP, "pc_classify", with_where)
+    got, st_got = run()
+    assert C.count_differing(got, ref) == 0
+    assert C.count_differing(list(vars(st_got).values()), list(vars(st_ref).values())) == 0
+    assert (np.concatenate([n(o[1]) for o in ref]) == 2).any()

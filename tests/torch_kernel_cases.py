@@ -599,6 +599,140 @@ def pc_branches(args: dict, out: np.ndarray, frame_dms: int = 100) -> dict[str, 
             "kept": int((active & (out == 2)).sum())}
 
 
+# the arguments of the fused pc_classify after cfg (kernels.pc_classify,
+# ops/pc.py:pc_classify_plain)
+PC_FUSED_ORDER = ("bfi", "spec_inv_idx", "pitch_present", "q_old_d", "q_old_res", "scf_q",
+                  "old_scf", "old_old_scf", "prev_bfi", "prev_prev_bfi")
+
+
+def _scf_pair(rng, n: int, d: np.ndarray, col: int) -> tuple[np.ndarray, np.ndarray]:
+    """[n, 16] scale-factor rows a and b = a less sqrt(d) in column col, so
+    that their squared distance is about d."""
+    a = (rng.standard_normal((n, 16)) * 2.0).astype(np.float32)
+    b = a.copy()
+    b[:, col] -= np.sqrt(d).astype(np.float32)
+    return a, b
+
+
+def pc_fused_rows(q_old_d: np.ndarray, q_old_res: np.ndarray, seed: int = 0) -> dict[str, np.ndarray]:
+    """Inputs of the fused pc_classify (the stability factor and the
+    classifier) that take every branch of both: pc_rows's streams with each
+    stab_fac made by scale-factor rows at the distance that gives about it
+    (a bfi 2 frame's against the last good one, 1 - d / 25 clamped); streams
+    for the stability factor's own branches: bfi 1 after a good frame with
+    prev-prev 1 (0.8) and otherwise, bfi 1 after a lost frame (1), bfi 2
+    after bfi 1 (0.8, stable), and distances that clamp it to 0 and to 1;
+    detector rows with no candidate and with a first-block hit that a later
+    peak does not move, and energy rows at the 0.3 edge.
+    Returns the arguments after cfg, PC_FUSED_ORDER's keys."""
+    a = pc_rows(q_old_d, q_old_res, seed)
+    rng = np.random.default_rng(seed + 100)
+    target = a.pop("stab_fac").astype(np.float64)
+    n = len(target)
+    extra = [  # (bfi, prev, prev-prev, squared distance), 8 streams each
+        (1, 0, 1, 3.0), (1, 0, 0, 3.0), (1, 0, 0, 11.0), (1, 0, 0, 40.0), (1, 1, 0, 40.0),
+        (1, 2, 1, 3.0), (2, 1, 0, 40.0), (2, 2, 1, 0.0), (2, 0, 0, 0.0), (2, 0, 0, 2.0),
+        (2, 0, 0, 31.25), (2, 0, 0, 50.0), (2, 0, 1, 50.0), (0, 1, 1, 50.0), (0, 0, 0, 50.0)]
+    reps = 8
+    d = np.concatenate([25.0 * (1.25 - target), np.repeat([e[3] for e in extra], reps)])
+    bfi = np.concatenate([a["bfi"], np.repeat([e[0] for e in extra], reps)]).astype(np.int32)
+    prev = np.concatenate([np.zeros(n), np.repeat([e[1] for e in extra], reps)]).astype(np.int32)
+    prev2 = np.concatenate([np.zeros(n), np.repeat([e[2] for e in extra], reps)]).astype(np.int32)
+    m = len(extra) * reps
+    rows = np.concatenate([np.arange(n), rng.integers(0, n, m)])
+    inv = np.concatenate([a["spec_inv_idx"], rng.choice([5, 16, 30, 200], m)]).astype(np.int32)
+    pitch = np.concatenate([a["pitch_present"], np.arange(m) % 2]).astype(np.int32)
+    # streams on the detector's path whose rows hold no candidate: flat
+    # (every block energy an eighth of the threshold) and silent;
+    q_d, q_res = a["q_old_d"][rows], a["q_old_res"][rows]
+    flat = np.concatenate([np.full((4, q_d.shape[1]), 100.0), np.zeros((4, q_d.shape[1]))])
+    # streams on the energy path whose low region holds just under 0.3 of
+    # the energy (bins 0..19 at 1, bin 20 at 2, 45 bins above at 1); and
+    # detector rows with a first-block hit and a later peak above the mean
+    # threshold but below 0.3 of the first block's energy (the crossover
+    # stays at 1)
+    edge = np.zeros((8, q_d.shape[1]))
+    edge[:, :20], edge[:, 20], edge[:, 21:66] = 1.0, 2.0, 1.0
+    late = np.zeros((8, q_d.shape[1]))
+    late[:, :5] = [3000.0, 1000.0, 10.0, 8.0, 6.0]
+    _peak(late[0], 60, 2e6)
+    late[1:] = late[0]
+    q_d = np.concatenate([q_d, flat, flat, late]).astype(np.float32)
+    q_res = np.concatenate([q_res, q_res[:8], edge, q_res[:8]]).astype(np.float32)
+    d, bfi = np.concatenate([d, np.zeros(24)]), np.concatenate([bfi, np.full(24, 2, np.int32)])
+    prev = np.concatenate([prev, np.zeros(24, np.int32)])
+    prev2 = np.concatenate([prev2, np.zeros(24, np.int32)])
+    inv = np.concatenate([inv, np.full(16, 20), np.tile([9, 16, 26, 39], 2)]).astype(np.int32)
+    pitch = np.concatenate([pitch, np.ones(8, np.int32), np.zeros(8, np.int32),
+                            np.ones(8, np.int32)])
+    N = len(d)
+    old, old_old = _scf_pair(rng, N, d, 3)
+    scf = old - (old_old - old)      # the frame as far from the last good one
+    return dict(bfi=bfi, spec_inv_idx=inv, pitch_present=pitch,
+                q_old_d=np.ascontiguousarray(q_d), q_old_res=np.ascontiguousarray(q_res),
+                scf_q=np.ascontiguousarray(scf, np.float32), old_scf=old, old_old_scf=old_old,
+                prev_bfi=prev, prev_prev_bfi=prev2)
+
+
+def pc_detector_events(sig: np.ndarray) -> dict[str, np.ndarray]:
+    """Per row of sig [n, N] (float32), which of the peak detector's
+    outcomes it reaches, in the plain version's card order: the first block
+    hit, a candidate that moves the crossover by the hysteresis (above 0.3 of
+    the maximum, below it), and no candidate at all (nor a first-block hit)."""
+    sig = np.asarray(sig, np.float32)
+    n, N = sig.shape
+    if n == 0:
+        return {k: np.zeros(0, bool) for k in ("first-block hit", "hysteresis move", "no candidate")}
+    a, sq = np.abs(sig), sig * sig
+    acc = np.zeros(n, np.float32)
+    for k in range(N):
+        acc = (acc + sq[:, k]).astype(np.float32)
+    mean = (acc * np.float32(1.0 / N) * np.float32(24.0)).astype(np.float32)
+    edge = sq[:, 0] + sq[:, 1]
+    hit0 = (a[:, 0] >= a[:, 1]) & (edge > mean) & (np.maximum(a[:, 0], a[:, 1]) > a[:, 2:5].max(1))
+    peak = np.where(hit0, edge, np.float32(0.0)).astype(np.float32)
+    hyst = np.zeros(n, bool)
+    anyc = np.zeros(n, bool)
+    for k in range(N - 5):
+        cent = (sq[:, k] + sq[:, k + 1]) + sq[:, k + 2]
+        cur = a[:, k: k + 3].max(1)
+        # the bins k-3..k-1; for k < 3 those above bin 0 (from 0)
+        prv = a[:, k - 3: k].max(1) if k >= 3 else (a[:, 1] if k == 2 else np.zeros(n, np.float32))
+        nxt = a[:, k + 3: k + 6].max(1)
+        c = (a[:, k + 1] >= a[:, k]) & (a[:, k + 1] >= a[:, k + 2]) & (cent > mean) & \
+            (cur >= prv) & (cur > nxt)
+        full = c & (cent >= peak)
+        hyst |= c & ~full & (cent > np.float32(0.3) * peak)
+        anyc |= c
+        peak = np.where(full, cent, peak)
+    return {"first-block hit": hit0, "hysteresis move": hyst, "no candidate": ~anyc & ~hit0}
+
+
+def pc_fused_branches(args: dict, bfi_out: np.ndarray, stab: np.ndarray,
+                      frame_dms: int = 100) -> dict[str, int]:
+    """Streams of the fused pc_classify's inputs args (numpy, PC_FUSED_ORDER's
+    keys) with outputs bfi_out and stab in each branch of the stability
+    factor and of the classifier (pc_branches's), and of the peak detector
+    where a stream reaches it."""
+    bfi, prev, prev2 = args["bfi"], args["prev_bfi"], args["prev_prev_bfi"]
+    counts = pc_branches({**args, "stab_fac": stab}, bfi_out, frame_dms)
+    after_good = (bfi == 1) & (prev != 1)
+    counts.update({
+        "clean": int((bfi == 0).sum()),
+        "bfi 1 after a good frame, prev-prev 1": int((after_good & (prev2 == 1)).sum()),
+        "bfi 1 after a good frame, otherwise": int((after_good & (prev2 != 1)).sum()),
+        "bfi 1 after a lost frame": int(((bfi == 1) & (prev == 1)).sum()),
+        "bfi 2 after bfi 1": int(((bfi == 2) & (prev == 1)).sum()),
+        "stability 0": int(((bfi != 0) & (stab == 0.0)).sum()),
+        "stability between": int(((stab > 0.0) & (stab < 1.0)).sum()),
+        "stability 1": int(((bfi == 2) & (stab == 1.0)).sum())})
+    active = (bfi == 2) & (args["spec_inv_idx"] * 10 < 4 * frame_dms) & ~(stab < 0.5) & \
+        (args["pitch_present"] == 1)
+    ev = pc_detector_events(args["q_old_d"][active])
+    counts.update({f"detector {k}": int(v.sum()) for k, v in ev.items()})
+    return counts
+
+
 def transform_rows(N: int, la: int, seed: int = 0,
                    extreme: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """[n, N] frames and [n, N - la] memories for the MDCT and IMDCT:
@@ -2021,6 +2155,95 @@ def fx_sns_rows(n_per: int = 24, seed: int = 0) -> np.ndarray:
     g[:, 6] = 2 * MPVQ_6K1 + np.array([0, 1])
     rows.append(g)
     return np.concatenate(rows).astype(np.int32)
+
+
+# the bands of every configuration's SNS interpolation (Config.bands_number
+# over the rates and frame sizes)
+FX_SNS_BANDS = (20, 35, 39, 40, 43, 44, 50, 52, 54, 55, 64)
+# (DIM, KVAL, size) of the de-index shapes: submodes 0-1's 10-pulse set,
+# submode 0's 6-position set (1 pulse), submode 2's and submode 3's
+FX_SNS_SHAPES = ((10, 10, MPVQ_SPLIT), (6, 1, MPVQ_6K1), (16, 8, MPVQ_NEAR), (16, 6, MPVQ_FAR))
+
+
+def fx_sns_sample_rows(n_per: int = 200, seed: int = 0) -> np.ndarray:
+    """[4 n_per + 12, 7] int32 SNS indices: of each submode a seeded sample of
+    its main set's MPVQ indices over the whole range with the first and last
+    among them, both leading signs; and submode 0's 6-position set whole
+    (each of its 12 values of scf_idx[6])."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for s in range(4):
+        g = scf_idx_grid(s, n_per, seed + 11)
+        size = SUBMODES[s][1]
+        g[:, 5] = rng.integers(0, size, n_per)
+        g[:4, 5] = [0, size - 1, 1, size - 2]
+        g[:, 4] = rng.integers(0, 2, n_per)
+        rows.append(g)
+    g = scf_idx_grid(0, 2 * MPVQ_6K1, seed + 12)
+    g[:, 6] = np.arange(2 * MPVQ_6K1)
+    rows.append(g)
+    return np.concatenate(rows).astype(np.int32)
+
+
+def fx_sns_edge_rows(seed: int = 0) -> np.ndarray:
+    """SNS indices past their ranges: MPVQ indices at and past each set's
+    size and negative (the `ber` lanes and the de-index of a negative
+    index), submode 0's 6-position index at and past its set, leading signs
+    other than 0 and 1; and the clamps: codebook indices below 0 and above
+    31, gain indices below 0 and past each submode's table, submodes -1 and
+    4 (the plain version de-indexes them as submode 3's shape with submode 0's
+    or 3's gains and largest k)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for s in range(4):
+        size = SUBMODES[s][1]
+        g = scf_idx_grid(s, 6, seed + 21)
+        g[:, 5] = [size, size + 1, size + 123457, -1, -2, -(1 << 30)]
+        g[:, 4] = [0, 1, 2, -1, 0, 1]
+        rows.append(g)
+    g = scf_idx_grid(0, 4, seed + 22)
+    g[:, 6] = [2 * MPVQ_6K1, 2 * MPVQ_6K1 + 1, 4 * MPVQ_6K1 + 3, -3]
+    rows.append(g)
+    for s in (-1, 0, 1, 2, 3, 4):
+        g = scf_idx_grid(min(max(s, 0), 3), 6, seed + 23)
+        g[:, 2] = s
+        g[:, 0] = [-5, 40, 0, 31, 7, -1]
+        g[:, 1] = [33, -2, 31, 0, 100, 5]
+        g[:, 3] = [-1, 9, 2, 3, 7, 100]
+        g[:, 5] = rng.integers(0, MPVQ_FAR, 6)
+        rows.append(g)
+    return np.concatenate(rows).astype(np.int32)
+
+
+def fx_sns_deindex_offsets(dim: int, kval: int, ls: int, index: int) -> list[list[int]]:
+    """The offsets h[0..k_max] of mpvq_deindex_fx's recurrence at each
+    position it counts at, for one index (the plain version's a_bwd update,
+    ops/fixed_dev.py:_mpvq_deindex_batch, on one lane in Python integers)."""
+    from audio_codec_torch.ops.fixed_dev import mpvq_offsets
+    h = list(mpvq_offsets(dim, kval))
+    size = 1 + h[kval + 1] + (h[kval] >> 1)
+    ind = 0 if (dim != 1 and index >= size) else index
+    k_max, seen = kval, []
+    for _ in range(dim):
+        if ind == 0:
+            break
+        seen.append(h[: k_max + 1])
+        cnt = sum(1 for k in range(kval + 2) if k <= k_max and h[k] <= ind)
+        k_acc = min(max(cnt - 1, 0), kval)
+        ind2 = ind - h[k_acc]
+        if k_max - k_acc != 0:
+            ind, k_max = ind2 >> 1, k_acc
+        else:
+            ind = ind2
+        a0 = 0
+        for i in range(1, kval + 2):
+            if i <= k_max + 1:
+                a1 = h[i] - a0 - h[i - 1]
+                h[i - 1] = a0
+                a0 = a1
+        if k_max + 1 < kval + 2:
+            h[k_max + 1] = a0
+    return seen
 
 
 def fx_spec_rows(cfg, seed: int = 0, n: int = 48) -> dict[str, np.ndarray]:

@@ -43,7 +43,7 @@ DECODER_STAGES = {
     "bits": ["parse_side_info"],
     "ari": ["decode"],
     "sns": ["quantize_scf_dec", "interpolate_scf", "mdct_shaping"],
-    "pc": ["compute_stab_fac", "pc_classify"],
+    "pc": ["pc_classify"],
     "quant": ["global_gain", "spectrum_decode"],
     "tns": ["tns_decode"],
     "plc": ["plc_main_update"],

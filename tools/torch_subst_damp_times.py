@@ -285,20 +285,31 @@ def branches(name: str, args) -> dict:
             "clean": int((~(lost | is_pc)).sum())}
 
 
-def measure(root: Path, B: int) -> dict:
-    """The times of the checkout at root, in this process."""
-    r = record(root, B)
+def _this():
+    return sys.modules[__name__]
+
+
+def measure(root: Path, B: int, sl=None) -> dict:
+    """The times of the checkout at root, in this process. sl: the module of
+    the slice's tables and hooks (CASES, MAIN, KERNEL, WARPS or block, OUT,
+    PHASES_FIRST, VARIANTS, CLOCKS, CLOCK_PHASES; record, raw_call,
+    differing, branches, clock_warps; SCALING and measure where they
+    differ), this one by default; the other slices' tools pass theirs to
+    each mode function below."""
+    sl = sl or _this()
+    r = sl.record(root, B)
     from audio_codec_torch import kernels as K
     out = {"root": str(root), "card": card(), "streams": B}
-    for name, cases in CASES.items():
+    for name, cases in sl.CASES.items():
         for case in cases:
             args = r[name][case]
             fn = getattr(K, name)
             got = fn(*args)
-            run, _ = raw_call(name, K.library(), args, root / "audio_codec_torch" / "csrc")
+            run, _ = sl.raw_call(name, K.library(), args, root / "audio_codec_torch" / "csrc")
             raw = min(graph_ms(run) for _ in range(3))
-            out[f"{name} {case}"] = {"differ": differing(name, got, args), **branches(name, args),
-                                     **times(lambda: fn(*args)), "raw_graph_ms": raw}
+            out[f"{name} {case}"] = {"differ": sl.differing(name, got, args),
+                                     **sl.branches(name, args), **times(lambda: fn(*args)),
+                                     "raw_graph_ms": raw}
     return out
 
 
@@ -393,42 +404,49 @@ def _raw_kept(name: str, lib, args):
                        fout.data_ptr(), iout.data_ptr(), B, N, cfg.frame_dms, _stream())), (got, args)
 
 
-def resident(name: str, csrc: Path, tag: str) -> str:
+def resident(name: str, csrc: Path, tag: str, sl=None) -> str:
     """The streams of `name` resident on the card at once, from a build of
     csrc with the occupancy query appended (static shared memory only)."""
-    per_block = WARPS[name]
-    query = (f'extern "C" int acx_threads() {{ return 32 * {per_block}; }}\n'
+    sl = sl or _this()
+    if hasattr(sl, "block"):   # (threads, streams) a block, as C expressions
+        threads, per_block = sl.block(name, csrc)
+    else:                      # a warp a stream
+        per_block = sl.WARPS[name]
+        threads = f"32 * {per_block}"
+    query = (f'extern "C" int acx_threads() {{ return {threads}; }}\n'
              f'extern "C" int acx_per_block() {{ return {per_block}; }}\n')
-    lib, _ = build(OUT / f"resident_{tag}_{name}", csrc, MAIN[name],
-                   append=OCCUPANCY.replace("KERNEL", KERNEL[name]) + query)
+    lib, _ = build(sl.OUT / f"resident_{tag}_{name}", csrc, sl.MAIN[name],
+                   append=OCCUPANCY.replace("KERNEL", sl.KERNEL[name]) + query)
     lib.acx_resident.argtypes = [I_, I_, I_]
     threads_n, per = lib.acx_threads(), lib.acx_per_block()
     n = lib.acx_resident(0, threads_n, per)
     return f"{n} streams resident (blocks of {threads_n} threads, {per} streams a block)"
 
 
-def usage(csrc: Path, tag: str) -> None:
+def usage(csrc: Path, tag: str, sl=None) -> None:
     """ptxas's registers, stack frame, spills and shared memory and the
     streams resident, for the two kernels of csrc."""
-    names = tuple(CASES)
+    sl = sl or _this()
+    names = tuple(sl.CASES)
     with ThreadPoolExecutor(max_workers=4) as ex:
-        ptx = list(ex.map(lambda n: build(OUT / f"usage_{tag}_{n}", csrc, MAIN[n])[1], names))
-        res = list(ex.map(lambda n: resident(n, csrc, tag), names))
+        ptx = list(ex.map(lambda n: build(sl.OUT / f"usage_{tag}_{n}", csrc, sl.MAIN[n])[1], names))
+        res = list(ex.map(lambda n: resident(n, csrc, tag, sl), names))
     for name, p, s in zip(names, ptx, res):
         print(f"[{name} usage] {card()} | {tag}: {p}", flush=True)
         print(f"[{name} usage] {card()} | {tag}: {s}", flush=True)
 
 
-def builds(root: Path, jobs, B: int) -> None:
+def builds(root: Path, jobs, B: int, sl=None) -> None:
     """Each job (tag, kernel name, label, csrc, substitutions) built and timed
     on every recorded case against the plain version, two rounds."""
     import torch
-    r = record(root, B)
+    sl = sl or _this()
+    r = sl.record(root, B)
 
     def one(job):
         tag, name, label, csrc, subs = job
         try:
-            return tag, name, label, build(OUT / tag, csrc, MAIN[name], subs)[0]
+            return tag, name, label, build(sl.OUT / tag, csrc, sl.MAIN[name], subs)[0]
         except SystemExit as e:   # a variant that does not build is reported, not timed
             print(f"[{name} builds] {card()} | {label}: not built: {e}", flush=True)
             return None
@@ -437,63 +455,72 @@ def builds(root: Path, jobs, B: int) -> None:
     csrc_of = {job[0]: job[3] for job in jobs}
     for rnd in range(2):
         for tag, name, label, lib in libs:
-            for case in CASES[name]:
-                run, (outs, args) = raw_call(name, lib, r[name][case], csrc_of[tag])
+            for case in sl.CASES[name]:
+                run, (outs, args) = sl.raw_call(name, lib, r[name][case], csrc_of[tag])
                 rc = run()
                 torch.cuda.synchronize()
-                bad = differing(name, outs, args)
+                bad = sl.differing(name, outs, args)
                 ms = min(graph_ms(run) for _ in range(3))
                 print(f"[{name} builds] {card()} | round {rnd}, {case}, {label}: rc {rc}, {bad} "
                       f"values differ from the plain version, raw graph {ms:.5f} ms", flush=True)
 
 
-def phases(other: Path, B: int) -> None:
+def phases(other: Path, B: int, sl=None) -> None:
+    sl = sl or _this()
     other = other.resolve()
     csrc = other / "audio_codec_torch" / "csrc"
-    usage(csrc, "other")
+    usage(csrc, "other", sl)
     jobs = [(f"first_{name}_{i}", name, label, csrc, subs)
-            for name, cuts in PHASES_FIRST.items()
+            for name, cuts in sl.PHASES_FIRST.items()
             for i, (label, subs) in enumerate(cuts.items())]
-    builds(other, jobs, B)
+    builds(other, jobs, B, sl)
 
 
-def variants(B: int) -> None:
-    usage(CSRC, "this")
+def variants(B: int, sl=None) -> None:
+    sl = sl or _this()
+    usage(CSRC, "this", sl)
     jobs = [(f"kept_{name}_{i}", name, label, CSRC, subs)
-            for name, cuts in VARIANTS.items() for i, (label, subs) in enumerate(cuts.items())]
-    builds(ROOT, jobs, B)
+            for name, cuts in sl.VARIANTS.items() for i, (label, subs) in enumerate(cuts.items())]
+    builds(ROOT, jobs, B, sl)
 
 
-def scaling(root: Path, B: int) -> None:
-    r = record(root, B)
+def scaling(root: Path, B: int, sl=None) -> None:
+    sl = sl or _this()
+    r = sl.record(root, B)
     from audio_codec_torch import kernels as K
-    for name, cases in CASES.items():
+    for name, cases in sl.CASES.items():
         for case in cases:
             args = r[name][case]
-            for n in (4, 32, 512, 2048):
+            for n in getattr(sl, "SCALING", (4, 32, 512, 2048)):
                 a = tuple(tile(x, n) for x in args)
                 ms = min(graph_ms(lambda: getattr(K, name)(*a)) for _ in range(3))
                 print(f"[scaling] {card()} | {name} {case} ({root.name}): {n} streams: graph "
                       f"{ms:.5f} ms", flush=True)
 
 
-def clocks(B: int) -> None:
+def clock_warps(name: str, args) -> int:
+    """The warps a launch runs: a stream a warp, blocks of 4."""
+    return -(-args[1].shape[0] // 4) * 4
+
+
+def clocks(B: int, sl=None) -> None:
     """Median and 90th-percentile cycles of each stage, over the warps that
     ran it to its end."""
     import numpy as np
     import torch
-    r = record(ROOT, B)
-    for name, subs in CLOCKS.items():
-        lib, _ = build(OUT / f"clocks_{name}", CSRC, MAIN[name], subs, append=CLOCK_READ)
+    sl = sl or _this()
+    r = sl.record(ROOT, B)
+    for name, subs in sl.CLOCKS.items():
+        lib, _ = build(sl.OUT / f"clocks_{name}", CSRC, sl.MAIN[name], subs, append=CLOCK_READ)
         lib.acx_clk_read.argtypes = [P_, I_]
         lib.acx_clk_zero.argtypes = [I_]
-        last = CLOCK_PHASES[name][-1][1]
-        for case in CASES[name]:
+        last = sl.CLOCK_PHASES[name][-1][1]
+        for case in sl.CASES[name]:
             args = r[name][case]
-            run, _ = raw_call(name, lib, args, CSRC)
+            run, _ = sl.raw_call(name, lib, args, CSRC)
             run()
             torch.cuda.synchronize()
-            warps = -(-args[1].shape[0] // 4) * 4
+            warps = sl.clock_warps(name, args)
             n = warps * 32
             lib.acx_clk_zero(n)
             run()
@@ -503,7 +530,7 @@ def clocks(B: int) -> None:
             rows = clk.reshape(warps, 32)
             rows = rows[rows[:, last] > 0]
             parts = []
-            for a_, b_, label in CLOCK_PHASES[name]:
+            for a_, b_, label in sl.CLOCK_PHASES[name]:
                 both = rows[(rows[:, a_] > 0) & (rows[:, b_] > 0)]
                 d = (both[:, b_] - both[:, a_]).astype(np.float64)
                 if len(d):
@@ -513,8 +540,9 @@ def clocks(B: int) -> None:
                   f"(90th percentile): " + "; ".join(parts), flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(sl=None) -> int:
+    sl = sl or _this()
+    ap = argparse.ArgumentParser(description=sl.__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=2048)
     ap.add_argument("--other", type=Path, default=None)
     ap.add_argument("--phases", type=Path, default=None)
@@ -525,23 +553,23 @@ def main() -> int:
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        raise SystemExit("torch_subst_damp_times: no CUDA device")
+        raise SystemExit(f"{Path(sl.__file__).stem}: no CUDA device")
     if opt.phases or opt.variants or opt.scaling or opt.clocks:
         if opt.phases:
-            phases(opt.phases, opt.streams)
+            phases(opt.phases, opt.streams, sl)
         if opt.variants:
-            variants(opt.streams)
+            variants(opt.streams, sl)
         if opt.scaling:
-            scaling((opt.root or ROOT).resolve(), opt.streams)
+            scaling((opt.root or ROOT).resolve(), opt.streams, sl)
         if opt.clocks:
-            clocks(opt.streams)
+            clocks(opt.streams, sl)
         return 0
     if opt.root is not None or opt.other is None:
-        print(json.dumps(measure((opt.root or ROOT).resolve(), opt.streams)), flush=True)
+        print(json.dumps(sl.measure((opt.root or ROOT).resolve(), opt.streams)), flush=True)
         return 0
     rc = 0
     for root in (opt.other, ROOT, ROOT, opt.other):
-        r = subprocess.run([sys.executable, __file__, "--streams", str(opt.streams), "--root",
+        r = subprocess.run([sys.executable, sl.__file__, "--streams", str(opt.streams), "--root",
                             str(root.resolve())])
         rc = rc or r.returncode
     return rc
