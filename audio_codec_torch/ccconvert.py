@@ -135,12 +135,11 @@ def _b_left(h: bio.StreamHeader, slot: int, mode: int, db: int, n_pc: int,
             rows: np.ndarray, dev) -> np.ndarray:
     """The convergence byte of each transmitted core frame [n, db] of one
     slot and mode, as the decoder finds it (processAriDecoder mode 2)."""
-    from .ops import ari, bits
+    from .ops import ari
     scfg = _slot_cfg(h, slot, mode)
     assert scfg.targetBytes == db and scfg.n_pc == n_pc
     buf = torch.as_tensor(rows.astype(np.int32), device=dev)
-    side = bits.parse_side_info(scfg, buf)
-    return ari.decode(scfg, buf, side)["b_left"].cpu().numpy()
+    return ari.parse_and_decode(scfg, buf)[1]["b_left"].cpu().numpy()
 
 
 def _unpack_slots(h: bio.StreamHeader, raw: np.ndarray, slot: int, dev):

@@ -6,6 +6,13 @@
 // bit-error checks (ari.py:579-651), the residual bits (:657-692), the LSB
 // refinement (:694-728), nf_seed and zero_frame (:743-751).
 //
+// The side information comes one of two ways, a template parameter of the
+// warp, one per launch: read (side [9, L], fields a caller made) or parsed
+// (processDecoderEntropy_fl, audio_codec_tpu/ops/bits.py:parse_side_info
+// :123, first: each lane runs side_info_parse_bits on its frame's row that
+// the warp staged, and writes the side dict's 21 words a frame beside the
+// decoder's rows).
+//
 // A frame is decoded by one thread, a template on the partial-concealment
 // mode, chosen once per launch: kPcNone
 // (no PC block, n_pc == 0), kPcDecode (the frame carries a relocated PC
@@ -42,6 +49,8 @@
 #pragma once
 
 #include "acodec.cuh"
+#include "plc.cuh"
+#include "side_info.cuh"
 #include "warp.cuh"
 
 namespace acx {
@@ -274,23 +283,26 @@ ACX_HD DecRows<XT> dec_rows_at(const DecRows<XT>& r, int q) {
 ACX_HD int dec_lev_words(int N) { return (N / 2 + 31) / 32; }
 ACX_HD int dec_res_words(int max_res) { return (max_res + 31) / 32; }
 
-// One frame. side: lastnz, lsb_mode, num_tns, tns_on0, tns_on1, bp_side,
-// mask_side, gg_idx, fac_ns_idx; bfi_in, be_l, be_r: the channel's bfi and
-// corrupt bit range (kPcDecode). Writes the frame's rows r and
-// out[j * out_stride].
+// The side fields a frame's decode reads, and the cursor of its side bits.
+struct DecSide {
+  int lastnz, lsb_mode, num_tns, tns_on[2], bp_side, mask_side, gg_idx, fac_ns_idx;
+};
+
+// One frame. bfi_in, be_l, be_r: the channel's bfi and corrupt bit range
+// (kPcDecode). Writes the frame's rows r and out[j * out_stride].
 template <int kPc, typename XT>
-ACX_HD void ari_decode_frame(const uint8_t* buf, int nbytes, const int32_t* side,
+ACX_HD void ari_decode_frame(const uint8_t* buf, int nbytes, const DecSide& side,
                              const DecTables& tb, const DecGeom& g, int bfi_in, int be_l,
                              int be_r, const DecRows<XT>& r, int32_t* out, int out_stride) {
   const int N = g.N, S = r.stride;
-  const int lastnz = side[0], lsb_mode = side[1], num_tns = side[2];
+  const int lastnz = side.lastnz, lsb_mode = side.lsb_mode, num_tns = side.num_tns;
   Dec d;
   d.buf = buf;
   d.nbytes = nbytes;
   d.range = MASK24;
   d.ber = 0;
-  d.bp_side = side[5];
-  d.mask_side = side[6];
+  d.bp_side = side.bp_side;
+  d.mask_side = side.mask_side;
   d.pcb = g.pc_bytes;
   d.b_left = 0;
   d.b_right = -1;
@@ -328,7 +340,7 @@ ACX_HD void ari_decode_frame(const uint8_t* buf, int nbytes, const int32_t* side
 
   // TNS (its rows have no inverse table)
   for (int f = 0; f < 2; ++f) {
-    if (!(f < num_tns && side[3 + f] > 0 && bfi == 0)) continue;
+    if (!(f < num_tns && side.tns_on[f] > 0 && bfi == 0)) continue;
     const int order = dec_symbol<kPc, 8, false>(d, tb.order_cf + g.lpcw * 9, nullptr, 0,
                                                  &stop) + 1;
     if (stop) bfi = 1;
@@ -527,7 +539,8 @@ ACX_HD void ari_decode_frame(const uint8_t* buf, int nbytes, const int32_t* side
   if (nf_seed >= 32768) nf_seed -= 65536;
   const int x0 = x_len > 0 ? static_cast<int>(r.x[0]) : 0;
   const int x1 = x_len > 0 ? static_cast<int>(r.x[S]) : 0;
-  int zero_frame = (lastnz == 2 && x0 == 0 && x1 == 0 && side[7] == 0 && side[8] == 7) ? 1 : 0;
+  int zero_frame =
+      (lastnz == 2 && x0 == 0 && x1 == 0 && side.gg_idx == 0 && side.fac_ns_idx == 7) ? 1 : 0;
   if (bfi == 0 && d.ber > 0) bfi = 1;
   if constexpr (kPc == kPcDecode) {
     if (bfi == 2 || res_dead) {
@@ -550,9 +563,14 @@ ACX_HD void ari_decode_frame(const uint8_t* buf, int nbytes, const int32_t* side
 }
 
 // The device arrays of a launch over L frames: frames [L, nbytes] (a byte a
-// word), side [9, L], pc_in [3, L] (bfi_in, be_l, be_r; null without a PC
-// block) in; x [L, N], tns_order [L, 2], tns_idx [L, 16], res [L, max_res],
-// out [7, L] out.
+// word) in; x [L, N], tns_order [L, 2], tns_idx [L, 16], res [L, max_res],
+// out [7, L] out. Read mode: side [9, L] (DecSide's fields in order) and
+// pc_in [3, L] (bfi_in, be_l, be_r; null without a PC block) in. Parsed
+// mode: side_out, the side dict's 21 words a frame (kSideScalars [9, L]
+// field-major, then tns_on [L, 2], scf_idx [L, 7], ltpf_param [L, 3]) out;
+// the PC inputs as the caller holds them (flags: bfi_in, be_l, be_r, each a
+// vector of L values at its stride, or null for its default 0, -1, -1); lay,
+// the configuration's side layout.
 struct DecIo {
   const int32_t* frames;
   const int32_t* side;
@@ -563,13 +581,90 @@ struct DecIo {
   int32_t* res;
   int32_t* out;
   int L, nbytes;
+  int32_t* side_out;
+  StreamVec flags[3];
+  SideLayout lay;
 };
 
+// The parsed side dict's scalars, field-major: bfi, bw_idx, lastnz,
+// lsb_mode, gg_idx, num_tns, fac_ns_idx, bp_side, mask_side
+// (kernels.SIDE_SCALARS).
+constexpr int kSideScalars = 9;
+// its row-major words a frame: tns_on [2], scf_idx [7], ltpf_param [3]
+constexpr int kSideRowWords = 12;
+struct SideRow {
+  int32_t v[kSideRowWords];
+};
+
+// Bytes of a warp's frame buffer: the frames' rows, and in parsed mode the
+// side rows' words after the decode.
+ACX_HD int dec_fbuf_bytes(int nbytes) {
+  return imax(kCoderLanes * nbytes, kCoderLanes * kSideRowWords * 4);
+}
+
+// a per-frame PC input: the vector's value, or dflt where there is none
+ACX_HD int dec_flag(const StreamVec& v, int s, int dflt) {
+  return v.p == nullptr ? dflt : vec_int(v, s);
+}
+
+// Parsed mode, frame s on its lane: the side information of its row (the
+// warp's staged bytes), the scalars out (coalesced across the warp), the
+// row-major words kept for after the decode. Returns the fields the decode
+// reads.
+template <typename RowT>
+ACX_HD DecSide dec_parse_side(const RowT* row, const DecIo& io, int s, SideRow& kept) {
+  SideFields f;
+  int bfi;
+  const SideCursor c = side_info_parse_bits(row, io.lay, f, &bfi);
+  const int v[kSideScalars] = {bfi,       f.bw_idx,     f.lastnz, f.lsb_mode, f.gg_idx,
+                               f.num_tns, f.fac_ns_idx, c.bp,     c.mask};
+#pragma unroll
+  for (int k = 0; k < kSideScalars; ++k) io.side_out[static_cast<size_t>(k) * io.L + s] = v[k];
+  kept.v[0] = f.tns_on[0];
+  kept.v[1] = f.tns_on[1];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) kept.v[2 + k] = f.scf_idx[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) kept.v[9 + k] = f.ltpf[k];
+  return {f.lastnz, f.lsb_mode, f.num_tns, {f.tns_on[0], f.tns_on[1]}, c.bp, c.mask, f.gg_idx,
+          f.fac_ns_idx};
+}
+
+// Parsed mode, after the decode: the warp's kept side rows through its frame
+// buffer (sh: tns_on [32, 2], scf_idx [32, 7], ltpf_param [32, 3], each in
+// its output's order) and out, coalesced.
+template <class W>
+ACX_HD void dec_side_rows_out(const W& w, const DecIo& io, int s0, int nf,
+                              const typename W::template Lanes<SideRow>& kept, int32_t* sh) {
+  constexpr int kScf = 2 * kCoderLanes, kLtpf = 9 * kCoderLanes;
+  w.lanes([&](int l) {
+    if (l >= nf) return;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) sh[l * 2 + k] = kept[l].v[k];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) sh[kScf + l * 7 + k] = kept[l].v[2 + k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sh[kLtpf + l * 3 + k] = kept[l].v[9 + k];
+  });
+  w.sync();
+  const size_t L = io.L, s = s0;
+  int32_t* tns_on = io.side_out + kSideScalars * L;
+  int32_t* scf_idx = tns_on + 2 * L;
+  int32_t* ltpf = scf_idx + 7 * L;
+  w.lanes([&](int l) {
+    for (int i = l; i < 2 * nf; i += kCoderLanes) tns_on[s * 2 + i] = sh[i];
+    for (int i = l; i < 7 * nf; i += kCoderLanes) scf_idx[s * 7 + i] = sh[kScf + i];
+    for (int i = l; i < 3 * nf; i += kCoderLanes) ltpf[s * 3 + i] = sh[kLtpf + i];
+  });
+}
+
 // One warp's frames s0 .. s0 + nf - 1 (nf <= 32): their bytes staged in
-// fbuf [nf * nbytes] with coalesced loads, frame q decoded by lane q into the
-// rows (frame q at dec_rows_at(rows, q)), then every row written out by the
-// whole warp, coalesced, zeros past each frame's decoded length.
-template <int kPc, typename XT, class W>
+// fbuf [dec_fbuf_bytes(nbytes)] with coalesced loads, frame q's side
+// information read (kParse false) or parsed from its staged row (kParse) and
+// the frame decoded by lane q into the rows (frame q at dec_rows_at(rows,
+// q)), then every row written out by the whole warp, coalesced, zeros past
+// each frame's decoded length, and in parsed mode the side rows.
+template <int kPc, bool kParse = false, typename XT, class W>
 ACX_HD void ari_decode_warp(const W& w, const DecIo& io, int s0, int nf, const DecTables& tb,
                             const DecGeom& g, uint8_t* fbuf, const DecRows<XT>& rows) {
   const int nbytes = io.nbytes, L = io.L, N = g.N, S = rows.stride;
@@ -578,17 +673,34 @@ ACX_HD void ari_decode_warp(const W& w, const DecIo& io, int s0, int nf, const D
     for (int i = l; i < nf * nbytes; i += kCoderLanes) fbuf[i] = static_cast<uint8_t>(in[i]);
   });
   w.sync();
+  typename W::template Lanes<SideRow> kept;
   w.lanes([&](int q) {
     if (q >= nf) return;
     const int s = s0 + q;
-    int32_t sd[9];
-    for (int j = 0; j < 9; ++j) sd[j] = io.side[j * L + s];
-    const bool pc = io.pc_in != nullptr;
-    ari_decode_frame<kPc>(fbuf + q * nbytes, nbytes, sd, tb, g, pc ? io.pc_in[s] : 0,
-                          pc ? io.pc_in[L + s] : -1, pc ? io.pc_in[2 * L + s] : -1,
+    DecSide sd;
+    if constexpr (kParse) {
+      sd = dec_parse_side(fbuf + q * nbytes, io, s, kept[q]);
+    } else {
+      const int32_t* v = io.side + s;
+      sd = {v[0], v[L], v[2 * L], {v[3 * L], v[4 * L]}, v[5 * L], v[6 * L], v[7 * L], v[8 * L]};
+    }
+    int bfi_in = 0, be_l = -1, be_r = -1;
+    if constexpr (kPc != kPcNone) {
+      if constexpr (kParse) {
+        bfi_in = dec_flag(io.flags[0], s, 0);
+        be_l = dec_flag(io.flags[1], s, -1);
+        be_r = dec_flag(io.flags[2], s, -1);
+      } else if (io.pc_in != nullptr) {
+        bfi_in = io.pc_in[s];
+        be_l = io.pc_in[L + s];
+        be_r = io.pc_in[2 * L + s];
+      }
+    }
+    ari_decode_frame<kPc>(fbuf + q * nbytes, nbytes, sd, tb, g, bfi_in, be_l, be_r,
                           dec_rows_at(rows, q), io.out + s, L);
   });
   w.sync();
+  if constexpr (kParse) dec_side_rows_out(w, io, s0, nf, kept, reinterpret_cast<int32_t*>(fbuf));
   // the rows out: x and res a frame at a time, the TNS entries of all the
   // warp's frames at once
   for (int q = 0; q < nf; ++q) {

@@ -9,8 +9,11 @@
 // lane function the range encoder can call on the fields it holds), then
 // each byte of the row written once. side_info_pack_lane, the backward
 // writer one read-modify-write a bit, stays as the order the CPU rehearsals
-// hold the string to. side_info_parse.cu runs side_info_parse_lane a thread
-// a stream.
+// hold the string to. The range decoder (ari_decode.cuh, its parsed mode)
+// reads a stream's side information with side_info_parse_bits: the row's
+// tail gathered once into the same string, each field one extract at its
+// offset. side_info_parse_lane, the backward reader one bit a step, stays as
+// the order the CPU rehearsals hold it to.
 #pragma once
 
 #include "acodec.cuh"
@@ -284,6 +287,99 @@ ACX_HD SideCursor side_info_parse_lane(const int32_t* row, const SideLayout& L, 
   s.ltpf[2] = ltpf_on ? side_read_uint(row, n, c, 9) : 0;
   s.fac_ns_idx = side_read_uint(row, n, c, 3);
   return c;
+}
+
+// The string a row holds from its byte start backward: byte j of the string
+// is the row's byte clamp(start - j, 0, nbytes - 1), the low 8 bits of the
+// element (all that side_read_bit's masks see), for j < 4 * kSideWords; the
+// side information's at most 76 bits are its first. RowT is int32_t for rows
+// in device memory (a byte a word), uint8_t for rows staged in shared memory.
+template <typename RowT>
+ACX_HD SideBits side_string_of_row(const RowT* row, const SideLayout& L) {
+  SideBits b = {{0u, 0u, 0u}, 0};
+#pragma unroll
+  for (int j = 0; j < 4 * kSideWords; ++j) {
+    const uint32_t byte = static_cast<uint32_t>(row[iclamp(L.start - j, 0, L.nbytes - 1)]) & 255u;
+#pragma unroll
+    for (int k = 0; k < kSideWords; ++k) b.w[k] |= (j >> 2) == k ? byte << (8 * (j & 3)) : 0u;
+  }
+  return b;
+}
+
+// Bits p .. p + nbits - 1 (nbits 1..25) of the string, bit p the lowest: the
+// value side_read_uint reads after p bits. The two words are picked by
+// selects over static indices (a register array indexed at run time would
+// go to local memory).
+ACX_HD int side_field(const SideBits& b, int p, int nbits) {
+  const int word = p >> 5;
+  uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+  for (int k = 0; k < kSideWords; ++k) {
+    lo |= k == word ? b.w[k] : 0u;
+    hi |= k == word + 1 ? b.w[k] : 0u;
+  }
+  const uint64_t wide = (static_cast<uint64_t>(hi) << 32 | lo) >> (p & 31);
+  return static_cast<int>(static_cast<uint32_t>(wide) & ((1u << nbits) - 1u));
+}
+
+// Reads one stream's side information in side_info_parse_lane's order, with
+// its checks, from the string of its row: each field one extract at its
+// offset; only the offsets after the TNS count (from bw_idx), the submode's
+// high bit and the LTPF flag depend on the stream, and the fields those
+// choose are selected, not branched. Returns the cursor behind the last bit
+// (side_string_cursor, the bit reader's: its byte index is not clipped).
+template <typename RowT>
+ACX_HD SideCursor side_info_parse_bits(const RowT* row, const SideLayout& L, SideFields& s,
+                                       int* bfi) {
+  SideBits b = side_string_of_row(row, L);
+  int p = 0;
+  const auto take = [&](int nbits) {
+    const int v = side_field(b, p, nbits);
+    p += nbits;
+    return v;
+  };
+  *bfi = 0;
+  s.bw_idx = L.fs_idx;
+  if (L.bw_bits > 0) {
+    s.bw_idx = take(L.bw_bits);
+    if (L.fs_idx < s.bw_idx) *bfi = 1;
+  }
+  s.num_tns = (L.one_tns || s.bw_idx < 3) ? 1 : 2;
+  s.lastnz = (take(L.lastnz_bits) + 1) * 2;
+  if (s.lastnz > L.ylen) *bfi = 1;
+  s.lsb_mode = take(1);
+  s.gg_idx = take(8);
+  s.tns_on[0] = take(1);
+  const int tns1 = side_field(b, p, 1);
+  s.tns_on[1] = s.num_tns > 1 ? tns1 : 0;
+  p += s.num_tns - 1;
+  s.ltpf[0] = take(1);
+  s.scf_idx[0] = take(5);
+  s.scf_idx[1] = take(5);
+
+  // the SNS second stage: 14 sets of kMpvqSplit where the submode's high bit
+  // is 0 (the gain's low bit, 2, or the tail's index, 12), else the near set
+  // and the far set's two halves
+  const int submode_msb = take(1);
+  const int gain = take(submode_msb + 1);
+  s.scf_idx[4] = take(1);
+  const int tmp = take(25 - submode_msb);
+  const int ind = tmp / kMpvqSplit, far = tmp - kMpvqNear;
+  const int lsb = submode_msb == 0 ? (ind < 2 ? 1 : 0) : (far >= 0 ? 1 : 0);
+  if (tmp >= (submode_msb == 0 ? 14 * kMpvqSplit : kMpvqNear + 2 * kMpvqFar)) *bfi = 1;
+  s.scf_idx[2] = submode_msb * 2 + lsb;
+  s.scf_idx[3] = lsb ? gain * 2 + (submode_msb == 0 ? ind : far & 1) : gain;
+  s.scf_idx[5] = submode_msb == 0 ? tmp - ind * kMpvqSplit : lsb ? far >> 1 : tmp;
+  s.scf_idx[6] = lsb ? -2 : submode_msb == 0 ? ind - 2 : -1;
+
+  // the pitch fields (1 + 9 bits) where the LTPF flag is set
+  const int pitch = side_field(b, p, 10);
+  s.ltpf[1] = s.ltpf[0] == 1 ? pitch & 1 : 0;
+  s.ltpf[2] = s.ltpf[0] == 1 ? pitch >> 1 : 0;
+  p += s.ltpf[0] == 1 ? 10 : 0;
+  s.fac_ns_idx = take(3);
+  b.n = p;
+  return side_string_cursor(b, L);
 }
 
 }  // namespace acx

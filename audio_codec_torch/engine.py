@@ -29,7 +29,7 @@ from .config import Config
 from .models import decoder as dec_m
 from .models import encoder as enc_m
 from .models import state as S
-from .ops import ari, bits, fec
+from .ops import ari, fec
 
 I32 = torch.int32
 
@@ -38,8 +38,7 @@ def b_left_step(cfg: Config, buf):
     """Encoder-side PC simulation: re-decode the frames [B, nbytes] to find
     the pointers' convergence byte b_left for the reorder
     (enc_lc3.c:245-259)."""
-    side = bits.parse_side_info(cfg, buf)
-    return ari.decode(cfg, buf, side, pc_enc_sim=True)["b_left"]
+    return ari.parse_and_decode(cfg, buf, pc_enc_sim=True)[1]["b_left"]
 
 
 def reorder_payload(data, b_left, n_pc: int):

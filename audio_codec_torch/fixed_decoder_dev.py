@@ -1,8 +1,9 @@
 """The bit-exact fixed-point decoder over [T, B] frame blocks of clean
 frames (`audio_codec_tpu/fixed_decoder_dev.py`; dec_lc3.c:103-293).
 
-The frontend (side-info parse and range decoder, `ops/bits.py`,
-`ops/ari.py`) runs once over all T x B frames of a block, then the BASOP
+The frontend (side-info parse and range decoder, `ops/ari.py:
+parse_and_decode`, one `ari_decode` launch on the card) runs once over all
+T x B frames of a block, then the BASOP
 chain of `ops/fixed_dev.py` over the same T x B lanes: the SNS decode
 (`fx_sns_dec`), the spectral chain (`fx_spec_decode`) and the integer
 DCT-IV (`fx_dct4`). Only the stateful overlap-add, LTPF post-filter and
@@ -19,7 +20,7 @@ import torch
 
 from .config import Config
 from .models.state import resolve_device
-from .ops import ari, bits
+from .ops import ari
 from .ops import fixed_dev as fv
 from .ops import fixed_imdct as fi
 from .ops import fixed_ltpf as fl
@@ -55,8 +56,7 @@ class DeviceFixedDecoder:
         Tn, B, nb = frames.shape
         assert B == self.B, f"a block of {B} streams for a decoder of {self.B}"
         flat = frames.reshape(Tn * B, nb).to(torch.int32)
-        side = bits.parse_side_info(cfg, flat)
-        dec = ari.decode(cfg, flat, side)
+        side, dec = ari.parse_and_decode(cfg, flat)
         scf, scf_e = fv.sns_decode(side["scf_idx"], cfg.bands_number)
         shaped, x_e = fv.spectrum_decode(
             cfg, dec["x"], dec["res_bits"], dec["n_res"], dec["nf_seed"], dec["zero_frame"],

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("ari_encode", "ari_decode", "bit_estimate", "ltpf_decode", "gain_bisection",
            "tns_analysis_lattice", "tns_synthesis_lattice", "hp50_biquad",
-           "side_info_pack", "side_info_parse", "sns_vq_dec", "sns_vq_enc",
+           "side_info_pack", "sns_vq_dec", "sns_vq_enc",
            "tns_filter_analysis", "pc_classify", "mdct", "imdct", "mdct_compensated",
            "olpa", "ltpf_encode", "noise_residual_enc", "spec_decode", "fec_encode",
            "fec_decode", "plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
@@ -125,13 +125,13 @@ def library() -> ctypes.CDLL:
         "acx_bit_estimate": [P] * 5 + [I] * 5 + [P],
         "acx_ari_encode": [P] * 14 + [I] * 8 + [P],
         "acx_ari_decode": [P] * 9 + [I] * 14 + [P],
+        "acx_ari_decode_frames": [P] * 10 + [I] * 19 + [P],
         "acx_ltpf_decode": [P] * 20 + [I] * 10 + [F] + [P],
         "acx_gain_bisection": [P] * 3 + [I] * 3 + [P],
         "acx_tns_analysis_lattice": [P] * 6 + [I] * 2 + [P],
         "acx_tns_synthesis_lattice": [P] * 6 + [I] * 2 + [P],
         "acx_hp50_biquad": [P] * 4 + [I] * 2 + [F] * 5 + [P],
         "acx_side_info_pack": [P] * 11 + [I] * 5 + [P],
-        "acx_side_info_parse": [P] * 5 + [I] * 8 + [P],
         "acx_sns_vq_dec": [P] * 3 + [I] + [P],
         "acx_sns_vq_enc": [P] * 4 + [I] + [P],
         "acx_tns_filter_analysis": [P] * 8 + [I] * 5 + [F] * 4 + [P],
@@ -297,13 +297,12 @@ def ari_encode(cfg, buf, bp_side, mask_side, xq, tns_order, tns_idx,
     return out
 
 
-def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
-               pc_enc_sim: bool = False):
-    """Launch `ari_decode` (csrc/ari_decode.cu, a thread a frame, 128 frames
-    a block (4 warps), fewer where the rows do not fit); returns the dict of
-    ops/ari.py:decode_plain. With a partial-concealment block (cfg.n_pc > 0)
-    or pc_enc_sim the lanes run the PC hooks; bfi_in and the corrupt bit
-    range enter only there."""
+def _dec_launch(cfg, buf, pc_enc_sim: bool):
+    """What both modes of `ari_decode` share: the frames as contiguous int32
+    (cast once), their outputs (x, tns_order, tns_idx, res [L, *] and the
+    scalars [7, L]), the PC mode (0 none, 1 the decoder's hooks, 2 the
+    encoder's simulation) and the configuration's ints of the C entry points
+    (N ... numbytes, csrc/ari_decode.cu)."""
     from .ops.ari import pc_params
     from .ops.quant import residual_max_bits
     buf = buf.to(torch.int32).contiguous()
@@ -311,35 +310,84 @@ def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
     L, nbytes = buf.shape
     dev = buf.device
     N = cfg.yLen
+    pc = pc_params(cfg, pc_enc_sim)
+    pc_mode = 0 if pc is None else 2 if pc_enc_sim else 1
+    total_bits = cfg.targetBytes * 8
+    max_res = min(residual_max_bits(cfg), total_bits)
+    e = lambda *s: torch.empty((L, *s), dtype=torch.int32, device=dev)
+    outs = (e(N), e(2), e(2, 8), e(max_res), torch.empty((7, L), dtype=torch.int32, device=dev))
+    ints = (L, nbytes, N, 22 if cfg.hrmode else 14, int(cfg.hrmode),
+            8 if cfg.frame_dms == 100 else 4, 1 if cfg.enable_lpc_weighting else 0,
+            cfg.rateFlag if cfg.fs_idx != 5 else 0, total_bits, max_res, 20 if cfg.hrmode else 1,
+            pc_mode, 0 if pc is None else pc["pc_bytes"], cfg.targetBytes)
+    return buf, outs, pc_mode, ints
+
+
+def _dec_dict(outs) -> dict:
+    """ops/ari.py:decode_plain's dict of a launch's outputs."""
+    x, tns_order, tns_idx, res, out = outs
+    return dict(x=x, tns_order=tns_order, tns_idx=tns_idx, nf_seed=out[0],
+                zero_frame=out[1], res_bits=res, n_res=out[2], residual_present=out[3],
+                bfi=out[4], spec_inv_idx=out[5], b_left=out[6])
+
+
+def ari_decode(cfg, buf, side, bfi_in=None, be_bp_left=None, be_bp_right=None,
+               pc_enc_sim: bool = False):
+    """Launch `ari_decode` (csrc/ari_decode.cu, a thread a frame, 128 frames
+    a block (4 warps), fewer where the rows do not fit) in its read mode: the
+    side information from the fields of `side` (rows a caller made); returns
+    the dict of ops/ari.py:decode_plain. With a partial-concealment block
+    (cfg.n_pc > 0) or pc_enc_sim the lanes run the PC hooks; bfi_in and the
+    corrupt bit range enter only there. The decoder's paths parse their
+    frames' side information in the same launch (ari_decode_frames)."""
+    buf, outs, pc_mode, ints = _dec_launch(cfg, buf, pc_enc_sim)
+    L, dev = buf.shape[0], buf.device
     side_in = torch.stack([_i32(side[k], L, dev) for k in (
         "lastnz", "lsb_mode", "num_tns")] + [_i32(side["tns_on"][:, 0], L, dev),
                                              _i32(side["tns_on"][:, 1], L, dev)]
         + [_i32(side[k], L, dev) for k in ("bp_side", "mask_side", "gg_idx",
                                            "fac_ns_idx")]).contiguous()
-    pc = pc_params(cfg, pc_enc_sim)
-    pc_mode, pc_in = 0, None
-    if pc is not None:
-        pc_mode = 2 if pc_enc_sim else 1
+    pc_in = None
+    if pc_mode:
         pc_in = torch.stack([_i32(d if v is None else v, L, dev) for v, d in zip(
             (bfi_in, be_bp_left, be_bp_right), (0, -1, -1))])
-    total_bits = cfg.targetBytes * 8
-    max_res = min(residual_max_bits(cfg), total_bits)
-    e = lambda *s, dt=torch.int32: torch.empty((L, *s), dtype=dt, device=dev)
-    x, tns_order, tns_idx, res = e(N), e(2), e(2, 8), e(max_res)
-    out = torch.empty((7, L), dtype=torch.int32, device=dev)
     _run("ari_decode", library().acx_ari_decode(
         buf.data_ptr(), side_in.data_ptr(), None if pc_in is None else pc_in.data_ptr(),
-        _decoder_tables(str(dev)).data_ptr(),
-        x.data_ptr(), tns_order.data_ptr(), tns_idx.data_ptr(), res.data_ptr(),
-        out.data_ptr(), L, nbytes, N, 22 if cfg.hrmode else 14,
-        int(cfg.hrmode), 8 if cfg.frame_dms == 100 else 4,
-        1 if cfg.enable_lpc_weighting else 0,
-        cfg.rateFlag if cfg.fs_idx != 5 else 0, total_bits, max_res,
-        20 if cfg.hrmode else 1, pc_mode, 0 if pc is None else pc["pc_bytes"],
-        cfg.targetBytes, _stream()))
-    return dict(x=x, tns_order=tns_order, tns_idx=tns_idx, nf_seed=out[0],
-                zero_frame=out[1], res_bits=res, n_res=out[2], residual_present=out[3],
-                bfi=out[4], spec_inv_idx=out[5], b_left=out[6])
+        _decoder_tables(str(dev)).data_ptr(), *(t.data_ptr() for t in outs), *ints, _stream()))
+    return _dec_dict(outs)
+
+
+# the parsed side dict's scalars, in csrc/ari_decode.cuh:SideOut's order
+SIDE_SCALARS = ("bfi", "bw_idx", "lastnz", "lsb_mode", "gg_idx", "num_tns", "fac_ns_idx",
+                "bp_side", "mask_side")
+
+
+def ari_decode_frames(cfg, buf, bfi_in=None, be_bp_left=None, be_bp_right=None,
+                      pc_enc_sim: bool = False):
+    """Launch `ari_decode` in its parsed mode: each lane parses its frame's
+    side information from the bytes the kernel stages
+    (csrc/side_info.cuh:side_info_parse_bits), then decodes the frame. One
+    launch for the decoder's entropy phase; returns (side, dec), the dicts of
+    ops/bits.py:parse_side_info_plain and ops/ari.py:decode_plain. The PC
+    inputs (where cfg.n_pc > 0 or pc_enc_sim) reach the kernel as they are:
+    CUDA vectors of bool or int32 at any stride, None for the default (0, -1,
+    -1)."""
+    buf, outs, pc_mode, ints = _dec_launch(cfg, buf, pc_enc_sim)
+    L, nbytes = buf.shape
+    dev = buf.device
+    words = torch.empty((len(SIDE_SCALARS) + 2 + 7 + 3) * L, dtype=torch.int32, device=dev)
+    n = len(SIDE_SCALARS) * L
+    side = dict(zip(SIDE_SCALARS, words[:n].view(len(SIDE_SCALARS), L)))
+    side.update(tns_on=words[n: n + 2 * L].view(L, 2),
+                scf_idx=words[n + 2 * L: n + 9 * L].view(L, 7),
+                ltpf_param=words[n + 9 * L:].view(L, 3))
+    flags = (bfi_in, be_bp_left, be_bp_right) if pc_mode else (None, None, None)
+    vecs, meta = _stream_vecs(L, dict(zip(("bfi_in", "be_bp_left", "be_bp_right"), flags)), {})
+    _run("ari_decode", library().acx_ari_decode_frames(
+        buf.data_ptr(), words.data_ptr(), vecs, meta, _decoder_tables(str(dev)).data_ptr(),
+        *(t.data_ptr() for t in outs), *ints, cfg.targetBytes - 1, cfg.BW_cutoff_bits,
+        cfg.lastnz_bits, cfg.fs_idx, 1 if cfg.frame_dms == 25 else 0, _stream()))
+    return side, _dec_dict(outs)
 
 
 def ltpf_decode(cfg, x, bfi, param, mem_param, mem_x, mem_y, mem_pitch_int, mem_pitch_fr,
@@ -477,27 +525,11 @@ def side_info_pack(cfg, bw_idx, lastnz, lsb_mode, gg_idx, num_tns_filters, tns_o
 
 
 def side_info_parse(cfg, buf):
-    """Launch `side_info_parse` (csrc/side_info_parse.cu); returns the dict
-    of ops/bits.py:parse_side_info_plain."""
-    buf = buf.to(torch.int32).contiguous()
-    _check(buf, "buf", torch.int32, 2)
-    L, nbytes = buf.shape
-    dev = buf.device
-    names = ("bfi", "bw_idx", "lastnz", "lsb_mode", "gg_idx", "num_tns", "fac_ns_idx",
-             "bp_side", "mask_side")
-    out = torch.empty((len(names) + 2 + 7 + 3, L), dtype=torch.int32, device=dev).view(-1)
-    n = len(names) * L
-    scalars = out[:n].view(len(names), L)
-    tns_on = out[n: n + 2 * L].view(L, 2)
-    scf_idx = out[n + 2 * L: n + 9 * L].view(L, 7)
-    ltpf_param = out[n + 9 * L:].view(L, 3)
-    _run("side_info_parse", library().acx_side_info_parse(
-        buf.data_ptr(), scalars.data_ptr(), tns_on.data_ptr(), scf_idx.data_ptr(),
-        ltpf_param.data_ptr(), L, nbytes, cfg.targetBytes - 1, cfg.BW_cutoff_bits,
-        cfg.lastnz_bits, cfg.fs_idx, cfg.yLen, 1 if cfg.frame_dms == 25 else 0, _stream()))
-    side = dict(zip(names, scalars))
-    side.update(tns_on=tns_on, scf_idx=scf_idx, ltpf_param=ltpf_param)
-    return side
+    """The side information of frames on the card: the side dict of one
+    ari_decode_frames launch (ops/bits.py:parse_side_info_plain's). The
+    decoder's paths take both dicts of that launch (ops/ari.py:
+    parse_and_decode)."""
+    return ari_decode_frames(cfg, buf)[0]
 
 
 @functools.cache
@@ -710,11 +742,16 @@ def _stream_vecs(B: int, ints: dict, floats: dict):
     StreamVec): their addresses, and their (stride, element type) pairs, as
     ctypes arrays in that order, ints first. Each is a CUDA vector of B
     values at any stride: the int ones bool or int32 (the types the decoder
-    passes), the float ones float32."""
+    passes), the float ones float32; an int one that is None goes as a null
+    address, which the kernel reads as its default."""
     ptrs, meta = [], []
     int_types = (torch.bool, torch.int32)
     for named, types in ((ints, int_types), (floats, (torch.float32,))):
         for name, t in named.items():
+            if t is None and types is int_types:
+                ptrs.append(None)
+                meta += (0, _VEC_TYPES[torch.int32])
+                continue
             if t.device.type != "cuda" or t.dtype not in types or t.dim() != 1 or t.shape[0] != B:
                 raise ValueError(f"{name}: expected a CUDA vector of {B} values of "
                                  f"{' or '.join(map(str, types))}, got {t.dtype} "

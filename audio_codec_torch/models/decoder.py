@@ -14,7 +14,7 @@ import torch
 
 from .. import tables as T
 from ..config import Config
-from ..ops import ari, bits, ltpf_dec, pc, plc, plc_adv, plc_phecu, quant, sns, tns, transforms
+from ..ops import ari, ltpf_dec, pc, plc, plc_adv, plc_phecu, quant, sns, tns, transforms
 from ..ops import numerics as nm
 from .state import DecState, check_plc_mode
 
@@ -25,17 +25,15 @@ F32 = torch.float32
 def decode_entropy(cfg: Config, frame_bytes: torch.Tensor, bfi_ext=None,
                    be_bp_left=None, be_bp_right=None):
     """Stateless entropy phase: side parse + arithmetic decode over [B]
-    frames. Callers holding several frames per stream flatten [T, B] to
-    [T*B] and run it once (decode_block)."""
+    frames, one launch of the `ari_decode` kernel on the card
+    (ari.parse_and_decode). Callers holding several frames per stream
+    flatten [T, B] to [T*B] and run it once (decode_block)."""
     buf = frame_bytes.to(I32)
     B = buf.shape[0]
     bfi = torch.zeros((B,), dtype=I32, device=buf.device) if bfi_ext is None \
         else bfi_ext.to(I32)
     bfi_in = torch.where(bfi == 3, 2, bfi)
-    side = bits.parse_side_info(cfg, buf)
-    dec = ari.decode(cfg, buf, side, bfi_in=bfi_in, be_bp_left=be_bp_left,
-                     be_bp_right=be_bp_right)
-    return side, dec
+    return ari.parse_and_decode(cfg, buf, bfi_in, be_bp_left, be_bp_right)
 
 
 def decode_frame(cfg: Config, st: DecState, frame_bytes: torch.Tensor, bfi_ext=None,

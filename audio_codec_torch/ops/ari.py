@@ -3,7 +3,9 @@ TNS data: processAriEncoder_fl / processAriDecoder_fl (ari_codec.c).
 
 `encode` and `decode` launch the CUDA kernels `ari_encode` and `ari_decode`
 (csrc/ari_encode.cu, csrc/ari_decode.cu) for tensors on the card and run
-the plain versions below for tensors on the CPU. The plain versions are
+the plain versions below for tensors on the CPU; `parse_and_decode`, the
+decoder's entropy phase, parses each frame's side information in the same
+launch of `ari_decode`. The plain versions are
 the counterparts of `audio_codec_tpu/ops/ari.py:encode` and `:decode`:
 every stream is one lane of [B]-vectorized coder state and the symbol
 sequence is a loop over 2-tuples. Two differences in form, none in output:
@@ -615,3 +617,26 @@ def decode(cfg: Config, buf, side, bfi_in=None, be_bp_left=None,
     if buf.device.type == "cpu":
         return decode_plain(cfg, buf, side, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)
     return kernels.ari_decode(cfg, buf, side, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)
+
+
+def parse_and_decode_plain(cfg: Config, buf, bfi_in=None, be_bp_left=None, be_bp_right=None,
+                           pc_enc_sim: bool = False):
+    """Plain version of the `ari_decode` kernel's parsed mode: the frames'
+    side information (bits.parse_side_info_plain), then decode_plain on it.
+    Returns (side, dec)."""
+    from .bits import parse_side_info_plain
+    side = parse_side_info_plain(cfg, buf)
+    return side, decode_plain(cfg, buf, side, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)
+
+
+def parse_and_decode(cfg: Config, buf, bfi_in=None, be_bp_left=None, be_bp_right=None,
+                     pc_enc_sim: bool = False):
+    """The decoder's entropy phase over frames [L, nbytes]: each frame's side
+    information (processDecoderEntropy), then its range decode (decode) on
+    it, as `audio_codec_tpu`'s bits.parse_side_info followed by ari.decode.
+    One launch of the `ari_decode` kernel, parsed mode, for a tensor on a card
+    (kernels.ari_decode_frames; the PC inputs as the caller holds them),
+    parse_and_decode_plain on the CPU. Returns (side, dec)."""
+    if buf.device.type == "cpu":
+        return parse_and_decode_plain(cfg, buf, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)
+    return kernels.ari_decode_frames(cfg, buf, bfi_in, be_bp_left, be_bp_right, pc_enc_sim)

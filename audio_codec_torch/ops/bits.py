@@ -6,9 +6,12 @@ dec_entropy.c:121-270) while the arithmetic coder writes forward. The byte
 buffer is an int32 [B, nbytes] tensor; each bit write or read touches one
 byte per stream. Counterpart of `audio_codec_tpu/ops/bits.py`.
 
-`pack_side_info` and `parse_side_info` run as the CUDA kernels
-`side_info_pack` and `side_info_parse` (csrc/side_info.cuh) for tensors on a
-card, and as `pack_side_info_plain` and `parse_side_info_plain` on the CPU.
+`pack_side_info` runs as the CUDA kernel `side_info_pack` (csrc/side_info.cuh)
+for tensors on a card. `parse_side_info` on a card is the side dict of the
+range decoder's parsed mode (`ari_decode`, kernels.ari_decode_frames: each
+lane parses its frame with csrc/side_info.cuh:side_info_parse_bits); the
+decoder's paths take both of its dicts through ops/ari.py:parse_and_decode.
+On the CPU they run as `pack_side_info_plain` and `parse_side_info_plain`.
 """
 from __future__ import annotations
 
@@ -149,7 +152,8 @@ def pack_side_info(cfg: Config, bw_idx, lastnz, lsb_mode, gg_idx,
 
 def parse_side_info_plain(cfg: Config, buf):
     """processDecoderEntropy_fl -> dict of parsed fields + (bp_side, mask_side),
-    the plain version of the `side_info_parse` kernel.
+    the plain version of the `ari_decode` kernel's side parse (its parsed
+    mode).
     buf: [B, nbytes] int32; the reference's bfi triggers become a per-stream
     bfi flag (dec_entropy.c:152-270)."""
     B = buf.shape[0]
@@ -224,8 +228,9 @@ def parse_side_info_plain(cfg: Config, buf):
 
 def parse_side_info(cfg: Config, buf):
     """Frames [B, nbytes] int32 -> dict of the parsed side fields, bfi, and
-    the range decoder's (bp_side, mask_side). The `side_info_parse` kernel for
-    a tensor on a card, `parse_side_info_plain` on the CPU."""
+    the range decoder's (bp_side, mask_side). For a tensor on a card the side
+    dict of one `ari_decode` launch in its parsed mode
+    (kernels.side_info_parse), `parse_side_info_plain` on the CPU."""
     if nm.on_cpu(buf):
         return parse_side_info_plain(cfg, buf)
     return kernels.side_info_parse(cfg, buf)

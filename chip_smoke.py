@@ -95,7 +95,8 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                heavy corruption in turn, frame 3 is lost and frame 4 a
                redundancy frame; every launch of fec_encode, fec_decode and of
                ari_decode with a PC block (decode and the encoder's
-               simulation) must equal its plain version, the other kernels on
+               simulation, both with the side information parsed in the
+               launch) must equal its plain versions, the other kernels on
                the last frame at the EP core sizes; a bfi 0 frame gives back
                the encoder's payload; the bfi and detected-mode histograms are
                printed and bfi 0/1 (and 2 at EP3/EP4) must occur; synthetic
@@ -117,8 +118,9 @@ audio_codec_torch.cli`, `python -m audio_codec_torch.ccconvert`).
                CPU, whose first difference must not be the TDAC's MDCT;
   8. fixed     DeviceFixedDecoder (the bit-exact fixed-point decoder) over
                phase 4's payloads with a group of silent streams (zero
-               frames), B x T: the launch counts (the frontend's two, one
-               fx_sns_dec, fx_spec_decode and fx_dct4, T fx_ola_ltpf); every
+               frames), B x T: the launch counts (the frontend's one
+               ari_decode, one fx_sns_dec, fx_spec_decode and fx_dct4, T
+               fx_ola_ltpf); every
                launch of the four fixed-point kernels equal to its plain
                version with no tolerance, with the SNS submodes, TNS on/off,
                zero frames and the post-filter's branches printed, and
@@ -190,8 +192,6 @@ KERNEL_INFO = {
                     "audio_codec_tpu/ops/analysis.py:57"),
     "side_info_pack": ("audio_codec_torch/csrc/side_info_pack.cu",
                        "audio_codec_tpu/ops/bits.py:66"),
-    "side_info_parse": ("audio_codec_torch/csrc/side_info_parse.cu",
-                        "audio_codec_tpu/ops/bits.py:123"),
     "sns_vq_dec": ("audio_codec_torch/csrc/sns_vq_dec.cu",
                    "audio_codec_tpu/ops/sns.py:311"),
     "sns_vq_enc": ("audio_codec_torch/csrc/sns_vq_enc.cu",
@@ -236,6 +236,11 @@ KERNEL_INFO = {
 # the kernels of the flagship block path (phases 3-5); the stream path
 # (phase 6) runs them and the channel coder's two
 STREAM_KERNELS = ("fec_encode", "fec_decode")
+# the wrapper each path calls for a kernel where it is not the kernel's
+# name: the decoder's entropy phase launches ari_decode in its parsed mode
+# (the side information parsed in the launch; also K11 side's row of the
+# reference, audio_codec_tpu/ops/bits.py:123)
+MAIN_CALL = {"ari_decode": "ari_decode_frames"}
 # the advanced concealment's kernels (phase 7, plc_mode 1), the TDAC's MDCT
 # among them
 PLC_KERNELS = ("plc_tdc", "plc_damp_scramble", "phecu_spec_ana", "phecu_subst",
@@ -348,6 +353,15 @@ def matmul_ms(rows) -> float:
     return cuda_ms_spread(lambda: torch.matmul(rows, Mt))[0]
 
 
+def paired(got, ref) -> list:
+    """(kernel, plain) tensor pairs of two results, dicts key for key."""
+    if isinstance(ref, dict):
+        return [p for k in ref for p in paired(got[k], ref[k])]
+    if isinstance(ref, tuple):
+        return [p for g, r in zip(got, ref) for p in paired(g, r)]
+    return [(got, ref)]
+
+
 def outputs(res) -> list:
     """A kernel's result as a list of tensors (the values of a dict in it
     too)."""
@@ -449,13 +463,6 @@ def side_bits(cfg, num_tns, submode, ltpf_on):
     return fixed + num_tns + torch.where(submode < 2, 1 + 25, 2 + 24) + 10 * ltpf_on
 
 
-def parsed_side_bits(args):
-    """side_bits of the frames that this side_info_parse launch reads."""
-    from audio_codec_torch import kernels as K
-    side = K.side_info_parse(*args)
-    return side_bits(args[0], side["num_tns"], side["scf_idx"][:, 2], side["ltpf_param"][:, 0])
-
-
 def sns_enc_ops(scf, scf_idx) -> float:
     """Operations of sns_vq_enc on these rows: the codebook searches, four
     transforms and 18 gain candidates are fixed; each pulse search scans its
@@ -524,8 +531,6 @@ def work_ops(name: str, args) -> float:
     if name == "side_info_pack":
         cfg, num_tns, ltpf, scf_idx = args[0], args[5], args[7], args[8]
         return 8 * float(side_bits(cfg, num_tns, scf_idx[:, 2], ltpf[:, 0]).sum())
-    if name == "side_info_parse":
-        return 8 * float(parsed_side_bits(args).sum())
     if name == "sns_vq_dec":
         sub = args[0][:, 2].clamp(0, 3).long()
         deindex = torch.tensor([10 * 21 + 6 * 12, 10 * 21, 16 * 19, 16 * 17], device=sub.device)
@@ -557,6 +562,13 @@ def work_ops(name: str, args) -> float:
         z = n4 * int(((w & L.CASE_B) != 0).sum()) + N * int(((w & L.CASE_E) != 0).sum())
         y = N * int(((w & L.NEW_ON) != 0).sum())
         return float(per * (z + y))
+    if name == "ari_decode_frames":
+        # the side bits' extracts (as the packer's, 8 a bit), then the decode
+        from audio_codec_torch.ops import bits
+        cfg, buf = args[0], args[1]
+        side = bits.parse_side_info_plain(cfg, buf.to(torch.int32))
+        nbits = side_bits(cfg, side["num_tns"], side["scf_idx"][:, 2], side["ltpf_param"][:, 0])
+        return 8 * float(nbits.sum()) + work_ops("ari_decode", (cfg, buf, side))
     if name == "ari_decode":
         side = args[2]
         tuples = torch.div(side["lastnz"] + 1, 2, rounding_mode="floor").clamp(max=args[0].yLen // 2)
@@ -576,11 +588,6 @@ def kernel_bytes(name: str, args, outs) -> int:
     ins = [a for a in args if isinstance(a, torch.Tensor)]
     if name == "ari_decode":
         ins += [v for v in args[2].values() if isinstance(v, torch.Tensor)]
-    if name == "side_info_parse":
-        # Of each row the parser needs only the bytes that hold its side
-        # bits (one int32 word each), not the whole frame.
-        words = torch.div(parsed_side_bits(args) + 7, 8, rounding_mode="floor")
-        return 4 * int(words.sum()) + nbytes(*outs)
     if name in ("mdct", "imdct"):
         cfg, a = args[0], args[1]
         return nbytes(*ins, *outs, transforms.dct4_mt(a.shape[1], str(a.device)),
@@ -626,12 +633,14 @@ def same_bits(got, ref, what: str):
 
 def synthetic_cases(cfg, dev, K, side, sns):
     """Cases clean material never reaches (tests/torch_kernel_cases.py):
-    frames that fire each of the parser's bad-frame triggers, the quantizer's
+    frames that fire each of the parser's bad-frame triggers (the range
+    decoder's parsed mode, both of its dicts), the quantizer's
     decoder on every submode's first and last index, its encoder on an
     all-zero row and on rows whose residual is silent (every pulse search
     takes its silent-target branch)."""
     import numpy as np
     import torch
+    from audio_codec_torch.ops import ari
     from tests import torch_kernel_cases as C
     g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     cases = {"clean": C.side_fields(cfg, 256, seed=3),
@@ -640,12 +649,13 @@ def synthetic_cases(cfg, dev, K, side, sns):
         args = (cfg, *(g(np.asarray(f[k], np.int32)) for k in C.FIELD_ORDER))
         packed, ref = K.side_info_pack(*args), side.pack_side_info_plain(*args)
         same_bits(packed, ref, f"side_info_pack ({what})")
-        got, ref = K.side_info_parse(cfg, packed[0]), side.parse_side_info_plain(cfg, packed[0])
+        got = K.ari_decode_frames(cfg, packed[0])
+        ref = ari.parse_and_decode_plain(cfg, packed[0])
         torch.cuda.synchronize()
-        same_bits(got, ref, f"side_info_parse ({what})")
-        fired = got["bfi"].tolist()
+        same_bits(got, ref, f"ari_decode parsed ({what})")
+        fired = got[0]["bfi"].tolist()
         check(fired == [0 if what == "clean" else 1] * len(fired),
-              f"side_info_parse ({what}): bfi {fired}")
+              f"ari_decode parsed ({what}): side bfi {fired}")
     # rows shorter than the side bits: the string clipped at the row's first byte
     from types import SimpleNamespace
     f = C.side_fields(cfg, 256, seed=5)
@@ -658,11 +668,12 @@ def synthetic_cases(cfg, dev, K, side, sns):
         same_bits(packed, ref, f"side_info_pack ({nbytes}-byte rows)")
     rows = torch.randint(0, 256, (4096, cfg.targetBytes), device=dev, dtype=torch.int32,
                          generator=torch.Generator(device=dev).manual_seed(1))
-    got = K.side_info_parse(cfg, rows)
-    same_bits(got, side.parse_side_info_plain(cfg, rows), "side_info_parse (random bytes)")
-    print(f"[kernels] side_info_parse: each of {len(C.BFI_TRIGGERS)} bad-frame triggers fires and "
-          f"equals the plain version; random bytes: bfi in {int(got['bfi'].sum())} of 4096 rows",
-          flush=True)
+    got = K.ari_decode_frames(cfg, rows)
+    same_bits(got, ari.parse_and_decode_plain(cfg, rows), "ari_decode parsed (random bytes)")
+    print(f"[kernels] ari_decode parsed: each of {len(C.BFI_TRIGGERS)} bad-frame triggers fires "
+          f"and both dicts equal the plain parse and decode; random bytes: side bfi in "
+          f"{int(got[0]['bfi'].sum())}, decoder bfi in {int((got[1]['bfi'] > 0).sum())} of 4096 "
+          f"rows", flush=True)
 
     grid = g(np.concatenate([C.scf_idx_grid(sub, 64, seed=7) for sub in range(4)]))
     q = K.sns_vq_dec(grid)
@@ -972,7 +983,10 @@ def decode_cases(dev, K):
     rows with bytes replaced) at 64 and 160 kbps, in the high-resolution mode
     and at EP3/EP4 with the PC block (the decoder's hooks over four corrupt
     ranges, and the encoder's simulation): every 25th row alone, 33, 2047 and
-    16 384 frames a launch; the resampler's biquad on biquad_rows at 1, 33 and
+    16 384 frames a launch, the side information read from the rows' fields;
+    and once each in the parsed mode, the side information parsed from the
+    frames' own bytes (both dicts against the plain parse and decode); the
+    resampler's biquad on biquad_rows at 1, 33 and
     2047 streams over 3 frames, the memories carried. The plain version runs
     once a case on all its rows (rows are decoded independently); every
     launch's rows must equal its rows of the same inputs."""
@@ -1012,9 +1026,14 @@ def decode_cases(dev, K):
                 check(bfi[2] > 0, f"ari_decode {name}: no bfi 2 row")
             if name == "48k_160k":
                 check(lsb > 0, "ari_decode: no good LSB-mode row")
+            same_bits(K.ari_decode_frames(cfg, frames, *flags, pc_enc_sim=sim),
+                      ari.parse_and_decode_plain(cfg, frames, *flags, pc_enc_sim=sim),
+                      f"ari_decode parsed (decode_rows {name}, pc_enc_sim {sim})")
+            launches += 1
     torch.cuda.synchronize()
     print(f"[kernels] ari_decode on decode_rows at {list(C.DECODE_CONFIGS)}: {launches} launches "
-          f"(every 25th row alone, L = 33, 2047, 16384) equal the plain version", flush=True)
+          f"(every 25th row alone, L = 33, 2047, 16384; and all rows parsed) equal the plain "
+          f"versions", flush=True)
     launches = 0
     for B in (1, 33, 2047):
         x = C.biquad_rows(B)
@@ -1155,7 +1174,7 @@ def pitch_and_spectrum_cases(cfg, dev, K):
         check(all(v > 0 for v in cases.values()), f"{what}: a case was not taken: {cases}")
 
 # the decoder's stages in the order decode_block calls them
-DECODER_STAGES = (("bits", "parse_side_info"), ("ari", "decode"), ("sns", "quantize_scf_dec"),
+DECODER_STAGES = (("ari", "parse_and_decode"), ("sns", "quantize_scf_dec"),
                   ("pc", "pc_classify"), ("quant", "global_gain"),
                   ("quant", "spectrum_decode"), ("tns", "tns_decode"), ("sns", "interpolate_scf"),
                   ("sns", "mdct_shaping"), ("plc", "plc_main_update"), ("transforms", "imdct"),
@@ -1276,8 +1295,9 @@ def first_difference(card: list, cpu: list, may_diverge: bool = False):
 
 
 def pc_enc_sim(args, kw) -> bool:
-    """Whether a recorded ari_decode launch ran the encoder's simulation."""
-    return bool(args[6] if len(args) > 6 else kw.get("pc_enc_sim", False))
+    """Whether a recorded ari_decode_frames launch ran the encoder's
+    simulation."""
+    return bool(args[5] if len(args) > 5 else kw.get("pc_enc_sim", False))
 
 
 def fec_ops(name: str, args) -> float:
@@ -1355,7 +1375,7 @@ def stream_phase(dev, pcm, K, plain, card):
     for mode in STREAM_MODES:
         cfg, rec_m, enc_ms, dec_ms, last_bfi = per_mode[mode]
         for name, launches in rec_m.items():
-            pc_mode = name == "ari_decode" and launches[0][0][0].n_pc > 0
+            pc_mode = name == MAIN_CALL["ari_decode"] and launches[0][0][0].n_pc > 0
             every = name in STREAM_KERNELS or pc_mode
             for i, (args, kw) in enumerate(launches):
                 if not every and i < len(launches) - 1:
@@ -1455,12 +1475,12 @@ def stream_phase(dev, pcm, K, plain, card):
         a = C.pc_decode_rows(ep)
         cfg = P.Config(fs_in=48000, bitrate=64000, epmode=ep)
         fr = g(a["frames"])
-        from audio_codec_torch.ops import bits
-        side = bits.parse_side_info(cfg, fr)
         flags = [g(a[k]) for k in ("bfi_in", "be_l", "be_r")]
         for sim in (False, True):
-            same_bits(K.ari_decode(cfg, fr, side, *flags, pc_enc_sim=sim),
-                      ari.decode_plain(cfg, fr, side, *flags, pc_enc_sim=sim),
+            ref = ari.parse_and_decode_plain(cfg, fr, *flags, pc_enc_sim=sim)
+            same_bits(K.ari_decode_frames(cfg, fr, *flags, pc_enc_sim=sim), ref,
+                      f"ari_decode parsed PC rows EP{ep} (pc_enc_sim {sim})")
+            same_bits(K.ari_decode(cfg, fr, ref[0], *flags, pc_enc_sim=sim), ref[1],
                       f"ari_decode PC rows EP{ep} (pc_enc_sim {sim})")
     print(f"[stream] synthetic rows: fec_encode and fec_decode on {n_rows} rows at slots "
           f"{C.FEC_SLOTS + (241,)} x EP1-4 x ccc 0/1 (clean, corrected, PC codeword destroyed, heavy, "
@@ -1496,11 +1516,11 @@ def stream_phase(dev, pcm, K, plain, card):
     rows = []
     rec3 = per_mode[3][1]
     timed = [("fec_encode", rec3["fec_encode"][-1]), ("fec_decode", rec3["fec_decode"][-1])]
-    pcs = [(a, k) for a, k in rec3["ari_decode"] if a[0].n_pc > 0]
+    pcs = [(a, k) for a, k in rec3[MAIN_CALL["ari_decode"]] if a[0].n_pc > 0]
     timed += [(PC_ROWS[0], next(x for x in reversed(pcs) if not pc_enc_sim(*x))),
               (PC_ROWS[1], next(x for x in reversed(pcs) if pc_enc_sim(*x)))]
     for row, (args, kw) in timed:
-        name = row if row in STREAM_KERNELS else "ari_decode"
+        name = row if row in STREAM_KERNELS else MAIN_CALL["ari_decode"]
         fn = lambda: getattr(K, name)(*args, **kw)
         ms, ms_min, ms_max = cuda_ms_spread(fn)
         gms = graph_ms(fn)
@@ -2197,8 +2217,8 @@ def fixed_phase(dev, frames, K, card) -> list:
     torch.cuda.synchronize()
     counts = {k: v for k, v in K.launches.items() if v}
     print(f"[fixed] DeviceFixedDecoder.decode_block at B={B} T={T}: launches {counts}", flush=True)
-    want = {"side_info_parse": 1, "ari_decode": 1, "fx_sns_dec": 1, "fx_spec_decode": 1,
-            "fx_dct4": 1, "fx_ola_ltpf": T}
+    want = {"ari_decode": 1, "fx_sns_dec": 1, "fx_spec_decode": 1, "fx_dct4": 1,
+            "fx_ola_ltpf": T}
     check(counts == want, f"fixed-point launches {counts}, expected {want}")
     check(tuple(pcm.shape) == (T, B, cfg.frame_length) and pcm.dtype == torch.int16,
           f"fixed-point PCM {tuple(pcm.shape)} {pcm.dtype}")
@@ -2641,7 +2661,8 @@ def main() -> int:
         P.decode_block(cfg, ds, frames)
     torch.cuda.synchronize()
     MAIN = [k for k in K.KERNELS if k not in STREAM_KERNELS + PLC_KERNELS + FIXED_KERNELS]
-    check(set(rec) == set(MAIN), f"kernels not reached on the main path: {set(MAIN) - set(rec)}")
+    calls = {MAIN_CALL.get(k, k) for k in MAIN}
+    check(set(rec) == calls, f"kernels not reached on the main path: {calls - set(rec)}")
     modes = sorted({args[3] for args, _ in rec["bit_estimate"]})
     check(modes == sorted({-1, cfg.modeFlag}), f"bit_estimate modes launched: {modes}")
     cases = ltpf_case_counts(rec["ltpf_decode"])
@@ -2665,13 +2686,13 @@ def main() -> int:
     check(filters[1] > 0 and filters[2] > 0, f"one or two TNS filters never occurred: {filters}")
     check(all(v > 0 for v in ltpf_flags), f"LTPF was never on or never off: {ltpf_flags}")
     plain = {"bit_estimate": quant.bit_estimate_plain, "ari_encode": ari.encode_plain,
-             "ari_decode": ari.decode_plain, "ltpf_decode": ltpf_dec.ltpf_decode_plain,
+             "ari_decode": ari.decode_plain, "ari_decode_frames": ari.parse_and_decode_plain,
+             "ltpf_decode": ltpf_dec.ltpf_decode_plain,
              "gain_bisection": quant.gain_bisection_plain,
              "tns_analysis_lattice": tns.tns_analysis_lattice_plain,
              "tns_synthesis_lattice": tns.tns_synthesis_lattice_plain,
              "hp50_biquad": analysis.hp50_biquad_plain,
              "side_info_pack": side.pack_side_info_plain,
-             "side_info_parse": side.parse_side_info_plain,
              "sns_vq_dec": sns.sns_vq_dec_plain, "sns_vq_enc": sns.sns_vq_enc_plain,
              "tns_filter_analysis": tns.tns_filter_analysis_plain,
              "pc_classify": pc.pc_classify_plain, "mdct": transforms.mdct_plain,
@@ -2683,16 +2704,14 @@ def main() -> int:
     branches = None
     branch_hist: dict = {}
     errs = {}
-    for name in MAIN:
-        err = 0.0
+    for kernel in MAIN:
+        name, err = MAIN_CALL.get(kernel, kernel), 0.0
         for args, kw in rec[name]:
             got = getattr(K, name)(*args, **kw)
             ref = plain[name](*args, **kw)
             torch.cuda.synchronize()
-            pairs = ([(got[k], ref[k]) for k in ref] if isinstance(ref, dict)
-                     else list(zip(outputs(got), outputs(ref))))
             e = max(float((g.to(torch.float64) - r.to(torch.float64)).abs().max())
-                    for g, r in pairs)
+                    for g, r in paired(got, ref))
             same_bits(got, ref, f"{name} (max |diff| {e})")
             err = max(err, e)
             if name == "tns_filter_analysis":
@@ -2704,7 +2723,7 @@ def main() -> int:
                 b = branch_counts(name, args, got)
                 old = branch_hist.get(name, {})
                 branch_hist[name] = {k: old.get(k, 0) + v for k, v in b.items()}
-        errs[name] = err
+        errs[kernel] = err
         what = f"modes {modes}" if name == "bit_estimate" else ""
         shape = next(tuple(a.shape) for a in rec[name][0][0] if isinstance(a, torch.Tensor))
         print(f"[kernels] {name}: max |kernel - plain| = {err} over {len(rec[name])} "
@@ -2828,7 +2847,8 @@ def main() -> int:
     phase_took(4)
     # ---- 5. times ----
     rows = []
-    for name in (k for k in MAIN if k not in PLC0_KERNELS):
+    for kernel in (k for k in MAIN if k not in PLC0_KERNELS):
+        name = MAIN_CALL.get(kernel, kernel)
         args, kw = rec[name][-1]   # the last frame's launch
         ms, ms_min, ms_max = cuda_ms_spread(lambda: getattr(K, name)(*args, **kw))
         gms = graph_ms(lambda: getattr(K, name)(*args, **kw))
@@ -2841,9 +2861,9 @@ def main() -> int:
             lib_ms = matmul_ms(args[1])
         ops = work_ops(name, args)
         b_bytes, b_ops = byts / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
-        src, replaces = KERNEL_INFO[name]
-        rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         launches=counts[name], max_abs_err=errs[name], ms=ms, plain_ms=pms,
+        src, replaces = KERNEL_INFO[kernel]
+        rows.append(dict(name=kernel, route="cuda", source=src, replaces=replaces,
+                         launches=counts[kernel], max_abs_err=errs[kernel], ms=ms, plain_ms=pms,
                          bound_ms=max(b_bytes, b_ops),
                          bound_by="bytes" if b_bytes >= b_ops else "operations",
                          library_ms=lib_ms, graph_ms=gms))

@@ -99,9 +99,10 @@ def dev():
 
 
 def record(store: dict):
-    """Wrap every kernel so that each launch's arguments are appended to
-    store[name]; returns a function that undoes the wrapping."""
-    saved = {n: getattr(K, n) for n in K.KERNELS}
+    """Wrap every kernel (and ari_decode_frames, the parsed mode of
+    ari_decode) so that each launch's arguments are appended to
+    store[wrapper name]; returns a function that undoes the wrapping."""
+    saved = {n: getattr(K, n) for n in K.KERNELS + ("ari_decode_frames",)}
 
     def wrap(name, fn):
         def rec(*a, **k):
@@ -207,18 +208,16 @@ def test_ari_encode_matches_plain(recorded, dev):
 
 
 def test_ari_decode_matches_plain(recorded, dev):
-    (args, kw), = recorded["ari_decode"]
-    got, ref = K.ari_decode(*args), ari.decode_plain(*args)
-    for k in ref:
-        assert torch.equal(got[k], ref[k]), k
-    cfg, buf, side = args[:3]
+    """The block's one launch (parsed mode) on both dicts; random bytes in
+    the parsed mode and, with the plain parse's fields, in the read mode."""
+    (args, kw), = recorded["ari_decode_frames"]
+    same_tensors(K.ari_decode_frames(*args, **kw), ari.parse_and_decode_plain(*args, **kw))
+    cfg, buf = args[:2]
     bad = torch.randint(0, 256, buf.shape, device=dev, dtype=torch.int32,
                         generator=torch.Generator(device=dev).manual_seed(1))
-    from audio_codec_torch.ops import bits
-    bside = bits.parse_side_info(cfg, bad)
-    got, ref = K.ari_decode(cfg, bad, bside), ari.decode_plain(cfg, bad, bside)
-    for k in ref:
-        assert torch.equal(got[k], ref[k]), k
+    ref = ari.parse_and_decode_plain(cfg, bad)
+    same_tensors(K.ari_decode_frames(cfg, bad), ref)
+    same_tensors(K.ari_decode(cfg, bad, ref[0]), ref[1])
 
 
 def decode_rows_on_card(name: str, dev, pick=None) -> tuple:
@@ -443,13 +442,15 @@ def pack_args(cfg, fields: dict, dev):
 
 
 def test_side_info_kernels_match_plain_on_the_main_path(recorded):
-    assert len(recorded["side_info_pack"]) == 8 and len(recorded["side_info_parse"]) == 1
+    """side_info_pack's 8 launches, and the side information parsed in the
+    decoder's one ari_decode launch."""
+    assert len(recorded["side_info_pack"]) == 8 and len(recorded["ari_decode_frames"]) == 1
     for args, _ in recorded["side_info_pack"]:
         same_tensors(K.side_info_pack(*args), bits.pack_side_info_plain(*args))
-    (args, _), = recorded["side_info_parse"]
-    got = K.side_info_parse(*args)
-    same_tensors(got, bits.parse_side_info_plain(*args))
-    assert int(got["bfi"].sum()) == 0
+    (args, kw), = recorded["ari_decode_frames"]
+    got = K.ari_decode_frames(*args, **kw)
+    same_tensors(got, ari.parse_and_decode_plain(*args, **kw))
+    assert int(got[0]["bfi"].sum()) == 0
 
 
 @pytest.mark.parametrize("name", list(C.CONFIGS))
@@ -461,8 +462,9 @@ def test_side_info_pack_per_stream_widths(dev, name):
     args = pack_args(cfg, fields, dev)
     packed = K.side_info_pack(*args)
     same_tensors(packed, bits.pack_side_info_plain(*args))
-    got = K.side_info_parse(cfg, packed[0])
-    same_tensors(got, bits.parse_side_info_plain(cfg, packed[0]))
+    both = K.ari_decode_frames(cfg, packed[0])
+    same_tensors(both, ari.parse_and_decode_plain(cfg, packed[0]))
+    got = both[0]
     assert int(got["bfi"].sum()) == 0
     assert torch.equal(got["scf_idx"], args[8]) and torch.equal(got["ltpf_param"], args[7])
     assert torch.equal(got["bp_side"], packed[1]) and torch.equal(got["mask_side"], packed[2])
@@ -470,16 +472,18 @@ def test_side_info_pack_per_stream_widths(dev, name):
 
 @pytest.mark.parametrize("trigger", C.BFI_TRIGGERS)
 def test_side_info_parse_bad_frame_triggers(dev, trigger):
+    """Each trigger in the range decoder's parsed mode, both dicts."""
     packed = bits.pack_side_info_plain(*pack_args(CFG, C.corrupt_fields(CFG, trigger, 32), dev))
-    got = K.side_info_parse(CFG, packed[0])
-    same_tensors(got, bits.parse_side_info_plain(CFG, packed[0]))
-    assert bool((got["bfi"] == 1).all())
+    got = K.ari_decode_frames(CFG, packed[0])
+    same_tensors(got, ari.parse_and_decode_plain(CFG, packed[0]))
+    assert bool((got[0]["bfi"] == 1).all())
+    same_tensors(K.side_info_parse(CFG, packed[0]), got[0])
 
 
 def test_side_info_parse_random_bytes(dev):
     rows = torch.randint(0, 256, (4096, CFG.targetBytes), device=dev, dtype=torch.int32,
                          generator=torch.Generator(device=dev).manual_seed(1))
-    same_tensors(K.side_info_parse(CFG, rows), bits.parse_side_info_plain(CFG, rows))
+    same_tensors(K.ari_decode_frames(CFG, rows), ari.parse_and_decode_plain(CFG, rows))
 
 
 def test_sns_vq_kernels_match_plain_on_the_main_path(recorded):
@@ -560,7 +564,7 @@ def test_launch_counts_move(dev):
     assert K.launches == {"ari_encode": 2, "ari_decode": 1, "bit_estimate": 4,
                           "ltpf_decode": 2, "gain_bisection": 2,
                           "tns_analysis_lattice": 2, "tns_synthesis_lattice": 2,
-                          "hp50_biquad": 2, "side_info_pack": 2, "side_info_parse": 1,
+                          "hp50_biquad": 2, "side_info_pack": 2,
                           "sns_vq_dec": 2, "sns_vq_enc": 2, "tns_filter_analysis": 2,
                           "pc_classify": 2, "mdct": 2, "imdct": 2, "mdct_compensated": 0,
                           "olpa": 2,
@@ -996,6 +1000,8 @@ def pc_args(dev, epmode):
 
 @pytest.mark.parametrize("epmode", C.PC_EP_MODES)
 def test_ari_decode_pc_hooks_match_plain(dev, epmode):
+    """Both PC modes, the side information read and parsed; parsed also
+    with the corrupt range left to its default."""
     cfg, frames, side, flags = pc_args(dev, epmode)
     for sim in (False, True):
         got = K.ari_decode(cfg, frames, side, *flags, pc_enc_sim=sim)
@@ -1003,6 +1009,9 @@ def test_ari_decode_pc_hooks_match_plain(dev, epmode):
         same_tensors([got[k] for k in ref], list(ref.values()))
         if not sim:
             assert bool((got["bfi"] == 2).any())
+        for fl in (flags, flags[:1]):
+            same_tensors(K.ari_decode_frames(cfg, frames, *fl, pc_enc_sim=sim),
+                         ari.parse_and_decode_plain(cfg, frames, *fl, pc_enc_sim=sim))
 
 
 def test_ep_step_does_not_synchronise(dev):

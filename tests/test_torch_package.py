@@ -92,6 +92,8 @@ def _sns_and_side_info_calls():
                          torch.zeros(2), i32(2))),
         "side_info_parse": (K.side_info_parse, bits.parse_side_info,
                             (cfg, i32(2, cfg.targetBytes))),
+        "ari_decode_frames": (K.ari_decode_frames, lambda *a: ari.parse_and_decode(*a)[1],
+                              (cfg, i32(2, cfg.targetBytes))),
         "sns_vq_dec": (K.sns_vq_dec, sns.quantize_scf_dec, (i32(2, 7),)),
         "sns_vq_enc": (K.sns_vq_enc, lambda scf: sns.quantize_scf_enc(cfg, scf),
                        (torch.zeros((2, 16)),)),
@@ -173,7 +175,8 @@ def _fixed_decoder_calls():
             "fx_ola_ltpf": (K.fx_ola_ltpf, fixed_ltpf_dev.ola_ltpf, ola)}
 
 
-@pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "ltpf_decode", "sns_vq_dec",
+@pytest.mark.parametrize("name", ["side_info_pack", "side_info_parse", "ari_decode_frames",
+                                  "ltpf_decode", "sns_vq_dec",
                                   "sns_vq_enc", "tns_filter_analysis", "pc_classify", "mdct",
                                   "imdct", "mdct_compensated", "olpa", "ltpf_encode", "noise_residual_enc",
                                   "spec_decode", "plc_tdc", "plc_damp_scramble",
@@ -209,7 +212,7 @@ def test_kernel_list_holds_the_fixed_point_kernels():
     fixed = ("fx_sns_dec", "fx_spec_decode", "fx_dct4", "fx_ola_ltpf")
     assert all(k in K.KERNELS and k in K.launches for k in fixed)
     assert {p.stem for p in K.SOURCES} >= set(fixed)
-    assert len(K.KERNELS) == len(set(K.KERNELS)) == 32
+    assert len(K.KERNELS) == len(set(K.KERNELS)) == 31
 
 
 def test_kernel_build_directory_is_named_by_its_inputs():

@@ -2530,13 +2530,14 @@ def plc_main_branches(bfi, nb_lost) -> dict[str, int]:
 
 @contextlib.contextmanager
 def recording(store: dict, names=None, copy: bool = False):
-    """Keep the arguments of every kernel launch (of the named kernels; all
-    by default), in order, as (args, kwargs) in store[kernel name]; with
+    """Keep the arguments of every kernel launch (of the named wrappers; by
+    default every kernel's and ari_decode_frames, the parsed mode of
+    ari_decode), in order, as (args, kwargs) in store[wrapper name]; with
     copy, copies of the tensors (a kernel that updates its state in place,
     fx_ola_ltpf)."""
     import torch
     from audio_codec_torch import kernels as K
-    saved = {n: getattr(K, n) for n in (names or K.KERNELS)}
+    saved = {n: getattr(K, n) for n in (names or K.KERNELS + ("ari_decode_frames",))}
 
     def cp(v):
         if isinstance(v, torch.Tensor):

@@ -2,21 +2,34 @@
 """Times the range coders and the rate-path kernels of audio_codec_torch on a
 CUDA card: each kernel (bit_estimate, ari_encode, gain_bisection,
 ari_decode) and its stage (ops/quant.py:bit_estimate, ops/ari.py:encode,
-ops/quant.py:estimate_global_gain, ops/ari.py:decode) on the inputs the
-flagship path gives them. Every line printed carries the card's name and
-power limit.
+ops/quant.py:estimate_global_gain, and the decoder's entropy phase
+models/decoder.py:decode_entropy) on the inputs the flagship path gives
+them. Every line printed carries the card's name and power limit.
 
 The inputs: chip_smoke.make_pcm's material (a third speech, a third music, a
 third noise) at 48 kHz / 64 kbps, B streams, encoded for T frames by the
 checkout's own encode_block; the arguments of the stages at the last frame
 are recorded (bit_estimate twice a frame: modes -1 and 0), and those of the
 kernel launches inside them; the T frames are then decoded by decode_block,
-whose one ari_decode launch covers all T * B frames. ari_decode is also
-timed on tests/torch_kernel_cases.py:pc_decode_rows at EP3 tiled to B rows,
+whose entropy phase (decode_entropy) covers all T * B frames at once: the
+recorded call. ari_decode is timed there with the side information read
+from rows of the plain parse's fields (the read mode, in every checkout),
+and on tests/torch_kernel_cases.py:pc_decode_rows at EP3 tiled to B rows,
 with the partial-concealment block (the decoder's hooks, and the encoder's
 simulation). Each is timed as median loop ms (5 loops of 20 calls) and graph
 ms (20 calls replayed from a CUDA graph, the best of 3), each kernel checked
 against its plain version bit for bit.
+
+The entropy phase (`entropy ...` in the JSON line), in either design: the
+block's decode_entropy call (graph and loop ms); its kernels: the parse
+(side_info_parse, a checkout before the fusion) and the range decoder read
+mode, or the one parsed launch (ari_decode_frames), each as the wrapper
+and as the C entry point alone (raw, on the arguments as the wrapper hands
+them over); and on the stream path, the host ms of one decode_entropy call
+on B frames (its enqueue, the median of 50 calls after a synchronise, and
+its loop ms) at EP0 (the block's last frame) and at EP3 (pc_decode_rows
+with their channel flags), and of the encoder's PC simulation
+(engine.b_left_step) on EP3's logical payloads.
 
   (default)     this checkout, one JSON line.
   --other DIR   the same for a checkout of another commit (for example the
@@ -88,10 +101,30 @@ against its plain version bit for bit.
                 from DIR's sources with text substitutions, on the recorded
                 block launch: graph ms, two rounds, with the outputs that
                 differ from the plain version.
+  --entropy-phases DIR  the entropy phase's kernel of the checkout DIR (its
+                ari_decode.cu) as it is and with a phase removed
+                (Entropy.PHASES: the nine side reads replaced by constants),
+                and with --entropy-variants this checkout's with its other
+                choices (Entropy.VARIANTS: the parse from the global row, not
+                the staged one; no parse), built with text substitutions:
+                the C entry point's graph ms on the block and on EP3's rows,
+                two rounds, each checked against the plain versions; and the
+                builds' registers and shared memory. Run DIR's in a process
+                of its own (a process imports one checkout's package).
+  --clocks      this checkout's parsed mode built with clock64() stamps
+                (Entropy.CLOCKS), the parse from the staged row and from the
+                global row: cycles of the parse, the decode, the side rows'
+                and the decoder rows' write-out, median and 90th percentile
+                over the warps.
+
+The entropy modes run through tools/torch_subst_damp_times.py's drivers
+(builds, clocks), given the slice `Entropy` below.
 
     python3 tools/torch_coder_times.py [--streams 2048] [--frames 8] [--other DIR]
     python3 tools/torch_coder_times.py --step-bench --scaling --tables --gain-variants
     python3 tools/torch_coder_times.py --decode-variants --decode-phases DIR
+    python3 tools/torch_coder_times.py --entropy-phases DIR
+    python3 tools/torch_coder_times.py --entropy-variants --clocks
 """
 from __future__ import annotations
 
@@ -99,14 +132,17 @@ import argparse
 import ctypes
 import json
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 from torch_dct4_times import NVCC_FLAGS, card, graph_ms, loop_ms, nvcc  # noqa: E402
 from torch_ltpf_times import make_pcm, times  # noqa: E402
+from torch_tdc_fxspec_times import CLOCK_PRELUDE  # noqa: E402
 from torch_tns_times import stage_times  # noqa: E402
 
 CSRC = ROOT / "audio_codec_torch" / "csrc"
@@ -229,17 +265,18 @@ def record_launches(B: int, T: int):
     import torch
     import audio_codec_torch as P
     from audio_codec_torch import kernels as K
-    from audio_codec_torch.ops import ari, quant
+    from audio_codec_torch.models import decoder
+    from audio_codec_torch.ops import ari, bits, quant
     cfg = P.Config(fs_in=48000, bitrate=64000)
     pcm = torch.from_numpy(make_pcm(T, B, 480)).cuda()
     stages = {"quant.bit_estimate": [], "ari.encode": [], "quant.estimate_global_gain": [],
-              "ari.decode": []}
-    kernels = {"bit_estimate": [], "ari_encode": [], "gain_bisection": [], "ari_decode": []}
+              "decoder.decode_entropy": []}
+    kernels = {"bit_estimate": [], "ari_encode": [], "gain_bisection": []}
     mods = {"quant.bit_estimate": (quant, "bit_estimate"), "ari.encode": (ari, "encode"),
             "quant.estimate_global_gain": (quant, "estimate_global_gain"),
-            "ari.decode": (ari, "decode"),
+            "decoder.decode_entropy": (decoder, "decode_entropy"),
             "bit_estimate": (K, "bit_estimate"), "ari_encode": (K, "ari_encode"),
-            "gain_bisection": (K, "gain_bisection"), "ari_decode": (K, "ari_decode")}
+            "gain_bisection": (K, "gain_bisection")}
     saved = {n: getattr(m, a) for n, (m, a) in mods.items()}
 
     def recorder(store, fn):
@@ -255,6 +292,10 @@ def record_launches(B: int, T: int):
     finally:
         for n, (m, a) in mods.items():
             setattr(m, a, saved[n])
+    # the block's read-mode launch: its frames with the plain parse's fields
+    buf = stages["decoder.decode_entropy"][-1][0][1].to(torch.int32).contiguous()
+    kernels["ari_decode"] = [((cfg, buf, bits.parse_side_info_plain(cfg, buf)), {})]
+    saved["ari_decode"] = K.ari_decode
     torch.cuda.synchronize()
     return cfg, stages, kernels, saved
 
@@ -311,20 +352,269 @@ def measure(root: Path, B: int, T: int) -> dict:
         out[tag] = {"differ": count_differing(got, ref), "lane0_streams": lane0,
                     "kernel": times(lambda: fns[kernel](*kargs, **kkw)),
                     "stage": stage_times(lambda: fns[stage](*sargs, **skw))}
-    # the decoder: one launch over the block's T * B frames, and the PC rows
-    (sargs, skw), (kargs, kkw) = stages["ari.decode"][-1], kernels["ari_decode"][-1]
+    # the decoder: the block's T * B frames in the read mode, and the PC rows
+    kargs, kkw = kernels["ari_decode"][-1]
     got, ref = fns["ari_decode"](*kargs, **kkw), ari.decode_plain(*kargs, **kkw)
     torch.cuda.synchronize()
     out[f"ari_decode {kargs[1].shape[0]} frames"] = {
         "differ": count_differing(got, ref),
-        "kernel": times(lambda: fns["ari_decode"](*kargs, **kkw)),
-        "stage": stage_times(lambda: fns["ari.decode"](*sargs, **skw))}
+        "kernel": times(lambda: fns["ari_decode"](*kargs, **kkw))}
+    out.update(entropy_times(root, stages["decoder.decode_entropy"][-1], fns, B))
     for tag, args, kw in pc_launches(B):
         got, ref = fns["ari_decode"](*args, **kw), ari.decode_plain(*args, **kw)
         torch.cuda.synchronize()
         out[tag] = {"differ": count_differing(got, ref),
                     "kernel": times(lambda: fns["ari_decode"](*args, **kw))}
     return out
+
+
+def host_ms(fn, n: int = 50) -> float:
+    """The host's ms to enqueue one call (the median of n, each after a
+    synchronise): what a stream-path caller waits before its next call."""
+    import torch
+    fn()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(ts)
+
+
+def fused(K) -> bool:
+    """Whether the imported checkout parses the side information inside the
+    range decoder's launch (ari_decode_frames)."""
+    return hasattr(K, "ari_decode_frames")
+
+
+def stream_entropy_args(cfg, frames_last, B: int):
+    """decode_entropy's arguments on the stream path, B frames: at EP0 the
+    block's last frame (bfi 0, no corrupt range, as StreamDecoder passes
+    them), at EP3 pc_decode_rows tiled to B with their channel flags; and
+    the encoder's PC simulation's (cfg, EP3's logical payloads)."""
+    import numpy as np
+    import torch
+    import audio_codec_torch as P
+    from tests.torch_kernel_cases import core_frames, pc_decode_rows
+    dev = frames_last.device
+    none = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    ep0 = (cfg, frames_last.to(torch.int32).contiguous(),
+           torch.zeros((B,), dtype=torch.int32, device=dev), none, none)
+    cfg3 = P.Config(fs_in=48000, bitrate=64000, epmode=3)
+    a = pc_decode_rows(3)
+    pick = np.resize(np.arange(a["frames"].shape[0]), B)
+    g = lambda v: torch.from_numpy(np.ascontiguousarray(v[pick])).to(dev)
+    ep3 = (cfg3, g(a["frames"]), g(a["bfi_in"]), g(a["be_l"]), g(a["be_r"]))
+    logical = core_frames(3)
+    sim = (cfg3, torch.from_numpy(np.ascontiguousarray(
+        logical[np.resize(np.arange(logical.shape[0]), B)].astype(np.int32))).to(dev))
+    return {"EP0": ep0, "EP3": ep3}, sim
+
+
+def entropy_times(root: Path, call, fns, B: int) -> dict:
+    """The entropy phase of the imported checkout (see the module's
+    docstring): the block's decode_entropy call `call` (its args and
+    kwargs) and its kernels, and the stream path's calls."""
+    import torch
+    from audio_codec_torch import engine, kernels as K
+    from audio_codec_torch.ops import bits
+    from tests.torch_kernel_cases import count_differing
+    cfg, frames, bfi = call[0][:3]
+    phase = fns["decoder.decode_entropy"]
+    buf = frames.to(torch.int32).contiguous()
+    block = {"frames": int(buf.shape[0]), "phase": times(lambda: phase(cfg, frames, bfi))}
+    if fused(K):
+        run = lambda: K.ari_decode_frames(cfg, buf)
+        block["ari_decode_frames"] = times(run)
+    else:
+        run = lambda: K.side_info_parse(cfg, buf)
+        block["side_info_parse"] = times(run)
+        block["side_info_parse + ari_decode"] = times(
+            lambda: K.ari_decode(cfg, buf, K.side_info_parse(cfg, buf)))
+    got = run()
+    side = got[0] if fused(K) else got
+    block["side_differ"] = count_differing(side, bits.parse_side_info_plain(cfg, buf))
+    raw, _ = Entropy.raw_call("ari_decode", K.library(), (cfg, buf, None, None, None, False),
+                              root / "audio_codec_torch" / "csrc")
+    block["raw_graph_ms"] = min(graph_ms(raw) for _ in range(3))
+    out = {"entropy block": block}
+    stream, sim = stream_entropy_args(cfg, frames[-B:], B)
+    for tag, args in (*stream.items(), ("EP3 b_left_step", None)):
+        fn = (lambda: phase(*args)) if args is not None else (lambda: engine.b_left_step(*sim))
+        out[f"entropy stream {tag}"] = {
+            "host_ms": host_ms(fn), "loop_ms": statistics.median(loop_ms(fn) for _ in range(5))}
+    return out
+
+
+class Entropy:
+    """The entropy phase's slice for tools/torch_subst_damp_times.py's
+    drivers: one kernel, ari_decode.cu (its read mode in a checkout before
+    the fusion, the parsed mode after), on the block's frames and on EP3's
+    rows with their channel flags."""
+    OUT = OUT / "entropy"
+    MAIN = {"ari_decode": "ari_decode.cu", "ari_decode, global row": "ari_decode.cu"}
+    CASES = {"ari_decode": ("block", "ep3"), "ari_decode, global row": ("block",)}
+    # a checkout before the fusion: the nine side reads as constants (the
+    # frame decoded to the end of its bytes: lastnz N, its side bits from
+    # the last byte, no TNS), the cost of reading them
+    PHASES = {
+        "as it is": (),
+        "the nine side reads as constants": (
+            ("ari_decode.cuh", "    for (int j = 0; j < 9; ++j) sd[j] = io.side[j * L + s];",
+             "    const int32_t k9[9] = {N, 0, 1, 0, 0, nbytes - 1, 1, 0, 0};\n"
+             "    for (int j = 0; j < 9; ++j) sd[j] = k9[j];"),),
+    }
+    _PARSE = "      sd = dec_parse_side(fbuf + q * nbytes, io, s, kept[q]);"
+    VARIANTS = {
+        "kept: the parse from the warp's staged row": (),
+        "the parse from the global row (12 loads through L1)": (
+            ("ari_decode.cuh", _PARSE,
+             "      sd = dec_parse_side(io.frames + static_cast<size_t>(s) * nbytes, io, s, "
+             "kept[q]);"),),
+        "phase cut: no parse (constant side fields, the side dict unwritten)": (
+            ("ari_decode.cuh", _PARSE,
+             "      sd = {N, 0, 1, {0, 0}, nbytes - 1, 1, 0, 0};"),),
+    }
+    _CLK = (
+        ("ari_decode.cuh", '#include "warp.cuh"\n', '#include "warp.cuh"\n' + CLOCK_PRELUDE),
+        ("ari_decode.cuh", "  typename W::template Lanes<SideRow> kept;\n",
+         "  ACX_CLK(0);\n  typename W::template Lanes<SideRow> kept;\n"),
+        ("ari_decode.cuh", "    int bfi_in = 0, be_l = -1, be_r = -1;\n",
+         "    ACX_CLK(1);\n    int bfi_in = 0, be_l = -1, be_r = -1;\n"),
+        ("ari_decode.cuh", "  w.sync();\n  if constexpr (kParse) dec_side_rows_out(",
+         "  w.sync();\n  ACX_CLK(2);\n  if constexpr (kParse) dec_side_rows_out("),
+        ("ari_decode.cuh", "  // the rows out: x and res a frame at a time",
+         "  ACX_CLK(3);\n  // the rows out: x and res a frame at a time"),
+        ("ari_decode.cuh", "      io.tns_idx[static_cast<size_t>(s0) * 16 + i] = rows.tns[(2 + (i & 15)) * S + (i >> 4)];\n  });\n",
+         "      io.tns_idx[static_cast<size_t>(s0) * 16 + i] = rows.tns[(2 + (i & 15)) * S + (i >> 4)];\n  });\n  ACX_CLK(4);\n"),
+    )
+    CLOCKS = {"ari_decode": _CLK,
+              "ari_decode, global row": _CLK + VARIANTS[
+                  "the parse from the global row (12 loads through L1)"]}
+    _PHASES = ((0, 1, "the parse (lane 0)"), (1, 2, "the decode (the warp)"),
+               (2, 3, "the side rows out"), (3, 4, "the decoder's rows out"), (0, 4, "the warp"))
+    CLOCK_PHASES = {"ari_decode": _PHASES, "ari_decode, global row": _PHASES}
+    _recorded: dict = {}
+
+    @staticmethod
+    def record(root: Path, B: int) -> dict:
+        """The recorded block's parse_and_decode arguments (cfg, frames,
+        bfi_in, be_l, be_r, pc_enc_sim) and EP3's, made once a process with
+        the checkout at root."""
+        if B not in Entropy._recorded:
+            import torch
+            sys.path.insert(0, str(root))
+            cfg, stages, _, _ = record_launches(B, 8)
+            frames = stages["decoder.decode_entropy"][-1][0][1]
+            _, ep3 = stream_entropy_args(cfg, frames[-B:], B)[0].values()
+            block = (cfg, frames.to(torch.int32).contiguous(), None, None, None, False)
+            Entropy._recorded[B] = {n: {"block": block, "ep3": (*ep3, False)}
+                                    for n in Entropy.CASES}
+        return Entropy._recorded[B]
+
+    @staticmethod
+    def raw_call(name: str, lib, args, csrc: Path):
+        """A call of the C entry point of lib (built from csrc) on args as
+        that checkout's wrapper hands them over: the parsed mode where csrc
+        has it, else the read mode on rows of the plain parse's fields, made
+        outside the call. (run, (outputs, args))."""
+        import torch
+        from audio_codec_torch import kernels as K
+        from audio_codec_torch.ops import ari, bits
+        cfg, buf, bfi_in, be_l, be_r, sim = args
+        pc = ari.pc_params(cfg, sim)
+        pc_mode = 0 if pc is None else 2 if sim else 1
+        L, nbytes = buf.shape
+        dev = buf.device
+        from audio_codec_torch.ops.quant import residual_max_bits
+        total = cfg.targetBytes * 8
+        max_res = min(residual_max_bits(cfg), total)
+        e = lambda *s: torch.empty((L, *s), dtype=torch.int32, device=dev)
+        outs = (e(cfg.yLen), e(2), e(2, 8), e(max_res), torch.empty((7, L), dtype=torch.int32,
+                                                                   device=dev))
+        # kernels.py's arguments in either checkout (csrc/ari_decode.cu)
+        ints = (L, nbytes, cfg.yLen, 22 if cfg.hrmode else 14, int(cfg.hrmode),
+                8 if cfg.frame_dms == 100 else 4, 1 if cfg.enable_lpc_weighting else 0,
+                cfg.rateFlag if cfg.fs_idx != 5 else 0, total, max_res,
+                20 if cfg.hrmode else 1, pc_mode, 0 if pc is None else pc["pc_bytes"],
+                cfg.targetBytes)
+        tabs = K._decoder_tables(str(dev))
+        P_, I_ = ctypes.c_void_p, ctypes.c_int
+        st = lambda: torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in outs]
+        if "acx_ari_decode_frames" in (csrc / "ari_decode.cu").read_text():
+            fn = lib.acx_ari_decode_frames
+            fn.argtypes = [P_] * 10 + [I_] * 19 + [P_]
+            words = torch.empty(21 * L, dtype=torch.int32, device=dev)
+            flags = (bfi_in, be_l, be_r) if pc_mode else (None, None, None)
+            vecs, meta = K._stream_vecs(L, dict(zip("abc", flags)), {})
+            one_tns = 1 if cfg.frame_dms == 25 else 0
+            return (lambda: fn(buf.data_ptr(), words.data_ptr(), vecs, meta, tabs.data_ptr(),
+                               *ptrs, *ints, cfg.targetBytes - 1, cfg.BW_cutoff_bits,
+                               cfg.lastnz_bits, cfg.fs_idx, one_tns, st())), ((words, outs), args)
+        fn = lib.acx_ari_decode
+        fn.argtypes = [P_] * 9 + [I_] * 14 + [P_]
+        side = bits.parse_side_info_plain(cfg, buf)
+        i32 = lambda v: v.to(torch.int32)
+        side_in = torch.stack([i32(side[k]) for k in ("lastnz", "lsb_mode", "num_tns")]
+                              + [i32(side["tns_on"][:, 0]), i32(side["tns_on"][:, 1])]
+                              + [i32(side[k]) for k in ("bp_side", "mask_side", "gg_idx",
+                                                        "fac_ns_idx")]).contiguous()
+        pc_in = None
+        if pc_mode:
+            pc_in = torch.stack([v if v is not None else torch.full((L,), d, dtype=torch.int32,
+                                                                    device=dev)
+                                 for v, d in zip((bfi_in, be_l, be_r), (0, -1, -1))]).contiguous()
+        return (lambda: fn(buf.data_ptr(), side_in.data_ptr(),
+                           None if pc_in is None else pc_in.data_ptr(), tabs.data_ptr(), *ptrs,
+                           *ints, st())), ((None, outs), args)
+
+    @staticmethod
+    def differing(name: str, got, args) -> int:
+        """Values of a raw call's outputs (the side words where the call
+        made them, the decoder's rows) that differ from the plain parse and
+        decode."""
+        import torch
+        from audio_codec_torch.ops import ari, bits
+        from tests.torch_kernel_cases import count_differing
+        words, (x, tns_order, tns_idx, res, out) = got
+        cfg, buf, bfi_in, be_l, be_r, sim = args
+        side = bits.parse_side_info_plain(cfg, buf)
+        dec = ari.decode_plain(cfg, buf, side, bfi_in, be_l, be_r, pc_enc_sim=sim)
+        torch.cuda.synchronize()
+        got_dec = dict(x=x, tns_order=tns_order, tns_idx=tns_idx, res_bits=res,
+                       **dict(zip(DEC_NAMES, out)))
+        bad = count_differing(got_dec, {k: dec[k] for k in got_dec})
+        if words is not None:
+            L = buf.shape[0]
+            names = ("bfi", "bw_idx", "lastnz", "lsb_mode", "gg_idx", "num_tns", "fac_ns_idx",
+                     "bp_side", "mask_side")
+            got_side = dict(zip(names, words[:9 * L].view(9, L)))
+            got_side.update(tns_on=words[9 * L: 11 * L].view(L, 2),
+                            scf_idx=words[11 * L: 18 * L].view(L, 7),
+                            ltpf_param=words[18 * L:].view(L, 3))
+            bad += count_differing(got_side, side)
+        return bad
+
+    @staticmethod
+    def branches(name: str, args) -> dict:
+        return {"frames": int(args[1].shape[0])}
+
+    @staticmethod
+    def clock_warps(name: str, args) -> int:
+        """The warps a launch runs: a frame a lane, blocks of 4 warps."""
+        return -(-args[1].shape[0] // 128) * 4
+
+
+def entropy_builds(root: Path, B: int, jobs) -> None:
+    """Each (tag, label, csrc, substitutions) built and timed raw on the
+    block and on EP3's rows against the plain versions, two rounds
+    (tools/torch_subst_damp_times.py:builds)."""
+    import torch_subst_damp_times as SD
+    SD.builds(root, [(tag, "ari_decode", label, csrc, subs) for tag, label, csrc, subs in jobs],
+              B, Entropy)
 
 
 def busy_rows(cfg, B: int, seed: int = 0):
@@ -849,8 +1139,8 @@ DECODE_FILES = ("acodec.cuh", "warp.cuh", "ari_decode.cuh", "ari_decode.cu")
 # old, new) of this checkout's csrc/ari_decode.cu and ari_decode.cuh. Every
 # build keeps only the launch without a PC block, which is what is timed.
 _NONE_ONLY = ("ari_decode.cu",
-              "  if (pc_mode == kPcDecode) err = ari_decode_mode<kPcDecode>(io, I(tabs), g, st);\n"
-              "  else if (pc_mode == kPcEncSim) err = ari_decode_mode<kPcEncSim>(io, I(tabs), g, st);\n"
+              "  if (pc_mode == kPcDecode) err = ari_decode_mode<kPcDecode, kParse>(io, tabs, g, st);\n"
+              "  else if (pc_mode == kPcEncSim) err = ari_decode_mode<kPcEncSim, kParse>(io, tabs, g, st);\n"
               "  else err", "  err")
 _COUNT = (("ari_decode.cuh", "const int sym = dec_symbol<kPc, 17, true>(",
            "const int sym = dec_symbol<kPc, 17, false>("),)
@@ -889,8 +1179,8 @@ _L1 = (("ari_decode.cu", _STAGE_ALL, "constexpr int kDecStageWords = 0;"),
 _TABLES_ONLY = (("ari_decode.cu", _STAGE_ALL, "constexpr int kDecStageWords = kDecInvWord;"),
                 ("ari_decode.cu", "tb.inv = reinterpret_cast<const uint8_t*>(t + kDecInvWord);",
                  "tb.inv = reinterpret_cast<const uint8_t*>(tabs + kDecInvWord);"))
-_X32 = (("ari_decode.cu", "  if (g.hrmode) return ari_decode_launch<kPc, int32_t>",
-         "  if (true) return ari_decode_launch<kPc, int32_t>"),)
+_X32 = (("ari_decode.cu", "  if (g.hrmode) return ari_decode_launch<kPc, kParse, int32_t>",
+         "  if (true) return ari_decode_launch<kPc, kParse, int32_t>"),)
 DECODE_VARIANTS = {
     "kept: a thread a frame, the inverse table, 4-warp blocks sharing it and the tables in "
     "shared memory, x as int16": (),
@@ -1077,11 +1367,28 @@ def main() -> int:
     ap.add_argument("--gain-variants", action="store_true")
     ap.add_argument("--decode-variants", action="store_true")
     ap.add_argument("--decode-phases", type=Path, default=None)
+    ap.add_argument("--entropy-phases", type=Path, default=None)
+    ap.add_argument("--entropy-variants", action="store_true")
+    ap.add_argument("--clocks", action="store_true")
     ap.add_argument("--root", type=Path, default=None, help=argparse.SUPPRESS)
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_coder_times: no CUDA device")
+    if opt.entropy_phases:
+        other = opt.entropy_phases.resolve()
+        csrc = other / "audio_codec_torch" / "csrc"
+        entropy_builds(other, opt.streams, [(f"first_{i}", label, csrc, subs) for i, (label, subs)
+                                            in enumerate(Entropy.PHASES.items())])
+        return 0
+    if opt.entropy_variants or opt.clocks:
+        import torch_subst_damp_times as SD
+        if opt.entropy_variants:
+            entropy_builds(ROOT, opt.streams, [(f"kept_{i}", label, CSRC, subs) for i, (label, subs)
+                                               in enumerate(Entropy.VARIANTS.items())])
+        if opt.clocks:
+            SD.clocks(opt.streams, Entropy)
+        return 0
     if (opt.step_bench or opt.scaling or opt.tables or opt.gain_variants
             or opt.decode_variants or opt.decode_phases):
         if opt.step_bench:

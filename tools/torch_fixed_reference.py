@@ -84,11 +84,10 @@ def coverage(frames: np.ndarray) -> dict[str, int]:
     import torch
 
     import audio_codec_torch as P
-    from audio_codec_torch.ops import ari, bits
+    from audio_codec_torch.ops import ari
     cfg = P.Config(fs_in=FS, bitrate=BITRATE)
     buf = torch.from_numpy(frames.reshape(-1, frames.shape[-1]).astype(np.int32))
-    side = bits.parse_side_info(cfg, buf)
-    dec = ari.decode(cfg, buf, side)
+    side, dec = ari.parse_and_decode(cfg, buf)
     sub = side["scf_idx"][:, 2]
     tns = dec["tns_order"] > 0
     out = {f"submode {k}": int((sub == k).sum()) for k in range(4)}

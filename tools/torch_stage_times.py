@@ -40,8 +40,7 @@ ENCODER_STAGES = {
     "ari": ["encode"],
 }
 DECODER_STAGES = {
-    "bits": ["parse_side_info"],
-    "ari": ["decode"],
+    "ari": ["parse_and_decode"],
     "sns": ["quantize_scf_dec", "interpolate_scf", "mdct_shaping"],
     "pc": ["pc_classify"],
     "quant": ["global_gain", "spectrum_decode"],
